@@ -143,6 +143,13 @@ class OracleScorer:
         state = self._state
         return state.snapshot if state is not None else None
 
+    @property
+    def last_telemetry(self) -> Optional[dict]:
+        """The served batch's telemetry (device, scan, mask mode, buckets,
+        and the wave statistics when the wavefront scan ran)."""
+        state = self._state
+        return state.result["telemetry"] if state is not None else None
+
     def refresh(self, cluster, status_cache: PGStatusCache) -> None:
         """Rebuild the snapshot and run one batch."""
         t0 = time.perf_counter()

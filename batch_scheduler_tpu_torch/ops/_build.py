@@ -32,7 +32,8 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}  # guarded-by: _lock
+_locks: Dict[str, threading.Lock] = {}  # guarded-by: _lock
+_libs: Dict[str, ctypes.CDLL] = {}  # guarded-by: the library's entry in _locks
 
 
 def _nvcc() -> str:
@@ -52,8 +53,12 @@ def _nvcc() -> str:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of ``csrc/<name>.cu``, built on first use.
-    Raises RuntimeError, with the compiler's output, if the build fails."""
+    Raises RuntimeError, with the compiler's output, if the build fails.
+    Different libraries build concurrently when called from several
+    threads."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib

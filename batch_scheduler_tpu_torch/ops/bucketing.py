@@ -12,15 +12,32 @@ import numpy as np
 
 from .lanes import LANE_MAX
 
-__all__ = ["bucket_size", "pad_to", "pad_rows", "pad_oracle_batch"]
+__all__ = ["bucket_size", "wave_width_bucket", "pad_to", "pad_rows", "pad_oracle_batch"]
 
 _MIN_BUCKET = 8
+
+# Widths the wavefront assignment scan runs at: powers of two between 2
+# and 32. Below 2 the wave is the serial scan; 32 is one gang per warp of
+# the CUDA kernel's per-wave selection and the reference's upper bound.
+_WAVE_MIN, _WAVE_MAX = 2, 32
 
 
 def bucket_size(n: int) -> int:
     """Smallest power-of-two bucket >= n (>= 8)."""
     b = _MIN_BUCKET
     while b < n:
+        b <<= 1
+    return b
+
+
+def wave_width_bucket(w: int) -> int:
+    """Wave width of the wavefront assignment scan for a requested ``w``
+    (the ``BST_SCAN_WAVE`` knob): 0 or 1 means the serial scan and maps
+    to 0; anything else rounds up to a power of two in [2, 32]."""
+    if w <= 1:
+        return 0
+    b = _WAVE_MIN
+    while b < w and b < _WAVE_MAX:
         b <<= 1
     return b
 

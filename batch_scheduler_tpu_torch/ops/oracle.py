@@ -13,6 +13,10 @@ batch). Plain functions on int32 tensors:
                       scan order); on a CUDA tensor ``schedule_batch`` runs
                       the hand-written kernel instead
                       (``ops.assign_scan.assign_gangs_cuda``)
+- ``assign_gangs_wavefront``  the plain wavefront scan, bit-identical to
+                      the serial one, a wave of gangs at a time; selected
+                      by ``BST_SCAN_WAVE``, and on a CUDA tensor run by
+                      ``ops.assign_scan.assign_gangs_wave_cuda``
 
 Every output keeps the JAX reference's dtype (int32 counts, bool flags).
 Sums are taken in int64 where torch widens; the reference's batch boundary
@@ -22,9 +26,14 @@ one of them inside int32, so the values are the reference's.
 
 from __future__ import annotations
 
+import functools
+import os
+import sys
+
 import numpy as np
 import torch
 
+from .bucketing import wave_width_bucket
 from .convert import batch_from_numpy, resolve_device
 
 __all__ = [
@@ -34,6 +43,7 @@ __all__ = [
     "find_max_group",
     "score_nodes",
     "assign_gangs",
+    "assign_gangs_wavefront",
     "schedule_batch",
     "batch_top_k",
     "execute_batch_host",
@@ -170,22 +180,172 @@ def assign_gangs(left0, group_req, remaining, fit_mask, order):
     (``ops.assign_scan``) is held against."""
     n = left0.shape[0]
     g = group_req.shape[0]
-    mask_rows = fit_mask.shape[0]
+    idx = order.long()
     mask = fit_mask.to(torch.int32)
-    left = left0.clone()
+    mask = mask[idx] if fit_mask.shape[0] != 1 else mask.expand(g, n)
+    # one host read of the needs, not one per step
+    takes, feas, left = _serial_steps(left0, group_req[idx], remaining[idx].tolist(), mask)
     alloc = torch.zeros((g, n), dtype=torch.int32, device=left0.device)
     placed = torch.zeros(g, dtype=torch.bool, device=left0.device)
-    # one host read of the scan order and the needs, not one per step
-    steps = order.tolist()
-    needs = remaining[order.long()].tolist()
-    for gi, need in zip(steps, needs):
-        req = group_req[gi]
-        cap = _member_capacity(left, req[None, :]) * mask[min(gi, mask_rows - 1)]
-        capc = cap.clamp(max=need)
-        take, feasible = _select_best_fit(cap, capc, need)
-        left -= take[:, None] * req[None, :]
-        alloc[gi] = take
-        placed[gi] = feasible
+    alloc[idx] = takes
+    placed[idx] = feas
+    return alloc, placed, left
+
+
+def _serial_steps(left, req_rows, needs, mask_rows):
+    """The serial scan body over gangs already in scan order (demand rows,
+    needs and mask rows): (takes[K,N], feasible[K], leftover after)."""
+    left = left.clone()
+    takes = torch.zeros((len(needs), left.shape[0]), dtype=torch.int32, device=left.device)
+    feas = torch.zeros(len(needs), dtype=torch.bool, device=left.device)
+    for j, need in enumerate(needs):
+        cap = _member_capacity(left, req_rows[j][None, :]) * mask_rows[j]
+        take, feas[j] = _select_best_fit(cap, cap.clamp(max=need), need)
+        left -= take[:, None] * req_rows[j][None, :]
+        takes[j] = take
+    return takes, feas, left
+
+
+def _uniform_wave(left, req0, need_c, mask0):
+    """One aggregate tightest-first fill for a wave of gangs with identical
+    demand and mask rows, split at the gang boundaries that hold when every
+    gang is feasible. Returns (takes[W,N], left) when that assumption
+    holds for every gang, else None (the caller replays the wave).
+
+    Taking t members off a node drops its capacity by exactly t for an
+    identical demand row, so the serial gang-by-gang fill is one member
+    stream ordered by (tightness bucket, node index): gang j takes stream
+    units [A_j, A_j + need_j) with A_j the sum of earlier needs. Node order
+    within a bucket is resolved only for the <= W+1 buckets that hold a
+    boundary A_j."""
+    total_need = sum(need_c)
+    cap0 = _member_capacity(left, req0[None, :]) * mask0
+    key = cap0.clamp(max=_BINS - 1).long()
+    capc = cap0.clamp(max=total_need).long()  # stream units per node
+    bin_totals = torch.zeros(_BINS, dtype=torch.int64, device=left.device)
+    bin_totals.scatter_add_(0, key, capc)
+    cum_incl = bin_totals.cumsum(0)
+    cum_excl = cum_incl - bin_totals
+    bounds = torch.tensor(np.concatenate([[0], np.cumsum(need_c)]),
+                          dtype=torch.int64, device=left.device)  # [W+1]
+    # bucket holding each boundary (_BINS when past the last one)
+    bbkt = (cum_incl[None, :] <= bounds[:, None]).sum(dim=1)
+    bmask = key[None, :] == bbkt[:, None]  # [W+1, N]
+    bvals = torch.where(bmask, capc[None, :], 0)
+    bwithin = bvals.cumsum(dim=1) - bvals
+    boffs = (bounds - cum_excl[bbkt.clamp(max=_BINS - 1)])[:, None]
+    # taken[j, n]: units of node n inside the first A_j stream units
+    taken = torch.where(
+        key[None, :] < bbkt[:, None],
+        capc[None, :],
+        torch.where(bmask, torch.minimum((boffs - bwithin).clamp(min=0), capc[None, :]), 0),
+    )
+    need_t = bounds.diff()
+    feas = torch.minimum(cap0.long()[None, :] - taken[:-1], need_t[:, None]).sum(dim=1) >= need_t
+    if not bool(feas.all()):
+        return None
+    takes = (taken[1:] - taken[:-1]).to(torch.int32)
+    return takes, left - taken[-1].to(torch.int32)[:, None] * req0[None, :]
+
+
+def _speculative_wave(left, req_c, need_c, mask_c):
+    """Every gang selects against the wave-start leftover; the wave
+    commits only if each gang's capacity row is unchanged under the
+    exclusive prefix of the earlier gangs' takes (then the takes are the
+    serial ones). Returns (takes, feasible, left) or None on a conflict.
+
+    The prefix leftover is accumulated with a clamp at -2**30: one wave's
+    delta on a lane is at most the wave-start value (<= 2**30), so a
+    clamped subtraction cannot wrap int32, and a clamped negative lane has
+    capacity 0 as its true value would. Without a conflict no clamp
+    fires, so the accumulated leftover is the serial one."""
+    cap = _member_capacity(left[None, :, :], req_c[:, None, :]) * mask_c
+    takes, feas = [], []
+    for j, need in enumerate(need_c):
+        take, f = _select_best_fit(cap[j], cap[j].clamp(max=need), need)
+        takes.append(take)
+        feas.append(f)
+    takes = torch.stack(takes)
+    acc = left
+    prefixed = []
+    for j in range(len(need_c)):
+        prefixed.append(acc)
+        acc = torch.clamp(acc - takes[j][:, None] * req_c[j][None, :], min=-_BIG)
+    cap_pref = _member_capacity(torch.stack(prefixed), req_c[:, None, :]) * mask_c
+    if bool((cap_pref != cap).any()):
+        return None
+    return takes, torch.stack(feas), acc
+
+
+def assign_gangs_wavefront(left0, group_req, remaining, fit_mask, order,
+                           wave: int = 8, with_stats: bool = False):
+    """Wavefront form of ``assign_gangs``: the same outputs bit for bit,
+    placed one wave of ``wave`` consecutive gangs (in scan order) at a
+    time. The plain version of ``csrc/assign_wave.cu`` and the port of the
+    reference's ``assign_gangs_wavefront``, with its three branches:
+
+    1. uniform: a wave whose gangs share one demand row and one mask row
+       (and whose needs keep the stream positions inside int32) takes one
+       aggregate fill (``_uniform_wave``); if a gang would be infeasible
+       at its assumed boundary the wave is replayed serially;
+    2. speculative: otherwise every gang selects against the wave-start
+       leftover, and a conflict check commits or replays the wave
+       (``_speculative_wave``);
+    3. replay: the serial scan body over the wave.
+
+    The group axis is padded to a wave multiple with inert positions (no
+    demand, need 0, masked out) that run after every real gang.
+    ``with_stats`` also returns ``(conflicts[S], megas[S])`` over the
+    S = ceil(G/W) waves: waves replayed serially, and waves that took the
+    uniform branch (committed or replayed)."""
+    n, r = left0.shape
+    g = group_req.shape[0]
+    w = max(int(wave), 1)
+    per_group = fit_mask.shape[0] != 1
+    steps = -(-g // w)
+    pad = steps * w - g
+    dev = left0.device
+    idx = order.long()
+    gr = torch.cat([group_req[idx], group_req.new_zeros((pad, r))])
+    needs = remaining[idx].tolist() + [0] * pad
+    mask = fit_mask.to(torch.int32)
+    if per_group:
+        mask = torch.cat([mask[idx], mask.new_zeros((pad, n))])
+    # stream positions of the uniform branch stay exact in int32 only
+    # while total_need * N does
+    mega_need_max = (2**31 - 1) // max(n, 1)
+    left = left0.clone()
+    takes = torch.zeros((steps * w, n), dtype=torch.int32, device=dev)
+    feas = torch.zeros(steps * w, dtype=torch.bool, device=dev)
+    conflicts = torch.zeros(steps, dtype=torch.bool, device=dev)
+    megas = torch.zeros(steps, dtype=torch.bool, device=dev)
+    ones = torch.ones(w, dtype=torch.bool, device=dev)
+    for s in range(steps):
+        lo, hi = s * w, (s + 1) * w
+        req_c, need_c = gr[lo:hi], needs[lo:hi]
+        mask_c = mask[lo:hi] if per_group else mask.expand(w, n)
+        uniform = bool((req_c == req_c[0:1]).all())
+        if per_group and uniform:
+            uniform = bool((mask_c == mask_c[0:1]).all())
+        mega = uniform and sum(need_c) <= mega_need_max
+        done = (_uniform_wave(left, req_c[0], need_c, mask_c[0]) if mega
+                else _speculative_wave(left, req_c, need_c, mask_c))
+        if done is None:
+            wave_takes, wave_feas, left = _serial_steps(left, req_c, need_c, mask_c)
+            conflicts[s] = True
+        elif mega:
+            (wave_takes, left), wave_feas = done, ones
+        else:
+            wave_takes, wave_feas, left = done
+        takes[lo:hi] = wave_takes
+        feas[lo:hi] = wave_feas
+        megas[s] = mega
+    alloc = torch.zeros((g, n), dtype=torch.int32, device=dev)
+    placed = torch.zeros(g, dtype=torch.bool, device=dev)
+    alloc[idx] = takes[:g]
+    placed[idx] = feas[:g]
+    if with_stats:
+        return alloc, placed, left, (conflicts, megas)
     return alloc, placed, left
 
 
@@ -197,21 +357,56 @@ def _top_k_ties_by_index(assignment, k: int):
     return counts[:, :k], nodes[:, :k].to(torch.int32)
 
 
+_WAVE_ENV = "BST_SCAN_WAVE"
+
+
+@functools.lru_cache(maxsize=None)
+def _warn_unparseable_wave(raw: str) -> None:
+    print(f"ignoring unparseable {_WAVE_ENV}={raw!r}; using the serial "
+          "assignment scan", file=sys.stderr)
+
+
+def _scan_wave_from_env() -> int:
+    """The wave width ``BST_SCAN_WAVE`` asks for: unset, 0 or 1 is the
+    serial scan (0); anything else is bucketed by ``wave_width_bucket``.
+    An unparseable value is the serial scan, with one warning on stderr
+    per distinct value."""
+    raw = os.environ.get(_WAVE_ENV, "")
+    if not raw:
+        return 0
+    try:
+        requested = int(raw)
+    except ValueError:
+        _warn_unparseable_wave(raw)
+        return 0
+    return wave_width_bucket(requested)
+
+
 def schedule_batch(alloc_lanes, requested, group_req, remaining, fit_mask,
-                   group_valid, order, top_k: int = ASSIGNMENT_TOP_K):
+                   group_valid, order, top_k: int = ASSIGNMENT_TOP_K,
+                   scan_wave: int = 0):
     """The full-batch oracle: leftover -> capacity -> feasibility -> scores
-    -> greedy gang assignment -> compact top-K readback. The scan runs the
-    hand-written CUDA kernel for CUDA tensors and the plain loop for CPU
-    tensors (``ops.assign_scan.assign_gangs_cuda`` decides by device)."""
-    from .assign_scan import assign_gangs_cuda
+    -> greedy gang assignment -> compact top-K readback. ``scan_wave`` > 1
+    runs the wavefront scan at that width and adds its per-wave
+    ``wave_conflicts``/``wave_megas`` flags to the output; otherwise the
+    serial scan runs. Either scan runs its hand-written CUDA kernel for
+    CUDA tensors and its plain version for CPU tensors (the wrappers in
+    ``ops.assign_scan`` decide by device)."""
+    from .assign_scan import assign_gangs_cuda, assign_gangs_wave_cuda
 
     left = left_resources(alloc_lanes, requested)
     cap = group_capacity(left, group_req, fit_mask)
     feasible = gang_feasible(cap, remaining, group_valid)
     scores = score_nodes(cap)
-    assignment, placed, left_after = assign_gangs_cuda(
-        left, group_req, remaining, fit_mask, order
-    )
+    wave_stats = None
+    if scan_wave > 1:
+        assignment, placed, left_after, wave_stats = assign_gangs_wave_cuda(
+            left, group_req, remaining, fit_mask, order, scan_wave
+        )
+    else:
+        assignment, placed, left_after = assign_gangs_cuda(
+            left, group_req, remaining, fit_mask, order
+        )
     placed = placed & group_valid
     k = min(top_k, assignment.shape[1])
     assign_counts, assign_nodes = _top_k_ties_by_index(assignment, k)
@@ -226,6 +421,8 @@ def schedule_batch(alloc_lanes, requested, group_req, remaining, fit_mask,
         "placed": placed,
         "left_after": left_after,
     }
+    if wave_stats is not None:
+        out["wave_conflicts"], out["wave_megas"] = wave_stats
     if assignment.shape[1] <= 2**15:
         # compact fetch: (node << 16 | count), counts saturating at 65535
         out["assignment_packed"] = (
@@ -249,7 +446,7 @@ def batch_top_k(n_bucket: int, remaining_max: int) -> int:
 def _batch_blob(alloc_lanes, requested, group_req, remaining, fit_mask,
                 group_valid, order, min_member, scheduled, matched,
                 ineligible, creation_rank, pack_assignment: bool = True,
-                top_k: int = ASSIGNMENT_TOP_K):
+                top_k: int = ASSIGNMENT_TOP_K, scan_wave: int = 0):
     """The batch plus findMaxPG, with every O(G) host-needed output
     concatenated into one int32 blob (one device-to-host copy).
 
@@ -261,9 +458,13 @@ def _batch_blob(alloc_lanes, requested, group_req, remaining, fit_mask,
       [3G+1]       best_exists (0/1)
       [3G+2:...]   assignment top-K: packed (node<<16|count), G*K — or,
                    when ``pack_assignment=False``, nodes then counts, 2*G*K
+      [tail]       only when the wavefront scan ran (``scan_wave`` > 1):
+                   3 ints — waves, waves replayed serially, waves that
+                   took the uniform branch
     """
     out = schedule_batch(alloc_lanes, requested, group_req, remaining,
-                         fit_mask, group_valid, order, top_k=top_k)
+                         fit_mask, group_valid, order, top_k=top_k,
+                         scan_wave=scan_wave)
     best, exists, progress = find_max_group(
         min_member, scheduled, matched, ineligible, creation_rank
     )
@@ -272,14 +473,21 @@ def _batch_blob(alloc_lanes, requested, group_req, remaining, fit_mask,
     else:
         tail = torch.cat([out["assignment_nodes"].reshape(-1),
                           out["assignment_counts"].reshape(-1)])
-    blob = torch.cat([
+    parts = [
         out["placed"].to(torch.int32),
         out["gang_feasible"].to(torch.int32),
         progress,
         torch.stack([best, exists.to(torch.int32)]),
         tail.to(torch.int32),
-    ])
-    return blob, out
+    ]
+    if "wave_conflicts" in out:
+        conflicts, megas = out["wave_conflicts"], out["wave_megas"]
+        parts.append(torch.stack([
+            torch.tensor(conflicts.shape[0], dtype=torch.int32, device=conflicts.device),
+            conflicts.sum(dtype=torch.int32),
+            megas.sum(dtype=torch.int32),
+        ]))
+    return torch.cat(parts), out
 
 
 def execute_batch_host(batch_args, progress_args, device="cuda"):
@@ -291,8 +499,13 @@ def execute_batch_host(batch_args, progress_args, device="cuda"):
     dict (``placed``, ``gang_feasible``, ``progress``, ``best``,
     ``best_exists``, ``assignment_nodes``, ``assignment_counts``,
     ``telemetry``); ``device_result`` keeps the [G,N] ``capacity`` and
-    ``scores`` tensors on the device for lazy row reads."""
+    ``scores`` tensors on the device for lazy row reads.
+
+    ``BST_SCAN_WAVE`` is read once per batch: a width > 1 runs the
+    wavefront scan, and the telemetry then carries ``waves_per_batch``,
+    ``wave_demotions`` and ``wave_uniform`` beside ``wave_width``."""
     dev = resolve_device(device)
+    scan_wave = _scan_wave_from_env()
     mask_mode = "per_group" if np.shape(batch_args[4])[0] != 1 else "broadcast"
     n_bucket = int(np.shape(batch_args[0])[0])
     g_bucket = int(np.shape(batch_args[2])[0])
@@ -304,7 +517,7 @@ def execute_batch_host(batch_args, progress_args, device="cuda"):
     top_k = batch_top_k(n_bucket, remaining_max)
     batch, progress = batch_from_numpy(batch_args, progress_args, dev)
     blob, out = _batch_blob(*batch, *progress, pack_assignment=pack,
-                            top_k=top_k)
+                            top_k=top_k, scan_wave=scan_wave)
     blob_np = blob.cpu().numpy()
 
     g = g_bucket
@@ -332,7 +545,15 @@ def execute_batch_host(batch_args, progress_args, device="cuda"):
             "mask_mode": mask_mode,
             "n_bucket": n_bucket,
             "g_bucket": g_bucket,
+            "wave_width": scan_wave,
         },
     }
+    if scan_wave > 1:
+        stats = blob_np[3 * g + 2 + tail_len:]
+        host["telemetry"].update(
+            waves_per_batch=int(stats[0]),
+            wave_demotions=int(stats[1]),
+            wave_uniform=int(stats[2]),
+        )
     device_result = {"capacity": out["capacity"], "scores": out["scores"]}
     return host, device_result

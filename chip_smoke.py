@@ -8,7 +8,8 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (one JSON line each; any failure makes the exit code non-zero):
 
-- build            nvcc csrc/assign_scan.cu into the gitignored build/
+- build            nvcc csrc/assign_scan.cu and csrc/assign_wave.cu (one nvcc
+                   each, started together) into the gitignored build/
 - north_star       bench.py's deployment — 5,000 nodes (64 cpu, 256Gi, 110
                    pods, 8 GPUs), 1,000 gangs x 10 pods (4 cpu, 8 GiB, 1 GPU)
                    -> [G=1024, N=8192, R=5], broadcast mask — through
@@ -28,16 +29,38 @@ Phases (one JSON line each; any failure makes the exit code non-zero):
                    launches the kernel once; kernel vs plain on its last
                    batch's inputs.
 
+With BST_SCAN_WAVE unset, the four phases above run the serial kernel
+(assign_scan) and never the wave kernel. The wavefront path
+(BST_SCAN_WAVE=W, the wave kernel assign_wave):
+
+- north_star_wave  north_star with W=8: every gang placed, telemetry 128
+                   waves, all uniform, none demoted; the wave kernel once per
+                   batch and the serial kernel never; the wave kernel vs the
+                   plain serial scan and the plain wavefront (outputs and
+                   per-wave flags); both kernels timed in turns.
+- mixed_wave       mixed and global_leftover at W=8 and W=32 in both mask
+                   modes (shared and global leftover), and mixed per-group
+                   restricted to zone node % 8 == scan position % 8 at W=8
+                   (waves that commit speculatively): kernel vs plain
+                   everywhere, the cuda host dict and wave telemetry vs the
+                   CPU ones, both kernels timed; each branch (uniform
+                   commit, speculative commit, demotion) taken at least once.
+- race_wave        race with W=32 (the 8-group bucket padded to one wave):
+                   the same outcomes, the wave kernel once per batch, and it
+                   matches the plain scans on the last batch.
+
 Then the card's name and power limit (nvidia-smi), one ``kernels`` line and,
 last, ``{"ok": true, "device": {...}}``. Launch counts are read for each
-path that drives the scorer — north_star and race — with the counts zeroed
-just before the path and read just after; ``launches`` in the kernels line
-is north_star's, ``launches_by_path`` holds both. Comparison launches are
+path that drives the scorer — north_star, race, north_star_wave, race_wave
+— with both kernels' counts zeroed just before the path and read just
+after; ``launches`` in the kernels line is the north-star path's,
+``launches_by_path`` holds each path. Comparison and timing launches are
 not counted.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -52,6 +75,13 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # operations on 128 lanes per SM; Hopper has 64 int32 lanes per SM.
 INT32_OPS_PER_S = 67e12 / 4
 PHASES = []  # (name, ok)
+# bench.py's deployment: nodes, gangs of 10 members, and the padded batch
+NORTH_STAR_NODES, NORTH_STAR_GANGS = 5000, 1000
+NORTH_STAR_SHAPE = (1024, 8192, 5)
+# (nodes, gangs, seed, leftover in shared memory) of the mixed and
+# global_leftover inputs
+MIXED = (5000, 1000, 11, True)
+GLOBAL_LEFTOVER = (10000, 256, 12, False)
 
 
 def emit(obj):
@@ -149,24 +179,38 @@ def profile_refresh(scorer, cluster, cache):
     }
 
 
-def scan_bound(left, group_req, remaining, fit_mask, order):
+def scan_bound(left, group_req, remaining, fit_mask, order, wave=0):
     """(bound_ms, bound_by, bytes, ops) of one scan on these inputs: each
     input read once and each output written once over HBM bandwidth, vs
     the integer operations these inputs need over the int32 rate (per
     gang and node: a division and a minimum per lane the gang requests,
     plus the mask, need clip, bin key, histogram add, threshold compare
-    and take select)."""
+    and take select). The wavefront scan computes the same function plus
+    two flag bytes per wave (``wave`` > 0)."""
     n, r = left.shape
     g = group_req.shape[0]
     in_bytes = sum(t.numel() * t.element_size()
                    for t in (left, group_req, remaining, fit_mask, order))
-    out_bytes = g * n * 4 + g + n * r * 4
+    out_bytes = g * n * 4 + g + n * r * 4 + (2 * -(-g // wave) if wave else 0)
     lanes = int((group_req > 0).sum().item())
     ops = n * (2 * lanes + 6 * g)
     t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S
     t_ops = ops / INT32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             in_bytes + out_bytes, ops)
+
+
+def max_err(got, want):
+    """(max_abs_err, all_equal) of two sequences of tensors."""
+    import torch
+
+    err = 0
+    equal = True
+    for a, b in zip(got, want):
+        equal &= torch.equal(a, b)
+        err = max(err, int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
+                  if a.numel() else 0)
+    return err, bool(equal)
 
 
 def compare_scan(args):
@@ -178,13 +222,46 @@ def compare_scan(args):
     got = assign_gangs_cuda(*args)
     want = assign_gangs_plain(*args)
     torch.cuda.synchronize()
-    err = 0
-    equal = True
-    for a, b in zip(got, want):
-        equal &= torch.equal(a, b)
-        err = max(err, int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
-                  if a.numel() else 0)
-    return err, bool(equal)
+    return max_err(got, want)
+
+
+def compare_wave(args, wave, serial=None):
+    """The wave kernel vs the plain serial scan (alloc, placed, left_after)
+    and vs the plain wavefront (the same and the per-wave flags), on the
+    same CUDA inputs: (max_abs_err, all_equal, conflicts, megas) with the
+    kernel's flags as numpy arrays. ``serial`` reuses a plain serial result."""
+    import torch
+
+    from batch_scheduler_tpu_torch.ops.assign_scan import (
+        assign_gangs_plain, assign_gangs_wave_cuda)
+    from batch_scheduler_tpu_torch.ops.oracle import assign_gangs_wavefront
+
+    got = assign_gangs_wave_cuda(*args, wave)
+    plain = assign_gangs_wavefront(*args, wave=wave, with_stats=True)
+    if serial is None:
+        serial = assign_gangs_plain(*args)
+    torch.cuda.synchronize()
+    err1, eq1 = max_err(got[:3], serial)
+    err2, eq2 = max_err(list(got[:3]) + list(got[3]), list(plain[:3]) + list(plain[3]))
+    conflicts, megas = (x.cpu().numpy() for x in got[3])
+    return max(err1, err2), eq1 and eq2, conflicts, megas
+
+
+@contextlib.contextmanager
+def scan_wave_env(wave):
+    """BST_SCAN_WAVE set to ``wave`` inside the block (unset for None)."""
+    saved = os.environ.get("BST_SCAN_WAVE")
+    if wave is None:
+        os.environ.pop("BST_SCAN_WAVE", None)
+    else:
+        os.environ["BST_SCAN_WAVE"] = str(wave)
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("BST_SCAN_WAVE", None)
+        else:
+            os.environ["BST_SCAN_WAVE"] = saved
 
 
 def scan_inputs(batch_args):
@@ -203,7 +280,7 @@ def scan_inputs(batch_args):
 
 def host_dicts_equal(batch_args, progress_args):
     """The cuda host dict (kernel scan) vs the CPU host dict (plain scan),
-    and the capacity/score tensors."""
+    the wave telemetry, and the capacity/score tensors."""
     import numpy as np
 
     from batch_scheduler_tpu_torch.ops.oracle import execute_batch_host
@@ -212,19 +289,32 @@ def host_dicts_equal(batch_args, progress_args):
     cpu_host, cpu_dev = execute_batch_host(batch_args, progress_args, device="cpu")
     diff = [k for k in cpu_host if k != "telemetry"
             and not np.array_equal(np.asarray(gpu_host[k]), np.asarray(cpu_host[k]))]
+    diff += [f"telemetry.{k}" for k in WAVE_TELEMETRY
+             if gpu_host["telemetry"].get(k) != cpu_host["telemetry"].get(k)]
     diff += [k for k in ("capacity", "scores")
              if not np.array_equal(gpu_dev[k].cpu().numpy(), cpu_dev[k].numpy())]
     return diff, gpu_host, gpu_dev
 
 
+WAVE_TELEMETRY = ("wave_width", "waves_per_batch", "wave_demotions", "wave_uniform")
+
+
 # -- phases -------------------------------------------------------------------
+
+KERNELS = ("assign_scan", "assign_wave")
+
 
 @phase("build")
 def build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from batch_scheduler_tpu_torch.ops import _build
 
-    lib = _build.library("assign_scan")
-    return {"built": ["assign_scan"], "library": os.path.basename(lib._name)}
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+        libs = list(pool.map(_build.library, KERNELS))
+    return {"built": list(KERNELS),
+            "libraries": [os.path.basename(lib._name) for lib in libs]}
 
 
 def north_star_cluster():
@@ -234,9 +324,9 @@ def north_star_cluster():
         make_member_pods, make_sim_group, make_sim_node)
 
     nodes = [make_sim_node(f"n{i:05d}", {"cpu": "64", "memory": "256Gi", "pods": "110", GPU: "8"})
-             for i in range(5000)]
+             for i in range(NORTH_STAR_NODES)]
     cache = PGStatusCache()
-    for g in range(1000):
+    for g in range(NORTH_STAR_GANGS):
         pg = make_sim_group(f"gang-{g:04d}", 10, creation_ts=float(g))
         pg.spec.min_resources = {"cpu": 4000, "memory": 8 * 1024**3, GPU: 1}
         pg.status.phase = PodGroupPhase.PENDING
@@ -246,39 +336,79 @@ def north_star_cluster():
     return InMemoryCluster(nodes), cache
 
 
-@phase("north_star")
-def north_star(results):
+def drive_north_star(wave):
+    """The north-star deployment through ``OracleScorer.refresh``: seven
+    batches with ``BST_SCAN_WAVE`` set to ``wave`` (None: unset), both scan
+    kernels' launch counts zeroed just before the seven and read just
+    after, then one profiled refresh. Checks the shape and that every gang
+    placed. Returns (scorer, launches by kernel, report)."""
     import torch
 
     from batch_scheduler_tpu_torch.core import OracleScorer
-    from batch_scheduler_tpu_torch.ops.assign_scan import assign_gangs_cuda, assign_gangs_plain
+    from batch_scheduler_tpu_torch.ops.assign_scan import assign_gangs_cuda, assign_gangs_wave_cuda
 
     cluster, cache = north_star_cluster()
     scorer = OracleScorer(device="cuda")
-    # the main path: counts zeroed just before, read just after
-    assign_gangs_cuda.launches = 0
-    refresh_s = []
-    for i in range(7):
-        t0 = time.perf_counter()
-        scorer.refresh(cluster, cache)
-        refresh_s.append(time.perf_counter() - t0)
-    launches = assign_gangs_cuda.launches
-    batches = scorer.batches_run
+    torch.cuda.reset_peak_memory_stats()
+    with scan_wave_env(wave):
+        # the main path: counts zeroed just before, read just after
+        assign_gangs_cuda.launches = 0
+        assign_gangs_wave_cuda.launches = 0
+        refresh_s = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            scorer.refresh(cluster, cache)
+            refresh_s.append(time.perf_counter() - t0)
+        launches = {"assign_scan": assign_gangs_cuda.launches,
+                    "assign_wave": assign_gangs_wave_cuda.launches}
+        batches = scorer.batches_run
+        telemetry = dict(scorer.last_telemetry)
+        try:
+            prof = profile_refresh(scorer, cluster, cache)
+        except Exception as e:  # noqa: BLE001 — a measurement, not a check
+            prof = {"profile": f"failed: {e!r}"[:300]}
     timed = slice(2, None)  # two warmup batches
     names = sorted(cache.snapshot())
     placed = sum(scorer.placed(n) for n in names)
     feasible = sum(scorer.gang_feasible(n) for n in names)
     members = sum(sum(scorer.assignment(n).values()) for n in names)
     snap = scorer.snapshot
-    if snap.shape != (1024, 8192, 5):
-        raise AssertionError(f"north-star shape {snap.shape} != (1024, 8192, 5)")
-    if placed != 1000 or feasible != 1000 or members != 10000:
+    if snap.shape != NORTH_STAR_SHAPE:
+        raise AssertionError(f"north-star shape {snap.shape} != {NORTH_STAR_SHAPE}")
+    want = (NORTH_STAR_GANGS, NORTH_STAR_GANGS, 10 * NORTH_STAR_GANGS)
+    if (placed, feasible, members) != want:
         raise AssertionError(f"placed {placed}, feasible {feasible}, members {members} "
-                             "(want 1000, 1000, 10000)")
-    if launches == 0 or launches != batches:
-        raise AssertionError(f"assign_scan launched {launches} times in {batches} batches")
+                             f"(want {want})")
+    refresh_ms_median = statistics.median(refresh_s[timed]) * 1e3
+    if "device_busy_ms" in prof:
+        # the profiler stretches the refresh it traces; this share sets the
+        # same busy time against the unprofiled median instead
+        prof["device_idle_share_vs_median"] = 1 - prof["device_busy_ms"] / refresh_ms_median
+    report = {
+        "shape": list(snap.shape), "mask_rows": int(snap.fit_mask.shape[0]),
+        "placed": placed, "feasible": feasible, "members_placed": members,
+        "batches": batches, "launches_by_kernel": launches,
+        "telemetry": telemetry,
+        "host_pack_ms_median": statistics.median(scorer.pack_seconds[timed]) * 1e3,
+        "device_batch_ms_median": statistics.median(scorer.batch_seconds[timed]) * 1e3,
+        "refresh_ms_median": refresh_ms_median,
+        "timed_runs": len(refresh_s[timed]),
+        "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20,
+        **prof,
+    }
+    return scorer, launches, report
 
-    args = scan_inputs(snap.device_args())
+
+@phase("north_star")
+def north_star(results):
+    from batch_scheduler_tpu_torch.ops.assign_scan import assign_gangs_cuda, assign_gangs_plain
+
+    scorer, launches, report = drive_north_star(None)
+    batches = report["batches"]
+    if launches["assign_scan"] != batches or launches["assign_wave"] != 0:
+        raise AssertionError(f"{launches} launches in {batches} batches "
+                             "(want assign_scan once per batch, assign_wave never)")
+    args = scan_inputs(scorer.snapshot.device_args())
     err, equal = compare_scan(args)
     if not equal:
         raise AssertionError(f"kernel disagrees with the plain scan (max abs err {err})")
@@ -286,40 +416,76 @@ def north_star(results):
     kernel_ms2 = cuda_ms(lambda: assign_gangs_cuda(*args), 20)
     plain_ms = cuda_ms(lambda: assign_gangs_plain(*args), 2)
     bound_ms, bound_by, nbytes, ops = scan_bound(*args)
-    try:
-        prof = profile_refresh(scorer, cluster, cache)
-    except Exception as e:  # noqa: BLE001 — a measurement, not a check
-        prof = {"profile": f"failed: {e!r}"[:300]}
-    refresh_ms_median = statistics.median(refresh_s[timed]) * 1e3
-    if "device_busy_ms" in prof:
-        # the profiler stretches the refresh it traces; this share sets the
-        # same busy time against the unprofiled median instead
-        prof["device_idle_share_vs_median"] = 1 - prof["device_busy_ms"] / refresh_ms_median
     results["assign_scan"] = {
-        "launches": launches, "launches_by_path": {"north_star": launches},
+        "launches": launches["assign_scan"],
+        "launches_by_path": {"north_star": launches["assign_scan"]},
         "max_abs_err": err, "matched": equal,
         "ms": min(kernel_ms, kernel_ms2), "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
     return {
-        "shape": list(snap.shape), "mask_rows": int(snap.fit_mask.shape[0]),
-        "placed": placed, "feasible": feasible, "members_placed": members,
-        "launches": launches, "batches": batches,
-        "host_pack_ms_median": statistics.median(scorer.pack_seconds[timed]) * 1e3,
-        "device_batch_ms_median": statistics.median(scorer.batch_seconds[timed]) * 1e3,
-        "refresh_ms_median": refresh_ms_median,
-        "timed_runs": len(refresh_s[timed]),
+        **report, "launches": launches["assign_scan"],
         "kernel_ms": [kernel_ms, kernel_ms2], "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "int_ops": ops,
         "kernel_vs_plain_equal": equal,
-        "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20,
-        **prof,
     }
 
 
-def mixed_batch(num_nodes, num_groups, seed, per_group):
+@phase("north_star_wave")
+def north_star_wave(results):
+    from batch_scheduler_tpu_torch.ops.assign_scan import (
+        assign_gangs_cuda, assign_gangs_plain, assign_gangs_wave_cuda)
+    from batch_scheduler_tpu_torch.ops.oracle import assign_gangs_wavefront
+
+    wave = 8
+    scorer, launches, report = drive_north_star(wave)
+    batches = report["batches"]
+    if launches["assign_wave"] != batches or launches["assign_scan"] != 0:
+        raise AssertionError(f"{launches} launches in {batches} batches "
+                             "(want assign_wave once per batch, assign_scan never)")
+    waves = NORTH_STAR_SHAPE[0] // wave
+    want = {"wave_width": wave, "waves_per_batch": waves, "wave_uniform": waves,
+            "wave_demotions": 0}
+    got = {k: report["telemetry"].get(k) for k in want}
+    if got != want:
+        raise AssertionError(f"wave telemetry {got} != {want}")
+    args = scan_inputs(scorer.snapshot.device_args())
+    err, equal, conflicts, megas = compare_wave(args, wave)
+    if not equal:
+        raise AssertionError(f"wave kernel disagrees with the plain scans (max abs err {err})")
+    # both kernels on the same inputs, in turns: serial, wave, wave, serial
+    serial_ms = [cuda_ms(lambda: assign_gangs_cuda(*args), 20)]
+    wave_ms = [cuda_ms(lambda: assign_gangs_wave_cuda(*args, wave), 20)]
+    wave_ms.append(cuda_ms(lambda: assign_gangs_wave_cuda(*args, wave), 20))
+    serial_ms.append(cuda_ms(lambda: assign_gangs_cuda(*args), 20))
+    plain_ms = cuda_ms(
+        lambda: assign_gangs_wavefront(*args, wave=wave, with_stats=True), 2)
+    plain_serial_ms = cuda_ms(lambda: assign_gangs_plain(*args), 1)
+    bound_ms, bound_by, nbytes, ops = scan_bound(*args, wave=wave)
+    results["assign_wave"] = {
+        "launches": launches["assign_wave"],
+        "launches_by_path": {"north_star_wave": launches["assign_wave"]},
+        "max_abs_err": err, "matched": equal,
+        "ms": min(wave_ms), "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    return {
+        **report, "launches": launches["assign_wave"],
+        "kernel_ms": wave_ms, "serial_kernel_ms": serial_ms, "plain_ms": plain_ms,
+        "plain_serial_ms": plain_serial_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "int_ops": ops,
+        "kernel_vs_plain_equal": equal,
+        "kernel_waves": {"waves": len(conflicts), "demoted": int(conflicts.sum()),
+                         "uniform": int(megas.sum())},
+    }
+
+
+def mixed_batch(num_nodes, num_groups, seed, per_group, zone_by_position=False):
     """Seeded numpy cluster: 4 node shapes, gangs of 1-64 members (a few
-    infeasible), ~30% with a zone selector when ``per_group``."""
+    infeasible), ~30% with a zone selector when ``per_group``.
+    ``zone_by_position`` (per-group only) also restricts the gang at scan
+    position p to the nodes with ``node % 8 == p % 8``, so the gangs of a
+    wave of 8 see disjoint nodes."""
     import numpy as np
 
     from batch_scheduler_tpu_torch.ops.bucketing import pad_oracle_batch
@@ -354,6 +520,10 @@ def mixed_batch(num_nodes, num_groups, seed, per_group):
         sel = rng.random(num_groups) < 0.3
         want = rng.integers(0, 4, size=num_groups)
         fit = np.where(sel[:, None], zone[None, :] == want[:, None], True) & valid[None, :]
+        if zone_by_position:
+            position = np.empty(num_groups, np.int64)
+            position[order] = np.arange(num_groups)
+            fit &= np.arange(num_nodes)[None, :] % 8 == position[:, None] % 8
     else:
         fit = valid[None, :]
     g = num_groups
@@ -379,7 +549,8 @@ def check_mixed(num_nodes, num_groups, seed, want_shared):
                                  f"expected the other path at N={n}, R={r}")
         args = scan_inputs(batch_args)
         err, equal = compare_scan(args)
-        diff, host, dev = host_dicts_equal(batch_args, progress_args)
+        with scan_wave_env(None):
+            diff, host, dev = host_dicts_equal(batch_args, progress_args)
         g_real = num_groups
         placed = int(host["placed"][:g_real].sum())
         infeasible = int((~host["gang_feasible"][:g_real]).sum())
@@ -403,20 +574,96 @@ def check_mixed(num_nodes, num_groups, seed, want_shared):
 
 @phase("mixed")
 def mixed():
-    return check_mixed(5000, 1000, seed=11, want_shared=True)
+    return check_mixed(*MIXED)
 
 
 @phase("global_leftover")
 def global_leftover():
-    return check_mixed(10000, 256, seed=12, want_shared=False)
+    return check_mixed(*GLOBAL_LEFTOVER)
 
 
-@phase("race")
-def race(results):
+@phase("mixed_wave")
+def mixed_wave(results):
+    """The mixed and global_leftover inputs at W=8 and W=32 in both mask
+    modes, and the zone-by-position per-group input at W=8: the wave kernel
+    against the plain serial scan and the plain wavefront, the cuda host
+    dict (with the wave telemetry) against the CPU one, and both kernels'
+    times on each input. Each branch must be taken at least once across
+    the phase."""
+    from batch_scheduler_tpu_torch.ops.assign_scan import (
+        _shared_budget, assign_gangs_cuda, assign_gangs_plain, assign_gangs_wave_cuda,
+        wave_plan)
+
+    inputs = []
+    for name, (nodes, groups, seed, want_shared) in (("mixed", MIXED),
+                                                     ("global_leftover", GLOBAL_LEFTOVER)):
+        for mode, per_group in (("per_group", True), ("broadcast", False)):
+            inputs.append((f"{name}/{mode}", mixed_batch(nodes, groups, seed, per_group),
+                           (8, 32), want_shared))
+    inputs.append(("mixed/zone_by_position",
+                   mixed_batch(*MIXED[:3], True, zone_by_position=True), (8,), MIXED[3]))
+    branches = {"uniform_commit": 0, "speculative_commit": 0, "demoted": 0}
+    runs = []
+    matched = True
+    for label, (batch_args, progress_args), waves, want_shared in inputs:
+        n, r = batch_args[0].shape
+        shared = wave_plan(n, r) * 4 <= _shared_budget(0, "assign_wave")
+        if shared != want_shared:
+            raise AssertionError(f"{label}: leftover in {'shared' if shared else 'global'} "
+                                 f"memory, expected the other path at N={n}, R={r}")
+        args = scan_inputs(batch_args)
+        serial = assign_gangs_plain(*args)
+        for wave in waves:
+            err, equal, conflicts, megas = compare_wave(args, wave, serial)
+            with scan_wave_env(wave):
+                diff, host, _ = host_dicts_equal(batch_args, progress_args)
+            tele = host["telemetry"]
+            counts = {"uniform_commit": int((megas & ~conflicts).sum()),
+                      "speculative_commit": int((~megas & ~conflicts).sum()),
+                      "demoted": int(conflicts.sum())}
+            want_tele = {"wave_width": wave, "waves_per_batch": len(conflicts),
+                         "wave_demotions": counts["demoted"], "wave_uniform": int(megas.sum())}
+            got_tele = {k: tele.get(k) for k in want_tele}
+            if not equal or diff or got_tele != want_tele:
+                raise AssertionError(f"{label} W={wave}: kernel vs plain max abs err {err} "
+                                     f"(equal {equal}), host dict fields differing {diff}, "
+                                     f"telemetry {got_tele} != {want_tele}")
+            # both kernels on the same inputs, in turns: serial, wave, wave, serial
+            serial_ms = [cuda_ms(lambda: assign_gangs_cuda(*args), 3)]
+            wave_ms = [cuda_ms(lambda: assign_gangs_wave_cuda(*args, wave), 3)]
+            wave_ms.append(cuda_ms(lambda: assign_gangs_wave_cuda(*args, wave), 3))
+            serial_ms.append(cuda_ms(lambda: assign_gangs_cuda(*args), 3))
+            for k, v in counts.items():
+                branches[k] += v
+            matched &= equal
+            runs.append({
+                "input": label, "wave": wave,
+                "shape": [int(batch_args[2].shape[0]), int(n), int(r)],
+                "mask_rows": int(batch_args[4].shape[0]),
+                "leftover": "shared" if shared else "global",
+                "kernel_vs_plain_equal": equal, "max_abs_err": err,
+                "host_dict_equal": not diff, "waves": len(conflicts), **counts,
+                "placed": int(host["placed"].sum()),
+                "wave_kernel_ms": wave_ms, "serial_kernel_ms": serial_ms,
+            })
+    missing = [k for k, v in branches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"branches never taken across the phase: {missing}")
+    if "assign_wave" in results:
+        results["assign_wave"]["matched"] &= matched
+    return {"runs": runs, "branches": branches}
+
+
+def drive_race(wave):
+    """The README race scenario through ScheduleOperation on cuda with
+    ``BST_SCAN_WAVE`` set to ``wave`` (None: unset): gang 1 permits all five
+    pods, gang 2 is denied and its retry hits the deny backoff. Both scan
+    kernels' launch counts are zeroed just before the path and read just
+    after. Returns (operation, launches by kernel, report)."""
     from batch_scheduler_tpu_torch.api.types import PodGroupPhase
     from batch_scheduler_tpu_torch.cache import PGStatusCache, PodGroupMatchStatus
     from batch_scheduler_tpu_torch.core import ScheduleOperation
-    from batch_scheduler_tpu_torch.ops.assign_scan import assign_gangs_cuda
+    from batch_scheduler_tpu_torch.ops.assign_scan import assign_gangs_cuda, assign_gangs_wave_cuda
     from batch_scheduler_tpu_torch.sim.scenarios import make_member_pods, race_scenario
     from batch_scheduler_tpu_torch.utils import errors as errs
 
@@ -432,42 +679,78 @@ def race(results):
     op = ScheduleOperation(cache, cluster, scorer="oracle")  # default device: cuda
     if op.oracle.device.type != "cuda":
         raise AssertionError(f"scorer on {op.oracle.device}")
-    # this path's counts: zeroed just before, read just after
-    assign_gangs_cuda.launches = 0
-    ready = []
-    for pod in pods["web-group-race1"]:
-        op.pre_filter(pod)
-        op.filter(pod, "node-1")
-        ready.append(op.permit(pod, "node-1").ready)
-    for pod in pods["web-group-race1"]:
-        cluster.bind(pod, "node-1")
-        op.post_bind(pod, "node-1")
-    pg1 = cache.get("default/web-group-race1").pod_group
-    outcomes = []
-    for pod in pods["web-group-race2"][:2]:
-        try:
+    with scan_wave_env(wave):
+        # this path's counts: zeroed just before, read just after
+        assign_gangs_cuda.launches = 0
+        assign_gangs_wave_cuda.launches = 0
+        ready = []
+        for pod in pods["web-group-race1"]:
             op.pre_filter(pod)
-            outcomes.append("admitted")
-        except errs.SchedulingError as e:
-            outcomes.append(type(e).__name__)
-    launches = assign_gangs_cuda.launches
+            op.filter(pod, "node-1")
+            ready.append(op.permit(pod, "node-1").ready)
+        for pod in pods["web-group-race1"]:
+            cluster.bind(pod, "node-1")
+            op.post_bind(pod, "node-1")
+        pg1 = cache.get("default/web-group-race1").pod_group
+        outcomes = []
+        for pod in pods["web-group-race2"][:2]:
+            try:
+                op.pre_filter(pod)
+                outcomes.append("admitted")
+            except errs.SchedulingError as e:
+                outcomes.append(type(e).__name__)
+        launches = {"assign_scan": assign_gangs_cuda.launches,
+                    "assign_wave": assign_gangs_wave_cuda.launches}
     batches = op.oracle.batches_run
     want = ["ResourceNotEnoughError", "DeniedError"]
     if ready != [False] * 4 + [True] or pg1.status.scheduled != 5 or outcomes != want:
         raise AssertionError(f"race: ready {ready}, gang 1 scheduled "
                              f"{pg1.status.scheduled}, gang 2 {outcomes}")
-    if launches == 0 or launches != batches:
-        raise AssertionError(f"assign_scan launched {launches} times in {batches} batches")
-    snap = op.oracle.snapshot
-    err, equal = compare_scan(scan_inputs(snap.device_args()))
+    return op, launches, {
+        "gang1_ready": ready, "gang1_phase": pg1.status.phase.value,
+        "gang2": outcomes, "batches": batches, "launches_by_kernel": launches,
+        "shape": list(op.oracle.snapshot.shape),
+        "telemetry": dict(op.oracle.last_telemetry),
+    }
+
+
+@phase("race")
+def race(results):
+    op, launches, report = drive_race(None)
+    batches = report["batches"]
+    if launches["assign_scan"] == 0 or launches["assign_scan"] != batches \
+            or launches["assign_wave"] != 0:
+        raise AssertionError(f"{launches} launches in {batches} batches "
+                             "(want assign_scan once per batch, assign_wave never)")
+    err, equal = compare_scan(scan_inputs(op.oracle.snapshot.device_args()))
     if not equal:
         raise AssertionError(f"kernel disagrees with the plain scan (max abs err {err})")
     if "assign_scan" in results:
-        results["assign_scan"]["launches_by_path"]["race"] = launches
-    return {"gang1_ready": ready, "gang1_phase": pg1.status.phase.value,
-            "gang2": outcomes, "batches": batches, "launches": launches,
-            "shape": list(snap.shape), "kernel_vs_plain_equal": equal,
-            "max_abs_err": err}
+        results["assign_scan"]["launches_by_path"]["race"] = launches["assign_scan"]
+    return {**report, "launches": launches["assign_scan"],
+            "kernel_vs_plain_equal": equal, "max_abs_err": err}
+
+
+@phase("race_wave")
+def race_wave(results):
+    wave = 32  # pads the 8-group bucket to one wave of 32
+    op, launches, report = drive_race(wave)
+    batches = report["batches"]
+    if launches["assign_wave"] == 0 or launches["assign_wave"] != batches \
+            or launches["assign_scan"] != 0:
+        raise AssertionError(f"{launches} launches in {batches} batches "
+                             "(want assign_wave once per batch, assign_scan never)")
+    tele = report["telemetry"]
+    if tele.get("wave_width") != wave or tele.get("waves_per_batch") != 1:
+        raise AssertionError(f"race_wave telemetry {tele}")
+    err, equal, _, _ = compare_wave(scan_inputs(op.oracle.snapshot.device_args()), wave)
+    if not equal:
+        raise AssertionError(f"wave kernel disagrees with the plain scans (max abs err {err})")
+    if "assign_wave" in results:
+        results["assign_wave"]["launches_by_path"]["race_wave"] = launches["assign_wave"]
+        results["assign_wave"]["matched"] &= equal
+    return {**report, "launches": launches["assign_wave"],
+            "kernel_vs_plain_equal": equal, "max_abs_err": err}
 
 
 def card_line():
@@ -504,22 +787,25 @@ def main() -> int:
     mixed()
     global_leftover()
     race(results)
+    north_star_wave(results)
+    mixed_wave(results)
+    race_wave(results)
 
-    kernels = []
-    scan = results.get("assign_scan")
-    if scan is not None:
-        kernels.append({
-            "name": "assign_scan",
-            "route": "cuda",
-            "source": "batch_scheduler_tpu_torch/csrc/assign_scan.cu",
-            "replaces": "batch_scheduler_tpu/ops/pallas_assign.py:63",
-            "library_ms": None,
-            **scan,
-        })
+    sources = {
+        "assign_scan": ("batch_scheduler_tpu_torch/csrc/assign_scan.cu",
+                        "batch_scheduler_tpu/ops/pallas_assign.py:63"),
+        "assign_wave": ("batch_scheduler_tpu_torch/csrc/assign_wave.cu",
+                        "batch_scheduler_tpu/ops/pallas_assign.py:104"),
+    }
+    kernels = [
+        {"name": name, "route": "cuda", "source": sources[name][0],
+         "replaces": sources[name][1], "library_ms": None, **results[name]}
+        for name in KERNELS if name in results
+    ]
     print(card_line(), flush=True)
     emit({"kernels": kernels})
     failed = [name for name, ok in PHASES if not ok]
-    if failed or not kernels:
+    if failed or len(kernels) != len(KERNELS):
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
     emit({"ok": True, "device": {"platform": "gpu",
