@@ -1,10 +1,10 @@
 // assign_scan.cu — the serial greedy gang-placement scan, hand-written for
-// Hopper (sm_90a).
+// Hopper (sm_90a) as one thread-block cluster.
 //
-// Replaces: batch_scheduler_tpu/ops/pallas_assign.py `_kernel` (reached by
-// `assign_gangs_pallas`, with `_cap_t` and ops/oracle.py `_select_best_fit`).
-// It computes exactly what that kernel and the reference `assign_gangs`
-// compute. For each gang in scan order:
+// Replaces: batch_scheduler_tpu/ops/pallas_assign.py `_kernel` (:63, reached
+// by `assign_gangs_pallas`, with `_cap_t` and ops/oracle.py
+// `_select_best_fit`). It computes exactly what that kernel and the
+// reference `assign_gangs` compute. For each gang in scan order:
 //   cap[n]  = mask[n] * min over lanes with req > 0 of
 //             floor(clamp(left[n], 0, 2^30) / clamp(req, 1, 2^30))
 //   capc[n] = min(cap[n], need)
@@ -14,53 +14,101 @@
 //   nothing; the whole take is zeroed unless sum(capc) >= need;
 //   left[n] -= take[n] * req.
 //
-// What bounds it on an H100: the work is G dependent steps (each gang sees
-// the leftover the previous gangs left), so it runs as ONE persistent
-// thread block that walks `order` in a loop — 1 of the card's 132 SMs.
-// The bytes it must move (the [G,N] take rows, which the wrapper zeroes
-// before the launch, plus the [N,R] leftover in and out) would take about
-// 10 us at 3.35 TB/s at the 1024 x 8192 x 5 north-star shape; the serial
-// chain of per-gang block-wide steps (integer divisions over N*R lanes, a
-// histogram, two block barriers, a block scan) is what bounds it instead.
-// Making it fast (a cluster over distributed shared memory, or several
-// blocks per gang) is later work.
+// What bounds it on an H100: the G gangs are G dependent steps (each gang
+// sees the leftover the previous gangs left). The bytes the function must
+// move (the [G,N] take rows, which the wrapper zeroes before the launch,
+// plus the [N,R] leftover in and out) take about 10 us at 3.35 TB/s at the
+// 1024 x 8192 x 5 north-star shape, and its integer operations less; the
+// chain of G steps is what bounds it. A step is latency, not work: the
+// per-node arithmetic of 1/C of the nodes, two block barriers, and one
+// exchange of histograms between the C blocks, whose one-way latency
+// between SMs is the largest single part.
 //
 // Design:
-// - The leftover lives in shared memory, transposed to [R][N], for the
-//   whole scan when (R+1) lanes of the padded node row fit (the 8192-node
-//   bucket with 5 lanes does); otherwise in a global scratch buffer the
-//   wrapper allocates (it stays in the 50 MB L2). One more row holds this
-//   gang's capacity so phase 3 does not divide again.
-// - Each thread owns a contiguous run of `per` nodes, so the exclusive
-//   prefix of the threshold bin in node-index order is a prefix within the
-//   thread plus one block-wide exclusive scan. A thread's run starts at
-//   `tid * stride` with `stride = per | 1` (odd), so the 32 lanes of a warp
-//   touch 32 different shared-memory banks.
-// - The histogram is built from per-thread runs of equal keys with integer
-//   atomicAdd (deterministic: integer addition commutes); a warp whose
-//   lanes all hold one run of one key adds its warp sum once.
+// - The node axis is split over a cluster of C blocks (C = 16, 8, or 1 for
+//   small buckets; the wrapper's kernel_plan picks C, the threads and the
+//   nodes per thread). Block b owns nodes [b*B, (b+1)*B), B = ceil(N/C);
+//   each thread owns `per` consecutive nodes of that range.
+// - Per gang step: every block builds its 128-bin histogram of capc by key
+//   (and one per warp); after a block barrier its warp 0 pushes the
+//   histogram into an inbox slot of every block of the cluster with
+//   st.async, whose bytes complete the receiving block's mbarrier
+//   transaction count. Warp 0 of every block waits on its own mbarrier for
+//   all C histograms, then finds the threshold bin, the remainder, the
+//   feasibility, and its block's prefix in the threshold bin (the sum of
+//   the lower-ranked blocks' entries: a bin's entry is the sum of capc over
+//   it). The arithmetic is integer, so every block gets identical values.
+//   A second block barrier publishes them. A warp's prefix is the sum of
+//   the lower warps' per-warp histogram entries at the threshold, a lane's
+//   is a shuffle scan: no block scan and no second exchange. Pushing
+//   instead of reading remote shared memory after a cluster barrier saves
+//   the barrier's cluster-wide release and the reads' round trip.
+// - Inboxes, their mbarriers and the per-warp histograms are
+//   double-buffered by step parity. A block pushes into a parity-p inbox
+//   (step s+2) only after it has received every block's step s+1
+//   histogram, which each block pushes after reading its step-s inbox; so
+//   no slot is overwritten before it is read, and no transaction reaches
+//   an mbarrier before the phase it belongs to. Cluster barriers run only
+//   before the loop (the mbarriers exist) and after it (no block exits
+//   with pushes in flight).
+// - Exact division without a divide: every divisor is a gang's request on
+//   one lane. The wrapper computes, per [G,R] entry, l = ceil(log2 d) and
+//   m = floor(2^(31+l) / d) + 1 (< 2^32; ops/assign_scan.py
+//   `division_magic`), and for numerators and divisors in [0, 2^30] x
+//   [1, 2^30], floor(n / d) = umulhi(n, m) >> (l - 1), and n for d = 1.
+// - Prefetch: the scan order is read two steps ahead, and the next gang's
+//   need, request/magic/shift row and (per-group mask) this thread's mask
+//   bytes one step ahead, into registers, while warp 0 waits; the last 3R
+//   threads stage the row in shared memory before the second barrier. A
+//   broadcast [1,N] mask is read once.
+// - The leftover lives in shared memory transposed to [R][per][threads]
+//   (slot (k, j) of thread t at k*per*T + j*T + t: no bank conflicts) when
+//   it fits the block's budget, else in a wrapper-allocated global scratch
+//   slab per block (coalesced the same way; it stays in the 50 MB L2).
+//   Capacities stay in registers between the phases of a step.
 // - Each take row is written straight to alloc[order[s]] (only its nonzero
-//   entries: the wrapper hands over a zeroed alloc), so no permute is
-//   needed before or after the scan.
-// - Integer division is exact, so the TPU kernel's float reciprocal
-//   (`_exact_floordiv`) and Hillis-Steele cumsum are not needed here.
+//   entries: the wrapper hands over an alloc zeroed by torch.zeros, whose
+//   memset the wrapper's time includes).
+// - Every step runs the same barriers and exchange in every block: an
+//   out-of-range order entry is a step with need 0 that writes nothing,
+//   and the infeasible case only skips the take, which has no barrier.
 // - Domain: the reference's batch boundary (LANE_MAX, the gang bound of
-//   pad_oracle_batch) keeps every need-clipped sum inside int32, and
-//   `order` is a permutation of [0, G). The leftover update wraps in int32
-//   like the reference.
+//   pad_oracle_batch) keeps every need-clipped sum inside int32. The
+//   leftover update wraps in int32 like the reference. Integer atomics
+//   only, so the result is deterministic.
 //
 // Launch rules: the kernel runs on the caller's stream, allocates nothing,
-// and the C entry point returns cudaGetLastError().
+// and the C entry point returns the launch's CUDA error code.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxCluster = 16;
 constexpr int kBins = 128;
 constexpr int kBig = 1 << 30;
 constexpr unsigned kFull = 0xffffffffu;
+
+struct ScanArgs {
+  const int* left0;
+  const int* group_req;
+  const int* remaining;
+  const unsigned char* mask;
+  const int* order;
+  const int* magic;
+  const int* shift;
+  int* alloc;
+  unsigned char* placed;
+  int* left_after;
+  int* scratch;
+  int n, g, r, mask_per_group, block_nodes, per;
+};
 
 __device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
 #pragma unroll
@@ -71,214 +119,433 @@ __device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
   return v;
 }
 
-template <bool kShared>
-__global__ void __launch_bounds__(kThreads, 1)
-assign_scan_kernel(const int* __restrict__ left0,
-                   const int* __restrict__ group_req,
-                   const int* __restrict__ remaining,
-                   const unsigned char* __restrict__ mask,
-                   const int* __restrict__ order,
-                   int* __restrict__ alloc,
-                   unsigned char* __restrict__ placed,
-                   int* __restrict__ left_after,
-                   int* __restrict__ scratch,
-                   int n, int g, int r, int mask_per_group) {
-  extern __shared__ int dyn[];
-  __shared__ int hist[kBins];
-  __shared__ int warp_sums[kWarps];
-  __shared__ int sh_thresh, sh_rem, sh_feasible;
+// floor(v / d) for v in [0, 2^30], d in [1, 2^30], from d's (m, l)
+__device__ __forceinline__ int magic_div(int v, unsigned m, int l) {
+  return l == 0 ? v : (int)(__umulhi((unsigned)v, m) >> (l - 1));
+}
 
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n\t"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// the address of this block's shared word `addr` in cluster block `rank`
+__device__ __forceinline__ unsigned cluster_addr(unsigned addr, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// 16 bytes into another block's shared memory; the bytes count against
+// the transaction count of that block's mbarrier `bar`
+__device__ __forceinline__ void push16(unsigned dst, int4 v, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];"
+      :: "r"(dst), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect(unsigned bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, int parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+template <int kPer, bool kShared>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+assign_scan_kernel(const ScanArgs a) {
+  using Bits = std::conditional_t<(kPer > 32), unsigned long long, unsigned>;
+  extern __shared__ int dyn[];
+  __shared__ __align__(16) int bhist[kBins];
+  // inbox[p][c]: cluster block c's histogram of the step of parity p
+  __shared__ __align__(16) int inbox[2][kMaxCluster][kBins];
+  __shared__ __align__(8) unsigned long long inbox_full[2];
+  __shared__ int sh_thresh, sh_rem, sh_pre, sh_feasible;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int blocks = (int)cluster.num_blocks();
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int per = (n + kThreads - 1) / kThreads;
-  const int stride = per | 1;
-  const size_t row = (size_t)kThreads * stride;
-  const int n0 = min(tid * per, n);
-  const int cnt = min(n0 + per, n) - n0;
+  const int threads = blockDim.x;
+  const int n = a.n, g = a.g, r = a.r, per = a.per;
+  const int b0 = min(rank * a.block_nodes, n);
+  const int b1 = min(b0 + a.block_nodes, n);
+  const int n0 = min(b0 + tid * per, b1);
+  const int cnt = min(n0 + per, b1) - n0;
+  const int lane_slots = per * threads;
+  const int warps = threads / 32;
 
-  int* work = kShared ? dyn : scratch;
-  // this thread's slots: lane k of node n0 + j at left[k * row + j]
-  int* left = work + (size_t)tid * stride;
-  int* capw = left + (size_t)r * row;
+  // dynamic shared memory: rows[(p*r + k)*4 ...], lane k's (request, magic,
+  // shift, -) of the gang of parity p; whist[(p*warps + w)*128 ...], warp
+  // w's histogram of the step of parity p; then the leftover when kShared
+  int* rows = dyn;
+  int* whist = dyn + 8 * r;
+  // this thread's leftover: lane k of node n0 + j at left[k*lane_slots + j*threads]
+  int* left = (kShared ? whist + 2 * warps * kBins
+                       : a.scratch + (size_t)rank * r * lane_slots) + tid;
 
   for (int j = 0; j < cnt; ++j)
     for (int k = 0; k < r; ++k)
-      left[k * row + j] = left0[(size_t)(n0 + j) * r + k];
-  if (tid < kBins) hist[tid] = 0;
-  __syncthreads();
+      left[k * lane_slots + j * threads] = a.left0[(size_t)(n0 + j) * r + k];
+  for (int i = tid; i < kBins; i += threads) bhist[i] = 0;
+  for (int i = tid; i < 2 * warps * kBins; i += threads) whist[i] = 0;
+
+  // the thread that stages one (lane, which) int of a gang's rows: the last
+  // 3R threads, so that warp 0 (phase 2) never waits on these loads
+  const int* row_src = nullptr;
+  int row_k = 0, row_slot = 0;
+  const int rt = threads - 1 - tid;
+  if (rt < 3 * r) {
+    const int which = rt / r;
+    row_k = rt - which * r;
+    row_slot = row_k * 4 + which;
+    row_src = which == 0 ? a.group_req : which == 1 ? a.magic : a.shift;
+  }
+
+  // step 0's gang; an out-of-range order entry is a step with need 0
+  int gi = g > 0 ? __ldg(a.order) : -1;
+  bool ok = (unsigned)gi < (unsigned)g;
+  int ge = ok ? gi : 0;
+  int need = ok ? __ldg(a.remaining + ge) : 0;
+  int gi_next = g > 1 ? __ldg(a.order + 1) : -1;
+  if (row_src != nullptr && g > 0) rows[row_slot] = __ldg(row_src + (size_t)ge * r + row_k);
+  Bits mbits = 0;  // bit j: node n0 + j is in this gang's fit row
+  if (g > 0) {
+    const unsigned char* mrow =
+        a.mask + (a.mask_per_group ? (size_t)ge * n : (size_t)0) + n0;
+    for (int j = 0; j < cnt; ++j) mbits |= (Bits)(__ldg(mrow + j) != 0) << j;
+  }
+  if (tid == 0) {
+    mbar_init(smem_addr(&inbox_full[0]), 1);
+    mbar_init(smem_addr(&inbox_full[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // every block's barriers exist before any block pushes into them
+  cluster_barrier();
 
   for (int s = 0; s < g; ++s) {
-    const int gi = order[s];
-    if (gi < 0 || gi >= g) continue;  // same value in every thread
-    const int need = remaining[gi];
-    const int* req = group_req + (size_t)gi * r;
-    const unsigned char* mrow =
-        mask + (mask_per_group ? (size_t)gi * n : (size_t)0) + n0;
+    const int p = s & 1;
+    const int4* row = reinterpret_cast<const int4*>(rows) + p * r;
 
-    // phase 1: capacity of every owned node, histogram of capc by key
-    int run_key = 0, run_sum = 0;
-    bool single = true;
-    for (int j = 0; j < cnt; ++j) {
-      int cap = kBig;
-      for (int k = 0; k < r; ++k) {
-        const int q = __ldg(req + k);
-        if (q > 0) {
-          const int l = min(max(left[k * row + j], 0), kBig);
-          cap = min(cap, (int)((unsigned)l / (unsigned)min(q, kBig)));
-        }
-      }
-      cap *= (int)mrow[j];
-      capw[j] = cap;
-      const int key = min(cap, kBins - 1);
-      const int capc = min(cap, need);
-      if (j == 0) {
-        run_key = key;
-        run_sum = capc;
-      } else if (key == run_key) {
-        run_sum += capc;
-      } else {
-        atomicAdd(&hist[run_key], run_sum);
-        run_key = key;
-        run_sum = capc;
-        single = false;
+    // phase 1: capacities of the owned nodes, histograms of capc by key
+    int cap[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) cap[j] = (mbits >> j) & 1 ? kBig : 0;
+    // every slot is read, with no branch, so that the loads of all the
+    // thread's nodes are in flight together; a slot past cnt keeps cap 0
+#pragma unroll 4
+    for (int k = 0; k < r; ++k) {
+      const int4 q = row[k];  // request, magic, shift; lanes with no request are skipped
+      const int* lk = left + k * lane_slots;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int v = min(max(lk[min(j, per - 1) * threads], 0), kBig);
+        const int d = magic_div(v, (unsigned)q.y, q.z);
+        cap[j] = q.x > 0 ? min(cap[j], d) : cap[j];
       }
     }
+    int* wh = whist + (p * warps + warp) * kBins;
+    int* bh = bhist;
+    int run_key = 0, run_sum = 0;
+    bool single = true;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      if (j < cnt) {
+        const int key = min(cap[j], kBins - 1);
+        const int capc = min(cap[j], need);
+        if (j == 0) {
+          run_key = key;
+          run_sum = capc;
+        } else if (key == run_key) {
+          run_sum += capc;
+        } else {
+          if (run_sum != 0) {
+            atomicAdd(wh + run_key, run_sum);
+            atomicAdd(bh + run_key, run_sum);
+          }
+          run_key = key;
+          run_sum = capc;
+          single = false;
+        }
+      }
+    }
+    // a warp whose lanes all end on one key adds its warp sum once
     const int lead_key = __shfl_sync(kFull, run_key, 0);
     const int vote = single ? (cnt > 0 ? run_key : lead_key) : kBins + lane;
     int all_same = 0;
     __match_all_sync(kFull, vote, &all_same);
     if (all_same) {
-      int v = cnt > 0 ? run_sum : 0;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-      if (lane == 0) atomicAdd(&hist[vote], v);
-    } else if (cnt > 0) {
-      atomicAdd(&hist[run_key], run_sum);
+      const int v = __reduce_add_sync(kFull, cnt > 0 ? run_sum : 0);
+      if (lane == 0 && v != 0) {
+        atomicAdd(wh + vote, v);
+        atomicAdd(bh + vote, v);
+      }
+    } else if (cnt > 0 && run_sum != 0) {
+      atomicAdd(wh + run_key, run_sum);
+      atomicAdd(bh + run_key, run_sum);
     }
+
     __syncthreads();
 
-    // phase 2: one warp scans the 128 bins and finds the threshold bin
+    // phase 2: warp 0 pushes this block's histogram into every block's
+    // inbox; every block's warp 0 waits for all C of them and finds the
+    // threshold bin (the same integers everywhere, so the same bin)
+    const unsigned full = smem_addr(&inbox_full[p]);
     if (warp == 0) {
-      const int b = lane * 4;
-      const int h0 = hist[b], h1 = hist[b + 1], h2 = hist[b + 2],
-                h3 = hist[b + 3];
-      hist[b] = hist[b + 1] = hist[b + 2] = hist[b + 3] = 0;
-      const int local = h0 + h1 + h2 + h3;
-      const int incl = warp_inclusive_scan(local, lane);
-      const int c0 = incl - local + h0, c1 = c0 + h1, c2 = c1 + h2,
-                c3 = c2 + h3;
-      int below = (c0 < need) + (c1 < need) + (c2 < need) + (c3 < need);
+      int4* mine = reinterpret_cast<int4*>(bhist) + lane;
+      const int4 hv = *mine;
+      *mine = make_int4(0, 0, 0, 0);  // the next step adds after the block barrier below
+      if (lane == 0) mbar_arrive_expect(full, blocks * kBins * 4);
+      const unsigned slot = smem_addr(&inbox[p][rank][lane * 4]);
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        below += __shfl_xor_sync(kFull, below, o);
+      for (int c = 0; c < kMaxCluster; ++c)
+        if (c < blocks) push16(cluster_addr(slot, c), hv, cluster_addr(full, c));
+    }
+    // prefetch step s+1 (and the order entry of s+2) into registers
+    const bool has_next = s + 1 < g;
+    const bool ok_next = has_next && (unsigned)gi_next < (unsigned)g;
+    const int ge_next = ok_next ? gi_next : 0;
+    const int need_next = ok_next ? __ldg(a.remaining + ge_next) : 0;
+    const int gi_after = s + 2 < g ? __ldg(a.order + s + 2) : -1;
+    int row_next = 0;
+    if (row_src != nullptr && has_next)
+      row_next = __ldg(row_src + (size_t)ge_next * r + row_k);
+    unsigned char mask_next[kPer];
+    const bool load_mask = a.mask_per_group && has_next;
+    if (load_mask) {
+      const unsigned char* mrow = a.mask + (size_t)ge_next * n + n0;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) mask_next[j] = j < cnt ? __ldg(mrow + j) : 0;
+    }
+    if (warp == 0) {
+      mbar_wait(full, (s >> 1) & 1);
+      int4 v[kMaxCluster];
+#pragma unroll
+      for (int c = 0; c < kMaxCluster; ++c)
+        v[c] = c < blocks ? reinterpret_cast<const int4*>(inbox[p][c])[lane]
+                          : make_int4(0, 0, 0, 0);
+      int h[4] = {0, 0, 0, 0}, lo[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int c = 0; c < kMaxCluster; ++c) {
+        h[0] += v[c].x; h[1] += v[c].y; h[2] += v[c].z; h[3] += v[c].w;
+        if (c < rank) {
+          lo[0] += v[c].x; lo[1] += v[c].y; lo[2] += v[c].z; lo[3] += v[c].w;
+        }
+      }
+      const int local = h[0] + h[1] + h[2] + h[3];
+      const int incl = warp_inclusive_scan(local, lane);
+      const int c0 = incl - local + h[0], c1 = c0 + h[1], c2 = c1 + h[2],
+                c3 = c2 + h[3];
+      const int below = __reduce_add_sync(
+          kFull, (c0 < need) + (c1 < need) + (c2 < need) + (c3 < need));
       const int thresh = min(below, kBins - 1);
       if (lane == (thresh >> 2)) {
         const int q = thresh & 3;
         const int cum_at = q == 0 ? c0 : q == 1 ? c1 : q == 2 ? c2 : c3;
-        const int tot_at = q == 0 ? h0 : q == 1 ? h1 : q == 2 ? h2 : h3;
+        const int tot_at = q == 0 ? h[0] : q == 1 ? h[1] : q == 2 ? h[2] : h[3];
         sh_thresh = thresh;
         sh_rem = need - (cum_at - tot_at);
+        sh_pre = q == 0 ? lo[0] : q == 1 ? lo[1] : q == 2 ? lo[2] : lo[3];
       }
       const int total = __shfl_sync(kFull, c3, 31);
       if (lane == 0) sh_feasible = total >= need;
     }
+    // every warp's step s-1 histogram was last read before the barrier above
+    reinterpret_cast<int4*>(whist + ((p ^ 1) * warps + warp) * kBins)[lane] =
+        make_int4(0, 0, 0, 0);
+    if (row_src != nullptr && has_next) rows[(p ^ 1) * 4 * r + row_slot] = row_next;
     __syncthreads();
 
     // phase 3: the take, the leftover update and the take row
     const int feasible = sh_feasible;
-    const int thresh = sh_thresh;
-    const int rem_t = sh_rem;
-    if (tid == 0) placed[gi] = (unsigned char)feasible;
-    if (!feasible) continue;  // same value in every thread
-
-    int tsum = 0;
-    for (int j = 0; j < cnt; ++j) {
-      const int cap = capw[j];
-      if (min(cap, kBins - 1) == thresh) tsum += min(cap, need);
-    }
-    const int incl = warp_inclusive_scan(tsum, lane);
-    if (lane == 31) warp_sums[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      const int w = warp_sums[lane];
-      warp_sums[lane] = warp_inclusive_scan(w, lane) - w;
-    }
-    __syncthreads();
-    int prefix = warp_sums[warp] + incl - tsum;
-
-    int* arow = alloc + (size_t)gi * n + n0;
-    for (int j = 0; j < cnt; ++j) {
-      const int cap = capw[j];
-      const int key = min(cap, kBins - 1);
-      const int capc = min(cap, need);
-      int take = 0;
-      if (key < thresh) {
-        take = capc;
-      } else if (key == thresh) {
-        take = min(max(rem_t - prefix, 0), capc);
-        prefix += capc;
-      }
-      if (take != 0) {
-        arow[j] = take;
-        for (int k = 0; k < r; ++k) {
-          const unsigned q = (unsigned)__ldg(req + k);
-          int* cell = left + k * row + j;
-          *cell = (int)((unsigned)*cell - (unsigned)take * q);
+    if (ok && rank == 0 && tid == 0) a.placed[gi] = (unsigned char)feasible;
+    if (feasible) {  // same value in every thread of the cluster
+      const int thresh = sh_thresh;
+      const int rem_t = sh_rem;
+      const int warp_pre = __reduce_add_sync(
+          kFull, lane < warp ? whist[(p * warps + lane) * kBins + thresh] : 0);
+      int tsum = 0;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j)
+        if (j < cnt && min(cap[j], kBins - 1) == thresh) tsum += min(cap[j], need);
+      const int incl = warp_inclusive_scan(tsum, lane);
+      int prefix = sh_pre + warp_pre + incl - tsum;
+      int* arow = a.alloc + (size_t)ge * n + n0;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        if (j < cnt) {
+          const int key = min(cap[j], kBins - 1);
+          const int capc = min(cap[j], need);
+          int take = 0;
+          if (key < thresh) {
+            take = capc;
+          } else if (key == thresh) {
+            take = min(max(rem_t - prefix, 0), capc);
+            prefix += capc;
+          }
+          if (take != 0) {
+            arow[j] = take;
+            for (int k = 0; k < r; ++k) {
+              int* cell = left + k * lane_slots + j * threads;
+              *cell = (int)((unsigned)*cell - (unsigned)take * (unsigned)row[k].x);
+            }
+          }
         }
       }
     }
+
+    gi = gi_next;
+    ok = ok_next;
+    ge = ge_next;
+    need = need_next;
+    gi_next = gi_after;
+    if (load_mask) {
+      mbits = 0;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) mbits |= (Bits)(mask_next[j] != 0) << j;
+    }
   }
 
+  // no block exits while its pushes may be in flight
+  cluster_barrier();
   for (int j = 0; j < cnt; ++j)
     for (int k = 0; k < r; ++k)
-      left_after[(size_t)(n0 + j) * r + k] = left[k * row + j];
+      a.left_after[(size_t)(n0 + j) * r + k] = left[k * lane_slots + j * threads];
+}
+
+using KernelFn = void (*)(const ScanArgs);
+
+// the instantiation for `per` nodes a thread: the next power of two <= 64
+template <int kPer>
+KernelFn kernel_at_least(int per, int shared) {
+  if (per <= kPer) return shared ? assign_scan_kernel<kPer, true> : assign_scan_kernel<kPer, false>;
+  if constexpr (kPer < 64) return kernel_at_least<kPer * 2>(per, shared);
+  return nullptr;
+}
+
+KernelFn kernel_for(int per, int shared) {
+  return per < 1 ? nullptr : kernel_at_least<1>(per, shared);
+}
+
+// the function attributes a launch of `fn` with this shape needs
+cudaError_t configure(KernelFn fn, int cluster_blocks, int shared_bytes) {
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute((const void*)fn,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed,
+                              cluster_blocks > 8 ? 1 : 0);
+}
+
+// one cluster of `cluster_blocks` blocks; `attr` holds the cluster shape
+cudaLaunchConfig_t launch_config(int cluster_blocks, int threads, int shared_bytes,
+                                 cudaStream_t stream, cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster_blocks;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster_blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = shared_bytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory the shared-leftover variant may use on `device`:
-// the per-block opt-in limit less the kernel's static shared memory.
-// Negative on error (minus the CUDA error code).
+// Dynamic shared memory a block may use on `device`: the per-block opt-in
+// limit less the kernel's static shared memory (the same in every
+// instantiation). Negative on error (minus the CUDA error code).
 int bst_assign_scan_shared_budget(int device) {
   int optin = 0;
   cudaError_t e = cudaDeviceGetAttribute(
       &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (e != cudaSuccess) return -(int)e;
   cudaFuncAttributes attr;
-  e = cudaFuncGetAttributes(&attr, assign_scan_kernel<true>);
+  e = cudaFuncGetAttributes(&attr, assign_scan_kernel<1, true>);
   if (e != cudaSuccess) return -(int)e;
   return optin - (int)attr.sharedSizeBytes;
 }
 
-// Launch the scan. `shared_bytes` > 0 selects the shared-leftover variant
-// with that much dynamic shared memory; 0 selects the global-scratch
-// variant, which reads and writes `scratch` ((R+1) * 1024 * stride ints).
+// How many clusters of this shape the current device can hold at once
+// (cudaOccupancyMaxActiveClusters): 0 means the shape cannot be scheduled.
+// Negative on error (minus the CUDA error code).
+int bst_assign_scan_clusters(int cluster_blocks, int threads, int per,
+                             int shared, int shared_bytes) {
+  const KernelFn fn = kernel_for(per, shared);
+  if (fn == nullptr || cluster_blocks < 1 || cluster_blocks > kMaxCluster ||
+      threads < 32 || threads > kMaxThreads)
+    return -(int)cudaErrorInvalidValue;
+  cudaError_t e = configure(fn, cluster_blocks, shared_bytes);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config(cluster_blocks, threads, shared_bytes, nullptr, &attr);
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, (const void*)fn, &cfg);
+  if (e != cudaSuccess) return -(int)e;
+  return clusters;
+}
+
+// Launch the scan as one cluster of `cluster_blocks` blocks of `threads`
+// threads; block b owns nodes [b * block_nodes, (b + 1) * block_nodes) and
+// each thread `per` of them. `shared` selects the leftover in shared
+// memory; otherwise the kernel reads and writes `scratch`
+// (cluster_blocks * R * per * threads ints). `shared_bytes` is the dynamic
+// shared memory: 8R ints of gang rows, 2 * 128 ints a warp of histograms,
+// plus R * per * threads ints of leftover when `shared`. alloc and placed
+// must be zeroed by the caller.
 int bst_assign_scan(const void* left0, const void* group_req,
                     const void* remaining, const void* mask,
-                    const void* order, void* alloc, void* placed,
-                    void* left_after, void* scratch, int n, int g, int r,
-                    int mask_per_group, int shared_bytes, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (shared_bytes > 0) {
-    cudaError_t e = cudaFuncSetAttribute(
-        assign_scan_kernel<true>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
-    if (e != cudaSuccess) return (int)e;
-    assign_scan_kernel<true><<<1, kThreads, shared_bytes, st>>>(
-        (const int*)left0, (const int*)group_req, (const int*)remaining,
-        (const unsigned char*)mask, (const int*)order, (int*)alloc,
-        (unsigned char*)placed, (int*)left_after, nullptr, n, g, r,
-        mask_per_group);
-  } else {
-    assign_scan_kernel<false><<<1, kThreads, 0, st>>>(
-        (const int*)left0, (const int*)group_req, (const int*)remaining,
-        (const unsigned char*)mask, (const int*)order, (int*)alloc,
-        (unsigned char*)placed, (int*)left_after, (int*)scratch, n, g, r,
-        mask_per_group);
-  }
+                    const void* order, const void* magic, const void* shift,
+                    void* alloc, void* placed, void* left_after,
+                    void* scratch, int n, int g, int r, int mask_per_group,
+                    int cluster_blocks, int block_nodes, int threads, int per,
+                    int shared, int shared_bytes, void* stream) {
+  const KernelFn fn = kernel_for(per, shared);
+  if (fn == nullptr || cluster_blocks < 1 || cluster_blocks > kMaxCluster ||
+      threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
+      3 * r > threads || (long long)threads * per < block_nodes ||
+      (!shared && scratch == nullptr) ||
+      shared_bytes < 4 * (8 * r + 8 * threads + (shared ? r * per * threads : 0)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = configure(fn, cluster_blocks, shared_bytes);
+  if (e != cudaSuccess) return (int)e;
+  ScanArgs args{(const int*)left0, (const int*)group_req,
+                (const int*)remaining, (const unsigned char*)mask,
+                (const int*)order, (const int*)magic, (const int*)shift,
+                (int*)alloc, (unsigned char*)placed, (int*)left_after,
+                (int*)scratch, n, g, r, mask_per_group, block_nodes, per};
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(
+      cluster_blocks, threads, shared_bytes, static_cast<cudaStream_t>(stream), &attr);
+  e = cudaLaunchKernelEx(&cfg, fn, args);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

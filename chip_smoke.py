@@ -15,19 +15,27 @@ Phases (one JSON line each; any failure makes the exit code non-zero):
                    -> [G=1024, N=8192, R=5], broadcast mask — through
                    OracleScorer.refresh on cuda; every gang must place.
                    Medians of the host pack, the device batch and the whole
-                   refresh; the kernel alone and the plain scan alone.
+                   refresh; the kernel alone (its cluster size, leftover
+                   placement and time a gang), the same kernel launched at
+                   cluster sizes 1 and 8 beside the device's plan (the
+                   design steps), and the plain scan alone.
 - mixed            seeded numpy at the same scale: 4 node shapes, gangs of
                    1-64 members, some infeasible, ~30% with a node selector
                    ([1024, 8192] mask), some per-node capacities >= 127.
                    Kernel vs plain bit for bit, and the cuda host dict vs the
                    CPU one, in both mask modes (leftover in shared memory).
-- global_leftover  10,000 nodes (bucket 16384) x 256 gangs: the leftover no
-                   longer fits shared memory and lives in global scratch.
+- global_leftover  the same checks on 10,000 nodes (bucket 16384) x 256
+                   gangs, where the serial kernel's leftover fits the
+                   cluster's shared memory (and the wave kernel's, in
+                   mixed_wave, lives in global scratch), and on 150,000
+                   nodes (bucket 262144) x 64 gangs, where the serial
+                   kernel's leftover lives in global scratch.
 - race             the README race scenario through ScheduleOperation on
                    cuda: gang 1 permits all five pods, gang 2 is denied and
                    its retry hits the deny backoff. Every batch of that run
-                   launches the kernel once; kernel vs plain on its last
-                   batch's inputs.
+                   launches the kernel once, as a cluster of one block (the
+                   8-node bucket); kernel vs plain on its last batch's
+                   inputs.
 
 With BST_SCAN_WAVE unset, the four phases above run the serial kernel
 (assign_scan) and never the wave kernel. The wavefront path
@@ -37,11 +45,12 @@ With BST_SCAN_WAVE unset, the four phases above run the serial kernel
                    waves, all uniform, none demoted; the wave kernel once per
                    batch and the serial kernel never; the wave kernel vs the
                    plain serial scan and the plain wavefront (outputs and
-                   per-wave flags); both kernels timed in turns.
+                   per-wave flags); both kernels timed in turns, and the
+                   serial kernel's output held against the plain serial scan.
 - mixed_wave       mixed and global_leftover at W=8 and W=32 in both mask
                    modes (shared and global leftover), and mixed per-group
                    restricted to zone node % 8 == scan position % 8 at W=8
-                   (waves that commit speculatively): kernel vs plain
+                   (waves that commit speculatively): both kernels vs plain
                    everywhere, the cuda host dict and wave telemetry vs the
                    CPU ones, both kernels timed; each branch (uniform
                    commit, speculative commit, demotion) taken at least once.
@@ -78,10 +87,13 @@ PHASES = []  # (name, ok)
 # bench.py's deployment: nodes, gangs of 10 members, and the padded batch
 NORTH_STAR_NODES, NORTH_STAR_GANGS = 5000, 1000
 NORTH_STAR_SHAPE = (1024, 8192, 5)
-# (nodes, gangs, seed, leftover in shared memory) of the mixed and
-# global_leftover inputs
-MIXED = (5000, 1000, 11, True)
-GLOBAL_LEFTOVER = (10000, 256, 12, False)
+# (nodes, gangs, seed) of the mixed and global_leftover inputs, and where
+# each kernel keeps the leftover on them: (serial, wave)
+MIXED = (5000, 1000, 11)
+GLOBAL_LEFTOVER = (10000, 256, 12)
+SERIAL_GLOBAL = (150000, 64, 13)
+LEFTOVER = {MIXED: ("shared", "shared"), GLOBAL_LEFTOVER: ("shared", "global"),
+            SERIAL_GLOBAL: ("global", None)}
 
 
 def emit(obj):
@@ -213,16 +225,25 @@ def max_err(got, want):
     return err, bool(equal)
 
 
-def compare_scan(args):
-    """Kernel vs plain on the same CUDA inputs: (max_abs_err, all_equal)."""
+def compare_scan(args, want=None):
+    """Kernel vs plain on the same CUDA inputs: (max_abs_err, all_equal).
+    ``want`` reuses a plain serial result."""
     import torch
 
     from batch_scheduler_tpu_torch.ops.assign_scan import assign_gangs_cuda, assign_gangs_plain
 
     got = assign_gangs_cuda(*args)
-    want = assign_gangs_plain(*args)
+    if want is None:
+        want = assign_gangs_plain(*args)
     torch.cuda.synchronize()
     return max_err(got, want)
+
+
+def serial_plan(n, r):
+    """The serial kernel's launch plan on device 0, as the wrapper takes it."""
+    from batch_scheduler_tpu_torch.ops.assign_scan import scan_plan
+
+    return scan_plan(n, r, 0)
 
 
 def compare_wave(args, wave, serial=None):
@@ -409,26 +430,62 @@ def north_star(results):
         raise AssertionError(f"{launches} launches in {batches} batches "
                              "(want assign_scan once per batch, assign_wave never)")
     args = scan_inputs(scorer.snapshot.device_args())
-    err, equal = compare_scan(args)
+    plan = serial_plan(*args[0].shape)
+    if plan.cluster_blocks < 2:
+        raise AssertionError(f"north-star plan {plan} is not a cluster")
+    want = assign_gangs_plain(*args)
+    err, equal = compare_scan(args, want)
     if not equal:
         raise AssertionError(f"kernel disagrees with the plain scan (max abs err {err})")
     kernel_ms = cuda_ms(lambda: assign_gangs_cuda(*args), 20)
     kernel_ms2 = cuda_ms(lambda: assign_gangs_cuda(*args), 20)
+    steps = design_steps(args, want, plan)
     plain_ms = cuda_ms(lambda: assign_gangs_plain(*args), 2)
     bound_ms, bound_by, nbytes, ops = scan_bound(*args)
+    ms = min(kernel_ms, kernel_ms2)
+    gangs = args[1].shape[0]
     results["assign_scan"] = {
         "launches": launches["assign_scan"],
         "launches_by_path": {"north_star": launches["assign_scan"]},
         "max_abs_err": err, "matched": equal,
-        "ms": min(kernel_ms, kernel_ms2), "plain_ms": plain_ms,
+        "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
+        "cluster_blocks": plan.cluster_blocks, "leftover": plan.leftover,
+        "us_per_gang": ms * 1e3 / gangs,
     }
     return {
         **report, "launches": launches["assign_scan"],
         "kernel_ms": [kernel_ms, kernel_ms2], "plain_ms": plain_ms,
+        "plan": plan._asdict(), "us_per_gang": ms * 1e3 / gangs,
+        "design_steps": steps,
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "int_ops": ops,
         "kernel_vs_plain_equal": equal,
     }
+
+
+def design_steps(args, want, plan):
+    """The serial kernel on the north-star inputs at cluster sizes 1 and 8
+    beside the device's plan: each launched through the wrapper's launcher
+    (not counted), checked against the plain result and timed, 20 launches
+    in two rounds of alternating sizes."""
+    from batch_scheduler_tpu_torch.ops.assign_scan import _launch_scan, _shared_budget, kernel_plan
+
+    n, r = args[0].shape
+    plans = {c: kernel_plan(n, r, c, _shared_budget(0)) for c in (1, 8)}
+    plans[plan.cluster_blocks] = plan
+    times = {c: [] for c in sorted(plans)}
+    for rnd in range(2):
+        for c in sorted(plans, reverse=bool(rnd)):
+            if rnd == 0:
+                err, equal = max_err(_launch_scan(plans[c], *args), want)
+                if not equal:
+                    raise AssertionError(f"kernel at C={c} disagrees with the plain "
+                                         f"scan (max abs err {err})")
+            times[c].append(cuda_ms(lambda: _launch_scan(plans[c], *args), 20))
+    return [{"cluster_blocks": c, "threads": plans[c].threads,
+             "per_thread": plans[c].per_thread, "leftover": plans[c].leftover,
+             "ms": times[c], "us_per_gang": min(times[c]) * 1e3 / args[1].shape[0]}
+            for c in sorted(plans)]
 
 
 @phase("north_star_wave")
@@ -450,9 +507,14 @@ def north_star_wave(results):
     if got != want:
         raise AssertionError(f"wave telemetry {got} != {want}")
     args = scan_inputs(scorer.snapshot.device_args())
-    err, equal, conflicts, megas = compare_wave(args, wave)
+    serial = assign_gangs_plain(*args)
+    err, equal, conflicts, megas = compare_wave(args, wave, serial)
     if not equal:
         raise AssertionError(f"wave kernel disagrees with the plain scans (max abs err {err})")
+    serial_err, serial_equal = compare_scan(args, serial)
+    if not serial_equal:
+        raise AssertionError(f"serial kernel disagrees with the plain scan "
+                             f"(max abs err {serial_err})")
     # both kernels on the same inputs, in turns: serial, wave, wave, serial
     serial_ms = [cuda_ms(lambda: assign_gangs_cuda(*args), 20)]
     wave_ms = [cuda_ms(lambda: assign_gangs_wave_cuda(*args, wave), 20)]
@@ -460,7 +522,6 @@ def north_star_wave(results):
     serial_ms.append(cuda_ms(lambda: assign_gangs_cuda(*args), 20))
     plain_ms = cuda_ms(
         lambda: assign_gangs_wavefront(*args, wave=wave, with_stats=True), 2)
-    plain_serial_ms = cuda_ms(lambda: assign_gangs_plain(*args), 1)
     bound_ms, bound_by, nbytes, ops = scan_bound(*args, wave=wave)
     results["assign_wave"] = {
         "launches": launches["assign_wave"],
@@ -472,7 +533,7 @@ def north_star_wave(results):
     return {
         **report, "launches": launches["assign_wave"],
         "kernel_ms": wave_ms, "serial_kernel_ms": serial_ms, "plain_ms": plain_ms,
-        "plain_serial_ms": plain_serial_ms,
+        "serial_kernel_vs_plain_equal": serial_equal,
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "int_ops": ops,
         "kernel_vs_plain_equal": equal,
         "kernel_waves": {"waves": len(conflicts), "demoted": int(conflicts.sum()),
@@ -536,17 +597,16 @@ def mixed_batch(num_nodes, num_groups, seed, per_group, zone_by_position=False):
     )
 
 
-def check_mixed(num_nodes, num_groups, seed, want_shared):
-    from batch_scheduler_tpu_torch.ops.assign_scan import _shared_budget, kernel_plan
-
+def check_mixed(num_nodes, num_groups, seed):
+    want_leftover = LEFTOVER[(num_nodes, num_groups, seed)][0]
     out = {}
     for mode, per_group in (("per_group", True), ("broadcast", False)):
         batch_args, progress_args = mixed_batch(num_nodes, num_groups, seed, per_group)
         n, r = batch_args[0].shape
-        shared = kernel_plan(n, r)[0] * 4 <= _shared_budget(0)
-        if shared != want_shared:
-            raise AssertionError(f"leftover in {'shared' if shared else 'global'} memory, "
-                                 f"expected the other path at N={n}, R={r}")
+        plan = serial_plan(n, r)
+        if plan.leftover != want_leftover:
+            raise AssertionError(f"serial kernel plan {plan} at N={n}, R={r}: leftover "
+                                 f"in {plan.leftover} memory, expected {want_leftover}")
         args = scan_inputs(batch_args)
         err, equal = compare_scan(args)
         with scan_wave_env(None):
@@ -564,7 +624,7 @@ def check_mixed(num_nodes, num_groups, seed, want_shared):
         out[mode] = {
             "shape": [int(batch_args[2].shape[0]), int(n), int(r)],
             "mask_rows": int(batch_args[4].shape[0]),
-            "leftover": "shared" if shared else "global",
+            "cluster_blocks": plan.cluster_blocks, "leftover": plan.leftover,
             "kernel_vs_plain_equal": equal, "max_abs_err": err,
             "host_dict_equal": not diff, "placed": placed,
             "infeasible": infeasible, "cap_ge_127_cells": loose,
@@ -579,7 +639,8 @@ def mixed():
 
 @phase("global_leftover")
 def global_leftover():
-    return check_mixed(*GLOBAL_LEFTOVER)
+    return {"bucket_16384": check_mixed(*GLOBAL_LEFTOVER),
+            "bucket_262144": check_mixed(*SERIAL_GLOBAL)}
 
 
 @phase("mixed_wave")
@@ -595,24 +656,27 @@ def mixed_wave(results):
         wave_plan)
 
     inputs = []
-    for name, (nodes, groups, seed, want_shared) in (("mixed", MIXED),
-                                                     ("global_leftover", GLOBAL_LEFTOVER)):
+    for name, cell in (("mixed", MIXED), ("global_leftover", GLOBAL_LEFTOVER)):
         for mode, per_group in (("per_group", True), ("broadcast", False)):
-            inputs.append((f"{name}/{mode}", mixed_batch(nodes, groups, seed, per_group),
-                           (8, 32), want_shared))
+            inputs.append((f"{name}/{mode}", mixed_batch(*cell, per_group), (8, 32),
+                           LEFTOVER[cell][1]))
     inputs.append(("mixed/zone_by_position",
-                   mixed_batch(*MIXED[:3], True, zone_by_position=True), (8,), MIXED[3]))
+                   mixed_batch(*MIXED, True, zone_by_position=True), (8,), LEFTOVER[MIXED][1]))
     branches = {"uniform_commit": 0, "speculative_commit": 0, "demoted": 0}
     runs = []
     matched = True
-    for label, (batch_args, progress_args), waves, want_shared in inputs:
+    for label, (batch_args, progress_args), waves, want_leftover in inputs:
         n, r = batch_args[0].shape
         shared = wave_plan(n, r) * 4 <= _shared_budget(0, "assign_wave")
-        if shared != want_shared:
+        if shared != (want_leftover == "shared"):
             raise AssertionError(f"{label}: leftover in {'shared' if shared else 'global'} "
-                                 f"memory, expected the other path at N={n}, R={r}")
+                                 f"memory, expected {want_leftover} at N={n}, R={r}")
         args = scan_inputs(batch_args)
         serial = assign_gangs_plain(*args)
+        serial_err, serial_equal = compare_scan(args, serial)
+        if not serial_equal:
+            raise AssertionError(f"{label}: serial kernel disagrees with the plain scan "
+                                 f"(max abs err {serial_err})")
         for wave in waves:
             err, equal, conflicts, megas = compare_wave(args, wave, serial)
             with scan_wave_env(wave):
@@ -642,6 +706,7 @@ def mixed_wave(results):
                 "mask_rows": int(batch_args[4].shape[0]),
                 "leftover": "shared" if shared else "global",
                 "kernel_vs_plain_equal": equal, "max_abs_err": err,
+                "serial_kernel_vs_plain_equal": serial_equal,
                 "host_dict_equal": not diff, "waves": len(conflicts), **counts,
                 "placed": int(host["placed"].sum()),
                 "wave_kernel_ms": wave_ms, "serial_kernel_ms": serial_ms,
@@ -722,12 +787,16 @@ def race(results):
             or launches["assign_wave"] != 0:
         raise AssertionError(f"{launches} launches in {batches} batches "
                              "(want assign_scan once per batch, assign_wave never)")
-    err, equal = compare_scan(scan_inputs(op.oracle.snapshot.device_args()))
+    args = scan_inputs(op.oracle.snapshot.device_args())
+    plan = serial_plan(*args[0].shape)
+    if plan.cluster_blocks != 1:
+        raise AssertionError(f"race plan {plan}: the 8-node bucket is one block")
+    err, equal = compare_scan(args)
     if not equal:
         raise AssertionError(f"kernel disagrees with the plain scan (max abs err {err})")
     if "assign_scan" in results:
         results["assign_scan"]["launches_by_path"]["race"] = launches["assign_scan"]
-    return {**report, "launches": launches["assign_scan"],
+    return {**report, "launches": launches["assign_scan"], "plan": plan._asdict(),
             "kernel_vs_plain_equal": equal, "max_abs_err": err}
 
 

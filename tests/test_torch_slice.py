@@ -145,21 +145,66 @@ def _tiny_batch():
     )
 
 
+def _card_scan_cases(rng):
+    """(name, (left, req, remaining, mask, order) as numpy, want C == 1 or
+    the device's largest cluster, want leftover) for the card test."""
+    def rand(n, g, rows):
+        return (rng.integers(0, 2000, size=(n, 5)).astype(np.int32),
+                rng.integers(0, 40, size=(g, 5)).astype(np.int32),
+                rng.integers(0, 300, size=g).astype(np.int32),
+                rng.random((rows, n)) < 0.8, rng.permutation(g).astype(np.int32))
+
+    def one_bin(n, g, rows):
+        # every node holds 4 members: one key, so every warp takes the
+        # aggregated histogram path and a gang of 3,001 fills its threshold
+        # bin across several blocks in node order (the cross-block prefix)
+        # and splits a node; gangs 1 and 2 need nothing, gang 3 can never
+        # fit, and the tail runs out of nodes
+        left = np.tile(np.array([[4000, 16, 8, 4, 10**6]], np.int32), (n, 1))
+        req = np.tile(np.array([[1000, 4, 2, 1, 0]], np.int32), (g, 1))
+        rem = np.full(g, 3001, np.int32)
+        rem[1] = rem[2] = 0
+        rem[3] = 10**6
+        mask = np.ones((rows, n), bool)
+        if rows > 1:
+            mask[4, ::3] = False
+        return left, req, rem, mask, np.arange(g, dtype=np.int32)
+
+    return [
+        ("C=1 broadcast", rand(8, 8, 1), "one", "shared"),
+        ("C=1 per-group", rand(300, 64, 64), "one", "shared"),
+        ("broadcast", rand(5000, 128, 1), "max", "shared"),
+        ("per-group", rand(10000, 32, 32), "max", "shared"),
+        ("one bin broadcast", one_bin(8192, 16, 1), "max", "shared"),
+        ("one bin per-group", one_bin(8192, 16, 16), "max", "shared"),
+        ("global scratch broadcast", rand(262144, 8, 1), "max", "global"),
+        ("global scratch per-group", rand(262144, 8, 8), "max", "global"),
+        ("global scratch one bin", one_bin(262144, 6, 6), "max", "global"),
+    ]
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    from batch_scheduler_tpu_torch.ops.assign_scan import assign_gangs_cuda, assign_gangs_plain
+    from batch_scheduler_tpu_torch.ops.assign_scan import (
+        CLUSTER_SIZES, assign_gangs_cuda, assign_gangs_plain, scan_plan)
 
     rng = np.random.default_rng(3)
-    for n, g, rows in ((8, 8, 1), (300, 64, 64), (5000, 128, 1), (10000, 32, 32)):
-        left = torch.from_numpy(rng.integers(0, 2000, size=(n, 5)).astype(np.int32)).cuda()
-        req = torch.from_numpy(rng.integers(0, 40, size=(g, 5)).astype(np.int32)).cuda()
-        rem = torch.from_numpy(rng.integers(0, 300, size=g).astype(np.int32)).cuda()
-        mask = torch.from_numpy(rng.random((rows, n)) < 0.8).cuda()
-        order = torch.from_numpy(rng.permutation(g).astype(np.int32)).cuda()
-        got = assign_gangs_cuda(left, req, rem, mask, order)
-        want = assign_gangs_plain(left, req, rem, mask, order)
+    largest = scan_plan(8192, 5, torch.cuda.current_device()).cluster_blocks
+    assert largest in CLUSTER_SIZES
+    for name, arrays, want_c, want_leftover in _card_scan_cases(rng):
+        args = [torch.from_numpy(a).cuda() for a in arrays]
+        plan = scan_plan(args[0].shape[0], 5, torch.cuda.current_device())
+        assert plan.cluster_blocks == (1 if want_c == "one" else largest), (name, plan)
+        assert plan.leftover == want_leftover, (name, plan)
+        got = assign_gangs_cuda(*args)
+        want = assign_gangs_plain(*args)
         torch.cuda.synchronize()
-        for a, b in zip(got, want):
-            assert torch.equal(a, b)
+        for field, a, b in zip(("alloc", "placed", "left_after"), got, want):
+            assert torch.equal(a, b), (name, field)
+        if name.startswith("one bin"):
+            placed = want[1].tolist()
+            assert placed[1] and placed[2] and not placed[3], name
+            # gang 0 (scanned first) takes nodes 0..750, the last one split
+            assert want[0][0, :751].tolist() == [4] * 750 + [1], name
