@@ -69,6 +69,9 @@
 // - Each take row is written straight to alloc[order[s]] (only its nonzero
 //   entries: the wrapper hands over an alloc zeroed by torch.zeros, whose
 //   memset the wrapper's time includes).
+// - The step's device functions (capacity pass, histogram add, push,
+//   threshold select, bin prefix, take) are cluster_scan.cuh's, which the
+//   wavefront scan (assign_wave.cu) runs too.
 // - Every step runs the same barriers and exchange in every block: an
 //   out-of-range order entry is a step with need 0 that writes nothing,
 //   and the infeasible case only skips the take, which has no barrier.
@@ -85,15 +88,11 @@
 
 #include <type_traits>
 
+#include "cluster_scan.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kMaxThreads = 1024;
-constexpr int kMaxCluster = 16;
-constexpr int kBins = 128;
-constexpr int kBig = 1 << 30;
-constexpr unsigned kFull = 0xffffffffu;
 
 struct ScanArgs {
   const int* left0;
@@ -109,65 +108,6 @@ struct ScanArgs {
   int* scratch;
   int n, g, r, mask_per_group, block_nodes, per;
 };
-
-__device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int t = __shfl_up_sync(kFull, v, o);
-    if (lane >= o) v += t;
-  }
-  return v;
-}
-
-// floor(v / d) for v in [0, 2^30], d in [1, 2^30], from d's (m, l)
-__device__ __forceinline__ int magic_div(int v, unsigned m, int l) {
-  return l == 0 ? v : (int)(__umulhi((unsigned)v, m) >> (l - 1));
-}
-
-__device__ __forceinline__ void cluster_barrier() {
-  asm volatile(
-      "barrier.cluster.arrive.release;\n\t"
-      "barrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// the address of this block's shared word `addr` in cluster block `rank`
-__device__ __forceinline__ unsigned cluster_addr(unsigned addr, int rank) {
-  unsigned out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
-  return out;
-}
-
-// 16 bytes into another block's shared memory; the bytes count against
-// the transaction count of that block's mbarrier `bar`
-__device__ __forceinline__ void push16(unsigned dst, int4 v, unsigned bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];"
-      :: "r"(dst), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect(unsigned bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned bar, int parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
 
 template <int kPer, bool kShared>
 __global__ void __launch_bounds__(kMaxThreads, 1)
@@ -251,59 +191,8 @@ assign_scan_kernel(const ScanArgs a) {
     int cap[kPer];
 #pragma unroll
     for (int j = 0; j < kPer; ++j) cap[j] = (mbits >> j) & 1 ? kBig : 0;
-    // every slot is read, with no branch, so that the loads of all the
-    // thread's nodes are in flight together; a slot past cnt keeps cap 0
-#pragma unroll 4
-    for (int k = 0; k < r; ++k) {
-      const int4 q = row[k];  // request, magic, shift; lanes with no request are skipped
-      const int* lk = left + k * lane_slots;
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int v = min(max(lk[min(j, per - 1) * threads], 0), kBig);
-        const int d = magic_div(v, (unsigned)q.y, q.z);
-        cap[j] = q.x > 0 ? min(cap[j], d) : cap[j];
-      }
-    }
-    int* wh = whist + (p * warps + warp) * kBins;
-    int* bh = bhist;
-    int run_key = 0, run_sum = 0;
-    bool single = true;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      if (j < cnt) {
-        const int key = min(cap[j], kBins - 1);
-        const int capc = min(cap[j], need);
-        if (j == 0) {
-          run_key = key;
-          run_sum = capc;
-        } else if (key == run_key) {
-          run_sum += capc;
-        } else {
-          if (run_sum != 0) {
-            atomicAdd(wh + run_key, run_sum);
-            atomicAdd(bh + run_key, run_sum);
-          }
-          run_key = key;
-          run_sum = capc;
-          single = false;
-        }
-      }
-    }
-    // a warp whose lanes all end on one key adds its warp sum once
-    const int lead_key = __shfl_sync(kFull, run_key, 0);
-    const int vote = single ? (cnt > 0 ? run_key : lead_key) : kBins + lane;
-    int all_same = 0;
-    __match_all_sync(kFull, vote, &all_same);
-    if (all_same) {
-      const int v = __reduce_add_sync(kFull, cnt > 0 ? run_sum : 0);
-      if (lane == 0 && v != 0) {
-        atomicAdd(wh + vote, v);
-        atomicAdd(bh + vote, v);
-      }
-    } else if (cnt > 0 && run_sum != 0) {
-      atomicAdd(wh + run_key, run_sum);
-      atomicAdd(bh + run_key, run_sum);
-    }
+    node_caps(cap, kPer, row, r, left, lane_slots, threads, per);
+    hist_add(cap, kPer, cnt, need, lane, bhist, whist + (p * warps + warp) * kBins);
 
     __syncthreads();
 
@@ -311,16 +200,9 @@ assign_scan_kernel(const ScanArgs a) {
     // inbox; every block's warp 0 waits for all C of them and finds the
     // threshold bin (the same integers everywhere, so the same bin)
     const unsigned full = smem_addr(&inbox_full[p]);
-    if (warp == 0) {
-      int4* mine = reinterpret_cast<int4*>(bhist) + lane;
-      const int4 hv = *mine;
-      *mine = make_int4(0, 0, 0, 0);  // the next step adds after the block barrier below
-      if (lane == 0) mbar_arrive_expect(full, blocks * kBins * 4);
-      const unsigned slot = smem_addr(&inbox[p][rank][lane * 4]);
-#pragma unroll
-      for (int c = 0; c < kMaxCluster; ++c)
-        if (c < blocks) push16(cluster_addr(slot, c), hv, cluster_addr(full, c));
-    }
+    if (warp == 0)
+      push_hist(bhist, smem_addr(&inbox[p][rank][lane * 4]), full, blocks, lane,
+                blocks * kBins * 4);
     // prefetch step s+1 (and the order entry of s+2) into registers
     const bool has_next = s + 1 < g;
     const bool ok_next = has_next && (unsigned)gi_next < (unsigned)g;
@@ -339,36 +221,14 @@ assign_scan_kernel(const ScanArgs a) {
     }
     if (warp == 0) {
       mbar_wait(full, (s >> 1) & 1);
-      int4 v[kMaxCluster];
-#pragma unroll
-      for (int c = 0; c < kMaxCluster; ++c)
-        v[c] = c < blocks ? reinterpret_cast<const int4*>(inbox[p][c])[lane]
-                          : make_int4(0, 0, 0, 0);
-      int h[4] = {0, 0, 0, 0}, lo[4] = {0, 0, 0, 0};
-#pragma unroll
-      for (int c = 0; c < kMaxCluster; ++c) {
-        h[0] += v[c].x; h[1] += v[c].y; h[2] += v[c].z; h[3] += v[c].w;
-        if (c < rank) {
-          lo[0] += v[c].x; lo[1] += v[c].y; lo[2] += v[c].z; lo[3] += v[c].w;
-        }
+      int h[4], lo[4], c[4];
+      const Sel sel = select_bin(&inbox[p][0][0], kBins, blocks, rank, need, lane, h, lo, c);
+      if (lane == (sel.thresh >> 2)) {
+        sh_thresh = sel.thresh;
+        sh_rem = sel.rem;
+        sh_pre = sel.pre;
       }
-      const int local = h[0] + h[1] + h[2] + h[3];
-      const int incl = warp_inclusive_scan(local, lane);
-      const int c0 = incl - local + h[0], c1 = c0 + h[1], c2 = c1 + h[2],
-                c3 = c2 + h[3];
-      const int below = __reduce_add_sync(
-          kFull, (c0 < need) + (c1 < need) + (c2 < need) + (c3 < need));
-      const int thresh = min(below, kBins - 1);
-      if (lane == (thresh >> 2)) {
-        const int q = thresh & 3;
-        const int cum_at = q == 0 ? c0 : q == 1 ? c1 : q == 2 ? c2 : c3;
-        const int tot_at = q == 0 ? h[0] : q == 1 ? h[1] : q == 2 ? h[2] : h[3];
-        sh_thresh = thresh;
-        sh_rem = need - (cum_at - tot_at);
-        sh_pre = q == 0 ? lo[0] : q == 1 ? lo[1] : q == 2 ? lo[2] : lo[3];
-      }
-      const int total = __shfl_sync(kFull, c3, 31);
-      if (lane == 0) sh_feasible = total >= need;
+      if (lane == 0) sh_feasible = sel.feasible;
     }
     // every warp's step s-1 histogram was last read before the barrier above
     reinterpret_cast<int4*>(whist + ((p ^ 1) * warps + warp) * kBins)[lane] =
@@ -381,37 +241,10 @@ assign_scan_kernel(const ScanArgs a) {
     if (ok && rank == 0 && tid == 0) a.placed[gi] = (unsigned char)feasible;
     if (feasible) {  // same value in every thread of the cluster
       const int thresh = sh_thresh;
-      const int rem_t = sh_rem;
-      const int warp_pre = __reduce_add_sync(
-          kFull, lane < warp ? whist[(p * warps + lane) * kBins + thresh] : 0);
-      int tsum = 0;
-#pragma unroll
-      for (int j = 0; j < kPer; ++j)
-        if (j < cnt && min(cap[j], kBins - 1) == thresh) tsum += min(cap[j], need);
-      const int incl = warp_inclusive_scan(tsum, lane);
-      int prefix = sh_pre + warp_pre + incl - tsum;
-      int* arow = a.alloc + (size_t)ge * n + n0;
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        if (j < cnt) {
-          const int key = min(cap[j], kBins - 1);
-          const int capc = min(cap[j], need);
-          int take = 0;
-          if (key < thresh) {
-            take = capc;
-          } else if (key == thresh) {
-            take = min(max(rem_t - prefix, 0), capc);
-            prefix += capc;
-          }
-          if (take != 0) {
-            arow[j] = take;
-            for (int k = 0; k < r; ++k) {
-              int* cell = left + k * lane_slots + j * threads;
-              *cell = (int)((unsigned)*cell - (unsigned)take * (unsigned)row[k].x);
-            }
-          }
-        }
-      }
+      const int prefix =
+          sh_pre + bin_prefix(cap, kPer, cnt, thresh, need, whist + p * warps * kBins, warp, lane);
+      take_commit(cap, kPer, cnt, need, thresh, sh_rem, prefix, row, r, left, lane_slots,
+                  threads, a.alloc + (size_t)ge * n + n0);
     }
 
     gi = gi_next;
@@ -447,33 +280,6 @@ KernelFn kernel_for(int per, int shared) {
   return per < 1 ? nullptr : kernel_at_least<1>(per, shared);
 }
 
-// the function attributes a launch of `fn` with this shape needs
-cudaError_t configure(KernelFn fn, int cluster_blocks, int shared_bytes) {
-  cudaError_t e = cudaFuncSetAttribute(
-      (const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
-  if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute((const void*)fn,
-                              cudaFuncAttributeNonPortableClusterSizeAllowed,
-                              cluster_blocks > 8 ? 1 : 0);
-}
-
-// one cluster of `cluster_blocks` blocks; `attr` holds the cluster shape
-cudaLaunchConfig_t launch_config(int cluster_blocks, int threads, int shared_bytes,
-                                 cudaStream_t stream, cudaLaunchAttribute* attr) {
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cluster_blocks;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster_blocks);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = shared_bytes;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
 }  // namespace
 
 extern "C" {
@@ -501,7 +307,7 @@ int bst_assign_scan_clusters(int cluster_blocks, int threads, int per,
   if (fn == nullptr || cluster_blocks < 1 || cluster_blocks > kMaxCluster ||
       threads < 32 || threads > kMaxThreads)
     return -(int)cudaErrorInvalidValue;
-  cudaError_t e = configure(fn, cluster_blocks, shared_bytes);
+  cudaError_t e = configure((const void*)fn, cluster_blocks, shared_bytes);
   if (e != cudaSuccess) return -(int)e;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
@@ -534,7 +340,7 @@ int bst_assign_scan(const void* left0, const void* group_req,
       (!shared && scratch == nullptr) ||
       shared_bytes < 4 * (8 * r + 8 * threads + (shared ? r * per * threads : 0)))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = configure(fn, cluster_blocks, shared_bytes);
+  cudaError_t e = configure((const void*)fn, cluster_blocks, shared_bytes);
   if (e != cudaSuccess) return (int)e;
   ScanArgs args{(const int*)left0, (const int*)group_req,
                 (const int*)remaining, (const unsigned char*)mask,

@@ -1,615 +1,671 @@
 // assign_wave.cu — the wavefront greedy gang-placement scan, hand-written
-// for Hopper (sm_90a).
+// for Hopper (sm_90a) as one thread-block cluster.
 //
-// Replaces: batch_scheduler_tpu/ops/pallas_assign.py `_kernel_wave` (reached
-// by `assign_gangs_pallas(..., wave=W)`), the kernel form of ops/oracle.py
-// `assign_gangs_wavefront`. It computes the serial scan's alloc, placed and
-// left_after bit for bit (see assign_scan.cu for the per-gang selection),
-// one wave of W consecutive gangs of the scan order at a time, and writes
-// per-wave flags with the reference's lax definitions:
-//   megas[s]     the wave took the uniform branch (committed or replayed);
-//   conflicts[s] the wave was replayed serially.
-// Three branches per wave, as in the reference:
-//   uniform      every gang of the wave has the same demand row and mask
-//                row, and sum(need) <= (2^31-1)/N: one aggregate
-//                tightest-first fill split at the gang boundaries that
-//                hold when every gang is feasible; if some gang is not
-//                feasible at its assumed boundary, the wave is replayed;
-//   speculative  otherwise every gang selects against the wave-start
-//                leftover; the takes are kept only if every gang's
-//                capacity row is unchanged under the exclusive prefix of
-//                the earlier gangs' takes, else the wave is replayed;
-//   replay       the serial body over the wave's gangs.
-// Positions past G in the last wave are inert (no demand, need 0, masked
-// out), as the reference's padding rows are.
+// Replaces: batch_scheduler_tpu/ops/pallas_assign.py `_kernel_wave` (:104,
+// reached by `assign_gangs_pallas(..., wave=W)`), the kernel form of
+// ops/oracle.py `assign_gangs_wavefront`. It computes the serial scan's
+// alloc, placed and left_after bit for bit (see assign_scan.cu for the
+// per-gang selection), one wave of W consecutive gangs of the scan order
+// at a time, and writes conflicts[s] = 1 for each wave the reference
+// replays serially. megas[s] (the wave takes the uniform branch) depends
+// on the inputs alone: the launch's first kernel (`wave_prepare_kernel`)
+// computes all S flags, and the division numbers, before the scan (plain
+// versions: ops/assign_scan.py `wave_uniform`, `division_magic`).
 //
-// What bounds it on an H100: like the serial kernel it is one persistent
-// block on one of the 132 SMs walking a chain of dependent steps; the
-// bytes it must move would take ~10 us at 3.35 TB/s at the north-star
-// shape. What the wave changes is the chain: a committed wave costs a
-// fixed number of block barriers (about eight) instead of about four per
-// gang. A replayed wave costs the failed attempt on top of the serial
-// steps, so a workload that demotes every wave is slower than the serial
-// kernel.
+// What bounds it on an H100: the chain of S = ceil(G/W) waves. A uniform
+// wave is one exchange of histograms between the cluster's SMs and two
+// block barriers; any other wave is one serial step (one exchange) a gang.
+// The bytes the function must move (~10 us at 3.35 TB/s at the 1024 x
+// 8192 x 5 north-star shape) and its integer operations are far below
+// that chain.
+//
+// How it reaches the serial results and the reference's flags:
+// - uniform wave (every gang has the first gang's request and mask row and
+//   sum(need) * N fits int32): with identical requests, taking t members
+//   off a node drops its capacity by exactly t, so the serial fill is one
+//   stream of member units ordered by (tightness bin, node index); gang j
+//   takes units [A_j, A_j + need_j), A_j the sum of earlier needs. One
+//   histogram exchange gives every block the cluster's 128-bin histogram of
+//   min(cap, total need), hence each boundary's bin and offset, and this
+//   block's prefix in every bin (the lower-ranked blocks' entries). Gang j
+//   is feasible at its boundary iff need_j == 0 or A_{j+1} <= H, H the
+//   stream's length: if H >= A_{j+1} the units after A_j cover need_j
+//   (sum of min(x, c) >= min(sum x, c)); if not, no node's capacity reaches
+//   the total need, so every node's capacity is its stream units and less
+//   than need_j remain. This is the reference's batched feasibility check,
+//   with no second exchange (needs are >= 0, as the packers give them).
+//   Gangs before the first infeasible gang j* sit at their serial
+//   boundaries (by induction), so they are committed, and the wave is
+//   replayed serially from j* (conflicts = 1, as the reference replays the
+//   whole wave).
+// - any other wave: the checked replay. Its gangs run the serial kernel's
+//   cluster step, which also runs the reference's conflict check: is gang
+//   j's capacity row under the serial leftover different from its row
+//   under the wave-start leftover? The reference compares against the
+//   prefix of the wave's speculative takes; up to its first conflicted
+//   gang k those are the serial takes (the induction in the reference's
+//   docstring, oracle.py), so the first row that changes here is k's, and
+//   conflicts = 1 iff some row changed. One flag word a block rides each
+//   step's exchange until a change is known; the steps after it run
+//   unchecked. (A speculative branch on the cluster, as the
+//   reference has, was built and measured: its per-gang capacity passes
+//   and conflict walk cost as much as a serial step, so it gained nothing
+//   on any input and was removed; see PERF.md.)
+// No take is written to alloc before the gang is known to keep it.
 //
 // Design:
-// - The leftover lives in shared memory transposed to [R][N] (each thread
-//   owns a contiguous run of nodes at `tid * stride`, stride odd), or in a
-//   wrapper-allocated global scratch buffer when R rows do not fit. No
-//   capacity row is kept: a wave needs W of them, which do not fit beside
-//   the leftover, so capacities are recomputed from the leftover where
-//   needed (integer division is exact, so recomputing gives the same
-//   value).
-// - The speculative branch batches the W selections: W histograms in
-//   shared memory, filled in one pass without barriers between gangs;
-//   warp j finds gang j's threshold bin; one block scan per gang gives the
-//   threshold-bin prefix. Its takes go straight into alloc[order[p]]. The
-//   conflict check is per node: a thread walks the wave's gangs over its
-//   own nodes with the clamp-accumulated prefix leftover in registers
-//   (lanes in chunks of 8). A wave that is replayed first clears the
-//   entries it wrote.
-// - The uniform branch builds one histogram of min(cap, total need), and
-//   resolves node order within a bucket only for the <= W+1 buckets that
-//   hold a gang boundary: one block scan per distinct boundary bucket.
-// - int32: stream positions stay exact because sum(need) * N < 2^31 on the
-//   uniform branch; the conflict check's prefix subtracts with a clamp at
-//   -2^30, and a committed speculative wave updates the leftover with the
-//   serial kernel's unsigned-wrap subtraction (no clamp can have fired).
-// - Integer atomics only, so the result is deterministic.
+// - The node axis is split over the cluster as in assign_scan.cu (the
+//   wrapper's wave_kernel_plan picks C, threads and nodes a thread). The
+//   leftover, and the checked replay's copy of the wave-start leftover,
+//   live in shared memory transposed to [R][per][threads] when they fit,
+//   else in a global scratch slab per block. Capacities come from the
+//   leftover by exact multiply-shift division (`division_magic`) and stay
+//   in registers across the passes of a uniform wave.
+// - Exchanges are st.async pushes completing the receiver's mbarrier, as
+//   in assign_scan.cu: inboxes and mbarriers double-buffered by round
+//   parity, a block pushing round e + 2 only after it has received every
+//   block's round e + 1, which each block pushes after reading its round-e
+//   inbox. Every block runs every round of every wave (the branch comes
+//   from the precomputed flag); cluster barriers run only before the loop
+//   and after it. Positions past G in the last wave are inert (need 0,
+//   masked out) and run no step.
+// - Prefetch: wave s+1's needs, request/magic/shift rows and flag, and
+//   wave s+2's order entries, are staged into shared memory (double-buffered
+//   by wave parity) by the block's last threads while warp 0 waits on wave
+//   s's first exchange; wave s+1's per-group mask bits are loaded into
+//   registers after that.
+// - Nodes a thread: 1 (every bucket up to 16384 nodes) has its own
+//   instantiation with the per-node loops unrolled; 2 to 64 share one with
+//   runtime loops (local arrays).
+// - The per-gang step's device functions are cluster_scan.cuh's, the
+//   serial kernel's own.
+// - int32: the uniform stream positions stay exact because sum(need) * N
+//   < 2^31; committed takes update the leftover with the serial kernel's
+//   wrapping subtraction. Integer atomics only, so the result is
+//   deterministic.
 //
 // Launch rules: the kernel runs on the caller's stream, allocates nothing,
-// and the C entry point returns cudaGetLastError().
+// and the C entry point returns the launch's CUDA error code.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+#include "cluster_scan.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBins = 128;
-constexpr int kBig = 1 << 30;
-constexpr int kMaxWave = 32;   // one gang per warp in the batched phases
-constexpr int kLaneChunk = 8;  // lanes the conflict check holds in registers
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxWave = 32;
+constexpr int kMaxPer = 64;  // nodes a thread
+// a block's slot in an inbox: 128 bins and one 16-byte word (the checked
+// replay's conflict flag)
+constexpr int kSlot = kBins + 4;
+constexpr int kInbox = kMaxCluster * kSlot;  // ints of one inbox parity
+// stage: gi[32], need[32], flag, pad, the next wave's gi[32]; then rows
+constexpr int kGiNext = 68;
+constexpr int kStageRows = 100;
 
-__device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int t = __shfl_up_sync(kFull, v, o);
-    if (lane >= o) v += t;
-  }
-  return v;
-}
-
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// members of a demand lane q > 0 that fit in leftover lane l
-__device__ __forceinline__ int lane_fit(int l, int q) {
-  return (int)((unsigned)min(max(l, 0), kBig) / (unsigned)min(q, kBig));
-}
-
-struct WaveShared {
-  int hist[kMaxWave][kBins];       // one histogram per gang of the wave
-  int wsum[kMaxWave + 1][kWarps];  // per-warp sums of the block scans
-  int cum_incl[kBins];             // uniform branch: inclusive bin prefix
-  int bin_tot[kBins];
-  int bucket_slot[kBins];          // uniform branch: boundary bucket's slot, -1
-  int gi[kMaxWave];                // group of each wave position, -1 inert
-  int need[kMaxWave];
-  int thresh[kMaxWave];
-  int rem[kMaxWave];
-  int feasible[kMaxWave];
-  int fsum[kMaxWave];
-  int bbkt[kMaxWave + 1];          // bucket of each assumed boundary
-  int boff[kMaxWave + 1];          // boundary less the units below its bucket
-  int slots;
-  int total_need;
-  int uniform;
-};
-
-// One thread's view of the scan: its run of nodes and the shared state.
-struct Thread {
-  WaveShared& sh;
+struct WaveArgs {
+  const int* left0;
   const int* group_req;
+  const int* remaining;
   const unsigned char* mask;
+  const int* order;
+  const int* magic;
+  const int* shift;
+  // [2S] from the prepare kernel: the rows-and-needs test of each wave,
+  // then whether a per-group mask row of the wave differs from the first
+  const unsigned char* uniform;
+  unsigned char* megas;
   int* alloc;
   unsigned char* placed;
-  int* left;  // lane k of own node i at left[k * row + i]
-  size_t row;
-  int n, r, n0, cnt, lane, warp, tid, mask_per_group;
-
-  __device__ int req(int j, int k) const {
-    const int gi = sh.gi[j];
-    return gi < 0 ? 0 : __ldg(group_req + (size_t)gi * r + k);
-  }
-
-  // mask row of wave position j at this thread's first node; null: all 0
-  __device__ const unsigned char* mrow(int j) const {
-    if (!mask_per_group) return mask + n0;
-    const int gi = sh.gi[j];
-    return gi < 0 ? nullptr : mask + (size_t)gi * n + n0;
-  }
-
-  // members of gang j that fit on own node i's live leftover
-  __device__ int cap(int i, int j, const unsigned char* m) const {
-    if (m == nullptr || m[i] == 0) return 0;
-    int c = kBig;
-    for (int k = 0; k < r; ++k) {
-      const int q = req(j, k);
-      if (q > 0) c = min(c, lane_fit(left[k * row + i], q));
-    }
-    return c;
-  }
-
-  // hist[min(cap, 127)] += min(cap, clip) over own nodes for gang j: runs
-  // of equal keys are summed first, and a warp whose lanes all hold one
-  // run of one key adds once
-  __device__ void hist_pass(int j, int clip, int* hist) const {
-    const unsigned char* m = mrow(j);
-    int run_key = 0, run_sum = 0;
-    bool single = true;
-    for (int i = 0; i < cnt; ++i) {
-      const int c = cap(i, j, m);
-      const int key = min(c, kBins - 1);
-      const int capc = min(c, clip);
-      if (i == 0) {
-        run_key = key;
-        run_sum = capc;
-      } else if (key == run_key) {
-        run_sum += capc;
-      } else {
-        atomicAdd(&hist[run_key], run_sum);
-        run_key = key;
-        run_sum = capc;
-        single = false;
-      }
-    }
-    const int lead_key = __shfl_sync(kFull, run_key, 0);
-    const int vote = single ? (cnt > 0 ? run_key : lead_key) : kBins + lane;
-    int all_same = 0;
-    __match_all_sync(kFull, vote, &all_same);
-    if (all_same) {
-      const int v = warp_sum(cnt > 0 ? run_sum : 0);
-      if (lane == 0) atomicAdd(&hist[vote], v);
-    } else if (cnt > 0) {
-      atomicAdd(&hist[run_key], run_sum);
-    }
-  }
-
-  // one warp: gang j's threshold bin, what it still needs there and
-  // whether the gang fits at all; clears the histogram
-  __device__ void threshold(int j, int* hist) const {
-    const int need = sh.need[j];
-    const int b = lane * 4;
-    const int h0 = hist[b], h1 = hist[b + 1], h2 = hist[b + 2], h3 = hist[b + 3];
-    hist[b] = hist[b + 1] = hist[b + 2] = hist[b + 3] = 0;
-    const int local = h0 + h1 + h2 + h3;
-    const int incl = warp_inclusive_scan(local, lane);
-    const int c0 = incl - local + h0, c1 = c0 + h1, c2 = c1 + h2, c3 = c2 + h3;
-    const int below =
-        warp_sum((c0 < need) + (c1 < need) + (c2 < need) + (c3 < need));
-    const int thresh = min(below, kBins - 1);
-    if (lane == (thresh >> 2)) {
-      const int q = thresh & 3;
-      const int cum_at = q == 0 ? c0 : q == 1 ? c1 : q == 2 ? c2 : c3;
-      const int tot_at = q == 0 ? h0 : q == 1 ? h1 : q == 2 ? h2 : h3;
-      sh.thresh[j] = thresh;
-      sh.rem[j] = need - (cum_at - tot_at);
-    }
-    const int total = __shfl_sync(kFull, c3, 31);
-    if (lane == 0) sh.feasible[j] = total >= need;
-  }
-
-  // own nodes' share of gang j's threshold bin
-  __device__ int thresh_sum(int j) const {
-    const unsigned char* m = mrow(j);
-    const int need = sh.need[j], th = sh.thresh[j];
-    int sum = 0;
-    for (int i = 0; i < cnt; ++i) {
-      const int c = cap(i, j, m);
-      if (min(c, kBins - 1) == th) sum += min(c, need);
-    }
-    return sum;
-  }
-
-  // exclusive prefix of v over the block in thread order (row `slot` of wsum)
-  __device__ int block_exclusive_scan(int v, int slot) const {
-    const int incl = warp_inclusive_scan(v, lane);
-    if (lane == 31) sh.wsum[slot][warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      const int w = sh.wsum[slot][lane];
-      sh.wsum[slot][lane] = warp_inclusive_scan(w, lane) - w;
-    }
-    __syncthreads();
-    return sh.wsum[slot][warp] + incl - v;
-  }
-
-  // gang j's take on own nodes into its alloc row (nonzero entries only),
-  // given this thread's threshold-bin prefix; with `update`, the leftover
-  // too (unsigned wrap, as the serial kernel)
-  __device__ void take_pass(int j, int prefix, bool update) const {
-    const unsigned char* m = mrow(j);
-    const int need = sh.need[j], th = sh.thresh[j], rem = sh.rem[j];
-    int* arow = alloc + (size_t)sh.gi[j] * n + n0;
-    for (int i = 0; i < cnt; ++i) {
-      const int c = cap(i, j, m);
-      const int key = min(c, kBins - 1);
-      const int capc = min(c, need);
-      int take = 0;
-      if (key < th) {
-        take = capc;
-      } else if (key == th) {
-        take = min(max(rem - prefix, 0), capc);
-        prefix += capc;
-      }
-      if (take == 0) continue;
-      arow[i] = take;
-      if (update) {
-        for (int k = 0; k < r; ++k) {
-          int* cell = left + k * row + i;
-          *cell = (int)((unsigned)*cell - (unsigned)take * (unsigned)req(j, k));
-        }
-      }
-    }
-  }
-
-  // the serial scan body over the wave's gangs
-  __device__ void replay(int wave) const {
-    for (int j = 0; j < wave; ++j) {
-      const int gi = sh.gi[j];
-      if (gi < 0) continue;  // same value in every thread
-      hist_pass(j, sh.need[j], sh.hist[0]);
-      __syncthreads();
-      if (warp == 0) threshold(j, sh.hist[0]);
-      __syncthreads();
-      if (tid == 0) placed[gi] = (unsigned char)sh.feasible[j];
-      if (!sh.feasible[j]) continue;
-      take_pass(j, block_exclusive_scan(thresh_sum(j), 0), true);
-    }
-  }
-
-  // does any gang's capacity on own node i change under the exclusive
-  // prefix of the wave's earlier speculative takes?
-  __device__ int node_conflict(int i, int wave) const {
-    int cap_start[kMaxWave], cap_pref[kMaxWave], take[kMaxWave];
-    for (int j = 0; j < wave; ++j) {
-      const int gi = sh.gi[j];
-      cap_start[j] = cap_pref[j] = kBig;
-      take[j] = gi < 0 ? 0 : alloc[(size_t)gi * n + n0 + i];
-    }
-    for (int k0 = 0; k0 < r; k0 += kLaneChunk) {
-      int acc[kLaneChunk];
-#pragma unroll
-      for (int kk = 0; kk < kLaneChunk; ++kk)
-        acc[kk] = k0 + kk < r ? left[(k0 + kk) * row + i] : 0;
-      for (int j = 0; j < wave; ++j) {
-#pragma unroll
-        for (int kk = 0; kk < kLaneChunk; ++kk) {
-          if (k0 + kk >= r) continue;
-          const int q = req(j, k0 + kk);
-          if (q <= 0) continue;  // the lane neither limits nor changes
-          cap_start[j] = min(cap_start[j], lane_fit(left[(k0 + kk) * row + i], q));
-          cap_pref[j] = min(cap_pref[j], lane_fit(acc[kk], q));
-          acc[kk] = max(acc[kk] - take[j] * q, -kBig);
-        }
-      }
-    }
-    for (int j = 0; j < wave; ++j) {
-      const unsigned char* m = mrow(j);
-      if (m != nullptr && m[i] != 0 && cap_start[j] != cap_pref[j]) return 1;
-    }
-    return 0;
-  }
-
-  // the speculative branch; false when the wave must be replayed
-  __device__ bool speculative(int wave) const {
-    for (int j = 0; j < wave; ++j) hist_pass(j, sh.need[j], sh.hist[j]);
-    __syncthreads();
-    if (warp < wave) threshold(warp, sh.hist[warp]);
-    __syncthreads();
-    int ex[kMaxWave];  // exclusive prefix within the warp, per gang
-    for (int j = 0; j < wave; ++j) {
-      if (sh.gi[j] < 0 || !sh.feasible[j]) continue;
-      const int v = thresh_sum(j);
-      const int incl = warp_inclusive_scan(v, lane);
-      ex[j] = incl - v;
-      if (lane == 31) sh.wsum[j][warp] = incl;
-    }
-    __syncthreads();
-    if (warp < wave && sh.gi[warp] >= 0 && sh.feasible[warp]) {
-      const int w = sh.wsum[warp][lane];
-      sh.wsum[warp][lane] = warp_inclusive_scan(w, lane) - w;
-    }
-    __syncthreads();
-    for (int j = 0; j < wave; ++j) {
-      if (sh.gi[j] < 0 || !sh.feasible[j]) continue;
-      take_pass(j, sh.wsum[j][warp] + ex[j], false);
-    }
-    // each thread reads back only the alloc entries it wrote itself
-    int conflict = 0;
-    for (int i = 0; i < cnt && !conflict; ++i) conflict = node_conflict(i, wave);
-    if (__syncthreads_or(conflict)) {
-      for (int j = 0; j < wave; ++j) {
-        if (sh.gi[j] < 0 || !sh.feasible[j]) continue;
-        int* arow = alloc + (size_t)sh.gi[j] * n + n0;
-        for (int i = 0; i < cnt; ++i) arow[i] = 0;
-      }
-      return false;
-    }
-    for (int i = 0; i < cnt; ++i) {
-      for (int j = 0; j < wave; ++j) {
-        const int gi = sh.gi[j];
-        if (gi < 0) continue;
-        const int take = alloc[(size_t)gi * n + n0 + i];
-        if (take == 0) continue;
-        for (int k = 0; k < r; ++k) {
-          int* cell = left + k * row + i;
-          *cell = (int)((unsigned)*cell - (unsigned)take * (unsigned)req(j, k));
-        }
-      }
-    }
-    if (tid < wave && sh.gi[tid] >= 0)
-      placed[sh.gi[tid]] = (unsigned char)sh.feasible[tid];
-    return true;
-  }
-
-  // units of a node (bucket `key`, `capc` stream units, `within` units of
-  // its bucket on earlier nodes) inside the first A_j units of the stream
-  __device__ int taken(int j, int key, int capc, int within) const {
-    const int b = sh.bbkt[j];
-    return key < b ? capc : key == b ? min(max(sh.boff[j] - within, 0), capc) : 0;
-  }
-
-  // the uniform branch; false when a gang is infeasible at its assumed
-  // boundary and the wave must be replayed
-  __device__ bool uniform(int wave) const {
-    const int total = sh.total_need;
-    const unsigned char* m = mrow(0);
-    if (tid < kBins) sh.bucket_slot[tid] = -1;
-    hist_pass(0, total, sh.hist[0]);
-    __syncthreads();
-    if (warp == 0) {
-      const int b = lane * 4;
-      const int h0 = sh.hist[0][b], h1 = sh.hist[0][b + 1],
-                h2 = sh.hist[0][b + 2], h3 = sh.hist[0][b + 3];
-      sh.hist[0][b] = sh.hist[0][b + 1] = sh.hist[0][b + 2] = sh.hist[0][b + 3] = 0;
-      const int local = h0 + h1 + h2 + h3;
-      const int c0 = warp_inclusive_scan(local, lane) - local + h0;
-      sh.cum_incl[b] = c0;
-      sh.cum_incl[b + 1] = c0 + h1;
-      sh.cum_incl[b + 2] = c0 + h1 + h2;
-      sh.cum_incl[b + 3] = c0 + h1 + h2 + h3;
-      sh.bin_tot[b] = h0;
-      sh.bin_tot[b + 1] = h1;
-      sh.bin_tot[b + 2] = h2;
-      sh.bin_tot[b + 3] = h3;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      // boundary A_j = sum of earlier needs; its bucket is the number of
-      // bins whose inclusive prefix is <= A_j (kBins when past the end)
-      int bound = 0, b = 0, slots = 0;
-      for (int j = 0; j <= wave; ++j) {
-        if (j > 0) bound += sh.need[j - 1];
-        while (b < kBins && sh.cum_incl[b] <= bound) ++b;
-        const int bb = min(b, kBins - 1);
-        sh.bbkt[j] = b;
-        sh.boff[j] = bound - (sh.cum_incl[bb] - sh.bin_tot[bb]);
-        if (b < kBins && sh.bucket_slot[b] < 0) sh.bucket_slot[b] = slots++;
-        if (j < wave) sh.fsum[j] = 0;
-      }
-      sh.slots = slots;
-    }
-    __syncthreads();
-    const int slots = sh.slots;
-    // this thread's exclusive prefix of each boundary bucket in node order
-    int run[kMaxWave + 1];
-    for (int s = 0; s < slots; ++s) run[s] = 0;
-    for (int i = 0; i < cnt; ++i) {
-      const int c = cap(i, 0, m);
-      const int s = sh.bucket_slot[min(c, kBins - 1)];
-      if (s >= 0) run[s] += min(c, total);
-    }
-    for (int s = 0; s < slots; ++s) {
-      const int v = run[s];
-      const int incl = warp_inclusive_scan(v, lane);
-      run[s] = incl - v;
-      if (lane == 31) sh.wsum[s][warp] = incl;
-    }
-    __syncthreads();
-    for (int s = warp; s < slots; s += kWarps) {
-      const int w = sh.wsum[s][lane];
-      sh.wsum[s][lane] = warp_inclusive_scan(w, lane) - w;
-    }
-    __syncthreads();
-    for (int s = 0; s < slots; ++s) run[s] += sh.wsum[s][warp];
-
-    // every gang feasible at its assumed boundary: the capacity left after
-    // the first A_j units is cap - taken_j
-    {
-      int fs[kMaxWave], cur[kMaxWave + 1];
-      for (int j = 0; j < wave; ++j) fs[j] = 0;
-      for (int s = 0; s < slots; ++s) cur[s] = run[s];
-      for (int i = 0; i < cnt; ++i) {
-        const int c = cap(i, 0, m);
-        const int key = min(c, kBins - 1);
-        const int capc = min(c, total);
-        const int s = sh.bucket_slot[key];
-        const int within = s >= 0 ? cur[s] : 0;
-        for (int j = 0; j < wave; ++j)
-          fs[j] += min(c - taken(j, key, capc, within), sh.need[j]);
-        if (s >= 0) cur[s] += capc;
-      }
-      for (int j = 0; j < wave; ++j) {
-        const int v = warp_sum(fs[j]);
-        if (lane == 0 && v != 0) atomicAdd(&sh.fsum[j], v);
-      }
-    }
-    __syncthreads();
-    for (int j = 0; j < wave; ++j)
-      if (sh.fsum[j] < sh.need[j]) return false;
-
-    // commit: gang j takes the units between boundaries j and j+1
-    for (int i = 0; i < cnt; ++i) {
-      const int c = cap(i, 0, m);
-      const int key = min(c, kBins - 1);
-      const int capc = min(c, total);
-      const int s = sh.bucket_slot[key];
-      const int within = s >= 0 ? run[s] : 0;
-      int prev = taken(0, key, capc, within);
-      for (int j = 0; j < wave; ++j) {
-        const int next = taken(j + 1, key, capc, within);
-        const int gi = sh.gi[j];
-        if (next != prev && gi >= 0) alloc[(size_t)gi * n + n0 + i] = next - prev;
-        prev = next;
-      }
-      if (prev != 0) {
-        for (int k = 0; k < r; ++k) {
-          int* cell = left + k * row + i;
-          *cell = (int)((unsigned)*cell - (unsigned)prev * (unsigned)req(0, k));
-        }
-      }
-      if (s >= 0) run[s] += capc;
-    }
-    if (tid < wave && sh.gi[tid] >= 0) placed[sh.gi[tid]] = 1;
-    return true;
-  }
+  int* left_after;
+  unsigned char* conflicts;
+  int* scratch;
+  int n, g, r, mask_per_group, wave, block_nodes, per;
 };
 
-template <bool kShared>
-__global__ void __launch_bounds__(kThreads, 1)
-assign_wave_kernel(const int* __restrict__ left0,
-                   const int* __restrict__ group_req,
-                   const int* __restrict__ remaining,
-                   const unsigned char* __restrict__ mask,
-                   const int* __restrict__ order,
-                   int* __restrict__ alloc,
-                   unsigned char* __restrict__ placed,
-                   int* __restrict__ left_after,
-                   unsigned char* __restrict__ conflicts,
-                   unsigned char* __restrict__ megas,
-                   int* __restrict__ scratch,
-                   int n, int g, int r, int mask_per_group, int wave) {
-  extern __shared__ int dyn[];
+struct __align__(16) WaveShared {
+  int bh[kBins];             // this block's histogram of the round
+  int cum[kBins];            // uniform: inclusive prefix of the cluster's histogram
+  int cumx[kBins];           // uniform: the same, exclusive
+  int blockpre[kBins];       // uniform: this block's prefix of each bin in the cluster
+  int bbkt[kMaxWave + 1];    // uniform: bin of each boundary (kBins past the end)
+  int boff[kMaxWave + 1];    // uniform: boundary less the units below its bin
+  int slot_bin[kMaxWave + 1];  // uniform: the distinct boundary bins
+  int slots;
+  int limit;                 // uniform: gangs kept before the replay (j*)
+  int flag;                  // checked replay: a capacity row of this block changed
+  int wave_flag;             // checked replay: one changed anywhere in the wave
+  int thresh, rem, pre, feasible;  // serial step
+  unsigned long long full[2];      // mbarriers by round parity
+};
+
+// kPer nodes a thread with the per-node loops unrolled and their values in
+// registers, or kPer = 0: up to kMaxPer nodes a thread in runtime loops
+// (the buckets from 32768 nodes, whose leftover is mostly in global scratch)
+template <int kPer, bool kShared>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+assign_wave_kernel(const WaveArgs a) {
+  constexpr int kArr = kPer > 0 ? kPer : kMaxPer;
+  using Bits = std::conditional_t<(kArr > 32), unsigned long long, unsigned>;
+  extern __shared__ __align__(16) int dyn[];
   __shared__ WaveShared sh;
 
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int blocks = (int)cluster.num_blocks();
   const int tid = threadIdx.x;
-  const int per = (n + kThreads - 1) / kThreads;
-  const int stride = per | 1;
-  const size_t row = (size_t)kThreads * stride;
-  const int n0 = min(tid * per, n);
-  const int cnt = min(n0 + per, n) - n0;
-  int* work = kShared ? dyn : scratch;
-  const Thread t{sh, group_req, mask, alloc, placed,
-                 work + (size_t)tid * stride, row, n, r, n0, cnt,
-                 tid & 31, tid >> 5, tid, mask_per_group};
-
-  for (int i = 0; i < cnt; ++i)
-    for (int k = 0; k < r; ++k)
-      t.left[k * row + i] = left0[(size_t)(n0 + i) * r + k];
-  for (int b = tid; b < kMaxWave * kBins; b += kThreads) (&sh.hist[0][0])[b] = 0;
-  __syncthreads();
-
-  // the uniform branch's stream positions stay exact in int32 only while
-  // sum(need) * N does
-  const long long mega_need_max = 2147483647LL / max(n, 1);
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int threads = blockDim.x;
+  const int warps = threads / 32;
+  const int n = a.n, g = a.g, r = a.r, per = a.per, wave = a.wave;
+  const int b0 = min(rank * a.block_nodes, n);
+  const int b1 = min(b0 + a.block_nodes, n);
+  const int n0 = min(b0 + tid * per, b1);
+  const int cnt = min(n0 + per, b1) - n0;
+  const int np = kPer > 0 ? kPer : cnt;  // the per-node loops' trip count
+  const int lane_slots = per * threads;
   const int steps = (g + wave - 1) / wave;
-  for (int s = 0; s < steps; ++s) {
-    if (tid == 0) {
-      long long total = 0;
+
+  // dynamic shared memory: inbox[2][kInbox]; stage[2][kStageRows + 128 r]
+  // (gi, need, flag, then lane k of position j's (request, magic, shift, -)
+  // at kStageRows + (j r + k) 4); whist[2][warps][128]; then, when kShared,
+  // the leftover and the wave-start leftover, R * per * threads ints each
+  int* inbox = dyn;
+  const int stage_ints = kStageRows + 4 * kMaxWave * r;
+  int* stage_base = inbox + 2 * kInbox;
+  int* whist = stage_base + 2 * stage_ints;
+  // lane k of node n0 + j at left[k * lane_slots + j * threads]
+  int* left = (kShared ? whist + 2 * warps * kBins
+                       : a.scratch + (size_t)rank * 2 * r * lane_slots) + tid;
+  int* wave_left = left + r * lane_slots;  // the checked replay's wave-start leftover
+
+  for (int j = 0; j < cnt; ++j)
+    for (int k = 0; k < r; ++k)
+      left[k * lane_slots + j * threads] = a.left0[(size_t)(n0 + j) * r + k];
+  for (int i = tid; i < kBins; i += threads) sh.bh[i] = 0;
+  for (int i = tid; i < 2 * warps * kBins; i += threads) whist[i] = 0;
+  Bits m0 = 0;  // broadcast mask: bit j, node n0 + j is in the fit row
+  if (!a.mask_per_group)
+    for (int j = 0; j < cnt; ++j) m0 |= (Bits)(__ldg(a.mask + n0 + j) != 0) << j;
+
+  // wave t + 1's gang indices (-1 inert), validated, into `dst`
+  auto stage_order = [&](int t, int* dst, int j) {
+    const int pos = (t + 1) * wave + j;
+    const int gi = pos < g ? __ldg(a.order + pos) : -1;
+    dst[j] = (unsigned)gi < (unsigned)g ? gi : -1;
+  };
+  // wave t's gang indices, needs, flag and rows into stage parity t & 1,
+  // by the block's last threads: the indices were staged with wave t - 1,
+  // so each entry is one global load; wave t + 1's indices come along
+  auto stage = [&](int t) {
+    int* st = stage_base + (t & 1) * stage_ints;
+    const int* gis = stage_base + ((t - 1) & 1) * stage_ints + kGiNext;
+    const int per_pos = 3 + 3 * r;
+    const int total = wave * per_pos + 1;
+    for (int q = threads - 1 - tid; q < total; q += threads) {
+      if (q == wave * per_pos) {
+        st[2 * kMaxWave] = a.uniform[t] && !a.uniform[steps + t];
+        continue;
+      }
+      const int j = q / per_pos, f = q - j * per_pos;
+      const int gi = gis[j];
+      if (f == 0) {
+        st[j] = gi;
+      } else if (f == 1) {
+        st[kMaxWave + j] = gi >= 0 ? __ldg(a.remaining + gi) : 0;
+      } else if (f == 2) {
+        stage_order(t, st + kGiNext, j);
+      } else {
+        const int which = (f - 3) / r, k = f - 3 - which * r;
+        const int* src = which == 0 ? a.group_req : which == 1 ? a.magic : a.shift;
+        st[kStageRows + (j * r + k) * 4 + which] = gi >= 0 ? __ldg(src + (size_t)gi * r + k) : 0;
+      }
+    }
+  };
+
+  // bit j of mw[i]: node n0 + i is in the fit row of wave position j
+  auto mask_bits = [&](const int* st, unsigned (&mw)[kArr]) {
+    if (a.mask_per_group) {
+#pragma unroll
+      for (int i = 0; i < np; ++i) mw[i] = 0;
       for (int j = 0; j < wave; ++j) {
-        const int p = s * wave + j;
-        int gi = p < g ? order[p] : -1;
-        if (gi >= g) gi = -1;
-        sh.gi[j] = gi;
-        sh.need[j] = gi >= 0 ? remaining[gi] : 0;
-        total += sh.need[j];
+        const int gi = st[j];
+        if (gi < 0) continue;
+        const unsigned char* mr = a.mask + (size_t)gi * n + n0;
+#pragma unroll
+        for (int i = 0; i < np; ++i)
+          if (i < cnt) mw[i] |= (unsigned)(__ldg(mr + i) != 0) << j;
       }
-      int same = 1;
-      for (int j = 1; j < wave && same; ++j)
-        for (int k = 0; k < r; ++k) same &= t.req(j, k) == t.req(0, k);
-      sh.total_need = (int)min(total, 2147483647LL);
-      sh.uniform = same && total <= mega_need_max;
+    } else {
+      unsigned valid = 0;
+      for (int j = 0; j < wave; ++j) valid |= (unsigned)(st[j] >= 0) << j;
+#pragma unroll
+      for (int i = 0; i < np; ++i) mw[i] = (m0 >> i) & 1 ? valid : 0u;
     }
+  };
+
+  // members of wave position j that fit on each own node of leftover slab
+  // `src` (cluster_scan.cuh's capacity pass)
+  auto caps = [&](const int* src, const int4* rows, int j, const unsigned (&mw)[kArr],
+                  int (&cap)[kArr]) {
+#pragma unroll
+    for (int i = 0; i < np; ++i) cap[i] = (mw[i] >> j) & 1 ? kBig : 0;
+    node_caps(cap, np, rows + j * r, r, src, lane_slots, threads, per);
+  };
+
+  int e = 0;   // exchange rounds so far: round e uses inbox and mbarrier e & 1
+  int hs = 0;  // histogram rounds so far: they use the per-warp histograms hs & 1
+  auto inbox_of = [&](int round) { return inbox + (round & 1) * kInbox; };
+  auto full_of = [&](int round) { return smem_addr(&sh.full[round & 1]); };
+  auto phase_of = [&](int round) { return (round >> 1) & 1; };
+
+  // warp 0: push sh.bh into every block's inbox (slot `rank`) and wait
+  // for all of them; clears sh.bh. With `check` (the same in every
+  // block), this block's conflict flag rides along: sh.flag is cleared and
+  // the cluster's flags are ORed into sh.wave_flag
+  auto exchange_hist = [&](bool check) {
+    const unsigned full = full_of(e);
+    const unsigned slot = smem_addr(inbox_of(e) + rank * kSlot + lane * 4);
+    push_hist(sh.bh, slot, full, blocks, lane, blocks * (check ? kSlot : kBins) * 4);
+    if (check && lane == 0) {
+      const int4 flag = make_int4(sh.flag, 0, 0, 0);
+      sh.flag = 0;
+#pragma unroll
+      for (int c = 0; c < kMaxCluster; ++c)
+        if (c < blocks) push16(cluster_addr(slot + kBins * 4, c), flag, cluster_addr(full, c));
+    }
+    mbar_wait(full, phase_of(e));
+    if (check &&
+        __any_sync(kFull, lane < blocks && inbox_of(e)[lane * kSlot + kBins] != 0) &&
+        lane == 0)
+      sh.wave_flag = 1;
+  };
+
+  // the serial scan's step (cluster_scan.cuh) for wave position j against
+  // the live leftover
+  int cap[kArr];
+  // with `check`, it also runs the reference's conflict check for the gang:
+  // does its capacity row under the live (serial) leftover differ from the
+  // one under the wave-start leftover kept in wave_left?
+  auto serial_step = [&](const int* st, const unsigned (&mw)[kArr], int j, bool check) {
+    const int4* rows = reinterpret_cast<const int4*>(st + kStageRows);
+    const int need = st[kMaxWave + j];
+    caps(left, rows, j, mw, cap);
+    if (check) {
+      int start[kArr];
+      caps(wave_left, rows, j, mw, start);
+      bool differs = false;
+#pragma unroll
+      for (int i = 0; i < np; ++i) differs |= i < cnt && cap[i] != start[i];
+      if (differs) sh.flag = 1;
+    }
+    int* wh_cur = whist + ((hs & 1) * warps) * kBins;
+    hist_add(cap, np, cnt, need, lane, sh.bh, wh_cur + warp * kBins);
     __syncthreads();
-    int uniform = sh.uniform;
-    if (uniform && mask_per_group) {
-      const unsigned char* m0 = t.mrow(0);
-      int differs = 0;
-      for (int j = 1; j < wave; ++j) {
-        const unsigned char* mj = t.mrow(j);
-        for (int i = 0; i < cnt; ++i)
-          differs |= (mj ? mj[i] : 0) != (m0 ? m0[i] : 0);
+    if (warp == 0) {
+      exchange_hist(check);
+      int h[4], lo[4], c[4];
+      const Sel sel = select_bin(inbox_of(e), kSlot, blocks, rank, need, lane, h, lo, c);
+      if (lane == (sel.thresh >> 2)) {
+        sh.thresh = sel.thresh;
+        sh.rem = sel.rem;
+        sh.pre = sel.pre;
       }
-      uniform = !__syncthreads_or(differs);
+      if (lane == 0) sh.feasible = sel.feasible;
     }
-    const bool committed = uniform ? t.uniform(wave) : t.speculative(wave);
-    if (!committed) t.replay(wave);
-    if (tid == 0) {
-      conflicts[s] = (unsigned char)!committed;
-      megas[s] = (unsigned char)(uniform != 0);
-    }
+    reinterpret_cast<int4*>(whist + (((hs + 1) & 1) * warps + warp) * kBins)[lane] =
+        make_int4(0, 0, 0, 0);
     __syncthreads();
+    ++e;
+    ++hs;
+    const int feasible = sh.feasible;
+    const int gi = st[j];
+    if (rank == 0 && tid == 0 && gi >= 0) a.placed[gi] = (unsigned char)feasible;
+    if (feasible && gi >= 0) {  // same values in every thread of the cluster
+      const int th = sh.thresh;
+      const int prefix = sh.pre + bin_prefix(cap, np, cnt, th, need, wh_cur, warp, lane);
+      take_commit(cap, np, cnt, need, th, sh.rem, prefix, rows + j * r, r, left, lane_slots,
+                  threads, a.alloc + (size_t)gi * n + n0);
+    }
+  };
+
+  // wave 0's indices where stage(0) reads them (parity 1), then wave 0
+  if (tid < wave) stage_order(-1, stage_base + stage_ints + kGiNext, tid);
+  __syncthreads();
+  if (steps > 0) stage(0);
+  if (tid == 0) {
+    mbar_init(smem_addr(&sh.full[0]), 1);
+    mbar_init(smem_addr(&sh.full[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    sh.flag = 0;
+  }
+  __syncthreads();
+  // every block's barriers exist before any block pushes into them
+  cluster_barrier();
+  unsigned mw_next[kArr];
+  if (steps > 0) mask_bits(stage_base, mw_next);
+
+  for (int s = 0; s < steps; ++s) {
+    const int* st = stage_base + (s & 1) * stage_ints;
+    const int4* rows = reinterpret_cast<const int4*>(st + kStageRows);
+    unsigned mw[kArr];
+#pragma unroll
+    for (int i = 0; i < np; ++i) mw[i] = mw_next[i];
+    const bool has_next = s + 1 < steps;
+    // between a wave's first two block barriers: stage the next wave;
+    // after the second: load its mask bits
+    auto after_b2 = [&]() {
+      if (has_next) mask_bits(stage_base + ((s + 1) & 1) * stage_ints, mw_next);
+    };
+    int keep;  // gangs the wave's branch placed; the rest are replayed
+    bool conflicted;  // the wave's conflicts flag
+
+    if (st[2 * kMaxWave]) {
+      // ---- uniform: one exchange of the histogram of min(cap, total need)
+      int total = 0;
+      for (int j = 0; j < wave; ++j) total += st[kMaxWave + j];
+      caps(left, rows, 0, mw, cap);
+      int* wh_cur = whist + ((hs & 1) * warps) * kBins;
+      hist_add(cap, np, cnt, total, lane, sh.bh, wh_cur + warp * kBins);
+      __syncthreads();
+      if (has_next && warp != 0) stage(s + 1);
+      if (warp == 0) {
+        exchange_hist(false);
+        int h[4], lo[4], c[4];
+        select_bin(inbox_of(e), kSlot, blocks, rank, 0, lane, h, lo, c);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          sh.cum[lane * 4 + i] = c[i];
+          sh.cumx[lane * 4 + i] = c[i] - h[i];
+          sh.blockpre[lane * 4 + i] = lo[i];
+        }
+        const int stream = __shfl_sync(kFull, c[3], 31);  // H, the stream's length
+        __syncwarp();
+        // boundary A_j = sum of earlier needs: its bin is the number of
+        // bins whose inclusive prefix is <= A_j (kBins past the end)
+        const int need = lane < wave ? st[kMaxWave + lane] : 0;
+        const int incl = warp_inclusive_scan(need, lane);
+        const int total_all = __shfl_sync(kFull, incl, 31);
+        const unsigned bad = __ballot_sync(kFull, lane < wave && need > 0 && incl > stream);
+        const int jstar = bad ? __ffs(bad) - 1 : wave;
+        int bin_lane = kBins;
+        for (int j = lane; j <= wave; j += 32) {
+          const int bound = j == 32 ? total_all : incl - need;
+          int lo_b = 0, hi_b = kBins;
+          while (lo_b < hi_b) {
+            const int mid = (lo_b + hi_b) >> 1;
+            if (sh.cum[mid] <= bound) lo_b = mid + 1;
+            else hi_b = mid;
+          }
+          sh.bbkt[j] = lo_b;
+          sh.boff[j] = bound - sh.cumx[min(lo_b, kBins - 1)];
+          if (j < 32) bin_lane = lo_b;
+        }
+        // the distinct boundary bins up to j* (boundaries are sorted)
+        const int prev = __shfl_up_sync(kFull, bin_lane, 1);
+        const bool first =
+            lane <= jstar && bin_lane < kBins && (lane == 0 || prev != bin_lane);
+        const unsigned firsts = __ballot_sync(kFull, first);
+        if (first) sh.slot_bin[__popc(firsts & ((1u << lane) - 1))] = bin_lane;
+        __syncwarp();
+        if (lane == 0) {
+          int slots = __popc(firsts);
+          if (jstar == 32 && sh.bbkt[32] < kBins && sh.bbkt[32] != sh.bbkt[31])
+            sh.slot_bin[slots++] = sh.bbkt[32];
+          sh.slots = slots;
+          sh.limit = jstar;
+        }
+        if (has_next) stage(s + 1);
+      }
+      reinterpret_cast<int4*>(whist + (((hs + 1) & 1) * warps + warp) * kBins)[lane] =
+          make_int4(0, 0, 0, 0);
+      __syncthreads();
+      ++e;
+      ++hs;
+      after_b2();
+      keep = sh.limit;
+      // each own node's units in its bin on earlier nodes of the cluster,
+      // for the nodes in a boundary bin
+      int within[kArr];
+#pragma unroll
+      for (int i = 0; i < np; ++i) within[i] = 0;
+      const int slots = sh.slots;
+      for (int q = 0; q < slots; ++q) {
+        const int b = sh.slot_bin[q];
+        int run = sh.blockpre[b] + bin_prefix(cap, np, cnt, b, total, wh_cur, warp, lane);
+#pragma unroll
+        for (int i = 0; i < np; ++i) {
+          if (i < cnt && min(cap[i], kBins - 1) == b) {
+            within[i] = run;
+            run += min(cap[i], total);
+          }
+        }
+      }
+      // gang j takes the units between boundaries j and j+1
+#pragma unroll
+      for (int i = 0; i < np; ++i) {
+        if (i >= cnt) continue;
+        const int key = min(cap[i], kBins - 1);
+        const int capc = min(cap[i], total);
+        auto taken = [&](int j) {
+          const int b = sh.bbkt[j];
+          return key < b ? capc : key == b ? min(max(sh.boff[j] - within[i], 0), capc) : 0;
+        };
+        int prev = taken(0);
+        for (int j = 0; j < keep; ++j) {
+          const int next = taken(j + 1);
+          const int gi = st[j];
+          if (next != prev && gi >= 0) a.alloc[(size_t)gi * n + n0 + i] = next - prev;
+          prev = next;
+        }
+        if (prev != 0) {
+          for (int k = 0; k < r; ++k) {
+            int* cell = left + k * lane_slots + i * threads;
+            *cell = (int)((unsigned)*cell - (unsigned)prev * (unsigned)rows[k].x);
+          }
+        }
+      }
+      if (rank == 0 && tid < keep && st[tid] >= 0) a.placed[st[tid]] = 1;
+      conflicted = keep < wave;
+    } else {
+      // ---- checked replay: serial steps that also run the conflict check;
+      // the first gang whose row changes is the reference's first conflict
+      for (int i = 0; i < cnt; ++i)
+        for (int k = 0; k < r; ++k)
+          wave_left[k * lane_slots + i * threads] = left[k * lane_slots + i * threads];
+      __syncthreads();  // every thread is past wave s - 1 and its stage
+      if (tid == 0) sh.wave_flag = 0;
+      if (has_next) stage(s + 1);
+      __syncthreads();
+      after_b2();
+      // once a row has changed anywhere (known to every block after that
+      // step's exchange) the flag is 1, and the rest run unchecked
+      for (int j = 0; j < wave; ++j)
+        if (st[j] >= 0) serial_step(st, mw, j, sh.wave_flag == 0);
+      keep = wave;
+      conflicted = sh.wave_flag != 0;
+    }
+
+    // ---- a uniform wave's replay from its first infeasible gang
+    for (int j = keep; j < wave; ++j)
+      if (st[j] >= 0) serial_step(st, mw, j, false);  // the same value in every block
+    if (rank == 0 && tid == 0) {
+      a.conflicts[s] = (unsigned char)conflicted;
+      a.megas[s] = (unsigned char)(st[2 * kMaxWave] != 0);
+    }
   }
 
-  for (int i = 0; i < cnt; ++i)
+  // no block exits while its pushes may be in flight
+  cluster_barrier();
+  for (int j = 0; j < cnt; ++j)
     for (int k = 0; k < r; ++k)
-      left_after[(size_t)(n0 + i) * r + k] = t.left[k * row + i];
+      a.left_after[(size_t)(n0 + j) * r + k] = left[k * lane_slots + j * threads];
+}
+
+// The launch's first kernel: the multiply-shift numbers of every [G,R]
+// request (ops/assign_scan.py `division_magic`) and the two halves of the
+// uniform flags (`wave_uniform`): uniform[s] = every position's request row
+// equals the first position's and the needs sum to at most (2^31 - 1) / N,
+// uniform[S + s] = 1 when a per-group mask row of wave s differs from its
+// first position's (zeroed by the caller). Inert positions have a zero
+// row, need 0 and no mask. Block p compares scan position p's mask row.
+__global__ void __launch_bounds__(256)
+wave_prepare_kernel(const WaveArgs a, int* magic, int* shift, unsigned char* uniform) {
+  const int g = a.g, r = a.r, n = a.n, wave = a.wave;
+  const int steps = (g + wave - 1) / wave;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < g * r; i += gridDim.x * blockDim.x) {
+    const int d = min(max(a.group_req[i], 1), kBig);
+    const int l = 32 - __clz(d - 1);  // ceil(log2 d)
+    const unsigned long long m = (1ull << (31 + l)) / (unsigned)d + 1;
+    magic[i] = (int)(unsigned)m;
+    shift[i] = l;
+  }
+  auto index = [&](int pos) {
+    const int gi = pos < g ? a.order[pos] : -1;
+    return (unsigned)gi < (unsigned)g ? gi : -1;
+  };
+  if (a.mask_per_group) {
+    for (int p = blockIdx.x; p < steps * wave; p += gridDim.x) {
+      const int s = p / wave;
+      if (p == s * wave) continue;
+      const int gj = index(p), g0 = index(s * wave);
+      bool differs = false;
+      for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const bool b = gj >= 0 && a.mask[(size_t)gj * n + i] != 0;
+        const bool b0 = g0 >= 0 && a.mask[(size_t)g0 * n + i] != 0;
+        differs |= b != b0;
+      }
+      if (__syncthreads_or(differs) && threadIdx.x == 0) uniform[steps + s] = 1;
+    }
+  }
+  // one warp a wave: rows and needs
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * (blockDim.x / 32);
+  for (int s = blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5); s < steps; s += warps) {
+    const int g0 = index(s * wave);
+    bool same = true;
+    long long total = 0;
+    for (int j = lane; j < wave; j += 32) {
+      const int gj = index(s * wave + j);
+      if (gj >= 0) total += a.remaining[gj];
+      for (int k = 0; k < r; ++k) {
+        const int v = gj >= 0 ? a.group_req[(size_t)gj * r + k] : 0;
+        const int v0 = g0 >= 0 ? a.group_req[(size_t)g0 * r + k] : 0;
+        same &= v == v0;
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) total += __shfl_xor_sync(kFull, total, o);
+    same = __all_sync(kFull, same);
+    if (lane == 0)
+      uniform[s] = (unsigned char)(same && total <= 2147483647LL / max(n, 1));
+  }
+}
+
+using KernelFn = void (*)(const WaveArgs);
+
+template <int kPer>
+KernelFn instance(int shared) {
+  return shared ? assign_wave_kernel<kPer, true> : assign_wave_kernel<kPer, false>;
+}
+
+// the instantiation for `per` nodes a thread: unrolled for 1, the runtime
+// loops up to 64
+KernelFn kernel_for(int per, int shared) {
+  if (per < 1 || per > kMaxPer) return nullptr;
+  return per == 1 ? instance<1>(shared) : instance<0>(shared);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory the shared-leftover variant may use on `device`:
-// the per-block opt-in limit less the kernel's static shared memory.
-// Negative on error (minus the CUDA error code).
+// Dynamic shared memory a block may use on `device`: the per-block opt-in
+// limit less the kernel's static shared memory (the same in every
+// instantiation). Negative on error (minus the CUDA error code).
 int bst_assign_wave_shared_budget(int device) {
   int optin = 0;
   cudaError_t e = cudaDeviceGetAttribute(
       &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (e != cudaSuccess) return -(int)e;
   cudaFuncAttributes attr;
-  e = cudaFuncGetAttributes(&attr, assign_wave_kernel<true>);
+  e = cudaFuncGetAttributes(&attr, assign_wave_kernel<1, true>);
   if (e != cudaSuccess) return -(int)e;
   return optin - (int)attr.sharedSizeBytes;
 }
 
-// Launch the wavefront scan at width `wave` (1..32). `shared_bytes` > 0
-// selects the shared-leftover variant with that much dynamic shared
-// memory; 0 selects the global-scratch variant, which reads and writes
-// `scratch` (R * 1024 * stride ints). alloc, placed, conflicts and megas
-// must be zeroed by the caller.
-int bst_assign_wave(const void* left0, const void* group_req,
-                    const void* remaining, const void* mask,
-                    const void* order, void* alloc, void* placed,
-                    void* left_after, void* conflicts, void* megas,
-                    void* scratch, int n, int g, int r, int mask_per_group,
-                    int wave, int shared_bytes, void* stream) {
-  if (wave < 1 || wave > kMaxWave) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (shared_bytes > 0) {
-    cudaError_t e = cudaFuncSetAttribute(
-        assign_wave_kernel<true>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
-    if (e != cudaSuccess) return (int)e;
-    assign_wave_kernel<true><<<1, kThreads, shared_bytes, st>>>(
-        (const int*)left0, (const int*)group_req, (const int*)remaining,
-        (const unsigned char*)mask, (const int*)order, (int*)alloc,
-        (unsigned char*)placed, (int*)left_after, (unsigned char*)conflicts,
-        (unsigned char*)megas, nullptr, n, g, r, mask_per_group, wave);
-  } else {
-    assign_wave_kernel<false><<<1, kThreads, 0, st>>>(
-        (const int*)left0, (const int*)group_req, (const int*)remaining,
-        (const unsigned char*)mask, (const int*)order, (int*)alloc,
-        (unsigned char*)placed, (int*)left_after, (unsigned char*)conflicts,
-        (unsigned char*)megas, (int*)scratch, n, g, r, mask_per_group, wave);
-  }
+// How many clusters of this shape the current device can hold at once
+// (cudaOccupancyMaxActiveClusters): 0 means the shape cannot be scheduled.
+// Negative on error (minus the CUDA error code).
+int bst_assign_wave_clusters(int cluster_blocks, int threads, int per, int shared,
+                             int shared_bytes) {
+  const KernelFn fn = kernel_for(per, shared);
+  if (fn == nullptr || cluster_blocks < 1 || cluster_blocks > kMaxCluster ||
+      threads < 32 || threads > kMaxThreads)
+    return -(int)cudaErrorInvalidValue;
+  cudaError_t e = configure((const void*)fn, cluster_blocks, shared_bytes);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config(cluster_blocks, threads, shared_bytes, nullptr, &attr);
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, (const void*)fn, &cfg);
+  if (e != cudaSuccess) return -(int)e;
+  return clusters;
+}
+
+// Launch the wavefront scan at width `wave` (1..32): first the prepare
+// kernel, which writes `magic` and `shift` ([G,R] int32) and `uniform`
+// (2S bytes, which the caller zeroes), then the scan as one cluster of
+// `cluster_blocks` blocks of `threads` threads, which writes `megas` (the
+// S uniform flags) and `conflicts`. Block b owns nodes
+// [b * block_nodes, (b + 1) * block_nodes) and each thread `per` of them.
+// `shared` selects the leftover and wave-start leftover in shared memory;
+// otherwise the kernel reads and writes `scratch` (cluster_blocks * 2 * R
+// * per * threads ints). `shared_bytes` is the dynamic shared memory: two
+// inboxes of 16 * 132 ints, two stages of 100 + 128 R ints, two 128-bin
+// histograms a warp, plus 2 * R * per * threads ints when `shared`. alloc
+// and placed must be zeroed by the caller.
+int bst_assign_wave(const void* left0, const void* group_req, const void* remaining,
+                    const void* mask, const void* order, void* magic,
+                    void* shift, void* uniform, void* megas, void* alloc, void* placed,
+                    void* left_after, void* conflicts, void* scratch, int n, int g,
+                    int r, int mask_per_group, int wave, int cluster_blocks,
+                    int block_nodes, int threads, int per, int shared, int shared_bytes,
+                    void* stream) {
+  const KernelFn fn = kernel_for(per, shared);
+  const long long fixed = 2LL * kInbox + 2LL * (kStageRows + 4 * kMaxWave * r) +
+                          2LL * (threads / 32) * kBins;
+  if (fn == nullptr || wave < 1 || wave > kMaxWave || cluster_blocks < 1 ||
+      cluster_blocks > kMaxCluster || threads < 32 || threads > kMaxThreads ||
+      threads % 32 != 0 || (long long)threads * per < block_nodes ||
+      (!shared && scratch == nullptr) ||
+      shared_bytes < 4 * (fixed + (shared ? 2LL * r * per * threads : 0)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = configure((const void*)fn, cluster_blocks, shared_bytes);
+  if (e != cudaSuccess) return (int)e;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  WaveArgs args{(const int*)left0, (const int*)group_req, (const int*)remaining,
+                (const unsigned char*)mask, (const int*)order, (const int*)magic,
+                (const int*)shift, (const unsigned char*)uniform, (unsigned char*)megas,
+                (int*)alloc,
+                (unsigned char*)placed, (int*)left_after, (unsigned char*)conflicts,
+                (int*)scratch, n, g, r, mask_per_group, wave, block_nodes, per};
+  const int steps = (g + wave - 1) / wave;
+  wave_prepare_kernel<<<max(1, min(steps * wave, 2048)), 256, 0, st>>>(
+      args, (int*)magic, (int*)shift, (unsigned char*)uniform);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(cluster_blocks, threads, shared_bytes, st, &attr);
+  e = cudaLaunchKernelEx(&cfg, fn, args);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

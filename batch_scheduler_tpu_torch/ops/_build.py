@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles into a shared library with a plain C
 interface (``nvcc -gencode arch=compute_90a,code=sm_90a -shared``), loaded
 with ``ctypes``. Libraries land in ``batch_scheduler_tpu_torch/build/``
-(gitignored), named by a digest of the source and the flags, so an edited
-source rebuilds and an unchanged one loads at once.
+(gitignored), named by a digest of the source, the ``csrc/*.cuh`` headers
+it includes and the flags (``digest``), so an edited source or header
+rebuilds and an unchanged one loads at once.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
@@ -15,13 +16,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "library"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "digest", "library"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
@@ -30,6 +32,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _lock = threading.Lock()
 _locks: Dict[str, threading.Lock] = {}  # guarded-by: _lock
@@ -51,6 +55,25 @@ def _nvcc() -> str:
     )
 
 
+def digest(src: Path) -> str:
+    """16 hex digits of sha256 over the source, every header it includes
+    with quotes (found beside it, followed into the headers' own includes,
+    each once) and the nvcc flags."""
+    h = hashlib.sha256()
+    seen = set()
+    todo = [Path(src)]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(path.name.encode() + b"\0" + text + b"\0")
+        todo.extend(path.parent / m.decode() for m in _INCLUDE.findall(text))
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of ``csrc/<name>.cu``, built on first use.
     Raises RuntimeError, with the compiler's output, if the build fails.
@@ -63,10 +86,7 @@ def library(name: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         src = CSRC_DIR / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        out = BUILD_DIR / f"lib{name}_{digest}.so"
+        out = BUILD_DIR / f"lib{name}_{digest(src)}.so"
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")

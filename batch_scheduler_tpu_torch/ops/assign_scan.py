@@ -14,9 +14,12 @@ one thread-block cluster laid out by ``kernel_plan`` and divides by the
 multiply-shift numbers of ``division_magic``;
 ``assign_gangs_wave_cuda`` adds the wave width and returns the per-wave
 ``(conflicts, megas)`` flags too, as ``ops.oracle.assign_gangs_wavefront``
-does with ``with_stats=True``. For tensors on the CPU each runs its plain
-version; for CUDA tensors it launches its kernel or raises. There is no
-switch that turns a kernel off.
+does with ``with_stats=True``. Its kernel is a cluster too
+(``wave_kernel_plan``); the uniform flags depend on the inputs alone, and
+a prepare kernel computes them (plain version: ``wave_uniform``) with the
+division numbers before the scan. For tensors on the CPU each runs its
+plain version; for CUDA tensors it launches its kernel or raises. There is
+no switch that turns a kernel off.
 """
 
 from __future__ import annotations
@@ -34,21 +37,27 @@ from .oracle import assign_gangs_wavefront
 
 __all__ = [
     "assign_gangs_cuda", "assign_gangs_plain", "assign_gangs_wave_cuda",
-    "division_magic", "kernel_plan", "scan_plan", "ScanPlan", "wave_plan",
-    "CLUSTER_SIZES", "WAVE_WIDTHS",
+    "division_magic", "kernel_plan", "scan_plan", "ScanPlan", "wave_kernel_plan",
+    "wave_scan_plan", "wave_uniform", "CLUSTER_SIZES", "WAVE_WIDTHS",
 ]
 
-_THREADS = 1024  # the wave kernel's block size, the serial kernel's largest
+_THREADS = 1024  # the kernels' largest block
 WAVE_WIDTHS = (2, 4, 8, 16, 32)  # the widths ops.bucketing.wave_width_bucket gives
-# the serial kernel's cluster sizes, largest first: 16 needs the
-# non-portable cluster size, 8 is the portable limit
+_MAX_WAVE = 32  # the wave kernel sizes its inboxes and stage for this width
+# the kernels' cluster sizes, largest first: 16 needs the non-portable
+# cluster size, 8 is the portable limit
 CLUSTER_SIZES = (16, 8)
 _MIN_BLOCK_NODES = 256  # below this many nodes a block, fewer blocks
-_PER_THREAD_MAX = 64  # nodes a thread: the kernel has instantiations for powers of two to 64
+_PER_THREAD_MAX = 64  # nodes a thread: the most either kernel takes
+# assign_wave.cu's shared-memory layout, in ints: kInbox (16 block slots of
+# a 128-bin histogram and a 4-int flag word) and kStageRows (a wave's
+# indices, needs and flag, ahead of its request rows)
+_K_INBOX = 16 * (128 + 4)
+_K_STAGE_ROWS = 100
 
 
 # the launch entry point's C signature, bst_<name>(pointers..., ints..., stream)
-_LAUNCH_ARGS = {"assign_scan": (11, 10), "assign_wave": (11, 6)}
+_LAUNCH_ARGS = {"assign_scan": (11, 10), "assign_wave": (14, 11)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -81,7 +90,7 @@ def _shared_budget(device_index: int, name: str = "assign_scan") -> int:
 
 
 class ScanPlan(NamedTuple):
-    """The serial kernel's launch shape. Block b of the cluster owns nodes
+    """A scan kernel's launch shape. Block b of the cluster owns nodes
     ``[b * block_nodes, (b + 1) * block_nodes)`` (cut at N), each thread
     ``per_thread`` consecutive ones. The leftover lives in each block's
     shared memory (``leftover == "shared"``) or in a global scratch slab of
@@ -110,16 +119,7 @@ def kernel_plan(n: int, r: int, cluster_max: int, shared_budget: int) -> ScanPla
     global scratch."""
     if 3 * r > _THREADS:
         raise ValueError(f"{r} lanes exceed the scan kernel's {_THREADS // 3}")
-    c = 1
-    while c * 2 <= cluster_max and c * 2 * _MIN_BLOCK_NODES <= n:
-        c *= 2
-    block_nodes = max(-(-n // c), 1)
-    per = -(-block_nodes // _THREADS)
-    if per > _PER_THREAD_MAX:
-        raise ValueError(
-            f"{n} nodes exceed the scan kernel's {_PER_THREAD_MAX * _THREADS * c} "
-            f"at {c} blocks"
-        )
+    c, block_nodes, per = _node_split(n, cluster_max, "scan")
     threads = max(-(-block_nodes // per), 3 * r)
     threads = -(-threads // 32) * 32
     fixed = 2 * 4 * r + 2 * (threads // 32) * 128  # gang rows, warp histograms
@@ -129,31 +129,87 @@ def kernel_plan(n: int, r: int, cluster_max: int, shared_budget: int) -> ScanPla
     return ScanPlan(c, block_nodes, threads, per, "global", 4 * fixed, c * leftover)
 
 
-@functools.lru_cache(maxsize=None)
-def scan_plan(n: int, r: int, device_index: int) -> ScanPlan:
-    """The plan ``assign_gangs_cuda`` launches on CUDA device
-    ``device_index``: ``kernel_plan`` at the largest of ``CLUSTER_SIZES``
-    that ``cudaOccupancyMaxActiveClusters`` says the device can schedule.
-    Raises RuntimeError when none can be."""
-    lib = _build.library("assign_scan")
-    fits = lib.bst_assign_scan_clusters
+def _node_split(n: int, cluster_max: int, kernel: str) -> tuple:
+    """(C, nodes a block, nodes a thread): C is the largest power of two
+    <= ``cluster_max`` that leaves each block at least 256 nodes (1 for
+    small buckets), a block has ceil(N/C) nodes, each thread the fewest
+    that 1024 threads allow."""
+    c = 1
+    while c * 2 <= cluster_max and c * 2 * _MIN_BLOCK_NODES <= n:
+        c *= 2
+    block_nodes = max(-(-n // c), 1)
+    per = -(-block_nodes // _THREADS)
+    if per > _PER_THREAD_MAX:
+        raise ValueError(
+            f"{n} nodes exceed the {kernel} kernel's {_PER_THREAD_MAX * _THREADS * c} "
+            f"at {c} blocks"
+        )
+    return c, block_nodes, per
+
+
+def wave_kernel_plan(n: int, r: int, cluster_max: int, shared_budget: int) -> ScanPlan:
+    """The wave kernel's launch shape for N nodes and R lanes, with at most
+    ``cluster_max`` blocks and ``shared_budget`` bytes of dynamic shared
+    memory a block (``bst_assign_wave_shared_budget``). The node split is
+    the serial kernel's (``kernel_plan``); threads cover a block's nodes.
+    Dynamic shared memory holds two inboxes of 16 slots (a histogram and a
+    flag word, 132 ints each), two stages of a wave's gangs (100 ints of
+    indices, needs and flag, and 4 ints a lane for each of 32 positions:
+    request, magic, shift, padding) and two 128-bin histograms a warp; the
+    leftover and the checked replay's wave-start leftover (R ints a node
+    each) join them when they fit the budget, else both go in global
+    scratch. The shape does not depend on the width."""
+    c, block_nodes, per = _node_split(n, cluster_max, "wave")
+    threads = -(-block_nodes // per)
+    threads = -(-threads // 32) * 32
+    # inboxes, stages, warp histograms
+    fixed = 2 * _K_INBOX + 2 * (_K_STAGE_ROWS + 4 * _MAX_WAVE * r) + 2 * (threads // 32) * 128
+    leftover = 2 * r * per * threads  # the leftover and the wave-start leftover
+    if 4 * (fixed + leftover) <= shared_budget:
+        return ScanPlan(c, block_nodes, threads, per, "shared", 4 * (fixed + leftover), 0)
+    return ScanPlan(c, block_nodes, threads, per, "global", 4 * fixed, c * leftover)
+
+
+def _device_plan(name: str, layout, n: int, r: int, device_index: int) -> ScanPlan:
+    """``layout(n, r, cluster_max, budget)`` at the largest of
+    ``CLUSTER_SIZES`` that ``cudaOccupancyMaxActiveClusters`` says device
+    ``device_index`` can schedule for kernel ``name``. Raises RuntimeError
+    when none can be."""
+    lib = _build.library(name)
+    fits = getattr(lib, f"bst_{name}_clusters")
     fits.argtypes = [ctypes.c_int] * 5
     fits.restype = ctypes.c_int
-    _, _, err = _entry_points("assign_scan")
-    budget = _shared_budget(device_index)
+    _, _, err = _entry_points(name)
+    budget = _shared_budget(device_index, name)
     with torch.cuda.device(device_index):
         for cluster_max in CLUSTER_SIZES:
-            plan = kernel_plan(n, r, cluster_max, budget)
+            plan = layout(n, r, cluster_max, budget)
             got = fits(plan.cluster_blocks, plan.threads, plan.per_thread,
                        int(plan.leftover == "shared"), plan.shared_bytes)
             if got < 0:
                 raise RuntimeError(
-                    f"assign_scan occupancy query failed for {plan}: "
+                    f"{name} occupancy query failed for {plan}: "
                     f"{err(-got).decode(errors='replace')}"
                 )
             if got > 0:
                 return plan
-    raise RuntimeError(f"no cluster of the assign_scan kernel can be scheduled: {plan}")
+    raise RuntimeError(f"no cluster of the {name} kernel can be scheduled: {plan}")
+
+
+@functools.lru_cache(maxsize=None)
+def scan_plan(n: int, r: int, device_index: int) -> ScanPlan:
+    """The plan ``assign_gangs_cuda`` launches on CUDA device
+    ``device_index``: ``kernel_plan`` at the largest cluster the device can
+    schedule."""
+    return _device_plan("assign_scan", kernel_plan, n, r, device_index)
+
+
+@functools.lru_cache(maxsize=None)
+def wave_scan_plan(n: int, r: int, device_index: int) -> ScanPlan:
+    """The plan ``assign_gangs_wave_cuda`` launches on CUDA device
+    ``device_index``: ``wave_kernel_plan`` at the largest cluster the
+    device can schedule."""
+    return _device_plan("assign_wave", wave_kernel_plan, n, r, device_index)
 
 
 def division_magic(divisors: torch.Tensor) -> tuple:
@@ -173,12 +229,34 @@ def division_magic(divisors: torch.Tensor) -> tuple:
     return magic, shift.to(torch.int32)
 
 
-def wave_plan(n: int, r: int) -> int:
-    """The ints of leftover the wavefront kernel keeps (R rows of 1024
-    thread runs; it recomputes capacities instead of keeping a row)."""
-    # each thread owns ceil(N/1024) nodes; an odd stride spreads a warp's
-    # runs over 32 shared-memory banks
-    return r * _THREADS * (-(-n // _THREADS) | 1)
+def wave_uniform(group_req, remaining, fit_mask, order, wave: int):
+    """bool[S], S = ceil(G / wave): whether each wave of the scan order takes
+    the uniform branch of ``ops.oracle.assign_gangs_wavefront`` — every
+    position's request row equals the first's, in per-group mode every mask
+    row equals the first's, and the wave's needs sum to at most
+    (2^31 - 1) // N. Positions past G (and out-of-range order entries) are
+    inert: a zero request row, need 0 and, per group, an empty mask row.
+    The flags depend on the inputs alone, so on the card the launch's
+    prepare kernel computes them before the scan; this is its plain
+    version."""
+    g, r = group_req.shape
+    n = fit_mask.shape[1]
+    steps = -(-g // wave)
+    pad = steps * wave - g
+    ok = (order >= 0) & (order < g)
+    idx = torch.where(ok, order, 0).long()
+
+    def padded(rows):
+        return torch.cat([rows, rows.new_zeros((pad,) + rows.shape[1:])]).reshape(
+            (steps, wave) + rows.shape[1:])
+
+    req = padded(torch.where(ok[:, None], group_req[idx], 0))
+    mega = (req == req[:, :1]).flatten(1).all(dim=1)
+    if fit_mask.shape[0] != 1:
+        rows = padded(fit_mask[idx] & ok[:, None])
+        mega &= (rows == rows[:, :1]).flatten(1).all(dim=1)
+    need = padded(torch.where(ok, remaining[idx], 0).to(torch.int64))
+    return mega & (need.sum(dim=1) <= (2**31 - 1) // max(n, 1))
 
 
 def _check(left0, group_req, remaining, fit_mask, order):
@@ -216,13 +294,6 @@ def _check_cuda(caller, left0, group_req, remaining, fit_mask, order):
                     ("order", order)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-
-
-def _wave_shared_bytes(dev, work_ints: int) -> int:
-    """Dynamic shared memory for a wave launch: the working set's bytes when
-    they fit the kernel's budget on ``dev``, else 0 (global scratch)."""
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return work_ints * 4 if work_ints * 4 <= _shared_budget(index, "assign_wave") else 0
 
 
 def assign_gangs_cuda(left0, group_req, remaining, fit_mask, order):
@@ -285,8 +356,9 @@ def assign_gangs_wave_cuda(left0, group_req, remaining, fit_mask, order, wave: i
     ``WAVE_WIDTHS``): the CUDA kernel for CUDA tensors, the plain
     ``assign_gangs_wavefront(..., with_stats=True)`` for CPU tensors.
     Returns ``(alloc, placed, left_after, (conflicts[S], megas[S]))``,
-    S = ceil(G / wave). ``order`` must be a permutation of [0, G). Every
-    launch adds one to ``assign_gangs_wave_cuda.launches``."""
+    S = ceil(G / wave). ``order`` must be a permutation of [0, G) and
+    ``remaining`` non-negative (``pad_oracle_batch`` and the packers give
+    both). Every launch adds one to ``assign_gangs_wave_cuda.launches``."""
     if not isinstance(wave, int) or wave not in WAVE_WIDTHS:
         raise ValueError(f"wave must be one of {WAVE_WIDTHS}, got {wave!r}")
     _check(left0, group_req, remaining, fit_mask, order)
@@ -296,38 +368,54 @@ def assign_gangs_wave_cuda(left0, group_req, remaining, fit_mask, order, wave: i
                                       order, wave=wave, with_stats=True)
     _check_cuda("assign_gangs_wave_cuda", left0, group_req, remaining, fit_mask, order)
     n, r = left0.shape
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    out = _launch_wave(wave_scan_plan(n, r, index), left0, group_req, remaining,
+                       fit_mask, order, wave)
+    assign_gangs_wave_cuda.launches += 1
+    return out
+
+
+assign_gangs_wave_cuda.launches = 0
+
+
+def _launch_wave(plan: ScanPlan, left0, group_req, remaining, fit_mask, order, wave: int):
+    """One launch of the wave kernel with ``plan`` on checked CUDA inputs."""
+    n, r = left0.shape
     g = group_req.shape[0]
+    dev = left0.device
     steps = -(-g // wave)
     launch, _, err = _entry_points("assign_wave")
-    work_ints = wave_plan(n, r)
-    shared_bytes = _wave_shared_bytes(dev, work_ints)
     with torch.cuda.device(dev):
+        # written by the launch's prepare kernel: division_magic's numbers
+        # and the two halves of wave_uniform's flags (the second half only
+        # where a mask row differs, so it starts zeroed)
+        magic = torch.empty_like(group_req)
+        shift = torch.empty_like(group_req)
+        uniform = torch.zeros(2 * steps, dtype=torch.uint8, device=dev)
+        megas = torch.empty(steps, dtype=torch.bool, device=dev)
         # alloc must start zeroed: the kernel writes only nonzero takes
         alloc = torch.zeros((g, n), dtype=torch.int32, device=dev)
         placed = torch.zeros(g, dtype=torch.bool, device=dev)
         left_after = torch.empty_like(left0)
-        conflicts = torch.zeros(steps, dtype=torch.bool, device=dev)
-        megas = torch.zeros(steps, dtype=torch.bool, device=dev)
+        conflicts = torch.empty(steps, dtype=torch.bool, device=dev)
         scratch = (
-            torch.empty(work_ints, dtype=torch.int32, device=dev)
-            if shared_bytes == 0 else None
+            torch.empty(plan.scratch_ints, dtype=torch.int32, device=dev)
+            if plan.leftover == "global" else None
         )
         rc = launch(
             left0.data_ptr(), group_req.data_ptr(), remaining.data_ptr(),
-            fit_mask.data_ptr(), order.data_ptr(), alloc.data_ptr(),
+            fit_mask.data_ptr(), order.data_ptr(), magic.data_ptr(),
+            shift.data_ptr(), uniform.data_ptr(), megas.data_ptr(), alloc.data_ptr(),
             placed.data_ptr(), left_after.data_ptr(), conflicts.data_ptr(),
-            megas.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
-            n, g, r, int(fit_mask.shape[0] != 1), wave, shared_bytes,
+            n, g, r, int(fit_mask.shape[0] != 1), wave, plan.cluster_blocks,
+            plan.block_nodes, plan.threads, plan.per_thread,
+            int(plan.leftover == "shared"), plan.shared_bytes,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(
-            f"assign_wave kernel launch failed: "
+            f"assign_wave kernel launch failed for {plan}: "
             f"{err(rc).decode(errors='replace')} (CUDA error {rc})"
         )
-    assign_gangs_wave_cuda.launches += 1
     return alloc, placed, left_after, (conflicts, megas)
-
-
-assign_gangs_wave_cuda.launches = 0

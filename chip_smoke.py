@@ -25,11 +25,9 @@ Phases (one JSON line each; any failure makes the exit code non-zero):
                    Kernel vs plain bit for bit, and the cuda host dict vs the
                    CPU one, in both mask modes (leftover in shared memory).
 - global_leftover  the same checks on 10,000 nodes (bucket 16384) x 256
-                   gangs, where the serial kernel's leftover fits the
-                   cluster's shared memory (and the wave kernel's, in
-                   mixed_wave, lives in global scratch), and on 150,000
-                   nodes (bucket 262144) x 64 gangs, where the serial
-                   kernel's leftover lives in global scratch.
+                   gangs, where both kernels' leftover fits the cluster's
+                   shared memory, and on 150,000 nodes (bucket 262144) x
+                   64 gangs, where both keep it in global scratch.
 - race             the README race scenario through ScheduleOperation on
                    cuda: gang 1 permits all five pods, gang 2 is denied and
                    its retry hits the deny backoff. Every batch of that run
@@ -46,14 +44,19 @@ With BST_SCAN_WAVE unset, the four phases above run the serial kernel
                    batch and the serial kernel never; the wave kernel vs the
                    plain serial scan and the plain wavefront (outputs and
                    per-wave flags); both kernels timed in turns, and the
-                   serial kernel's output held against the plain serial scan.
-- mixed_wave       mixed and global_leftover at W=8 and W=32 in both mask
-                   modes (shared and global leftover), and mixed per-group
-                   restricted to zone node % 8 == scan position % 8 at W=8
-                   (waves that commit speculatively): both kernels vs plain
-                   everywhere, the cuda host dict and wave telemetry vs the
-                   CPU ones, both kernels timed; each branch (uniform
-                   commit, speculative commit, demotion) taken at least once.
+                   serial kernel's output held against the plain serial scan;
+                   the wave kernel's plan, and the same kernel launched at
+                   cluster sizes 1 and 8 beside it (the design steps).
+- mixed_wave       mixed and both global_leftover inputs at W=8 and W=32 in
+                   both mask modes (the wave kernel's leftover in shared
+                   memory, and in global scratch at bucket 262144), and
+                   mixed per-group restricted to zone node % 8 == scan
+                   position % 8 at W=8 (non-uniform waves without a
+                   conflict): both kernels vs plain everywhere, the cuda
+                   host dict and wave telemetry vs the CPU ones, both
+                   kernels timed in turns; each of the reference's branch
+                   outcomes (uniform commit, speculative commit, demotion;
+                   read from the per-wave flags) at least once.
 - race_wave        race with W=32 (the 8-group bucket padded to one wave):
                    the same outcomes, the wave kernel once per batch, and it
                    matches the plain scans on the last batch.
@@ -92,8 +95,8 @@ NORTH_STAR_SHAPE = (1024, 8192, 5)
 MIXED = (5000, 1000, 11)
 GLOBAL_LEFTOVER = (10000, 256, 12)
 SERIAL_GLOBAL = (150000, 64, 13)
-LEFTOVER = {MIXED: ("shared", "shared"), GLOBAL_LEFTOVER: ("shared", "global"),
-            SERIAL_GLOBAL: ("global", None)}
+LEFTOVER = {MIXED: ("shared", "shared"), GLOBAL_LEFTOVER: ("shared", "shared"),
+            SERIAL_GLOBAL: ("global", "global")}
 
 
 def emit(obj):
@@ -244,6 +247,13 @@ def serial_plan(n, r):
     from batch_scheduler_tpu_torch.ops.assign_scan import scan_plan
 
     return scan_plan(n, r, 0)
+
+
+def wave_plan(n, r):
+    """The wave kernel's launch plan on device 0, as the wrapper takes it."""
+    from batch_scheduler_tpu_torch.ops.assign_scan import wave_scan_plan
+
+    return wave_scan_plan(n, r, 0)
 
 
 def compare_wave(args, wave, serial=None):
@@ -463,28 +473,40 @@ def north_star(results):
     }
 
 
-def design_steps(args, want, plan):
-    """The serial kernel on the north-star inputs at cluster sizes 1 and 8
-    beside the device's plan: each launched through the wrapper's launcher
-    (not counted), checked against the plain result and timed, 20 launches
-    in two rounds of alternating sizes."""
-    from batch_scheduler_tpu_torch.ops.assign_scan import _launch_scan, _shared_budget, kernel_plan
+def design_steps(args, want, plan, wave=0):
+    """A kernel on the north-star inputs at cluster sizes 1 and 8 beside the
+    device's plan: the serial kernel, or the wave kernel at width ``wave``
+    (> 0). Each is launched through the wrapper's launcher (not counted),
+    checked against the plain result (with the per-wave flags for the wave
+    kernel) and timed, 20 launches in two rounds of alternating sizes."""
+    from batch_scheduler_tpu_torch.ops.assign_scan import (
+        _launch_scan, _launch_wave, _shared_budget, kernel_plan, wave_kernel_plan)
 
     n, r = args[0].shape
-    plans = {c: kernel_plan(n, r, c, _shared_budget(0)) for c in (1, 8)}
+    if wave:
+        layout, name = wave_kernel_plan, "assign_wave"
+        launch = lambda p: _launch_wave(p, *args, wave)  # noqa: E731
+        flat = lambda out: list(out[:3]) + list(out[3])  # noqa: E731
+    else:
+        layout, name = kernel_plan, "assign_scan"
+        launch = lambda p: _launch_scan(p, *args)  # noqa: E731
+        flat = list
+    plans = {c: layout(n, r, c, _shared_budget(0, name)) for c in (1, 8)}
     plans[plan.cluster_blocks] = plan
     times = {c: [] for c in sorted(plans)}
     for rnd in range(2):
         for c in sorted(plans, reverse=bool(rnd)):
             if rnd == 0:
-                err, equal = max_err(_launch_scan(plans[c], *args), want)
+                err, equal = max_err(flat(launch(plans[c])), flat(want))
                 if not equal:
-                    raise AssertionError(f"kernel at C={c} disagrees with the plain "
+                    raise AssertionError(f"{name} at C={c} disagrees with the plain "
                                          f"scan (max abs err {err})")
-            times[c].append(cuda_ms(lambda: _launch_scan(plans[c], *args), 20))
+            times[c].append(cuda_ms(lambda: launch(plans[c]), 20))
+    steps = -(-args[1].shape[0] // wave) if wave else args[1].shape[0]
+    unit = "us_per_wave" if wave else "us_per_gang"
     return [{"cluster_blocks": c, "threads": plans[c].threads,
              "per_thread": plans[c].per_thread, "leftover": plans[c].leftover,
-             "ms": times[c], "us_per_gang": min(times[c]) * 1e3 / args[1].shape[0]}
+             "ms": times[c], unit: min(times[c]) * 1e3 / steps}
             for c in sorted(plans)]
 
 
@@ -496,6 +518,9 @@ def north_star_wave(results):
 
     wave = 8
     scorer, launches, report = drive_north_star(wave)
+    plan = wave_plan(*NORTH_STAR_SHAPE[1:])
+    if plan.cluster_blocks < 2:
+        raise AssertionError(f"north-star wave plan {plan} is not a cluster")
     batches = report["batches"]
     if launches["assign_wave"] != batches or launches["assign_scan"] != 0:
         raise AssertionError(f"{launches} launches in {batches} batches "
@@ -520,18 +545,25 @@ def north_star_wave(results):
     wave_ms = [cuda_ms(lambda: assign_gangs_wave_cuda(*args, wave), 20)]
     wave_ms.append(cuda_ms(lambda: assign_gangs_wave_cuda(*args, wave), 20))
     serial_ms.append(cuda_ms(lambda: assign_gangs_cuda(*args), 20))
+    plain = assign_gangs_wavefront(*args, wave=wave, with_stats=True)
     plain_ms = cuda_ms(
         lambda: assign_gangs_wavefront(*args, wave=wave, with_stats=True), 2)
+    steps = design_steps(args, plain, plan, wave)
     bound_ms, bound_by, nbytes, ops = scan_bound(*args, wave=wave)
+    waves = len(conflicts)
     results["assign_wave"] = {
         "launches": launches["assign_wave"],
         "launches_by_path": {"north_star_wave": launches["assign_wave"]},
         "max_abs_err": err, "matched": equal,
         "ms": min(wave_ms), "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
+        "cluster_blocks": plan.cluster_blocks, "leftover": plan.leftover,
+        "us_per_wave": min(wave_ms) * 1e3 / waves,
     }
     return {
         **report, "launches": launches["assign_wave"],
+        "plan": plan._asdict(), "design_steps": steps,
+        "us_per_wave": min(wave_ms) * 1e3 / waves,
         "kernel_ms": wave_ms, "serial_kernel_ms": serial_ms, "plain_ms": plain_ms,
         "serial_kernel_vs_plain_equal": serial_equal,
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "int_ops": ops,
@@ -645,18 +677,18 @@ def global_leftover():
 
 @phase("mixed_wave")
 def mixed_wave(results):
-    """The mixed and global_leftover inputs at W=8 and W=32 in both mask
-    modes, and the zone-by-position per-group input at W=8: the wave kernel
-    against the plain serial scan and the plain wavefront, the cuda host
-    dict (with the wave telemetry) against the CPU one, and both kernels'
-    times on each input. Each branch must be taken at least once across
-    the phase."""
+    """The mixed and both global_leftover inputs at W=8 and W=32 in both
+    mask modes, and the zone-by-position per-group input at W=8: the wave
+    kernel against the plain serial scan and the plain wavefront, the cuda
+    host dict (with the wave telemetry) against the CPU one, and both
+    kernels' times on each input, in turns. Each branch must be taken at
+    least once across the phase."""
     from batch_scheduler_tpu_torch.ops.assign_scan import (
-        _shared_budget, assign_gangs_cuda, assign_gangs_plain, assign_gangs_wave_cuda,
-        wave_plan)
+        assign_gangs_cuda, assign_gangs_plain, assign_gangs_wave_cuda)
 
     inputs = []
-    for name, cell in (("mixed", MIXED), ("global_leftover", GLOBAL_LEFTOVER)):
+    for name, cell in (("mixed", MIXED), ("global_leftover", GLOBAL_LEFTOVER),
+                       ("global_leftover_262144", SERIAL_GLOBAL)):
         for mode, per_group in (("per_group", True), ("broadcast", False)):
             inputs.append((f"{name}/{mode}", mixed_batch(*cell, per_group), (8, 32),
                            LEFTOVER[cell][1]))
@@ -667,10 +699,10 @@ def mixed_wave(results):
     matched = True
     for label, (batch_args, progress_args), waves, want_leftover in inputs:
         n, r = batch_args[0].shape
-        shared = wave_plan(n, r) * 4 <= _shared_budget(0, "assign_wave")
-        if shared != (want_leftover == "shared"):
-            raise AssertionError(f"{label}: leftover in {'shared' if shared else 'global'} "
-                                 f"memory, expected {want_leftover} at N={n}, R={r}")
+        plan = wave_plan(n, r)
+        if plan.leftover != want_leftover:
+            raise AssertionError(f"{label}: wave plan {plan} keeps the leftover in "
+                                 f"{plan.leftover} memory, expected {want_leftover}")
         args = scan_inputs(batch_args)
         serial = assign_gangs_plain(*args)
         serial_err, serial_equal = compare_scan(args, serial)
@@ -704,7 +736,7 @@ def mixed_wave(results):
                 "input": label, "wave": wave,
                 "shape": [int(batch_args[2].shape[0]), int(n), int(r)],
                 "mask_rows": int(batch_args[4].shape[0]),
-                "leftover": "shared" if shared else "global",
+                "cluster_blocks": plan.cluster_blocks, "leftover": plan.leftover,
                 "kernel_vs_plain_equal": equal, "max_abs_err": err,
                 "serial_kernel_vs_plain_equal": serial_equal,
                 "host_dict_equal": not diff, "waves": len(conflicts), **counts,

@@ -259,30 +259,65 @@ def test_wave_wrapper_rejects_bad_wave_and_inputs():
         )
 
 
+def _card_inputs(rng, n, g, rows, wave, kind):
+    """Seeded scan inputs for the card test: ``kind`` "mixed" (random rows),
+    "uniform" (one request row; the needs sometimes drain the cluster
+    mid-wave), or "zones" (per-group rows, position p sees nodes
+    n % wave == p % wave, so non-uniform waves run without a conflict)."""
+    left = rng.integers(0, 2000, size=(n, 5)).astype(np.int32)
+    req = rng.integers(0, 40, size=(g, 5)).astype(np.int32)
+    rem = rng.integers(0, 300, size=g).astype(np.int32)
+    order = rng.permutation(g).astype(np.int32)
+    mask = rng.random((rows, n)) < 0.8
+    if kind == "uniform":
+        req[:] = req[0]
+        rem[rng.random(g) < 0.1] = 3000
+    elif kind == "zones":
+        position = np.empty(g, np.int64)
+        position[order] = np.arange(g)
+        mask = np.arange(n)[None, :] % wave == position[:, None] % wave
+        left[:] = 10 ** 6
+    return left, req, rem, mask, order
+
+
 @pytest.mark.cuda
 def test_wave_kernel_matches_plain_on_card():
+    """The cluster kernel against the plain wavefront (outputs and flags)
+    and the plain serial scan: one block (8 nodes), 16 blocks with the
+    leftover in shared memory (one node a thread in the unrolled variant;
+    two and three in the runtime-loop variant), and 70,000 nodes (five a
+    thread) with the leftover in global scratch; every branch taken and
+    demoted."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    from batch_scheduler_tpu_torch.ops.assign_scan import assign_gangs_plain
+    from batch_scheduler_tpu_torch.ops.assign_scan import assign_gangs_plain, wave_scan_plan
 
     rng = np.random.default_rng(4)
     shapes = ((8, 8, 1, 2), (300, 64, 64, 8), (5000, 128, 1, 8), (10000, 40, 40, 32),
-              (2000, 100, 1, 32))
+              (2000, 100, 1, 32), (20000, 24, 1, 8), (20000, 24, 24, 32),
+              (40000, 24, 1, 8), (70000, 24, 1, 8), (70000, 24, 24, 32))
+    branches = {"uniform": 0, "uniform-replayed": 0, "speculative": 0, "replayed": 0}
+    leftovers, per_thread = set(), set()
     for n, g, rows, wave in shapes:
-        for uniform in (False, True):
-            left = rng.integers(0, 2000, size=(n, 5)).astype(np.int32)
-            req = rng.integers(0, 40, size=(g, 5)).astype(np.int32)
-            if uniform:
-                req[:] = req[0]
-            rem = rng.integers(0, 300, size=g).astype(np.int32)
-            mask = rng.random((rows, n)) < 0.8
-            order = rng.permutation(g).astype(np.int32)
-            args = tuple(t.cuda() for t in _t(left, req, rem, mask, order))
+        for kind in ("mixed", "uniform") + (("zones",) if rows > 1 else ()):
+            host = _card_inputs(rng, n, g, g if kind == "zones" else rows, wave, kind)
+            args = tuple(t.cuda() for t in _t(*host))
             got = assign_gangs_wave_cuda(*args, wave)
             want = port_oracle.assign_gangs_wavefront(*args, wave=wave, with_stats=True)
             serial = assign_gangs_plain(*args)
             torch.cuda.synchronize()
             for a, b, c in zip(got[:3], want[:3], serial):
-                assert torch.equal(a, b) and torch.equal(a, c)
+                assert torch.equal(a, b) and torch.equal(a, c), (n, g, wave, kind)
             for a, b in zip(got[3], want[3]):
-                assert torch.equal(a, b)
+                assert torch.equal(a, b), (n, g, wave, kind)
+            conflicts, megas = (x.cpu().numpy() for x in got[3])
+            branches["uniform"] += int((megas & ~conflicts).sum())
+            branches["uniform-replayed"] += int((megas & conflicts).sum())
+            branches["speculative"] += int((~megas & ~conflicts).sum())
+            branches["replayed"] += int((~megas & conflicts).sum())
+            plan = wave_scan_plan(n, 5, torch.cuda.current_device())
+            leftovers.add(plan.leftover)
+            per_thread.add(plan.per_thread)
+    assert all(branches.values()), branches
+    assert leftovers == {"shared", "global"}
+    assert {1, 2, 3} <= per_thread, per_thread
