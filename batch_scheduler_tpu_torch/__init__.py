@@ -12,9 +12,12 @@ Layout:
 - ``cache``  PodGroup status cache + TTL match caches
 - ``core``   gang scheduling semantics (``ScheduleOperation``) and the
              batch scorer (``OracleScorer``)
-- ``ops``    host packing (numpy) and the device batch (torch), with the
-             hand-written CUDA assignment scan in ``ops/assign_scan.py``
-             (source ``csrc/assign_scan.cu``)
+- ``framework``  ``ClusterState``, the live node/pod view whose event
+             hooks feed the scorer's O(churn) event fold
+- ``ops``    host packing (numpy: the full pack, the delta / snapshot-lite
+             packer, the event log), the device-resident state and the
+             device batch (torch), with the hand-written CUDA assignment
+             scans in ``ops/assign_scan.py`` (sources ``csrc/``)
 - ``sim``    scenario builders
 - ``utils``  labels, TTL cache, errors
 

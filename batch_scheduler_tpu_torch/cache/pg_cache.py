@@ -92,6 +92,16 @@ class PGStatusCache:
     def __init__(self):
         self._lock = threading.RLock()
         self._map: Dict[str, PodGroupMatchStatus] = {}  # guarded-by: _lock
+        # monotone set/delete counter: the scorer's event fold compares it
+        # across refreshes to prove the GROUP SET could not have changed
+        # without an event (a silently added/removed entry would otherwise
+        # let a targeted fold serve a wrong-group-set snapshot)
+        self._mutations = 0  # guarded-by: _lock
+
+    def mutations(self) -> int:
+        """Monotone count of set/delete calls (membership churn proxy)."""
+        with self._lock:
+            return self._mutations
 
     def get(self, full_name: str) -> Optional[PodGroupMatchStatus]:
         with self._lock:
@@ -100,10 +110,12 @@ class PGStatusCache:
     def set(self, full_name: str, status: PodGroupMatchStatus) -> None:
         with self._lock:
             self._map[full_name] = status
+            self._mutations += 1
 
     def delete(self, full_name: str) -> None:
         with self._lock:
             status = self._map.pop(full_name, None)
+            self._mutations += 1
         if status is not None:
             status.close()
 

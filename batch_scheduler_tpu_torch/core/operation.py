@@ -104,9 +104,24 @@ class ScheduleOperation:
     # ------------------------------------------------------------------
 
     def mark_dirty(self, group: Optional[str] = None) -> None:
-        """Invalidate the oracle batch (cluster or gang state changed)."""
+        """Invalidate the oracle batch (cluster or gang state changed).
+
+        ``group`` attributes the invalidation to ONE gang's demand row so
+        the scorer's event-fold refresh stays O(churn) (ops.events): the
+        named row is re-read at the next pack instead of the whole
+        cluster. ``None`` is a blind mark — the next refresh falls back
+        to the full scan, which is always correct."""
         if self.oracle is not None:
             self.oracle.mark_dirty(group)
+
+    def _gang_event(self, full_name: str) -> None:
+        """Note a gang-row change WITHOUT invalidating the batch — the
+        plan-covered permit/bind paths pre-account their capacity
+        (credit_expected_change), so the batch stays servable; but the
+        next refresh, whenever something else triggers it, must re-read
+        this gang's progress row rather than fold it as unchanged."""
+        if self.oracle is not None:
+            self.oracle.note_group_event(full_name)
 
     def _oracle_fresh(self, group: Optional[str] = None) -> OracleScorer:
         self.oracle.ensure_fresh(self.cluster, self.status_cache, group)
@@ -274,6 +289,9 @@ class ScheduleOperation:
         # through the gang's plan
         if self.oracle is not None:
             self.oracle.credit_expected_change(len(members))
+        # the gang's progress row (phase, released flag) moved outside the
+        # evented cluster mutators — note it for the next event fold
+        self._gang_event(full_name)
         return True
 
     # ------------------------------------------------------------------
@@ -390,6 +408,10 @@ class ScheduleOperation:
             # Plan-covered gangs skip the per-pod invalidation: the batch's
             # assignment already placed every remaining member.
             self.mark_dirty(group=full_name)
+        else:
+            # plan-covered: no invalidation, but the matched count moved —
+            # the next fold must re-read this gang's progress row
+            self._gang_event(full_name)
 
         matched = len(pgs.matched_pod_nodes.items())
         if matched >= pg.spec.min_member - pg.status.scheduled:
@@ -434,6 +456,10 @@ class ScheduleOperation:
             or pgs.placement_plan is None
         ):
             self.mark_dirty(group=full_name)
+        else:
+            # plan-covered, quorum not yet met: binds_committed/scheduled
+            # advanced — name the row for the next event fold
+            self._gang_event(full_name)
 
     # ------------------------------------------------------------------
     # Queue ordering (reference core.go:368-411)

@@ -4,7 +4,9 @@
 (``device_args()`` / ``progress_args()`` — of this package or of the JAX
 reference, whose layouts are the same) and places them on the port's
 device with the dtypes the port's oracle takes, so both packages compute
-on identical inputs.
+on identical inputs. A tensor already on the target device (the
+device-resident state of ``ops.device_state``) is taken as it is: its
+dtype is checked and nothing is copied.
 """
 
 from __future__ import annotations
@@ -37,18 +39,39 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    index = lambda d: torch.cuda.current_device() if d.index is None else d.index  # noqa: E731
+    return index(a) == index(b)
+
+
+def _place_one(a, dt, dev: torch.device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        if not _same_device(a.device, dev):
+            raise ValueError(
+                f"tensor on {a.device} passed to a batch on {dev}: resident "
+                "tensors must live on the batch's device"
+            )
+        want = torch.from_numpy(np.zeros(0, dtype=dt)).dtype
+        if a.dtype != want:
+            raise TypeError(f"resident tensor has dtype {a.dtype}, expected {want}")
+        return a
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a), dtype=dt)).to(dev)
+
+
 def _place(arrays: Sequence, dtypes: Sequence, dev: torch.device) -> Tuple:
     if len(arrays) != len(dtypes):
         raise ValueError(f"expected {len(dtypes)} arrays, got {len(arrays)}")
-    return tuple(
-        torch.from_numpy(np.ascontiguousarray(np.asarray(a), dtype=dt)).to(dev)
-        for a, dt in zip(arrays, dtypes)
-    )
+    return tuple(_place_one(a, dt, dev) for a, dt in zip(arrays, dtypes))
 
 
 def batch_from_numpy(batch_args, progress_args, device="cuda"):
     """``(batch, progress)`` tensor tuples on ``device`` from the packed
-    numpy batch: int32 lanes, counts and order; bool masks."""
+    numpy batch: int32 lanes, counts and order; bool masks. Tensors
+    already on ``device`` pass through uncopied."""
     dev = resolve_device(device)
     return (
         _place(batch_args, BATCH_DTYPES, dev),

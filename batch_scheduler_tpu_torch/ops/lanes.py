@@ -148,6 +148,22 @@ class LaneSchema:
             np.clip(vec, -cap_bound, cap_bound, out=vec)
         return vec.astype(np.int32)
 
+    def covers(self, resource_dicts: Sequence[Dict[str, int]]) -> bool:
+        """True iff every name is in the schema AND every (request-side)
+        value packs exactly (no clamp): the validity check for packing a
+        churned row under a cached schema (ops.snapshot.DeltaSnapshotPacker)
+        instead of re-collecting."""
+        bound = self._domain_bound(capacity=False)
+        for d in resource_dicts:
+            for name, value in d.items():
+                i = self.index.get(name)
+                if i is None:
+                    return False
+                v = self._lane_value(i, name, value, capacity=False)
+                if v > bound or v < -bound:
+                    return False
+        return True
+
     def _lane_value(self, i: int, name: str, value: int, capacity: bool) -> int:
         """The shifted device-unit value lane ``i`` would store for
         ``value``."""

@@ -493,7 +493,10 @@ def _batch_blob(alloc_lanes, requested, group_req, remaining, fit_mask,
 def execute_batch_host(batch_args, progress_args, device="cuda"):
     """Run one batch + max-progress selection on ``device`` and fetch ONLY
     the O(G) host vectors, as one blob copy. Takes the packed numpy batch
-    (``ClusterSnapshot.device_args()`` / ``progress_args()``).
+    (``ClusterSnapshot.device_args()`` / ``progress_args()``); any of its
+    arrays may instead be a tensor already on ``device`` — the
+    device-resident ``alloc``/``requested``/``group_req``/``fit_mask``/
+    ``order`` of ``ops.device_state`` — which the batch reads in place.
 
     Returns ``(host, device_result)``: ``host`` is the reference's host
     dict (``placed``, ``gang_feasible``, ``progress``, ``best``,
@@ -506,6 +509,7 @@ def execute_batch_host(batch_args, progress_args, device="cuda"):
     ``wave_demotions`` and ``wave_uniform`` beside ``wave_width``."""
     dev = resolve_device(device)
     scan_wave = _scan_wave_from_env()
+    # np.shape reads a tensor's own shape (a CUDA tensor is never copied)
     mask_mode = "per_group" if np.shape(batch_args[4])[0] != 1 else "broadcast"
     n_bucket = int(np.shape(batch_args[0])[0])
     g_bucket = int(np.shape(batch_args[2])[0])

@@ -14,11 +14,17 @@ Phases (one JSON line each; any failure makes the exit code non-zero):
                    pods, 8 GPUs), 1,000 gangs x 10 pods (4 cpu, 8 GiB, 1 GPU)
                    -> [G=1024, N=8192, R=5], broadcast mask — through
                    OracleScorer.refresh on cuda; every gang must place.
-                   Medians of the host pack, the device batch and the whole
-                   refresh; the kernel alone (its cluster size, leftover
-                   placement and time a gang), the same kernel launched at
-                   cluster sizes 1 and 8 beside the device's plan (the
-                   design steps), and the plain scan alone.
+                   The seven refreshes of an unchanged cluster are the
+                   steady state: a first keyframe, then snapshot-lite scans
+                   with the packed buffers resident on the card and the
+                   cached derived fit row and queue order. Medians of the
+                   host pack, the device batch and the whole refresh, and
+                   keyframe_refresh_ms_median (a fresh scorer each: a full
+                   pack and a full upload); the kernel alone (its cluster
+                   size, leftover placement and time a gang), the same
+                   kernel launched at cluster sizes 1 and 8 beside the
+                   device's plan (the design steps), and the plain scan
+                   alone.
 - mixed            seeded numpy at the same scale: 4 node shapes, gangs of
                    1-64 members, some infeasible, ~30% with a node selector
                    ([1024, 8192] mask), some per-node capacities >= 127.
@@ -35,7 +41,29 @@ Phases (one JSON line each; any failure makes the exit code non-zero):
                    8-node bucket); kernel vs plain on its last batch's
                    inputs.
 
-With BST_SCAN_WAVE unset, the four phases above run the serial kernel
+- north_star_churn the north-star deployment held in the port's
+                   ClusterState (whose event hooks feed the scorer's event
+                   log): each refresh follows one round of churn, 16 node
+                   rows (assume/forget of 1-cpu pods, benchmarks/
+                   delta_gate.py's CHURN_ROWS) and 4 gangs' progress rows
+                   named by mark_dirty(group=...); one round also moves a
+                   gang's priority. Every refresh after the first must be
+                   an event fold with no keyframe but the first, and one
+                   round also changes a gang's member request, whose [G,R]
+                   row must scatter. After each the host dict must equal
+                   the full pack's (one ClusterSnapshot of the whole
+                   ClusterState run as one batch), and all seven batch
+                   args the resident state handed the batch that pack's
+                   arrays. Medians of the refresh, host pack and device
+                   batch, fold outcomes, keyframes, rows scattered, derived
+                   batches, one profiled refresh, and, report-only, the
+                   same rounds through a scorer that skips the holder
+                   (every batch's arrays uploaded whole) and one round of
+                   1,000 node rows. Also report-only: the holder's scatter
+                   against the whole upload alone, at 5,000, 40,000 and
+                   150,000 nodes (residency_vs_upload).
+
+With BST_SCAN_WAVE unset, the five phases above run the serial kernel
 (assign_scan) and never the wave kernel. The wavefront path
 (BST_SCAN_WAVE=W, the wave kernel assign_wave):
 
@@ -60,12 +88,15 @@ With BST_SCAN_WAVE unset, the four phases above run the serial kernel
 - race_wave        race with W=32 (the 8-group bucket padded to one wave):
                    the same outcomes, the wave kernel once per batch, and it
                    matches the plain scans on the last batch.
+- north_star_churn_wave  north_star_churn with W=8: the wave kernel once
+                   per refresh, 128 waves a batch, and the wave telemetry
+                   equal to the full-pack scorer's after every refresh.
 
 Then the card's name and power limit (nvidia-smi), one ``kernels`` line and,
 last, ``{"ok": true, "device": {...}}``. Launch counts are read for each
-path that drives the scorer — north_star, race, north_star_wave, race_wave
-— with both kernels' counts zeroed just before the path and read just
-after; ``launches`` in the kernels line is the north-star path's,
+path that drives the scorer — north_star, race, north_star_churn,
+north_star_wave, race_wave, north_star_churn_wave — with both kernels'
+counts zeroed just before the path and read just after; ``launches`` in the kernels line is the north-star path's,
 ``launches_by_path`` holds each path. Comparison and timing launches are
 not counted.
 """
@@ -279,20 +310,28 @@ def compare_wave(args, wave, serial=None):
 
 
 @contextlib.contextmanager
-def scan_wave_env(wave):
-    """BST_SCAN_WAVE set to ``wave`` inside the block (unset for None)."""
-    saved = os.environ.get("BST_SCAN_WAVE")
-    if wave is None:
-        os.environ.pop("BST_SCAN_WAVE", None)
-    else:
-        os.environ["BST_SCAN_WAVE"] = str(wave)
+def env_set(values):
+    """Environment variables set to ``values`` inside the block (a None
+    value unsets one)."""
+    saved = {k: os.environ.get(k) for k in values}
     try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
         yield
     finally:
-        if saved is None:
-            os.environ.pop("BST_SCAN_WAVE", None)
-        else:
-            os.environ["BST_SCAN_WAVE"] = saved
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def scan_wave_env(wave):
+    """BST_SCAN_WAVE set to ``wave`` inside the block (unset for None)."""
+    return env_set({"BST_SCAN_WAVE": None if wave is None else str(wave)})
 
 
 def scan_inputs(batch_args):
@@ -371,8 +410,12 @@ def drive_north_star(wave):
     """The north-star deployment through ``OracleScorer.refresh``: seven
     batches with ``BST_SCAN_WAVE`` set to ``wave`` (None: unset), both scan
     kernels' launch counts zeroed just before the seven and read just
-    after, then one profiled refresh. Checks the shape and that every gang
-    placed. Returns (scorer, launches by kernel, report)."""
+    after, then one profiled refresh, then the keyframe figure: one
+    refresh each by seven fresh scorers (a full pack and a full upload),
+    the last five timed. Checks the shape, that every gang placed and that
+    the seven were the steady state (one first keyframe, then lite scans
+    reusing the derived columns). Returns (scorer, launches by kernel,
+    report)."""
     import torch
 
     from batch_scheduler_tpu_torch.core import OracleScorer
@@ -394,10 +437,30 @@ def drive_north_star(wave):
                     "assign_wave": assign_gangs_wave_cuda.launches}
         batches = scorer.batches_run
         telemetry = dict(scorer.last_telemetry)
+        stats = scorer.stats()
+        scan_pack_s = list(scorer.pack_seconds_by_path["scan"])
+        sync_s = list(scorer.sync_seconds)
         try:
             prof = profile_refresh(scorer, cluster, cache)
         except Exception as e:  # noqa: BLE001 — a measurement, not a check
             prof = {"profile": f"failed: {e!r}"[:300]}
+        # the keyframe refresh (a full pack and a full upload): one refresh
+        # each by a fresh scorer, two warmups then five timed
+        keyframe_s, keyframe_pack_s = [], []
+        for _ in range(7):
+            fresh = OracleScorer(device="cuda")
+            t0 = time.perf_counter()
+            fresh.refresh(cluster, cache)
+            keyframe_s.append(time.perf_counter() - t0)
+            keyframe_pack_s.append(fresh.pack_seconds_by_path["keyframe"][0])
+            if fresh.snapshot.delta.reason != "first":
+                raise AssertionError(f"keyframe refresh packed {fresh.snapshot.delta}")
+    # the seven are the steady state: one first keyframe, then lite scans
+    # of an unchanged cluster reusing the cached derived columns
+    ds = stats["device_state"]
+    if ds["keyframes"] != {"first": 1} or stats["packer"]["lite_packs"] != 6 \
+            or ds["derives"] != 1 or ds["rows_scattered"] != 0:
+        raise AssertionError(f"steady state {stats}")
     timed = slice(2, None)  # two warmup batches
     names = sorted(cache.snapshot())
     placed = sum(scorer.placed(n) for n in names)
@@ -424,6 +487,12 @@ def drive_north_star(wave):
         "device_batch_ms_median": statistics.median(scorer.batch_seconds[timed]) * 1e3,
         "refresh_ms_median": refresh_ms_median,
         "timed_runs": len(refresh_s[timed]),
+        "keyframe_refresh_ms_median": statistics.median(keyframe_s[2:]) * 1e3,
+        "keyframe_refresh_ms": [t * 1e3 for t in keyframe_s[2:]],
+        "keyframe_pack_ms_median": statistics.median(keyframe_pack_s[2:]) * 1e3,
+        "scan_pack_ms_median": statistics.median(scan_pack_s[1:]) * 1e3,
+        "sync_ms_median": statistics.median(sync_s[timed]) * 1e3,
+        "packer": stats["packer"], "device_state": stats["device_state"],
         "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20,
         **prof,
     }
@@ -571,6 +640,353 @@ def north_star_wave(results):
         "kernel_waves": {"waves": len(conflicts), "demoted": int(conflicts.sum()),
                          "uniform": int(megas.sum())},
     }
+
+
+HOST_KEYS = ("placed", "gang_feasible", "progress", "best", "best_exists",
+             "assignment_nodes", "assignment_counts")
+CHURN_ROWS = 16  # benchmarks/delta_gate.py:72
+CHURN_GANGS = 4
+CHURN_WIDE_ROWS = 1000  # the top of benchmarks/delta_gate.py:73's sweep
+CHURN_ROUNDS, CHURN_WARMUP = 10, 2
+# the rounds that move a gang's priority (the order re-derives on the
+# card) and a gang's member request (a [G,R] row scatters on the card)
+CHURN_PRIORITY_ROUND, CHURN_REQUEST_ROUND = CHURN_ROUNDS // 2, 3
+
+
+def north_star_state():
+    """The north-star deployment held in the port's ClusterState (the
+    provider with event hooks), with north_star_cluster's gangs."""
+    from batch_scheduler_tpu_torch.framework import ClusterState
+
+    static, cache = north_star_cluster()
+    cluster = ClusterState()
+    for node in static.nodes:
+        cluster.add_node(node)
+    return cluster, cache
+
+
+def full_pack_diff(scorer, cluster, cache):
+    """What differs between the scorer's last batch and the full pack of
+    the same state: one ClusterSnapshot of read_cluster_inputs (the path
+    every refresh took before the delta packer, which shares no row
+    packing with it) run as one batch on the card. Compares the host dict
+    and the wave telemetry, and — for a scorer with resident state — all
+    seven batch args the holder handed the batch (resident lanes, the host
+    tail, the derived fit row and order) with the full pack's arrays. The
+    full pack's kernel launches are restored: comparisons do not count."""
+    import numpy as np
+
+    from batch_scheduler_tpu_torch.core.oracle_scorer import read_cluster_inputs
+    from batch_scheduler_tpu_torch.ops.assign_scan import assign_gangs_cuda, assign_gangs_wave_cuda
+    from batch_scheduler_tpu_torch.ops.oracle import execute_batch_host
+    from batch_scheduler_tpu_torch.ops.snapshot import ClusterSnapshot
+
+    saved = (assign_gangs_cuda.launches, assign_gangs_wave_cuda.launches)
+    snap = ClusterSnapshot(*read_cluster_inputs(cluster, cache))
+    want, _ = execute_batch_host(snap.device_args(), snap.progress_args(), device="cuda")
+    assign_gangs_cuda.launches, assign_gangs_wave_cuda.launches = saved
+    got = scorer._state.result
+    diff = [k for k in HOST_KEYS if not np.array_equal(got[k], want[k])]
+    diff += [f"telemetry.{k}" for k in WAVE_TELEMETRY
+             if got["telemetry"].get(k) != want["telemetry"].get(k)]
+    args = scorer._device_state.last_args()
+    if args is not None:
+        diff += [f"batch arg {i}" for i, (a, h) in enumerate(zip(args, snap.device_args()))
+                 if not np.array_equal(a.cpu().numpy() if hasattr(a, "cpu") else a, h)]
+    return diff
+
+
+def drive_north_star_churn(wave):
+    """The north-star deployment in a ClusterState through
+    ``OracleScorer(device="cuda")`` with ``BST_SCAN_WAVE`` set to ``wave``
+    (None: unset): a first refresh, then CHURN_ROUNDS rounds of churn,
+    each followed by one refresh (the first CHURN_WARMUP untimed). A round
+    changes CHURN_ROWS node rows (assume of a 1-cpu pod on half of them,
+    forget of the previous round's pods on the other half, rotating
+    through the node list) and CHURN_GANGS gangs' progress rows
+    (``status.scheduled``, named by ``mark_dirty(group=...)``); one round
+    also changes a gang's priority, so the queue order re-derives on the
+    card, and one a gang's member request, so a [G,R] row scatters there.
+    Both kernels' counts are zeroed just before the rounds and read just
+    after. After every refresh the scorer must equal the full pack
+    (full_pack_diff). Report-only, each round also refreshes a second
+    scorer whose packs skip the holder (the same fold, every batch's
+    arrays uploaded whole, as before the holder) on the same
+    ClusterState, in turns with the first (its launches restored), held
+    to the full pack too. Then one
+    profiled churn refresh and one report-only round of CHURN_WIDE_ROWS
+    node rows. Returns (launches by kernel, report)."""
+    import torch
+
+    from batch_scheduler_tpu_torch.core import OracleScorer
+    from batch_scheduler_tpu_torch.ops.assign_scan import assign_gangs_cuda, assign_gangs_wave_cuda
+    from batch_scheduler_tpu_torch.sim.scenarios import make_member_pods
+
+    cluster, cache = north_star_state()
+    names = sorted(cache.snapshot())
+    node_names = [n.metadata.name for n in cluster.list_nodes()]
+    class UploadScorer(OracleScorer):
+        """The same scorer with the holder skipped: the batch uploads the
+        pack's host arrays whole."""
+
+        def _note_pack(self, snap):
+            snap.device_state_args = snap.device_args()
+
+    scorer = OracleScorer(device="cuda")
+    upload = UploadScorer(device="cuda")
+    pods = iter(make_member_pods("churn", 4 * CHURN_ROUNDS * CHURN_ROWS + CHURN_WIDE_ROWS,
+                                 {"cpu": "1"}))
+    held = []  # the previous round's assumed pods
+    half = CHURN_ROWS // 2
+
+    def mark(name):
+        scorer.mark_dirty(group=name)
+        upload.mark_dirty(group=name)
+
+    def churn(r):
+        nonlocal held
+        for uid in held:
+            cluster.forget(uid)
+        held = []
+        for k in range(half):
+            pod = next(pods)
+            cluster.assume(pod, node_names[(r * CHURN_ROWS + k) % len(node_names)])
+            held.append(pod.metadata.uid)
+        for k in range(CHURN_GANGS):
+            name = names[(r * CHURN_GANGS + k) % len(names)]
+            cache.get(name).pod_group.status.scheduled += 1
+            mark(name)
+        if r == CHURN_PRIORITY_ROUND:
+            name = names[-1]
+            cache.get(name).pod.spec.priority = 5  # jumps the queue
+            mark(name)
+        if r == CHURN_REQUEST_ROUND:
+            name = names[len(names) // 2]
+            cache.get(name).pod_group.spec.min_resources = {
+                "cpu": 2000, "memory": 4 * 1024**3, GPU: 1}
+            mark(name)
+
+    def compare(label, who=scorer):
+        diff = full_pack_diff(who, cluster, cache)
+        if diff:
+            kind = "resident" if who is scorer else "upload"
+            raise AssertionError(f"{label}: the {kind} scorer differs from the full pack "
+                                 f"in {diff}")
+
+    def timed_refresh(who):
+        t0 = time.perf_counter()
+        who.refresh(cluster, cache)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def refresh_upload(label, out):
+        saved = (assign_gangs_cuda.launches, assign_gangs_wave_cuda.launches)
+        out.append(timed_refresh(upload))
+        assign_gangs_cuda.launches, assign_gangs_wave_cuda.launches = saved
+        compare(label, upload)
+
+    with scan_wave_env(wave):
+        scorer.refresh(cluster, cache)
+        compare("first refresh")
+        refresh_upload("first refresh", [])
+        first = scorer.last_fold_outcome
+        # the main path: counts zeroed just before, read just after
+        assign_gangs_cuda.launches = 0
+        assign_gangs_wave_cuda.launches = 0
+        refresh_s, upload_s, outcomes, group_rows = [], [], [], {}
+        for r in range(1, CHURN_ROUNDS):
+            churn(r)
+            if r % 2:  # the two scorers in turns
+                refresh_upload(f"round {r}", upload_s)
+            refresh_s.append(timed_refresh(scorer))
+            outcomes.append(scorer.last_fold_outcome)
+            if len(scorer.snapshot.delta.group_rows):
+                group_rows[r] = scorer.snapshot.delta.group_rows.tolist()
+            compare(f"round {r}")
+            if not r % 2:
+                refresh_upload(f"round {r}", upload_s)
+        launches = {"assign_scan": assign_gangs_cuda.launches,
+                    "assign_wave": assign_gangs_wave_cuda.launches}
+        refreshes = CHURN_ROUNDS - 1
+        stats = scorer.stats()
+        telemetry = dict(scorer.last_telemetry)
+        pack_s, batch_s = scorer.pack_seconds[1:], scorer.batch_seconds[1:]
+        fold_s, sync_s = scorer.pack_seconds_by_path["fold"], scorer.sync_seconds[1:]
+        upload_pack_s, upload_batch_s = upload.pack_seconds[1:], upload.batch_seconds[1:]
+        upload_outcomes = dict(upload.fold_outcomes)
+        if len(fold_s) != refreshes:
+            raise AssertionError(f"{len(fold_s)} fold packs in {refreshes} refreshes")
+        churn(CHURN_ROUNDS)
+        try:
+            prof = profile_refresh(scorer, cluster, cache)
+        except Exception as e:  # noqa: BLE001 — a measurement, not a check
+            prof = {"profile": f"failed: {e!r}"[:300]}
+        compare("profiled round")
+        # report-only: CHURN_WIDE_ROWS node rows in one round
+        for k in range(CHURN_WIDE_ROWS):
+            cluster.assume(next(pods), node_names[(7 * k + 3) % len(node_names)])
+        wide_s = timed_refresh(scorer)
+        wide = {"node_rows": CHURN_WIDE_ROWS, "outcome": scorer.last_fold_outcome,
+                "rows_scattered": int(len(scorer.snapshot.delta.node_rows)),
+                "refresh_ms": wide_s * 1e3,
+                "host_pack_ms": scorer.pack_seconds[-1] * 1e3,
+                "device_batch_ms": scorer.batch_seconds[-1] * 1e3}
+        compare("wide round")
+    timed = slice(CHURN_WARMUP - 1, None)
+    ds = stats["device_state"]
+    if first != "no-base" or any(o != "folded" for o in outcomes):
+        raise AssertionError(f"fold outcomes: first {first}, rounds {outcomes}")
+    if upload_outcomes != {"no-base": 1, "folded": refreshes}:
+        raise AssertionError(f"upload scorer fold outcomes {upload_outcomes}")
+    if ds["keyframes"] != {"first": 1}:
+        raise AssertionError(f"keyframes {ds['keyframes']} (want only the first)")
+    if ds["derives"] != 2:
+        raise AssertionError(f"{ds['derives']} derivations (want the first and the "
+                             "priority round's)")
+    if list(group_rows) != [CHURN_REQUEST_ROUND] or len(group_rows[CHURN_REQUEST_ROUND]) != 1:
+        raise AssertionError(f"[G,R] rows scattered by round: {group_rows} (want one row "
+                             f"in round {CHURN_REQUEST_ROUND})")
+    med = lambda xs: statistics.median(xs[timed]) * 1e3  # noqa: E731
+    refresh_ms_median = med(refresh_s)
+    if "device_busy_ms" in prof:
+        prof["device_idle_share_vs_median"] = 1 - prof["device_busy_ms"] / refresh_ms_median
+    report = {
+        "shape": list(scorer.snapshot.shape), "churn_rows": CHURN_ROWS,
+        "churn_gangs": CHURN_GANGS, "refreshes": refreshes,
+        "timed_runs": len(refresh_s[timed]), "launches_by_kernel": launches,
+        "refresh_ms_median": refresh_ms_median,
+        "host_pack_ms_median": med(pack_s),
+        "device_batch_ms_median": med(batch_s),
+        "fold_pack_ms_median": med(fold_s),
+        "sync_ms_median": med(sync_s),
+        "refresh_ms": [t * 1e3 for t in refresh_s[timed]],
+        # report-only: the same fold with every batch's arrays uploaded
+        "upload_refresh_ms_median": med(upload_s),
+        "upload_host_pack_ms_median": med(upload_pack_s),
+        "upload_device_batch_ms_median": med(upload_batch_s),
+        "upload_refresh_ms": [t * 1e3 for t in upload_s[timed]],
+        "fold_outcomes": stats["fold_outcomes"], "keyframes": ds["keyframes"],
+        "rows_scattered": ds["rows_scattered"], "group_rows_by_round": group_rows,
+        "derived_batches": ds["derived_batches"],
+        "derives": ds["derives"], "packer": stats["packer"],
+        "event_log": stats.get("event_log"), "telemetry": telemetry,
+        "equal_full_pack": True, "wide_round": wide,
+        **prof,
+    }
+    return launches, report
+
+
+# report-only: the holder's scatter against the whole upload it replaces,
+# at the north star and at two larger node counts (buckets 65536, 262144)
+RESIDENCY_NODES = (NORTH_STAR_NODES, 40000, 150000)
+RESIDENCY_TRIALS = 9
+
+
+def residency_vs_upload():
+    """Report-only, per node count in RESIDENCY_NODES (north-star node and
+    gang shapes): after a first full pack, RESIDENCY_TRIALS event folds of
+    CHURN_ROWS node rows each; per fold, in turns, the card-side inputs of
+    one batch made two ways and synchronized — the holder's ``sync`` (row
+    scatter, cached derive) plus the upload of what stays host, against
+    ``batch_from_numpy`` of the whole pack (what every batch uploaded
+    before the holder). The two sets of tensors must be equal. Medians in ms, and
+    the bytes the whole upload moves."""
+    import numpy as np
+    import torch
+
+    from batch_scheduler_tpu_torch.ops.convert import batch_from_numpy
+    from batch_scheduler_tpu_torch.ops.device_state import DeviceStateHolder
+    from batch_scheduler_tpu_torch.ops.snapshot import DeltaSnapshotPacker, GroupDemand
+    from batch_scheduler_tpu_torch.sim.scenarios import make_sim_node
+
+    groups = [GroupDemand(full_name=f"default/gang-{g:04d}", min_member=10,
+                          member_request={"cpu": 4000, "memory": 8 * 1024**3, GPU: 1},
+                          creation_ts=float(g))
+              for g in range(NORTH_STAR_GANGS)]
+    out = []
+    for count in RESIDENCY_NODES:
+        nodes = [make_sim_node(f"n{i:06d}", {"cpu": "64", "memory": "256Gi", "pods": "110",
+                                             GPU: "8"})
+                 for i in range(count)]
+        node_req = {n.metadata.name: {} for n in nodes}
+        packer = DeltaSnapshotPacker()
+        holder = DeviceStateHolder("cuda", label="residency")
+        snap = packer.pack(nodes, node_req, groups)
+        holder.sync(snap)
+        resident_s, upload_s = [], []
+
+        def resident():
+            args = holder.sync(snap)
+            got, _ = batch_from_numpy(args, snap.progress_args(), "cuda")
+            return got
+
+        def upload():
+            got, _ = batch_from_numpy(snap.device_args(), snap.progress_args(), "cuda")
+            return got
+
+        for t in range(RESIDENCY_TRIALS):
+            updates = []
+            for k in range(CHURN_ROWS):
+                name = nodes[(t * CHURN_ROWS + k) * 7 % count].metadata.name
+                node_req[name] = {"cpu": 1000 * (t + 1), "pods": t + 1}
+                updates.append((name, node_req[name]))
+            snap = packer.pack_fold(updates, [])
+            if snap is None:
+                raise AssertionError(f"{count} nodes: the fold did not apply")
+            got = {}
+            for name, fn, times in (("resident", resident, resident_s),
+                                    ("upload", upload, upload_s))[::1 if t % 2 else -1]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got[name] = fn()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            bad = [i for i, (a, b) in enumerate(zip(got["resident"], got["upload"]))
+                   if not torch.equal(a, b)]
+            if bad:
+                raise AssertionError(f"{count} nodes, fold {t}: resident args {bad} differ "
+                                     "from the upload")
+        args = snap.device_args()
+        out.append({
+            "nodes": count, "n_bucket": int(args[0].shape[0]),
+            "upload_bytes": int(sum(np.asarray(a).nbytes for a in args)),
+            "resident_ms_median": statistics.median(resident_s[1:]) * 1e3,
+            "upload_ms_median": statistics.median(upload_s[1:]) * 1e3,
+            "resident_ms": [x * 1e3 for x in resident_s[1:]],
+            "upload_ms": [x * 1e3 for x in upload_s[1:]],
+        })
+        del nodes, node_req, packer, holder, snap
+    return out
+
+
+@phase("north_star_churn")
+def north_star_churn(results):
+    launches, report = drive_north_star_churn(None)
+    n = report["refreshes"]
+    if launches["assign_scan"] != n or launches["assign_wave"] != 0:
+        raise AssertionError(f"{launches} launches in {n} refreshes "
+                             "(want assign_scan once per refresh, assign_wave never)")
+    if "assign_scan" in results:
+        results["assign_scan"]["launches_by_path"]["north_star_churn"] = launches["assign_scan"]
+    return {**report, "launches": launches["assign_scan"],
+            "residency_vs_upload": residency_vs_upload()}
+
+
+@phase("north_star_churn_wave")
+def north_star_churn_wave(results):
+    wave = 8
+    launches, report = drive_north_star_churn(wave)
+    n = report["refreshes"]
+    if launches["assign_wave"] != n or launches["assign_scan"] != 0:
+        raise AssertionError(f"{launches} launches in {n} refreshes "
+                             "(want assign_wave once per refresh, assign_scan never)")
+    tele = report["telemetry"]
+    if tele.get("wave_width") != wave or tele.get("waves_per_batch") != NORTH_STAR_SHAPE[0] // wave:
+        raise AssertionError(f"wave telemetry {tele}")
+    if "assign_wave" in results:
+        results["assign_wave"]["launches_by_path"]["north_star_churn_wave"] = \
+            launches["assign_wave"]
+    return {**report, "launches": launches["assign_wave"]}
 
 
 def mixed_batch(num_nodes, num_groups, seed, per_group, zone_by_position=False):
@@ -888,9 +1304,11 @@ def main() -> int:
     mixed()
     global_leftover()
     race(results)
+    north_star_churn(results)
     north_star_wave(results)
     mixed_wave(results)
     race_wave(results)
+    north_star_churn_wave(results)
 
     sources = {
         "assign_scan": ("batch_scheduler_tpu_torch/csrc/assign_scan.cu",

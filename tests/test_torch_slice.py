@@ -113,6 +113,12 @@ def test_port_imports_neither_jax_nor_reference(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+def test_import_guard_walks_the_refresh_modules():
+    walked = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert {"framework/cluster.py", "ops/events.py", "ops/device_state.py",
+            "ops/snapshot.py", "core/oracle_scorer.py"} <= walked
+
+
 def test_default_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
