@@ -2,7 +2,8 @@
 
 Packs the live PodGroup status cache + cluster state into one
 ClusterSnapshot (numpy), runs the batch (``ops.oracle.execute_batch_host``:
-the head, the CUDA assignment scan, the compaction and one blob copy), and
+the head, the CUDA assignment scan, the compaction and the blob's copy to
+pinned host memory, on the scorer's own stream), and
 serves the per-group / per-node answers the scheduling callbacks need from
 the cached host results, reading [G,N] rows from the device on demand.
 
@@ -30,9 +31,10 @@ import weakref
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..cache.pg_cache import PGStatusCache, PodGroupMatchStatus
-from ..ops.convert import resolve_device
+from ..ops.convert import device_stream, resolve_device
 from ..ops.device_state import DeviceStateHolder
 from ..ops.events import EventLog
 from ..ops.oracle import execute_batch_host
@@ -102,7 +104,10 @@ class _BatchState:
         self._rows_lock = threading.Lock()
 
     def row(self, kind: str, g: int) -> np.ndarray:
-        """Fetch (and cache) one group's row of a [G,N] tensor."""
+        """Fetch (and cache) one group's row of a [G,N] tensor. The batch
+        that wrote it is complete (its collect waited on the batch's
+        event), and the copy is synchronous on the reader's stream, so the
+        block is not freed while the read is pending."""
         key = (kind, g)
         with self._rows_lock:
             cached = self._rows.get(key)
@@ -120,10 +125,13 @@ class OracleScorer:
     ``device`` is where batches run: ``cuda`` (default; raises at
     construction on a machine without CUDA) or ``cpu``. The packed
     buffers stay resident on that device, and each pack's churned rows
-    are scattered into them."""
+    are scattered into them. On CUDA every refresh enqueues its device
+    work (the holder's uploads and scatters, the batch, the blob's copy)
+    on the scorer's own ``stream``, whichever thread refreshes."""
 
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
+        self.stream = device_stream(self.device)
         # Dirty tracking is a GENERATION pair: refresh() records the
         # generation it observed BEFORE packing, so a mark_dirty landing
         # while the batch runs keeps the batch stale.
@@ -228,12 +236,13 @@ class OracleScorer:
         """Pack the current state (event fold or scan) and run one batch.
         Callers serialize refreshes (``ensure_fresh`` holds the refresh
         lock)."""
-        snap, dirty_gen, version_base, pack_s = self._pack_current(
-            cluster, status_cache
-        )
-        t1 = time.perf_counter()
-        host, device_result = self._execute(snap)
-        t2 = time.perf_counter()
+        with torch.cuda.stream(self.stream):
+            snap, dirty_gen, version_base, pack_s = self._pack_current(
+                cluster, status_cache
+            )
+            t1 = time.perf_counter()
+            host, device_result = self._execute(snap)
+            t2 = time.perf_counter()
         max_group = (
             snap.group_names[int(host["best"])]
             if host["best_exists"] and int(host["best"]) < len(snap.group_names)

@@ -66,6 +66,11 @@
 //   it fits the block's budget, else in a wrapper-allocated global scratch
 //   slab per block (coalesced the same way; it stays in the 50 MB L2).
 //   Capacities stay in registers between the phases of a step.
+// - Buckets past 2^20 nodes (more than 64 nodes a thread even at 16
+//   blocks): the thread's nodes run as slabs of 64 through the same device
+//   functions, from global scratch, with each slab's capacities recomputed
+//   in each pass (histogram, bin sum, take) instead of kept in registers.
+//   One instantiation serves any number of slabs.
 // - Each take row is written straight to alloc[order[s]] (only its nonzero
 //   entries: the wrapper hands over an alloc zeroed by torch.zeros, whose
 //   memset the wrapper's time includes).
@@ -109,9 +114,15 @@ struct ScanArgs {
   int n, g, r, mask_per_group, block_nodes, per;
 };
 
-template <int kPer, bool kShared>
+// kSlabs (with kPer = 64, leftover in global scratch): a thread's `per`
+// nodes, any number of them, run as slabs of at most kPer in runtime loops
+// (not unrolled: see `opaque`); each pass of a step recomputes a slab's
+// capacities from the leftover and its mask bytes (neither changes inside
+// the step before the take), so nothing per node is kept across the phases
+template <int kPer, bool kShared, bool kSlabs = false>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 assign_scan_kernel(const ScanArgs a) {
+  static_assert(!kSlabs || (kPer == 64 && !kShared), "slabs run from global scratch");
   using Bits = std::conditional_t<(kPer > 32), unsigned long long, unsigned>;
   extern __shared__ int dyn[];
   __shared__ __align__(16) int bhist[kBins];
@@ -170,7 +181,7 @@ assign_scan_kernel(const ScanArgs a) {
   int gi_next = g > 1 ? __ldg(a.order + 1) : -1;
   if (row_src != nullptr && g > 0) rows[row_slot] = __ldg(row_src + (size_t)ge * r + row_k);
   Bits mbits = 0;  // bit j: node n0 + j is in this gang's fit row
-  if (g > 0) {
+  if (!kSlabs && g > 0) {
     const unsigned char* mrow =
         a.mask + (a.mask_per_group ? (size_t)ge * n : (size_t)0) + n0;
     for (int j = 0; j < cnt; ++j) mbits |= (Bits)(__ldg(mrow + j) != 0) << j;
@@ -180,19 +191,41 @@ assign_scan_kernel(const ScanArgs a) {
     mbar_init(smem_addr(&inbox_full[1]), 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  // slab c of the thread's nodes: how many (0 past the last), and their
+  // capacities for the gang with request row `row` and mask row `mrow`
+  const int slabs = kSlabs ? (per + kPer - 1) / kPer : 1;
+  auto slab_caps = [&](int c, const int4* row, const unsigned char* mrow, int (&cap)[kPer]) {
+    const int base = c * kPer;
+    const int sc = opaque(min(max(cnt - base, 0), kPer));
+    for (int j = 0; j < sc; ++j) cap[j] = __ldg(mrow + base + j) != 0 ? kBig : 0;
+    node_caps(cap, sc, row, r, left + base * threads, lane_slots, threads,
+              min(per - base, kPer));
+    return sc;
+  };
+
   // every block's barriers exist before any block pushes into them
   cluster_barrier();
 
   for (int s = 0; s < g; ++s) {
     const int p = s & 1;
     const int4* row = reinterpret_cast<const int4*>(rows) + p * r;
+    int* wh = whist + (p * warps + warp) * kBins;
+    const unsigned char* mrow =
+        a.mask + (a.mask_per_group ? (size_t)ge * n : (size_t)0) + n0;
 
     // phase 1: capacities of the owned nodes, histograms of capc by key
     int cap[kPer];
+    if constexpr (kSlabs) {
+      for (int c = 0; c < slabs; ++c) {
+        const int sc = slab_caps(c, row, mrow, cap);
+        hist_add(cap, sc, sc, need, lane, bhist, wh);
+      }
+    } else {
 #pragma unroll
-    for (int j = 0; j < kPer; ++j) cap[j] = (mbits >> j) & 1 ? kBig : 0;
-    node_caps(cap, kPer, row, r, left, lane_slots, threads, per);
-    hist_add(cap, kPer, cnt, need, lane, bhist, whist + (p * warps + warp) * kBins);
+      for (int j = 0; j < kPer; ++j) cap[j] = (mbits >> j) & 1 ? kBig : 0;
+      node_caps(cap, kPer, row, r, left, lane_slots, threads, per);
+      hist_add(cap, kPer, cnt, need, lane, bhist, wh);
+    }
 
     __syncthreads();
 
@@ -213,7 +246,7 @@ assign_scan_kernel(const ScanArgs a) {
     if (row_src != nullptr && has_next)
       row_next = __ldg(row_src + (size_t)ge_next * r + row_k);
     unsigned char mask_next[kPer];
-    const bool load_mask = a.mask_per_group && has_next;
+    const bool load_mask = !kSlabs && a.mask_per_group && has_next;
     if (load_mask) {
       const unsigned char* mrow = a.mask + (size_t)ge_next * n + n0;
 #pragma unroll
@@ -241,10 +274,25 @@ assign_scan_kernel(const ScanArgs a) {
     if (ok && rank == 0 && tid == 0) a.placed[gi] = (unsigned char)feasible;
     if (feasible) {  // same value in every thread of the cluster
       const int thresh = sh_thresh;
-      const int prefix =
-          sh_pre + bin_prefix(cap, kPer, cnt, thresh, need, whist + p * warps * kBins, warp, lane);
-      take_commit(cap, kPer, cnt, need, thresh, sh_rem, prefix, row, r, left, lane_slots,
-                  threads, a.alloc + (size_t)ge * n + n0);
+      const int* wh0 = whist + p * warps * kBins;
+      int* arow = a.alloc + (size_t)ge * n + n0;
+      if constexpr (kSlabs) {
+        int own = 0;
+        for (int c = 0; c < slabs; ++c) {
+          const int sc = slab_caps(c, row, mrow, cap);
+          own += bin_sum(cap, sc, sc, thresh, need);
+        }
+        int prefix = sh_pre + block_prefix(own, thresh, wh0, warp, lane);
+        for (int c = 0; c < slabs; ++c) {
+          const int sc = slab_caps(c, row, mrow, cap);
+          prefix = take_commit(cap, sc, sc, need, thresh, sh_rem, prefix, row, r,
+                               left + c * kPer * threads, lane_slots, threads, arow + c * kPer);
+        }
+      } else {
+        const int prefix = sh_pre + bin_prefix(cap, kPer, cnt, thresh, need, wh0, warp, lane);
+        take_commit(cap, kPer, cnt, need, thresh, sh_rem, prefix, row, r, left, lane_slots,
+                    threads, arow);
+      }
     }
 
     gi = gi_next;
@@ -276,7 +324,9 @@ KernelFn kernel_at_least(int per, int shared) {
   return nullptr;
 }
 
+// more than 64 nodes a thread: slabs of 64, leftover in global scratch
 KernelFn kernel_for(int per, int shared) {
+  if (per > 64) return shared ? nullptr : assign_scan_kernel<64, false, true>;
   return per < 1 ? nullptr : kernel_at_least<1>(per, shared);
 }
 

@@ -76,7 +76,9 @@
 //   registers after that.
 // - Nodes a thread: 1 (every bucket up to 16384 nodes) has its own
 //   instantiation with the per-node loops unrolled; 2 to 64 share one with
-//   runtime loops (local arrays).
+//   runtime loops (local arrays); more (buckets past 2^20 nodes) run as
+//   slabs of 64 through the same device functions in a third, from global
+//   scratch, each slab's capacities recomputed in each pass.
 // - The per-gang step's device functions are cluster_scan.cuh's, the
 //   serial kernel's own.
 // - int32: the uniform stream positions stay exact because sum(need) * N
@@ -146,10 +148,16 @@ struct __align__(16) WaveShared {
 
 // kPer nodes a thread with the per-node loops unrolled and their values in
 // registers, or kPer = 0: up to kMaxPer nodes a thread in runtime loops
-// (the buckets from 32768 nodes, whose leftover is mostly in global scratch)
+// (the buckets from 32768 nodes, whose leftover is mostly in global scratch),
+// or kPer = -1 (slabs, leftover in global scratch): any number of nodes a
+// thread, run as slabs of at most kMaxPer in runtime loops; each pass of a
+// step recomputes a slab's capacities from the leftover and the mask bytes,
+// so nothing per node is kept across the phases
 template <int kPer, bool kShared>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 assign_wave_kernel(const WaveArgs a) {
+  constexpr bool kSlabs = kPer < 0;
+  static_assert(!kSlabs || !kShared, "slabs run from global scratch");
   constexpr int kArr = kPer > 0 ? kPer : kMaxPer;
   using Bits = std::conditional_t<(kArr > 32), unsigned long long, unsigned>;
   extern __shared__ __align__(16) int dyn[];
@@ -191,7 +199,7 @@ assign_wave_kernel(const WaveArgs a) {
   for (int i = tid; i < kBins; i += threads) sh.bh[i] = 0;
   for (int i = tid; i < 2 * warps * kBins; i += threads) whist[i] = 0;
   Bits m0 = 0;  // broadcast mask: bit j, node n0 + j is in the fit row
-  if (!a.mask_per_group)
+  if (!kSlabs && !a.mask_per_group)
     for (int j = 0; j < cnt; ++j) m0 |= (Bits)(__ldg(a.mask + n0 + j) != 0) << j;
 
   // wave t + 1's gang indices (-1 inert), validated, into `dst`
@@ -258,6 +266,21 @@ assign_wave_kernel(const WaveArgs a) {
     for (int i = 0; i < np; ++i) cap[i] = (mw[i] >> j) & 1 ? kBig : 0;
     node_caps(cap, np, rows + j * r, r, src, lane_slots, threads, per);
   };
+  // slab c of the own nodes (kSlabs): how many (0 past the last), and the
+  // capacities of wave position j on leftover slab `src`, the fit bits read
+  // from the mask as mask_bits reads them
+  const int slabs = kSlabs ? (per + kMaxPer - 1) / kMaxPer : 1;
+  auto slab_caps = [&](const int* src, const int* st, int j, int c, int (&cap)[kArr]) {
+    const int base = c * kMaxPer;
+    const int sc = opaque(min(max(cnt - base, 0), kMaxPer));  // runtime loops
+    const int gi = st[j];
+    const unsigned char* mr =
+        a.mask + (a.mask_per_group ? (size_t)max(gi, 0) * n : (size_t)0) + n0 + base;
+    for (int i = 0; i < sc; ++i) cap[i] = gi >= 0 && __ldg(mr + i) != 0 ? kBig : 0;
+    node_caps(cap, sc, reinterpret_cast<const int4*>(st + kStageRows) + j * r, r,
+              src + base * threads, lane_slots, threads, min(per - base, kMaxPer));
+    return sc;
+  };
 
   int e = 0;   // exchange rounds so far: round e uses inbox and mbarrier e & 1
   int hs = 0;  // histogram rounds so far: they use the per-warp histograms hs & 1
@@ -296,17 +319,31 @@ assign_wave_kernel(const WaveArgs a) {
   auto serial_step = [&](const int* st, const unsigned (&mw)[kArr], int j, bool check) {
     const int4* rows = reinterpret_cast<const int4*>(st + kStageRows);
     const int need = st[kMaxWave + j];
-    caps(left, rows, j, mw, cap);
-    if (check) {
-      int start[kArr];
-      caps(wave_left, rows, j, mw, start);
-      bool differs = false;
-#pragma unroll
-      for (int i = 0; i < np; ++i) differs |= i < cnt && cap[i] != start[i];
-      if (differs) sh.flag = 1;
-    }
     int* wh_cur = whist + ((hs & 1) * warps) * kBins;
-    hist_add(cap, np, cnt, need, lane, sh.bh, wh_cur + warp * kBins);
+    if constexpr (kSlabs) {
+      bool differs = false;
+      for (int c = 0; c < slabs; ++c) {
+        const int sc = slab_caps(left, st, j, c, cap);
+        if (check) {
+          int start[kArr];
+          slab_caps(wave_left, st, j, c, start);
+          for (int i = 0; i < sc; ++i) differs |= cap[i] != start[i];
+        }
+        hist_add(cap, sc, sc, need, lane, sh.bh, wh_cur + warp * kBins);
+      }
+      if (differs) sh.flag = 1;
+    } else {
+      caps(left, rows, j, mw, cap);
+      if (check) {
+        int start[kArr];
+        caps(wave_left, rows, j, mw, start);
+        bool differs = false;
+#pragma unroll
+        for (int i = 0; i < np; ++i) differs |= i < cnt && cap[i] != start[i];
+        if (differs) sh.flag = 1;
+      }
+      hist_add(cap, np, cnt, need, lane, sh.bh, wh_cur + warp * kBins);
+    }
     __syncthreads();
     if (warp == 0) {
       exchange_hist(check);
@@ -329,9 +366,25 @@ assign_wave_kernel(const WaveArgs a) {
     if (rank == 0 && tid == 0 && gi >= 0) a.placed[gi] = (unsigned char)feasible;
     if (feasible && gi >= 0) {  // same values in every thread of the cluster
       const int th = sh.thresh;
-      const int prefix = sh.pre + bin_prefix(cap, np, cnt, th, need, wh_cur, warp, lane);
-      take_commit(cap, np, cnt, need, th, sh.rem, prefix, rows + j * r, r, left, lane_slots,
-                  threads, a.alloc + (size_t)gi * n + n0);
+      int* arow = a.alloc + (size_t)gi * n + n0;
+      if constexpr (kSlabs) {
+        int own = 0;
+        for (int c = 0; c < slabs; ++c) {
+          const int sc = slab_caps(left, st, j, c, cap);
+          own += bin_sum(cap, sc, sc, th, need);
+        }
+        int prefix = sh.pre + block_prefix(own, th, wh_cur, warp, lane);
+        for (int c = 0; c < slabs; ++c) {
+          const int sc = slab_caps(left, st, j, c, cap);
+          prefix = take_commit(cap, sc, sc, need, th, sh.rem, prefix, rows + j * r, r,
+                               left + c * kMaxPer * threads, lane_slots, threads,
+                               arow + c * kMaxPer);
+        }
+      } else {
+        const int prefix = sh.pre + bin_prefix(cap, np, cnt, th, need, wh_cur, warp, lane);
+        take_commit(cap, np, cnt, need, th, sh.rem, prefix, rows + j * r, r, left, lane_slots,
+                    threads, arow);
+      }
     }
   };
 
@@ -349,19 +402,21 @@ assign_wave_kernel(const WaveArgs a) {
   // every block's barriers exist before any block pushes into them
   cluster_barrier();
   unsigned mw_next[kArr];
-  if (steps > 0) mask_bits(stage_base, mw_next);
+  if (!kSlabs && steps > 0) mask_bits(stage_base, mw_next);
 
   for (int s = 0; s < steps; ++s) {
     const int* st = stage_base + (s & 1) * stage_ints;
     const int4* rows = reinterpret_cast<const int4*>(st + kStageRows);
     unsigned mw[kArr];
+    if constexpr (!kSlabs) {
 #pragma unroll
-    for (int i = 0; i < np; ++i) mw[i] = mw_next[i];
+      for (int i = 0; i < np; ++i) mw[i] = mw_next[i];
+    }
     const bool has_next = s + 1 < steps;
     // between a wave's first two block barriers: stage the next wave;
-    // after the second: load its mask bits
+    // after the second: load its mask bits (slabs read them in each pass)
     auto after_b2 = [&]() {
-      if (has_next) mask_bits(stage_base + ((s + 1) & 1) * stage_ints, mw_next);
+      if (!kSlabs && has_next) mask_bits(stage_base + ((s + 1) & 1) * stage_ints, mw_next);
     };
     int keep;  // gangs the wave's branch placed; the rest are replayed
     bool conflicted;  // the wave's conflicts flag
@@ -370,9 +425,16 @@ assign_wave_kernel(const WaveArgs a) {
       // ---- uniform: one exchange of the histogram of min(cap, total need)
       int total = 0;
       for (int j = 0; j < wave; ++j) total += st[kMaxWave + j];
-      caps(left, rows, 0, mw, cap);
       int* wh_cur = whist + ((hs & 1) * warps) * kBins;
-      hist_add(cap, np, cnt, total, lane, sh.bh, wh_cur + warp * kBins);
+      if constexpr (kSlabs) {
+        for (int c = 0; c < slabs; ++c) {
+          const int sc = slab_caps(left, st, 0, c, cap);
+          hist_add(cap, sc, sc, total, lane, sh.bh, wh_cur + warp * kBins);
+        }
+      } else {
+        caps(left, rows, 0, mw, cap);
+        hist_add(cap, np, cnt, total, lane, sh.bh, wh_cur + warp * kBins);
+      }
       __syncthreads();
       if (has_next && warp != 0) stage(s + 1);
       if (warp == 0) {
@@ -430,46 +492,79 @@ assign_wave_kernel(const WaveArgs a) {
       ++hs;
       after_b2();
       keep = sh.limit;
-      // each own node's units in its bin on earlier nodes of the cluster,
-      // for the nodes in a boundary bin
-      int within[kArr];
-#pragma unroll
-      for (int i = 0; i < np; ++i) within[i] = 0;
       const int slots = sh.slots;
-      for (int q = 0; q < slots; ++q) {
-        const int b = sh.slot_bin[q];
-        int run = sh.blockpre[b] + bin_prefix(cap, np, cnt, b, total, wh_cur, warp, lane);
+      // gang j takes the units between boundaries j and j+1 of the own
+      // nodes held in `cap` (the nodes from n0 + off), given each one's
+      // units in its bin on earlier nodes of the cluster (`within`, for
+      // the nodes in a boundary bin)
+      auto boundary_take = [&](const int (&within)[kArr], int np_, int cnt_, int off) {
 #pragma unroll
-        for (int i = 0; i < np; ++i) {
-          if (i < cnt && min(cap[i], kBins - 1) == b) {
-            within[i] = run;
-            run += min(cap[i], total);
+        for (int i = 0; i < np_; ++i) {
+          if (i >= cnt_) continue;
+          const int key = min(cap[i], kBins - 1);
+          const int capc = min(cap[i], total);
+          auto taken = [&](int j) {
+            const int b = sh.bbkt[j];
+            return key < b ? capc : key == b ? min(max(sh.boff[j] - within[i], 0), capc) : 0;
+          };
+          int prev = taken(0);
+          for (int j = 0; j < keep; ++j) {
+            const int next = taken(j + 1);
+            const int gi = st[j];
+            if (next != prev && gi >= 0) a.alloc[(size_t)gi * n + n0 + off + i] = next - prev;
+            prev = next;
+          }
+          if (prev != 0) {
+            for (int k = 0; k < r; ++k) {
+              int* cell = left + k * lane_slots + (off + i) * threads;
+              *cell = (int)((unsigned)*cell - (unsigned)prev * (unsigned)rows[k].x);
+            }
           }
         }
-      }
-      // gang j takes the units between boundaries j and j+1
-#pragma unroll
-      for (int i = 0; i < np; ++i) {
-        if (i >= cnt) continue;
-        const int key = min(cap[i], kBins - 1);
-        const int capc = min(cap[i], total);
-        auto taken = [&](int j) {
-          const int b = sh.bbkt[j];
-          return key < b ? capc : key == b ? min(max(sh.boff[j] - within[i], 0), capc) : 0;
-        };
-        int prev = taken(0);
-        for (int j = 0; j < keep; ++j) {
-          const int next = taken(j + 1);
-          const int gi = st[j];
-          if (next != prev && gi >= 0) a.alloc[(size_t)gi * n + n0 + i] = next - prev;
-          prev = next;
+      };
+      int within[kArr];
+      if constexpr (kSlabs) {
+        // each boundary bin's running prefix: the thread's units in it over
+        // every slab first, then slab by slab
+        int run[kMaxWave + 1];
+        for (int q = 0; q < slots; ++q) run[q] = 0;
+        for (int c = 0; c < slabs; ++c) {
+          const int sc = slab_caps(left, st, 0, c, cap);
+          for (int q = 0; q < slots; ++q) run[q] += bin_sum(cap, sc, sc, sh.slot_bin[q], total);
         }
-        if (prev != 0) {
-          for (int k = 0; k < r; ++k) {
-            int* cell = left + k * lane_slots + i * threads;
-            *cell = (int)((unsigned)*cell - (unsigned)prev * (unsigned)rows[k].x);
+        for (int q = 0; q < slots; ++q) {
+          const int b = sh.slot_bin[q];
+          run[q] = sh.blockpre[b] + block_prefix(run[q], b, wh_cur, warp, lane);
+        }
+        for (int c = 0; c < slabs; ++c) {
+          const int sc = slab_caps(left, st, 0, c, cap);
+          for (int i = 0; i < sc; ++i) within[i] = 0;
+          for (int q = 0; q < slots; ++q) {
+            const int b = sh.slot_bin[q];
+            for (int i = 0; i < sc; ++i) {
+              if (min(cap[i], kBins - 1) == b) {
+                within[i] = run[q];
+                run[q] += min(cap[i], total);
+              }
+            }
+          }
+          boundary_take(within, sc, sc, c * kMaxPer);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < np; ++i) within[i] = 0;
+        for (int q = 0; q < slots; ++q) {
+          const int b = sh.slot_bin[q];
+          int run = sh.blockpre[b] + bin_prefix(cap, np, cnt, b, total, wh_cur, warp, lane);
+#pragma unroll
+          for (int i = 0; i < np; ++i) {
+            if (i < cnt && min(cap[i], kBins - 1) == b) {
+              within[i] = run;
+              run += min(cap[i], total);
+            }
           }
         }
+        boundary_take(within, np, cnt, 0);
       }
       if (rank == 0 && tid < keep && st[tid] >= 0) a.placed[st[tid]] = 1;
       conflicted = keep < wave;
@@ -576,9 +671,10 @@ KernelFn instance(int shared) {
 }
 
 // the instantiation for `per` nodes a thread: unrolled for 1, the runtime
-// loops up to 64
+// loops up to 64, slabs of 64 beyond (leftover in global scratch only)
 KernelFn kernel_for(int per, int shared) {
-  if (per < 1 || per > kMaxPer) return nullptr;
+  if (per > kMaxPer) return shared ? nullptr : assign_wave_kernel<-1, false>;
+  if (per < 1) return nullptr;
   return per == 1 ? instance<1>(shared) : instance<0>(shared);
 }
 

@@ -9,7 +9,7 @@
 // - the mbarrier helpers and the cluster launch configuration;
 // - the per-gang cluster step both kernels run: the capacity pass, the
 //   histogram add, the push of a block's histogram, the threshold select
-//   from an inbox, a thread's prefix in a bin, and the take.
+//   from an inbox, a thread's sum and prefix in a bin, and the take.
 // ops/_build.py hashes this header with every source that includes it.
 
 #pragma once
@@ -36,6 +36,15 @@ __device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
 // floor(v / d) for v in [0, 2^30], d in [1, 2^30], from d's (m, l)
 __device__ __forceinline__ int magic_div(int v, unsigned m, int l) {
   return l == 0 ? v : (int)(__umulhi((unsigned)v, m) >> (l - 1));
+}
+
+// `v`, with nothing about it known to the compiler. A slab's node count has
+// a known bound (64); with it, the compiler unrolls every per-node loop of
+// the slab paths in full, which took minutes of nvcc and spilled tens of
+// KB of registers.
+__device__ __forceinline__ int opaque(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
 }
 
 __device__ __forceinline__ void cluster_barrier() {
@@ -115,6 +124,14 @@ inline cudaLaunchConfig_t launch_config(int cluster_blocks, int threads, int sha
 // a slot past cnt is skipped or holds capacity 0. Lane k of own node i of
 // a leftover slab lives at slab[k * lane_slots + i * threads] (`per` slots
 // a thread). row[k] is lane k's (request, magic, shift, -) of the gang.
+// A thread with more than 64 nodes runs them as slabs of at most 64
+// through the same functions: bin_sum over every slab, one block_prefix,
+// then take_commit slab by slab, carrying the prefix it returns.
+// int32: a histogram entry, a prefix, a cluster sum or a remainder is a
+// sum of need-clipped capacities, min(cap, need), over at most N nodes, so
+// it is at most need * N, which the reference's batch boundary keeps below
+// 2^31 (pad_oracle_batch's gang bound (2^31 - 1) // N), however many nodes
+// a block or a thread holds.
 
 // capacities of the own nodes: cap[i] enters as kBig (the node is in the
 // gang's fit row) or 0, and leaves as the min over requested lanes of
@@ -247,26 +264,40 @@ __device__ __forceinline__ Sel select_bin(const int* inbox, int stride, int bloc
   return s;
 }
 
-// this thread's prefix in bin `th` within its block: the lower warps'
-// entries of the per-warp histograms wh (warp w's at wh + w * kBins) and
-// the lower lanes' sums of min(cap, clip) over their own nodes in the bin
+// the sum of min(cap, clip) over the own nodes in bin `th`
 template <int kN>
-__device__ __forceinline__ int bin_prefix(const int (&cap)[kN], int np, int cnt, int th,
-                                          int clip, const int* wh, int warp, int lane) {
-  const int warp_pre = __reduce_add_sync(kFull, lane < warp ? wh[lane * kBins + th] : 0);
+__device__ __forceinline__ int bin_sum(const int (&cap)[kN], int np, int cnt, int th,
+                                       int clip) {
   int sum = 0;
 #pragma unroll
   for (int i = 0; i < np; ++i)
     if (i < cnt && min(cap[i], kBins - 1) == th) sum += min(cap[i], clip);
+  return sum;
+}
+
+// this thread's prefix in bin `th` within its block, given `sum`, its own
+// nodes' entries in the bin: the lower warps' entries of the per-warp
+// histograms wh (warp w's at wh + w * kBins) and the lower lanes' sums
+__device__ __forceinline__ int block_prefix(int sum, int th, const int* wh, int warp,
+                                            int lane) {
+  const int warp_pre = __reduce_add_sync(kFull, lane < warp ? wh[lane * kBins + th] : 0);
   return warp_pre + warp_inclusive_scan(sum, lane) - sum;
+}
+
+// block_prefix of the own nodes held in `cap`
+template <int kN>
+__device__ __forceinline__ int bin_prefix(const int (&cap)[kN], int np, int cnt, int th,
+                                          int clip, const int* wh, int warp, int lane) {
+  return block_prefix(bin_sum(cap, np, cnt, th, clip), th, wh, warp, lane);
 }
 
 // the gang's tightest-first take on the own nodes, given this thread's
 // prefix in the threshold bin `th` and the cluster's remainder `rem`: each
 // nonzero take goes to arow[i] and off the leftover slab (wrapping in
-// int32, as the reference)
+// int32, as the reference). Returns the prefix after these nodes, where
+// the thread's next nodes in the bin start.
 template <int kN>
-__device__ __forceinline__ void take_commit(const int (&cap)[kN], int np, int cnt, int need,
+__device__ __forceinline__ int take_commit(const int (&cap)[kN], int np, int cnt, int need,
                                             int th, int rem, int prefix, const int4* row,
                                             int r, int* slab, int lane_slots, int threads,
                                             int* arow) {
@@ -291,6 +322,7 @@ __device__ __forceinline__ void take_commit(const int (&cap)[kN], int np, int cn
       }
     }
   }
+  return prefix;
 }
 
 }  // namespace

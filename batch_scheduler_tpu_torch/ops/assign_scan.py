@@ -48,7 +48,10 @@ _MAX_WAVE = 32  # the wave kernel sizes its inboxes and stage for this width
 # cluster size, 8 is the portable limit
 CLUSTER_SIZES = (16, 8)
 _MIN_BLOCK_NODES = 256  # below this many nodes a block, fewer blocks
-_PER_THREAD_MAX = 64  # nodes a thread: the most either kernel takes
+# nodes a thread that either kernel keeps per node across a step; a plan
+# with more (buckets past 2^20 nodes) runs them as slabs of this many, with
+# the leftover in global scratch
+_PER_THREAD_MAX = 64
 # assign_wave.cu's shared-memory layout, in ints: kInbox (16 block slots of
 # a 128-bin histogram and a 4-int flag word) and kStageRows (a wave's
 # indices, needs and flag, ahead of its request rows)
@@ -116,20 +119,22 @@ def kernel_plan(n: int, r: int, cluster_max: int, shared_budget: int) -> ScanPla
     holds two staged gang rows (4 ints a lane: request, magic, shift,
     padding) and two 128-bin histograms a warp, and the leftover (R ints a
     node) when it fits the budget beside them; else the leftover goes in
-    global scratch."""
+    global scratch. Past 64 nodes a thread (buckets above 2^20 nodes at 16
+    blocks) the kernel runs a thread's nodes as slabs of 64, from global
+    scratch."""
     if 3 * r > _THREADS:
         raise ValueError(f"{r} lanes exceed the scan kernel's {_THREADS // 3}")
-    c, block_nodes, per = _node_split(n, cluster_max, "scan")
+    c, block_nodes, per = _node_split(n, cluster_max)
     threads = max(-(-block_nodes // per), 3 * r)
     threads = -(-threads // 32) * 32
     fixed = 2 * 4 * r + 2 * (threads // 32) * 128  # gang rows, warp histograms
     leftover = r * per * threads
-    if 4 * (fixed + leftover) <= shared_budget:
+    if per <= _PER_THREAD_MAX and 4 * (fixed + leftover) <= shared_budget:
         return ScanPlan(c, block_nodes, threads, per, "shared", 4 * (fixed + leftover), 0)
     return ScanPlan(c, block_nodes, threads, per, "global", 4 * fixed, c * leftover)
 
 
-def _node_split(n: int, cluster_max: int, kernel: str) -> tuple:
+def _node_split(n: int, cluster_max: int) -> tuple:
     """(C, nodes a block, nodes a thread): C is the largest power of two
     <= ``cluster_max`` that leaves each block at least 256 nodes (1 for
     small buckets), a block has ceil(N/C) nodes, each thread the fewest
@@ -138,13 +143,7 @@ def _node_split(n: int, cluster_max: int, kernel: str) -> tuple:
     while c * 2 <= cluster_max and c * 2 * _MIN_BLOCK_NODES <= n:
         c *= 2
     block_nodes = max(-(-n // c), 1)
-    per = -(-block_nodes // _THREADS)
-    if per > _PER_THREAD_MAX:
-        raise ValueError(
-            f"{n} nodes exceed the {kernel} kernel's {_PER_THREAD_MAX * _THREADS * c} "
-            f"at {c} blocks"
-        )
-    return c, block_nodes, per
+    return c, block_nodes, -(-block_nodes // _THREADS)
 
 
 def wave_kernel_plan(n: int, r: int, cluster_max: int, shared_budget: int) -> ScanPlan:
@@ -158,14 +157,15 @@ def wave_kernel_plan(n: int, r: int, cluster_max: int, shared_budget: int) -> Sc
     request, magic, shift, padding) and two 128-bin histograms a warp; the
     leftover and the checked replay's wave-start leftover (R ints a node
     each) join them when they fit the budget, else both go in global
-    scratch. The shape does not depend on the width."""
-    c, block_nodes, per = _node_split(n, cluster_max, "wave")
+    scratch, as they always do past 64 nodes a thread (the kernel's slabs).
+    The shape does not depend on the width."""
+    c, block_nodes, per = _node_split(n, cluster_max)
     threads = -(-block_nodes // per)
     threads = -(-threads // 32) * 32
     # inboxes, stages, warp histograms
     fixed = 2 * _K_INBOX + 2 * (_K_STAGE_ROWS + 4 * _MAX_WAVE * r) + 2 * (threads // 32) * 128
     leftover = 2 * r * per * threads  # the leftover and the wave-start leftover
-    if 4 * (fixed + leftover) <= shared_budget:
+    if per <= _PER_THREAD_MAX and 4 * (fixed + leftover) <= shared_budget:
         return ScanPlan(c, block_nodes, threads, per, "shared", 4 * (fixed + leftover), 0)
     return ScanPlan(c, block_nodes, threads, per, "global", 4 * fixed, c * leftover)
 

@@ -16,7 +16,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "batch_from_numpy", "BATCH_DTYPES", "PROGRESS_DTYPES"]
+__all__ = ["resolve_device", "device_stream", "batch_from_numpy", "BATCH_DTYPES",
+           "PROGRESS_DTYPES"]
 
 # (alloc, requested, group_req, remaining, fit_mask, group_valid, order)
 BATCH_DTYPES = (np.int32, np.int32, np.int32, np.int32, np.bool_, np.bool_, np.int32)
@@ -37,6 +38,14 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r} (use 'cuda' or 'cpu')")
     return dev
+
+
+def device_stream(dev: torch.device):
+    """The stream one scorer or re-scorer enqueues all its device work on,
+    in order: a new CUDA stream on a CUDA device, None on the CPU. Callers
+    enter it with ``torch.cuda.stream(...)``, a no-op for None, on every
+    thread that touches their tensors."""
+    return torch.cuda.Stream(device=dev) if dev.type == "cuda" else None
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:

@@ -20,12 +20,12 @@ Residency invalidation: any generation gap, node-list change, group-set
 change, node churn or bucket change resyncs from a full keyframe, with the
 reason counted; a raced ``apply_rows`` that returns None resyncs too.
 
-Ordering: a scatter writes IN PLACE (``index_copy_``). A batch reads the
-resident tensors on the device's current stream, and every scatter and
-its host-to-device copies are enqueued on that same stream after it, so
-no scatter can overtake the batch that read the rows it rewrites. Nothing
-else holds the resident tensors: a published snapshot keeps its own host
-arrays.
+Ordering: a scatter writes IN PLACE (``index_copy_``). Every upload,
+scatter and derive is enqueued on the caller's current stream; the scorer
+enters its own stream (``OracleScorer.stream``) around the sync and the
+batch, so every scatter is enqueued after the batch that read the rows it
+rewrites, on the same stream, and cannot overtake it. Nothing else holds
+the resident tensors: a published snapshot keeps its own host arrays.
 
 The port of ``batch_scheduler_tpu/ops/device_state.py`` on one explicit
 ``device``, without:
@@ -36,9 +36,9 @@ The port of ``batch_scheduler_tpu/ops/device_state.py`` on one explicit
 - the node policy columns (the policy engine is not ported yet);
 - ``fork``/``apply_batch``/``reset`` (no caller of the port forks or
   drops the state);
-- the knobs ``BST_DEVICE_STATE``/``BST_DEVICE_DERIVE``: the scorer's
-  ``device_state`` argument chooses the holder, and the columns are
-  derived whenever the snapshot carries meta columns.
+- the knobs ``BST_DEVICE_STATE``/``BST_DEVICE_DERIVE``: the holder is
+  always on (every scorer syncs one), and the columns are derived
+  whenever the snapshot carries meta columns.
 
 A failed scatter or derive raises; nothing falls back to an upload or the
 CPU.
@@ -54,7 +54,23 @@ import torch
 
 from .convert import resolve_device
 
-__all__ = ["DeviceStateHolder", "derive_columns"]
+__all__ = ["DeviceStateHolder", "derive_columns", "stage_rows"]
+
+
+def stage_rows(idx, rows, device, row_shape) -> tuple:
+    """``(index, values)`` on ``device`` for a row scatter into a buffer
+    whose rows have shape ``row_shape``: int64 indices and int32 rows,
+    uploaded as ONE host byte block, so staging is one copy on the current
+    stream (every PyTorch call costs host time, and at a few rows that time
+    is the scatter's cost)."""
+    k = len(idx)
+    rows = np.ascontiguousarray(rows, dtype=np.int32).reshape(k, -1)
+    block = np.empty(8 * k + rows.nbytes, np.uint8)
+    block[: 8 * k].view(np.int64)[:] = idx
+    block[8 * k:].view(np.int32)[:] = rows.ravel()
+    staged = torch.from_numpy(block).to(device)
+    return (staged[: 8 * k].view(torch.int64),
+            staged[8 * k:].view(torch.int32).view((k,) + tuple(row_shape)))
 
 
 def derive_columns(inv_prio, ts_hi, ts_lo, name_rank, node_valid):
@@ -134,21 +150,9 @@ class DeviceStateHolder:
         """Resident ``buf`` rows at ``idx`` become ``rows``, in place — THE
         row application, mirroring the host-side rewrites of
         ops.snapshot.DeltaSnapshotPacker._delta_rows / _group_rows (same
-        indices, same packed values). Indices (int64) and rows (int32)
-        travel as ONE host byte block, so a scatter is one copy and one
-        ``index_copy_`` on the current stream: every PyTorch call costs
-        host time, and at a few rows that time is the scatter's cost."""
-        k = len(idx)
-        rows = np.ascontiguousarray(rows, dtype=np.int32).reshape(k, -1)
-        block = np.empty(8 * k + rows.nbytes, np.uint8)
-        block[: 8 * k].view(np.int64)[:] = idx
-        block[8 * k:].view(np.int32)[:] = rows.ravel()
-        staged = torch.from_numpy(block).to(self.device)
-        buf.index_copy_(
-            0,
-            staged[: 8 * k].view(torch.int64),
-            staged[8 * k:].view(torch.int32).view((k,) + tuple(buf.shape[1:])),
-        )
+        indices, same packed values): one staged copy (``stage_rows``) and
+        one ``index_copy_`` on the current stream."""
+        buf.index_copy_(0, *stage_rows(idx, rows, self.device, buf.shape[1:]))
 
     def _resident_args(self, small_args) -> tuple:  # lock-held: _lock
         remaining, fit_mask, group_valid, order = small_args

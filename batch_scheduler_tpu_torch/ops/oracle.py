@@ -17,6 +17,9 @@ batch). Plain functions on int32 tensors:
                       the serial one, a wave of gangs at a time; selected
                       by ``BST_SCAN_WAVE``, and on a CUDA tensor run by
                       ``ops.assign_scan.assign_gangs_wave_cuda``
+- ``dispatch_batch`` / ``collect_batch``  one batch enqueued with its
+                      blob's copy to pinned host memory started, and the
+                      wait and decode; ``execute_batch_host`` runs the two
 
 Every output keeps the JAX reference's dtype (int32 counts, bool flags).
 Sums are taken in int64 where torch widens; the reference's batch boundary
@@ -29,6 +32,7 @@ from __future__ import annotations
 import functools
 import os
 import sys
+import threading
 
 import numpy as np
 import torch
@@ -46,7 +50,11 @@ __all__ = [
     "assign_gangs_wavefront",
     "schedule_batch",
     "batch_top_k",
+    "PendingBatch",
+    "dispatch_batch",
+    "collect_batch",
     "execute_batch_host",
+    "inflight_batches",
     "ASSIGNMENT_TOP_K",
     "GANG_MAX",
 ]
@@ -483,30 +491,81 @@ def _batch_blob(alloc_lanes, requested, group_req, remaining, fit_mask,
     if "wave_conflicts" in out:
         conflicts, megas = out["wave_conflicts"], out["wave_megas"]
         parts.append(torch.stack([
-            torch.tensor(conflicts.shape[0], dtype=torch.int32, device=conflicts.device),
+            # a fill on the device: a host tensor here would be a pageable
+            # copy, which waits for the stream (the whole scan)
+            conflicts.new_full((), conflicts.shape[0], dtype=torch.int32),
             conflicts.sum(dtype=torch.int32),
             megas.sum(dtype=torch.int32),
         ]))
     return torch.cat(parts), out
 
 
-def execute_batch_host(batch_args, progress_args, device="cuda"):
-    """Run one batch + max-progress selection on ``device`` and fetch ONLY
-    the O(G) host vectors, as one blob copy. Takes the packed numpy batch
-    (``ClusterSnapshot.device_args()`` / ``progress_args()``); any of its
-    arrays may instead be a tensor already on ``device`` — the
-    device-resident ``alloc``/``requested``/``group_req``/``fit_mask``/
-    ``order`` of ``ops.device_state`` — which the batch reads in place.
+# Batches dispatched and not yet collected, process-wide (the reference's
+# _note_inflight; the metrics registry it feeds is not ported).
+_inflight_lock = threading.Lock()
+_inflight_count = 0  # guarded-by: _inflight_lock
 
-    Returns ``(host, device_result)``: ``host`` is the reference's host
-    dict (``placed``, ``gang_feasible``, ``progress``, ``best``,
-    ``best_exists``, ``assignment_nodes``, ``assignment_counts``,
-    ``telemetry``); ``device_result`` keeps the [G,N] ``capacity`` and
-    ``scores`` tensors on the device for lazy row reads.
+
+def _note_inflight(delta: int) -> None:
+    global _inflight_count
+    with _inflight_lock:
+        _inflight_count += delta
+
+
+def inflight_batches() -> int:
+    """Batches dispatched by ``dispatch_batch`` and not yet collected."""
+    with _inflight_lock:
+        return _inflight_count
+
+
+class PendingBatch:
+    """An in-flight batch: enqueued on the device, the blob's copy to the
+    host started, not waited for. ``dispatch_batch`` makes one;
+    ``collect_batch`` is the sync point. Holding one while the host does
+    other work (packing the next snapshot, admission bookkeeping, sleeping
+    out a tick interval) overlaps that work with the batch.
+
+    On CUDA ``blob`` is a pinned host tensor that a non-blocking copy is
+    filling and ``done`` the event recorded after that copy; on the CPU
+    ``blob`` is the finished blob and ``done`` is None."""
+
+    __slots__ = ("blob", "done", "out", "pack", "top_k", "scan_wave", "mask_mode",
+                 "n_bucket", "g_bucket", "device")
+
+    def __init__(self, blob, done, out, pack, top_k, scan_wave, mask_mode,
+                 n_bucket, g_bucket, device):
+        self.blob = blob
+        self.done = done
+        self.out = out
+        self.pack = pack
+        self.top_k = top_k
+        self.scan_wave = scan_wave
+        self.mask_mode = mask_mode
+        self.n_bucket = n_bucket
+        self.g_bucket = g_bucket
+        self.device = device
+
+
+def dispatch_batch(batch_args, progress_args, device="cuda") -> PendingBatch:
+    """Enqueue one batch + max-progress selection on ``device`` and start
+    the copy of its O(G) blob to the host WITHOUT waiting for either.
+    Takes the packed numpy batch (``ClusterSnapshot.device_args()`` /
+    ``progress_args()``); any of its arrays may instead be a tensor already
+    on ``device`` (the resident state of ``ops.device_state``), which the
+    batch reads in place.
+
+    Everything goes on the calling thread's current stream of ``device``:
+    the small arrays' uploads, the batch, both scan kernels' launches, the
+    blob's copy into pinned host memory (``Tensor.to("cpu",
+    non_blocking=True)`` takes it from PyTorch's caching host allocator;
+    a pageable copy would wait for the stream) and the event ``collect_batch``
+    waits on. A caller that owns a stream enters it around this call and
+    around every other operation on the tensors it hands in (the scorers
+    do: ``torch.cuda.stream(...)``), so no batch reads a buffer that a later
+    scatter on another stream could overtake.
 
     ``BST_SCAN_WAVE`` is read once per batch: a width > 1 runs the
-    wavefront scan, and the telemetry then carries ``waves_per_batch``,
-    ``wave_demotions`` and ``wave_uniform`` beside ``wave_width``."""
+    wavefront scan."""
     dev = resolve_device(device)
     scan_wave = _scan_wave_from_env()
     # np.shape reads a tensor's own shape (a CUDA tensor is never copied)
@@ -516,16 +575,42 @@ def execute_batch_host(batch_args, progress_args, device="cuda"):
     remaining_max = int(np.asarray(batch_args[3]).max(initial=0))
     # The packed form saturates per-node counts at 65535 and shifts node
     # indices by 16 bits: gate it on both bounds (the reference's gate), so
-    # the decode below matches.
+    # the decode matches.
     pack = n_bucket <= 2**15 and remaining_max <= 2**16 - 1
     top_k = batch_top_k(n_bucket, remaining_max)
     batch, progress = batch_from_numpy(batch_args, progress_args, dev)
     blob, out = _batch_blob(*batch, *progress, pack_assignment=pack,
                             top_k=top_k, scan_wave=scan_wave)
-    blob_np = blob.cpu().numpy()
+    done = None
+    if dev.type == "cuda":
+        blob = blob.to("cpu", non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(dev))
+    _note_inflight(1)
+    return PendingBatch(blob, done, out, pack, top_k, scan_wave, mask_mode,
+                        n_bucket, g_bucket, dev)
 
-    g = g_bucket
-    k = out["assignment_nodes"].shape[1]
+
+def collect_batch(pending: PendingBatch):
+    """The sync point of a ``dispatch_batch``: wait for the blob's copy,
+    decode the O(G) host vectors, and hand back the [G,N] device tensors.
+
+    Returns ``(host, device_result)``: ``host`` is the reference's host
+    dict (``placed``, ``gang_feasible``, ``progress``, ``best``,
+    ``best_exists``, ``assignment_nodes``, ``assignment_counts``,
+    ``telemetry``; with the wavefront scan the telemetry carries
+    ``waves_per_batch``, ``wave_demotions`` and ``wave_uniform`` beside
+    ``wave_width``); ``device_result`` keeps the [G,N] ``capacity`` and
+    ``scores`` tensors on the device for lazy row reads (complete once this
+    returns: the event follows the whole batch on its stream)."""
+    try:
+        if pending.done is not None:
+            pending.done.synchronize()
+        blob_np = pending.blob.numpy()
+    finally:
+        _note_inflight(-1)
+
+    g, k, pack = pending.g_bucket, pending.top_k, pending.pack
     tail_len = g * k if pack else 2 * g * k
     tail = blob_np[3 * g + 2: 3 * g + 2 + tail_len]
     if pack:
@@ -535,6 +620,7 @@ def execute_batch_host(batch_args, progress_args, device="cuda"):
     else:
         nodes_np = tail[: g * k].reshape(g, k)
         counts_np = tail[g * k:].reshape(g, k)
+    dev = pending.device
     host = {
         "placed": blob_np[:g].astype(bool),
         "gang_feasible": blob_np[g:2 * g].astype(bool),
@@ -546,18 +632,29 @@ def execute_batch_host(batch_args, progress_args, device="cuda"):
         "telemetry": {
             "device": str(dev),
             "scan": "cuda_kernel" if dev.type == "cuda" else "plain",
-            "mask_mode": mask_mode,
-            "n_bucket": n_bucket,
-            "g_bucket": g_bucket,
-            "wave_width": scan_wave,
+            "mask_mode": pending.mask_mode,
+            "n_bucket": pending.n_bucket,
+            "g_bucket": g,
+            "wave_width": pending.scan_wave,
         },
     }
-    if scan_wave > 1:
+    if pending.scan_wave > 1:
         stats = blob_np[3 * g + 2 + tail_len:]
         host["telemetry"].update(
             waves_per_batch=int(stats[0]),
             wave_demotions=int(stats[1]),
             wave_uniform=int(stats[2]),
         )
+    out = pending.out
     device_result = {"capacity": out["capacity"], "scores": out["scores"]}
     return host, device_result
+
+
+def execute_batch_host(batch_args, progress_args, device="cuda"):
+    """Run one batch + max-progress selection on ``device`` and return its
+    ``(host, device_result)``: the synchronous form of the split,
+    ``collect_batch(dispatch_batch(...))``, whose docstrings give the
+    arguments, the streams and what comes back. The O(G) host vectors come
+    back as one blob, through the pinned copy and the event of the split;
+    the [G,N] tensors stay on the device."""
+    return collect_batch(dispatch_batch(batch_args, progress_args, device))

@@ -33,7 +33,12 @@ Phases (one JSON line each; any failure makes the exit code non-zero):
 - global_leftover  the same checks on 10,000 nodes (bucket 16384) x 256
                    gangs, where both kernels' leftover fits the cluster's
                    shared memory, and on 150,000 nodes (bucket 262144) x
-                   64 gangs, where both keep it in global scratch.
+                   64 gangs, where both keep it in global scratch; and on
+                   1,100,000 nodes (bucket 2^21) x 16 gangs, past 64 nodes
+                   a thread, where both kernels run a thread's nodes as
+                   slabs: both kernels (the wave kernel at W=8) against
+                   the plain scans bit for bit in both mask modes and on a
+                   uniform input, with their times and plans.
 - race             the README race scenario through ScheduleOperation on
                    cuda: gang 1 permits all five pods, gang 2 is denied and
                    its retry hits the deny backoff. Every batch of that run
@@ -62,8 +67,25 @@ Phases (one JSON line each; any failure makes the exit code non-zero):
                    1,000 node rows. Also report-only: the holder's scatter
                    against the whole upload alone, at 5,000, 40,000 and
                    150,000 nodes (residency_vs_upload).
+- churn_loop       benchmarks/ladder.py:250 config5_churn on cuda through
+                   the port's ChurnRescorer and TickPipeline: the north-star
+                   nodes, 10,000 gangs x 10 pods (4 cpu, 8 GiB, 1 GPU), a
+                   600-gang backlog admitted through a 32-gang window, 50
+                   ticks of 100 ms, ~2% of the running gangs released and 2
+                   arrivals a tick, the depth from probe_link_depth after a
+                   warm on {8, 16, 32, 64, window}. Fails unless no new
+                   bucket shape appears after the warm, the backlog drains
+                   and stays at or below the window, nothing is re-uploaded,
+                   the p95 loop tick is <= 100 ms with no deadline miss,
+                   each dispatched tick launches the serial kernel once, every
+                   collected tick's host dict equals its snapshot's batch run
+                   by the plain path on the CPU (after the loop), and the
+                   resident occupancy equals the padded mirror. Then,
+                   report-only, 20 ticks at a forced depth of 2 after a
+                   burst of 200 arrivals (admit_verified's skips), where the
+                   drain and no re-upload are still checked.
 
-With BST_SCAN_WAVE unset, the five phases above run the serial kernel
+With BST_SCAN_WAVE unset, the six phases above run the serial kernel
 (assign_scan) and never the wave kernel. The wavefront path
 (BST_SCAN_WAVE=W, the wave kernel assign_wave):
 
@@ -91,12 +113,15 @@ With BST_SCAN_WAVE unset, the five phases above run the serial kernel
 - north_star_churn_wave  north_star_churn with W=8: the wave kernel once
                    per refresh, 128 waves a batch, and the wave telemetry
                    equal to the full-pack scorer's after every refresh.
+- churn_loop_wave  churn_loop with W=8: the wave kernel once a dispatched
+                   tick, the serial kernel never.
 
 Then the card's name and power limit (nvidia-smi), one ``kernels`` line and,
 last, ``{"ok": true, "device": {...}}``. Launch counts are read for each
-path that drives the scorer — north_star, race, north_star_churn,
-north_star_wave, race_wave, north_star_churn_wave — with both kernels'
-counts zeroed just before the path and read just after; ``launches`` in the kernels line is the north-star path's,
+path that drives the scorer or the re-scorer — north_star, race,
+north_star_churn, churn_loop, north_star_wave, race_wave,
+north_star_churn_wave, churn_loop_wave — with both kernels' counts zeroed
+just before the path and read just after; ``launches`` in the kernels line is the north-star path's,
 ``launches_by_path`` holds each path. Comparison and timing launches are
 not counted.
 """
@@ -128,6 +153,8 @@ GLOBAL_LEFTOVER = (10000, 256, 12)
 SERIAL_GLOBAL = (150000, 64, 13)
 LEFTOVER = {MIXED: ("shared", "shared"), GLOBAL_LEFTOVER: ("shared", "shared"),
             SERIAL_GLOBAL: ("global", "global")}
+# past 2^20 nodes (bucket 2^21): both kernels run a thread's nodes as slabs
+BIG_BUCKET = (1100000, 16, 14)
 
 
 def emit(obj):
@@ -989,6 +1016,252 @@ def north_star_churn_wave(results):
     return {**report, "launches": launches["assign_wave"]}
 
 
+# benchmarks/ladder.py:250 config5_churn: 10,000 gangs of 10 pods (4 cpu,
+# 8 GiB, 1 GPU) on the north-star nodes, a 600-gang backlog admitted through
+# a 32-gang window, a 100 ms tick, ~2% of running gangs released a tick
+CHURN_LOOP_GANGS, CHURN_LOOP_BACKLOG = 10000, 600
+ADMIT_WINDOW, TICK_INTERVAL, LOOP_TICKS, LOOP_SEED = 32, 0.1, 50, 0
+ARRIVALS_PER_TICK = 2
+# report-only: ticks at a forced depth of 2 after the loop, and the burst
+# of arrivals they start with (so stale placements collide and skip)
+DEPTH2_TICKS, DEPTH2_BURST = 20, 200
+
+
+def synthetic_demands(num_groups, members, cpu=2000, mem=4 * 1024**3, extra=None):
+    """benchmarks/ladder.py:104 ``_synthetic_demands`` with the port's
+    GroupDemand: gang g has ``members`` members of the given request,
+    creation time g and priority (g % 3) - 1."""
+    from batch_scheduler_tpu_torch.ops.snapshot import GroupDemand
+
+    out = []
+    for g in range(num_groups):
+        req = {"cpu": cpu, "memory": mem}
+        if extra:
+            req.update(extra)
+        out.append(GroupDemand(full_name=f"default/gang-{g:05d}", min_member=members,
+                               member_request=req, creation_ts=float(g),
+                               priority=(g % 3) - 1, has_pod=True))
+    return out
+
+
+def drive_churn_loop(wave):
+    """benchmarks/ladder.py:250 ``config5_churn`` on cuda through the port's
+    ChurnRescorer and TickPipeline, with ``BST_SCAN_WAVE`` set to ``wave``
+    (None: unset): the north-star nodes, a CHURN_LOOP_BACKLOG-gang backlog
+    of CHURN_LOOP_GANGS, warm on {8}, the depth from probe_link_depth,
+    warm on {8, 16, 32, 64, window}, then LOOP_TICKS ticks of TICK_INTERVAL
+    (collect the oldest batch, admit it whole, release ~2% of the running
+    gangs, ARRIVALS_PER_TICK arrivals, dispatch the next window). Both
+    kernels' counts are zeroed just before the pipeline's first dispatch
+    and read after its drain. Every collected tick's snapshot is kept and,
+    after the loop (so that its clock stays clean), run on the CPU by the
+    plain path: its host dict must equal the tick's. Then one synchronous
+    tick drains the queued deltas, and the resident occupancy must equal
+    the padded mirror. Then, report-only, DEPTH2_TICKS ticks through
+    TickPipeline(r, 2) after a burst of DEPTH2_BURST arrivals. Returns
+    (launches by kernel, dispatches, report)."""
+    import numpy as np
+    import torch
+
+    from batch_scheduler_tpu_torch.ops.assign_scan import assign_gangs_cuda, assign_gangs_wave_cuda
+    from batch_scheduler_tpu_torch.ops.oracle import execute_batch_host
+    from batch_scheduler_tpu_torch.ops.rescore import (
+        ChurnRescorer, TickPipeline, probe_link_depth)
+    from batch_scheduler_tpu_torch.sim.scenarios import make_sim_node
+
+    def counts():
+        return {"assign_scan": assign_gangs_cuda.launches,
+                "assign_wave": assign_gangs_wave_cuda.launches}
+
+    rng = np.random.default_rng(LOOP_SEED)
+    nodes = [make_sim_node(f"n{i:05d}", {"cpu": "64", "memory": "256Gi", "pods": "110", GPU: "8"})
+             for i in range(NORTH_STAR_NODES)]
+    all_gangs = synthetic_demands(CHURN_LOOP_GANGS, 10, cpu=4000, mem=8 * 1024**3,
+                                  extra={GPU: 1})
+    pending = all_gangs[:CHURN_LOOP_BACKLOG]
+    arrivals = iter(all_gangs[CHURN_LOOP_BACKLOG:])
+
+    def churn(r):
+        """~2% of the running gangs finish; ARRIVALS_PER_TICK gangs arrive."""
+        running = r.running
+        for _ in range(max(1, len(running) // 50) if running else 0):
+            r.release(running.pop(int(rng.integers(len(running)))))
+        for _ in range(ARRIVALS_PER_TICK):
+            g = next(arrivals, None)
+            if g is not None:
+                pending.append(g)
+
+    with scan_wave_env(wave):
+        r = ChurnRescorer(nodes, extra_resources=[GPU], device="cuda")
+        r.warm([8])
+        depth, rtt = probe_link_depth(r, TICK_INTERVAL)
+        window = ADMIT_WINDOW * depth
+        r.warm(sorted({8, 16, 32, 64, window}))
+        warmed = r.recompiles
+        r.clear_stats()
+        deadline_misses, loop_s, collected = 0, [], []
+        backlog_drained_tick = None
+        # the main path: counts zeroed just before, read just after
+        assign_gangs_cuda.launches = 0
+        assign_gangs_wave_cuda.launches = 0
+        with TickPipeline(r, depth) as pipe:
+            for _ in range(depth):  # pipeline fill: each batch gets an interval
+                pipe.submit(pending[:window])
+                time.sleep(TICK_INTERVAL)
+            for tick_i in range(LOOP_TICKS):
+                t0 = time.perf_counter()
+                out, tick_groups = pipe.collect()
+                pipe.admit_all(out, tick_groups)
+                collected.append(out)
+                pending = [g for g in pending if g.full_name not in pipe.placed_ever]
+                if backlog_drained_tick is None and len(pending) < ADMIT_WINDOW:
+                    backlog_drained_tick = tick_i
+                churn(r)
+                pipe.submit(pending[:window])
+                elapsed = time.perf_counter() - t0
+                loop_s.append(elapsed)
+                if elapsed > TICK_INTERVAL:
+                    deadline_misses += 1
+                else:
+                    time.sleep(TICK_INTERVAL - elapsed)
+        launches = counts()
+        dispatches = depth + LOOP_TICKS
+        summary = r.summary()
+        # the re-scorer's own series, unrounded (summary() rounds)
+        rescorer_ms = {f"rescorer_p50_{name}_ms": statistics.median(series) * 1e3
+                       for name, series in (("pack", r.pack_times),
+                                            ("dispatch", r.dispatch_times),
+                                            ("collect", r.collect_times),
+                                            ("tick", r.latencies))}
+        rescorer_ms["rescorer_max_tick_ms"] = max(r.latencies) * 1e3
+        steady_recompiles = summary["recompiles"] - warmed
+        admit_skips = pipe.admit_skips
+        pending_final = len(pending)
+        running_final = len(r.running)
+        # after the loop: every collected tick against the plain path on
+        # the CPU, on the snapshot it was scored against
+        diffs = {}
+        for i, out in enumerate(collected):
+            snap = out.snapshot
+            want, _ = execute_batch_host(snap.device_args(), snap.progress_args(), device="cpu")
+            bad = [k for k in HOST_KEYS if not np.array_equal(out.host[k], want[k])]
+            bad += [f"telemetry.{k}" for k in WAVE_TELEMETRY
+                    if out.host["telemetry"].get(k) != want["telemetry"].get(k)]
+            if out.host["telemetry"]["scan"] != "cuda_kernel":
+                bad.append("telemetry.scan")
+            if bad:
+                diffs[i] = bad
+        # one synchronous tick drains the queued deltas: then the resident
+        # occupancy is the padded mirror
+        saved = counts()
+        r.tick(None, pending[:window])
+        assign_gangs_cuda.launches, assign_gangs_wave_cuda.launches = saved.values()
+        torch.cuda.synchronize()
+        with r._state_lock:
+            resident = r._req_dev.cpu().numpy()
+            mirror = r.requested_lanes.copy()
+        padded = np.zeros_like(resident)
+        padded[:len(mirror)] = mirror
+        resident_equal = bool(np.array_equal(resident, padded))
+
+        # report-only: forced depth 2 after a burst of arrivals
+        for _ in range(DEPTH2_BURST):
+            g = next(arrivals, None)
+            if g is not None:
+                pending.append(g)
+        r.clear_stats()
+        saved = counts()
+        assign_gangs_cuda.launches = assign_gangs_wave_cuda.launches = 0
+        d2_loop_s, d2_window = [], 2 * ADMIT_WINDOW
+        with TickPipeline(r, 2) as pipe2:
+            pipe2.placed_ever |= pipe.placed_ever
+            for _ in range(2):
+                pipe2.submit(pending[:d2_window])
+                time.sleep(TICK_INTERVAL)
+            for _ in range(DEPTH2_TICKS):
+                t0 = time.perf_counter()
+                out, tick_groups = pipe2.collect()
+                pipe2.admit_all(out, tick_groups)
+                pending = [g for g in pending if g.full_name not in pipe2.placed_ever]
+                churn(r)
+                pipe2.submit(pending[:d2_window])
+                elapsed = time.perf_counter() - t0
+                d2_loop_s.append(elapsed)
+                time.sleep(max(0.0, TICK_INTERVAL - elapsed))
+        d2_launches = counts()
+        assign_gangs_cuda.launches, assign_gangs_wave_cuda.launches = saved.values()
+        d2_summary = r.summary()
+    depth2 = {
+        "ticks": DEPTH2_TICKS, "burst": DEPTH2_BURST, "window": d2_window,
+        "admit_skips": pipe2.admit_skips, "pending_final": len(pending),
+        "reupload_fallbacks": d2_summary["reupload_fallbacks"],
+        "loop_p50_ms": statistics.median(d2_loop_s) * 1e3,
+        "loop_p95_ms": float(np.percentile(d2_loop_s, 95)) * 1e3,
+        "loop_max_ms": max(d2_loop_s) * 1e3,
+        "launches_by_kernel": d2_launches,
+    }
+    loop = np.array(loop_s)
+    report = {
+        "nodes": NORTH_STAR_NODES, "gangs": CHURN_LOOP_GANGS, "backlog": CHURN_LOOP_BACKLOG,
+        "admit_window": ADMIT_WINDOW, "interval_s": TICK_INTERVAL, "ticks": LOOP_TICKS,
+        "depth": depth, "link_rtt_probe_ms": rtt * 1e3, "window": window,
+        "loop_p50_ms": float(np.median(loop)) * 1e3,
+        "loop_p95_ms": float(np.percentile(loop, 95)) * 1e3,
+        "loop_max_ms": float(loop.max()) * 1e3,
+        "deadline_misses": deadline_misses,
+        **rescorer_ms,
+        "bucket_shapes": summary["bucket_shapes"], "steady_recompiles": steady_recompiles,
+        "reupload_fallbacks": summary["reupload_fallbacks"],
+        "backlog_drained_tick": backlog_drained_tick, "pending_final": pending_final,
+        "running_final": running_final, "admit_skips": admit_skips,
+        "launches_by_kernel": launches, "dispatches": dispatches,
+        "ticks_equal_plain_cpu": len(collected) - len(diffs), "tick_diffs": diffs,
+        "resident_equal_mirror": resident_equal,
+        "depth2": depth2,
+    }
+    if steady_recompiles != 0:
+        raise AssertionError(f"{steady_recompiles} new bucket shapes after the warm "
+                             f"({summary['bucket_shapes']})")
+    if backlog_drained_tick is None or pending_final > ADMIT_WINDOW:
+        raise AssertionError(f"backlog not drained: {pending_final} pending (first below "
+                             f"the window at tick {backlog_drained_tick})")
+    if summary["reupload_fallbacks"] or d2_summary["reupload_fallbacks"]:
+        raise AssertionError(f"re-upload fallbacks: {summary['reupload_fallbacks']} in the "
+                             f"loop, {d2_summary['reupload_fallbacks']} at depth 2")
+    if depth2["pending_final"] > d2_window:
+        raise AssertionError(f"depth 2: backlog not drained, {depth2['pending_final']} pending")
+    if report["loop_p95_ms"] > TICK_INTERVAL * 1e3 or deadline_misses:
+        raise AssertionError(f"p95 loop tick {report['loop_p95_ms']:.3f} ms, "
+                             f"{deadline_misses} deadline misses")
+    if diffs or len(collected) != LOOP_TICKS:
+        raise AssertionError(f"ticks differing from the plain CPU batch: {diffs}")
+    if not resident_equal:
+        raise AssertionError("the resident occupancy differs from the padded mirror")
+    return launches, dispatches, report
+
+
+@phase("churn_loop")
+def churn_loop(results):
+    launches, dispatches, report = drive_churn_loop(None)
+    if launches["assign_scan"] != dispatches or launches["assign_wave"] != 0:
+        raise AssertionError(f"{launches} launches in {dispatches} dispatched ticks "
+                             "(want assign_scan once a tick, assign_wave never)")
+    if "assign_scan" in results:
+        results["assign_scan"]["launches_by_path"]["churn_loop"] = launches["assign_scan"]
+    return {**report, "launches": launches["assign_scan"]}
+
+
+@phase("churn_loop_wave")
+def churn_loop_wave(results):
+    launches, dispatches, report = drive_churn_loop(8)
+    if launches["assign_wave"] != dispatches or launches["assign_scan"] != 0:
+        raise AssertionError(f"{launches} launches in {dispatches} dispatched ticks "
+                             "(want assign_wave once a tick, assign_scan never)")
+    if "assign_wave" in results:
+        results["assign_wave"]["launches_by_path"]["churn_loop_wave"] = launches["assign_wave"]
+    return {**report, "launches": launches["assign_wave"]}
+
+
 def mixed_batch(num_nodes, num_groups, seed, per_group, zone_by_position=False):
     """Seeded numpy cluster: 4 node shapes, gangs of 1-64 members (a few
     infeasible), ~30% with a zone selector when ``per_group``.
@@ -1085,10 +1358,66 @@ def mixed():
     return check_mixed(*MIXED)
 
 
+def check_big_bucket(num_nodes, num_groups, seed):
+    """Both kernels against the plain scans, bit for bit, at a bucket past
+    2^20 nodes (more than 64 nodes a thread: the kernels' slabs), in both
+    mask modes and on a uniform input (every gang with the first one's
+    request row and need, so each wave of 8 takes the uniform branch): the
+    serial kernel against the plain serial scan, the wave kernel at W=8
+    against the plain serial scan and the plain wavefront. Kernel times
+    (3 launches each, in turns) and the plans that ran."""
+    import numpy as np
+
+    from batch_scheduler_tpu_torch.ops.assign_scan import assign_gangs_cuda, assign_gangs_plain
+    from batch_scheduler_tpu_torch.ops.assign_scan import assign_gangs_wave_cuda
+
+    wave = 8
+    out = {}
+    for mode, per_group in (("per_group", True), ("broadcast", False), ("uniform", False)):
+        batch_args, _ = mixed_batch(num_nodes, num_groups, seed, per_group)
+        if mode == "uniform":
+            batch_args = list(batch_args)
+            batch_args[2] = np.tile(batch_args[2][:1], (len(batch_args[2]), 1))
+            batch_args[3] = np.full_like(batch_args[3], batch_args[3][0])
+        n, r = batch_args[0].shape
+        plans = {"assign_scan": serial_plan(n, r), "assign_wave": wave_plan(n, r)}
+        for name, plan in plans.items():
+            if plan.per_thread <= 64 or plan.leftover != "global":
+                raise AssertionError(f"{mode}: {name} plan {plan} at N={n} does not run slabs")
+        args = scan_inputs(batch_args)
+        serial = assign_gangs_plain(*args)
+        serial_err, serial_equal = compare_scan(args, serial)
+        err, equal, conflicts, megas = compare_wave(args, wave, serial)
+        if not (serial_equal and equal):
+            raise AssertionError(f"{mode}: serial kernel max abs err {serial_err} (equal "
+                                 f"{serial_equal}), wave kernel max abs err {err} (equal "
+                                 f"{equal})")
+        if mode == "uniform" and not megas.all():
+            raise AssertionError(f"uniform input: waves {megas.tolist()} not all uniform")
+        serial_ms = [cuda_ms(lambda: assign_gangs_cuda(*args), 3)]
+        wave_ms = [cuda_ms(lambda: assign_gangs_wave_cuda(*args, wave), 3)]
+        wave_ms.append(cuda_ms(lambda: assign_gangs_wave_cuda(*args, wave), 3))
+        serial_ms.append(cuda_ms(lambda: assign_gangs_cuda(*args), 3))
+        out[mode] = {
+            "shape": [int(batch_args[2].shape[0]), int(n), int(r)],
+            "mask_rows": int(batch_args[4].shape[0]),
+            "plans": {k: v._asdict() for k, v in plans.items()},
+            "serial_kernel_vs_plain_equal": serial_equal, "serial_max_abs_err": serial_err,
+            "wave_kernel_vs_plain_equal": equal, "wave_max_abs_err": err,
+            "waves": len(conflicts), "demoted": int(conflicts.sum()),
+            "uniform": int(megas.sum()),
+            "placed": int(serial[1].sum().item()),
+            "serial_kernel_ms": serial_ms, "wave_kernel_ms": wave_ms,
+        }
+        del args, serial
+    return out
+
+
 @phase("global_leftover")
 def global_leftover():
     return {"bucket_16384": check_mixed(*GLOBAL_LEFTOVER),
-            "bucket_262144": check_mixed(*SERIAL_GLOBAL)}
+            "bucket_262144": check_mixed(*SERIAL_GLOBAL),
+            "bucket_2097152": check_big_bucket(*BIG_BUCKET)}
 
 
 @phase("mixed_wave")
@@ -1305,10 +1634,12 @@ def main() -> int:
     global_leftover()
     race(results)
     north_star_churn(results)
+    churn_loop(results)
     north_star_wave(results)
     mixed_wave(results)
     race_wave(results)
     north_star_churn_wave(results)
+    churn_loop_wave(results)
 
     sources = {
         "assign_scan": ("batch_scheduler_tpu_torch/csrc/assign_scan.cu",

@@ -1,7 +1,8 @@
 """The serial scan kernel's host-side arithmetic, on the CPU: the exact
 multiply-shift division numbers (``division_magic``) the kernel divides by,
-and the cluster launch shape (``kernel_plan``) it lays the nodes out by.
-Every comparison is exact (integers, tolerance zero)."""
+and the cluster launch shape (``kernel_plan``) it lays the nodes out by, up
+to buckets past 2^20 nodes; on a card, the kernel against the plain scan
+there. Every comparison is exact (integers, tolerance zero)."""
 
 import numpy as np
 import pytest
@@ -127,16 +128,96 @@ def test_kernel_plan_at_smoke_shapes(n, cluster_max):
         assert plan.scratch_ints == plan.cluster_blocks * leftover_ints
 
 
+def _assert_tiles_once(plan, n):
+    covered = np.zeros(n, np.int64)
+    for n0, cnt in _kernel_layout(plan, n):
+        covered[n0:n0 + cnt] += 1
+    assert (covered == 1).all()
+
+
 def test_kernel_plan_bounds():
     # a budget too small for the leftover sends it to global scratch
     assert kernel_plan(8192, 5, 16, 1024).leftover == "global"
-    # more lanes than one block's threads can stage, or more than 64 nodes a thread
+    # more lanes than one block's threads can stage
     with pytest.raises(ValueError, match="lanes"):
         kernel_plan(8192, 342, 16, H100_SHARED_BUDGET)
-    with pytest.raises(ValueError, match="nodes"):
-        kernel_plan(64 * 1024 * 8 + 1, 5, 8, H100_SHARED_BUDGET)
+    # past 64 nodes a thread the plan still exists: the kernel runs a
+    # thread's nodes as slabs, from global scratch
+    n = 64 * 1024 * 8 + 1
+    plan = kernel_plan(n, 5, 8, H100_SHARED_BUDGET)
+    assert plan.per_thread == 65 and plan.leftover == "global"
+    _assert_tiles_once(plan, n)
     # C never exceeds the cap and leaves each block >= 256 nodes
     for n in (1, 255, 256, 511, 512, 4095, 4096, 5000, 10000):
         plan = kernel_plan(n, 5, 16, H100_SHARED_BUDGET)
         assert plan.cluster_blocks <= 16
         assert plan.cluster_blocks == 1 or n // plan.cluster_blocks >= 256
+
+
+# the buckets past 2^20 nodes that the reference admits (pad_oracle_batch
+# bounds only the gang, by (2^31 - 1) // N): 128 and 256 nodes a thread at
+# 16 blocks, 256 and 512 at 8
+BIG_BUCKETS = [(n, c) for n in (2**21, 2**22) for c in CLUSTER_SIZES]
+
+
+@pytest.mark.parametrize("n,cluster_max", BIG_BUCKETS, ids=lambda v: str(v))
+def test_kernel_plan_past_2_20_nodes(n, cluster_max):
+    r = 5
+    plan = kernel_plan(n, r, cluster_max, H100_SHARED_BUDGET)
+    assert plan.cluster_blocks == cluster_max
+    assert plan.threads == 1024 and plan.per_thread == n // (cluster_max * 1024) > 64
+    assert plan.leftover == "global"
+    assert plan.shared_bytes == 4 * 8 * r + 4 * 2 * 128 * plan.threads // 32
+    assert plan.scratch_ints == plan.cluster_blocks * r * plan.per_thread * plan.threads
+    _assert_tiles_once(plan, n)
+
+
+def _one_bin_case(n, g, rows):
+    """Every node holds 4 members of every gang: a gang of 3,001 fills its
+    threshold bin over 751 nodes, across several threads' slabs, and splits
+    node 750; gangs 1 and 2 need nothing, gang 3 never fits."""
+    left = np.tile(np.array([[4000, 16, 8, 4, 10**6]], np.int32), (n, 1))
+    req = np.tile(np.array([[1000, 4, 2, 1, 0]], np.int32), (g, 1))
+    rem = np.full(g, 3001, np.int32)
+    rem[1] = rem[2] = 0
+    rem[3] = 10**6
+    mask = np.ones((rows, n), bool)
+    if rows > 1:
+        mask[4, ::3] = False
+    return left, req, rem, mask, np.arange(g, dtype=np.int32)
+
+
+def big_bucket_cases(n=2**21):
+    """(name, (left, group_req, remaining, fit_mask, order)) at a bucket
+    past 2^20 nodes, for the kernels against the plain scans on the card."""
+    rng = np.random.default_rng(21)
+
+    def rand(g, rows):
+        return (rng.integers(0, 2000, size=(n, 5)).astype(np.int32),
+                rng.integers(0, 40, size=(g, 5)).astype(np.int32),
+                rng.integers(0, 300, size=g).astype(np.int32),
+                rng.random((rows, n)) < 0.8, rng.permutation(g).astype(np.int32))
+
+    return [("broadcast", rand(16, 1)), ("per-group", rand(16, 16)),
+            ("one bin broadcast", _one_bin_case(n, 16, 1)),
+            ("one bin per-group", _one_bin_case(n, 16, 16))]
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_past_2_20_nodes_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from batch_scheduler_tpu_torch.ops.assign_scan import (
+        assign_gangs_cuda, assign_gangs_plain, scan_plan)
+
+    for name, arrays in big_bucket_cases():
+        args = [torch.from_numpy(a).cuda() for a in arrays]
+        plan = scan_plan(args[0].shape[0], 5, torch.cuda.current_device())
+        assert plan.per_thread > 64 and plan.leftover == "global", (name, plan)
+        got = assign_gangs_cuda(*args)
+        want = assign_gangs_plain(*args)
+        torch.cuda.synchronize()
+        for field, a, b in zip(("alloc", "placed", "left_after"), got, want):
+            assert torch.equal(a, b), (name, field)
+        if name.startswith("one bin"):
+            assert want[0][0, :751].tolist() == [4] * 750 + [1], name

@@ -24,6 +24,7 @@ from batch_scheduler_tpu_torch.ops import _build
 from batch_scheduler_tpu_torch.ops import oracle as port_oracle
 from batch_scheduler_tpu_torch.ops.assign_scan import (
     CLUSTER_SIZES, WAVE_WIDTHS, wave_kernel_plan, wave_uniform)
+from test_torch_assign_cluster import BIG_BUCKETS, _assert_tiles_once, big_bucket_cases
 from test_torch_wavefront import SCAN_CASES, _t
 
 MODES = ("broadcast", "per_group")
@@ -258,10 +259,56 @@ def test_wave_kernel_plan(n, wave):
 
 
 def test_wave_kernel_plan_bounds():
-    with pytest.raises(ValueError, match="nodes"):
-        wave_kernel_plan(64 * 1024 * 16 + 1, 5, 16, H100_WAVE_BUDGET)
+    # past 64 nodes a thread the plan still exists: the kernel runs a
+    # thread's nodes as slabs, from global scratch
+    n = 64 * 1024 * 16 + 1
+    plan = wave_kernel_plan(n, 5, 16, H100_WAVE_BUDGET)
+    assert plan.per_thread == 65 and plan.leftover == "global"
+    _assert_tiles_once(plan, n)
     assert wave_kernel_plan(64 * 1024 * 16, 5, 16, H100_WAVE_BUDGET).per_thread == 64
     assert wave_kernel_plan(8192, 5, 16, 1024).leftover == "global"
+
+
+@pytest.mark.parametrize("n,cluster_max", BIG_BUCKETS, ids=lambda v: str(v))
+def test_wave_kernel_plan_past_2_20_nodes(n, cluster_max):
+    r = 5
+    plan = wave_kernel_plan(n, r, cluster_max, H100_WAVE_BUDGET)
+    assert plan.cluster_blocks == cluster_max
+    assert plan.threads == 1024 and plan.per_thread == n // (cluster_max * 1024) > 64
+    assert plan.leftover == "global"
+    # the fixed part alone: inboxes, stages, warp histograms
+    assert plan.shared_bytes == 4 * (2 * 16 * 132 + 2 * (100 + 4 * 32 * r) + 2 * 32 * 128)
+    # the leftover and its wave-start copy, one slab of each a block
+    assert plan.scratch_ints == plan.cluster_blocks * 2 * r * plan.per_thread * plan.threads
+    _assert_tiles_once(plan, n)
+
+
+@pytest.mark.cuda
+def test_wave_kernel_matches_plain_past_2_20_nodes_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from batch_scheduler_tpu_torch.ops.assign_scan import assign_gangs_wave_cuda, wave_scan_plan
+
+    cases = big_bucket_cases()
+    # one uniform input besides: every gang has the first one's request
+    # row, so each wave of 8 takes the uniform branch through the slabs
+    name, (left, req, rem, mask, order) = cases[0]
+    cases.append(("uniform broadcast", (left, np.tile(req[:1], (len(req), 1)),
+                                        rem % 64, mask, order)))
+    for name, arrays in cases:
+        args = [torch.from_numpy(a).cuda() for a in arrays]
+        plan = wave_scan_plan(args[0].shape[0], 5, torch.cuda.current_device())
+        assert plan.per_thread > 64 and plan.leftover == "global", (name, plan)
+        got = assign_gangs_wave_cuda(*args, 8)
+        plain = port_oracle.assign_gangs_wavefront(*args, wave=8, with_stats=True)
+        serial = port_oracle.assign_gangs(*args)
+        torch.cuda.synchronize()
+        for field, a, b, c in zip(("alloc", "placed", "left_after"), got, plain, serial):
+            assert torch.equal(a, b) and torch.equal(a, c), (name, field)
+        for a, b in zip(got[3], plain[3]):
+            assert torch.equal(a, b), (name, "flags")
+        if name == "uniform broadcast":
+            assert bool(got[3][1].all()), "every wave takes the uniform branch"
 
 
 # -- the build digest ---------------------------------------------------------
