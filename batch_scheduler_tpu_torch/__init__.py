@@ -19,7 +19,23 @@ Layout:
              device batch (torch), with the hand-written CUDA assignment
              scans in ``ops/assign_scan.py`` (sources ``csrc/``)
 - ``sim``    scenario builders
-- ``utils``  labels, TTL cache, errors
+- ``utils``  labels, TTL cache, errors, and the audit layer:
+  - ``audit``    the audit ring (``AuditLog``: ``array`` and ``v2``
+                 records; ``AuditReader`` with the v2 re-fold), the plan
+                 and input digests, ``config_fingerprint``; the replay
+                 rungs are ``core.oracle_scorer.replay_batch`` /
+                 ``replay_audit_record``. To come: the
+                 ``BST_AUDIT_FORMAT`` / ``BST_AUDIT_KEYFRAME_EVERY``
+                 readers (with the CLI) and recording policy batches
+  - ``metrics``  the counter / gauge / histogram registry and its text
+                 rendering. To come: ``serve_metrics`` and its HTTP
+                 surfaces
+  - ``trace``    ``new_trace_id`` and ``current_context`` (always None).
+                 To come: the span ring and the flight recorder
+  - ``tenancy``  the capped tenant-label registry. To come: the
+                 ``BST_TENANT_LABEL_MAX`` knob and ``batch_tenants``
+  - ``health``   ``IdentityAuditor``, the sampled identity audit. To come:
+                 the SLO ``HealthModel`` and its ``note_identity`` signal
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 a machine without CUDA the default device raises.

@@ -83,6 +83,8 @@ class ScheduleOperation:
         scorer: str = "oracle",
         clock: Callable[[], float] = time.monotonic,
         device="cuda",
+        audit_log=None,
+        identity_audit_every: int = 0,
     ):
         self.status_cache = status_cache
         self.cluster = cluster
@@ -90,7 +92,15 @@ class ScheduleOperation:
         if scorer not in ("oracle", "serial"):
             raise ValueError(f"unknown scorer {scorer!r} (use 'oracle' or 'serial')")
         self.scorer_kind = scorer
-        self.oracle = OracleScorer(device=device) if scorer == "oracle" else None
+        self.oracle = (
+            OracleScorer(
+                device=device,
+                audit_log=audit_log,
+                identity_audit_every=identity_audit_every,
+            )
+            if scorer == "oracle"
+            else None
+        )
         self.last_denied_pg = TTLCache(DENY_CACHE_DEFAULT_TTL, DENY_CACHE_JANITOR, clock=clock)
         self.last_permitted_pod = TTLCache(PERMITTED_CACHE_DEFAULT_TTL, DENY_CACHE_JANITOR, clock=clock)
         self._lock = threading.RLock()

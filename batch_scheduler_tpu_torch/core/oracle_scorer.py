@@ -18,7 +18,11 @@ resident tensors.
 
 The port of ``batch_scheduler_tpu/core/oracle_scorer.py``'s blocking
 in-process path: generation-based dirty tracking, cluster-version credits,
-the event-fold refresh, device-resident state and the query API. It subsumes the reference's findMaxPG +
+the event-fold refresh, device-resident state, the query API, and the
+audit layer: every published batch can be recorded to an audit ring
+(``utils.audit``) and sampled for the identity audit, and
+``replay_batch`` / ``replay_audit_record`` re-execute a recorded batch on
+a named rung (``REPLAY_RUNGS``). It subsumes the reference's findMaxPG +
 compareClusterResourceAndRequire serial loops (reference pkg/scheduler/
 core/core.go:514-632,701-739) with exact batch answers.
 """
@@ -37,15 +41,26 @@ from ..cache.pg_cache import PGStatusCache, PodGroupMatchStatus
 from ..ops.convert import device_stream, resolve_device
 from ..ops.device_state import DeviceStateHolder
 from ..ops.events import EventLog
-from ..ops.oracle import execute_batch_host
+from ..ops.oracle import execute_batch_host, forced_scan_rung
 from ..ops.snapshot import (
     ClusterSnapshot,
     DeltaSnapshotPacker,
     GroupDemand,
     _demand_fp,
 )
+from ..utils import audit as audit_mod
+from ..utils import tenancy
+from ..utils import trace as trace_mod
+from ..utils.health import IdentityAuditor
 
-__all__ = ["OracleScorer", "demand_from_status", "read_cluster_inputs"]
+__all__ = [
+    "OracleScorer",
+    "demand_from_status",
+    "read_cluster_inputs",
+    "replay_batch",
+    "replay_audit_record",
+    "REPLAY_RUNGS",
+]
 
 
 def read_cluster_inputs(cluster, status_cache: PGStatusCache):
@@ -84,6 +99,176 @@ def demand_from_status(full_name: str, pgs: PodGroupMatchStatus) -> GroupDemand:
         released=pgs.scheduled,
         has_pod=pgs.pod is not None,
     )
+
+
+# ---------------------------------------------------------------------------
+# deterministic replay
+# ---------------------------------------------------------------------------
+
+# The rungs a recorded batch can be re-executed against:
+#   steady    — exactly what this process would dispatch right now (the
+#               live BST_SCAN_WAVE) on the caller's device: on cuda, the
+#               scan kernel of that rung.
+#   wavefront — the wavefront scan pinned at width 8 on the caller's
+#               device: the wave kernel on cuda.
+#   cpu-ladder— the plain serial scan on the CPU, the counterpart of the
+#               reference's serial lax.scan on a CPU device: what the
+#               identity audit (utils.health.IdentityAuditor) re-verifies
+#               against, and the cross-backend probe for rings recorded on
+#               the card.
+# The reference's topk rung comes with the top-K scan (ROADMAP Queue 1
+# item 10).
+REPLAY_RUNGS = ("steady", "wavefront", "cpu-ladder")
+
+# the wave width the wavefront rung pins (the reference's default; already
+# a wave_width_bucket width)
+_REPLAY_WAVE = 8
+
+
+def replay_batch(batch_args, progress_args, against: str = "steady",
+                 device="cuda"):
+    """Re-execute one recorded batch's EXACT packed inputs on the requested
+    rung and return ``(host, device_result)`` like ``execute_batch_host``.
+    ``device`` is where the ``steady`` and ``wavefront`` rungs run
+    (``cpu-ladder`` always runs on the CPU). The arrays are host numpy
+    (a replay touches no scorer's resident tensor) and are uploaded on the
+    calling thread's current stream, never on a scorer's stream. The rung
+    pin is thread-local (ops.oracle.forced_scan_rung), so a replay —
+    including the identity audit's daemon-thread re-verification — never
+    changes the rung a serving thread runs. There is no fallback: on cuda
+    the rung's kernel runs or the replay raises."""
+    if against not in REPLAY_RUNGS:
+        raise ValueError(
+            f"unknown replay rung {against!r} (use one of {REPLAY_RUNGS})"
+        )
+    batch_args = tuple(np.asarray(a) for a in batch_args)
+    progress_args = tuple(np.asarray(a) for a in progress_args)
+    if against == "steady":
+        return execute_batch_host(batch_args, progress_args, device=device)
+    if against == "wavefront":
+        with forced_scan_rung(_REPLAY_WAVE):
+            return execute_batch_host(batch_args, progress_args, device=device)
+    with forced_scan_rung(0):
+        return execute_batch_host(batch_args, progress_args, device="cpu")
+
+
+def replay_audit_record(record: dict, against: str = "steady",
+                        device="cuda") -> dict:
+    """Replay one reconstructed audit record (utils.audit.AuditReader) and
+    bit-compare the resulting plan against the recorded digest. Returns a
+    per-batch report: the rung that executed (``executed_rung``: device,
+    scan, wave width, from the replay's telemetry) and, on a divergence, a
+    structured blame dict — config fingerprints on both sides, bucket
+    shape, the executed rung, and the first differing plan field / gang /
+    node (named when the record kept names).
+
+    A record flagged ``degraded`` (a reference sidecar's conservative
+    fallback batch, which has no device plan) is SKIPPED, not replayed. A
+    record of a policy-rung batch raises NotImplementedError: the policy
+    scan is not ported (ROADMAP Queue 1 item 7), and such a record must
+    not be "replayed" on the wrong scan."""
+    if record.get("degraded"):
+        return {
+            "seq": record.get("seq"),
+            "audit_id": record.get("audit_id"),
+            "against": against,
+            "identical": None,
+            "skipped": "degraded conservative-fallback batch — no device "
+                       "plan to re-execute",
+        }
+    if record.get("policy_args") is not None:
+        raise NotImplementedError(
+            "replaying a policy-rung audit record needs the policy scan, "
+            "which the port does not have yet (ROADMAP Queue 1 item 7)"
+        )
+    refolded = record.get("record_kind") == "event_batch"
+    host, _ = replay_batch(
+        record["batch_args"], record["progress_args"], against=against,
+        device=device,
+    )
+    digest = audit_mod.plan_digest(host)
+    identical = digest == record.get("plan_digest")
+    telemetry = host["telemetry"]
+    executed = {k: telemetry[k] for k in ("device", "scan", "wave_width")}
+    out = {
+        "seq": record.get("seq"),
+        "audit_id": record.get("audit_id"),
+        "against": against,
+        "identical": identical,
+        "recorded_digest": record.get("plan_digest"),
+        "replayed_digest": digest,
+        "shape": record.get("shape"),
+        "executed_rung": executed,
+    }
+    if refolded:
+        out["refolded"] = True
+    if not identical:
+        names = record.get("names") or {}
+        shape = record.get("shape") or {}
+        recorded_result = record["result_arrays"]
+        if refolded:
+            # event_batch records carry a compact result (assignment
+            # arrays omitted — the digest still covers them): substitute
+            # the replayed assignments so the field-by-field compare runs
+            # over the fields the record actually kept
+            recorded_result = dict(recorded_result)
+            for k in ("assignment_nodes", "assignment_counts"):
+                recorded_result.setdefault(k, host[k])
+        blame = audit_mod.divergence_report(
+            recorded_result,
+            host,
+            node_names=names.get("nodes"),
+            group_names=names.get("groups"),
+            context={
+                "recorded_config": record.get("config"),
+                "replay_config": audit_mod.config_fingerprint(
+                    telemetry["device"]),
+                "bucket": [shape.get("g_bucket"), shape.get("n_bucket")],
+                "executed_rung": executed,
+            },
+        )
+        if refolded:
+            refold = record.get("refold") or {}
+            if blame is None:
+                blame = {
+                    "field": "<assignment>",
+                    "reason": "digest mismatch confined to the assignment "
+                              "arrays, which event_batch records omit — "
+                              "re-execute against an array keyframe to "
+                              "localize the slot",
+                }
+            # name the fold outcome and — when the re-folded input stream
+            # itself diverged — the first differing event batch, so blame
+            # points at the event, not just the downstream array field
+            blame["fold"] = {
+                "outcome": (
+                    "refolded" if refold.get("input_digest_ok", True)
+                    else "input-divergence"
+                ),
+                "refresh": record.get("refresh"),
+            }
+            if refold.get("first_divergent_event") is not None:
+                blame["field"] = "<event-stream>"
+                blame["first_divergent_event"] = (
+                    refold["first_divergent_event"]
+                )
+        out["blame"] = blame or {
+            "field": "<record>",
+            "reason": "digest mismatch but every plan field matches — "
+                      "the recorded digest (not the plan) is damaged",
+        }
+    return out
+
+
+def _snapshot_tenancy(snap) -> Dict[str, int]:
+    """Gangs per namespace of one snapshot: one O(G) pass over its gang
+    names, the base of the audit record's tenant stamp."""
+    ns_counts: Dict[str, int] = {}
+    for name in snap.group_names:
+        ns = tenancy.gang_namespace(name)
+        if ns:
+            ns_counts[ns] = ns_counts.get(ns, 0) + 1
+    return ns_counts
 
 
 class _BatchState:
@@ -127,9 +312,15 @@ class OracleScorer:
     buffers stay resident on that device, and each pack's churned rows
     are scattered into them. On CUDA every refresh enqueues its device
     work (the holder's uploads and scatters, the batch, the blob's copy)
-    on the scorer's own ``stream``, whichever thread refreshes."""
+    on the scorer's own ``stream``, whichever thread refreshes.
 
-    def __init__(self, device="cuda"):
+    ``audit_log`` (a ``utils.audit.AuditLog``) records every published
+    batch; ``identity_audit_every`` > 0 re-verifies every Kth published
+    batch on the CPU rung (``utils.health.IdentityAuditor``). See
+    ``configure_audit``."""
+
+    def __init__(self, device="cuda", audit_log=None,
+                 identity_audit_every: int = 0):
         self.device = resolve_device(device)
         self.stream = device_stream(self.device)
         # Dirty tracking is a GENERATION pair: refresh() records the
@@ -186,6 +377,24 @@ class OracleScorer:
         self.pack_seconds_by_path: Dict[str, list] = {}  # guarded-by: _stats_lock
         self.sync_seconds: list = []  # guarded-by: _stats_lock
         self._stats_lock = threading.Lock()
+        # evidence errors swallowed at publish (an audit failure never
+        # fails a publish, but it is counted: stats()["audit"])
+        self.audit_errors = 0
+        self.configure_audit(audit_log, identity_audit_every)
+
+    def configure_audit(self, audit_log=None,
+                        identity_audit_every: int = 0) -> None:
+        """Attach the black-box flight data layer: a ``utils.audit.AuditLog``
+        recording every published batch (inputs + plan digest, serialized
+        off the hot path), and/or the sampled identity audit — every Kth
+        published batch re-verified bit for bit on the ``cpu-ladder`` rung
+        on a daemon thread (``utils.health.IdentityAuditor``; a mismatch
+        flags the audit ring)."""
+        self.audit_log = audit_log
+        self._identity = (
+            IdentityAuditor(identity_audit_every)
+            if identity_audit_every and identity_audit_every > 0 else None
+        )
 
     def mark_dirty(self, group: Optional[str] = None) -> None:
         """Invalidate the served batch. ``group`` names the gang whose
@@ -255,6 +464,8 @@ class OracleScorer:
         # credits offset the OLD batch's staleness check and die with it
         with self._credits_lock:
             self._version_credits = 0
+        if self.audit_log is not None or self._identity is not None:
+            self._audit_publish(snap, host)
         path = (
             "keyframe" if snap.delta is None or snap.delta.kind == "keyframe"
             else "fold" if snap.delta.source == "events" else "scan"
@@ -407,6 +618,68 @@ class OracleScorer:
             self.sync_seconds.append(time.perf_counter() - t0)
             del self.sync_seconds[:-1000]
 
+    def _audit_publish(self, snap, host) -> None:
+        """Durable evidence for one PUBLISHED batch: the audit record (the
+        exact padded host inputs + plan digest, enqueued to the daemon
+        writer) and the sampled identity audit, under one minted audit id.
+        The record holds the snapshot's HOST columns (``device_args()``),
+        not the resident tensors the batch ran on: replaying the host
+        columns is what proves the two agreed. Evidence collection never
+        fails the decision path; each swallowed error is counted in
+        ``audit_errors``."""
+        try:
+            digest = audit_mod.plan_digest(host)
+            aid = audit_mod.new_audit_id()
+            if self.audit_log is not None:
+                # gangs per cardinality-capped tenant label: one registry
+                # hit per DISTINCT namespace, not per gang
+                tenants: Dict[str, int] = {}
+                for ns, count in _snapshot_tenancy(snap).items():
+                    label = tenancy.tenant_label(ns)
+                    tenants[label] = tenants.get(label, 0) + count
+                extra = {"tenants": tenants}
+                # the refresh's provenance rides the audit stream: which
+                # rows this pack rewrote and which path produced it
+                delta = snap.delta
+                if delta is not None:
+                    extra["refresh"] = {
+                        "generation": int(delta.generation),
+                        "kind": delta.kind,
+                        "reason": delta.reason,
+                        "source": delta.source,
+                        "node_rows": [int(i) for i in delta.node_rows],
+                        "group_rows": [int(i) for i in delta.group_rows],
+                        "meta_rows": [int(i) for i in delta.meta_rows],
+                    }
+                ctx = trace_mod.current_context()
+                self.audit_log.record_batch(
+                    batch_args=snap.device_args(),
+                    progress_args=snap.progress_args(),
+                    result=host,
+                    plan_digest=digest,
+                    node_names=snap.node_names,
+                    group_names=snap.group_names,
+                    audit_id=aid,
+                    trace_id=ctx[0] if ctx else None,
+                    telemetry=host["telemetry"],
+                    extra=extra,
+                    # audit v2 payloads (no-ops under the array format):
+                    # the drained event batch a fold pack consumed, and
+                    # the snapshot-lite re-fold base a keyframe carries
+                    event_fold=snap.event_fold,
+                    refold=(
+                        (snap.schema, snap.lite_fps)
+                        if snap.lite_fps is not None else None
+                    ),
+                )
+            if self._identity is not None:
+                self._identity.note_batch(
+                    snap.device_args(), snap.progress_args(), digest, aid,
+                    self.audit_log,
+                )
+        except Exception:  # noqa: BLE001 — evidence, never the decision path
+            self.audit_errors += 1
+
     def _execute(self, snap: ClusterSnapshot):
         """Run one batch on this scorer's device: ``(host, device_result)``.
         The batch reads the resident tensors the pack's sync produced; the
@@ -420,7 +693,9 @@ class OracleScorer:
 
     def stats(self) -> dict:
         """Refresh-path counters: fold outcomes, the packer's pack counts
-        and the device holder's keyframes / scatters / derivations."""
+        and the device holder's keyframes / scatters / derivations; and
+        the audit layer's (``audit``: errors swallowed at publish, the
+        audit log's and the identity auditor's counters when attached)."""
         out = {
             "batches_run": self.batches_run,
             "fold_outcomes": dict(self.fold_outcomes),
@@ -430,6 +705,12 @@ class OracleScorer:
         log = self._event_log
         if log is not None:
             out["event_log"] = log.stats()
+        audit = {"publish_errors": self.audit_errors}
+        if self.audit_log is not None:
+            audit.update(self.audit_log.stats())
+        if self._identity is not None:
+            audit.update(self._identity.stats())
+        out["audit"] = audit
         return out
 
     def _stale(self, cluster) -> bool:

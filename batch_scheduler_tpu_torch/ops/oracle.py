@@ -55,6 +55,7 @@ __all__ = [
     "collect_batch",
     "execute_batch_host",
     "inflight_batches",
+    "forced_scan_rung",
     "ASSIGNMENT_TOP_K",
     "GANG_MAX",
 ]
@@ -390,6 +391,35 @@ def _scan_wave_from_env() -> int:
     return wave_width_bucket(requested)
 
 
+# Thread-local scan-rung pin for deterministic replay
+# (core.oracle_scorer.replay_batch) and the identity audit
+# (utils.health.IdentityAuditor): forces this thread's dispatch_batch onto
+# one wave width without touching the environment, so a replay on one
+# thread never changes the rung a serving thread runs.
+_rung_override = threading.local()
+
+
+class forced_scan_rung:
+    """Context manager pinning this thread's batches to one scan rung:
+    ``scan_wave`` 0 is the serial scan, a width > 1 the wavefront scan at
+    that width (already bucketed). While the pin is set ``dispatch_batch``
+    reads it in place of ``BST_SCAN_WAVE``. The reference's ``use_pallas``
+    half of the pin has no counterpart: on a CUDA tensor the kernel always
+    runs."""
+
+    def __init__(self, scan_wave: int):
+        self._wave = int(scan_wave)
+
+    def __enter__(self):
+        self._prev = getattr(_rung_override, "value", None)
+        _rung_override.value = self._wave
+        return self
+
+    def __exit__(self, *exc):
+        _rung_override.value = self._prev
+        return False
+
+
 def schedule_batch(alloc_lanes, requested, group_req, remaining, fit_mask,
                    group_valid, order, top_k: int = ASSIGNMENT_TOP_K,
                    scan_wave: int = 0):
@@ -564,10 +594,13 @@ def dispatch_batch(batch_args, progress_args, device="cuda") -> PendingBatch:
     do: ``torch.cuda.stream(...)``), so no batch reads a buffer that a later
     scatter on another stream could overtake.
 
-    ``BST_SCAN_WAVE`` is read once per batch: a width > 1 runs the
-    wavefront scan."""
+    ``BST_SCAN_WAVE`` is read once per batch, unless this thread's
+    ``forced_scan_rung`` pin is set: a width > 1 runs the wavefront
+    scan."""
     dev = resolve_device(device)
-    scan_wave = _scan_wave_from_env()
+    scan_wave = getattr(_rung_override, "value", None)
+    if scan_wave is None:
+        scan_wave = _scan_wave_from_env()
     # np.shape reads a tensor's own shape (a CUDA tensor is never copied)
     mask_mode = "per_group" if np.shape(batch_args[4])[0] != 1 else "broadcast"
     n_bucket = int(np.shape(batch_args[0])[0])

@@ -321,6 +321,10 @@ class ClusterSnapshot:
         # the drained event batch an event-fold pack consumed (stamped by
         # the scorer's fold; None on scan packs)
         self.event_fold: Optional[dict] = None
+        # the snapshot-lite re-fold base of an audit v2 keyframe: the
+        # per-gang demand fingerprints (stamped by DeltaSnapshotPacker on
+        # every snapshot-lite pack; None otherwise)
+        self.lite_fps: Optional[list] = None
 
     def _fit_mask(
         self, nodes: Sequence[Node], groups: Sequence[GroupDemand]
@@ -456,6 +460,21 @@ def _meta_columns(demands, gb: int):
     return inv_prio, ts_hi, ts_lo
 
 
+def _queue_meta(demands, gb: int) -> tuple:
+    """The lite state's padded queue-order meta (inv_prio, ts_hi, ts_lo,
+    name_rank). name_rank = the row index keeps the pad tail in
+    arange(g, gb) order, so a full-[Gb] sort reproduces pad_oracle_batch's
+    order column exactly."""
+    g = len(demands)
+    rank = np.empty(g, dtype=np.int32)
+    rank[sorted(range(g), key=lambda i: demands[i].full_name)] = np.arange(
+        g, dtype=np.int32
+    )
+    name_rank = np.arange(gb, dtype=np.int32)
+    name_rank[:g] = rank
+    return (*_meta_columns(demands, gb), name_rank)
+
+
 class DeltaSnapshotPacker:
     """Persistent packed host buffers: rewrite only churned rows per refresh.
 
@@ -518,6 +537,64 @@ class DeltaSnapshotPacker:
         self.last_delta: Optional[SnapshotDelta] = None
         self._group_names: Optional[tuple] = None
         self._group_prev: Optional[np.ndarray] = None  # last [G, R] rows
+
+    @classmethod
+    def from_refold_base(
+        cls, schema: LaneSchema, node_names, demands, arrays: dict
+    ) -> "DeltaSnapshotPacker":
+        """A packer whose snapshot-lite working set holds exactly
+        ``arrays`` — a recorded snapshot-lite pack's padded batch and
+        progress columns, keyed by ``device_args`` / ``progress_args``
+        name — for ``node_names`` and ``demands`` under ``schema``. The
+        audit reader (``utils.audit``) re-runs recorded event batches
+        through its ``pack_fold``. The pack must have had a single
+        (uniform) fit row."""
+        from .oracle import GANG_MAX
+
+        node_names = [str(nm) for nm in node_names]
+        demands = list(demands)
+        group_names = [d.full_name for d in demands]
+        n, g = len(node_names), len(demands)
+        nb = int(arrays["alloc"].shape[0])
+        gb = int(arrays["group_req"].shape[0])
+        lite = _LiteState(
+            n=n, g=g, nb=nb, gb=gb,
+            node_names=tuple(node_names),
+            group_names=tuple(group_names),
+            node_index={nm: i for i, nm in enumerate(node_names)},
+            group_index={nm: i for i, nm in enumerate(group_names)},
+            node_names_list=node_names,
+            group_names_list=group_names,
+            demands=demands,
+            fps=[_demand_fp(d) for d in demands],
+            gang_bound=min(GANG_MAX, (2**31 - 1) // max(nb, 1)),
+            pad_alloc=arrays["alloc"],
+            pad_requested=np.array(arrays["requested"]),
+            pad_group_req=np.array(arrays["group_req"]),
+            remaining=np.array(arrays["remaining"]),
+            min_member=np.array(arrays["min_member"]),
+            scheduled=np.array(arrays["scheduled"]),
+            matched=np.array(arrays["matched"]),
+            ineligible=np.array(arrays["ineligible"]),
+            fit_row=arrays["fit_mask"],
+            node_valid=np.asarray(arrays["fit_mask"])[0],
+            group_valid=arrays["group_valid"],
+            order=arrays["order"],
+            creation_rank=arrays["creation_rank"],
+            meta=_queue_meta(demands, gb),
+        )
+        packer = cls()
+        packer.schema = schema
+        packer._node_names = lite.node_names
+        # None sentinels: the first event touching a node always re-packs
+        # its row, and re-packing under the recorded schema is
+        # bit-identical to the row already in the recorded pack
+        packer._req_dicts = [None] * n
+        packer._group_names = lite.group_names
+        packer._lite = lite
+        packer._requested = lite.pad_requested[:n]
+        packer._group_prev = lite.pad_group_req[:g]
+        return packer
 
     def stats(self) -> dict:
         return {
@@ -646,17 +723,6 @@ class DeltaSnapshotPacker:
         nb, gb = snap.alloc.shape[0], snap.group_req.shape[0]
         from .oracle import GANG_MAX
 
-        # padded queue-order meta: name_rank = the row index keeps the pad
-        # tail in arange(g, gb) order, so a full-[Gb] sort reproduces
-        # pad_oracle_batch's order column exactly
-        inv_prio, ts_hi, ts_lo = _meta_columns(groups, gb)
-        rank = np.empty(g_count, dtype=np.int32)
-        rank[
-            sorted(range(g_count), key=lambda i: groups[i].full_name)
-        ] = np.arange(g_count, dtype=np.int32)
-        name_rank = np.arange(gb, dtype=np.int32)
-        name_rank[:g_count] = rank
-
         lite = _LiteState(
             n=n,
             g=g_count,
@@ -684,7 +750,7 @@ class DeltaSnapshotPacker:
             group_valid=snap.group_valid,
             order=snap.order,
             creation_rank=snap.creation_rank,
-            meta=(inv_prio, ts_hi, ts_lo, name_rank),
+            meta=_queue_meta(groups, gb),
         )
         self._lite = lite
         # rebind the packer's working arrays as VIEWS into the padded
@@ -694,6 +760,12 @@ class DeltaSnapshotPacker:
         self._requested = lite.pad_requested[:n]
         self._group_prev = lite.pad_group_req[:g_count]
         snap.meta_cols = lite.meta
+        # audit v2 re-fold base (utils.audit): the per-gang demand
+        # fingerprints a keyframe record carries so a reader can prime
+        # this exact lite state and re-run recorded event folds. A shallow
+        # list copy — fp tuples are immutable, and later in-place
+        # `fps[gi] = ...` updates must not leak into the record
+        snap.lite_fps = list(lite.fps)
 
     def _plan_group_change(self, gi: int, old_fp: tuple, g: GroupDemand):
         """Validate-only half of a lite group update: returns None when
@@ -831,6 +903,7 @@ class DeltaSnapshotPacker:
         snap.meta_cols = lite.meta
         snap.delta = delta
         snap.event_fold = None
+        snap.lite_fps = list(lite.fps)  # audit v2 re-fold base, as above
         return snap
 
     def _lite_emit(

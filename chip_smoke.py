@@ -84,8 +84,29 @@ Phases (one JSON line each; any failure makes the exit code non-zero):
                    report-only, 20 ticks at a forced depth of 2 after a
                    burst of 200 arrivals (admit_verified's skips), where the
                    drain and no re-upload are still checked.
+- audit_replay     north_star_churn's deployment and churn through a
+                   ScheduleOperation's OracleScorer on cuda with an audit
+                   log and the identity audit on every 2nd batch: a first
+                   refresh and 12 churn rounds into an ``array`` ring
+                   (keyframe every 16) and into a ``v2`` ring (keyframe
+                   every 4, event_batch records between). Each ring is
+                   flushed and read back: nothing dropped, failed or
+                   swallowed at publish, every record reconstructed, its
+                   inputs (and its recorded input_digest) equal to the
+                   args the batch ran on, the identity audit drained with
+                   at least one audit and no mismatch or error. Every
+                   record replays identically on steady (the kernel) and
+                   the last three on cpu-ladder (the plain serial scan on
+                   the CPU); a copy of one record with one assignment
+                   count changed is reported divergent, blamed on that
+                   field and gang. Reported: the publish cost a batch
+                   (_audit_publish: digest, tenants, enqueue), bytes a
+                   record by kind, replay ms by rung, the identity audit's
+                   ms, and, report-only, the churn refresh with the audit
+                   off and on in turns on one scorer, each with and
+                   without an identity verification in flight.
 
-With BST_SCAN_WAVE unset, the six phases above run the serial kernel
+With BST_SCAN_WAVE unset, the seven phases above run the serial kernel
 (assign_scan) and never the wave kernel. The wavefront path
 (BST_SCAN_WAVE=W, the wave kernel assign_wave):
 
@@ -115,13 +136,18 @@ With BST_SCAN_WAVE unset, the six phases above run the serial kernel
                    equal to the full-pack scorer's after every refresh.
 - churn_loop_wave  churn_loop with W=8: the wave kernel once a dispatched
                    tick, the serial kernel never.
+- audit_replay_wave  audit_replay with W=8: the wave kernel once per
+                   refresh and per steady replay, and every record also
+                   replays identically on wavefront.
 
 Then the card's name and power limit (nvidia-smi), one ``kernels`` line and,
 last, ``{"ok": true, "device": {...}}``. Launch counts are read for each
 path that drives the scorer or the re-scorer — north_star, race,
-north_star_churn, churn_loop, north_star_wave, race_wave,
-north_star_churn_wave, churn_loop_wave — with both kernels' counts zeroed
-just before the path and read just after; ``launches`` in the kernels line is the north-star path's,
+north_star_churn, churn_loop, audit_replay, north_star_wave, race_wave,
+north_star_churn_wave, churn_loop_wave, audit_replay_wave, and the audit
+phases' replays (``audit_replay_replays``, ``audit_replay_wave_replays``)
+— with both kernels' counts zeroed just before the path and read just
+after; ``launches`` in the kernels line is the north-star path's,
 ``launches_by_path`` holds each path. Comparison and timing launches are
 not counted.
 """
@@ -692,6 +718,51 @@ def north_star_state():
     return cluster, cache
 
 
+class Churn:
+    """One round of north_star_churn's churn on a ClusterState per call
+    ``churn(r)``: CHURN_ROWS node rows change (assume of a 1-cpu pod on
+    half of them, forget of the previous round's pods on the other half,
+    rotating through the node list) and CHURN_GANGS gangs' progress rows
+    (``status.scheduled``, each named to ``mark``); round
+    CHURN_PRIORITY_ROUND also moves a gang's priority (the queue order
+    re-derives on the card) and round CHURN_REQUEST_ROUND a gang's member
+    request (a [G,R] row scatters there). ``pods`` holds the churn pods
+    left, for callers that assume more."""
+
+    def __init__(self, cluster, cache, mark, rounds, extra_pods=0):
+        from batch_scheduler_tpu_torch.sim.scenarios import make_member_pods
+
+        self.cluster, self.cache, self.mark = cluster, cache, mark
+        self.names = sorted(cache.snapshot())
+        self.node_names = [n.metadata.name for n in cluster.list_nodes()]
+        self.pods = iter(make_member_pods("churn", rounds * CHURN_ROWS + extra_pods,
+                                          {"cpu": "1"}))
+        self.held = []  # the previous round's assumed pods
+
+    def __call__(self, r):
+        cluster, cache, names = self.cluster, self.cache, self.names
+        for uid in self.held:
+            cluster.forget(uid)
+        self.held = []
+        for k in range(CHURN_ROWS // 2):
+            pod = next(self.pods)
+            cluster.assume(pod, self.node_names[(r * CHURN_ROWS + k) % len(self.node_names)])
+            self.held.append(pod.metadata.uid)
+        for k in range(CHURN_GANGS):
+            name = names[(r * CHURN_GANGS + k) % len(names)]
+            cache.get(name).pod_group.status.scheduled += 1
+            self.mark(name)
+        if r == CHURN_PRIORITY_ROUND:
+            name = names[-1]
+            cache.get(name).pod.spec.priority = 5  # jumps the queue
+            self.mark(name)
+        if r == CHURN_REQUEST_ROUND:
+            name = names[len(names) // 2]
+            cache.get(name).pod_group.spec.min_resources = {
+                "cpu": 2000, "memory": 4 * 1024**3, GPU: 1}
+            self.mark(name)
+
+
 def full_pack_diff(scorer, cluster, cache):
     """What differs between the scorer's last batch and the full pack of
     the same state: one ClusterSnapshot of read_cluster_inputs (the path
@@ -727,13 +798,8 @@ def drive_north_star_churn(wave):
     """The north-star deployment in a ClusterState through
     ``OracleScorer(device="cuda")`` with ``BST_SCAN_WAVE`` set to ``wave``
     (None: unset): a first refresh, then CHURN_ROUNDS rounds of churn,
-    each followed by one refresh (the first CHURN_WARMUP untimed). A round
-    changes CHURN_ROWS node rows (assume of a 1-cpu pod on half of them,
-    forget of the previous round's pods on the other half, rotating
-    through the node list) and CHURN_GANGS gangs' progress rows
-    (``status.scheduled``, named by ``mark_dirty(group=...)``); one round
-    also changes a gang's priority, so the queue order re-derives on the
-    card, and one a gang's member request, so a [G,R] row scatters there.
+    each followed by one refresh (the first CHURN_WARMUP untimed); a round
+    is one call of ``Churn``, its gangs named by ``mark_dirty(group=...)``.
     Both kernels' counts are zeroed just before the rounds and read just
     after. After every refresh the scorer must equal the full pack
     (full_pack_diff). Report-only, each round also refreshes a second
@@ -747,11 +813,10 @@ def drive_north_star_churn(wave):
 
     from batch_scheduler_tpu_torch.core import OracleScorer
     from batch_scheduler_tpu_torch.ops.assign_scan import assign_gangs_cuda, assign_gangs_wave_cuda
-    from batch_scheduler_tpu_torch.sim.scenarios import make_member_pods
 
     cluster, cache = north_star_state()
-    names = sorted(cache.snapshot())
     node_names = [n.metadata.name for n in cluster.list_nodes()]
+
     class UploadScorer(OracleScorer):
         """The same scorer with the holder skipped: the batch uploads the
         pack's host arrays whole."""
@@ -761,37 +826,12 @@ def drive_north_star_churn(wave):
 
     scorer = OracleScorer(device="cuda")
     upload = UploadScorer(device="cuda")
-    pods = iter(make_member_pods("churn", 4 * CHURN_ROUNDS * CHURN_ROWS + CHURN_WIDE_ROWS,
-                                 {"cpu": "1"}))
-    held = []  # the previous round's assumed pods
-    half = CHURN_ROWS // 2
 
     def mark(name):
         scorer.mark_dirty(group=name)
         upload.mark_dirty(group=name)
 
-    def churn(r):
-        nonlocal held
-        for uid in held:
-            cluster.forget(uid)
-        held = []
-        for k in range(half):
-            pod = next(pods)
-            cluster.assume(pod, node_names[(r * CHURN_ROWS + k) % len(node_names)])
-            held.append(pod.metadata.uid)
-        for k in range(CHURN_GANGS):
-            name = names[(r * CHURN_GANGS + k) % len(names)]
-            cache.get(name).pod_group.status.scheduled += 1
-            mark(name)
-        if r == CHURN_PRIORITY_ROUND:
-            name = names[-1]
-            cache.get(name).pod.spec.priority = 5  # jumps the queue
-            mark(name)
-        if r == CHURN_REQUEST_ROUND:
-            name = names[len(names) // 2]
-            cache.get(name).pod_group.spec.min_resources = {
-                "cpu": 2000, "memory": 4 * 1024**3, GPU: 1}
-            mark(name)
+    churn = Churn(cluster, cache, mark, 4 * CHURN_ROUNDS, extra_pods=CHURN_WIDE_ROWS)
 
     def compare(label, who=scorer):
         diff = full_pack_diff(who, cluster, cache)
@@ -851,7 +891,7 @@ def drive_north_star_churn(wave):
         compare("profiled round")
         # report-only: CHURN_WIDE_ROWS node rows in one round
         for k in range(CHURN_WIDE_ROWS):
-            cluster.assume(next(pods), node_names[(7 * k + 3) % len(node_names)])
+            cluster.assume(next(churn.pods), node_names[(7 * k + 3) % len(node_names)])
         wide_s = timed_refresh(scorer)
         wide = {"node_rows": CHURN_WIDE_ROWS, "outcome": scorer.last_fold_outcome,
                 "rows_scattered": int(len(scorer.snapshot.delta.node_rows)),
@@ -1014,6 +1054,330 @@ def north_star_churn_wave(results):
         results["assign_wave"]["launches_by_path"]["north_star_churn_wave"] = \
             launches["assign_wave"]
     return {**report, "launches": launches["assign_wave"]}
+
+
+# the audit phases: north_star_churn's deployment and churn recorded to an
+# audit ring in each format (format, keyframe_every), AUDIT_ROUNDS churn
+# rounds after the first refresh, the identity audit on every 2nd batch
+AUDIT_RINGS = (("array", 16), ("v2", 4))
+AUDIT_ROUNDS = 12
+AUDIT_IDENTITY_EVERY = 2
+AUDIT_CPU_REPLAYS = 3  # cpu-ladder replays: the last records of each ring
+AUDIT_TIMING_ROUNDS = 12  # report-only: pairs of refreshes, audit off / on
+
+
+def ran_input_digest(scorer):
+    """input_digest of the seven batch args the scorer's last batch ran on
+    (the holder's resident tensors, read back) and its five progress
+    args."""
+    from batch_scheduler_tpu_torch.utils import audit as audit_mod
+
+    args = [a.cpu().numpy() if hasattr(a, "cpu") else a
+            for a in scorer._device_state.last_args()]
+    arrays = dict(zip(audit_mod.BATCH_ARG_NAMES, args))
+    arrays.update(zip(audit_mod.PROGRESS_ARG_NAMES, scorer.snapshot.progress_args()))
+    return audit_mod.input_digest(arrays)
+
+
+def timed_calls(fn, out):
+    """``fn`` wrapped to append each call's seconds to ``out``."""
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            out.append(time.perf_counter() - t0)
+    return run
+
+
+def record_ring(fmt, keyframe_every, directory):
+    """One audit ring at the north star: north_star_churn's deployment and
+    churn through a ScheduleOperation's OracleScorer on cuda with an
+    AuditLog(fmt, keyframe_every) and the identity audit on every
+    AUDIT_IDENTITY_EVERY-th batch; a first refresh and AUDIT_ROUNDS churn
+    rounds, each followed by one refresh. Both kernels' counts are zeroed
+    just before the refreshes and read just after. Returns (scorer, log,
+    input digests of what each batch ran on, launches by kernel, publish
+    seconds, identity-audit seconds)."""
+    from batch_scheduler_tpu_torch.core import ScheduleOperation
+    from batch_scheduler_tpu_torch.ops.assign_scan import assign_gangs_cuda, assign_gangs_wave_cuda
+    from batch_scheduler_tpu_torch.utils.audit import AuditLog
+
+    cluster, cache = north_star_state()
+    log = AuditLog(directory, fmt=fmt, keyframe_every=keyframe_every)
+    op = ScheduleOperation(cache, cluster, device="cuda", audit_log=log,
+                           identity_audit_every=AUDIT_IDENTITY_EVERY)
+    scorer = op.oracle
+    publish_s, identity_s = [], []
+    scorer._audit_publish = timed_calls(scorer._audit_publish, publish_s)
+    auditor = scorer._identity
+    auditor._verify = timed_calls(auditor._verify, identity_s)
+    churn = Churn(cluster, cache, lambda name: scorer.mark_dirty(group=name), AUDIT_ROUNDS + 1)
+    ran = []
+    assign_gangs_cuda.launches = 0
+    assign_gangs_wave_cuda.launches = 0
+    for r in range(AUDIT_ROUNDS + 1):
+        if r:
+            churn(r)
+        scorer.refresh(cluster, cache)
+        ran.append(ran_input_digest(scorer))
+    launches = {"assign_scan": assign_gangs_cuda.launches,
+                "assign_wave": assign_gangs_wave_cuda.launches}
+    return scorer, log, ran, launches, publish_s, identity_s
+
+
+def check_ring(scorer, log, ran, wave):
+    """Flush the ring, read it back and hold it to what the scorer ran:
+    nothing dropped, failed or swallowed, every record reconstructed,
+    every reconstructed input (and every recorded input_digest) equal to
+    the args its batch ran on, the identity audit drained with at least
+    one audit and no mismatch or error. Returns the records."""
+    from batch_scheduler_tpu_torch.utils import audit as audit_mod
+    from batch_scheduler_tpu_torch.utils.audit import AuditReader
+
+    if not scorer._identity.drain(600.0) or not log.flush(120.0):
+        raise AssertionError("the identity audit or the audit writer did not finish")
+    stats = scorer.stats()["audit"]
+    bad = {k: stats[k] for k in ("publish_errors", "audit_dropped", "audit_write_errors",
+                                 "identity_mismatches", "identity_errors") if stats[k]}
+    if bad or stats["identity_audits"] < 1:
+        raise AssertionError(f"audit counters {stats}")
+    batches, skipped = AuditReader(log.directory).batches()
+    if skipped or len(batches) != len(ran):
+        raise AssertionError(f"{len(batches)} records read back of {len(ran)}, "
+                             f"unreconstructable: {skipped[:2]}")
+    for rec, want in zip(batches, ran):
+        arrays = dict(zip(audit_mod.BATCH_ARG_NAMES, rec["batch_args"]))
+        arrays.update(zip(audit_mod.PROGRESS_ARG_NAMES, rec["progress_args"]))
+        got = {audit_mod.input_digest(arrays), rec.get("input_digest", want)}
+        if got != {want}:
+            raise AssertionError(f"record {rec['seq']}: inputs differ from the batch's")
+        if (rec.get("refold") or {"input_digest_ok": True})["input_digest_ok"] is not True:
+            raise AssertionError(f"record {rec['seq']}: re-fold {rec['refold']}")
+        tele = rec["telemetry"]
+        if (tele["scan"], tele["wave_width"]) != ("cuda_kernel", wave or 0):
+            raise AssertionError(f"record {rec['seq']}: telemetry {tele}")
+    return batches, stats
+
+
+def replay_ring(batches, wave):
+    """Replay the records: every one on steady (the rung's kernel) and, in
+    the wave phase, on wavefront; the last AUDIT_CPU_REPLAYS on
+    cpu-ladder. Each must be identical and report the rung it ran.
+    Returns ms by rung."""
+    from batch_scheduler_tpu_torch.core.oracle_scorer import replay_audit_record
+
+    rungs = [("steady", batches, ("cuda_kernel", wave or 0))]
+    if wave:
+        rungs.append(("wavefront", batches, ("cuda_kernel", 8)))
+    rungs.append(("cpu-ladder", batches[-AUDIT_CPU_REPLAYS:], ("plain", 0)))
+    ms = {}
+    for rung, recs, executed in rungs:
+        times = []
+        for rec in recs:
+            t0 = time.perf_counter()
+            rep = replay_audit_record(rec, against=rung)
+            times.append((time.perf_counter() - t0) * 1e3)
+            ran = rep["executed_rung"]
+            if not rep["identical"] or (ran["scan"], ran["wave_width"]) != executed:
+                raise AssertionError(f"record {rec['seq']} on {rung}: {rep}")
+        ms[rung] = {"replays": len(times), "ms_median": statistics.median(times),
+                    "ms_max": max(times)}
+    return ms
+
+
+def tamper_check(rec):
+    """A copy of one record with one assignment count changed (and its
+    digest taken over the changed plan): the replay must report it
+    divergent and blame assignment_counts at that gang."""
+    import numpy as np
+
+    from batch_scheduler_tpu_torch.core.oracle_scorer import replay_audit_record
+    from batch_scheduler_tpu_torch.utils import audit as audit_mod
+
+    rec = dict(rec, result_arrays={k: np.array(v) for k, v in rec["result_arrays"].items()})
+    counts = rec["result_arrays"]["assignment_counts"]
+    g = int(np.flatnonzero(counts[:, 0] > 0)[0])
+    counts[g, 0] += 1
+    rec["plan_digest"] = audit_mod.plan_digest(rec["result_arrays"])
+    rep = replay_audit_record(rec, against="steady")
+    blame = rep.get("blame") or {}
+    gang = rec["names"]["groups"][g]
+    if rep["identical"] is not False or (blame.get("field"), blame.get("gang")) != (
+            "assignment_counts", gang):
+        raise AssertionError(f"tampered record not blamed: {rep}")
+    return {"identical": False, "field": blame["field"], "gang": gang,
+            "slot": blame["slot"], "node": blame.get("node")}
+
+
+def audit_timing(directory):
+    """Report-only: the churn refresh with the audit off and on (an array
+    ring: publish and the writer's serialization), in turns on one scorer,
+    in rounds with no identity verification in flight and in rounds with
+    one: a verification of the last served batch (``IdentityAuditor``, the
+    plain serial scan on the CPU on its daemon thread) started just before
+    the round. Before each round the verification and the writer are
+    drained, and after each audited refresh the writer is flushed, outside
+    the timed refresh. Also the two host parts of the publish alone on the last
+    batch, with nothing else running: plan_digest and the tenant stamp.
+    Medians in ms."""
+    import torch
+
+    from batch_scheduler_tpu_torch.core import OracleScorer
+    from batch_scheduler_tpu_torch.core.oracle_scorer import _snapshot_tenancy
+    from batch_scheduler_tpu_torch.utils import audit as audit_mod
+    from batch_scheduler_tpu_torch.utils import tenancy
+    from batch_scheduler_tpu_torch.utils.audit import AuditLog
+    from batch_scheduler_tpu_torch.utils.health import IdentityAuditor
+
+    cluster, cache = north_star_state()
+    log = AuditLog(directory)
+    scorer = OracleScorer(device="cuda")
+    verifier = IdentityAuditor(1)
+    churn = Churn(cluster, cache, lambda name: scorer.mark_dirty(group=name),
+                  2 * AUDIT_TIMING_ROUNDS + 1)
+    scorer.refresh(cluster, cache)
+    samples = {}
+    r = 0
+    for t in range(AUDIT_TIMING_ROUNDS):
+        verifier.drain(600.0)
+        log.flush(120.0)
+        if t % 2:
+            snap = scorer.snapshot
+            verifier.note_batch(snap.device_args(), snap.progress_args(),
+                                audit_mod.plan_digest(scorer._state.result), None)
+        for audited in ((True, False) if t % 4 < 2 else (False, True)):
+            r += 1
+            churn(r)
+            scorer.configure_audit(log if audited else None)
+            thread = verifier._thread
+            verifying = thread is not None and thread.is_alive()
+            t0 = time.perf_counter()
+            scorer.refresh(cluster, cache)
+            torch.cuda.synchronize()
+            key = ("audit_on" if audited else "audit_off") + (
+                "_verifying" if verifying else "_idle")
+            samples.setdefault(key, []).append((time.perf_counter() - t0) * 1e3)
+            if audited:
+                # the writer serializes the record after the publish has
+                # returned: finish it before the next timed refresh, or
+                # an unaudited refresh would carry the audit's cost
+                log.flush(120.0)
+    verifier.drain(600.0)
+    log.stop()
+    if verifier.mismatches or verifier.errors or scorer.stats()["audit"]["publish_errors"]:
+        raise AssertionError(f"while timing: {verifier.stats()}, {scorer.stats()['audit']}")
+    host, snap = scorer._state.result, scorer.snapshot
+    parts = {}
+    for name, fn in (("plan_digest", lambda: audit_mod.plan_digest(host)),
+                     ("tenants", lambda: {tenancy.tenant_label(ns): n
+                                          for ns, n in _snapshot_tenancy(snap).items()})):
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        parts[name] = statistics.median(times)
+    return {f"refresh_ms_median_{k}": statistics.median(v) for k, v in sorted(samples.items())} | {
+        "refreshes": {k: len(v) for k, v in sorted(samples.items())},
+        "publish_parts_ms_median": parts}
+
+
+def record_bytes(directory):
+    """Bytes a record by record kind and keyframe flag, from the ring's
+    segment files (``ring_stats`` has one ``batch`` kind for keyframes
+    and array deltas)."""
+    out = {}
+    for path in sorted(os.listdir(directory)):
+        with open(os.path.join(directory, path)) as f:
+            for line in f:
+                key = ("event_batch" if '"kind": "event_batch"' in line
+                       else "keyframe" if '"keyframe": true' in line else "delta")
+                out.setdefault(key, []).append(len(line))
+    return {k: {"records": len(v), "bytes_median": statistics.median(v)}
+            for k, v in sorted(out.items())}
+
+
+def drive_audit_replay(wave):
+    """Both audit rings at the north star with ``BST_SCAN_WAVE`` set to
+    ``wave`` (None: unset): record_ring, check_ring and replay_ring for
+    each format, the replays' kernel launches zeroed just before the
+    replays of a ring and read just after (the rung's kernel must have
+    launched), tamper_check on the array ring's last record, then
+    audit_timing. Returns (launches of the refreshes, launches of the
+    replays, report)."""
+    import tempfile
+
+    from batch_scheduler_tpu_torch.ops.assign_scan import assign_gangs_cuda, assign_gangs_wave_cuda
+    from batch_scheduler_tpu_torch.utils import audit as audit_mod
+
+    kernel = "assign_wave" if wave else "assign_scan"
+    refresh_launches = {"assign_scan": 0, "assign_wave": 0}
+    replay_launches = {"assign_scan": 0, "assign_wave": 0}
+    report = {"rings": {}}
+    with scan_wave_env(wave), tempfile.TemporaryDirectory(prefix="bst-audit-") as tmp:
+        for fmt, keyframe_every in AUDIT_RINGS:
+            directory = os.path.join(tmp, fmt)
+            scorer, log, ran, launches, publish_s, identity_s = record_ring(
+                fmt, keyframe_every, directory)
+            if launches[kernel] != len(ran) or sum(launches.values()) != len(ran):
+                raise AssertionError(f"{fmt} ring: {launches} launches in {len(ran)} refreshes")
+            batches, stats = check_ring(scorer, log, ran, wave)
+            assign_gangs_cuda.launches = 0
+            assign_gangs_wave_cuda.launches = 0
+            replay_ms = replay_ring(batches, wave)
+            got = {"assign_scan": assign_gangs_cuda.launches,
+                   "assign_wave": assign_gangs_wave_cuda.launches}
+            cuda_replays = sum(v["replays"] for k, v in replay_ms.items() if k != "cpu-ladder")
+            if got[kernel] != cuda_replays or sum(got.values()) != cuda_replays:
+                raise AssertionError(f"{fmt} ring replays: {got} launches in {cuda_replays} "
+                                     "cuda replays")
+            for k in KERNELS:
+                refresh_launches[k] += launches[k]
+                replay_launches[k] += got[k]
+            kinds = [rec.get("record_kind", "batch") for rec in batches]
+            if fmt == "v2" and "event_batch" not in kinds:
+                raise AssertionError(f"v2 ring without event records: {kinds}")
+            ring = [r for r in audit_mod.ring_stats() if r["dir"] == directory][0]
+            report["rings"][fmt] = {
+                "keyframe_every": keyframe_every, "records": len(batches),
+                "record_kinds": {k: kinds.count(k) for k in sorted(set(kinds))},
+                "publish_ms_median": statistics.median(publish_s[1:]) * 1e3,
+                "publish_ms_max": max(publish_s[1:]) * 1e3,
+                "bytes_by_kind": {k: v["bytes_per_record"] for k, v in ring["by_kind"].items()},
+                "record_bytes": record_bytes(directory),
+                "ring_bytes": ring["ring_bytes"],
+                "replay": replay_ms,
+                "identity_audit_ms": [x * 1e3 for x in identity_s],
+                "audit": {k: v for k, v in stats.items() if k != "audit_dir"},
+                "launches_refresh": launches, "launches_replay": got,
+            }
+            if fmt == "array":
+                report["tamper"] = tamper_check(batches[-1])
+            log.stop()
+        report["timing"] = audit_timing(os.path.join(tmp, "timing"))
+    return refresh_launches, replay_launches, report
+
+
+def audit_phase(results, wave, path):
+    refresh_launches, replay_launches, report = drive_audit_replay(wave)
+    kernel = "assign_wave" if wave else "assign_scan"
+    if kernel in results:
+        by_path = results[kernel]["launches_by_path"]
+        by_path[path] = refresh_launches[kernel]
+        by_path[f"{path}_replays"] = replay_launches[kernel]
+    return {**report, "launches": refresh_launches[kernel],
+            "launches_replays": replay_launches[kernel]}
+
+
+@phase("audit_replay")
+def audit_replay(results):
+    return audit_phase(results, None, "audit_replay")
+
+
+@phase("audit_replay_wave")
+def audit_replay_wave(results):
+    return audit_phase(results, 8, "audit_replay_wave")
 
 
 # benchmarks/ladder.py:250 config5_churn: 10,000 gangs of 10 pods (4 cpu,
@@ -1635,11 +1999,13 @@ def main() -> int:
     race(results)
     north_star_churn(results)
     churn_loop(results)
+    audit_replay(results)
     north_star_wave(results)
     mixed_wave(results)
     race_wave(results)
     north_star_churn_wave(results)
     churn_loop_wave(results)
+    audit_replay_wave(results)
 
     sources = {
         "assign_scan": ("batch_scheduler_tpu_torch/csrc/assign_scan.cu",
