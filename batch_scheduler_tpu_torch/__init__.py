@@ -13,7 +13,15 @@ Layout:
 - ``core``   gang scheduling semantics (``ScheduleOperation``) and the
              batch scorer (``OracleScorer``)
 - ``framework``  ``ClusterState``, the live node/pod view whose event
-             hooks feed the scorer's O(churn) event fold
+             hooks feed the scorer's O(churn) event fold, and whose
+             ``pods_on`` gives the preemption planner its victims
+- ``policy`` the policy engine: ``PolicyConfig`` (``BST_POLICY``) and
+             ``PolicyEngine``, the affinity / anti-affinity / spread terms
+             the policy scan composes into its selection key (the
+             composite-key variant of the serial scan kernel), and the
+             preemption planner (``plan_victims``, ``PreemptionPlanner``).
+             To come: ``PolicyEngine.explain`` and the ``/debug/policy``
+             view
 - ``ops``    host packing (numpy: the full pack, the delta / snapshot-lite
              packer, the event log), the device-resident state and the
              device batch (torch), with the hand-written CUDA assignment
@@ -24,9 +32,10 @@ Layout:
                  records; ``AuditReader`` with the v2 re-fold), the plan
                  and input digests, ``config_fingerprint``; the replay
                  rungs are ``core.oracle_scorer.replay_batch`` /
-                 ``replay_audit_record``. To come: the
+                 ``replay_audit_record``; a policy batch's record
+                 carries its policy columns. To come: the
                  ``BST_AUDIT_FORMAT`` / ``BST_AUDIT_KEYFRAME_EVERY``
-                 readers (with the CLI) and recording policy batches
+                 readers (with the CLI)
   - ``metrics``  the counter / gauge / histogram registry and its text
                  rendering. To come: ``serve_metrics`` and its HTTP
                  surfaces

@@ -3,7 +3,8 @@ extension points.
 
 The port of ``batch_scheduler_tpu/core/operation.py``: prefilter
 feasibility, per-node fit, permit accounting, queue ordering, postbind
-status transitions and the deny/permit fast-path caches (reference
+status transitions, preemption legality and the policy engine's victim
+plan, and the deny/permit fast-path caches (reference
 pkg/scheduler/core/core.go:49-434) — with the hot loops swapped for the
 batch oracle when ``scorer="oracle"`` (this package's ``OracleScorer`` on
 ``device``) and the reference-parity host path when ``scorer="serial"``.
@@ -14,10 +15,12 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Protocol
+from typing import Callable, Dict, Optional, Protocol, Tuple
 
 from ..api.types import Pod, PodGroup, PodGroupPhase
 from ..cache.pg_cache import PGStatusCache, PodGroupMatchStatus, PodNodePair
+from ..policy.engine import PolicyConfig, PolicyEngine
+from ..policy.preempt import PreemptionPlanner
 from ..utils import errors as errs
 from ..utils.labels import get_wait_seconds, pod_group_name
 from ..utils.ttl_cache import TTLCache
@@ -85,18 +88,33 @@ class ScheduleOperation:
         device="cuda",
         audit_log=None,
         identity_audit_every: int = 0,
+        policy: Optional[PolicyConfig] = None,
     ):
         self.status_cache = status_cache
         self.cluster = cluster
         self.pg_lister = pg_lister
         if scorer not in ("oracle", "serial"):
             raise ValueError(f"unknown scorer {scorer!r} (use 'oracle' or 'serial')")
+        # The policy engine: ``policy`` is a PolicyConfig, or None to read
+        # BST_POLICY from the environment (unset or empty = off: every path
+        # below runs the pre-policy code). The engine scores batches through
+        # the oracle's policy scan; the preemption planner (the "preempt"
+        # term) runs plan_victims on ``device``.
+        if policy is None:
+            policy = PolicyConfig.from_env()
+        self.policy = PolicyEngine(policy) if policy.enabled else None
+        self.preempt_planner = (
+            PreemptionPlanner(policy, device=device)
+            if self.policy is not None and policy.preemption
+            else None
+        )
         self.scorer_kind = scorer
         self.oracle = (
             OracleScorer(
                 device=device,
                 audit_log=audit_log,
                 identity_audit_every=identity_audit_every,
+                policy_engine=self.policy,
             )
             if scorer == "oracle"
             else None
@@ -368,6 +386,174 @@ class ScheduleOperation:
         raise errs.ResourceNotEnoughError(
             f"node {node_name} reserved for max group {self.max_finished_pg}"
         )
+
+    # ------------------------------------------------------------------
+    # Preemption (reference core.go:194-260)
+    # ------------------------------------------------------------------
+
+    def preempt_add_pod(self, pod_to_add: Pod, node_name: str) -> None:
+        return None
+
+    def preempt_victim_plan(self, pod: Pod):
+        """Dry-run a victim plan for a denied gang pod (policy.preempt): the
+        tier-eligible victim gangs whose whole-gang eviction frees enough
+        capacity, minimal by construction. Returns a VictimPlan or None
+        (policy preemption off, the pod not a gang member or of tier 0,
+        nothing evictable, or infeasible even with full eviction, or a
+        victim the preempt hook forbids). The commit half is the
+        framework's: verify the plan against the live cluster
+        (``preempt_planner.verify``), evict every victim gang whole,
+        ``note_gang_evicted`` each, ``forget_denied`` the preemptor, mark
+        the batch dirty."""
+        if self.preempt_planner is None:
+            return None
+        pg_name, ok = pod_group_name(pod)
+        if not ok or pod.spec.priority <= 0:
+            return None  # tier-0 gangs never preempt (nothing is lower)
+        full_name = f"{pod.metadata.namespace}/{pg_name}"
+        pgs = self.status_cache.get(full_name)
+        if pgs is None:
+            return None
+        pg = pgs.pod_group
+        need = max(
+            pg.spec.min_member - pg.status.scheduled - len(pgs.matched_pod_nodes.items()),
+            0,
+        )
+        plan = self.preempt_planner.plan(pod, self.cluster, self.status_cache, full_name, need)
+        self.policy.note_plan(plan is not None)
+        if plan is None:
+            return None
+        # legality gate: every victim must pass the preempt hook on its own;
+        # one forbidden victim voids the plan, which is minimal only as a
+        # unit
+        for victim in plan.victims():
+            try:
+                self.preempt_remove_pod(pod, victim)
+            except errs.SchedulingError:
+                return None
+        return plan
+
+    def note_gang_evicted(self, full_name: str) -> None:
+        """Reset a victim gang's local schedule state after a policy
+        eviction: its members were deleted (and are recreated Pending), so
+        the gang re-enters the queue as a fresh unit — phase back to
+        PENDING, scheduled count zeroed, plan dropped — and its demand row
+        is marked dirty. Left out until they are ported: the reference's
+        best-effort status patch through the PodGroup client (ROADMAP Queue
+        1 item 12) and the pending tracker's ``note_evicted``, which keeps
+        the gang's pending clock (the observability half, item 7b)."""
+        with self._lock:
+            pgs = self.status_cache.get(full_name)
+            if pgs is None:
+                return
+            pg = pgs.pod_group
+            pg.status.phase = PodGroupPhase.PENDING
+            pg.status.scheduled = 0
+            pg.status.schedule_start_time = None
+            pgs.binds_committed = 0
+            pgs.scheduled = False
+            pgs.placement_plan = None
+            for uid in list(pgs.matched_pod_nodes.items()):
+                pgs.matched_pod_nodes.delete(uid)
+        # the member deletions rode the evented cluster mutators; the
+        # gang-row reset above is the only out-of-band change: name it
+        self.mark_dirty(group=full_name)
+
+    def forget_denied(self, full_name: str) -> None:
+        """Drop a gang's deny-cache entry (a preemption freed the capacity
+        the denial was about; the 20 s stickiness would otherwise idle the
+        freed capacity for its whole TTL)."""
+        self.last_denied_pg.delete(full_name)
+
+    def preempt_remove_pod(self, pod_to_schedule: Pod, pod_to_remove: Pod) -> None:
+        """Raises SchedulingError when the preemption is forbidden.
+
+        Phase rules (reference core.go:198-260): online preempts online
+        freely; offline may never preempt online; nobody preempts members
+        of Scheduled/Running gangs; a gang never preempts itself
+        ("offline" = carries the group label).
+
+        With the policy engine's "preempt" term the phase rule becomes
+        PRIORITY TIERS (``_preempt_remove_tiered``): a victim is legal iff
+        its priority class is strictly below the preemptor's, members of
+        released (Scheduled/Running) gangs included unless
+        ``protect_running``. The offline-may-not-preempt-online and
+        no-self-preemption rules stay."""
+        if self.policy is not None and self.policy.preemption:
+            self._preempt_remove_tiered(pod_to_schedule, pod_to_remove)
+            return
+        remove_group, remove_offline = pod_group_name(pod_to_remove)
+        schedule_group, schedule_offline = pod_group_name(pod_to_schedule)
+
+        if not schedule_offline and not remove_offline:
+            return
+
+        if schedule_offline and not remove_offline:
+            raise errs.SchedulingError(
+                f"offline pod {pod_to_schedule.metadata.name} may not preempt "
+                f"online pod {pod_to_remove.metadata.name}"
+            )
+
+        def check_victim() -> Tuple[str, Optional[Exception]]:
+            full = f"{pod_to_remove.metadata.namespace}/{remove_group}"
+            pgs = self.status_cache.get(full)
+            if pgs is None:
+                return "", errs.PodGroupNotFoundError(f"pod group not found: {full}")
+            phase = pgs.pod_group.status.phase
+            if phase in (PodGroupPhase.SCHEDULED, PodGroupPhase.RUNNING):
+                return "", errs.SchedulingError(
+                    "members of Scheduled/Running pod groups may not be preempted"
+                )
+            return full, None
+
+        victim_full, err = check_victim()
+
+        if not schedule_offline and remove_offline:
+            if err is not None:
+                raise err
+            return
+
+        # offline preempts offline
+        schedule_full = f"{pod_to_schedule.metadata.namespace}/{schedule_group}"
+        if victim_full == schedule_full:
+            raise errs.SchedulingError("pod group may not preempt its own members")
+        if err is not None:
+            raise err
+
+    def _preempt_remove_tiered(self, pod_to_schedule: Pod, pod_to_remove: Pod) -> None:
+        """Priority-tier legality (the policy engine's preemption term):
+        strictly-lower tier only, no self-preemption, offline still may not
+        preempt online, and the phase protection only under
+        ``protect_running``."""
+        remove_group, remove_offline = pod_group_name(pod_to_remove)
+        schedule_group, schedule_offline = pod_group_name(pod_to_schedule)
+        if schedule_offline and not remove_offline:
+            raise errs.SchedulingError(
+                f"offline pod {pod_to_schedule.metadata.name} may not "
+                f"preempt online pod {pod_to_remove.metadata.name}"
+            )
+        if pod_to_remove.spec.priority >= pod_to_schedule.spec.priority:
+            raise errs.SchedulingError(
+                f"victim {pod_to_remove.metadata.name} (tier "
+                f"{pod_to_remove.spec.priority}) is not strictly below "
+                f"preemptor tier {pod_to_schedule.spec.priority}"
+            )
+        if remove_offline:
+            victim_full = f"{pod_to_remove.metadata.namespace}/{remove_group}"
+            if schedule_offline:
+                schedule_full = f"{pod_to_schedule.metadata.namespace}/{schedule_group}"
+                if victim_full == schedule_full:
+                    raise errs.SchedulingError("pod group may not preempt its own members")
+            if self.policy.config.protect_running:
+                pgs = self.status_cache.get(victim_full)
+                if pgs is not None and pgs.pod_group.status.phase in (
+                    PodGroupPhase.SCHEDULED,
+                    PodGroupPhase.RUNNING,
+                ):
+                    raise errs.SchedulingError(
+                        "members of Scheduled/Running pod groups may not "
+                        "be preempted (protect_running)"
+                    )
 
     # ------------------------------------------------------------------
     # Score (reference stub core.go:263-265 — real ranks in oracle mode)

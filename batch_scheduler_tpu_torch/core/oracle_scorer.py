@@ -18,13 +18,16 @@ resident tensors.
 
 The port of ``batch_scheduler_tpu/core/oracle_scorer.py``'s blocking
 in-process path: generation-based dirty tracking, cluster-version credits,
-the event-fold refresh, device-resident state, the query API, and the
-audit layer: every published batch can be recorded to an audit ring
-(``utils.audit``) and sampled for the identity audit, and
-``replay_batch`` / ``replay_audit_record`` re-execute a recorded batch on
-a named rung (``REPLAY_RUNGS``). It subsumes the reference's findMaxPG +
-compareClusterResourceAndRequire serial loops (reference pkg/scheduler/
-core/core.go:514-632,701-739) with exact batch answers.
+the event-fold refresh, device-resident state, the query API, the policy
+engine (``policy_engine``: every snapshot carries the packed policy
+columns, the node columns stay resident on the device, and every batch
+runs the policy scan), and the audit layer: every published batch can be
+recorded to an audit ring (``utils.audit``) and sampled for the identity
+audit, and ``replay_batch`` / ``replay_audit_record`` re-execute a
+recorded batch on a named rung (``REPLAY_RUNGS``). It subsumes the
+reference's findMaxPG + compareClusterResourceAndRequire serial loops
+(reference pkg/scheduler/core/core.go:514-632,701-739) with exact batch
+answers.
 """
 
 from __future__ import annotations
@@ -48,10 +51,16 @@ from ..ops.snapshot import (
     GroupDemand,
     _demand_fp,
 )
+from ..policy.terms import label_hash, parse_label_ref
 from ..utils import audit as audit_mod
 from ..utils import tenancy
 from ..utils import trace as trace_mod
 from ..utils.health import IdentityAuditor
+from ..utils.labels import (
+    POLICY_AFFINITY_LABEL,
+    POLICY_ANTI_AFFINITY_LABEL,
+    POLICY_SPREAD_LABEL,
+)
 
 __all__ = [
     "OracleScorer",
@@ -81,11 +90,33 @@ def read_cluster_inputs(cluster, status_cache: PGStatusCache):
 
 
 def demand_from_status(full_name: str, pgs: PodGroupMatchStatus) -> GroupDemand:
-    """Project a live PodGroupMatchStatus into the oracle's demand row."""
+    """Project a live PodGroupMatchStatus into the oracle's demand row.
+
+    The policy fields project from the representative pod's policy labels
+    (``utils.labels.POLICY_*``); a spread gang also records its matched
+    members per node (its domain occupancy). Pods without policy labels
+    pay nothing: the extra work is guarded on label presence."""
     pg = pgs.pod_group
     member_req = dict(pg.spec.min_resources or {})
     if not member_req and pgs.pod is not None:
         member_req = pgs.pod.resource_require()
+    affinity_hash = anti_hash = 0
+    spread = False
+    placed_nodes: Dict[str, int] = {}
+    if pgs.pod is not None and pgs.pod.metadata.labels:
+        labels = pgs.pod.metadata.labels
+        raw = labels.get(POLICY_AFFINITY_LABEL)
+        if raw:
+            k, v = parse_label_ref(raw)
+            affinity_hash = label_hash(k, v) if k else 0
+        raw = labels.get(POLICY_ANTI_AFFINITY_LABEL)
+        if raw:
+            k, v = parse_label_ref(raw)
+            anti_hash = label_hash(k, v) if k else 0
+        spread = bool(labels.get(POLICY_SPREAD_LABEL))
+        if spread:
+            for pair in pgs.matched_pod_nodes.items().values():
+                placed_nodes[pair.node] = placed_nodes.get(pair.node, 0) + 1
     return GroupDemand(
         full_name=full_name,
         min_member=pg.spec.min_member,
@@ -98,6 +129,10 @@ def demand_from_status(full_name: str, pgs: PodGroupMatchStatus) -> GroupDemand:
         tolerations=list(pgs.pod.spec.tolerations) if pgs.pod else [],
         released=pgs.scheduled,
         has_pod=pgs.pod is not None,
+        affinity_hash=affinity_hash,
+        anti_hash=anti_hash,
+        spread=spread,
+        placed_nodes=placed_nodes,
     )
 
 
@@ -126,7 +161,7 @@ _REPLAY_WAVE = 8
 
 
 def replay_batch(batch_args, progress_args, against: str = "steady",
-                 device="cuda"):
+                 device="cuda", policy=None):
     """Re-execute one recorded batch's EXACT packed inputs on the requested
     rung and return ``(host, device_result)`` like ``execute_batch_host``.
     ``device`` is where the ``steady`` and ``wavefront`` rungs run
@@ -136,20 +171,31 @@ def replay_batch(batch_args, progress_args, against: str = "steady",
     pin is thread-local (ops.oracle.forced_scan_rung), so a replay —
     including the identity audit's daemon-thread re-verification — never
     changes the rung a serving thread runs. There is no fallback: on cuda
-    the rung's kernel runs or the replay raises."""
+    the rung's kernel runs or the replay raises.
+
+    ``policy`` is a recorded batch's ``(policy_cols, terms, weights)``
+    payload: a policy batch always re-executes the policy scan (the
+    composite is part of its semantics; ``dispatch_batch`` ignores the wave
+    width for it), so every rung runs the policy scan on its device: the
+    composite-key kernel on ``steady`` and ``wavefront`` on cuda, the
+    plain policy scan on ``cpu-ladder``."""
     if against not in REPLAY_RUNGS:
         raise ValueError(
             f"unknown replay rung {against!r} (use one of {REPLAY_RUNGS})"
         )
     batch_args = tuple(np.asarray(a) for a in batch_args)
     progress_args = tuple(np.asarray(a) for a in progress_args)
+    if policy is not None:
+        cols, terms, weights = policy
+        policy = (tuple(np.asarray(c) for c in cols), tuple(terms), tuple(weights))
     if against == "steady":
-        return execute_batch_host(batch_args, progress_args, device=device)
+        return execute_batch_host(batch_args, progress_args, device=device, policy=policy)
     if against == "wavefront":
         with forced_scan_rung(_REPLAY_WAVE):
-            return execute_batch_host(batch_args, progress_args, device=device)
+            return execute_batch_host(batch_args, progress_args, device=device,
+                                      policy=policy)
     with forced_scan_rung(0):
-        return execute_batch_host(batch_args, progress_args, device="cpu")
+        return execute_batch_host(batch_args, progress_args, device="cpu", policy=policy)
 
 
 def replay_audit_record(record: dict, against: str = "steady",
@@ -157,16 +203,16 @@ def replay_audit_record(record: dict, against: str = "steady",
     """Replay one reconstructed audit record (utils.audit.AuditReader) and
     bit-compare the resulting plan against the recorded digest. Returns a
     per-batch report: the rung that executed (``executed_rung``: device,
-    scan, wave width, from the replay's telemetry) and, on a divergence, a
+    scan, wave width, and ``scan_policy`` for a policy batch, from the
+    replay's telemetry) and, on a divergence, a
     structured blame dict — config fingerprints on both sides, bucket
     shape, the executed rung, and the first differing plan field / gang /
     node (named when the record kept names).
 
     A record flagged ``degraded`` (a reference sidecar's conservative
     fallback batch, which has no device plan) is SKIPPED, not replayed. A
-    record of a policy-rung batch raises NotImplementedError: the policy
-    scan is not ported (ROADMAP Queue 1 item 7), and such a record must
-    not be "replayed" on the wrong scan."""
+    record of a policy batch (``policy_args``, from either package's ring)
+    replays through the policy scan on every rung (``replay_batch``)."""
     if record.get("degraded"):
         return {
             "seq": record.get("seq"),
@@ -176,20 +222,17 @@ def replay_audit_record(record: dict, against: str = "steady",
             "skipped": "degraded conservative-fallback batch — no device "
                        "plan to re-execute",
         }
-    if record.get("policy_args") is not None:
-        raise NotImplementedError(
-            "replaying a policy-rung audit record needs the policy scan, "
-            "which the port does not have yet (ROADMAP Queue 1 item 7)"
-        )
     refolded = record.get("record_kind") == "event_batch"
     host, _ = replay_batch(
         record["batch_args"], record["progress_args"], against=against,
-        device=device,
+        device=device, policy=record.get("policy_args"),
     )
     digest = audit_mod.plan_digest(host)
     identical = digest == record.get("plan_digest")
     telemetry = host["telemetry"]
     executed = {k: telemetry[k] for k in ("device", "scan", "wave_width")}
+    if telemetry["scan_policy"]:
+        executed["scan_policy"] = True
     out = {
         "seq": record.get("seq"),
         "audit_id": record.get("audit_id"),
@@ -317,10 +360,18 @@ class OracleScorer:
     ``audit_log`` (a ``utils.audit.AuditLog``) records every published
     batch; ``identity_audit_every`` > 0 re-verifies every Kth published
     batch on the CPU rung (``utils.health.IdentityAuditor``). See
-    ``configure_audit``."""
+    ``configure_audit``.
+
+    ``policy_engine`` (an enabled ``policy.PolicyEngine``) rides the packer,
+    so every snapshot carries the packed policy columns and every batch
+    runs the policy scan (``ClusterSnapshot.policy_payload``), with the
+    node columns resident on the device. As in the reference it turns off
+    the snapshot-lite scan and the event fold: a policy refresh is a full
+    O(N+G) read and delta pack. None (or a disabled engine) runs the
+    pre-policy path."""
 
     def __init__(self, device="cuda", audit_log=None,
-                 identity_audit_every: int = 0):
+                 identity_audit_every: int = 0, policy_engine=None):
         self.device = resolve_device(device)
         self.stream = device_stream(self.device)
         # Dirty tracking is a GENERATION pair: refresh() records the
@@ -339,7 +390,9 @@ class OracleScorer:
         self._credits_lock = threading.Lock()
         # Persistent packed host buffers (ops.snapshot.DeltaSnapshotPacker):
         # low-churn refreshes rewrite only the node/group rows that changed.
-        self._packer = DeltaSnapshotPacker()
+        # An enabled policy engine rides the packer (policy columns).
+        self.policy_engine = policy_engine
+        self._packer = DeltaSnapshotPacker(policy_engine=policy_engine)
         # Event-sourced refresh (ops.events): cluster mutations append
         # entity NAMES to a bounded event log (wired lazily to the
         # cluster's subscribe_events on first pack), and an eligible
@@ -611,9 +664,12 @@ class OracleScorer:
     def _note_pack(self, snap) -> None:  # lock-held: _refresh_lock
         """Per-pack hook: bring the device-resident state up to this pack
         (every pack — the holder mirrors the PACKER's buffers, so
-        generation contiguity holds pack to pack)."""
+        generation contiguity holds pack to pack), the node policy columns
+        too when the snapshot carries them."""
         t0 = time.perf_counter()
         snap.device_state_args = self._device_state.sync(snap)
+        if snap.policy_cols is not None:
+            snap.device_state_policy_cols = self._device_state.sync_policy_cols(snap)
         with self._stats_lock:
             self.sync_seconds.append(time.perf_counter() - t0)
             del self.sync_seconds[:-1000]
@@ -622,13 +678,14 @@ class OracleScorer:
         """Durable evidence for one PUBLISHED batch: the audit record (the
         exact padded host inputs + plan digest, enqueued to the daemon
         writer) and the sampled identity audit, under one minted audit id.
-        The record holds the snapshot's HOST columns (``device_args()``),
-        not the resident tensors the batch ran on: replaying the host
-        columns is what proves the two agreed. Evidence collection never
-        fails the decision path; each swallowed error is counted in
-        ``audit_errors``."""
+        The record holds the snapshot's HOST columns (``device_args()``,
+        and a policy batch's ``policy_payload()``), not the resident
+        tensors the batch ran on: replaying the host columns is what proves
+        the two agreed. Evidence collection never fails the decision path;
+        each swallowed error is counted in ``audit_errors``."""
         try:
             digest = audit_mod.plan_digest(host)
+            policy = snap.policy_payload()
             aid = audit_mod.new_audit_id()
             if self.audit_log is not None:
                 # gangs per cardinality-capped tenant label: one registry
@@ -663,6 +720,7 @@ class OracleScorer:
                     trace_id=ctx[0] if ctx else None,
                     telemetry=host["telemetry"],
                     extra=extra,
+                    policy=policy,
                     # audit v2 payloads (no-ops under the array format):
                     # the drained event batch a fold pack consumed, and
                     # the snapshot-lite re-fold base a keyframe carries
@@ -675,20 +733,26 @@ class OracleScorer:
             if self._identity is not None:
                 self._identity.note_batch(
                     snap.device_args(), snap.progress_args(), digest, aid,
-                    self.audit_log,
+                    self.audit_log, policy=policy,
                 )
         except Exception:  # noqa: BLE001 — evidence, never the decision path
             self.audit_errors += 1
 
     def _execute(self, snap: ClusterSnapshot):
         """Run one batch on this scorer's device: ``(host, device_result)``.
-        The batch reads the resident tensors the pack's sync produced; the
-        snapshot then drops them (the next scatter rewrites them in
-        place), keeping only its host arrays."""
+        The batch reads the resident tensors the pack's sync produced (a
+        policy batch its resident node policy columns too); the snapshot
+        then drops them (the next scatter rewrites them in place), keeping
+        only its host arrays."""
         batch_args = snap.device_state_args
         snap.device_state_args = None
+        policy = snap.policy_payload()
+        if policy is not None:
+            self.policy_engine.note_batch()
+            policy = (snap.device_state_policy_cols, policy[1], policy[2])
+            snap.device_state_policy_cols = None
         return execute_batch_host(
-            batch_args, snap.progress_args(), device=self.device
+            batch_args, snap.progress_args(), device=self.device, policy=policy
         )
 
     def stats(self) -> dict:

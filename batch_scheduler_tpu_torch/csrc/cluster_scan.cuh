@@ -9,7 +9,10 @@
 // - the mbarrier helpers and the cluster launch configuration;
 // - the per-gang cluster step both kernels run: the capacity pass, the
 //   histogram add, the push of a block's histogram, the threshold select
-//   from an inbox, a thread's sum and prefix in a bin, and the take.
+//   from an inbox, a thread's sum and prefix in a bin, and the take;
+// - the selection key those functions bin a node by: the tightness bucket
+//   min(cap, 127) (TightKey, the default), or the policy scan's composite
+//   (PenaltyKey: the bucket plus the node's penalty, clipped to [1, 127]).
 // ops/_build.py hashes this header with every source that includes it.
 
 #pragma once
@@ -118,6 +121,31 @@ inline cudaLaunchConfig_t launch_config(int cluster_blocks, int threads, int sha
   return cfg;
 }
 
+// ---- the selection key ------------------------------------------------------
+// key(cap, i): the bin of own node i, whose capacity is cap. Every key is 0
+// exactly where the capacity is 0, so the threshold and remainder formulas
+// hold for either.
+
+// the tightness bucket, min(cap, 127): the base scan's key
+struct TightKey {
+  TightKey() = default;
+  template <class T>
+  __device__ __forceinline__ explicit TightKey(const T&) {}
+  __device__ __forceinline__ int operator()(int cap, int) const { return min(cap, kBins - 1); }
+};
+
+// the policy scan's composite key: clip(min(cap, 127) + pen[i], 1, 127)
+// where cap > 0, else 0 (the sum wraps in int32, as the reference's)
+template <int kN>
+struct PenaltyKey {
+  const int* pen;
+  __device__ __forceinline__ explicit PenaltyKey(const int (&p)[kN]) : pen(p) {}
+  __device__ __forceinline__ int operator()(int cap, int i) const {
+    const int k = (int)((unsigned)min(cap, kBins - 1) + (unsigned)pen[i]);
+    return cap > 0 ? min(max(k, 1), kBins - 1) : 0;
+  }
+};
+
 // ---- the per-gang cluster step ---------------------------------------------
 // A thread owns `cnt` consecutive nodes; the per-node loops run `np` times
 // (the kernel's compile-time nodes a thread, or cnt in a runtime loop), and
@@ -156,18 +184,19 @@ __device__ __forceinline__ void node_caps(int (&cap)[kN], int np, const int4* ro
   }
 }
 
-// bh[min(cap, 127)] += min(cap, clip) over the own nodes, and the same into
-// this warp's histogram wh; runs of equal keys are summed first, and a warp
+// bh[key] += min(cap, clip) over the own nodes, and the same into this
+// warp's histogram wh; runs of equal keys are summed first (nodes whose
+// keys differ, by capacity or by penalty alone, never merge), and a warp
 // whose lanes all end on one key adds once
-template <int kN>
+template <int kN, class Key = TightKey>
 __device__ __forceinline__ void hist_add(const int (&cap)[kN], int np, int cnt, int clip,
-                                         int lane, int* bh, int* wh) {
+                                         int lane, int* bh, int* wh, Key key_of = Key()) {
   int run_key = 0, run_sum = 0;
   bool single = true;
 #pragma unroll
   for (int i = 0; i < np; ++i) {
     if (i < cnt) {
-      const int key = min(cap[i], kBins - 1);
+      const int key = key_of(cap[i], i);
       const int capc = min(cap[i], clip);
       if (i == 0) {
         run_key = key;
@@ -265,13 +294,13 @@ __device__ __forceinline__ Sel select_bin(const int* inbox, int stride, int bloc
 }
 
 // the sum of min(cap, clip) over the own nodes in bin `th`
-template <int kN>
+template <int kN, class Key = TightKey>
 __device__ __forceinline__ int bin_sum(const int (&cap)[kN], int np, int cnt, int th,
-                                       int clip) {
+                                       int clip, Key key_of = Key()) {
   int sum = 0;
 #pragma unroll
   for (int i = 0; i < np; ++i)
-    if (i < cnt && min(cap[i], kBins - 1) == th) sum += min(cap[i], clip);
+    if (i < cnt && key_of(cap[i], i) == th) sum += min(cap[i], clip);
   return sum;
 }
 
@@ -285,10 +314,11 @@ __device__ __forceinline__ int block_prefix(int sum, int th, const int* wh, int 
 }
 
 // block_prefix of the own nodes held in `cap`
-template <int kN>
+template <int kN, class Key = TightKey>
 __device__ __forceinline__ int bin_prefix(const int (&cap)[kN], int np, int cnt, int th,
-                                          int clip, const int* wh, int warp, int lane) {
-  return block_prefix(bin_sum(cap, np, cnt, th, clip), th, wh, warp, lane);
+                                          int clip, const int* wh, int warp, int lane,
+                                          Key key_of = Key()) {
+  return block_prefix(bin_sum(cap, np, cnt, th, clip, key_of), th, wh, warp, lane);
 }
 
 // the gang's tightest-first take on the own nodes, given this thread's
@@ -296,15 +326,15 @@ __device__ __forceinline__ int bin_prefix(const int (&cap)[kN], int np, int cnt,
 // nonzero take goes to arow[i] and off the leftover slab (wrapping in
 // int32, as the reference). Returns the prefix after these nodes, where
 // the thread's next nodes in the bin start.
-template <int kN>
+template <int kN, class Key = TightKey>
 __device__ __forceinline__ int take_commit(const int (&cap)[kN], int np, int cnt, int need,
                                             int th, int rem, int prefix, const int4* row,
                                             int r, int* slab, int lane_slots, int threads,
-                                            int* arow) {
+                                            int* arow, Key key_of = Key()) {
 #pragma unroll
   for (int i = 0; i < np; ++i) {
     if (i < cnt) {
-      const int key = min(cap[i], kBins - 1);
+      const int key = key_of(cap[i], i);
       const int capc = min(cap[i], need);
       int take = 0;
       if (key < th) {

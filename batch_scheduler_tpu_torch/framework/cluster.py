@@ -9,8 +9,9 @@ have not committed — so successive scheduling cycles see reserved capacity.
 The port of ``batch_scheduler_tpu/framework/cluster.py``: the typed pod and
 node mutators with the version counter and the event hooks
 (``subscribe_events``) that make the scorer's O(churn) event fold
-reachable. Implements core.ClusterStateProvider, so the oracle snapshot
-packs straight from here.
+reachable, and ``pods_on`` (the preemption planner's victim candidates).
+Implements core.ClusterStateProvider, so the oracle snapshot packs
+straight from here.
 """
 
 from __future__ import annotations
@@ -35,6 +36,8 @@ class ClusterState:
         # pod uid -> node, for pods assumed but not yet observed bound
         self._assumed: Dict[str, str] = {}  # guarded-by: _lock
         self._pod_nodes: Dict[str, str] = {}  # guarded-by: _lock
+        # pod uid -> Pod object, for the preemption planner's victim search
+        self._pod_objs: Dict[str, Pod] = {}  # guarded-by: _lock
         # bumped on every capacity-relevant change; the oracle scorer uses it
         # to invalidate its batch without explicit mark_dirty plumbing
         self._version = 0  # guarded-by: _lock
@@ -114,6 +117,7 @@ class ClusterState:
             self._requested.setdefault(node_name, {})[uid] = self._require(pod)
             self._assumed[uid] = node_name
             self._pod_nodes[uid] = node_name
+            self._pod_objs[uid] = pod
             self._version += 1
             touched = (
                 (node_name,) if prev in (None, node_name)
@@ -128,6 +132,7 @@ class ClusterState:
             if node is None:
                 return
             self._pod_nodes.pop(pod_uid, None)
+            self._pod_objs.pop(pod_uid, None)
             self._requested.get(node, {}).pop(pod_uid, None)
             self._version += 1
             self._emit("node-requested", (node,))
@@ -153,6 +158,7 @@ class ClusterState:
                 charged = self._requested.get(node, {}).pop(uid, None)
                 known = self._pod_nodes.pop(uid, None)
                 self._assumed.pop(uid, None)
+                self._pod_objs.pop(uid, None)
                 if charged is not None or known is not None:
                     self._version += 1
                     self._emit("node-requested", (node,))
@@ -167,6 +173,7 @@ class ClusterState:
                 self._requested.get(prev, {}).pop(uid, None)
             self._requested.setdefault(node, {})[uid] = req
             self._pod_nodes[uid] = node
+            self._pod_objs[uid] = pod
             self._assumed.pop(uid, None)
             if not unchanged:
                 self._version += 1
@@ -182,6 +189,7 @@ class ClusterState:
         with self._lock:
             node = self._pod_nodes.pop(uid, None)
             self._assumed.pop(uid, None)
+            self._pod_objs.pop(uid, None)
             if node is not None:
                 self._requested.get(node, {}).pop(uid, None)
                 self._version += 1
@@ -204,3 +212,13 @@ class ClusterState:
     def get_node(self, name: str) -> Optional[Node]:
         with self._lock:
             return self._nodes.get(name)
+
+    def pods_on(self, node_name: str) -> List[Pod]:
+        """Pods currently charged to a node (bound or assumed): the victim
+        candidate set of the preemption planner."""
+        with self._lock:
+            return [
+                self._pod_objs[uid]
+                for uid in self._requested.get(node_name, {})
+                if uid in self._pod_objs
+            ]

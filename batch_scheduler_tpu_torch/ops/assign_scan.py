@@ -17,7 +17,11 @@ multiply-shift numbers of ``division_magic``;
 does with ``with_stats=True``. Its kernel is a cluster too
 (``wave_kernel_plan``); the uniform flags depend on the inputs alone, and
 a prepare kernel computes them (plain version: ``wave_uniform``) with the
-division numbers before the scan. For tensors on the CPU each runs its
+division numbers before the scan. ``assign_gangs_policy_cuda`` is the
+serial scan with the policy terms' composite selection key
+(``ops.oracle.assign_gangs_policy``): the serial kernel's source built
+with ``BST_POLICY_SCAN`` (library ``assign_policy``), laid out by
+``kernel_plan(..., policy=True)``. For tensors on the CPU each runs its
 plain version; for CUDA tensors it launches its kernel or raises. There is
 no switch that turns a kernel off.
 """
@@ -33,12 +37,13 @@ import torch
 from . import _build
 from .lanes import LANE_MAX
 from .oracle import assign_gangs as assign_gangs_plain
-from .oracle import assign_gangs_wavefront
+from .oracle import assign_gangs_policy, assign_gangs_wavefront
 
 __all__ = [
-    "assign_gangs_cuda", "assign_gangs_plain", "assign_gangs_wave_cuda",
-    "division_magic", "kernel_plan", "scan_plan", "ScanPlan", "wave_kernel_plan",
-    "wave_scan_plan", "wave_uniform", "CLUSTER_SIZES", "WAVE_WIDTHS",
+    "assign_gangs_cuda", "assign_gangs_plain", "assign_gangs_policy_cuda",
+    "assign_gangs_wave_cuda", "division_magic", "kernel_plan", "policy_scan_plan",
+    "scan_plan", "ScanPlan", "wave_kernel_plan", "wave_scan_plan", "wave_uniform",
+    "CLUSTER_SIZES", "WAVE_WIDTHS",
 ]
 
 _THREADS = 1024  # the kernels' largest block
@@ -57,10 +62,19 @@ _PER_THREAD_MAX = 64
 # indices, needs and flag, ahead of its request rows)
 _K_INBOX = 16 * (128 + 4)
 _K_STAGE_ROWS = 100
+# the policy variant of the serial kernel (assign_scan.cu built with
+# BST_POLICY_SCAN): each gang's policy row (aff, anti and its 16 spread
+# domain counts, padded to 20 ints), staged by 18 threads into one of two
+# parity slots; and the node columns (4 label hashes and the spread domain,
+# 5 ints a node) beside a leftover kept in shared memory
+_POLICY_ROW = 20
+_POLICY_STAGERS = 18
+_POLICY_NODE_INTS = 5
+_HASH_LANES, _DOMAIN_BUCKETS = 4, 16  # policy.terms' HASH_LANES, DOMAIN_BUCKETS
 
 
 # the launch entry point's C signature, bst_<name>(pointers..., ints..., stream)
-_LAUNCH_ARGS = {"assign_scan": (11, 10), "assign_wave": (14, 11)}
+_LAUNCH_ARGS = {"assign_scan": (11, 10), "assign_wave": (14, 11), "assign_policy": (16, 14)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -108,10 +122,12 @@ class ScanPlan(NamedTuple):
     scratch_ints: int
 
 
-def kernel_plan(n: int, r: int, cluster_max: int, shared_budget: int) -> ScanPlan:
+def kernel_plan(n: int, r: int, cluster_max: int, shared_budget: int,
+                policy: bool = False) -> ScanPlan:
     """The serial kernel's launch shape for N nodes and R lanes, with at
     most ``cluster_max`` blocks and ``shared_budget`` bytes of dynamic
-    shared memory a block (``bst_assign_scan_shared_budget``).
+    shared memory a block (``bst_assign_scan_shared_budget``); with
+    ``policy`` the shape of its policy variant (see below).
 
     C is the largest power of two <= ``cluster_max`` that leaves each block
     at least 256 nodes (1 for small buckets). A block has ceil(N/C) nodes,
@@ -121,17 +137,24 @@ def kernel_plan(n: int, r: int, cluster_max: int, shared_budget: int) -> ScanPla
     node) when it fits the budget beside them; else the leftover goes in
     global scratch. Past 64 nodes a thread (buckets above 2^20 nodes at 16
     blocks) the kernel runs a thread's nodes as slabs of 64, from global
-    scratch."""
-    if 3 * r > _THREADS:
+    scratch.
+
+    The policy variant also stages each gang's policy row (18 more staging
+    threads, two rows of 20 ints) and, when the leftover is in shared
+    memory, keeps the node columns there beside it (5 ints a node); with
+    the leftover in global scratch it reads them from the inputs."""
+    stagers = 3 * r + (_POLICY_STAGERS if policy else 0)
+    if stagers > _THREADS:
         raise ValueError(f"{r} lanes exceed the scan kernel's {_THREADS // 3}")
     c, block_nodes, per = _node_split(n, cluster_max)
-    threads = max(-(-block_nodes // per), 3 * r)
+    threads = max(-(-block_nodes // per), stagers)
     threads = -(-threads // 32) * 32
-    fixed = 2 * 4 * r + 2 * (threads // 32) * 128  # gang rows, warp histograms
-    leftover = r * per * threads
+    # gang rows, policy rows, warp histograms
+    fixed = 2 * 4 * r + (2 * _POLICY_ROW if policy else 0) + 2 * (threads // 32) * 128
+    leftover = (r + (_POLICY_NODE_INTS if policy else 0)) * per * threads
     if per <= _PER_THREAD_MAX and 4 * (fixed + leftover) <= shared_budget:
         return ScanPlan(c, block_nodes, threads, per, "shared", 4 * (fixed + leftover), 0)
-    return ScanPlan(c, block_nodes, threads, per, "global", 4 * fixed, c * leftover)
+    return ScanPlan(c, block_nodes, threads, per, "global", 4 * fixed, c * r * per * threads)
 
 
 def _node_split(n: int, cluster_max: int) -> tuple:
@@ -202,6 +225,15 @@ def scan_plan(n: int, r: int, device_index: int) -> ScanPlan:
     ``device_index``: ``kernel_plan`` at the largest cluster the device can
     schedule."""
     return _device_plan("assign_scan", kernel_plan, n, r, device_index)
+
+
+@functools.lru_cache(maxsize=None)
+def policy_scan_plan(n: int, r: int, device_index: int) -> ScanPlan:
+    """The plan ``assign_gangs_policy_cuda`` launches on CUDA device
+    ``device_index``: ``kernel_plan(..., policy=True)`` at the largest
+    cluster the device can schedule."""
+    return _device_plan("assign_policy", functools.partial(kernel_plan, policy=True),
+                        n, r, device_index)
 
 
 @functools.lru_cache(maxsize=None)
@@ -419,3 +451,106 @@ def _launch_wave(plan: ScanPlan, left0, group_req, remaining, fit_mask, order, w
             f"{err(rc).decode(errors='replace')} (CUDA error {rc})"
         )
     return alloc, placed, left_after, (conflicts, megas)
+
+
+def _policy_weights(terms, weights) -> tuple:
+    """(anti_on, w_aff, w_spread, spread_cap) for the kernel from the
+    enabled terms and the ``(w_aff, w_spread, spread_cap)`` weights, as
+    ``policy.terms.compose_terms`` composes them: a disabled penalty term
+    has weight 0, a term named k times adds its penalty k times (k * w in
+    int32, as the sum of k int32 penalties wraps), unknown names are
+    ignored. Raises ValueError on a weight outside int32."""
+    w_aff, w_spread, spread_cap = (tuple(weights) + (0, 0, 0))[:3]
+    for name, w in (("affinity", w_aff), ("spread", w_spread), ("spread cap", spread_cap)):
+        if not -(2**31) <= int(w) < 2**31:
+            raise ValueError(f"{name} weight {w} is outside int32")
+
+    def wrap(v: int) -> int:
+        return (v + 2**31) % 2**32 - 2**31
+
+    terms = tuple(terms)
+    return (int("anti-affinity" in terms), wrap(terms.count("affinity") * int(w_aff)),
+            wrap(terms.count("spread") * int(w_spread)), int(spread_cap))
+
+
+def _check_policy(g, n, dev, prio, aff, anti, gang_dom, node_hash, node_dom):
+    for name, t, shape in (
+        ("prio", prio, (g,)), ("aff", aff, (g,)), ("anti", anti, (g,)),
+        ("gang_dom", gang_dom, (g, _DOMAIN_BUCKETS)), ("node_hash", node_hash, (n, _HASH_LANES)),
+        ("node_dom", node_dom, (n,)),
+    ):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)}, got {tuple(t.shape)}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be torch.int32, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, left0 on {dev}")
+        if dev.type == "cuda" and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def assign_gangs_policy_cuda(left0, group_req, remaining, fit_mask, order, prio, aff,
+                             anti, gang_dom, node_hash, node_dom, terms, weights):
+    """The policy scan (``ops.oracle.assign_gangs_policy``, whose docstring
+    gives the arguments): the composite-key variant of the serial kernel
+    for CUDA tensors, the plain version for CPU tensors. The columns are
+    int32: ``prio``/``aff``/``anti`` [G], ``gang_dom`` [G, 16],
+    ``node_hash`` [N, 4], ``node_dom`` [N]. ``order`` must be a permutation
+    of [0, G). Every launch adds one to
+    ``assign_gangs_policy_cuda.launches``."""
+    _check(left0, group_req, remaining, fit_mask, order)
+    dev = left0.device
+    n, r = left0.shape
+    _check_policy(group_req.shape[0], n, dev, prio, aff, anti, gang_dom, node_hash, node_dom)
+    if dev.type == "cpu":
+        return assign_gangs_policy(left0, group_req, remaining, fit_mask, order, prio, aff,
+                                   anti, gang_dom, node_hash, node_dom, terms, weights)
+    _check_cuda("assign_gangs_policy_cuda", left0, group_req, remaining, fit_mask, order)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    out = _launch_policy(policy_scan_plan(n, r, index), left0, group_req, remaining,
+                         fit_mask, order, aff, anti, gang_dom, node_hash, node_dom,
+                         _policy_weights(terms, weights))
+    assign_gangs_policy_cuda.launches += 1
+    return out
+
+
+assign_gangs_policy_cuda.launches = 0
+
+
+def _launch_policy(plan: ScanPlan, left0, group_req, remaining, fit_mask, order, aff, anti,
+                   gang_dom, node_hash, node_dom, policy_ints):
+    """One launch of the policy variant with ``plan`` on checked CUDA
+    inputs; ``policy_ints`` is ``_policy_weights``' tuple."""
+    n, r = left0.shape
+    g = group_req.shape[0]
+    dev = left0.device
+    launch, _, err = _entry_points("assign_policy")
+    with torch.cuda.device(dev):
+        magic, shift = division_magic(group_req)
+        # alloc must start zeroed: the kernel writes only nonzero takes
+        alloc = torch.zeros((g, n), dtype=torch.int32, device=dev)
+        placed = torch.zeros(g, dtype=torch.bool, device=dev)
+        left_after = torch.empty_like(left0)
+        scratch = (
+            torch.empty(plan.scratch_ints, dtype=torch.int32, device=dev)
+            if plan.leftover == "global" else None
+        )
+        rc = launch(
+            left0.data_ptr(), group_req.data_ptr(), remaining.data_ptr(),
+            fit_mask.data_ptr(), order.data_ptr(), magic.data_ptr(),
+            shift.data_ptr(), alloc.data_ptr(), placed.data_ptr(),
+            left_after.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            aff.data_ptr(), anti.data_ptr(), gang_dom.data_ptr(),
+            node_hash.data_ptr(), node_dom.data_ptr(),
+            n, g, r, int(fit_mask.shape[0] != 1), plan.cluster_blocks,
+            plan.block_nodes, plan.threads, plan.per_thread,
+            int(plan.leftover == "shared"), plan.shared_bytes, *policy_ints,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"assign_policy kernel launch failed for {plan}: "
+            f"{err(rc).decode(errors='replace')} (CUDA error {rc})"
+        )
+    return alloc, placed, left_after

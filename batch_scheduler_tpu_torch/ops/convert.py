@@ -16,8 +16,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "device_stream", "batch_from_numpy", "BATCH_DTYPES",
-           "PROGRESS_DTYPES"]
+__all__ = ["resolve_device", "device_stream", "batch_from_numpy", "policy_from_numpy",
+           "BATCH_DTYPES", "PROGRESS_DTYPES"]
 
 # (alloc, requested, group_req, remaining, fit_mask, group_valid, order)
 BATCH_DTYPES = (np.int32, np.int32, np.int32, np.int32, np.bool_, np.bool_, np.int32)
@@ -86,3 +86,10 @@ def batch_from_numpy(batch_args, progress_args, device="cuda"):
         _place(batch_args, BATCH_DTYPES, dev),
         _place(progress_args, PROGRESS_DTYPES, dev),
     )
+
+
+def policy_from_numpy(policy_cols, device="cuda"):
+    """The six packed policy columns (``ClusterSnapshot.policy_cols``:
+    prio, aff, anti, gang_dom, node_hash, node_dom) as int32 tensors on
+    ``device``; the holder's resident node columns pass through uncopied."""
+    return _place(policy_cols, (np.int32,) * 6, resolve_device(device))

@@ -5,7 +5,10 @@ module keeps the packed ``[N, R]`` / ``[G, R]`` lane buffers RESIDENT on
 the port's device across batches and applies each refresh's churned rows
 (``ops.snapshot.SnapshotDelta``) as one row scatter (``index_copy``) per
 buffer; with the snapshot-lite capture it also keeps the queue-order sort
-keys resident and derives the fit row and the queue order on the device.
+keys resident and derives the fit row and the queue order on the device. With the policy
+engine on it also keeps the node policy columns (label hashes, spread
+domain) resident and scatters the rows whose labels changed
+(``sync_policy_cols``).
 What it saves is the whole upload, which grows with the node bucket, for
 a few host calls per refresh, which do not: at a few thousand nodes the
 two cost about the same, at tens of thousands the upload costs more
@@ -33,7 +36,6 @@ The port of ``batch_scheduler_tpu/ops/device_state.py`` on one explicit
 - the mesh and sharding branches (the sharded rungs are not ported);
 - the jit row buckets (nothing here compiles per shape; unique delta rows
   keep ``index_copy_`` deterministic on CUDA);
-- the node policy columns (the policy engine is not ported yet);
 - ``fork``/``apply_batch``/``reset`` (no caller of the port forks or
   drops the state);
 - the knobs ``BST_DEVICE_STATE``/``BST_DEVICE_DERIVE``: the holder is
@@ -132,6 +134,10 @@ class DeviceStateHolder:
         self.derived_batches = 0  # guarded-by: _lock
         self.derives = 0  # guarded-by: _lock
         self._last = None  # guarded-by: _lock; the last sync's batch args
+        # node-side policy columns: [N,H] label hashes and [N] spread
+        # domains; None until a policy pack syncs, and after a keyframe
+        self._policy_hash = None  # guarded-by: _lock
+        self._policy_dom = None  # guarded-by: _lock
 
     # -- internals ----------------------------------------------------------
 
@@ -178,6 +184,7 @@ class DeviceStateHolder:
             self._alloc = self._place(alloc)
             self._requested = self._place(requested)
             self._group_req = self._place(group_req)
+            self._policy_hash = self._policy_dom = None
             self.generation = int(generation)
             self._note_keyframe(reason)
             return self._resident_args(batch_args[3:])
@@ -325,6 +332,41 @@ class DeviceStateHolder:
             self.derived_batches += 1
             return out[:4] + (fit, out[5], order)
 
+    def sync_policy_cols(self, snap) -> Optional[tuple]:
+        """Device-resident node policy columns: the [N,H] label-hash and [N]
+        spread-domain columns follow the same generation stream as the
+        lanes (call after ``sync``); the O(G) group columns are rebuilt per
+        pack and stay host, uploaded with the batch. Returns the
+        snapshot's ``policy_cols`` with the node arrays swapped for the
+        resident tensors, or None when the snapshot carries no columns.
+        A contiguous ``"delta"`` pack scatters ``delta.policy_node_rows``
+        (none when no label changed); anything else uploads both
+        columns."""
+        cols = snap.policy_cols
+        if cols is None:
+            with self._lock:
+                self._policy_hash = self._policy_dom = None
+            return None
+        prio, aff, anti, gang_dom, node_hash, node_dom = cols
+        delta = getattr(snap, "delta", None)
+        with self._lock:
+            resident = (
+                self._policy_hash is not None
+                and tuple(self._policy_hash.shape) == np.shape(node_hash)
+                and tuple(self._policy_dom.shape) == np.shape(node_dom)
+            )
+            if not resident or delta is None or delta.kind != "delta":
+                self._policy_hash = self._place(node_hash)
+                self._policy_dom = self._place(node_dom)
+            elif len(delta.policy_node_rows):
+                idx = delta.policy_node_rows
+                self._scatter(self._policy_hash, idx, np.asarray(node_hash)[idx])
+                # [N] scatters as [N, 1] rows: index_copy_ needs a row axis
+                self._scatter(self._policy_dom[:, None], idx,
+                              np.asarray(node_dom)[idx][:, None])
+                self.rows_scattered += int(len(idx))
+            return (prio, aff, anti, gang_dom, self._policy_hash, self._policy_dom)
+
     # -- observability ------------------------------------------------------
 
     def last_args(self) -> Optional[tuple]:
@@ -348,6 +390,7 @@ class DeviceStateHolder:
                 "derived_batches": self.derived_batches,
                 "derives": self.derives,
                 "meta_resident": self._meta is not None,
+                "policy_resident": self._policy_hash is not None,
             }
             if self._requested is not None:
                 out["n_bucket"] = int(self._requested.shape[0])

@@ -17,6 +17,11 @@ batch). Plain functions on int32 tensors:
                       the serial one, a wave of gangs at a time; selected
                       by ``BST_SCAN_WAVE``, and on a CUDA tensor run by
                       ``ops.assign_scan.assign_gangs_wave_cuda``
+- ``assign_gangs_policy``  the plain serial scan with each gang's selection
+                      key shifted by the policy terms (``policy.terms``);
+                      a batch with a policy runs it and no other scan, on a
+                      CUDA tensor as the composite-key kernel
+                      (``ops.assign_scan.assign_gangs_policy_cuda``)
 - ``dispatch_batch`` / ``collect_batch``  one batch enqueued with its
                       blob's copy to pinned host memory started, and the
                       wait and decode; ``execute_batch_host`` runs the two
@@ -38,7 +43,7 @@ import numpy as np
 import torch
 
 from .bucketing import wave_width_bucket
-from .convert import batch_from_numpy, resolve_device
+from .convert import batch_from_numpy, policy_from_numpy, resolve_device
 
 __all__ = [
     "left_resources",
@@ -48,6 +53,7 @@ __all__ = [
     "score_nodes",
     "assign_gangs",
     "assign_gangs_wavefront",
+    "assign_gangs_policy",
     "schedule_batch",
     "batch_top_k",
     "PendingBatch",
@@ -153,13 +159,18 @@ def score_nodes(cap):
     return torch.where(cap > 0, _BIG - cap, -_BIG)
 
 
-def _select_best_fit(cap, capc, need: int):
+def _select_best_fit(cap, capc, need: int, key=None):
     """Tightest-first take vector for one gang (1-D over nodes): the
     histogram threshold selection of the reference's ``_select_best_fit``.
-    Returns (take[N] int32, feasible bool tensor)."""
+    ``key`` overrides the selection bucket per node (the policy scan's
+    composite); an override keeps key 0 exactly where capacity is 0, so
+    the threshold and remainder formulas hold unchanged. Returns (take[N]
+    int32, feasible bool tensor)."""
     capc64 = capc.to(torch.int64)
     feasible = capc64.sum() >= need
-    key = cap.clamp(max=_BINS - 1).to(torch.int64)  # 0 = no fit
+    if key is None:
+        key = cap.clamp(max=_BINS - 1)  # tightness bucket (0 = no fit)
+    key = key.to(torch.int64)
     bin_totals = torch.zeros(_BINS, dtype=torch.int64, device=cap.device)
     bin_totals.scatter_add_(0, key, capc64)
     cum_bins = bin_totals.cumsum(0)
@@ -213,6 +224,50 @@ def _serial_steps(left, req_rows, needs, mask_rows):
         left -= take[:, None] * req_rows[j][None, :]
         takes[j] = take
     return takes, feas, left
+
+
+def assign_gangs_policy(left0, group_req, remaining, fit_mask, order, prio, aff, anti,
+                        gang_dom, node_hash, node_dom, policy_terms=(), policy_weights=()):
+    """Policy-composite form of ``assign_gangs``: the same scan and outputs,
+    with each gang's selection bucket shifted by the composed policy terms
+    (``policy.terms.compose_terms``):
+
+    - soft penalties (affinity miss, spread-domain occupancy) ADD to the
+      tightness bucket, clipped into [1, 127]: penalized nodes are
+      consumed later but never excluded, and ties inside a bucket still go
+      in node order;
+    - hard masks (anti-affinity) multiply into the capacity row like the
+      fit mask.
+
+    ``prio`` is part of the columns but not of the scan (queue order
+    already holds it). With every term disabled, or all-zero columns, the
+    result equals ``assign_gangs``. The port of the reference's
+    ``assign_gangs_policy`` and the plain version of the composite-key
+    kernel (``ops.assign_scan.assign_gangs_policy_cuda``)."""
+    from ..policy.terms import compose_terms
+
+    pen_fn = compose_terms(tuple(policy_terms), tuple(policy_weights))
+    n = left0.shape[0]
+    g = group_req.shape[0]
+    idx = order.long()
+    mask = fit_mask.to(torch.int32)
+    mask = mask[idx] if fit_mask.shape[0] != 1 else mask.expand(g, n)
+    req_rows, aff_o, anti_o, dom_o = group_req[idx], aff[idx], anti[idx], gang_dom[idx]
+    left = left0.clone()
+    takes = torch.zeros((g, n), dtype=torch.int32, device=left0.device)
+    feas = torch.zeros(g, dtype=torch.bool, device=left0.device)
+    for j, need in enumerate(remaining[idx].tolist()):
+        pen, keep = pen_fn(aff_o[j], anti_o[j], dom_o[j], node_hash, node_dom)
+        cap = _member_capacity(left, req_rows[j][None, :]) * mask[j] * keep
+        key = torch.where(cap > 0, (cap.clamp(max=_BINS - 1) + pen).clamp(1, _BINS - 1), 0)
+        take, feas[j] = _select_best_fit(cap, cap.clamp(max=need), need, key)
+        left -= take[:, None] * req_rows[j][None, :]
+        takes[j] = take
+    alloc = torch.zeros((g, n), dtype=torch.int32, device=left0.device)
+    placed = torch.zeros(g, dtype=torch.bool, device=left0.device)
+    alloc[idx] = takes
+    placed[idx] = feas
+    return alloc, placed, left
 
 
 def _uniform_wave(left, req0, need_c, mask0):
@@ -422,22 +477,37 @@ class forced_scan_rung:
 
 def schedule_batch(alloc_lanes, requested, group_req, remaining, fit_mask,
                    group_valid, order, top_k: int = ASSIGNMENT_TOP_K,
-                   scan_wave: int = 0):
+                   scan_wave: int = 0, policy=None):
     """The full-batch oracle: leftover -> capacity -> feasibility -> scores
     -> greedy gang assignment -> compact top-K readback. ``scan_wave`` > 1
     runs the wavefront scan at that width and adds its per-wave
     ``wave_conflicts``/``wave_megas`` flags to the output; otherwise the
-    serial scan runs. Either scan runs its hand-written CUDA kernel for
-    CUDA tensors and its plain version for CPU tensors (the wrappers in
-    ``ops.assign_scan`` decide by device)."""
-    from .assign_scan import assign_gangs_cuda, assign_gangs_wave_cuda
+    serial scan runs. ``policy`` = ``(policy_cols, terms, weights)`` (the
+    six column tensors) with at least one term runs the policy scan
+    instead of either, and folds the hard-mask terms into the capacity
+    matrix, so feasibility and scores agree with what the scan refuses
+    (the caller, ``dispatch_batch``, has already set ``scan_wave`` to 0).
+    Every scan runs its hand-written CUDA kernel for CUDA tensors and its
+    plain version for CPU tensors (the wrappers in ``ops.assign_scan``
+    decide by device)."""
+    from .assign_scan import assign_gangs_cuda, assign_gangs_policy_cuda, assign_gangs_wave_cuda
 
+    policy_on = policy is not None and bool(policy[1])
     left = left_resources(alloc_lanes, requested)
     cap = group_capacity(left, group_req, fit_mask)
+    if policy_on:
+        from ..policy.terms import compose_keep_dense
+
+        cols, terms, weights = policy
+        cap = cap * compose_keep_dense(terms, cols[2], cols[4])
     feasible = gang_feasible(cap, remaining, group_valid)
     scores = score_nodes(cap)
     wave_stats = None
-    if scan_wave > 1:
+    if policy_on:
+        assignment, placed, left_after = assign_gangs_policy_cuda(
+            left, group_req, remaining, fit_mask, order, *cols, terms, weights
+        )
+    elif scan_wave > 1:
         assignment, placed, left_after, wave_stats = assign_gangs_wave_cuda(
             left, group_req, remaining, fit_mask, order, scan_wave
         )
@@ -484,7 +554,7 @@ def batch_top_k(n_bucket: int, remaining_max: int) -> int:
 def _batch_blob(alloc_lanes, requested, group_req, remaining, fit_mask,
                 group_valid, order, min_member, scheduled, matched,
                 ineligible, creation_rank, pack_assignment: bool = True,
-                top_k: int = ASSIGNMENT_TOP_K, scan_wave: int = 0):
+                top_k: int = ASSIGNMENT_TOP_K, scan_wave: int = 0, policy=None):
     """The batch plus findMaxPG, with every O(G) host-needed output
     concatenated into one int32 blob (one device-to-host copy).
 
@@ -502,7 +572,7 @@ def _batch_blob(alloc_lanes, requested, group_req, remaining, fit_mask,
     """
     out = schedule_batch(alloc_lanes, requested, group_req, remaining,
                          fit_mask, group_valid, order, top_k=top_k,
-                         scan_wave=scan_wave)
+                         scan_wave=scan_wave, policy=policy)
     best, exists, progress = find_max_group(
         min_member, scheduled, matched, ineligible, creation_rank
     )
@@ -560,10 +630,10 @@ class PendingBatch:
     ``blob`` is the finished blob and ``done`` is None."""
 
     __slots__ = ("blob", "done", "out", "pack", "top_k", "scan_wave", "mask_mode",
-                 "n_bucket", "g_bucket", "device")
+                 "n_bucket", "g_bucket", "device", "used_policy")
 
     def __init__(self, blob, done, out, pack, top_k, scan_wave, mask_mode,
-                 n_bucket, g_bucket, device):
+                 n_bucket, g_bucket, device, used_policy=False):
         self.blob = blob
         self.done = done
         self.out = out
@@ -574,9 +644,10 @@ class PendingBatch:
         self.n_bucket = n_bucket
         self.g_bucket = g_bucket
         self.device = device
+        self.used_policy = used_policy
 
 
-def dispatch_batch(batch_args, progress_args, device="cuda") -> PendingBatch:
+def dispatch_batch(batch_args, progress_args, device="cuda", policy=None) -> PendingBatch:
     """Enqueue one batch + max-progress selection on ``device`` and start
     the copy of its O(G) blob to the host WITHOUT waiting for either.
     Takes the packed numpy batch (``ClusterSnapshot.device_args()`` /
@@ -596,11 +667,23 @@ def dispatch_batch(batch_args, progress_args, device="cuda") -> PendingBatch:
 
     ``BST_SCAN_WAVE`` is read once per batch, unless this thread's
     ``forced_scan_rung`` pin is set: a width > 1 runs the wavefront
-    scan."""
+    scan.
+
+    ``policy`` = ``(policy_cols, terms, weights)``
+    (``ClusterSnapshot.policy_payload()``; the columns host numpy or, for
+    the node columns, the holder's resident tensors) runs the policy scan:
+    the wave width is 0 for the batch whatever ``BST_SCAN_WAVE`` or a pin
+    says (the wavefront's uniform and speculative branches assume a key
+    that depends on capacity alone), and on CUDA the composite-key kernel
+    runs or the batch raises; there is no fallback to another scan."""
     dev = resolve_device(device)
     scan_wave = getattr(_rung_override, "value", None)
     if scan_wave is None:
         scan_wave = _scan_wave_from_env()
+    if policy is not None:
+        cols, terms, weights = policy
+        policy = (policy_from_numpy(cols, dev), tuple(terms), tuple(weights))
+        scan_wave = 0
     # np.shape reads a tensor's own shape (a CUDA tensor is never copied)
     mask_mode = "per_group" if np.shape(batch_args[4])[0] != 1 else "broadcast"
     n_bucket = int(np.shape(batch_args[0])[0])
@@ -613,7 +696,7 @@ def dispatch_batch(batch_args, progress_args, device="cuda") -> PendingBatch:
     top_k = batch_top_k(n_bucket, remaining_max)
     batch, progress = batch_from_numpy(batch_args, progress_args, dev)
     blob, out = _batch_blob(*batch, *progress, pack_assignment=pack,
-                            top_k=top_k, scan_wave=scan_wave)
+                            top_k=top_k, scan_wave=scan_wave, policy=policy)
     done = None
     if dev.type == "cuda":
         blob = blob.to("cpu", non_blocking=True)
@@ -621,7 +704,7 @@ def dispatch_batch(batch_args, progress_args, device="cuda") -> PendingBatch:
         done.record(torch.cuda.current_stream(dev))
     _note_inflight(1)
     return PendingBatch(blob, done, out, pack, top_k, scan_wave, mask_mode,
-                        n_bucket, g_bucket, dev)
+                        n_bucket, g_bucket, dev, used_policy=policy is not None)
 
 
 def collect_batch(pending: PendingBatch):
@@ -633,7 +716,8 @@ def collect_batch(pending: PendingBatch):
     ``best_exists``, ``assignment_nodes``, ``assignment_counts``,
     ``telemetry``; with the wavefront scan the telemetry carries
     ``waves_per_batch``, ``wave_demotions`` and ``wave_uniform`` beside
-    ``wave_width``); ``device_result`` keeps the [G,N] ``capacity`` and
+    ``wave_width``, and ``scan_policy`` says whether the batch had a
+    policy); ``device_result`` keeps the [G,N] ``capacity`` and
     ``scores`` tensors on the device for lazy row reads (complete once this
     returns: the event follows the whole batch on its stream)."""
     try:
@@ -669,6 +753,7 @@ def collect_batch(pending: PendingBatch):
             "n_bucket": pending.n_bucket,
             "g_bucket": g,
             "wave_width": pending.scan_wave,
+            "scan_policy": pending.used_policy,
         },
     }
     if pending.scan_wave > 1:
@@ -683,11 +768,11 @@ def collect_batch(pending: PendingBatch):
     return host, device_result
 
 
-def execute_batch_host(batch_args, progress_args, device="cuda"):
+def execute_batch_host(batch_args, progress_args, device="cuda", policy=None):
     """Run one batch + max-progress selection on ``device`` and return its
     ``(host, device_result)``: the synchronous form of the split,
     ``collect_batch(dispatch_batch(...))``, whose docstrings give the
-    arguments, the streams and what comes back. The O(G) host vectors come
-    back as one blob, through the pinned copy and the event of the split;
-    the [G,N] tensors stay on the device."""
-    return collect_batch(dispatch_batch(batch_args, progress_args, device))
+    arguments (``policy`` too), the streams and what comes back. The O(G)
+    host vectors come back as one blob, through the pinned copy and the
+    event of the split; the [G,N] tensors stay on the device."""
+    return collect_batch(dispatch_batch(batch_args, progress_args, device, policy))

@@ -17,7 +17,11 @@ The packing is the JAX reference's (``batch_scheduler_tpu/ops/snapshot.py``
 path: ``DeltaSnapshotPacker`` keeps the packed buffers across refreshes and
 rewrites only churned rows (the snapshot-lite scan, or the O(churn) event
 fold ``pack_fold``), and stamps each snapshot with the ``SnapshotDelta``
-the device-resident state (``ops.device_state``) scatters.
+the device-resident state (``ops.device_state``) scatters. With an enabled
+policy engine (``batch_scheduler_tpu_torch.policy``) every snapshot also
+carries the packed policy columns (``ClusterSnapshot.policy_cols``), and,
+as in the reference, the packer then takes neither the snapshot-lite
+scan nor the event fold: a policy refresh is O(N+G).
 """
 
 from __future__ import annotations
@@ -100,15 +104,16 @@ class SnapshotDelta:
     O(churn) event fold (``pack_fold``). ``meta_rows`` lists group rows
     whose QUEUE-ORDER meta (priority / creation_ts sort keys) churned —
     the device-derive path scatters those and re-derives the order
-    permutation on the device. ``policy_node_rows`` stays empty: the
-    policy columns are not ported yet.
+    permutation on the device. ``policy_node_rows`` lists the nodes whose
+    packed policy row (label hashes, spread domain) this pack rewrote,
+    which the holder scatters into its resident node columns.
     """
 
     generation: int
     kind: str  # "delta" | "keyframe"
     reason: str = ""  # keyframe reason, "" for deltas
-    # churned REQUESTED node rows / group demand rows, unpadded row
-    # indices (int32); empty on keyframes
+    # churned REQUESTED node rows / group demand rows / node policy rows,
+    # unpadded row indices (int32); empty on keyframes
     node_rows: np.ndarray = field(default_factory=lambda: _EMPTY_IDX)
     group_rows: np.ndarray = field(default_factory=lambda: _EMPTY_IDX)
     policy_node_rows: np.ndarray = field(default_factory=lambda: _EMPTY_IDX)
@@ -137,6 +142,14 @@ class GroupDemand:
     released: bool = False
     # No representative pod observed yet (reference core.go:709-710).
     has_pod: bool = True
+    # Policy columns (batch_scheduler_tpu_torch.policy): label hashes of
+    # the gang's soft-affinity / hard-anti-affinity targets (0 = none), the
+    # spread opt-in, and the gang's currently-matched members per node
+    # (the spread term's domain occupancy source).
+    affinity_hash: int = 0
+    anti_hash: int = 0
+    spread: bool = False
+    placed_nodes: Dict[str, int] = field(default_factory=dict)
 
     @property
     def remaining(self) -> int:
@@ -171,7 +184,9 @@ def _demand_fp(g: GroupDemand) -> tuple:
     """Content fingerprint of every oracle-visible demand field the lite
     packer diffs. Callers may mutate a GroupDemand IN PLACE between packs,
     so change detection must compare captured content, never a stored
-    object reference. ``remaining`` is derived from indices 1..3."""
+    object reference. ``remaining`` is derived from indices 1..3. The
+    policy fields come last (indices 8..11): the first eight are the
+    reference's fingerprint, which the audit's v2 records carry."""
     return (
         tuple(sorted(g.member_request.items())),
         g.min_member,
@@ -181,6 +196,10 @@ def _demand_fp(g: GroupDemand) -> tuple:
         g.creation_ts,
         bool(g.released),
         bool(g.has_pod),
+        g.affinity_hash,
+        g.anti_hash,
+        bool(g.spread),
+        tuple(sorted(g.placed_nodes.items())),
     )
 
 
@@ -197,6 +216,8 @@ class ClusterSnapshot:
         alloc_lanes: Optional[np.ndarray] = None,
         group_req_lanes: Optional[np.ndarray] = None,
         min_buckets: tuple = (0, 0),
+        policy_engine=None,
+        node_policy_lanes: Optional[tuple] = None,
     ):
         self.node_names = [n.metadata.name for n in nodes]
         self.group_names = [g.full_name for g in groups]
@@ -325,6 +346,54 @@ class ClusterSnapshot:
         # per-gang demand fingerprints (stamped by DeltaSnapshotPacker on
         # every snapshot-lite pack; None otherwise)
         self.lite_fps: Optional[list] = None
+        # packed policy columns: built only when an enabled engine is
+        # attached; policy-off snapshots carry None and every later step
+        # runs the pre-policy code
+        self.policy_engine = policy_engine
+        self.policy_cols = None
+        if policy_engine is not None and policy_engine.enabled:
+            self.policy_cols = self._policy_columns(
+                nodes, groups, policy_engine, node_policy_lanes
+            )
+
+    def _policy_columns(self, nodes, groups, engine, node_policy_lanes) -> tuple:
+        """(prio[Gb], aff[Gb], anti[Gb], gang_dom[Gb,D], node_hash[Nb,H],
+        node_dom[Nb]) int32, padded: the node columns from
+        ``node_policy_lanes`` (the packer's persistent rows) or from the
+        nodes' labels, the group columns from the demands."""
+        from ..policy.terms import DOMAIN_BUCKETS, HASH_LANES, node_policy_row
+
+        nb, gb = self.alloc.shape[0], self.group_req.shape[0]
+        if node_policy_lanes is not None:
+            node_hash = np.asarray(node_policy_lanes[0], np.int32)
+            node_dom = np.asarray(node_policy_lanes[1], np.int32)
+        else:
+            spread_key = engine.config.spread_node_key
+            node_hash = np.zeros((len(nodes), HASH_LANES), np.int32)
+            node_dom = np.zeros(len(nodes), np.int32)
+            for i, n in enumerate(nodes):
+                node_hash[i], node_dom[i], _ = node_policy_row(
+                    n.metadata.labels or {}, spread_key
+                )
+        prio = np.array([g.priority for g in groups], np.int32)
+        aff = np.array([g.affinity_hash for g in groups], np.int32)
+        anti = np.array([g.anti_hash for g in groups], np.int32)
+        gang_dom = np.zeros((len(groups), DOMAIN_BUCKETS), np.int32)
+        for gi, g in enumerate(groups):
+            if not g.spread or not g.placed_nodes:
+                continue
+            for node_name, count in g.placed_nodes.items():
+                ni = self._node_index.get(node_name)
+                if ni is not None:
+                    gang_dom[gi, int(node_dom[ni])] += int(count)
+        return (
+            pad_rows(prio, gb),
+            pad_rows(aff, gb),
+            pad_rows(anti, gb),
+            pad_rows(gang_dom, gb),
+            pad_rows(node_hash, nb),
+            pad_rows(node_dom, nb),
+        )
 
     def _fit_mask(
         self, nodes: Sequence[Node], groups: Sequence[GroupDemand]
@@ -378,6 +447,20 @@ class ClusterSnapshot:
             self.ineligible,
             self.creation_rank,
         )
+
+    def policy_payload(self):
+        """The ``policy=`` argument of ``ops.oracle.dispatch_batch``:
+        ``(policy_cols, terms, weights)`` when an enabled engine packed
+        columns for this snapshot and scores with at least one term, else
+        None (the pre-policy path). A preemption-only config packs the
+        columns (the planner's tiers) but scores nothing, so its batches
+        keep the base scan rungs."""
+        if self.policy_cols is None or self.policy_engine is None:
+            return None
+        cfg = self.policy_engine.config
+        if not cfg.scoring_terms:
+            return None
+        return (self.policy_cols, cfg.scoring_terms, cfg.weights)
 
     @property
     def shape(self) -> tuple:
@@ -504,12 +587,18 @@ class DeltaSnapshotPacker:
     actually scored. Not thread-safe; callers serialize packs (the
     scorer's refresh lock).
 
+    With an enabled ``policy_engine`` every pack carries the policy
+    columns: the node rows (label hashes, spread domain) persist and are
+    rewritten only for nodes whose labels changed (``policy_node_rows``),
+    the O(G) group columns are rebuilt per pack. As in the reference, an
+    enabled engine turns off the snapshot-lite capture, and with it the
+    lite scan and the event fold.
+
     The port of ``batch_scheduler_tpu/ops/snapshot.py``
-    ``DeltaSnapshotPacker`` without the policy columns (not ported yet:
-    ``policy_node_rows`` stays empty).
+    ``DeltaSnapshotPacker``.
     """
 
-    def __init__(self):
+    def __init__(self, policy_engine=None):
         self.schema: Optional[LaneSchema] = None
         self._node_names: Optional[tuple] = None
         self._alloc_keys: list = []
@@ -537,6 +626,15 @@ class DeltaSnapshotPacker:
         self.last_delta: Optional[SnapshotDelta] = None
         self._group_names: Optional[tuple] = None
         self._group_prev: Optional[np.ndarray] = None  # last [G, R] rows
+        # persistent node policy rows, keyed by each node's label dict, so
+        # label churn rewrites only the touched rows (independent of the
+        # lane side's full-repack rules)
+        self.policy_engine = policy_engine
+        self._policy_labels: list = []  # per-node sorted label tuples
+        self._policy_hash: Optional[np.ndarray] = None
+        self._policy_dom: Optional[np.ndarray] = None
+        self.policy_rows_rewritten = 0
+        self._policy_rows_idx: list = []
 
     @classmethod
     def from_refold_base(
@@ -704,10 +802,12 @@ class DeltaSnapshotPacker:
     def _capture_lite(self, snap: ClusterSnapshot, nodes, groups) -> None:
         """Adopt a freshly built full ClusterSnapshot as the persistent
         lite working set (and stamp its queue-order meta columns for the
-        device-derive path). Eligibility: the uniform-fit fast
-        path — no selectors, no taints — so the padded fit row IS
-        node_valid and churned groups cannot change it."""
+        device-derive path). Eligibility: policy engine off, and the
+        uniform-fit fast path — no selectors, no taints — so the padded fit
+        row IS node_valid and churned groups cannot change it."""
         self._lite = None
+        if self.policy_engine is not None and self.policy_engine.enabled:
+            return
         if snap.fit_mask.shape[0] != 1:
             return
         if any(g.node_selector for g in groups) or any(
@@ -904,6 +1004,8 @@ class DeltaSnapshotPacker:
         snap.delta = delta
         snap.event_fold = None
         snap.lite_fps = list(lite.fps)  # audit v2 re-fold base, as above
+        snap.policy_engine = None  # the lite state exists with policy off only
+        snap.policy_cols = None
         return snap
 
     def _lite_emit(
@@ -1004,6 +1106,35 @@ class DeltaSnapshotPacker:
         self.fold_packs += 1
         return self._lite_emit(node_rows, group_rows, meta_rows, "events")
 
+    def _policy_node_rows(self, nodes) -> Optional[tuple]:
+        """Persistent node policy columns: rewrite only rows whose LABELS
+        changed (the spread key lives in the labels). Returns (hash[N, H],
+        dom[N]) copies for the snapshot, or None when no enabled engine is
+        attached."""
+        engine = self.policy_engine
+        if engine is None or not engine.enabled:
+            return None
+        from ..policy.terms import HASH_LANES, node_policy_row
+
+        spread_key = engine.config.spread_node_key
+        n = len(nodes)
+        if self._policy_hash is None or self._policy_hash.shape != (n, HASH_LANES):
+            self._policy_hash = np.zeros((n, HASH_LANES), np.int32)
+            self._policy_dom = np.zeros(n, np.int32)
+            self._policy_labels = [None] * n
+        rewritten_idx: list = []
+        for i, node in enumerate(nodes):
+            labels = node.metadata.labels or {}
+            key = tuple(sorted(labels.items()))
+            if self._policy_labels[i] == key:
+                continue
+            self._policy_hash[i], self._policy_dom[i], _ = node_policy_row(labels, spread_key)
+            self._policy_labels[i] = key
+            rewritten_idx.append(i)
+        self.policy_rows_rewritten = len(rewritten_idx)
+        self._policy_rows_idx = rewritten_idx
+        return self._policy_hash.copy(), self._policy_dom.copy()
+
     def pack(
         self,
         nodes: Sequence[Node],
@@ -1016,6 +1147,9 @@ class DeltaSnapshotPacker:
         req_dicts = [node_requested.get(n.metadata.name, {}) for n in nodes]
         names = tuple(n.metadata.name for n in nodes)
         group_names = tuple(g.full_name for g in groups)
+        if names != self._node_names:
+            # node list changed: the policy row cache is positionally keyed
+            self._policy_hash = None
 
         had_prev = self._alloc is not None
         keyframe_reason = None
@@ -1070,6 +1204,7 @@ class DeltaSnapshotPacker:
         self._group_names = group_names
         self._group_prev = group_req  # read-only on both sides; no copy
 
+        node_policy = self._policy_node_rows(nodes)
         self.generation += 1
         if keyframe_reason is None:
             delta = SnapshotDelta(
@@ -1077,6 +1212,7 @@ class DeltaSnapshotPacker:
                 "delta",
                 node_rows=np.asarray(node_idx, np.int32),
                 group_rows=np.asarray(group_idx, np.int32),
+                policy_node_rows=np.asarray(self._policy_rows_idx, np.int32),
             )
         else:
             delta = SnapshotDelta(
@@ -1092,6 +1228,8 @@ class DeltaSnapshotPacker:
             alloc_lanes=self._alloc.copy(),
             requested_lanes=self._requested,  # ClusterSnapshot copies
             group_req_lanes=group_req,  # freshly allocated per pack
+            policy_engine=self.policy_engine,
+            node_policy_lanes=node_policy,
         )
         snap.delta = delta
         # every full construction re-captures (or drops) the lite working

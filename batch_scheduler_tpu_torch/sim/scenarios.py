@@ -1,5 +1,6 @@
-"""Scenario builders: the reference README's resource-race demo and the
-node / group / member-pod constructors it and the smoke drive use.
+"""Scenarios: the reference README's resource-race demo, the mixed-tier
+preemption scenario, and the node / group / member-pod constructors they
+and the smoke drive use.
 
 Copies of the reference's ``batch_scheduler_tpu/sim/scenarios.py``
 builders. The race scenario reproduces the README demo (two minMember=5
@@ -27,7 +28,8 @@ from ..api.types import (
 )
 from ..utils.labels import POD_GROUP_LABEL
 
-__all__ = ["make_sim_node", "make_sim_group", "make_member_pods", "race_scenario"]
+__all__ = ["make_sim_node", "make_sim_group", "make_member_pods", "race_scenario",
+           "spot_vs_guaranteed_scenario"]
 
 
 def make_sim_node(
@@ -112,3 +114,45 @@ def race_scenario() -> Tuple[List[Node], List[PodGroup], Dict[str, List[Pod]]]:
         for g in groups
     }
     return [node], groups, pods
+
+
+def spot_vs_guaranteed_scenario(
+    nodes: int = 2,
+    node_cpu: str = "8",
+    spot_gangs: int = 2,
+    guaranteed_gangs: int = 1,
+    min_member: int = 4,
+    member_cpu: str = "2",
+    guaranteed_priority: int = 10,
+):
+    """Mixed-tier preemption scenario: tier-0 "spot" gangs sized to fill the
+    cluster, then tier-``guaranteed_priority`` "guaranteed" gangs that can
+    only place by evicting spot capacity through the policy engine's
+    preemption pass. Defaults: 2 nodes x 8 cpu, 2 spot gangs x 4 members x
+    2 cpu = 16 cpu (exactly full), 1 guaranteed gang needing 8 cpu.
+
+    Returns ``(nodes, groups, pods)`` with the guaranteed pods created
+    LAST (the caller controls arrival order: create the spot gangs first,
+    bind them, then create the guaranteed ones, so that preemption and not
+    queue priority places them)."""
+    now = time.time()
+    node_objs = [
+        make_sim_node(
+            f"node-{i:03d}",
+            {"cpu": node_cpu, "memory": "32Gi", "pods": "110"},
+            labels={"zone": f"z{i % 2}"},
+        )
+        for i in range(nodes)
+    ]
+    groups, pods = [], {}
+    for s in range(spot_gangs):
+        name = f"spot-{s:03d}"
+        groups.append(make_sim_group(name, min_member, creation_ts=now - 1.0 + s * 1e-3))
+        pods[name] = make_member_pods(name, min_member, {"cpu": member_cpu}, priority=0)
+    for g in range(guaranteed_gangs):
+        name = f"guaranteed-{g:03d}"
+        groups.append(make_sim_group(name, min_member, creation_ts=now + g * 1e-3))
+        pods[name] = make_member_pods(
+            name, min_member, {"cpu": member_cpu}, priority=guaranteed_priority,
+        )
+    return node_objs, groups, pods

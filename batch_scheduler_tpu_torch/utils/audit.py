@@ -54,11 +54,14 @@ schema + per-gang demand fingerprints). The reader re-folds event records
 through a real DeltaSnapshotPacker primed from the nearest keyframe and
 bit-checks each step against the recorded ``input_digest``.
 
+A policy batch's record also carries its packed policy columns
+(``POLICY_ARG_NAMES``, through the same keyframe/delta machinery) and its
+``policy`` terms and weights; the reader hands them to replay as
+``policy_args``.
+
 Still to come: the ``BST_AUDIT_FORMAT`` / ``BST_AUDIT_KEYFRAME_EVERY``
 environment readers (with the CLI, ROADMAP Queue 1 item 12; the format and
-chain length are the constructor's ``fmt=`` / ``keyframe_every=``), and
-recording policy-rung batches (item 7; the reader still reconstructs a
-policy record's columns, and replay refuses it).
+chain length are the constructor's ``fmt=`` / ``keyframe_every=``).
 """
 
 from __future__ import annotations
@@ -81,6 +84,7 @@ from .. import __version__
 from ..ops.lanes import CORE_LANES, LaneSchema
 from ..ops.oracle import _scan_wave_from_env
 from ..ops.snapshot import DeltaSnapshotPacker, GroupDemand
+from ..policy.engine import active_fingerprint
 from .metrics import DEFAULT_REGISTRY
 from .trace import new_trace_id
 
@@ -122,17 +126,18 @@ PROGRESS_ARG_NAMES = (
     "min_member", "scheduled", "matched", "ineligible", "creation_rank",
 )
 
-# The reference's packed policy columns, present only in records of its
-# policy-rung batches. The port records none yet; its reader reconstructs
-# them from a reference ring so that replay can refuse such a record.
+# Packed policy columns (ops.snapshot.ClusterSnapshot.policy_cols), present
+# only in records of policy batches. They ride the same keyframe/delta
+# machinery as the batch args, so a policy record replays with its exact
+# composite inputs.
 POLICY_ARG_NAMES = (
     "policy_prio", "policy_aff", "policy_anti", "policy_gang_dom",
     "policy_node_hash", "policy_node_dom",
 )
 
 # the big lane arrays worth delta-packing; everything else is O(G) or a
-# broadcast row and rides full in every record. Absent keys are skipped
-# per record (the policy columns appear only in reference rings).
+# broadcast row and rides full in every record. The 2-D policy columns
+# delta-pack the same way; absent keys are skipped per record.
 _DELTA_ARRAYS = (
     "alloc", "requested", "group_req", "policy_gang_dom",
     "policy_node_hash",
@@ -296,11 +301,12 @@ def config_fingerprint(device=None) -> dict:
     """The execution-relevant configuration a replay must know to explain a
     divergence: the backend (``cuda`` or ``cpu``: ``device``'s type, or
     this process's default — ``cuda`` when a card is present), the card
-    count and name, the live ``BST_SCAN_WAVE`` rung and the package
-    version. Returned as the dict itself with a ``fingerprint`` sha over
-    it, so the blame report can show WHICH entry differed. The reference's
-    ``pallas``, ``donate`` and ``policy`` entries have no counterpart in
-    the port."""
+    count and name, the live ``BST_SCAN_WAVE`` rung, the active policy
+    engine's config (``policy``, the reference's key; absent when no
+    enabled engine exists) and the package version. Returned as the dict
+    itself with a ``fingerprint`` sha over it, so the blame report can show
+    WHICH entry differed. The reference's ``pallas`` and ``donate`` entries
+    have no counterpart in the port."""
     if device is None:
         device = "cuda" if torch.cuda.is_available() else "cpu"
     dev = torch.device(device)
@@ -313,6 +319,9 @@ def config_fingerprint(device=None) -> dict:
         "scan_wave": _scan_wave_from_env(),
         "version": __version__,
     }
+    policy = active_fingerprint()
+    if policy is not None:
+        cfg["policy"] = policy
     digest = hashlib.sha256(
         json.dumps(cfg, sort_keys=True, default=str).encode()
     ).hexdigest()
@@ -502,12 +511,16 @@ class AuditLog:
         trace_id: Optional[str] = None,
         telemetry: Optional[dict] = None,
         extra: Optional[dict] = None,
+        policy=None,
         event_fold: Optional[dict] = None,
         refold=None,
     ) -> str:
         """Enqueue one batch record; returns its audit ID. Array arguments
         are held BY REFERENCE — callers pass published (immutable)
         snapshot/result arrays only (host numpy, never a device tensor).
+        ``policy`` is the batch's ``(policy_cols, terms, weights)`` payload
+        when it ran the policy scan: recorded so replay re-executes the
+        exact composite.
 
         v2 payloads (both ignored under the array format): ``event_fold``
         is the drained event batch this snapshot was folded from
@@ -535,6 +548,10 @@ class AuditLog:
             "_result": {k: result[k] for k in PLAN_FIELDS},
             "_names": (list(node_names or []), list(group_names or [])),
         }
+        if policy is not None:
+            cols, terms, weights = policy
+            item["_arrays"] |= dict(zip(POLICY_ARG_NAMES, cols))
+            item["policy"] = {"terms": list(terms), "weights": list(weights)}
         if extra:
             item.update(extra)
         if self.fmt == "v2":
@@ -703,6 +720,9 @@ class AuditLog:
             self._prev is None
             or self._since_keyframe >= self.keyframe_every - 1
             or self._prev_names != names_t
+            # a policy flip mid-run changes the array SET: a keyframe keeps
+            # the reader's rolling state from carrying stale policy columns
+            or set(self._prev) != set(snap)
             or any(self._prev[k].shape != snap[k].shape for k in snap)
         )
         if keyframe:
@@ -767,6 +787,7 @@ class AuditLog:
             and self._prev is not None
             and self._since_keyframe < self.keyframe_every - 1
             and self._prev_names == names_t
+            and set(self._prev) == set(snap)
             and all(self._prev[k].shape == snap[k].shape for k in snap)
         )
         item["input_digest"] = input_digest(snap)

@@ -6,7 +6,7 @@ scheduler runs: a batch served by the CUDA scan kernel is re-executed by
 the plain serial scan on the CPU (the ``cpu-ladder`` replay rung) and the
 plan digests are compared bit for bit.
 
-Still to come (ROADMAP Queue 1 item 7): the SLO ``HealthModel`` with its
+Still to come (ROADMAP Queue 1 item 7b): the SLO ``HealthModel`` with its
 ``note_identity`` signal (``/debug/health``). Until then a mismatch is
 counted, written to the audit ring as an ``identity_mismatch`` event, and
 shown by ``IdentityAuditor.stats()``.
@@ -49,9 +49,12 @@ class IdentityAuditor:
         )
 
     def note_batch(self, batch_args, progress_args, plan_digest: str,
-                   audit_id: Optional[str], audit_log=None) -> None:
+                   audit_id: Optional[str], audit_log=None, policy=None) -> None:
         """Hot-path entry: counts the batch and, on the Kth, hands the
-        (immutable, published) host arrays to the verification thread."""
+        (immutable, published) host arrays to the verification thread.
+        ``policy`` is a policy batch's ``(policy_cols, terms, weights)``
+        payload: the verification runs the same composite (the plain
+        policy scan)."""
         with self._lock:
             self._count += 1
             if self._count % self.every:
@@ -61,7 +64,7 @@ class IdentityAuditor:
             t = threading.Thread(
                 target=self._verify,
                 args=(batch_args, progress_args, plan_digest, audit_id,
-                      audit_log),
+                      audit_log, policy),
                 name="identity-audit",
                 daemon=True,
             )
@@ -69,13 +72,14 @@ class IdentityAuditor:
         t.start()
 
     def _verify(self, batch_args, progress_args, plan_digest, audit_id,
-                audit_log) -> None:
+                audit_log, policy=None) -> None:
         # deferred: core.oracle_scorer imports this module
         from ..core.oracle_scorer import replay_batch
         from . import audit as audit_mod
 
         try:
-            host, _ = replay_batch(batch_args, progress_args, against=_AUDIT_RUNG)
+            host, _ = replay_batch(batch_args, progress_args, against=_AUDIT_RUNG,
+                                   policy=policy)
             got = audit_mod.plan_digest(host)
         except Exception:  # noqa: BLE001 — an audit error is not a mismatch
             self.errors += 1

@@ -10,6 +10,21 @@ from ..api.types import Pod, PodGroup
 # The pod label (and annotation) that names the PodGroup a pod belongs to.
 POD_GROUP_LABEL = "group.batch.scheduler.tpu"
 
+# Policy-engine labels (batch_scheduler_tpu_torch.policy), carried on the
+# gang's representative pod and projected into the packed policy columns
+# at pack time:
+# - affinity: "key:value", a soft preference for nodes carrying that label
+#   (non-matching nodes pay the affinity penalty in the selection key; the
+#   gang still places elsewhere when the matching nodes are full);
+# - anti-affinity: "key:value", a HARD exclusion of nodes carrying that
+#   label (masked out of the gang's capacity like a failed selector);
+# - spread: any non-empty value opts the gang into the spread penalty:
+#   nodes whose spread domain (PolicyConfig.spread_node_key) already holds
+#   members of this gang rank behind emptier domains.
+POLICY_AFFINITY_LABEL = "policy.batch.scheduler.tpu/affinity"
+POLICY_ANTI_AFFINITY_LABEL = "policy.batch.scheduler.tpu/anti-affinity"
+POLICY_SPREAD_LABEL = "policy.batch.scheduler.tpu/spread"
+
 # Default gang wait time when neither the scheduler flag nor the group spec
 # sets one (reference pkg/util/k8s.go:31).
 DEFAULT_WAIT_SECONDS = 60.0

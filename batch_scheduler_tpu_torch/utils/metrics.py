@@ -7,7 +7,7 @@ The port's copy of ``batch_scheduler_tpu/utils/metrics.py``'s registry
 the same text in both packages. Components take a ``Registry`` or use the
 process-wide ``DEFAULT_REGISTRY``: the audit log counts its records and
 gauges its ring, the identity auditor counts its outcomes. Still to come
-(ROADMAP Queue 1 item 7): ``serve_metrics`` with its HTTP handler and
+(ROADMAP Queue 1 item 7b): ``serve_metrics`` with its HTTP handler and
 ``/debug`` surfaces, and the ``LONG_OP_BUCKETS`` preset its batch
 histograms use.
 """

@@ -5,7 +5,7 @@ lowercase hex chars), so an audit record, its identity audit and, once
 they are ported, its spans and flight-recorder decisions form one
 evidence chain keyed by one kind of id.
 
-Still to come (ROADMAP Queue 1 item 7): the span ring, ``span`` and the
+Still to come (ROADMAP Queue 1 item 7b): the span ring, ``span`` and the
 flight recorder. Until then no span is ever live, so ``current_context``
 is always None and an audit record's ``trace_id`` is null, as it is in
 the reference outside a span.

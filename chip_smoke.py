@@ -8,8 +8,10 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (one JSON line each; any failure makes the exit code non-zero):
 
-- build            nvcc csrc/assign_scan.cu and csrc/assign_wave.cu (one nvcc
-                   each, started together) into the gitignored build/
+- build            nvcc csrc/assign_scan.cu (twice: the serial kernel, and
+                   with -DBST_POLICY_SCAN its policy variant) and
+                   csrc/assign_wave.cu, one nvcc each, started together, into
+                   the gitignored build/
 - north_star       bench.py's deployment — 5,000 nodes (64 cpu, 256Gi, 110
                    pods, 8 GPUs), 1,000 gangs x 10 pods (4 cpu, 8 GiB, 1 GPU)
                    -> [G=1024, N=8192, R=5], broadcast mask — through
@@ -104,10 +106,48 @@ Phases (one JSON line each; any failure makes the exit code non-zero):
                    record by kind, replay ms by rung, the identity audit's
                    ms, and, report-only, the churn refresh with the audit
                    off and on in turns on one scorer, each with and
-                   without an identity verification in flight.
+                   without an identity verification in flight. Then a
+                   policy ring: the policy deployment (below) into an
+                   ``array`` ring, a first refresh and 3 churn rounds, the
+                   identity audit on every 4th batch; every record carries
+                   its policy columns, terms and weights, and replays
+                   identically on steady (the policy kernel) and the last on
+                   cpu-ladder (the plain policy scan on the CPU).
+- policy           the policy engine at the north star: the north-star
+                   deployment in a ClusterState with node labels (zone in
+                   8 values, pool in 4, rack in 16, team in 3: all 4 hash
+                   lanes full), ~30% of the gangs with affinity to a pool,
+                   ~10% with anti-affinity against one, ~30% spread, and 100
+                   spread gangs with 3 of 10 members matched (seed 8);
+                   BST_POLICY=affinity,anti-affinity,spread,preempt and the
+                   default weights (32, 8, 3), through a ScheduleOperation's
+                   OracleScorer: a keyframe refresh and 6 churn refreshes
+                   (north_star_churn's Churn rounds; the policy turns off
+                   the lite scan and the event fold, so each is an O(N+G)
+                   pack). Every refresh equals the full pack (host dict,
+                   batch args, the six policy columns the batch ran on);
+                   every gang places. The policy kernel (assign_policy)
+                   once a refresh and no other kernel; the kernel against
+                   the plain policy scan on the last batch's CUDA inputs,
+                   its time beside the base kernel's on the same inputs.
+- policy_identity  the zero-policy identity on the card (all terms with
+                   zero columns, and real columns with no term, equal the
+                   base kernel) at the north star and on mixed's inputs in
+                   both mask modes; the policy kernel against the plain
+                   policy scan on mixed's inputs with seeded columns and at
+                   the 2^21-node bucket (its slabs), both mask modes.
+- preemption       spot_vs_guaranteed_scenario through a ScheduleOperation
+                   on cuda with the "preempt" term: the spot gangs fill the
+                   cluster, the guaranteed gang is denied,
+                   preempt_victim_plan (plan_victims on the card) plans
+                   spot-000, the planner verifies it, the commit steps run
+                   (victims removed, note_gang_evicted, forget_denied, a
+                   blind mark) and PreFilter places the guaranteed gang.
+                   Then plan_victims at 512 victims and 8,192 nodes, timed
+                   on the card and on the CPU, the two results equal.
 
-With BST_SCAN_WAVE unset, the seven phases above run the serial kernel
-(assign_scan) and never the wave kernel. The wavefront path
+With BST_SCAN_WAVE unset, the phases above (but policy) run the serial
+kernel (assign_scan) and never the wave kernel. The wavefront path
 (BST_SCAN_WAVE=W, the wave kernel assign_wave):
 
 - north_star_wave  north_star with W=8: every gang placed, telemetry 128
@@ -136,20 +176,26 @@ With BST_SCAN_WAVE unset, the seven phases above run the serial kernel
                    equal to the full-pack scorer's after every refresh.
 - churn_loop_wave  churn_loop with W=8: the wave kernel once a dispatched
                    tick, the serial kernel never.
-- audit_replay_wave  audit_replay with W=8: the wave kernel once per
-                   refresh and per steady replay, and every record also
-                   replays identically on wavefront.
+- audit_replay_wave  audit_replay with W=8 (without its policy ring): the
+                   wave kernel once per refresh and per steady replay, and
+                   every record also replays identically on wavefront.
+- policy_wave      policy with W=8: a policy batch ignores the wave width,
+                   so the policy kernel runs once a refresh and the wave
+                   kernel never (telemetry: wave width 0, scan_policy), and
+                   every refresh's plan equals the policy phase's.
 
 Then the card's name and power limit (nvidia-smi), one ``kernels`` line and,
 last, ``{"ok": true, "device": {...}}``. Launch counts are read for each
 path that drives the scorer or the re-scorer — north_star, race,
-north_star_churn, churn_loop, audit_replay, north_star_wave, race_wave,
-north_star_churn_wave, churn_loop_wave, audit_replay_wave, and the audit
-phases' replays (``audit_replay_replays``, ``audit_replay_wave_replays``)
-— with both kernels' counts zeroed just before the path and read just
-after; ``launches`` in the kernels line is the north-star path's,
-``launches_by_path`` holds each path. Comparison and timing launches are
-not counted.
+north_star_churn, churn_loop, policy, audit_replay (and its policy ring),
+north_star_wave, race_wave, north_star_churn_wave, churn_loop_wave,
+policy_wave, audit_replay_wave, and the audit phases' replays
+(``audit_replay_replays``, ``audit_replay_wave_replays``,
+``audit_replay_policy_replays``) — with every kernel's count zeroed just
+before the path and read just after; ``launches`` in the kernels line is
+the path's of the kernel's first phase (north_star, north_star_wave,
+policy), ``launches_by_path`` holds each path. Comparison and timing
+launches are not counted.
 """
 
 from __future__ import annotations
@@ -299,6 +345,33 @@ def scan_bound(left, group_req, remaining, fit_mask, order, wave=0):
             in_bytes + out_bytes, ops)
 
 
+def counters():
+    """The port's kernel wrappers by kernel name; each counts its launches
+    in ``.launches``."""
+    from batch_scheduler_tpu_torch.ops.assign_scan import (
+        assign_gangs_cuda, assign_gangs_policy_cuda, assign_gangs_wave_cuda)
+
+    return {"assign_scan": assign_gangs_cuda, "assign_wave": assign_gangs_wave_cuda,
+            "assign_policy": assign_gangs_policy_cuda}
+
+
+def zero_counts():
+    """Every kernel's launch count set to 0 (just before a path)."""
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    """Every kernel's launch count (just after a path)."""
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def restore_counts(saved):
+    """Counts put back to ``saved`` (after launches that must not count)."""
+    for name, fn in counters().items():
+        fn.launches = saved[name]
+
+
 def max_err(got, want):
     """(max_abs_err, all_equal) of two sequences of tensors."""
     import torch
@@ -424,7 +497,7 @@ WAVE_TELEMETRY = ("wave_width", "waves_per_batch", "wave_demotions", "wave_unifo
 
 # -- phases -------------------------------------------------------------------
 
-KERNELS = ("assign_scan", "assign_wave")
+KERNELS = ("assign_scan", "assign_wave", "assign_policy")
 
 
 @phase("build")
@@ -472,22 +545,19 @@ def drive_north_star(wave):
     import torch
 
     from batch_scheduler_tpu_torch.core import OracleScorer
-    from batch_scheduler_tpu_torch.ops.assign_scan import assign_gangs_cuda, assign_gangs_wave_cuda
 
     cluster, cache = north_star_cluster()
     scorer = OracleScorer(device="cuda")
     torch.cuda.reset_peak_memory_stats()
     with scan_wave_env(wave):
         # the main path: counts zeroed just before, read just after
-        assign_gangs_cuda.launches = 0
-        assign_gangs_wave_cuda.launches = 0
+        zero_counts()
         refresh_s = []
         for _ in range(7):
             t0 = time.perf_counter()
             scorer.refresh(cluster, cache)
             refresh_s.append(time.perf_counter() - t0)
-        launches = {"assign_scan": assign_gangs_cuda.launches,
-                    "assign_wave": assign_gangs_wave_cuda.launches}
+        launches = read_counts()
         batches = scorer.batches_run
         telemetry = dict(scorer.last_telemetry)
         stats = scorer.stats()
@@ -558,7 +628,8 @@ def north_star(results):
 
     scorer, launches, report = drive_north_star(None)
     batches = report["batches"]
-    if launches["assign_scan"] != batches or launches["assign_wave"] != 0:
+    if launches["assign_scan"] != batches or launches["assign_wave"] != 0 \
+            or launches["assign_policy"] != 0:
         raise AssertionError(f"{launches} launches in {batches} batches "
                              "(want assign_scan once per batch, assign_wave never)")
     args = scan_inputs(scorer.snapshot.device_args())
@@ -644,7 +715,8 @@ def north_star_wave(results):
     if plan.cluster_blocks < 2:
         raise AssertionError(f"north-star wave plan {plan} is not a cluster")
     batches = report["batches"]
-    if launches["assign_wave"] != batches or launches["assign_scan"] != 0:
+    if launches["assign_wave"] != batches or launches["assign_scan"] != 0 \
+            or launches["assign_policy"] != 0:
         raise AssertionError(f"{launches} launches in {batches} batches "
                              "(want assign_wave once per batch, assign_scan never)")
     waves = NORTH_STAR_SHAPE[0] // wave
@@ -775,14 +847,13 @@ def full_pack_diff(scorer, cluster, cache):
     import numpy as np
 
     from batch_scheduler_tpu_torch.core.oracle_scorer import read_cluster_inputs
-    from batch_scheduler_tpu_torch.ops.assign_scan import assign_gangs_cuda, assign_gangs_wave_cuda
     from batch_scheduler_tpu_torch.ops.oracle import execute_batch_host
     from batch_scheduler_tpu_torch.ops.snapshot import ClusterSnapshot
 
-    saved = (assign_gangs_cuda.launches, assign_gangs_wave_cuda.launches)
+    saved = read_counts()
     snap = ClusterSnapshot(*read_cluster_inputs(cluster, cache))
     want, _ = execute_batch_host(snap.device_args(), snap.progress_args(), device="cuda")
-    assign_gangs_cuda.launches, assign_gangs_wave_cuda.launches = saved
+    restore_counts(saved)
     got = scorer._state.result
     diff = [k for k in HOST_KEYS if not np.array_equal(got[k], want[k])]
     diff += [f"telemetry.{k}" for k in WAVE_TELEMETRY
@@ -812,7 +883,6 @@ def drive_north_star_churn(wave):
     import torch
 
     from batch_scheduler_tpu_torch.core import OracleScorer
-    from batch_scheduler_tpu_torch.ops.assign_scan import assign_gangs_cuda, assign_gangs_wave_cuda
 
     cluster, cache = north_star_state()
     node_names = [n.metadata.name for n in cluster.list_nodes()]
@@ -847,9 +917,9 @@ def drive_north_star_churn(wave):
         return time.perf_counter() - t0
 
     def refresh_upload(label, out):
-        saved = (assign_gangs_cuda.launches, assign_gangs_wave_cuda.launches)
+        saved = read_counts()
         out.append(timed_refresh(upload))
-        assign_gangs_cuda.launches, assign_gangs_wave_cuda.launches = saved
+        restore_counts(saved)
         compare(label, upload)
 
     with scan_wave_env(wave):
@@ -858,8 +928,7 @@ def drive_north_star_churn(wave):
         refresh_upload("first refresh", [])
         first = scorer.last_fold_outcome
         # the main path: counts zeroed just before, read just after
-        assign_gangs_cuda.launches = 0
-        assign_gangs_wave_cuda.launches = 0
+        zero_counts()
         refresh_s, upload_s, outcomes, group_rows = [], [], [], {}
         for r in range(1, CHURN_ROUNDS):
             churn(r)
@@ -872,8 +941,7 @@ def drive_north_star_churn(wave):
             compare(f"round {r}")
             if not r % 2:
                 refresh_upload(f"round {r}", upload_s)
-        launches = {"assign_scan": assign_gangs_cuda.launches,
-                    "assign_wave": assign_gangs_wave_cuda.launches}
+        launches = read_counts()
         refreshes = CHURN_ROUNDS - 1
         stats = scorer.stats()
         telemetry = dict(scorer.last_telemetry)
@@ -1030,7 +1098,8 @@ def residency_vs_upload():
 def north_star_churn(results):
     launches, report = drive_north_star_churn(None)
     n = report["refreshes"]
-    if launches["assign_scan"] != n or launches["assign_wave"] != 0:
+    if launches["assign_scan"] != n or launches["assign_wave"] != 0 \
+            or launches["assign_policy"] != 0:
         raise AssertionError(f"{launches} launches in {n} refreshes "
                              "(want assign_scan once per refresh, assign_wave never)")
     if "assign_scan" in results:
@@ -1044,7 +1113,8 @@ def north_star_churn_wave(results):
     wave = 8
     launches, report = drive_north_star_churn(wave)
     n = report["refreshes"]
-    if launches["assign_wave"] != n or launches["assign_scan"] != 0:
+    if launches["assign_wave"] != n or launches["assign_scan"] != 0 \
+            or launches["assign_policy"] != 0:
         raise AssertionError(f"{launches} launches in {n} refreshes "
                              "(want assign_wave once per refresh, assign_scan never)")
     tele = report["telemetry"]
@@ -1100,7 +1170,6 @@ def record_ring(fmt, keyframe_every, directory):
     input digests of what each batch ran on, launches by kernel, publish
     seconds, identity-audit seconds)."""
     from batch_scheduler_tpu_torch.core import ScheduleOperation
-    from batch_scheduler_tpu_torch.ops.assign_scan import assign_gangs_cuda, assign_gangs_wave_cuda
     from batch_scheduler_tpu_torch.utils.audit import AuditLog
 
     cluster, cache = north_star_state()
@@ -1114,15 +1183,13 @@ def record_ring(fmt, keyframe_every, directory):
     auditor._verify = timed_calls(auditor._verify, identity_s)
     churn = Churn(cluster, cache, lambda name: scorer.mark_dirty(group=name), AUDIT_ROUNDS + 1)
     ran = []
-    assign_gangs_cuda.launches = 0
-    assign_gangs_wave_cuda.launches = 0
+    zero_counts()
     for r in range(AUDIT_ROUNDS + 1):
         if r:
             churn(r)
         scorer.refresh(cluster, cache)
         ran.append(ran_input_digest(scorer))
-    launches = {"assign_scan": assign_gangs_cuda.launches,
-                "assign_wave": assign_gangs_wave_cuda.launches}
+    launches = read_counts()
     return scorer, log, ran, launches, publish_s, identity_s
 
 
@@ -1308,12 +1375,11 @@ def drive_audit_replay(wave):
     replays, report)."""
     import tempfile
 
-    from batch_scheduler_tpu_torch.ops.assign_scan import assign_gangs_cuda, assign_gangs_wave_cuda
     from batch_scheduler_tpu_torch.utils import audit as audit_mod
 
     kernel = "assign_wave" if wave else "assign_scan"
-    refresh_launches = {"assign_scan": 0, "assign_wave": 0}
-    replay_launches = {"assign_scan": 0, "assign_wave": 0}
+    refresh_launches = dict.fromkeys(KERNELS, 0)
+    replay_launches = dict.fromkeys(KERNELS, 0)
     report = {"rings": {}}
     with scan_wave_env(wave), tempfile.TemporaryDirectory(prefix="bst-audit-") as tmp:
         for fmt, keyframe_every in AUDIT_RINGS:
@@ -1323,11 +1389,9 @@ def drive_audit_replay(wave):
             if launches[kernel] != len(ran) or sum(launches.values()) != len(ran):
                 raise AssertionError(f"{fmt} ring: {launches} launches in {len(ran)} refreshes")
             batches, stats = check_ring(scorer, log, ran, wave)
-            assign_gangs_cuda.launches = 0
-            assign_gangs_wave_cuda.launches = 0
+            zero_counts()
             replay_ms = replay_ring(batches, wave)
-            got = {"assign_scan": assign_gangs_cuda.launches,
-                   "assign_wave": assign_gangs_wave_cuda.launches}
+            got = read_counts()
             cuda_replays = sum(v["replays"] for k, v in replay_ms.items() if k != "cpu-ladder")
             if got[kernel] != cuda_replays or sum(got.values()) != cuda_replays:
                 raise AssertionError(f"{fmt} ring replays: {got} launches in {cuda_replays} "
@@ -1372,7 +1436,21 @@ def audit_phase(results, wave, path):
 
 @phase("audit_replay")
 def audit_replay(results):
-    return audit_phase(results, None, "audit_replay")
+    """audit_phase without BST_SCAN_WAVE, then the policy ring
+    (policy_ring): recorded on the card, replayed on steady and
+    cpu-ladder."""
+    import tempfile
+
+    out = audit_phase(results, None, "audit_replay")
+    with tempfile.TemporaryDirectory(prefix="bst-audit-policy-") as tmp:
+        launches, replays, report = policy_ring(tmp)
+    if launches != {"assign_scan": 0, "assign_wave": 0, "assign_policy": report["records"]}:
+        raise AssertionError(f"policy ring refreshes: {launches}")
+    if "assign_policy" in results:
+        by_path = results["assign_policy"]["launches_by_path"]
+        by_path["audit_replay_policy"] = launches["assign_policy"]
+        by_path["audit_replay_policy_replays"] = replays["assign_policy"]
+    return {**out, "policy_ring": report}
 
 
 @phase("audit_replay_wave")
@@ -1427,15 +1505,10 @@ def drive_churn_loop(wave):
     import numpy as np
     import torch
 
-    from batch_scheduler_tpu_torch.ops.assign_scan import assign_gangs_cuda, assign_gangs_wave_cuda
     from batch_scheduler_tpu_torch.ops.oracle import execute_batch_host
     from batch_scheduler_tpu_torch.ops.rescore import (
         ChurnRescorer, TickPipeline, probe_link_depth)
     from batch_scheduler_tpu_torch.sim.scenarios import make_sim_node
-
-    def counts():
-        return {"assign_scan": assign_gangs_cuda.launches,
-                "assign_wave": assign_gangs_wave_cuda.launches}
 
     rng = np.random.default_rng(LOOP_SEED)
     nodes = [make_sim_node(f"n{i:05d}", {"cpu": "64", "memory": "256Gi", "pods": "110", GPU: "8"})
@@ -1466,8 +1539,7 @@ def drive_churn_loop(wave):
         deadline_misses, loop_s, collected = 0, [], []
         backlog_drained_tick = None
         # the main path: counts zeroed just before, read just after
-        assign_gangs_cuda.launches = 0
-        assign_gangs_wave_cuda.launches = 0
+        zero_counts()
         with TickPipeline(r, depth) as pipe:
             for _ in range(depth):  # pipeline fill: each batch gets an interval
                 pipe.submit(pending[:window])
@@ -1488,7 +1560,7 @@ def drive_churn_loop(wave):
                     deadline_misses += 1
                 else:
                     time.sleep(TICK_INTERVAL - elapsed)
-        launches = counts()
+        launches = read_counts()
         dispatches = depth + LOOP_TICKS
         summary = r.summary()
         # the re-scorer's own series, unrounded (summary() rounds)
@@ -1517,9 +1589,9 @@ def drive_churn_loop(wave):
                 diffs[i] = bad
         # one synchronous tick drains the queued deltas: then the resident
         # occupancy is the padded mirror
-        saved = counts()
+        saved = read_counts()
         r.tick(None, pending[:window])
-        assign_gangs_cuda.launches, assign_gangs_wave_cuda.launches = saved.values()
+        restore_counts(saved)
         torch.cuda.synchronize()
         with r._state_lock:
             resident = r._req_dev.cpu().numpy()
@@ -1534,8 +1606,8 @@ def drive_churn_loop(wave):
             if g is not None:
                 pending.append(g)
         r.clear_stats()
-        saved = counts()
-        assign_gangs_cuda.launches = assign_gangs_wave_cuda.launches = 0
+        saved = read_counts()
+        zero_counts()
         d2_loop_s, d2_window = [], 2 * ADMIT_WINDOW
         with TickPipeline(r, 2) as pipe2:
             pipe2.placed_ever |= pipe.placed_ever
@@ -1552,8 +1624,8 @@ def drive_churn_loop(wave):
                 elapsed = time.perf_counter() - t0
                 d2_loop_s.append(elapsed)
                 time.sleep(max(0.0, TICK_INTERVAL - elapsed))
-        d2_launches = counts()
-        assign_gangs_cuda.launches, assign_gangs_wave_cuda.launches = saved.values()
+        d2_launches = read_counts()
+        restore_counts(saved)
         d2_summary = r.summary()
     depth2 = {
         "ticks": DEPTH2_TICKS, "burst": DEPTH2_BURST, "window": d2_window,
@@ -1607,7 +1679,8 @@ def drive_churn_loop(wave):
 @phase("churn_loop")
 def churn_loop(results):
     launches, dispatches, report = drive_churn_loop(None)
-    if launches["assign_scan"] != dispatches or launches["assign_wave"] != 0:
+    if launches["assign_scan"] != dispatches or launches["assign_wave"] != 0 \
+            or launches["assign_policy"] != 0:
         raise AssertionError(f"{launches} launches in {dispatches} dispatched ticks "
                              "(want assign_scan once a tick, assign_wave never)")
     if "assign_scan" in results:
@@ -1618,7 +1691,8 @@ def churn_loop(results):
 @phase("churn_loop_wave")
 def churn_loop_wave(results):
     launches, dispatches, report = drive_churn_loop(8)
-    if launches["assign_wave"] != dispatches or launches["assign_scan"] != 0:
+    if launches["assign_wave"] != dispatches or launches["assign_scan"] != 0 \
+            or launches["assign_policy"] != 0:
         raise AssertionError(f"{launches} launches in {dispatches} dispatched ticks "
                              "(want assign_wave once a tick, assign_scan never)")
     if "assign_wave" in results:
@@ -1869,7 +1943,6 @@ def drive_race(wave):
     from batch_scheduler_tpu_torch.api.types import PodGroupPhase
     from batch_scheduler_tpu_torch.cache import PGStatusCache, PodGroupMatchStatus
     from batch_scheduler_tpu_torch.core import ScheduleOperation
-    from batch_scheduler_tpu_torch.ops.assign_scan import assign_gangs_cuda, assign_gangs_wave_cuda
     from batch_scheduler_tpu_torch.sim.scenarios import make_member_pods, race_scenario
     from batch_scheduler_tpu_torch.utils import errors as errs
 
@@ -1887,8 +1960,7 @@ def drive_race(wave):
         raise AssertionError(f"scorer on {op.oracle.device}")
     with scan_wave_env(wave):
         # this path's counts: zeroed just before, read just after
-        assign_gangs_cuda.launches = 0
-        assign_gangs_wave_cuda.launches = 0
+        zero_counts()
         ready = []
         for pod in pods["web-group-race1"]:
             op.pre_filter(pod)
@@ -1905,8 +1977,7 @@ def drive_race(wave):
                 outcomes.append("admitted")
             except errs.SchedulingError as e:
                 outcomes.append(type(e).__name__)
-        launches = {"assign_scan": assign_gangs_cuda.launches,
-                    "assign_wave": assign_gangs_wave_cuda.launches}
+        launches = read_counts()
     batches = op.oracle.batches_run
     want = ["ResourceNotEnoughError", "DeniedError"]
     if ready != [False] * 4 + [True] or pg1.status.scheduled != 5 or outcomes != want:
@@ -1925,7 +1996,8 @@ def race(results):
     op, launches, report = drive_race(None)
     batches = report["batches"]
     if launches["assign_scan"] == 0 or launches["assign_scan"] != batches \
-            or launches["assign_wave"] != 0:
+            or launches["assign_wave"] != 0 \
+            or launches["assign_policy"] != 0:
         raise AssertionError(f"{launches} launches in {batches} batches "
                              "(want assign_scan once per batch, assign_wave never)")
     args = scan_inputs(op.oracle.snapshot.device_args())
@@ -1947,7 +2019,8 @@ def race_wave(results):
     op, launches, report = drive_race(wave)
     batches = report["batches"]
     if launches["assign_wave"] == 0 or launches["assign_wave"] != batches \
-            or launches["assign_scan"] != 0:
+            or launches["assign_scan"] != 0 \
+            or launches["assign_policy"] != 0:
         raise AssertionError(f"{launches} launches in {batches} batches "
                              "(want assign_wave once per batch, assign_scan never)")
     tele = report["telemetry"]
@@ -1961,6 +2034,589 @@ def race_wave(results):
         results["assign_wave"]["matched"] &= equal
     return {**report, "launches": launches["assign_wave"],
             "kernel_vs_plain_equal": equal, "max_abs_err": err}
+
+
+# -- the policy engine ------------------------------------------------------
+# The north-star deployment with policy labels (policy_state): the nodes
+# carry a zone (8 values), a pool (4), a rack (16) and a team (3), so all 4
+# label-hash lanes are full; ~30% of the gangs prefer a pool (affinity), ~10%
+# avoid one (anti-affinity), ~30% spread over zones, and 100 of the spread
+# gangs have 3 of their 10 members matched already (assumed on nodes).
+POLICY_ENV = {"BST_POLICY": "affinity,anti-affinity,spread,preempt"}
+POLICY_TERMS = ("affinity", "anti-affinity", "spread")
+POLICY_WEIGHTS = (32, 8, 3)  # PolicyConfig's defaults
+POLICY_SEED = 8
+POLICY_SPREAD_MATCHED, POLICY_MATCHED_MEMBERS = 100, 3
+POLICY_ROUNDS = 6  # churn rounds after the keyframe refresh (Churn's rounds)
+# plan_victims at the size a planner meets in a full north-star cluster
+VICTIMS, VICTIM_NODES, VICTIM_LANES = 512, 8192, 5
+
+
+def policy_state():
+    """The policy deployment (see above) in a ClusterState and a status
+    cache, from POLICY_SEED: nodes as north_star_cluster's plus labels,
+    gangs as its gangs plus the policy labels on their representative pods;
+    the matched members of the spread gangs are assumed on random nodes and
+    recorded in the gangs' matched sets (their domain occupancy)."""
+    import numpy as np
+
+    from batch_scheduler_tpu_torch.api.types import PodGroupPhase
+    from batch_scheduler_tpu_torch.cache import PGStatusCache, PodGroupMatchStatus
+    from batch_scheduler_tpu_torch.cache.pg_cache import PodNodePair
+    from batch_scheduler_tpu_torch.framework import ClusterState
+    from batch_scheduler_tpu_torch.sim.scenarios import (
+        make_member_pods, make_sim_group, make_sim_node)
+    from batch_scheduler_tpu_torch.utils.labels import (
+        POLICY_AFFINITY_LABEL, POLICY_ANTI_AFFINITY_LABEL, POLICY_SPREAD_LABEL)
+
+    rng = np.random.default_rng(POLICY_SEED)
+    n, g = NORTH_STAR_NODES, NORTH_STAR_GANGS
+    zone, pool = rng.integers(0, 8, n), rng.integers(0, 4, n)
+    rack, team = rng.integers(0, 16, n), rng.integers(0, 3, n)
+    cluster = ClusterState()
+    names = []
+    for i in range(n):
+        names.append(f"n{i:05d}")
+        cluster.add_node(make_sim_node(
+            names[-1], {"cpu": "64", "memory": "256Gi", "pods": "110", GPU: "8"},
+            labels={"zone": f"z{zone[i]}", "pool": f"p{pool[i]}", "rack": f"r{rack[i]}",
+                    "team": f"t{team[i]}"}))
+    want_aff, want_anti = rng.random(g) < 0.3, rng.random(g) < 0.1
+    want_spread = rng.random(g) < 0.3
+    aff_pool, anti_pool = rng.integers(0, 4, g), rng.integers(0, 4, g)
+    cache = PGStatusCache()
+    spread = []
+    for k in range(g):
+        name = f"gang-{k:04d}"
+        pg = make_sim_group(name, 10, creation_ts=float(k))
+        pg.spec.min_resources = {"cpu": 4000, "memory": 8 * 1024**3, GPU: 1}
+        pg.status.phase = PodGroupPhase.PENDING
+        pgs = PodGroupMatchStatus(pg)
+        pgs.pod = make_member_pods(name, 1, {"cpu": "4", "memory": "8Gi", GPU: "1"})[0]
+        labels = pgs.pod.metadata.labels
+        if want_aff[k]:
+            labels[POLICY_AFFINITY_LABEL] = f"pool:p{aff_pool[k]}"
+        if want_anti[k]:
+            labels[POLICY_ANTI_AFFINITY_LABEL] = f"pool:p{anti_pool[k]}"
+        if want_spread[k]:
+            labels[POLICY_SPREAD_LABEL] = "1"
+            spread.append(pgs)
+        cache.set(pg.full_name(), pgs)
+    for pgs in spread[:POLICY_SPREAD_MATCHED]:
+        name = pgs.pod_group.metadata.name
+        members = make_member_pods(name, POLICY_MATCHED_MEMBERS,
+                                   {"cpu": "4", "memory": "8Gi", GPU: "1"})
+        for m in members:
+            node = names[int(rng.integers(n))]
+            cluster.assume(m, node)
+            pgs.matched_pod_nodes.set(m.metadata.uid, PodNodePair(
+                f"default/{m.metadata.name}", node), 3600.0)
+    return cluster, cache
+
+
+def policy_full_pack_diff(scorer, cluster, cache):
+    """full_pack_diff for a policy scorer: one ClusterSnapshot of the whole
+    state with the scorer's engine, run as one policy batch on the card
+    (launches restored), against the scorer's last batch: the host dict,
+    the scan telemetry, all seven batch args and the six policy columns
+    the batch ran on (the holder's resident node columns read back)."""
+    import numpy as np
+
+    from batch_scheduler_tpu_torch.core.oracle_scorer import read_cluster_inputs
+    from batch_scheduler_tpu_torch.ops.oracle import execute_batch_host
+    from batch_scheduler_tpu_torch.ops.snapshot import ClusterSnapshot
+
+    saved = read_counts()
+    snap = ClusterSnapshot(*read_cluster_inputs(cluster, cache),
+                           policy_engine=scorer.policy_engine)
+    want, _ = execute_batch_host(snap.device_args(), snap.progress_args(), device="cuda",
+                                 policy=snap.policy_payload())
+    restore_counts(saved)
+    got = scorer._state.result
+    diff = [k for k in HOST_KEYS if not np.array_equal(got[k], want[k])]
+    diff += [f"telemetry.{k}" for k in ("scan", "wave_width", "scan_policy")
+             if got["telemetry"].get(k) != want["telemetry"].get(k)]
+    host = lambda a: a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)  # noqa: E731
+    diff += [f"batch arg {i}" for i, (a, h) in enumerate(
+        zip(scorer._device_state.last_args(), snap.device_args()))
+        if not np.array_equal(host(a), h)]
+    holder = scorer._device_state
+    ran_cols = scorer.snapshot.policy_cols[:4] + (holder._policy_hash, holder._policy_dom)
+    diff += [f"policy column {i}" for i, (a, h) in enumerate(zip(ran_cols, snap.policy_cols))
+             if not np.array_equal(host(a), h)]
+    return diff
+
+
+def policy_bound(args, cols):
+    """scan_bound of the policy scan: the serial scan's bytes plus the
+    node columns it reads (4 label hashes and a domain, 20 bytes a node)
+    and the gang columns (aff, anti and 16 domain counts, 72 bytes a gang),
+    and its operations plus, per gang and node, the 8 hash compares, the
+    domain clamp and read, the penalty and the key (~14)."""
+    n, g = args[0].shape[0], args[1].shape[0]
+    bound_ms, bound_by, nbytes, ops = scan_bound(*args)
+    nbytes += n * 20 + g * 72
+    ops += 14 * n * g
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, ops)
+
+
+def policy_cols_cuda(snap):
+    """A snapshot's six policy columns as CUDA tensors."""
+    from batch_scheduler_tpu_torch.ops.convert import policy_from_numpy
+
+    return policy_from_numpy(snap.policy_cols, "cuda")
+
+
+def drive_policy(wave):
+    """The policy deployment through a ScheduleOperation's OracleScorer on
+    cuda with POLICY_ENV (every term, the default weights; the engine from
+    BST_POLICY) and BST_SCAN_WAVE set to ``wave`` (None: unset): a first
+    (keyframe) refresh and POLICY_ROUNDS churn rounds (Churn), each followed
+    by one refresh; every kernel's count zeroed just before the refreshes
+    and read just after. After every refresh the scorer must equal the full
+    pack (policy_full_pack_diff); every gang must place. Then one profiled
+    refresh. Returns (scorer, launches, plan digests a refresh, report)."""
+    import torch
+
+    from batch_scheduler_tpu_torch.core import ScheduleOperation
+    from batch_scheduler_tpu_torch.utils import audit as audit_mod
+
+    with env_set({**POLICY_ENV, "BST_SCAN_WAVE": None if wave is None else str(wave)}):
+        cluster, cache = policy_state()
+        op = ScheduleOperation(cache, cluster, device="cuda")
+        scorer = op.oracle
+        if op.policy is None or op.preempt_planner is None or \
+                op.policy.config.scoring_terms != POLICY_TERMS or \
+                op.policy.config.weights != POLICY_WEIGHTS:
+            raise AssertionError(f"policy engine from {POLICY_ENV}: {op.policy}")
+        churn = Churn(cluster, cache, lambda name: scorer.mark_dirty(group=name),
+                      POLICY_ROUNDS + 1)
+        refresh_s, digests = [], []
+        zero_counts()
+        for r in range(POLICY_ROUNDS + 1):
+            if r:
+                churn(r)
+            t0 = time.perf_counter()
+            scorer.refresh(cluster, cache)
+            torch.cuda.synchronize()
+            refresh_s.append(time.perf_counter() - t0)
+            digests.append(audit_mod.plan_digest(scorer._state.result))
+            diff = policy_full_pack_diff(scorer, cluster, cache)
+            if diff:
+                raise AssertionError(f"refresh {r}: the policy scorer differs from the full "
+                                     f"pack in {diff}")
+        launches = read_counts()
+        telemetry = dict(scorer.last_telemetry)
+        stats = scorer.stats()
+        try:
+            prof = profile_refresh(scorer, cluster, cache)
+        except Exception as e:  # noqa: BLE001 — a measurement, not a check
+            prof = {"profile": f"failed: {e!r}"[:300]}
+    # every gang placed, with every member it still needed
+    snap = scorer.snapshot
+    names = sorted(cache.snapshot())
+    placed = sum(scorer.placed(n) for n in names)
+    feasible = sum(scorer.gang_feasible(n) for n in names)
+    members = sum(sum(scorer.assignment(n).values()) for n in names)
+    want = (NORTH_STAR_GANGS, NORTH_STAR_GANGS, int(snap.remaining.sum()))
+    if (placed, feasible, members) != want:
+        raise AssertionError(f"placed {placed}, feasible {feasible}, members {members} "
+                             f"(want {want})")
+    if snap.shape != NORTH_STAR_SHAPE or telemetry.get("scan_policy") is not True \
+            or telemetry.get("wave_width") != 0:
+        raise AssertionError(f"shape {snap.shape}, telemetry {telemetry}")
+    aff, anti, gang_dom, node_hash = snap.policy_cols[1:5]
+    columns = {"affinity_gangs": int((aff > 0).sum()), "anti_gangs": int((anti > 0).sum()),
+               "spread_occupied_gangs": int((gang_dom.sum(axis=1) > 0).sum()),
+               "full_hash_lanes_nodes": int((node_hash[:NORTH_STAR_NODES] > 0).all(axis=1).sum())}
+    if columns["spread_occupied_gangs"] != POLICY_SPREAD_MATCHED or \
+            columns["full_hash_lanes_nodes"] != NORTH_STAR_NODES:
+        raise AssertionError(f"policy columns {columns}")
+    timed = slice(2, None)  # the keyframe and one warm refresh
+    med = lambda xs: statistics.median(xs[timed]) * 1e3  # noqa: E731
+    refresh_ms_median = med(refresh_s)
+    if "device_busy_ms" in prof:
+        prof["device_idle_share_vs_median"] = 1 - prof["device_busy_ms"] / refresh_ms_median
+    report = {
+        "shape": list(snap.shape), "refreshes": len(refresh_s), "launches_by_kernel": launches,
+        "placed": placed, "feasible": feasible, "members_placed": members,
+        "columns": columns, "telemetry": telemetry,
+        "keyframe_refresh_ms": refresh_s[0] * 1e3,
+        "refresh_ms_median": refresh_ms_median,
+        "refresh_ms": [t * 1e3 for t in refresh_s[timed]],
+        "host_pack_ms_median": med(scorer.pack_seconds),
+        "sync_ms_median": med(scorer.sync_seconds),
+        "device_batch_ms_median": med(scorer.batch_seconds),
+        "fold_outcomes": stats["fold_outcomes"], "packer": stats["packer"],
+        "device_state": stats["device_state"],
+        "batches_scored": op.policy.batches_scored,
+        **prof,
+    }
+    return scorer, launches, digests, report
+
+
+@phase("policy")
+def policy(results):
+    """The policy path at the north star (drive_policy, BST_SCAN_WAVE
+    unset): the policy kernel once a refresh and no other kernel; then the
+    kernel against the plain policy scan on the last batch's CUDA inputs,
+    its time beside the base serial kernel's on the same inputs (in
+    turns: base, policy, policy, base), the plain scan's time and the
+    bound."""
+    from batch_scheduler_tpu_torch.ops.assign_scan import (
+        assign_gangs_cuda, assign_gangs_policy_cuda, policy_scan_plan)
+    from batch_scheduler_tpu_torch.ops.oracle import assign_gangs_policy
+
+    scorer, launches, digests, report = drive_policy(None)
+    n = report["refreshes"]
+    if launches != {"assign_scan": 0, "assign_wave": 0, "assign_policy": n}:
+        raise AssertionError(f"{launches} launches in {n} refreshes (want assign_policy once "
+                             "a refresh and no other kernel)")
+    args = scan_inputs(scorer.snapshot.device_args())
+    cols = policy_cols_cuda(scorer.snapshot)
+    plan = policy_scan_plan(*args[0].shape, 0)
+    got = assign_gangs_policy_cuda(*args, *cols, POLICY_TERMS, POLICY_WEIGHTS)
+    want = assign_gangs_policy(*args, *cols, POLICY_TERMS, POLICY_WEIGHTS)
+    err, equal = max_err(got, want)
+    if not equal:
+        raise AssertionError(f"policy kernel disagrees with the plain policy scan "
+                             f"(max abs err {err})")
+    run = lambda: assign_gangs_policy_cuda(*args, *cols, POLICY_TERMS, POLICY_WEIGHTS)  # noqa: E731
+    base_ms = [cuda_ms(lambda: assign_gangs_cuda(*args), 20)]
+    policy_ms = [cuda_ms(run, 20), cuda_ms(run, 20)]
+    base_ms.append(cuda_ms(lambda: assign_gangs_cuda(*args), 20))
+    plain_ms = cuda_ms(lambda: assign_gangs_policy(*args, *cols, POLICY_TERMS,
+                                                   POLICY_WEIGHTS), 1)
+    bound_ms, bound_by, nbytes, ops = policy_bound(args, cols)
+    ms = min(policy_ms)
+    results["assign_policy"] = {
+        "launches": launches["assign_policy"],
+        "launches_by_path": {"policy": launches["assign_policy"]},
+        "max_abs_err": err, "matched": equal,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "cluster_blocks": plan.cluster_blocks, "leftover": plan.leftover,
+        "us_per_gang": ms * 1e3 / args[1].shape[0],
+    }
+    results["policy_digests"] = digests
+    return {**report, "launches": launches["assign_policy"], "plan": plan._asdict(),
+            "kernel_ms": policy_ms, "base_kernel_ms_same_inputs": base_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes, "int_ops": ops, "kernel_vs_plain_equal": equal,
+            "max_abs_err": err, "plan_digests": digests}
+
+
+@phase("policy_wave")
+def policy_wave(results):
+    """The policy path with BST_SCAN_WAVE=8: the batch ignores the wave
+    width, so the policy kernel runs once a refresh and the wave kernel
+    never; the telemetry says so, and every refresh's plan equals the
+    policy phase's (its plan_digest sequence)."""
+    scorer, launches, digests, report = drive_policy(8)
+    n = report["refreshes"]
+    if launches != {"assign_scan": 0, "assign_wave": 0, "assign_policy": n}:
+        raise AssertionError(f"{launches} launches in {n} refreshes with BST_SCAN_WAVE=8 "
+                             "(want assign_policy once a refresh, assign_wave never)")
+    if "policy_digests" in results and digests != results["policy_digests"]:
+        raise AssertionError("the plans differ from the policy phase's")
+    if "assign_policy" in results:
+        results["assign_policy"]["launches_by_path"]["policy_wave"] = launches["assign_policy"]
+    return {**report, "launches": launches["assign_policy"],
+            "same_plans_as_policy": "policy_digests" in results}
+
+
+@phase("policy_identity")
+def policy_identity(results):
+    """The zero-policy identity on the card: the policy kernel with every
+    term on and all-zero columns, and with real columns and no term,
+    equals the base serial kernel bit for bit, on the north star's scan
+    inputs and on mixed's in both mask modes. And the policy kernel
+    against the plain policy scan on mixed's inputs with seeded policy
+    columns in both mask modes, and at the 2^21-node bucket (its slabs)."""
+    import numpy as np
+    import torch
+
+    from batch_scheduler_tpu_torch.ops.assign_scan import (
+        assign_gangs_cuda, assign_gangs_policy_cuda, policy_scan_plan)
+    from batch_scheduler_tpu_torch.ops.oracle import assign_gangs_policy
+    from batch_scheduler_tpu_torch.ops.snapshot import ClusterSnapshot
+    from batch_scheduler_tpu_torch.policy import PolicyConfig, PolicyEngine
+    from batch_scheduler_tpu_torch.core.oracle_scorer import read_cluster_inputs
+
+    def seeded_cols(rng, n, g):
+        vocab = np.array([0, 11, 22, 33, 44, 55], np.int64)
+        cols = (rng.integers(0, 3, g),
+                np.where(rng.random(g) < 0.3, vocab[rng.integers(1, 6, g)], 0),
+                np.where(rng.random(g) < 0.1, vocab[rng.integers(1, 6, g)], 0),
+                rng.integers(0, 4, (g, 16)) * (rng.random((g, 1)) < 0.3),
+                vocab[rng.integers(0, 6, (n, 4))], rng.integers(-1, 18, n))
+        return tuple(torch.from_numpy(np.ascontiguousarray(c, np.int32)).cuda() for c in cols)
+
+    cluster, cache = policy_state()
+    engine = PolicyEngine(PolicyConfig(terms=POLICY_TERMS))
+    snap = ClusterSnapshot(*read_cluster_inputs(cluster, cache), policy_engine=engine)
+    inputs = [("north_star", scan_inputs(snap.device_args()), policy_cols_cuda(snap))]
+    rng = np.random.default_rng(POLICY_SEED)
+    for mode, per_group in (("per_group", True), ("broadcast", False)):
+        args = scan_inputs(mixed_batch(*MIXED, per_group)[0])
+        inputs.append((f"mixed/{mode}", args,
+                       seeded_cols(rng, args[0].shape[0], args[1].shape[0])))
+    out = {}
+    for label, args, cols in inputs:
+        base = assign_gangs_cuda(*args)
+        zero = tuple(torch.zeros_like(c) for c in cols)
+        checks = {"zero_columns": assign_gangs_policy_cuda(*args, *zero, POLICY_TERMS,
+                                                            POLICY_WEIGHTS),
+                  "no_term": assign_gangs_policy_cuda(*args, *cols, (), POLICY_WEIGHTS)}
+        res = {k: max_err(v, base) for k, v in checks.items()}
+        if not all(eq for _, eq in res.values()):
+            raise AssertionError(f"{label}: the zero-policy identity fails: {res}")
+        out[label] = {f"{k}_equal_base": eq for k, (_, eq) in res.items()}
+        if label.startswith("mixed"):
+            got = assign_gangs_policy_cuda(*args, *cols, POLICY_TERMS, POLICY_WEIGHTS)
+            want = assign_gangs_policy(*args, *cols, POLICY_TERMS, POLICY_WEIGHTS)
+            err, equal = max_err(got, want)
+            if not equal:
+                raise AssertionError(f"{label}: policy kernel vs plain max abs err {err}")
+            out[label].update(kernel_vs_plain_equal=equal, max_abs_err=err,
+                              placed=int(got[1].sum().item()),
+                              mask_rows=int(args[3].shape[0]))
+    big = {}
+    for mode, per_group in (("per_group", True), ("broadcast", False)):
+        args = scan_inputs(mixed_batch(*BIG_BUCKET, per_group)[0])
+        plan = policy_scan_plan(*args[0].shape, 0)
+        if plan.per_thread <= 64 or plan.leftover != "global":
+            raise AssertionError(f"2^21 bucket: policy plan {plan} does not run slabs")
+        cols = seeded_cols(rng, args[0].shape[0], args[1].shape[0])
+        got = assign_gangs_policy_cuda(*args, *cols, POLICY_TERMS, POLICY_WEIGHTS)
+        want = assign_gangs_policy(*args, *cols, POLICY_TERMS, POLICY_WEIGHTS)
+        err, equal = max_err(got, want)
+        if not equal:
+            raise AssertionError(f"2^21 {mode}: policy kernel vs plain max abs err {err}")
+        big[mode] = {"plan": plan._asdict(), "kernel_vs_plain_equal": equal,
+                     "max_abs_err": err, "placed": int(got[1].sum().item()),
+                     "kernel_ms": cuda_ms(lambda: assign_gangs_policy_cuda(
+                         *args, *cols, POLICY_TERMS, POLICY_WEIGHTS), 3)}
+        del args, cols, got, want
+    out["bucket_2097152"] = big
+    return out
+
+
+def preemption_path():
+    """spot_vs_guaranteed_scenario through a ScheduleOperation on cuda with
+    the "preempt" term: the spot gangs placed and bound (PreFilter, Permit,
+    assume, bind on their batch plans) fill the cluster; the guaranteed
+    gang is denied at PreFilter; preempt_victim_plan (plan_victims on the
+    card) gives a plan that the planner verifies against the live cluster;
+    then the framework's commit steps in its order (every victim member
+    removed from the ClusterState, note_gang_evicted, forget_denied, a
+    blind mark) and PreFilter again places the guaranteed gang."""
+    from batch_scheduler_tpu_torch.api.types import PodGroupPhase
+    from batch_scheduler_tpu_torch.cache import PGStatusCache, PodGroupMatchStatus
+    from batch_scheduler_tpu_torch.core import ScheduleOperation
+    from batch_scheduler_tpu_torch.framework import ClusterState
+    from batch_scheduler_tpu_torch.policy import PolicyConfig
+    from batch_scheduler_tpu_torch.sim.scenarios import spot_vs_guaranteed_scenario
+    from batch_scheduler_tpu_torch.utils import errors as errs
+    from batch_scheduler_tpu_torch.utils.labels import POD_GROUP_LABEL
+
+    nodes, groups, pods = spot_vs_guaranteed_scenario()
+    cluster = ClusterState()
+    for node in nodes:
+        cluster.add_node(node)
+    cache = PGStatusCache()
+    for pg in groups:
+        pg.status.phase = PodGroupPhase.PENDING
+        cache.set(pg.full_name(), PodGroupMatchStatus(pg))
+    op = ScheduleOperation(cache, cluster, device="cuda",
+                           policy=PolicyConfig(terms=("preempt",)))
+    if op.preempt_planner is None or op.preempt_planner.device.type != "cuda":
+        raise AssertionError("no preemption planner on cuda")
+
+    def admit(gang_pods):
+        op.pre_filter(gang_pods[0])
+        pgs = cache.get(f"default/{gang_pods[0].metadata.labels[POD_GROUP_LABEL]}")
+        seats = [node for node, count in sorted(pgs.placement_plan.items())
+                 for _ in range(count)]
+        for pod, node in zip(gang_pods, seats):
+            op.pre_filter(pod)
+            op.permit(pod, node)
+            cluster.assume(pod, node)
+        for pod, node in zip(gang_pods, seats):
+            pod.spec.node_name = node
+            cluster.observe_pod(pod)
+            op.post_bind(pod, node)
+
+    for name in sorted(pods):
+        if name.startswith("spot"):
+            admit(pods[name])
+    spot_bound = {n: len(cluster.pods_on(n)) for n in ("node-000", "node-001")}
+    guaranteed = pods["guaranteed-000"]
+    try:
+        op.pre_filter(guaranteed[0])
+        denied = None
+    except errs.SchedulingError as e:
+        denied = type(e).__name__
+    t0 = time.perf_counter()
+    plan = op.preempt_victim_plan(guaranteed[0])
+    plan_s = time.perf_counter() - t0
+    if plan is None:
+        raise AssertionError("no victim plan for the guaranteed gang")
+    verified = op.preempt_planner.verify(plan, guaranteed[0], cluster)
+    for victim_gang in plan.gangs:
+        for victim in plan.pods_by_gang[victim_gang]:
+            cluster.remove_pod(victim)
+        op.note_gang_evicted(victim_gang)
+    op.forget_denied("default/guaranteed-000")
+    op.mark_dirty()
+    op.pre_filter(guaranteed[0])
+    placed = op.oracle.placed("default/guaranteed-000")
+    seats = sum(op.oracle.assignment("default/guaranteed-000").values())
+    out = {"spot_pods_bound": spot_bound, "guaranteed_denied": denied,
+           "victims": list(plan.gangs), "evicted_pods": plan.evicted_pods,
+           "pooled_after": plan.pooled_after, "verified": verified,
+           "guaranteed_placed": placed, "guaranteed_seats": seats,
+           "preempt_victim_plan_ms": plan_s * 1e3,
+           "plans": (op.policy.preempt_plans, op.policy.preempt_no_plan)}
+    # the CPU test (tests/test_torch_preempt.py) holds these victims to the
+    # JAX planner's on the same scenario
+    if (spot_bound != {"node-000": 4, "node-001": 4} or denied != "ResourceNotEnoughError"
+            or not verified or not placed or seats != 4
+            or plan.gangs != ["default/spot-000"]):
+        raise AssertionError(f"preemption path: {out}")
+    return out
+
+
+def victim_inputs(seed):
+    """plan_victims' inputs at VICTIMS victims over VICTIM_NODES nodes and
+    VICTIM_LANES lanes (seeded numpy): a full cluster's leftover, each
+    victim gang on 1-16 nodes with 1-4 members each, tiers 0-9 against a
+    preemptor of tier 5, the greedy order the planner computes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n, v, r = VICTIM_NODES, VICTIMS, VICTIM_LANES
+    # lanes: cpu (milli; 0-2 cpus left), memory, pods, gpu, one unrequested
+    left = np.zeros((n, r), np.int32)
+    left[:, 0] = rng.integers(0, 3, n) * 1000
+    left[:, 1], left[:, 2], left[:, 3] = 2**20, 100, 8
+    fit = (rng.random(n) < 0.95).astype(np.int32)
+    req = np.array([4000, 8000, 1, 1, 0], np.int32)
+    valloc = np.zeros((v, n), np.int32)
+    for i in range(v):
+        where = rng.integers(0, n, rng.integers(1, 17))
+        valloc[i, where] = rng.integers(1, 5, len(where))
+    vreq = np.tile(np.array([[2000, 4000, 1, 1, 0]], np.int32), (v, 1))
+    vreq[:, 0] *= rng.integers(1, 4, v).astype(np.int32)
+    vprio = rng.integers(0, 10, v).astype(np.int32)
+    vvalid = np.ones(v, np.int32)
+    order = np.array(sorted(range(v), key=lambda i: (-vvalid[i], int(vprio[i]),
+                                                     int(valloc[i].sum()), i)), np.int32)
+    return left, fit, req, 400, 5, valloc, vreq, vprio, vvalid, order
+
+
+@phase("preemption")
+def preemption(results):
+    """The preemption path (preemption_path), and plan_victims (plain
+    PyTorch) timed at VICTIMS victims and VICTIM_NODES nodes on the card and
+    on the host CPU, the two results held equal (taken set, feasibility,
+    pooled capacity after)."""
+    import torch
+
+    from batch_scheduler_tpu_torch.policy.preempt import plan_victims
+
+    out = preemption_path()
+    arrays = victim_inputs(POLICY_SEED)
+    tensors = {dev: [torch.from_numpy(a).to(dev) if hasattr(a, "dtype") else a
+                     for a in arrays] for dev in ("cuda", "cpu")}
+    got, times = {}, {"cuda": [], "cpu": []}
+    for dev, reps in (("cuda", 3), ("cpu", 2)):
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got[dev] = plan_victims(*tensors[dev])
+            torch.cuda.synchronize()
+            times[dev].append((time.perf_counter() - t0) * 1e3)
+    equal = all(torch.equal(a.cpu(), b) for a, b in zip(got["cuda"], got["cpu"]))
+    if not equal:
+        raise AssertionError("plan_victims on the card differs from the CPU")
+    taken = int(got["cuda"][0].sum().item())
+    return {**out, "plan_victims": {
+        "victims": VICTIMS, "nodes": VICTIM_NODES, "lanes": VICTIM_LANES,
+        "taken": taken, "feasible": bool(got["cuda"][1]),
+        "pooled_after": int(got["cuda"][2]), "cuda_equal_cpu": equal,
+        "cuda_ms": times["cuda"], "cpu_ms": times["cpu"],
+        "cuda_ms_min": min(times["cuda"]), "cpu_ms_min": min(times["cpu"])}}
+
+
+def policy_ring(directory):
+    """An audit ring of the policy path on the card: the policy deployment
+    through a ScheduleOperation with POLICY_ENV, an ``array`` AuditLog
+    (keyframe every 4) and the identity audit on every 4th batch; a first
+    refresh and 3 churn rounds. Read back: every record carries the policy
+    terms, weights and columns, its inputs equal the batch's; every record
+    replays identically on steady (the policy kernel; launches counted) and
+    the last on cpu-ladder (the plain policy scan on the CPU). Returns
+    (refresh launches, replay launches, report)."""
+    import numpy as np
+
+    from batch_scheduler_tpu_torch.core import ScheduleOperation
+    from batch_scheduler_tpu_torch.core.oracle_scorer import replay_audit_record
+    from batch_scheduler_tpu_torch.utils import audit as audit_mod
+    from batch_scheduler_tpu_torch.utils.audit import AuditLog, AuditReader
+
+    with env_set({**POLICY_ENV, "BST_SCAN_WAVE": None}):
+        cluster, cache = policy_state()
+        log = AuditLog(directory, fmt="array", keyframe_every=4)
+        op = ScheduleOperation(cache, cluster, device="cuda", audit_log=log,
+                               identity_audit_every=4)
+        scorer = op.oracle
+        churn = Churn(cluster, cache, lambda name: scorer.mark_dirty(group=name), 4)
+        ran, cols = [], []
+        zero_counts()
+        for r in range(4):
+            if r:
+                churn(r)
+            scorer.refresh(cluster, cache)
+            ran.append(ran_input_digest(scorer))
+            cols.append(scorer.snapshot.policy_cols)
+        launches = read_counts()
+        if not scorer._identity.drain(600.0) or not log.flush(120.0):
+            raise AssertionError("the identity audit or the audit writer did not finish")
+        stats = scorer.stats()["audit"]
+        log.stop()
+    batches, skipped = AuditReader(directory).batches()
+    if skipped or len(batches) != len(ran) or stats["identity_mismatches"] or \
+            stats["identity_errors"] or stats["identity_audits"] < 1 or stats["publish_errors"]:
+        raise AssertionError(f"policy ring: {len(batches)} of {len(ran)} records, "
+                             f"skipped {skipped[:2]}, {stats}")
+    for rec, want, want_cols in zip(batches, ran, cols):
+        arrays = dict(zip(audit_mod.BATCH_ARG_NAMES, rec["batch_args"]))
+        arrays.update(zip(audit_mod.PROGRESS_ARG_NAMES, rec["progress_args"]))
+        cols_ok = rec.get("policy_args") is not None and all(
+            np.array_equal(a, b) for a, b in zip(rec["policy_args"][0], want_cols))
+        if audit_mod.input_digest(arrays) != want or not cols_ok or \
+                rec["policy_args"][1:] != (POLICY_TERMS, POLICY_WEIGHTS):
+            raise AssertionError(f"policy record {rec['seq']}: inputs or columns differ")
+    zero_counts()
+    ms = {}
+    for rung, recs in (("steady", batches), ("cpu-ladder", batches[-1:])):
+        times = []
+        for rec in recs:
+            t0 = time.perf_counter()
+            rep = replay_audit_record(rec, against=rung)
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not rep["identical"] or not rep["executed_rung"].get("scan_policy"):
+                raise AssertionError(f"policy record {rec['seq']} on {rung}: {rep}")
+        ms[rung] = {"replays": len(times), "ms_median": statistics.median(times)}
+    replays = read_counts()
+    if replays != {"assign_scan": 0, "assign_wave": 0, "assign_policy": len(batches)}:
+        raise AssertionError(f"policy ring replays: {replays}")
+    return launches, replays, {
+        "records": len(batches), "replay": ms, "launches_refresh": launches,
+        "launches_replay": replays,
+        "audit": {k: v for k, v in stats.items() if k != "audit_dir"}}
 
 
 def card_line():
@@ -1999,12 +2655,16 @@ def main() -> int:
     race(results)
     north_star_churn(results)
     churn_loop(results)
+    policy(results)
+    policy_identity(results)
+    preemption(results)
     audit_replay(results)
     north_star_wave(results)
     mixed_wave(results)
     race_wave(results)
     north_star_churn_wave(results)
     churn_loop_wave(results)
+    policy_wave(results)
     audit_replay_wave(results)
 
     sources = {
@@ -2012,6 +2672,10 @@ def main() -> int:
                         "batch_scheduler_tpu/ops/pallas_assign.py:63"),
         "assign_wave": ("batch_scheduler_tpu_torch/csrc/assign_wave.cu",
                         "batch_scheduler_tpu/ops/pallas_assign.py:104"),
+        # the policy variant of the serial kernel (assign_scan.cu built with
+        # BST_POLICY_SCAN); its reference is the lax rung assign_gangs_policy
+        "assign_policy": ("batch_scheduler_tpu_torch/csrc/assign_scan.cu",
+                          "batch_scheduler_tpu/ops/oracle.py:438"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": sources[name][0],

@@ -455,11 +455,15 @@ def test_replay_skips_degraded_reference_records(tmp_path):
 
 
 def test_replay_of_policy_record_raises(tmp_path):
+    """A policy record replays through the policy scan, whose wrapper
+    checks the columns: columns of the wrong shape raise (naming the
+    column) on every rung rather than replay on another scan."""
     rec, _ = _one_record(tmp_path)
     rec["policy_args"] = (tuple(np.zeros(8, np.int32) for _ in audit_mod.POLICY_ARG_NAMES),
                           ("affinity",), (1,))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        replay_audit_record(rec, against="cpu-ladder", device="cpu")
+    for rung in REPLAY_RUNGS:
+        with pytest.raises(ValueError, match="gang_dom must be"):
+            replay_audit_record(rec, against=rung, device="cpu")
 
 
 @pytest.mark.parametrize("rung,wave", [("steady", 0), ("wavefront", 8), ("cpu-ladder", 0)])

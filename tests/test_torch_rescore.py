@@ -474,7 +474,12 @@ def _drive_tick_pipeline(kind, depth=2, ticks=6, window=8):
             if running:
                 r.release(running[t % len(running)])
             pipe.submit(pending[:width])
-    return per_collect, r.requested_lanes.copy(), pipe.admit_skips
+    # guarded state (the pipeline's helper thread wrote it), read under its
+    # lock: the reference's lock-discipline instrumentation, which earlier
+    # suites leave installed in the process, checks this access
+    with r._state_lock:
+        lanes = r.requested_lanes.copy()
+    return per_collect, lanes, pipe.admit_skips
 
 
 def test_tick_pipeline_depth2_matches_reference():
