@@ -7,7 +7,9 @@ status transitions, preemption legality and the policy engine's victim
 plan, and the deny/permit fast-path caches (reference
 pkg/scheduler/core/core.go:49-434) — with the hot loops swapped for the
 batch oracle when ``scorer="oracle"`` (this package's ``OracleScorer`` on
-``device``) and the reference-parity host path when ``scorer="serial"``.
+``device``, or a scorer instance such as ``service.RemoteScorer``, whose
+batch runs on the sidecar) and the reference-parity host path when
+``scorer="serial"``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from ..policy.engine import PolicyConfig, PolicyEngine
 from ..policy.preempt import PreemptionPlanner
 from ..utils import errors as errs
 from ..utils.labels import get_wait_seconds, pod_group_name
+from ..utils.metrics import DEFAULT_REGISTRY
 from ..utils.ttl_cache import TTLCache
 from . import resources as rmath
 from .oracle_scorer import OracleScorer
@@ -34,6 +37,7 @@ __all__ = [
     "MAX_SCORE",
     "deny_reserved_reason",
     "deny_infeasible_reason",
+    "deny_degraded_reason",
 ]
 
 
@@ -45,6 +49,14 @@ def deny_reserved_reason(full_name: str) -> str:
 def deny_infeasible_reason(full_name: str, min_member: int) -> str:
     """Provably cannot fit even alone (per-node-capacity feasibility)."""
     return f"{full_name}: cluster cannot fit gang ({min_member} members)"
+
+
+def deny_degraded_reason(full_name: str, min_member: int) -> str:
+    """The conservative fallback batch's only denial (docs/resilience.md)."""
+    return (
+        f"{full_name}: provably infeasible "
+        f"({min_member} members; degraded oracle)"
+    )
 
 
 # Score stub ceiling (reference core.go:46).
@@ -83,7 +95,7 @@ class ScheduleOperation:
         status_cache: PGStatusCache,
         cluster: ClusterStateProvider,
         pg_lister: Optional[Callable[[str, str], Optional[PodGroup]]] = None,
-        scorer: str = "oracle",
+        scorer="oracle",
         clock: Callable[[], float] = time.monotonic,
         device="cuda",
         audit_log=None,
@@ -93,8 +105,11 @@ class ScheduleOperation:
         self.status_cache = status_cache
         self.cluster = cluster
         self.pg_lister = pg_lister
-        if scorer not in ("oracle", "serial"):
-            raise ValueError(f"unknown scorer {scorer!r} (use 'oracle' or 'serial')")
+        if isinstance(scorer, str) and scorer not in ("oracle", "serial"):
+            raise ValueError(
+                f"unknown scorer {scorer!r} (use 'oracle', 'serial', or an "
+                "OracleScorer-like instance, e.g. service.RemoteScorer)"
+            )
         # The policy engine: ``policy`` is a PolicyConfig, or None to read
         # BST_POLICY from the environment (unset or empty = off: every path
         # below runs the pre-policy code). The engine scores batches through
@@ -108,17 +123,35 @@ class ScheduleOperation:
             if self.policy is not None and policy.preemption
             else None
         )
-        self.scorer_kind = scorer
-        self.oracle = (
-            OracleScorer(
-                device=device,
-                audit_log=audit_log,
-                identity_audit_every=identity_audit_every,
-                policy_engine=self.policy,
+        if isinstance(scorer, str):
+            self.scorer_kind = scorer
+            self.oracle = (
+                OracleScorer(
+                    device=device,
+                    audit_log=audit_log,
+                    identity_audit_every=identity_audit_every,
+                    policy_engine=self.policy,
+                )
+                if scorer == "oracle"
+                else None
             )
-            if scorer == "oracle"
-            else None
-        )
+        else:
+            # a scorer instance (service.RemoteScorer, its batch on the
+            # sidecar)
+            self.scorer_kind = "oracle"
+            self.oracle = scorer
+            if audit_log is not None or identity_audit_every:
+                # the audit records are made client-side from the padded
+                # snapshot the wire carried; the batch's AUDIT_ID frame
+                # correlates the sidecar's own record
+                scorer.configure_audit(audit_log, identity_audit_every)
+            if self.policy is not None:
+                # the sidecar runs base (policy-unaware) batches: stamp
+                # this side's fingerprint so the POLICY_INFO frame rides
+                # the wire and a mismatched peer is counted, never silent
+                scorer.policy_fingerprint = self.policy.config.fingerprint()[
+                    "fingerprint"
+                ]
         self.last_denied_pg = TTLCache(DENY_CACHE_DEFAULT_TTL, DENY_CACHE_JANITOR, clock=clock)
         self.last_permitted_pod = TTLCache(PERMITTED_CACHE_DEFAULT_TTL, DENY_CACHE_JANITOR, clock=clock)
         self._lock = threading.RLock()
@@ -193,6 +226,25 @@ class ScheduleOperation:
         if oracle.placed(full_name):
             self._stamp_plan(full_name, pgs, oracle)
             return
+        if oracle.degraded:
+            # conservative fallback (the sidecar is unreachable and a
+            # RemoteScorer serves the local-CPU batch): no placement plan
+            # exists, so nothing is admitted speculatively — but the
+            # deny-by-default rule below would starve every gang for the
+            # outage. Deny ONLY the provably infeasible (independent
+            # feasibility is exact in the fallback batch); the rest go
+            # through the per-pod fit checks against live cluster state.
+            feasible = oracle.gang_feasible(full_name)
+            DEFAULT_REGISTRY.counter(
+                "bst_oracle_fallback_decisions_total",
+                "PreFilter decisions made on the conservative CPU fallback",
+            ).inc(decision="pass" if feasible else "deny")
+            if feasible:
+                return
+            self.add_to_deny_cache(full_name)
+            raise errs.ResourceNotEnoughError(
+                deny_degraded_reason(full_name, pgs.pod_group.spec.min_member)
+            )
         self.add_to_deny_cache(full_name)
         if oracle.gang_feasible(full_name):
             # Feasible alone, but higher-priority gangs consume the space in

@@ -18,7 +18,11 @@ resident tensors.
 
 The port of ``batch_scheduler_tpu/core/oracle_scorer.py``'s blocking
 in-process path: generation-based dirty tracking, cluster-version credits,
-the event-fold refresh, device-resident state, the query API, the policy
+the event-fold refresh, device-resident state, the query API, the
+remote scorer's seams (a batch's [G,N] rows may come from a row-fetcher
+callable, the ``degraded`` flag of a conservative fallback batch, and
+``conservative_cpu_batch`` itself; ``service.client.RemoteScorer``
+overrides ``_execute``), the policy
 engine (``policy_engine``: every snapshot carries the packed policy
 columns, the node columns stay resident on the device, and every batch
 runs the policy scan), and the audit layer: every published batch can be
@@ -55,6 +59,7 @@ from ..policy.terms import label_hash, parse_label_ref
 from ..utils import audit as audit_mod
 from ..utils import tenancy
 from ..utils import trace as trace_mod
+from ..utils.errors import StaleBatchError
 from ..utils.health import IdentityAuditor
 from ..utils.labels import (
     POLICY_AFFINITY_LABEL,
@@ -64,6 +69,7 @@ from ..utils.labels import (
 
 __all__ = [
     "OracleScorer",
+    "conservative_cpu_batch",
     "demand_from_status",
     "read_cluster_inputs",
     "replay_batch",
@@ -87,6 +93,65 @@ def read_cluster_inputs(cluster, status_cache: PGStatusCache):
         for n in nodes
     }
     return nodes, node_req, demands
+
+
+def conservative_cpu_batch(snap: ClusterSnapshot):
+    """Degraded-mode batch: the conservative host-side answers a
+    RemoteScorer serves while the sidecar is unreachable (breaker open /
+    retries exhausted — docs/resilience.md).
+
+    Semantics match the kube-scheduler rule that a scorer outage makes
+    decisions conservative, never absent:
+
+    - per-(group, node) member CAPACITY is computed exactly from the
+      snapshot (lane-wise ``left // member_request`` under the fit mask),
+      so Filter/Score keep answering with real numbers;
+    - ``gang_feasible`` is exact INDEPENDENT feasibility (sum of per-node
+      capacity >= remaining members): when it is False the gang provably
+      cannot fit even alone, and PreFilter may deny it;
+    - ``placed`` is all-False and no assignment exists: nothing is
+      admitted speculatively through a whole-gang plan — members that do
+      pass PreFilter go through the per-pod scan + Permit-quorum path,
+      whose fit checks run against live cluster state.
+
+    Returns the same ``(host, row_fetcher)`` pair as a real batch. Built
+    lane-by-lane (R passes over a [G, N] array) so the degraded path
+    never materialises the [G, N, R] broadcast cube.
+    """
+    left = np.maximum(
+        snap.alloc.astype(np.int64) - snap.requested.astype(np.int64), 0
+    )  # [N, R]
+    group_req = snap.group_req.astype(np.int64)  # [G, R]
+    g_count, n_count = group_req.shape[0], left.shape[0]
+    cap = np.full((g_count, n_count), np.iinfo(np.int32).max, dtype=np.int64)
+    for r in range(group_req.shape[1]):
+        req_r = group_req[:, r]
+        has = req_r > 0
+        if not has.any():
+            continue
+        lane_cap = left[:, r][None, :] // np.maximum(req_r, 1)[:, None]
+        cap = np.where(has[:, None], np.minimum(cap, lane_cap), cap)
+    cap = np.where(snap.fit_mask, cap, 0)  # [1,N] broadcast or [G,N]
+    cap = np.where(snap.node_valid[None, :], cap, 0)
+    cap = np.clip(cap, 0, np.iinfo(np.int32).max).astype(np.int32)
+    feasible = np.asarray(snap.group_valid) & (
+        cap.sum(axis=1, dtype=np.int64) >= snap.remaining
+    )
+    host = {
+        "gang_feasible": feasible,
+        "placed": np.zeros(g_count, dtype=bool),
+        "progress": np.zeros(g_count, dtype=np.int32),
+        "best": 0,
+        "best_exists": False,
+        "assignment_nodes": np.zeros((g_count, 1), dtype=np.int32),
+        "assignment_counts": np.zeros((g_count, 1), dtype=np.int32),
+    }
+
+    def row_fetcher(kind: str, g: int) -> np.ndarray:
+        # capacity doubles as the score rank: more headroom, better seat
+        return cap[g]
+
+    return host, row_fetcher
 
 
 def demand_from_status(full_name: str, pgs: PodGroupMatchStatus) -> GroupDemand:
@@ -317,31 +382,38 @@ def _snapshot_tenancy(snap) -> Dict[str, int]:
 class _BatchState:
     """One immutable (snapshot, results) pair, swapped in atomically so
     concurrent readers never see a torn snapshot/result combination.
-    ``result`` holds the O(G) host vectors; [G,N] rows are fetched from
-    the device tensors lazily and cached."""
+    ``result`` holds the O(G) host vectors; [G,N] rows are read lazily and
+    cached. ``rows`` is where they live: the batch's ``device_result``
+    dict of [G,N] tensors (the in-process batch), or a row-fetcher
+    callable ``(kind, g) -> row`` (a remote batch, read from the sidecar;
+    the conservative fallback batch)."""
 
-    __slots__ = ("snapshot", "result", "max_group", "device_result", "_rows", "_rows_lock")
+    __slots__ = ("snapshot", "result", "max_group", "rows", "_rows", "_rows_lock")
 
     def __init__(self, snapshot: ClusterSnapshot, result: dict,
-                 max_group: str, device_result: dict):
+                 max_group: str, rows):
         self.snapshot = snapshot
         self.result = result
         self.max_group = max_group
-        self.device_result = device_result
+        self.rows = rows
         self._rows: Dict[tuple, np.ndarray] = {}  # guarded-by: _rows_lock
         self._rows_lock = threading.Lock()
 
     def row(self, kind: str, g: int) -> np.ndarray:
-        """Fetch (and cache) one group's row of a [G,N] tensor. The batch
-        that wrote it is complete (its collect waited on the batch's
+        """Fetch (and cache) one group's row of a [G,N] tensor. A device
+        tensor's batch is complete (its collect waited on the batch's
         event), and the copy is synchronous on the reader's stream, so the
-        block is not freed while the read is pending."""
+        block is not freed while the read is pending. A fetcher may raise
+        StaleBatchError (the remote batch's rows are gone)."""
         key = (kind, g)
         with self._rows_lock:
             cached = self._rows.get(key)
         if cached is not None:
             return cached
-        row = self.device_result[kind][g].cpu().numpy()
+        if callable(self.rows):
+            row = np.asarray(self.rows(kind, g))
+        else:
+            row = self.rows[kind][g].cpu().numpy()
         with self._rows_lock:
             self._rows[key] = row
         return row
@@ -368,12 +440,22 @@ class OracleScorer:
     node columns resident on the device. As in the reference it turns off
     the snapshot-lite scan and the event fold: a policy refresh is a full
     O(N+G) read and delta pack. None (or a disabled engine) runs the
-    pre-policy path."""
+    pre-policy path.
+
+    ``device=None`` keeps no local device, stream or resident state: the
+    batch runs elsewhere (``service.client.RemoteScorer``, whose sidecar
+    keeps the resident mirror)."""
+
+    # True while the served batch came from a degraded (conservative
+    # fallback) path: RemoteScorer flips it, the in-process scorer never
+    # degrades. ScheduleOperation reads it to relax the deny-by-default
+    # PreFilter rule to deny-only-provably-infeasible.
+    degraded = False
 
     def __init__(self, device="cuda", audit_log=None,
                  identity_audit_every: int = 0, policy_engine=None):
-        self.device = resolve_device(device)
-        self.stream = device_stream(self.device)
+        self.device = None if device is None else resolve_device(device)
+        self.stream = None if device is None else device_stream(self.device)
         # Dirty tracking is a GENERATION pair: refresh() records the
         # generation it observed BEFORE packing, so a mark_dirty landing
         # while the batch runs keeps the batch stale.
@@ -419,7 +501,10 @@ class OracleScorer:
         # Device-resident cluster state (ops.device_state): the packed
         # [N,R]/[G,R] buffers stay on the device across batches and each
         # pack's churned rows apply as one row scatter.
-        self._device_state = DeviceStateHolder(self.device, label="scorer")
+        self._device_state = (
+            None if device is None
+            else DeviceStateHolder(self.device, label="scorer")
+        )
         # host pack / device batch seconds of the recent batches, and the
         # pack seconds by path ("keyframe", "scan", "fold"); the pack
         # includes the device-state sync (its own share in sync_seconds:
@@ -492,7 +577,7 @@ class OracleScorer:
         """The served batch's telemetry (device, scan, mask mode, buckets,
         and the wave statistics when the wavefront scan ran)."""
         state = self._state
-        return state.result["telemetry"] if state is not None else None
+        return state.result.get("telemetry") if state is not None else None
 
     def refresh(self, cluster, status_cache: PGStatusCache) -> None:
         """Pack the current state (event fold or scan) and run one batch.
@@ -503,14 +588,22 @@ class OracleScorer:
                 cluster, status_cache
             )
             t1 = time.perf_counter()
-            host, device_result = self._execute(snap)
+            host, rows = self._execute(snap)
             t2 = time.perf_counter()
+        # markers a remote batch rides on its host dict, consumed at
+        # publication so the served result never carries them: whether
+        # this is a conservative fallback batch, and the audit id it
+        # announced on the wire
+        degraded = host.pop("_degraded", None)
+        audit_id = host.pop("_audit_id", None)
+        if degraded is not None:
+            self._set_degraded(bool(degraded))
         max_group = (
             snap.group_names[int(host["best"])]
             if host["best_exists"] and int(host["best"]) < len(snap.group_names)
             else ""
         )
-        self._state = _BatchState(snap, host, max_group, device_result)
+        self._state = _BatchState(snap, host, max_group, rows)
         self._cluster_version = version_base
         self._clean_gen = dirty_gen  # compare-and-clear: later marks survive
         self.batches_run += 1
@@ -518,7 +611,7 @@ class OracleScorer:
         with self._credits_lock:
             self._version_credits = 0
         if self.audit_log is not None or self._identity is not None:
-            self._audit_publish(snap, host)
+            self._audit_publish(snap, host, audit_id)
         path = (
             "keyframe" if snap.delta is None or snap.delta.kind == "keyframe"
             else "fold" if snap.delta.source == "events" else "scan"
@@ -674,10 +767,13 @@ class OracleScorer:
             self.sync_seconds.append(time.perf_counter() - t0)
             del self.sync_seconds[:-1000]
 
-    def _audit_publish(self, snap, host) -> None:
+    def _audit_publish(self, snap, host, audit_id=None) -> None:
         """Durable evidence for one PUBLISHED batch: the audit record (the
         exact padded host inputs + plan digest, enqueued to the daemon
-        writer) and the sampled identity audit, under one minted audit id.
+        writer) and the sampled identity audit, under one audit id (the
+        one a remote batch announced on the wire, else a fresh one). A
+        degraded (conservative fallback) batch is recorded as such and
+        never identity-audited: it has no plan to verify.
         The record holds the snapshot's HOST columns (``device_args()``,
         and a policy batch's ``policy_payload()``), not the resident
         tensors the batch ran on: replaying the host columns is what proves
@@ -686,7 +782,7 @@ class OracleScorer:
         try:
             digest = audit_mod.plan_digest(host)
             policy = snap.policy_payload()
-            aid = audit_mod.new_audit_id()
+            aid = audit_id or audit_mod.new_audit_id()
             if self.audit_log is not None:
                 # gangs per cardinality-capped tenant label: one registry
                 # hit per DISTINCT namespace, not per gang
@@ -718,7 +814,8 @@ class OracleScorer:
                     group_names=snap.group_names,
                     audit_id=aid,
                     trace_id=ctx[0] if ctx else None,
-                    telemetry=host["telemetry"],
+                    telemetry=host.get("telemetry") or {},
+                    degraded=bool(self.degraded),
                     extra=extra,
                     policy=policy,
                     # audit v2 payloads (no-ops under the array format):
@@ -730,7 +827,7 @@ class OracleScorer:
                         if snap.lite_fps is not None else None
                     ),
                 )
-            if self._identity is not None:
+            if self._identity is not None and not self.degraded:
                 self._identity.note_batch(
                     snap.device_args(), snap.progress_args(), digest, aid,
                     self.audit_log, policy=policy,
@@ -738,8 +835,23 @@ class OracleScorer:
         except Exception:  # noqa: BLE001 — evidence, never the decision path
             self.audit_errors += 1
 
+    def dominant_tenant(self, snap) -> str:
+        """The batch's dominant tenant LABEL: the namespace with the most
+        gangs (ties to the first name), through the cardinality-capped
+        registry (``utils.tenancy``) — what a remote scorer announces on
+        the wire (the TENANT frame). "" when no gang is namespaced."""
+        ns_counts = _snapshot_tenancy(snap)
+        if not ns_counts:
+            return ""
+        return tenancy.tenant_label(
+            min(ns_counts, key=lambda ns: (-ns_counts[ns], ns))
+        )
+
     def _execute(self, snap: ClusterSnapshot):
         """Run one batch on this scorer's device: ``(host, device_result)``.
+        A subclass may instead return ``(host, row_fetcher)``, a callable
+        ``(kind, g) -> row`` (``_BatchState``), and ride the ``_degraded``
+        / ``_audit_id`` markers on ``host`` (consumed by ``refresh``).
         The batch reads the resident tensors the pack's sync produced (a
         policy batch its resident node policy columns too); the snapshot
         then drops them (the next scatter rewrites them in place), keeping
@@ -764,7 +876,10 @@ class OracleScorer:
             "batches_run": self.batches_run,
             "fold_outcomes": dict(self.fold_outcomes),
             "packer": self._packer.stats(),
-            "device_state": self._device_state.stats(),
+            "device_state": (
+                self._device_state.stats()
+                if self._device_state is not None else None
+            ),
         }
         log = self._event_log
         if log is not None:
@@ -777,8 +892,24 @@ class OracleScorer:
         out["audit"] = audit
         return out
 
+    def _set_degraded(self, flag: bool) -> None:
+        """Install the served batch's degradedness (at publication, in
+        ``refresh``). RemoteScorer mirrors the flip into its metrics."""
+        self.degraded = flag
+
+    def _probe_due(self) -> bool:
+        """Whether a degraded batch is worth re-attempting now (RemoteScorer
+        asks its client's breaker): while the cooldown runs, the fallback
+        batch is served as an ordinary fresh batch."""
+        return True
+
     def _stale(self, cluster) -> bool:
         if self._dirty_gen != self._clean_gen or self._state is None:
+            return True
+        if self.degraded and self._probe_due():
+            # a conservative fallback batch expires the moment the
+            # transport is worth probing again, so recovery needs no
+            # cluster change to trigger it
             return True
         version_fn = getattr(cluster, "version", None)
         if callable(version_fn):
@@ -829,7 +960,15 @@ class OracleScorer:
         n = state.snapshot.node_index(node_name)
         if g is None or n is None:
             return 0
-        return int(state.row("capacity", g)[n])
+        try:
+            return int(state.row("capacity", g)[n])
+        except StaleBatchError:
+            # the remote batch's rows are gone (a newer batch on its
+            # connection, or a reconnect): answer conservatively now and
+            # invalidate, so the next ensure_fresh re-batches. Only this
+            # class is swallowed: a dead transport must surface.
+            self.mark_dirty()
+            return 0
 
     def feasible_node_count(self, full_name: str) -> Optional[int]:
         """How many (real) nodes could hold at least one member of this
@@ -839,7 +978,11 @@ class OracleScorer:
         g = state.snapshot.group_index(full_name) if state else None
         if g is None:
             return None
-        row = state.row("capacity", g)
+        try:
+            row = state.row("capacity", g)
+        except StaleBatchError:
+            self.mark_dirty()  # see node_capacity
+            return None
         n_real = len(state.snapshot.node_names)
         return int((row[:n_real] > 0).sum())
 
@@ -851,7 +994,11 @@ class OracleScorer:
         n = state.snapshot.node_index(node_name)
         if g is None or n is None:
             return -(2**30)
-        return int(state.row("scores", g)[n])
+        try:
+            return int(state.row("scores", g)[n])
+        except StaleBatchError:
+            self.mark_dirty()  # see node_capacity
+            return -(2**30)
 
     def assignment(self, full_name: str) -> Dict[str, int]:
         """node name -> member count placed there for this gang's batch plan

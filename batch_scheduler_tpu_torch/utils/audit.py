@@ -514,6 +514,7 @@ class AuditLog:
         policy=None,
         event_fold: Optional[dict] = None,
         refold=None,
+        degraded: bool = False,
     ) -> str:
         """Enqueue one batch record; returns its audit ID. Array arguments
         are held BY REFERENCE — callers pass published (immutable)
@@ -530,9 +531,10 @@ class AuditLog:
         ``(schema, demand_fps)`` a keyframe must carry for later event
         records to reconstruct from.
 
-        The port's batches are never speculative or degraded (it has no
-        dispatch-ahead and no conservative fallback yet): both keys are
-        written False, as the reference writes them for such a batch."""
+        ``degraded`` marks a remote scorer's conservative fallback batch
+        (replay skips it: it has no device plan). The port's batches are
+        never speculative (it has no dispatch-ahead): that key is written
+        False, as the reference writes it for such a batch."""
         aid = audit_id or new_audit_id()
         item = {
             "kind": "batch",
@@ -540,7 +542,7 @@ class AuditLog:
             "ts": time.time(),
             "trace_id": trace_id,
             "speculative": False,
-            "degraded": False,
+            "degraded": bool(degraded),
             "telemetry": telemetry or {},
             "plan_digest": plan_digest,
             "_arrays": dict(zip(BATCH_ARG_NAMES, batch_args))

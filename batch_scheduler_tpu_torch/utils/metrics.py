@@ -6,10 +6,11 @@ The port's copy of ``batch_scheduler_tpu/utils/metrics.py``'s registry
 ``DEFAULT_REGISTRY`` and the rendering), so the same operations render
 the same text in both packages. Components take a ``Registry`` or use the
 process-wide ``DEFAULT_REGISTRY``: the audit log counts its records and
-gauges its ring, the identity auditor counts its outcomes. Still to come
+gauges its ring, the identity auditor counts its outcomes, and the
+sidecar's server and clients (``service/``) count and time their
+batches, retries and fallbacks under the reference's names. Still to come
 (ROADMAP Queue 1 item 7b): ``serve_metrics`` with its HTTP handler and
-``/debug`` surfaces, and the ``LONG_OP_BUCKETS`` preset its batch
-histograms use.
+``/debug`` surfaces.
 """
 
 from __future__ import annotations
@@ -24,12 +25,20 @@ __all__ = [
     "Histogram",
     "Registry",
     "DEFAULT_REGISTRY",
+    "LONG_OP_BUCKETS",
 ]
 
 # schedule-cycle / extension-point latencies live in the ms..s range
 _DEFAULT_BUCKETS = (
     0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
     0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+)
+
+# for operations that can include a first build or a sidecar round-trip
+# (seconds to minutes): the default buckets' 10 s ceiling would saturate
+LONG_OP_BUCKETS = (
+    0.001, 0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+    10.0, 20.0, 40.0, 80.0, 160.0, 320.0,
 )
 
 

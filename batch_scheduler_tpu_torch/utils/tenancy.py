@@ -7,24 +7,31 @@ label with the cardinality discipline Prometheus requires: at most
 ``TENANT_LABEL_MAX`` distinct namespaces get their own label, first seen
 first served, and everything beyond overflows into ``other``. First-seen
 keeps a tenant's label stable for the process lifetime. The audit log
-stamps each record's gangs per tenant label with it.
+stamps each record's gangs per tenant label with it, and a remote scorer
+announces its batch's dominant label on the wire (the TENANT frame).
+
+:func:`set_batch_tenant` arms a thread's batch-tenant context: the
+sidecar's device executor sets the tenant a connection announced around
+each batch it collects, as the reference's does.
 
 Still to come: the ``BST_TENANT_LABEL_MAX`` knob (with the CLI, ROADMAP
 Queue 1 item 12; the cap is the reference's default until then), and the
-per-batch ``batch_tenants`` mapping and batch-tenant thread context (with
-the capacity observatory and the scan counters, items 9 and 7).
+per-batch ``batch_tenants`` mapping and the scan counters that read the
+context (with the capacity observatory, item 9).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict
+from typing import Dict, Optional
 
 __all__ = [
     "OTHER_TENANT",
     "TENANT_LABEL_MAX",
     "tenant_label",
     "gang_namespace",
+    "set_batch_tenant",
+    "current_batch_tenant",
     "reset_registry",
 ]
 
@@ -37,6 +44,9 @@ TENANT_LABEL_MAX = 32
 _registry_lock = threading.Lock()
 # first-seen namespace -> its own label; beyond the cap, OTHER_TENANT
 _registry: Dict[str, str] = {}  # guarded-by: _registry_lock
+
+# the dominant tenant of the batch this thread is dispatching/collecting
+_batch_ctx = threading.local()
 
 
 def gang_namespace(full_name: str) -> str:
@@ -60,6 +70,16 @@ def tenant_label(namespace: str) -> str:
         label = ns if len(_registry) < TENANT_LABEL_MAX else OTHER_TENANT
         _registry[ns] = label
         return label
+
+
+def set_batch_tenant(label: Optional[str]) -> None:
+    """Arm (or clear, with None) this thread's dominant-tenant context for
+    the batch it is about to run."""
+    _batch_ctx.value = label
+
+
+def current_batch_tenant() -> Optional[str]:
+    return getattr(_batch_ctx, "value", None)
 
 
 def reset_registry() -> None:

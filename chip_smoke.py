@@ -145,6 +145,36 @@ Phases (one JSON line each; any failure makes the exit code non-zero):
                    blind mark) and PreFilter places the guaranteed gang.
                    Then plan_victims at 512 victims and 8,192 nodes, timed
                    on the card and on the CPU, the two results equal.
+- sidecar          the oracle sidecar at the north star: serve_background(
+                   device="cuda") and three scorers of north_star_churn's
+                   deployment — a RemoteScorer on a windowed
+                   ResilientOracleClient (wire deltas), a second pinned to
+                   full snapshots, the in-process OracleScorer — through a
+                   keyframe refresh and 8 Churn refreshes. After each the
+                   three host dicts are equal, every gang is placed, and 4
+                   gangs' capacity and score rows read over ROW_REQ (both
+                   remote scorers) equal the local ones; at least 7 batches
+                   are wire deltas; the server runs the serial kernel once
+                   a batch (the main path's launches: the two remote
+                   scorers' batches) and the fallback counter stays 0.
+                   Then against that server: 5 traced requests (the server
+                   split from TRACE_INFO: unpack_pad, lock_wait, device;
+                   telemetry scan cuda_kernel), mixed's per-group batch
+                   (~8.8 MB) against the plain CPU batch of the same padded
+                   args, the native client's answer against the Python
+                   client's, a 1 ms DEADLINE (DEADLINE_ERROR, then a right
+                   answer), load windows of 40 requests over one connection
+                   and over two at once (every answer and row right; the
+                   card's idle share of each), and drain (work gets
+                   DRAINING, PING gets PONG). Then the outage path on its
+                   own server: RemoteScorer(fallback="local-cpu") inside
+                   ScheduleOperation, the server stopped (degraded, one
+                   fallback batch, only the gang that fits no node denied)
+                   and restarted on the same port (recovered). Reported:
+                   the remote refresh on wire deltas, on keyframes and on
+                   full snapshots beside the local churn refresh, the
+                   remote scorer's pack and round trip, request and
+                   response bytes.
 
 With BST_SCAN_WAVE unset, the phases above (but policy) run the serial
 kernel (assign_scan) and never the wave kernel. The wavefront path
@@ -183,13 +213,17 @@ kernel (assign_scan) and never the wave kernel. The wavefront path
                    so the policy kernel runs once a refresh and the wave
                    kernel never (telemetry: wave width 0, scan_policy), and
                    every refresh's plan equals the policy phase's.
+- sidecar_wave     sidecar with W=8 on the server: the wave kernel once a
+                   server batch and the serial kernel never, 128 waves a
+                   batch in the server's telemetry.
 
 Then the card's name and power limit (nvidia-smi), one ``kernels`` line and,
 last, ``{"ok": true, "device": {...}}``. Launch counts are read for each
 path that drives the scorer or the re-scorer — north_star, race,
 north_star_churn, churn_loop, policy, audit_replay (and its policy ring),
-north_star_wave, race_wave, north_star_churn_wave, churn_loop_wave,
-policy_wave, audit_replay_wave, and the audit phases' replays
+sidecar, north_star_wave, race_wave, north_star_churn_wave,
+churn_loop_wave, policy_wave, audit_replay_wave, sidecar_wave, and the
+audit phases' replays
 (``audit_replay_replays``, ``audit_replay_wave_replays``,
 ``audit_replay_policy_replays``) — with every kernel's count zeroed just
 before the path and read just after; ``launches`` in the kernels line is
@@ -291,12 +325,20 @@ def profile_refresh(scorer, cluster, cache):
     """One refresh under torch.profiler: the device's busy time (sum of
     kernel and copy self-times on the card) against the refresh's wall
     clock, and the five device ops that took longest."""
+    return profile_window(lambda: scorer.refresh(cluster, cache), "profiled_refresh_ms")
+
+
+def profile_window(fn, wall_key):
+    """``fn()`` under torch.profiler, the card synchronized at its end: its
+    wall clock (under ``wall_key``), the device's busy time (sum of kernel
+    and copy self-times on the card, whichever thread launched them), the
+    idle share and the five device ops that took longest."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        scorer.refresh(cluster, cache)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -313,9 +355,9 @@ def profile_refresh(scorer, cluster, cache):
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
     if busy_ms == 0:
-        return {"profile": "no device time in the trace: not measured"}
+        return {wall_key: wall_ms, "profile": "no device time in the trace: not measured"}
     return {
-        "profiled_refresh_ms": wall_ms,
+        wall_key: wall_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / wall_ms,
         "top_device_ops": [
@@ -1456,6 +1498,457 @@ def audit_replay(results):
 @phase("audit_replay_wave")
 def audit_replay_wave(results):
     return audit_phase(results, 8, "audit_replay_wave")
+
+
+# the sidecar phases: bench.py's deployment served over the wire by the
+# port's OracleServer on the card. SIDECAR_ROUNDS churn refreshes follow
+# the keyframe refresh; each reads SIDECAR_ROW_GANGS gangs' capacity and
+# score rows over ROW_REQ; SIDECAR_TRACED traced requests give the server
+# split; the load windows send SIDECAR_WINDOW requests each, over one
+# connection or split over two at once, in the order SIDECAR_LOAD
+SIDECAR_ROUNDS = 8
+SIDECAR_ROW_GANGS = 4
+SIDECAR_TRACED = 5
+SIDECAR_WINDOW = 40
+SIDECAR_LOAD = (1, 2, 2, 1)
+SIDECAR_HUGE_CPU = 128  # the outage check's infeasible gang: fits no node
+
+
+@contextlib.contextmanager
+def frame_log():
+    """Every frame the port's protocol writes inside the block, client or
+    server side, as ``(msg_type, bytes on the wire)`` in write order."""
+    from batch_scheduler_tpu_torch.service import protocol as proto
+
+    real = proto.write_frame
+    log = []
+
+    def logged(sock, msg_type, payload):
+        log.append((msg_type, proto._HEADER.size + len(payload)))
+        real(sock, msg_type, payload)
+
+    proto.write_frame = logged
+    try:
+        yield log
+    finally:
+        proto.write_frame = real
+
+
+def snapshot_request(snap):
+    """The ScheduleRequest a remote scorer ships for ``snap`` (its padded
+    host arrays, the broadcast row as one row)."""
+    from batch_scheduler_tpu_torch.service import protocol as proto
+
+    return proto.ScheduleRequest(
+        alloc=snap.alloc, requested=snap.requested, group_req=snap.group_req,
+        remaining=snap.remaining, fit_mask=snap.fit_mask,
+        group_valid=snap.group_valid, order=snap.order,
+        min_member=snap.min_member, scheduled=snap.scheduled,
+        matched=snap.matched, ineligible=snap.ineligible,
+        creation_rank=snap.creation_rank,
+    )
+
+
+def same_response(a, b):
+    """Two ScheduleResponses equal but for their per-connection sequence."""
+    import dataclasses
+
+    from batch_scheduler_tpu_torch.service import protocol as proto
+
+    return (proto.pack_schedule_response(dataclasses.replace(a, batch_seq=0))
+            == proto.pack_schedule_response(dataclasses.replace(b, batch_seq=0)))
+
+
+def host_diff(got, want, g=None):
+    """The HOST_KEYS on which two host dicts differ (the first ``g`` gangs)."""
+    import numpy as np
+
+    def cut(v):
+        v = np.asarray(v)
+        return v[:g] if g is not None and v.ndim else v
+
+    return [k for k in HOST_KEYS if not np.array_equal(cut(got[k]), cut(want[k]))]
+
+
+def sidecar_churn(server, wave):
+    """The main path: three scorers of bench.py's deployment in a
+    ClusterState — a RemoteScorer on a windowed ResilientOracleClient (wire
+    deltas), a second pinned to full snapshots, and the in-process
+    OracleScorer — through one keyframe refresh and SIDECAR_ROUNDS Churn
+    refreshes. Every kernel's count is zeroed just before and read just
+    after; the local scorer's launches are restored (they are not the
+    sidecar's). After each refresh the three host dicts must be equal,
+    and SIDECAR_ROW_GANGS gangs' capacity and score rows read over ROW_REQ
+    (from both remote scorers) equal the local scorer's."""
+    import numpy as np
+    import torch
+
+    from batch_scheduler_tpu_torch.core import OracleScorer
+    from batch_scheduler_tpu_torch.service import RemoteScorer, ResilientOracleClient
+    from batch_scheduler_tpu_torch.service import protocol as proto
+    from batch_scheduler_tpu_torch.utils.metrics import DEFAULT_REGISTRY
+
+    wire = DEFAULT_REGISTRY.counter("bst_oracle_wire_delta_batches_total")
+    host, port = server.address
+    cluster, cache = north_star_state()
+    delta_remote = RemoteScorer(ResilientOracleClient(host, port, window=2))
+    full_remote = RemoteScorer(ResilientOracleClient(host, port, window=2))
+    full_remote._wire_delta_ok = False  # pinned to full snapshots
+    local = OracleScorer(device="cuda")
+    scorers = (delta_remote, full_remote, local)
+
+    def mark(name):
+        for s in scorers:
+            s.mark_dirty(group=name)
+
+    churn = Churn(cluster, cache, mark, SIDECAR_ROUNDS + 1)
+    row_gangs = np.linspace(0, NORTH_STAR_GANGS - 1, SIDECAR_ROW_GANGS).astype(int)
+    times = {"delta": [], "keyframe": [], "full": [], "local": []}
+    frames = {"delta": [], "keyframe": [], "full": [], "response": []}
+    deltas0 = wire.value(kind="delta")
+    zero_counts()
+    for r in range(SIDECAR_ROUNDS + 1):
+        if r:
+            churn(r)
+        with frame_log() as log:
+            before = wire.value(kind="delta")
+            t0 = time.perf_counter()
+            delta_remote.refresh(cluster, cache)
+            kind = "delta" if wire.value(kind="delta") > before else "keyframe"
+            times[kind].append(time.perf_counter() - t0)
+            frames[kind] += [b for t, b in log
+                             if t == proto.MsgType.DELTA_SCHEDULE_REQ]
+            frames["response"] += [b for t, b in log
+                                   if t == proto.MsgType.SCHEDULE_RESP]
+            log.clear()
+            t0 = time.perf_counter()
+            full_remote.refresh(cluster, cache)
+            times["full"].append(time.perf_counter() - t0)
+            frames["full"] += [b for t, b in log if t == proto.MsgType.SCHEDULE_REQ]
+        saved = read_counts()
+        t0 = time.perf_counter()
+        local.refresh(cluster, cache)
+        torch.cuda.synchronize()
+        times["local"].append(time.perf_counter() - t0)
+        restore_counts(saved)
+        want = local._state.result
+        for s, label in ((delta_remote, "wire-delta"), (full_remote, "full-snapshot")):
+            diff = host_diff(s._state.result, want)
+            if diff:
+                raise AssertionError(f"refresh {r}: the {label} remote plan differs "
+                                     f"from the local one in {diff}")
+            for g in row_gangs:
+                for k in proto.ROW_KINDS:
+                    if not np.array_equal(s._state.row(k, int(g)), local._state.row(k, int(g))):
+                        raise AssertionError(f"refresh {r}: the {label} scorer's {k} row "
+                                             f"of gang {g} differs from the local one")
+        if not want["placed"][:NORTH_STAR_GANGS].all():
+            raise AssertionError(f"refresh {r}: "
+                                 f"{int((~want['placed'][:NORTH_STAR_GANGS]).sum())} "
+                                 "gangs not placed")
+    launches = read_counts()
+    wire_deltas = wire.value(kind="delta") - deltas0
+    if wire_deltas < SIDECAR_ROUNDS - 1:
+        raise AssertionError(f"{wire_deltas} wire-delta batches in {SIDECAR_ROUNDS} "
+                             "churn refreshes")
+    med = lambda xs: statistics.median(xs) * 1e3  # noqa: E731
+    report = {
+        "shape": list(local.snapshot.shape), "refreshes": SIDECAR_ROUNDS + 1,
+        "wire_delta_batches": wire_deltas, "launches_by_kernel": launches,
+        "remote_delta_refresh_ms_median": med(times["delta"]),
+        "remote_delta_refresh_ms": [t * 1e3 for t in times["delta"]],
+        "remote_keyframe_refresh_ms": [t * 1e3 for t in times["keyframe"]],
+        "remote_full_refresh_ms_median": med(times["full"]),
+        "local_refresh_ms_median": med(times["local"][1:]),
+        "local_keyframe_refresh_ms": times["local"][0] * 1e3,
+        # the delta scorer's own split: host pack, and the wire round trip
+        # (its _execute: the request, the server's batch, the response)
+        "remote_pack_ms_median": med(delta_remote.pack_seconds[1:]),
+        "remote_round_trip_ms_median": med(delta_remote.batch_seconds[1:]),
+        "request_bytes": {"keyframe": frames["keyframe"],
+                          "delta_median": statistics.median(frames["delta"]),
+                          "full_median": statistics.median(frames["full"])},
+        "response_bytes_median": statistics.median(frames["response"]),
+        "row_bytes": 4 * NORTH_STAR_SHAPE[1],
+        "equal_local": True, "all_placed": True,
+    }
+    delta_remote.close()
+    full_remote.close()
+    return launches, report, local
+
+
+def sidecar_checks(server, local, wave):
+    """Against the same server after the main path (every launch here
+    restored: checks and timings): the server split of traced requests,
+    mixed's per-group batch over the wire against the plain CPU batch,
+    the native client against the Python one, a 1 ms deadline, load
+    windows over one connection and over two at once (every answer and
+    row right; the card's idle share of each window), and drain. The load
+    comes from native clients, whose calls run without the interpreter
+    lock (ctypes releases it), as the scheduler's client runs in its own
+    process: the server's threads then hold the lock alone."""
+    import threading
+
+    from batch_scheduler_tpu_torch.ops.oracle import execute_batch_host
+    from batch_scheduler_tpu_torch.service import OracleClient
+    from batch_scheduler_tpu_torch.service import protocol as proto
+    from batch_scheduler_tpu_torch.service.native import NativeOracleClient
+    from batch_scheduler_tpu_torch.utils import errors as errs
+    from batch_scheduler_tpu_torch.utils.trace import new_trace_id
+
+    saved = read_counts()
+    host, port = server.address
+    client = OracleClient(host, port)
+    req = snapshot_request(local.snapshot)
+    payload = proto.pack_schedule_request(req)
+    # the server split, from traced requests' TRACE_INFO
+    split = {"unpack_pad_seconds": [], "lock_wait_seconds": [], "device_seconds": []}
+    for _ in range(SIDECAR_TRACED):
+        _, body = client._round_trip(proto.MsgType.SCHEDULE_REQ, payload,
+                                     trace_ctx=(new_trace_id(), ""))
+        tele = client.last_telemetry
+        for k in split:
+            split[k].append(tele[k])
+    resp_py = proto.unpack_schedule_response(body)
+    if tele["scan"] != "cuda_kernel" or not tele["device"].startswith("cuda") \
+            or tele["wave_width"] != (wave or 0) or tele["mask_mode"] != "broadcast":
+        raise AssertionError(f"server telemetry {tele}")
+    if host_diff(vars(resp_py), local._state.result, NORTH_STAR_GANGS):
+        raise AssertionError("the traced request's plan differs from the local one")
+    # mixed's per-group batch over the wire vs the plain CPU batch of the
+    # same padded args (serial rung: the kernels equal it at any width)
+    batch_args, progress_args = mixed_batch(*MIXED, per_group=True)
+    mixed_req = proto.ScheduleRequest(*batch_args, *progress_args)
+    t0 = time.perf_counter()
+    mixed_resp = client.schedule(mixed_req)
+    mixed_ms = (time.perf_counter() - t0) * 1e3
+    with scan_wave_env(None):
+        cpu_host, cpu_dev = execute_batch_host(batch_args, progress_args, device="cpu")
+    diff = host_diff(vars(mixed_resp), cpu_host)
+    for g in (0, MIXED[1] // 2, MIXED[1] - 1):
+        for k in proto.ROW_KINDS:
+            if not (client.row(k, g, mixed_resp.batch_seq) == cpu_dev[k][g].numpy()).all():
+                diff.append(f"{k} row {g}")
+    if diff:
+        raise AssertionError(f"mixed over the wire differs from the plain CPU batch in {diff}")
+    # the native client (the Go plugin's stand-in) gets the same answer
+    native = NativeOracleClient(host, port)
+    resp_native = native.schedule(req)
+    native_row = native.row("capacity", 7, resp_native.batch_seq)
+    native.close()
+    if not same_response(resp_native, resp_py) \
+            or not (native_row == local._state.row("capacity", 7)).all():
+        raise AssertionError("the native client's answer differs from the Python client's")
+    # a 1 ms deadline: DEADLINE_ERROR, then the connection answers right
+    deadline_errors = 0
+    for _ in range(3):
+        try:
+            client._round_trip(proto.MsgType.SCHEDULE_REQ, payload, deadline_ms=1)
+        except errs.OracleDeadlineError:
+            deadline_errors += 1
+    after = client.schedule(req)
+    if not deadline_errors or not same_response(after, resp_py):
+        raise AssertionError(f"deadline: {deadline_errors} DEADLINE_ERROR answers, "
+                             f"next answer right: {same_response(after, resp_py)}")
+    # load windows: one connection, or two at once (each connection's
+    # rows come from its own last batch); every answer and row right
+    want_row = local._state.row("capacity", 7)
+    answers, errors = [], []
+
+    def load(n):
+        try:
+            c = NativeOracleClient(host, port)
+            for _ in range(n):
+                resp = c.schedule(req)
+                answers.append((resp, c.row("capacity", 7, resp.batch_seq)))
+            c.close()
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    def window(connections):
+        threads = [threading.Thread(target=load, args=(SIDECAR_WINDOW // connections,))
+                   for _ in range(connections)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120.0)
+
+    windows = []
+    for connections in SIDECAR_LOAD:
+        w = profile_window(lambda: window(connections), "window_ms")
+        w.pop("top_device_ops", None)
+        windows.append({"connections": connections, "requests": SIDECAR_WINDOW,
+                        "requests_per_s": SIDECAR_WINDOW / w["window_ms"] * 1e3, **w})
+    wrong = sum(not same_response(a, resp_py) or not (row == want_row).all()
+                for a, row in answers)
+    if errors or wrong or len(answers) != SIDECAR_WINDOW * len(SIDECAR_LOAD):
+        raise AssertionError(f"load windows: {len(answers)} answers, {wrong} wrong, "
+                             f"errors {errors[:2]}")
+    # drain: work gets DRAINING, PING gets PONG
+    drain = server.drain(timeout=30.0)
+    try:
+        client.schedule(req)
+        raise AssertionError("a drained server executed a batch")
+    except errs.OracleDrainingError:
+        pass
+    if not client.ping() or not drain["drained"]:
+        raise AssertionError(f"drain: report {drain}")
+    client.close()
+    restore_counts(saved)
+    med = lambda xs: statistics.median(xs) * 1e3  # noqa: E731
+    return {
+        "server_split_ms_median": {k.replace("_seconds", ""): med(v)
+                                   for k, v in split.items()},
+        "server_split_ms": {k.replace("_seconds", ""): [x * 1e3 for x in v]
+                            for k, v in split.items()},
+        "server_telemetry": tele,
+        "request_bytes_north_star_full": len(payload) + 16,
+        "mixed": {"request_bytes": len(proto.pack_schedule_request(mixed_req)) + 16,
+                  "mask_rows": int(batch_args[4].shape[0]),
+                  "round_trip_ms": mixed_ms, "equal_plain_cpu": True},
+        "native_equal": True, "deadline_errors": deadline_errors,
+        "load_windows": windows,
+        "drain": drain,
+    }
+
+
+def sidecar_outage():
+    """RemoteScorer(fallback="local-cpu") inside ScheduleOperation on bench.py's
+    deployment plus one gang that fits no node, against its own server:
+    healthy, then the server stopped (the scorer degrades, counts the
+    fallback batch, passes a feasible gang without a plan and denies only
+    the infeasible one), then a server restarted on the same port (the
+    scorer recovers once the breaker's cooldown ends). Launches restored."""
+    import socket
+
+    from batch_scheduler_tpu_torch.api.types import PodGroupPhase
+    from batch_scheduler_tpu_torch.cache import PodGroupMatchStatus
+    from batch_scheduler_tpu_torch.core import ScheduleOperation
+    from batch_scheduler_tpu_torch.service import RemoteScorer, ResilientOracleClient
+    from batch_scheduler_tpu_torch.service import serve_background
+    from batch_scheduler_tpu_torch.sim.scenarios import make_member_pods, make_sim_group
+    from batch_scheduler_tpu_torch.utils import errors as errs
+    from batch_scheduler_tpu_torch.utils.metrics import DEFAULT_REGISTRY
+    from batch_scheduler_tpu_torch.utils.retry import CircuitBreaker, RetryPolicy
+
+    saved = read_counts()
+    fallback = DEFAULT_REGISTRY.counter("bst_oracle_fallback_batches_total")
+    cluster, cache = north_star_state()
+    huge = make_sim_group("gang-huge", 2, creation_ts=-1.0)
+    huge.spec.min_resources = {"cpu": SIDECAR_HUGE_CPU * 1000}
+    huge.status.phase = PodGroupPhase.PENDING
+    pgs = PodGroupMatchStatus(huge)
+    pgs.pod = make_member_pods("gang-huge", 1, {"cpu": str(SIDECAR_HUGE_CPU)})[0]
+    cache.set(huge.full_name(), pgs)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    server = serve_background(port=port, device="cuda")
+    scorer = RemoteScorer(ResilientOracleClient(
+        "127.0.0.1", port, timeout=60.0, connect_timeout=1.0,
+        retry_policy=RetryPolicy(max_attempts=2, base_delay=0.01, max_delay=0.02),
+        breaker=CircuitBreaker(failure_threshold=1, reset_timeout=0.5)),
+        fallback="local-cpu")
+    op = ScheduleOperation(cache, cluster, scorer=scorer)
+    member = {name: make_member_pods(name, 1, {"cpu": "4"})[0]
+              for name in ("gang-0000", "gang-0001", "gang-0002", "gang-huge")}
+    out = {}
+    try:
+        f0 = fallback.value()
+        op.pre_filter(member["gang-0000"])
+        if scorer.degraded or fallback.value() != f0 or not scorer.placed("default/gang-0000"):
+            raise AssertionError("the healthy batch was not served")
+        server.shutdown()
+        server.server_close()
+        op.mark_dirty()
+        t0 = time.perf_counter()
+        op.pre_filter(member["gang-0001"])  # feasible: passes without a plan
+        out["degraded_prefilter_ms"] = (time.perf_counter() - t0) * 1e3
+        if not scorer.degraded or fallback.value() != f0 + 1 \
+                or scorer.placed("default/gang-0001"):
+            raise AssertionError(f"outage: degraded {scorer.degraded}, fallback batches "
+                                 f"{fallback.value() - f0}")
+        try:
+            op.pre_filter(member["gang-huge"])
+            raise AssertionError("the infeasible gang passed a degraded PreFilter")
+        except errs.ResourceNotEnoughError as e:
+            if "degraded oracle" not in str(e):
+                raise
+        infeasible = [n for n in sorted(cache.snapshot()) if not scorer.gang_feasible(n)]
+        if infeasible != ["default/gang-huge"]:
+            raise AssertionError(f"degraded batch: infeasible gangs {infeasible[:5]}")
+        server = serve_background(port=port, device="cuda")
+        time.sleep(0.6)  # the breaker's cooldown
+        t0 = time.perf_counter()
+        op.pre_filter(member["gang-0002"])
+        out["recovery_prefilter_ms"] = (time.perf_counter() - t0) * 1e3
+        if scorer.degraded or not scorer.placed("default/gang-0002"):
+            raise AssertionError("the scorer did not recover after the restart")
+        out.update(fallback_batches=fallback.value() - f0, recovered=True)
+    finally:
+        scorer.close()
+        server.shutdown()
+        server.server_close()
+        restore_counts(saved)
+    return out
+
+
+def drive_sidecar(wave):
+    """The sidecar at the north star with ``BST_SCAN_WAVE`` set to ``wave``
+    (None: unset) for the whole phase: serve_background(device="cuda"), the
+    main path (sidecar_churn), the checks on that server (sidecar_checks),
+    then the outage path on its own server (sidecar_outage). The fallback
+    counter must not move on the healthy path. Returns (launches by
+    kernel, report)."""
+    from batch_scheduler_tpu_torch.service import serve_background
+    from batch_scheduler_tpu_torch.utils.metrics import DEFAULT_REGISTRY
+
+    fallback = DEFAULT_REGISTRY.counter("bst_oracle_fallback_batches_total")
+    f0 = fallback.value()
+    with scan_wave_env(wave):
+        server = serve_background(device="cuda")
+        try:
+            if server.device.type != "cuda":
+                raise AssertionError(f"server on {server.device}")
+            launches, report, local = sidecar_churn(server, wave)
+            report.update(sidecar_checks(server, local, wave))
+        finally:
+            server.shutdown()
+            server.server_close()
+        if fallback.value() != f0:
+            raise AssertionError(f"{fallback.value() - f0} fallback batches on the "
+                                 "healthy path")
+        report["fallback_batches_healthy"] = 0
+        report["outage"] = sidecar_outage()
+    return launches, report
+
+
+@phase("sidecar")
+def sidecar(results):
+    launches, report = drive_sidecar(None)
+    batches = 2 * report["refreshes"]  # the two remote scorers' batches
+    if launches != {"assign_scan": batches, "assign_wave": 0, "assign_policy": 0}:
+        raise AssertionError(f"{launches} launches in {batches} server batches "
+                             "(want assign_scan once per batch, assign_wave never)")
+    if "assign_scan" in results:
+        results["assign_scan"]["launches_by_path"]["sidecar"] = launches["assign_scan"]
+    return {**report, "launches": launches["assign_scan"]}
+
+
+@phase("sidecar_wave")
+def sidecar_wave(results):
+    wave = 8
+    launches, report = drive_sidecar(wave)
+    batches = 2 * report["refreshes"]
+    if launches != {"assign_scan": 0, "assign_wave": batches, "assign_policy": 0}:
+        raise AssertionError(f"{launches} launches in {batches} server batches "
+                             "(want assign_wave once per batch, assign_scan never)")
+    tele = report["server_telemetry"]
+    if tele.get("waves_per_batch") != NORTH_STAR_SHAPE[0] // wave:
+        raise AssertionError(f"server wave telemetry {tele}")
+    if "assign_wave" in results:
+        results["assign_wave"]["launches_by_path"]["sidecar_wave"] = launches["assign_wave"]
+    return {**report, "launches": launches["assign_wave"]}
 
 
 # benchmarks/ladder.py:250 config5_churn: 10,000 gangs of 10 pods (4 cpu,
@@ -2659,6 +3152,7 @@ def main() -> int:
     policy_identity(results)
     preemption(results)
     audit_replay(results)
+    sidecar(results)
     north_star_wave(results)
     mixed_wave(results)
     race_wave(results)
@@ -2666,6 +3160,7 @@ def main() -> int:
     churn_loop_wave(results)
     policy_wave(results)
     audit_replay_wave(results)
+    sidecar_wave(results)
 
     sources = {
         "assign_scan": ("batch_scheduler_tpu_torch/csrc/assign_scan.cu",
