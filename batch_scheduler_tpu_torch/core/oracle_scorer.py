@@ -28,7 +28,10 @@ columns, the node columns stay resident on the device, and every batch
 runs the policy scan), and the audit layer: every published batch can be
 recorded to an audit ring (``utils.audit``) and sampled for the identity
 audit, and ``replay_batch`` / ``replay_audit_record`` re-execute a
-recorded batch on a named rung (``REPLAY_RUNGS``). It subsumes the
+recorded batch on a named rung (``REPLAY_RUNGS``); and the capacity
+observatory (``ops.capacity``): every published batch offers a budget-gated
+capacity sample over the resident tensors it ran on, under the same audit
+id as its audit record and identity audit. It subsumes the
 reference's findMaxPG + compareClusterResourceAndRequire serial loops
 (reference pkg/scheduler/core/core.go:514-632,701-739) with exact batch
 answers.
@@ -45,6 +48,7 @@ import numpy as np
 import torch
 
 from ..cache.pg_cache import PGStatusCache, PodGroupMatchStatus
+from ..ops.capacity import CapacitySampler, capacity_enabled, set_active_sampler
 from ..ops.convert import device_stream, resolve_device
 from ..ops.device_state import DeviceStateHolder
 from ..ops.events import EventLog
@@ -518,6 +522,17 @@ class OracleScorer:
         # evidence errors swallowed at publish (an audit failure never
         # fails a publish, but it is counted: stats()["audit"])
         self.audit_errors = 0
+        # (gang-name list, gangs per namespace) of the last snapshot seen
+        # (_tenancy); publish and the batch's tenant label read it
+        self._tenancy_memo = None
+        # the capacity observatory (ops.capacity): a budget-gated analytics
+        # pass over the published batch's committed inputs, registered
+        # UNCONDITIONALLY (None when disabled): the newest scorer owns the
+        # observatory, and a capacity-off scorer clears a predecessor's
+        self._capacity = (
+            CapacitySampler(label="scorer") if capacity_enabled() else None
+        )
+        set_active_sampler(self._capacity)
         self.configure_audit(audit_log, identity_audit_every)
 
     def configure_audit(self, audit_log=None,
@@ -587,6 +602,10 @@ class OracleScorer:
             snap, dirty_gen, version_base, pack_s = self._pack_current(
                 cluster, status_cache
             )
+            # the resident tensors this batch reads (None without a local
+            # device): the capacity sample reads them after publication,
+            # before the next pack's scatter rewrites them
+            resident = getattr(snap, "device_state_args", None)
             t1 = time.perf_counter()
             host, rows = self._execute(snap)
             t2 = time.perf_counter()
@@ -610,8 +629,19 @@ class OracleScorer:
         # credits offset the OLD batch's staleness check and die with it
         with self._credits_lock:
             self._version_credits = 0
+        # one audit id for the whole evidence chain: the audit record, the
+        # identity audit AND the capacity sample all correlate by it
+        if audit_id is None and (
+            self.audit_log is not None
+            or self._identity is not None
+            or self._capacity is not None
+        ):
+            audit_id = audit_mod.new_audit_id()
         if self.audit_log is not None or self._identity is not None:
             self._audit_publish(snap, host, audit_id)
+        if self._capacity is not None:
+            with torch.cuda.stream(self.stream):
+                self._capacity_sample(snap, host, audit_id, resident)
         path = (
             "keyframe" if snap.delta is None or snap.delta.kind == "keyframe"
             else "fold" if snap.delta.source == "events" else "scan"
@@ -767,11 +797,12 @@ class OracleScorer:
             self.sync_seconds.append(time.perf_counter() - t0)
             del self.sync_seconds[:-1000]
 
-    def _audit_publish(self, snap, host, audit_id=None) -> None:
+    def _audit_publish(self, snap, host, audit_id) -> None:
         """Durable evidence for one PUBLISHED batch: the audit record (the
         exact padded host inputs + plan digest, enqueued to the daemon
-        writer) and the sampled identity audit, under one audit id (the
-        one a remote batch announced on the wire, else a fresh one). A
+        writer) and the sampled identity audit, under the batch's audit id
+        (``refresh`` passes the one a remote batch announced on the wire,
+        else a fresh one, which its capacity sample shares). A
         degraded (conservative fallback) batch is recorded as such and
         never identity-audited: it has no plan to verify.
         The record holds the snapshot's HOST columns (``device_args()``,
@@ -782,12 +813,11 @@ class OracleScorer:
         try:
             digest = audit_mod.plan_digest(host)
             policy = snap.policy_payload()
-            aid = audit_id or audit_mod.new_audit_id()
             if self.audit_log is not None:
                 # gangs per cardinality-capped tenant label: one registry
                 # hit per DISTINCT namespace, not per gang
                 tenants: Dict[str, int] = {}
-                for ns, count in _snapshot_tenancy(snap).items():
+                for ns, count in self._tenancy(snap).items():
                     label = tenancy.tenant_label(ns)
                     tenants[label] = tenants.get(label, 0) + count
                 extra = {"tenants": tenants}
@@ -812,7 +842,7 @@ class OracleScorer:
                     plan_digest=digest,
                     node_names=snap.node_names,
                     group_names=snap.group_names,
-                    audit_id=aid,
+                    audit_id=audit_id,
                     trace_id=ctx[0] if ctx else None,
                     telemetry=host.get("telemetry") or {},
                     degraded=bool(self.degraded),
@@ -829,18 +859,54 @@ class OracleScorer:
                 )
             if self._identity is not None and not self.degraded:
                 self._identity.note_batch(
-                    snap.device_args(), snap.progress_args(), digest, aid,
+                    snap.device_args(), snap.progress_args(), digest, audit_id,
                     self.audit_log, policy=policy,
                 )
         except Exception:  # noqa: BLE001 — evidence, never the decision path
             self.audit_errors += 1
+
+    def _capacity_sample(self, snap, host, audit_id, resident) -> None:
+        """Budget-gated capacity-observatory hook (ops.capacity): one
+        analytics pass over exactly the committed inputs this batch scored
+        — the resident tensors on the scorer's device (on its stream), so
+        the big arrays never leave the card; a scorer without a local
+        device (a remote scorer) passes the snapshot's host arrays to the
+        CPU. Evidence collection, never the decision path: every error is
+        swallowed (the sampler counts its own under the ``error``
+        outcome)."""
+        try:
+            batch_args = resident if resident is not None else snap.device_args()
+            progress = snap.progress_args()
+            cols = snap.policy_cols
+            self._capacity.note_batch(
+                batch_args, host,
+                group_names=snap.group_names,
+                lane_names=list(snap.schema.names),
+                scheduled=progress[1], matched=progress[2],
+                policy_prio=cols[0] if cols is not None else None,
+                audit_log=self.audit_log, audit_id=audit_id,
+                device=self.device if self.device is not None else "cpu",
+            )
+        except Exception:  # noqa: BLE001 — analytics never fail publish
+            pass
+
+    def _tenancy(self, snap) -> Dict[str, int]:
+        """``_snapshot_tenancy(snap)``, kept while the packer serves the same
+        gang-name list (a lite or fold snapshot shares its packer's, which
+        is never changed in place): one O(G) pass per change of the gang
+        set, not per batch."""
+        names = snap.group_names
+        memo = self._tenancy_memo
+        if memo is None or memo[0] is not names:
+            memo = self._tenancy_memo = (names, _snapshot_tenancy(snap))
+        return memo[1]
 
     def dominant_tenant(self, snap) -> str:
         """The batch's dominant tenant LABEL: the namespace with the most
         gangs (ties to the first name), through the cardinality-capped
         registry (``utils.tenancy``) — what a remote scorer announces on
         the wire (the TENANT frame). "" when no gang is namespaced."""
-        ns_counts = _snapshot_tenancy(snap)
+        ns_counts = self._tenancy(snap)
         if not ns_counts:
             return ""
         return tenancy.tenant_label(
@@ -863,9 +929,16 @@ class OracleScorer:
             self.policy_engine.note_batch()
             policy = (snap.device_state_policy_cols, policy[1], policy[2])
             snap.device_state_policy_cols = None
-        return execute_batch_host(
-            batch_args, snap.progress_args(), device=self.device, policy=policy
-        )
+        # the batch's dominant tenant labels the scan counter
+        # (ops.oracle.collect_batch), cleared so a reused thread never
+        # inherits it
+        tenancy.set_batch_tenant(self.dominant_tenant(snap))
+        try:
+            return execute_batch_host(
+                batch_args, snap.progress_args(), device=self.device, policy=policy
+            )
+        finally:
+            tenancy.set_batch_tenant(None)
 
     def stats(self) -> dict:
         """Refresh-path counters: fold outcomes, the packer's pack counts

@@ -25,6 +25,10 @@ batch). Plain functions on int32 tensors:
 - ``dispatch_batch`` / ``collect_batch``  one batch enqueued with its
                       blob's copy to pinned host memory started, and the
                       wait and decode; ``execute_batch_host`` runs the two
+- ``find_max_group_host`` / ``repack_assignment_span``  numpy twins the
+                      sidecar coalescer's mega demux uses to give each
+                      tenant the ``best`` and compact rows its own
+                      dedicated batch would have
 
 Every output keeps the JAX reference's dtype (int32 counts, bool flags).
 Sums are taken in int64 where torch widens; the reference's batch boundary
@@ -42,6 +46,8 @@ import threading
 import numpy as np
 import torch
 
+from ..utils.metrics import DEFAULT_REGISTRY
+from ..utils.tenancy import current_batch_tenant
 from .bucketing import wave_width_bucket
 from .convert import batch_from_numpy, policy_from_numpy, resolve_device
 
@@ -56,6 +62,8 @@ __all__ = [
     "assign_gangs_policy",
     "schedule_batch",
     "batch_top_k",
+    "find_max_group_host",
+    "repack_assignment_span",
     "PendingBatch",
     "dispatch_batch",
     "collect_batch",
@@ -150,6 +158,75 @@ def find_max_group(min_member, scheduled, matched, ineligible, creation_rank):
     key = torch.where(~ineligible, key, -1)
     best = torch.argmax(key)  # first occurrence of the maximum
     return best.to(torch.int32), key[best] >= 0, progress
+
+
+def find_max_group_host(min_member, scheduled, matched, ineligible,
+                        creation_rank):
+    """Host-side numpy twin of ``find_max_group`` — same formula, same
+    tie-break, same argmax-first-occurrence semantics — used by the
+    coalescer demux (service.coalescer): a merged mega-batch's device
+    ``best`` ranges over EVERY tenant's gangs, but each tenant's response
+    must carry the best of ITS OWN padded span, computed from pure inputs
+    (the progress args are untouched by the scan). Feed it the tenant's
+    own padded progress args and the answer is bit-identical to what a
+    dedicated sidecar's device pass would have stamped. int32 stays exact:
+    progress <= 2047 and g <= GANG_MAX keep the key below 2**31."""
+    min_member = np.asarray(min_member)
+    scheduled = np.asarray(scheduled)
+    g = int(min_member.shape[0])
+    needs = (min_member - scheduled) > 0
+    denom = np.maximum(min_member, 1)
+    progress = np.where(
+        needs, (np.asarray(matched) + scheduled) * 1000 // denom, 0
+    )
+    progress = np.clip(progress, 0, 2047)
+    eligible = ~np.asarray(ineligible)
+    key = (
+        progress.astype(np.int32) * (2 * g + 2)
+        + np.where(scheduled == 0, g + 1, 0)
+        + (g - np.asarray(creation_rank).astype(np.int32))
+    )
+    key = np.where(eligible, key, -1)
+    best = int(np.argmax(key))
+    return best, bool(key[best] >= 0), progress.astype(np.int32)
+
+
+def repack_assignment_span(nodes_row, counts_row, node_offset: int,
+                           span_n_bucket: int, k: int):
+    """Re-derive ONE gang's dedicated-sidecar compact assignment row from
+    its mega-batch row (service.coalescer demux).
+
+    The compact readback is the top-k of the gang's take vector
+    (``_top_k_ties_by_index``): entries sorted by (count desc, node index
+    asc), and the zero-count tail is therefore the ASCENDING node indices
+    not holding a take. In the block-diagonal mega-batch the positive
+    takes can only land in the gang's own node block (every other block is
+    masked to zero capacity), and their relative order under the global
+    index tie-break equals the dedicated run's local order — so the
+    dedicated row is exactly: the in-block positive entries shifted by
+    ``-node_offset`` (truncated to ``k``), then ascending free indices over
+    the tenant's own ``[0, span_n_bucket)`` padded space. ``k`` is the
+    dedicated batch's ``batch_top_k(span_n_bucket, span_remaining_max)`` —
+    compute it from the tenant's OWN padded args, exactly as
+    dispatch_batch would. Returns ``(nodes[k] int32, counts[k] int32)``."""
+    nodes_row = np.asarray(nodes_row)
+    counts_row = np.asarray(counts_row)
+    pos = counts_row > 0
+    real_nodes = (nodes_row[pos] - node_offset).astype(np.int32)[:k]
+    real_counts = counts_row[pos].astype(np.int32)[:k]
+    out_nodes = np.zeros(k, dtype=np.int32)
+    out_counts = np.zeros(k, dtype=np.int32)
+    m = real_nodes.shape[0]
+    out_nodes[:m] = real_nodes
+    out_counts[:m] = real_counts
+    if m < k:
+        # the ascending free-index tail, vectorized: this runs once per
+        # gang on the coalescer's one worker thread
+        free = np.ones(span_n_bucket, dtype=bool)
+        free[real_nodes] = False
+        fill = np.flatnonzero(free)[: k - m]
+        out_nodes[m:m + fill.shape[0]] = fill
+    return out_nodes, out_counts
 
 
 def score_nodes(cap):
@@ -763,9 +840,27 @@ def collect_batch(pending: PendingBatch):
             wave_demotions=int(stats[1]),
             wave_uniform=int(stats[2]),
         )
+    _count_scan_batch(host["telemetry"])
     out = pending.out
     device_result = {"capacity": out["capacity"], "scores": out["scores"]}
     return host, device_result
+
+
+def _count_scan_batch(telemetry: dict) -> None:
+    """The reference's scan-path counter (``_fold_batch_metrics``'s
+    ``bst_scan_batches_total``): one increment per collected batch, by
+    scan path and this thread's batch tenant (``utils.tenancy``: the
+    scorer's dominant tenant, or the tenant a sidecar connection
+    announced; "-" when none is armed)."""
+    path = (
+        "policy" if telemetry["scan_policy"]
+        else "wavefront" if telemetry["wave_width"] > 1
+        else "serial"
+    )
+    DEFAULT_REGISTRY.counter(
+        "bst_scan_batches_total",
+        "Oracle batches by assignment-scan path and dominant tenant",
+    ).inc(path=path, tenant=current_batch_tenant() or "-")
 
 
 def execute_batch_host(batch_args, progress_args, device="cuda", policy=None):

@@ -11,13 +11,14 @@ device so row fetches don't resend the batch.
 The port of ``batch_scheduler_tpu/service/server.py`` on one explicit
 ``device`` (``cuda`` unless the caller passes ``cpu``; without CUDA the
 default raises). Every message the reference's single-device server
-answers is answered here with the same bytes. Left out, each with the
-ROADMAP item it waits for: the coalescer and its BUSY answer (item 8's
-next slice), the compile warmer and ``warmth_snapshot`` /
+answers is answered here with the same bytes, the multi-tenant coalescer
+(``service.coalescer``, ``coalesce=`` / ``BST_COALESCE``) and its BUSY
+answer included, and a traced request's ``TRACE_INFO`` carries the
+sidecar's capacity sample (``ops.capacity``). Left out, each with the
+ROADMAP item it waits for: the compile warmer and ``warmth_snapshot`` /
 ``replicate_warmth`` and the profiler's memory telemetry (item 12; the
-port builds its kernels once and compiles nothing per shape), the
-capacity sample (item 9), the mesh (item 11) and the local span ring
-(item 7b: a traced request still gets its ``TRACE_INFO`` frame).
+port builds its kernels once and compiles nothing per shape), the mesh
+(item 11) and the local span ring (item 7b).
 
 Deadline enforcement: a DEADLINE annotation frame bounds the next request;
 request bodies run on a per-connection daemon worker so the handler can
@@ -26,7 +27,9 @@ answer a DEADLINE_ERROR frame the moment the budget elapses.
 Device work is issued by a single-owner executor thread
 (``DeviceExecutor``): connections unpack/pad concurrently (numpy only) and
 enqueue packed batches; the executor overlaps the next batch's dispatch
-with the current batch's device compute (in-flight window 2).
+with the current batch's device compute (in-flight window 2). With the
+coalescer on, the batches of every connection first join its DRF merge
+queue, whose one worker feeds the executor.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ import numpy as np
 import torch
 
 from ..ops.bucketing import pad_oracle_batch
+from ..ops.capacity import CapacitySampler, capacity_enabled
 from ..ops.convert import device_stream, resolve_device
 from ..ops.device_state import DeviceStateHolder
 from ..ops.lanes import LANE_MAX
@@ -53,6 +57,12 @@ from ..utils import audit as audit_mod
 from ..utils import tenancy
 from ..utils.metrics import DEFAULT_REGISTRY, LONG_OP_BUCKETS
 from . import protocol as proto
+from .coalescer import (
+    CoalesceJob,
+    CoalesceSaturated,
+    OracleCoalescer,
+    coalesce_enabled,
+)
 
 __all__ = [
     "DeviceExecutor",
@@ -97,6 +107,112 @@ def _drain_timeout_s() -> float:
         return max(0.0, float(raw))
     except ValueError:
         return 30.0
+
+
+# ---------------------------------------------------------------------------
+# sidecar-side capacity observatory (ops.capacity)
+# ---------------------------------------------------------------------------
+#
+# One process-wide sampler shared by every connection: a TRACED schedule
+# batch gets a budget-gated capacity sample whose compact form rides back
+# to the client inside the TRACE_INFO telemetry dict, so a traced client
+# sees the SIDECAR's utilization/fragmentation beside its own. The sidecar
+# sees packed arrays, never names; a connection that announced its tenant
+# (the TENANT wire annotation) attributes its batches' capacity shares to
+# that label — the shares also feed the coalescer's DRF admission weights
+# (_capacity_tenant_shares). Gated to traced requests, as in the
+# reference: an untraced serving path never pays the analytics.
+
+_server_capacity_lock = threading.Lock()
+_server_capacity = None  # guarded-by: _server_capacity_lock
+
+
+def _capacity_tenant_shares() -> dict:
+    """{tenant: dominant share} from the sidecar sampler's last summary —
+    the capacity observatory's live feed into the coalescer's DRF
+    admission order (empty before the first sample / with capacity off)."""
+    with _server_capacity_lock:
+        sampler = _server_capacity
+    if sampler is None:
+        return {}
+    last = sampler.last()
+    if not last:
+        return {}
+    return {
+        t["tenant"]: float(t["dominant_share"])
+        for t in last.get("tenants", [])
+    }
+
+
+def _plan_rows(host: dict, g_bucket: int) -> dict:
+    """The plan fields the capacity analytics read, at the padded batch's
+    gang count: a mega group's demuxed host dict holds only the tenant's
+    own ``g`` gangs, and the rows past them are unplaced pads (no seats).
+    The reference hands the cut dict to its kernel, whose shapes then
+    disagree and the sample errors."""
+    placed = np.asarray(host["placed"])
+    g = placed.shape[0]
+    if g >= g_bucket:
+        return host
+    nodes = np.asarray(host["assignment_nodes"])
+    counts = np.asarray(host["assignment_counts"])
+    pad = g_bucket - g
+    return {
+        "placed": np.concatenate([placed, np.zeros(pad, placed.dtype)]),
+        "assignment_nodes": np.concatenate(
+            [nodes, np.zeros((pad, nodes.shape[1]), nodes.dtype)]),
+        "assignment_counts": np.concatenate(
+            [counts, np.zeros((pad, counts.shape[1]), counts.dtype)]),
+    }
+
+
+def _maybe_server_capacity(executor, batch_args, progress_args, host,
+                           tenant=None, g=None) -> None:
+    """One budget-gated sidecar capacity sample of a traced batch, run on
+    the executor thread (the only thread that touches the device: the
+    args may be a connection's resident mirror), its compact form added
+    to ``host``'s telemetry for the TRACE_INFO frame. Telemetry only:
+    nothing here fails the request."""
+    global _server_capacity
+
+    if not capacity_enabled():
+        return
+    with _server_capacity_lock:
+        if _server_capacity is None:
+            _server_capacity = CapacitySampler(label="server")
+        sampler = _server_capacity
+    try:
+        kwargs = {}
+        if tenant and g:
+            # synthetic namespace-prefixed names: the per-batch tenant
+            # mapping (utils.tenancy.batch_tenants) derives from gang
+            # names the wire never carries — the announced label stands
+            # in for all of them, so the whole batch attributes to the
+            # connection's tenant instead of "other"
+            kwargs["group_names"] = [f"{tenant}/wire-{i}" for i in range(g)]
+        plan = _plan_rows(host, int(np.shape(batch_args[2])[0]))
+        summary = executor.run(lambda: sampler.note_batch(
+            batch_args, plan,
+            scheduled=progress_args[1], matched=progress_args[2],
+            device=executor.device, **kwargs,
+        ))
+    except Exception:  # noqa: BLE001 — telemetry only
+        return
+    tel = host.get("telemetry")
+    if summary is None or not isinstance(tel, dict):
+        return
+    tel["capacity"] = {
+        "fragmentation_index": summary["fragmentation_index"],
+        "largest_placeable_gang": summary["largest_placeable_gang"],
+        "utilization": {
+            str(lane["lane"]): lane["utilization"]
+            for lane in summary["lanes"] if lane["alloc"] > 0
+        },
+        "stranded_nodes": summary["stranded"]["nodes"],
+        "pending_unplaceable_gangs": (
+            summary["pending"]["unplaceable_gangs"]
+        ),
+    }
 
 
 def _pad_request(req: proto.ScheduleRequest):
@@ -503,6 +619,12 @@ class _Handler(socketserver.BaseRequestHandler):
             "args": a,
         }
 
+    def _busy(self, e: CoalesceSaturated) -> None:
+        proto.write_frame(
+            self.request, proto.MsgType.BUSY,
+            proto.pack_busy(e.retry_after_ms, str(e)),
+        )
+
     def _deadline_error(self, what: str, budget_ms: int) -> None:
         proto.write_frame(
             self.request,
@@ -602,23 +724,42 @@ class _Handler(socketserver.BaseRequestHandler):
                         # stale mirror would only pin device memory
                         self._mirror = None
                         self._mirror_counts = None
-                        outcome = self._run(
-                            lambda payload=payload: self._run_schedule_body(
-                                payload
-                            ),
-                            budget_ms,
-                        )
+                        try:
+                            outcome = self._run(
+                                lambda payload=payload: self._run_schedule_body(
+                                    payload, traced=req_trace is not None
+                                ),
+                                budget_ms,
+                            )
+                        except CoalesceSaturated as e:
+                            # admission control: the bounded coalescer queue
+                            # is full — an in-band BUSY with the retry-after
+                            # hint, never a dropped or hanging request
+                            self._busy(e)
+                            continue
                         if outcome is _DEADLINE_HIT:
                             self._deadline_error("schedule", budget_ms)
                             continue
                         self._finish_schedule(outcome, req_trace, req_audit)
                     elif msg_type == proto.MsgType.DELTA_SCHEDULE_REQ:
-                        outcome = self._run(
-                            lambda payload=payload: self._run_delta_body(
-                                payload
-                            ),
-                            budget_ms,
-                        )
+                        try:
+                            outcome = self._run(
+                                lambda payload=payload: self._run_delta_body(
+                                    payload, traced=req_trace is not None
+                                ),
+                                budget_ms,
+                            )
+                        except CoalesceSaturated as e:
+                            # _run_delta_body checks admission BEFORE
+                            # touching the mirror, so the common refusal
+                            # leaves the client's cursor valid for a plain
+                            # retry. The rare race (the queue filled between
+                            # the check and the submit, the mirror already
+                            # advanced) still converges: the retried delta's
+                            # base mismatches, the server answers
+                            # DELTA_RESYNC, and the client keyframes.
+                            self._busy(e)
+                            continue
                         if outcome is _DEADLINE_HIT:
                             # the abandoned job may still advance the
                             # mirror generation; the client resets its
@@ -658,10 +799,14 @@ class _Handler(socketserver.BaseRequestHandler):
                             # after the batch that wrote the row
                             return batch[kind][gidx][:n].cpu().numpy().astype("<i4")
 
-                        outcome = self._run(
-                            lambda gather=gather: self.server.executor.run(gather),
-                            budget_ms,
-                        )
+                        def run_row(batch=batch, kind=kind, gidx=gidx, gather=gather):
+                            if hasattr(batch, "gather"):
+                                # a coalesced batch: the row view owns the
+                                # span slicing AND the executor hop
+                                return batch.gather(kind, gidx)
+                            return self.server.executor.run(gather)
+
+                        outcome = self._run(run_row, budget_ms)
                         if outcome is _DEADLINE_HIT:
                             self._deadline_error("row fetch", budget_ms)
                             continue
@@ -688,10 +833,12 @@ class _Handler(socketserver.BaseRequestHandler):
             if self._worker is not None:
                 self._worker.close()
 
-    def _run_schedule_body(self, payload: bytes):
+    def _run_schedule_body(self, payload: bytes, traced: bool = False):
         """One SCHEDULE_REQ: unpack and pad on this thread (numpy only),
-        then the batch through the executor. Returns the outcome tuple
-        ``_finish_schedule`` takes."""
+        then the batch through the executor — or, with the coalescer on,
+        through its DRF merge queue, whose demuxed result is bit-identical
+        to the direct path's. Raises ``CoalesceSaturated`` when that queue
+        is full. Returns the outcome tuple ``_finish_schedule`` takes."""
         # phase timings double as the TRACE_INFO span source and the server
         # metric observations — epoch stamps so client+server spans share a
         # clock domain in the stitched timeline
@@ -699,14 +846,42 @@ class _Handler(socketserver.BaseRequestHandler):
         t0 = time.perf_counter()
         req = proto.unpack_schedule_request(payload)
         args, progress_args, (n, g) = _pad_request(req)
-        # host-side padded args: the audit record must replay anywhere
-        audit_args = (
-            (args, progress_args) if self.server.audit_log is not None else None
-        )
+        executor = self.server.executor
+        coal = self.server.coalescer
         t1 = time.perf_counter()
-        host, batch, queue_wait, run_s = self.server.executor.run_batch(
-            args, progress_args, tenant=self._tenant,
-        )
+        if coal is not None:
+            job = CoalesceJob(
+                tenant=self._tenant or "", n=n, g=g,
+                r=int(req.alloc.shape[1]),
+                padded_args=args, progress_args=progress_args,
+                raw_fn=lambda req=req: (
+                    req.alloc, req.requested, req.group_req, req.remaining,
+                    req.fit_mask, req.group_valid, req.order,
+                    req.min_member, req.scheduled, req.matched,
+                    req.ineligible, req.creation_rank,
+                ),
+                want_audit=self.server.audit_log is not None,
+            )
+            res = coal.schedule(job)
+            host, batch = res.host, res.rows
+            queue_wait, run_s = res.queue_wait, res.run_seconds
+            audit_args = res.audit_args
+        else:
+            # host-side padded args: the audit record must replay anywhere
+            audit_args = (
+                (args, progress_args) if self.server.audit_log is not None else None
+            )
+            host, batch, queue_wait, run_s = executor.run_batch(
+                args, progress_args, tenant=self._tenant,
+            )
+        if traced:
+            # the sidecar's capacity sample for the traced client
+            # (budget-gated; rides TRACE_INFO), attributed to the
+            # announced wire tenant
+            _maybe_server_capacity(
+                executor, args, progress_args, host,
+                tenant=self._tenant, g=g,
+            )
         timings = {
             "ts0": ts0,
             "unpack_pad": t1 - t0,
@@ -818,7 +993,7 @@ class _Handler(socketserver.BaseRequestHandler):
             proto.pack_schedule_response(resp),
         )
 
-    def _run_delta_body(self, payload: bytes):
+    def _run_delta_body(self, payload: bytes, traced: bool = False):
         """One DELTA_SCHEDULE_REQ: bring the connection's resident mirror
         (ops.device_state.DeviceStateHolder) up to the client's generation
         — scatter-applying churned rows, or installing a full keyframe —
@@ -828,13 +1003,19 @@ class _Handler(socketserver.BaseRequestHandler):
         the same outcome tuple as the full path so ``_finish_schedule`` is
         shared, or a ``_ResyncNeeded`` when the mirror cannot apply the
         delta (generation gap / no state / shape mismatch) — the client
-        must resend a keyframe, never have stale rows scored silently."""
+        must resend a keyframe, never have stale rows scored silently.
+        With the coalescer on, admission is checked BEFORE the mirror
+        moves (a BUSY answer leaves the client's generation cursor valid)
+        and the batch joins the merge queue."""
         ts0 = time.time()
         t0 = time.perf_counter()
         kind, base_gen, new_gen, body = proto.unpack_delta_schedule_request(
             payload
         )
         executor = self.server.executor
+        coal = self.server.coalescer
+        if coal is not None:
+            coal.check_admission()
         if self._mirror is None:
             self._mirror = DeviceStateHolder(self.server.device, label="server")
         holder = self._mirror
@@ -881,9 +1062,34 @@ class _Handler(socketserver.BaseRequestHandler):
                     progress_args,
                 )
         t1 = time.perf_counter()
-        host, batch, queue_wait, run_s = executor.run_batch(
-            device_args, progress_args, tenant=self._tenant,
-        )
+        if coal is not None:
+            # the mirror is synced; the batch itself joins the DRF merge
+            # queue like a full request, reading the mirror in place
+            def raw_fn(device_args=device_args, progress_args=progress_args,
+                       n=n, g=g):
+                al, rq, gr, rem, fm, gv, od = executor.run(
+                    lambda: tuple(_host_copy(a) for a in device_args)
+                )
+                mm, sc, mt, inel, cr = (np.asarray(a) for a in progress_args)
+                mask = fm[:1, :n] if fm.shape[0] == 1 else fm[:g, :n]
+                return (
+                    al[:n], rq[:n], gr[:g], rem[:g], mask, gv[:g],
+                    od[:g], mm[:g], sc[:g], mt[:g], inel[:g], cr[:g],
+                )
+
+            job = CoalesceJob(
+                tenant=self._tenant or "", n=n, g=g,
+                r=self._mirror_counts[2],
+                padded_args=device_args, progress_args=progress_args,
+                raw_fn=raw_fn, want_audit=want_audit,
+            )
+            res = coal.schedule(job)
+            host, batch = res.host, res.rows
+            queue_wait, run_s = res.queue_wait, res.run_seconds
+        else:
+            host, batch, queue_wait, run_s = executor.run_batch(
+                device_args, progress_args, tenant=self._tenant,
+            )
         host["telemetry"]["device_state"] = {
             "generation": holder.current_generation(),
             "applied": "keyframe" if kind == proto.DELTA_KEYFRAME else "delta",
@@ -891,6 +1097,14 @@ class _Handler(socketserver.BaseRequestHandler):
                 len(body.node_idx) + len(body.group_idx)
             ) if kind == proto.DELTA_ROWS else 0,
         }
+        if traced:
+            # capacity over the MIRROR's resident tensors — the sidecar's
+            # own view of the cluster it is scoring (rides TRACE_INFO),
+            # attributed to the announced wire tenant
+            _maybe_server_capacity(
+                executor, device_args, progress_args, host,
+                tenant=self._tenant, g=g,
+            )
         timings = {
             "ts0": ts0,
             "unpack_pad": t1 - t0,
@@ -906,8 +1120,12 @@ class OracleServer(socketserver.ThreadingTCPServer):
     socket is bound) behind a threading TCP server, one handler thread per
     connection. ``audit_log`` (a ``utils.audit.AuditLog``) records every
     executed batch, correlated with the client's records by the AUDIT_ID
-    annotation. ``server_close`` hangs up every open connection, as a
-    stopped sidecar process would: its clients see the transport fail."""
+    annotation. ``coalesce`` puts the multi-tenant coalescer
+    (``service.coalescer.OracleCoalescer``, its DRF order weighted by the
+    sidecar's capacity shares) in front of the executor; None reads
+    ``BST_COALESCE`` (default off). ``server_close`` hangs up every open
+    connection, as a stopped sidecar process would: its clients see the
+    transport fail."""
 
     allow_reuse_address = True
     daemon_threads = True
@@ -918,11 +1136,21 @@ class OracleServer(socketserver.ThreadingTCPServer):
         port: int = 0,
         audit_log=None,
         device="cuda",
+        coalesce: Optional[bool] = None,
     ):
         self.device = resolve_device(device)
         super().__init__((host, port), _Handler)
         self.audit_log = audit_log
         self.executor = DeviceExecutor(self.device)
+        # the multi-tenant cross-client coalescer: a DRF-fair merge queue
+        # in front of the executor
+        want_coalesce = (
+            coalesce_enabled() if coalesce is None else bool(coalesce)
+        )
+        self.coalescer = (
+            OracleCoalescer(self.executor, weights_fn=_capacity_tenant_shares)
+            if want_coalesce else None
+        )
         # graceful drain: _admit_request/_request_done bracket every
         # work-bearing request so drain() can wait out the admitted
         # in-flight window before flushing; failover_hint rides in every
@@ -1010,6 +1238,10 @@ class OracleServer(socketserver.ThreadingTCPServer):
             if inflight <= 0 or time.monotonic() >= deadline:
                 break
             time.sleep(0.02)
+        # coalescer before executor: it is an executor PRODUCER, and a
+        # group dispatched after executor.stop would fail its waiters
+        if self.coalescer is not None:
+            self.coalescer.stop(timeout=10.0)
         self.executor.stop(timeout=10.0)
         audit_ok = True
         if self.audit_log is not None:
@@ -1036,6 +1268,8 @@ class OracleServer(socketserver.ThreadingTCPServer):
                     conn.shutdown(socket.SHUT_RDWR)
                 except OSError:
                     pass
+            if self.coalescer is not None:
+                self.coalescer.stop(timeout=10.0)
             self.executor.stop(timeout=10.0)
             if self.audit_log is not None:
                 self.audit_log.stop(timeout=10.0)
@@ -1045,11 +1279,13 @@ class OracleServer(socketserver.ThreadingTCPServer):
 
 def serve_background(
     host: str = "127.0.0.1", port: int = 0, audit_log=None, device="cuda",
+    coalesce: Optional[bool] = None,
 ) -> OracleServer:
     """Start an OracleServer on a daemon thread; returns it (``.address``
     has the bound port, ``.shutdown()`` stops it, ``.server_close()``
-    releases the socket and stops the executor)."""
-    server = OracleServer(host, port, audit_log=audit_log, device=device)
+    releases the socket and stops the coalescer and the executor)."""
+    server = OracleServer(host, port, audit_log=audit_log, device=device,
+                          coalesce=coalesce)
     t = threading.Thread(
         target=server.serve_forever, name="oracle-server", daemon=True
     )

@@ -10,26 +10,37 @@ keeps a tenant's label stable for the process lifetime. The audit log
 stamps each record's gangs per tenant label with it, and a remote scorer
 announces its batch's dominant label on the wire (the TENANT frame).
 
+:func:`batch_tenants` is the other mode, deliberately different: the
+PER-BATCH deterministic mapping the capacity kernel (ops.capacity)
+attributes shares with. Namespaces are ranked by (gang count desc, name
+asc) within that one batch, the top ``TENANT_LABEL_MAX`` get indices and
+the tail folds into ``other``. Determinism from the batch's own names is
+what lets a recorded batch's capacity sample replay bit-identically, with
+no process history involved.
+
 :func:`set_batch_tenant` arms a thread's batch-tenant context: the
+scorer sets its batch's dominant tenant around each batch, and the
 sidecar's device executor sets the tenant a connection announced around
-each batch it collects, as the reference's does.
+each batch it collects, as the reference's do; ``ops.oracle.collect_batch``
+reads it into the scan counter's tenant label.
 
 Still to come: the ``BST_TENANT_LABEL_MAX`` knob (with the CLI, ROADMAP
-Queue 1 item 12; the cap is the reference's default until then), and the
-per-batch ``batch_tenants`` mapping and the scan counters that read the
-context (with the capacity observatory, item 9).
+Queue 1 item 12; the cap is the reference's default until then).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 __all__ = [
     "OTHER_TENANT",
     "TENANT_LABEL_MAX",
     "tenant_label",
     "gang_namespace",
+    "batch_tenants",
     "set_batch_tenant",
     "current_batch_tenant",
     "reset_registry",
@@ -70,6 +81,31 @@ def tenant_label(namespace: str) -> str:
         label = ns if len(_registry) < TENANT_LABEL_MAX else OTHER_TENANT
         _registry[ns] = label
         return label
+
+
+def batch_tenants(
+    group_names: Sequence[str], g_bucket: Optional[int] = None
+) -> Tuple[np.ndarray, List[str]]:
+    """Deterministic per-batch tenant mapping: ``(ids[g_bucket] int32,
+    labels)`` where ``ids[g]`` indexes ``labels`` and ``labels[-1]`` is
+    always ``other`` (the overflow bucket, also where padded rows and
+    namespace-less gangs land — they carry zero demand, so the bucket
+    stays honest). Ranking is (gang count desc, namespace asc) over THIS
+    batch's names only, capped at ``TENANT_LABEL_MAX`` named tenants."""
+    counts: Dict[str, int] = {}
+    for name in group_names:
+        ns = gang_namespace(name)
+        if ns:
+            counts[ns] = counts.get(ns, 0) + 1
+    ranked = sorted(counts, key=lambda ns: (-counts[ns], ns))[:TENANT_LABEL_MAX]
+    labels = ranked + [OTHER_TENANT]
+    index = {ns: i for i, ns in enumerate(ranked)}
+    other = len(labels) - 1
+    g_bucket = len(group_names) if g_bucket is None else int(g_bucket)
+    ids = np.full(g_bucket, other, dtype=np.int32)
+    for g, name in enumerate(group_names[:g_bucket]):
+        ids[g] = index.get(gang_namespace(name), other)
+    return ids, labels
 
 
 def set_batch_tenant(label: Optional[str]) -> None:

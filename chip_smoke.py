@@ -175,6 +175,51 @@ Phases (one JSON line each; any failure makes the exit code non-zero):
                    full snapshots beside the local churn refresh, the
                    remote scorer's pack and round trip, request and
                    response bytes.
+- coalesce_span    the multi-tenant sidecar at the north star: 8 tenants
+                   (benchmarks/coalesce_gate.py's client count), each its
+                   own seeded north-star ClusterState and TENANT
+                   announcement, a RemoteScorer on wire deltas through a
+                   keyframe refresh and 8 Churn refreshes, all on their
+                   own threads: time-sliced (one request in flight across
+                   all eight) against a dedicated sidecar, then coalesced
+                   against serve_background(device="cuda", coalesce=True)
+                   (the main path), then each again under the profiler.
+                   BST_CAPACITY=0, as the gate runs. Every tenant's host
+                   dicts and plan_digest sequence equal in both runs; every
+                   group span (G_tot·N_tot far above 2^21); one serial-
+                   kernel launch a tenant batch. Reported: aggregate
+                   batches a second, per-tenant coalescer queue wait and
+                   request time p50/p95, groups and mean span width, the
+                   card's idle share of each run.
+- coalesce_mega    8 tenants at BASELINE config 2 (100 PodGroups x 10
+                   pods, 50 nodes, cpu + mem; 320,000 merged cells, under
+                   2^21): 4 lockstep rounds, the coalescer's selection held
+                   until all 8 are pending, so each round is one block-
+                   diagonal mega batch (one launch); every response and row
+                   equal to a dedicated sidecar's bytes; no failed mega
+                   group.
+- coalesce_drf     the gate's whale storm at BASELINE config 3 (1k
+                   PodGroups of 4 pods, 500 nodes): 6 connections flood
+                   "whale", one "small" tenant trickles; traced requests
+                   feed the sidecar's capacity sampler and so the DRF
+                   weights. The small tenant's p95 <= max(10 x the solo
+                   batch, 1 s) and <= 1.25 x the whale's p95.
+- coalesce_busy    BST_COALESCE_DEPTH=2 with the executor parked: a full
+                   request and a wire delta answered BUSY, the delta's
+                   mirror generation kept, ResilientOracleClient retries
+                   after the hint with its breaker closed.
+- capacity         the observatory at the north star: an OracleScorer on
+                   cuda with an audit log and BST_CAPACITY_BUDGET_FRAC=1.0
+                   (every refresh sampled, no error outcome); the summary
+                   from the resident tensors on the card equal to the CPU
+                   copies', the function's outputs on the card equal to the
+                   CPU's and bit-equal across two runs, its time by CUDA
+                   events beside its bound; every batch record's audit id
+                   on a capacity_sample event; a traced sidecar request's
+                   TRACE_INFO capacity block under the announced tenant;
+                   then 40 churn refreshes at the default 2% budget with
+                   the observatory on and off in turns: the hook's share of
+                   the refresh wall clock and both refresh medians.
 
 With BST_SCAN_WAVE unset, the phases above (but policy) run the serial
 kernel (assign_scan) and never the wave kernel. The wavefront path
@@ -216,14 +261,17 @@ kernel (assign_scan) and never the wave kernel. The wavefront path
 - sidecar_wave     sidecar with W=8 on the server: the wave kernel once a
                    server batch and the serial kernel never, 128 waves a
                    batch in the server's telemetry.
+- coalesce_span_wave  coalesce_span with W=8 on both servers: the wave
+                   kernel once a tenant batch, the serial kernel never.
 
 Then the card's name and power limit (nvidia-smi), one ``kernels`` line and,
 last, ``{"ok": true, "device": {...}}``. Launch counts are read for each
 path that drives the scorer or the re-scorer — north_star, race,
 north_star_churn, churn_loop, policy, audit_replay (and its policy ring),
-sidecar, north_star_wave, race_wave, north_star_churn_wave,
-churn_loop_wave, policy_wave, audit_replay_wave, sidecar_wave, and the
-audit phases' replays
+sidecar, coalesce_span, coalesce_mega, coalesce_drf, coalesce_busy,
+capacity, north_star_wave, race_wave, north_star_churn_wave,
+churn_loop_wave, policy_wave, audit_replay_wave, sidecar_wave,
+coalesce_span_wave, and the audit phases' replays
 (``audit_replay_replays``, ``audit_replay_wave_replays``,
 ``audit_replay_policy_replays``) — with every kernel's count zeroed just
 before the path and read just after; ``launches`` in the kernels line is
@@ -1401,6 +1449,7 @@ def record_bytes(directory):
         with open(os.path.join(directory, path)) as f:
             for line in f:
                 key = ("event_batch" if '"kind": "event_batch"' in line
+                       else "event" if '"kind": "event"' in line
                        else "keyframe" if '"keyframe": true' in line else "delta")
                 out.setdefault(key, []).append(len(line))
     return {k: {"records": len(v), "bytes_median": statistics.median(v)}
@@ -1949,6 +1998,855 @@ def sidecar_wave(results):
     if "assign_wave" in results:
         results["assign_wave"]["launches_by_path"]["sidecar_wave"] = launches["assign_wave"]
     return {**report, "launches": launches["assign_wave"]}
+
+
+# -- the multi-tenant sidecar: the coalescer and the capacity observatory -----
+
+COALESCE_TENANTS = 8  # benchmarks/coalesce_gate.py:65 CLIENTS
+COALESCE_ROUNDS = 8  # churn refreshes after each tenant's keyframe
+COALESCE_SEED_PODS = 64  # seeded 2-cpu pods that make each tenant's cluster its own
+MEGA_SHAPE = (50, 100, 10)  # BASELINE config 2: nodes, gangs, members
+MEGA_ROUNDS = 4
+DRF_SHAPE = (500, 1000, 4)  # BASELINE config 3: 1k PodGroups, 500 nodes
+DRF_WHALES, DRF_REQUESTS, DRF_SOLO = 6, 8, 6  # benchmarks/coalesce_gate.py:213-282
+BUSY_DEPTH = 2
+CAPACITY_ROUNDS = 4  # refreshes sampled at BST_CAPACITY_BUDGET_FRAC=1.0
+CAPACITY_CHURN = 40  # churn refreshes at the default 2% budget, capacity on/off in turns
+CAPACITY_REPS = 20
+
+
+def coalesce_tenant_state(i):
+    """Tenant ``i``'s north-star deployment: north_star_state plus
+    COALESCE_SEED_PODS 2-cpu pods assumed on seeded nodes, so every
+    tenant's keyframe is its own."""
+    import numpy as np
+
+    from batch_scheduler_tpu_torch.sim.scenarios import make_member_pods
+
+    cluster, cache = north_star_state()
+    rng = np.random.default_rng(1000 + i)
+    names = [n.metadata.name for n in cluster.list_nodes()]
+    pods = make_member_pods(f"tenant{i}-seed", COALESCE_SEED_PODS, {"cpu": "2"})
+    for pod, k in zip(pods, rng.integers(0, len(names), COALESCE_SEED_PODS)):
+        cluster.assume(pod, names[int(k)])
+    return cluster, cache
+
+
+def drive_tenants(server, time_sliced, profiled=False):
+    """Every tenant's script against ``server``, each tenant on its own
+    thread with a RemoteScorer (a windowed ResilientOracleClient: wire
+    deltas; its own TENANT announcement) on a fresh seeded state: a
+    keyframe refresh and COALESCE_ROUNDS Churn refreshes (tenant i's
+    rounds offset by 3i). ``time_sliced`` holds one lock around every
+    refresh: one request in flight across all tenants (the gate's
+    baseline). Returns (per-tenant results, wall seconds of the
+    refreshes, and with ``profiled`` the profiler's view of that window:
+    the card's busy time and idle share)."""
+    import threading
+
+    import numpy as np
+
+    from batch_scheduler_tpu_torch.service import RemoteScorer, ResilientOracleClient
+    from batch_scheduler_tpu_torch.utils import audit as audit_mod
+
+    host, port = server.address
+    states = [coalesce_tenant_state(i) for i in range(COALESCE_TENANTS)]
+    lock = threading.Lock() if time_sliced else contextlib.nullcontext()
+    start = threading.Barrier(COALESCE_TENANTS + 1)
+    results = [None] * COALESCE_TENANTS
+    errors = []
+
+    def run(i):
+        try:
+            cluster, cache = states[i]
+            scorer = RemoteScorer(ResilientOracleClient(host, port, window=2, timeout=120),
+                                  tenant=f"tenant-{i}")
+            churn = Churn(cluster, cache, lambda name: scorer.mark_dirty(group=name),
+                          COALESCE_ROUNDS + 1)
+            out = {"digests": [], "hosts": [], "latency": []}
+            start.wait(600)
+            for r in range(COALESCE_ROUNDS + 1):
+                if r:
+                    churn(r + 3 * i)
+                with lock:
+                    t0 = time.perf_counter()
+                    scorer.refresh(cluster, cache)
+                    out["latency"].append(time.perf_counter() - t0)
+                res = scorer._state.result
+                if not res["placed"][:NORTH_STAR_GANGS].all():
+                    raise AssertionError(f"tenant {i} refresh {r}: not every gang placed")
+                out["digests"].append(audit_mod.plan_digest(res))
+                out["hosts"].append({k: np.array(res[k]) for k in HOST_KEYS})
+            scorer.close()
+            results[i] = out
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+            start.abort()
+
+    def window():
+        try:
+            start.wait(600)
+        except threading.BrokenBarrierError:
+            pass
+        for t in threads:
+            t.join(600)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(COALESCE_TENANTS)]
+    for t in threads:
+        t.start()
+    prof = None
+    t0 = time.perf_counter()
+    if profiled:
+        prof = profile_window(window, "window_ms")
+        prof.pop("top_device_ops", None)
+    else:
+        window()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return results, wall, prof
+
+
+def p50_p95(xs):
+    """(p50, p95) in ms by sorted index (sim/harness.py:27 wait_p95's
+    convention)."""
+    xs = sorted(xs)
+    pick = lambda q: xs[min(int(len(xs) * q), len(xs) - 1)] * 1e3  # noqa: E731
+    return pick(0.5), pick(0.95)
+
+
+def drive_coalesce_span(wave):
+    """coalesce_span with ``BST_SCAN_WAVE`` set to ``wave`` (None: unset)
+    on the servers, BST_CAPACITY=0 (the coalesce gate's setting: the
+    remote scorers' own capacity samples on the host would load the CPU
+    the runs compare): COALESCE_TENANTS tenants at the north star. The
+    time-sliced run against a dedicated sidecar (coalesce=False) and the
+    coalesced run (the main path; every kernel's count zeroed just before
+    it and read just after) against serve_background(coalesce=True), then
+    each again under the profiler for the card's idle share. Every
+    tenant's host dicts and plan_digest sequence must be equal in the two
+    runs; G_tot·N_tot is far above 2^21, so every group runs the span
+    lowering. Returns (launches by kernel, report)."""
+    from batch_scheduler_tpu_torch.service import serve_background
+
+    batches = COALESCE_TENANTS * (COALESCE_ROUNDS + 1)
+    with scan_wave_env(wave), env_set({"BST_CAPACITY": "0"}):
+        ded = serve_background(device="cuda", coalesce=False)
+        srv = serve_background(device="cuda", coalesce=True)
+        try:
+            coal = srv.coalescer
+            if coal.mode != "auto" or srv.device.type != "cuda":
+                raise AssertionError(f"coalescer mode {coal.mode} on {srv.device}")
+            sliced, sliced_wall, _ = drive_tenants(ded, True)
+            waits = {}
+            coal._wait = type("Waits", (), {"observe": staticmethod(
+                lambda v, tenant: waits.setdefault(tenant, []).append(v))})()
+            zero_counts()
+            coalesced, wall, _ = drive_tenants(srv, False)
+            launches = read_counts()
+            stats = coal.stats()
+            main_waits = {k: list(v) for k, v in waits.items()}
+            saved = read_counts()
+            profiled = {"time_sliced": drive_tenants(ded, True, profiled=True)[2],
+                        "coalesced": drive_tenants(srv, False, profiled=True)[2]}
+            restore_counts(saved)
+        finally:
+            for s in (srv, ded):
+                s.shutdown()
+                s.server_close()
+    for i in range(COALESCE_TENANTS):
+        a, b = coalesced[i], sliced[i]
+        if a["digests"] != b["digests"]:
+            raise AssertionError(f"tenant {i}: coalesced plan digests differ from the "
+                                 "dedicated sidecar's")
+        for r, (x, y) in enumerate(zip(a["hosts"], b["hosts"])):
+            diff = host_diff(x, y)
+            if diff:
+                raise AssertionError(f"tenant {i} refresh {r}: host dict differs in {diff}")
+    if stats["mega_groups"] or stats["mega_failures"] or not stats["groups_run"]:
+        raise AssertionError(f"coalescer stats {stats} (want span groups only)")
+    per_tenant = {}
+    for i in range(COALESCE_TENANTS):
+        t = f"tenant-{i}"
+        per_tenant[t] = {
+            "queue_wait_ms_p50_p95": p50_p95(main_waits[t]),
+            "request_ms_p50_p95_coalesced": p50_p95(coalesced[i]["latency"]),
+            "request_ms_p50_p95_time_sliced": p50_p95(sliced[i]["latency"]),
+        }
+    report = {
+        "tenants": COALESCE_TENANTS, "batches": batches,
+        "aggregate_batches_per_s": {"coalesced": batches / wall,
+                                    "time_sliced": batches / sliced_wall},
+        "wall_s": {"coalesced": wall, "time_sliced": sliced_wall},
+        "per_tenant": per_tenant,
+        "groups_run": stats["groups_run"], "mean_span_width": batches / stats["groups_run"],
+        "mega_groups": stats["mega_groups"], "mega_failures": stats["mega_failures"],
+        "profiled": profiled, "equal_dedicated": True,
+        "launches_by_kernel": launches,
+    }
+    return launches, report
+
+
+@phase("coalesce_span")
+def coalesce_span(results):
+    launches, report = drive_coalesce_span(None)
+    want = {"assign_scan": report["batches"], "assign_wave": 0, "assign_policy": 0}
+    if launches != want:
+        raise AssertionError(f"{launches} launches in {report['batches']} tenant batches "
+                             "(want assign_scan once per batch)")
+    if "assign_scan" in results:
+        results["assign_scan"]["launches_by_path"]["coalesce_span"] = launches["assign_scan"]
+    return report
+
+
+@phase("coalesce_span_wave")
+def coalesce_span_wave(results):
+    launches, report = drive_coalesce_span(8)
+    want = {"assign_scan": 0, "assign_wave": report["batches"], "assign_policy": 0}
+    if launches != want:
+        raise AssertionError(f"{launches} launches in {report['batches']} tenant batches "
+                             "(want assign_wave once per batch)")
+    if "assign_wave" in results:
+        results["assign_wave"]["launches_by_path"]["coalesce_span_wave"] = launches["assign_wave"]
+    return report
+
+
+def tenant_stream(tenant, batches, num_nodes, num_gangs, members):
+    """Tenant ``tenant``'s deterministic unpadded ScheduleRequests: the
+    port's packer over ``num_nodes`` nodes of 16 cpu / 64 GiB / 110 pods
+    and ``num_gangs`` gangs of ``members`` pods (1-4 cpu, 2-8 GiB each,
+    priorities -1..1), seeded by the tenant; each batch moves 4 nodes'
+    requested rows (to 0-50% of alloc) and one gang's remaining count."""
+    import numpy as np
+
+    from batch_scheduler_tpu_torch.ops.snapshot import ClusterSnapshot, GroupDemand
+    from batch_scheduler_tpu_torch.service import protocol as proto
+    from batch_scheduler_tpu_torch.sim.scenarios import make_sim_node
+
+    rng = np.random.default_rng(7000 + tenant)
+    nodes = [make_sim_node(f"n{i:04d}", {"cpu": "16", "memory": "64Gi", "pods": "110"})
+             for i in range(num_nodes)]
+    demands = [GroupDemand(f"tenant-{tenant}/gang-{g:04d}", members,
+                           member_request={"cpu": int(rng.integers(1, 5)) * 1000,
+                                           "memory": int(rng.integers(2, 9)) * 2**30},
+                           creation_ts=float(g), priority=g % 3 - 1)
+               for g in range(num_gangs)]
+    snap = ClusterSnapshot(nodes, {}, demands)
+    n, g = num_nodes, num_gangs
+    base = [np.array(a) for a in (
+        snap.alloc[:n], snap.requested[:n], snap.group_req[:g], snap.remaining[:g],
+        snap.fit_mask[:, :n], snap.group_valid[:g], snap.order[:g], snap.min_member[:g],
+        snap.scheduled[:g], snap.matched[:g], snap.ineligible[:g], snap.creation_rank[:g])]
+    if sorted(base[6].tolist()) != list(range(g)):
+        raise AssertionError("the packed order is not a permutation of the real gangs")
+    out = []
+    for _ in range(batches):
+        rows = rng.integers(0, n, size=4)
+        base[1][rows] = (base[0][rows] * rng.random((4, base[0].shape[1])) * 0.5).astype(np.int32)
+        base[3][int(rng.integers(0, g))] = int(rng.integers(1, members + 1))
+        out.append(proto.ScheduleRequest(*[a.copy() for a in base]))
+    return out
+
+
+def record_groups(coal):
+    """Every group the coalescer runs from now on, as (lowering, width)."""
+    groups = []
+    real = coal._note_group
+
+    def note(mode, group):
+        groups.append((mode, len(group)))
+        real(mode, group)
+
+    coal._note_group = note
+    return groups
+
+
+def gate_selection(coal, k):
+    """Hold the coalescer's group selection until ``k`` jobs are pending
+    (each lockstep round of ``k`` tenants forms one group of width
+    ``k``); returns a function that lifts the gate."""
+    real = coal._select_group_locked
+
+    def select():  # lock-held: _cv
+        if coal._pending < k:
+            coal._cv.wait(0.01)
+            return []
+        return real()
+
+    coal._select_group_locked = select
+    return lambda: setattr(coal, "_select_group_locked", real)
+
+
+def tenant_answers(server, streams, lockstep):
+    """Each tenant's stream on its own connection (its TENANT announced),
+    every SCHEDULE_RESP and one ROW_RESP after it as raw bytes;
+    ``lockstep`` holds the tenants to rounds (a barrier between rounds),
+    else they run one after another."""
+    import threading
+
+    from batch_scheduler_tpu_torch.service import OracleClient
+    from batch_scheduler_tpu_torch.service import protocol as proto
+
+    answers = [None] * len(streams)
+    barrier = threading.Barrier(len(streams)) if lockstep else None
+    errors = []
+
+    def run(i):
+        try:
+            client = OracleClient(*server.address, timeout=120)
+            out = []
+            for req in streams[i]:
+                if barrier is not None:
+                    barrier.wait(300)
+                kind, body = client._round_trip(proto.MsgType.SCHEDULE_REQ,
+                                                proto.pack_schedule_request(req),
+                                                tenant=f"tenant-{i}")
+                seq = proto.unpack_schedule_response(body).batch_seq
+                row = client.row("capacity", req.group_req.shape[0] - 1, seq)
+                out.append((kind, body, row.tobytes()))
+            client.close()
+            answers[i] = out
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+            if barrier is not None:
+                barrier.abort()
+
+    if lockstep:
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(streams))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+    else:
+        for i in range(len(streams)):
+            run(i)
+    if errors:
+        raise errors[0]
+    return answers
+
+
+@phase("coalesce_mega")
+def coalesce_mega(results):
+    """COALESCE_TENANTS tenants at BASELINE config 2 (MEGA_SHAPE: 100
+    PodGroups x 10 pods, 50 nodes, cpu + mem): G_tot·N_tot = 800·400 =
+    320,000 cells, under BST_COALESCE_MEGA_CELLS' 2^21, so the auto mode
+    merges block-diagonal mega batches. The tenants run MEGA_ROUNDS
+    requests in lockstep against serve_background(coalesce=True) with the
+    group selection held until all are pending (one merged group a round:
+    the main path, every kernel's count zeroed just before and read just
+    after), then one after another against a dedicated sidecar. Every
+    response and row must equal its dedicated bytes; mega_groups > 0, no
+    failed mega group, one serial-kernel launch a merged group."""
+    from batch_scheduler_tpu_torch.service import protocol as proto
+    from batch_scheduler_tpu_torch.service import serve_background
+
+    n, g, members = MEGA_SHAPE
+    streams = [tenant_stream(i, MEGA_ROUNDS, n, g, members)
+               for i in range(COALESCE_TENANTS)]
+    srv = serve_background(device="cuda", coalesce=True)
+    ded = serve_background(device="cuda", coalesce=False)
+    try:
+        coal = srv.coalescer
+        gate_selection(coal, COALESCE_TENANTS)
+        zero_counts()
+        t0 = time.perf_counter()
+        got = tenant_answers(srv, streams, lockstep=True)
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        stats = coal.stats()
+        saved = read_counts()
+        want = tenant_answers(ded, streams, lockstep=False)
+        restore_counts(saved)
+    finally:
+        for s in (srv, ded):
+            s.shutdown()
+            s.server_close()
+    for i in range(COALESCE_TENANTS):
+        if got[i] != want[i]:
+            raise AssertionError(f"tenant {i}: mega answers differ from the dedicated bytes")
+    placed = [int(proto.unpack_schedule_response(body).placed.sum()) for _, body, _ in got[0]]
+    if not stats["mega_groups"] or stats["mega_failures"] \
+            or stats["mega_groups"] != MEGA_ROUNDS:
+        raise AssertionError(f"coalescer stats {stats}")
+    if launches != {"assign_scan": stats["groups_run"], "assign_wave": 0, "assign_policy": 0}:
+        raise AssertionError(f"{launches} launches in {stats['groups_run']} merged groups")
+    if "assign_scan" in results:
+        results["assign_scan"]["launches_by_path"]["coalesce_mega"] = launches["assign_scan"]
+    return {"tenants": COALESCE_TENANTS, "rounds": MEGA_ROUNDS,
+            "cells": COALESCE_TENANTS * g * COALESCE_TENANTS * n,
+            "groups_run": stats["groups_run"], "mega_groups": stats["mega_groups"],
+            "mega_failures": stats["mega_failures"], "launches_by_kernel": launches,
+            "tenant0_placed_by_round": placed, "wall_ms": wall * 1e3,
+            "equal_dedicated_bytes": True}
+
+
+@phase("coalesce_drf")
+def coalesce_drf(results):
+    """The whale storm of benchmarks/coalesce_gate.py:213 at BASELINE
+    config 3 (DRF_SHAPE: 1k PodGroups of 4 pods, 500 nodes, mixed
+    priorities) on serve_background(device="cuda", coalesce=True) with the
+    capacity observatory on (its default): an idle-server baseline
+    (DRF_SOLO requests, their median the solo batch), then DRF_WHALES
+    connections flood the "whale" label with DRF_REQUESTS requests each
+    while one "small" tenant trickles DRF_REQUESTS requests, sleeping a
+    solo batch between them. Every request is traced, so the sidecar's
+    capacity samples feed _capacity_tenant_shares, the coalescer's DRF
+    weights. Holds the small tenant's p95 request time to the gate's two
+    bounds: <= max(10 x solo, 1 s) and <= 1.25 x the whale's p95. Every
+    kernel's count is zeroed just before the storm and read just after:
+    one serial-kernel launch a span group's batch and one a mega group
+    (two config-3 tenants are 2,000,000 cells, under 2^21: a group of
+    two merges)."""
+    import threading
+
+    from batch_scheduler_tpu_torch.service import OracleClient, serve_background
+    from batch_scheduler_tpu_torch.service import protocol as proto
+    from batch_scheduler_tpu_torch.service import server as server_mod
+    from batch_scheduler_tpu_torch.utils.metrics import DEFAULT_REGISTRY
+    from batch_scheduler_tpu_torch.utils.trace import new_trace_id
+
+    n, g, members = DRF_SHAPE
+    samples = DEFAULT_REGISTRY.counter("bst_capacity_samples_total")
+    errors0 = samples.value(outcome="error")
+    srv = serve_background(device="cuda", coalesce=True)
+    host, port = srv.address
+    errors = []
+
+    def traced(client, req, tenant):
+        t0 = time.perf_counter()
+        kind, body = client._round_trip(proto.MsgType.SCHEDULE_REQ,
+                                        proto.pack_schedule_request(req),
+                                        trace_ctx=(new_trace_id(), ""), tenant=tenant)
+        if kind != proto.MsgType.SCHEDULE_RESP:
+            raise AssertionError(f"answer {kind}")
+        return time.perf_counter() - t0
+
+    try:
+        base = OracleClient(host, port, timeout=300)
+        solo = [traced(base, req, "warm") for req in tenant_stream(50, DRF_SOLO, n, g, members)]
+        base.close()
+        solo_s = sorted(solo[1:])[len(solo[1:]) // 2]
+        whale_waits, small_waits = [], []
+
+        def whale(i):
+            try:
+                c = OracleClient(host, port, timeout=300)
+                for req in tenant_stream(60 + i, DRF_REQUESTS, n, g, members):
+                    whale_waits.append(traced(c, req, "whale"))
+                c.close()
+            except BaseException as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+
+        def small():
+            try:
+                c = OracleClient(host, port, timeout=300)
+                for req in tenant_stream(99, DRF_REQUESTS, n, g, members):
+                    small_waits.append(traced(c, req, "small"))
+                    time.sleep(solo_s)  # a trickle, not a flood
+                c.close()
+            except BaseException as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+
+        groups = record_groups(srv.coalescer)
+        zero_counts()
+        threads = [threading.Thread(target=whale, args=(i,)) for i in range(DRF_WHALES)]
+        for t in threads:
+            t.start()
+        time.sleep(solo_s * 2)  # let the whale backlog form first
+        st = threading.Thread(target=small)
+        st.start()
+        for t in threads + [st]:
+            t.join(600)
+        launches = read_counts()
+        stats = srv.coalescer.stats()
+        shares = server_mod._capacity_tenant_shares()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    if errors:
+        raise errors[0]
+    storm = (DRF_WHALES + 1) * DRF_REQUESTS
+    batches = sum(w if mode == "span" else 1 for mode, w in groups)
+    if sum(w for _, w in groups) != storm or stats["mega_failures"] \
+            or launches != {"assign_scan": batches, "assign_wave": 0, "assign_policy": 0}:
+        raise AssertionError(f"{launches} launches in {storm} storm requests, groups "
+                             f"{groups}, stats {stats}")
+    cap_errors = samples.value(outcome="error") - errors0
+    if cap_errors or not shares:
+        raise AssertionError(f"capacity samples: {cap_errors} errors, shares {shares}")
+    small_p50, small_p95 = p50_p95(small_waits)
+    whale_p50, whale_p95 = p50_p95(whale_waits)
+    bound_ms = max(10 * solo_s, 1.0) * 1e3
+    if not (small_p95 <= bound_ms and small_p95 <= 1.25 * whale_p95):
+        raise AssertionError(f"small tenant p95 {small_p95:.3f} ms vs bound {bound_ms:.3f} ms "
+                             f"(whale p95 {whale_p95:.3f} ms)")
+    if "assign_scan" in results:
+        results["assign_scan"]["launches_by_path"]["coalesce_drf"] = launches["assign_scan"]
+    return {"solo_batch_ms": solo_s * 1e3, "small_ms_p50_p95": [small_p50, small_p95],
+            "whale_ms_p50_p95": [whale_p50, whale_p95], "starvation_bound_ms": bound_ms,
+            "relative_bound_ms": 1.25 * whale_p95, "observatory_shares": shares,
+            "groups": {"span": sum(m == "span" for m, _ in groups),
+                       "mega": sum(m == "mega" for m, _ in groups),
+                       "mean_width": storm / max(len(groups), 1)},
+            "served_share": stats["served_share"], "launches_by_kernel": launches}
+
+
+@phase("coalesce_busy")
+def coalesce_busy(results):
+    """Admission control on the card: BST_COALESCE_DEPTH=BUSY_DEPTH and the
+    executor parked behind a closure that waits on an event. One job taken
+    by the coalescer's worker and BUSY_DEPTH pending fill the queue
+    deterministically; then a full request and a wire delta are both
+    answered BUSY (the span lowering: BST_COALESCE_MODE=span), the refused delta leaves its mirror's generation as it
+    was (the same delta applies once the queue drains), and
+    ResilientOracleClient waits out the hint (its sleep opens the gate and
+    waits for the queue to drain) and succeeds with its breaker closed.
+    The main path (every count zeroed before it, read after): the three
+    filler batches, the retried one and the delta's, one serial-kernel
+    launch each."""
+    import threading
+    import types
+
+    import numpy as np
+
+    from batch_scheduler_tpu_torch.service import client as tclient
+    from batch_scheduler_tpu_torch.service import protocol as proto
+    from batch_scheduler_tpu_torch.service import serve_background
+    from batch_scheduler_tpu_torch.utils.metrics import DEFAULT_REGISTRY
+
+    T, P = proto.MsgType, proto
+    n, g, members = MEGA_SHAPE
+    req = tenant_stream(5, 1, n, g, members)[0]
+    busy_counter = DEFAULT_REGISTRY.counter("bst_oracle_busy_total")
+    with env_set({"BST_COALESCE_DEPTH": str(BUSY_DEPTH), "BST_COALESCE_MODE": "span"}):
+        srv = serve_background(device="cuda", coalesce=True)
+    coal = srv.coalescer
+    gate, parked = threading.Event(), threading.Event()
+    real_time = tclient.time
+    try:
+        if coal.depth != BUSY_DEPTH:
+            raise AssertionError(f"coalescer depth {coal.depth}")
+        delta = tclient.OracleClient(*srv.address, timeout=120)
+        kind, _ = delta._round_trip(T.DELTA_SCHEDULE_REQ, P.pack_delta_keyframe(1, req))
+        if kind != T.SCHEDULE_RESP:
+            raise AssertionError(f"keyframe answer {kind}")
+        rows = P.DeltaScheduleRequest(
+            node_idx=np.array([3], np.int32), node_rows=req.requested[[3]] + 1,
+            group_idx=np.zeros(0, np.int32),
+            group_rows=np.zeros((0, req.alloc.shape[1]), np.int32),
+            remaining=req.remaining, fit_mask=req.fit_mask, group_valid=req.group_valid,
+            order=req.order, min_member=req.min_member, scheduled=req.scheduled,
+            matched=req.matched, ineligible=req.ineligible,
+            creation_rank=req.creation_rank, n=n, g=g, r=req.alloc.shape[1])
+
+        def park():
+            parked.set()
+            gate.wait(300)
+
+        zero_counts()
+        threading.Thread(target=srv.executor.run, args=(park,), daemon=True).start()
+        if not parked.wait(60):
+            raise AssertionError("the executor never took the parking closure")
+        answers = []
+
+        def fill():
+            c = tclient.OracleClient(*srv.address, timeout=300)
+            answers.append(c._round_trip(T.SCHEDULE_REQ, P.pack_schedule_request(req))[0])
+            c.close()
+
+        fillers = [threading.Thread(target=fill) for _ in range(BUSY_DEPTH + 1)]
+        fillers[0].start()
+        deadline = time.monotonic() + 60
+        while srv.executor._q.qsize() < 1:
+            if time.monotonic() > deadline:
+                raise AssertionError("the first job never reached the executor")
+            time.sleep(0.001)
+        for t in fillers[1:]:
+            t.start()
+        while coal.stats()["pending"] < BUSY_DEPTH:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"queue never filled: {coal.stats()}")
+            time.sleep(0.001)
+        busy = tclient.OracleClient(*srv.address, timeout=120)
+        refused = []
+        for client, msg, payload in (
+                (busy, T.SCHEDULE_REQ, P.pack_schedule_request(req)),
+                (delta, T.DELTA_SCHEDULE_REQ, P.pack_delta_rows(1, 2, rows))):
+            try:
+                client._round_trip(msg, payload)
+                raise AssertionError(f"message {msg} executed on a full queue")
+            except tclient.OracleBusyError as e:
+                refused.append(e.retry_after_ms)
+        busy.close()
+
+        def drained_sleep(seconds):
+            gate.set()
+            for t in fillers:
+                t.join(120)
+            while coal.stats()["pending"]:
+                real_time.sleep(0.001)
+
+        fake = types.SimpleNamespace(**{k: getattr(real_time, k) for k in dir(real_time)
+                                        if not k.startswith("_")})
+        fake.sleep = drained_sleep
+        tclient.time = fake
+        busy0 = sum(busy_counter.values().values())
+        rc = tclient.ResilientOracleClient(*srv.address, timeout=120)
+        resp = rc.schedule(req, tenant="retrier")
+        tclient.time = real_time
+        retried_busy = sum(busy_counter.values().values()) - busy0
+        breaker = rc.breaker.state
+        rc.close()
+        if retried_busy != 1 or breaker != "closed" or not resp.placed.any():
+            raise AssertionError(f"resilient retry: {retried_busy} BUSY, breaker {breaker}")
+        kind, _ = delta._round_trip(T.DELTA_SCHEDULE_REQ, P.pack_delta_rows(1, 2, rows))
+        if kind != T.SCHEDULE_RESP:
+            raise AssertionError(f"the refused delta's retry answered {kind}")
+        delta.close()
+        launches = read_counts()
+    finally:
+        tclient.time = real_time
+        gate.set()
+        srv.shutdown()
+        srv.server_close()
+    if answers != [T.SCHEDULE_RESP] * (BUSY_DEPTH + 1) or not all(
+            25 <= ms <= 5000 for ms in refused):
+        raise AssertionError(f"fillers {answers}, BUSY hints {refused}")
+    batches = BUSY_DEPTH + 1 + 2
+    if launches != {"assign_scan": batches, "assign_wave": 0, "assign_policy": 0}:
+        raise AssertionError(f"{launches} launches in {batches} batches")
+    if "assign_scan" in results:
+        results["assign_scan"]["launches_by_path"]["coalesce_busy"] = launches["assign_scan"]
+    return {"busy_hints_ms": refused, "depth": BUSY_DEPTH, "retried_busy": retried_busy,
+            "breaker": breaker, "delta_generation_kept": True,
+            "busy_total": int(coal._busy.value()), "launches_by_kernel": launches}
+
+
+def device_work(fn):
+    """(device busy ms, device operations) of one ``fn()`` under
+    torch.profiler: the card's kernels, copies and memsets."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy, ops = 0.0, 0
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        busy += dev_us / 1e3
+        ops += ev.count
+    return busy, ops
+
+
+def capacity_bound(args, tenants):
+    """(bound_ms, bound_by) of one _capacity_kernel on these inputs: every
+    input read once and the outputs written once over HBM bandwidth, vs
+    its integer operations over the int32 rate — per (gang, node) a
+    division and a minimum per requested lane plus the mask, twice (the
+    capacity at batch entry and after the plan), and per node the lane
+    bucket, stranded and consumable tests and the 5 size sweeps of 19
+    sizes."""
+    n, r = args[0].shape
+    g, k = args[7].shape
+    in_bytes = sum(t.numel() * t.element_size() for t in args)
+    out_bytes = 4 * (r * (5 + 128) + 128 + 2 * 4 + 4 + tenants * (r + 1) + 10)
+    lanes = int((args[2] > 0).sum().item())
+    ops = 2 * n * (2 * lanes + 2 * g) + n * r * 6 + 5 * 19 * n * 2 + g * k * r * 2
+    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S
+    t_ops = ops / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+@phase("capacity")
+def capacity(results):
+    """The capacity observatory at the north star. An OracleScorer on cuda
+    (north_star_churn's deployment) with an audit log and
+    BST_CAPACITY_BUDGET_FRAC=1.0: a keyframe refresh and CAPACITY_ROUNDS-1
+    Churn refreshes, each sampled (the main path: every kernel's count
+    zeroed before, read after; the sampler's error outcome must stay 0).
+    On the last batch's resident tensors: the summary computed on the card
+    equals the same function on CPU copies, the function's outputs on the
+    card equal the CPU's (integers exactly; floats exactly too, both sum
+    in int64) and two card runs are bit-equal; its time by CUDA events
+    beside its bound. Every batch record's audit id has its
+    capacity_sample event. A traced sidecar request's TRACE_INFO carries
+    the capacity block, attributed to the announced tenant. Then, at the
+    default 2% budget, CAPACITY_CHURN churn refreshes of two scorers on
+    one cluster, BST_CAPACITY on and off, in turns: the share of the on
+    scorer's refresh wall clock its hook took, and both refresh
+    medians."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from batch_scheduler_tpu_torch.core import OracleScorer
+    from batch_scheduler_tpu_torch.ops import capacity as cap
+    from batch_scheduler_tpu_torch.service import OracleClient, serve_background
+    from batch_scheduler_tpu_torch.service import protocol as proto
+    from batch_scheduler_tpu_torch.service import server as server_mod
+    from batch_scheduler_tpu_torch.utils import tenancy
+    from batch_scheduler_tpu_torch.utils.audit import AuditLog, AuditReader
+    from batch_scheduler_tpu_torch.utils.metrics import DEFAULT_REGISTRY
+    from batch_scheduler_tpu_torch.utils.trace import new_trace_id
+
+    samples = DEFAULT_REGISTRY.counter("bst_capacity_samples_total")
+    errors0 = samples.value(outcome="error")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="bst-capacity-") as tmp, \
+            env_set({"BST_CAPACITY": "1", "BST_CAPACITY_BUDGET_FRAC": "1.0"}):
+        cluster, cache = north_star_state()
+        log = AuditLog(tmp)
+        scorer = OracleScorer(device="cuda", audit_log=log)
+        if cap.active_sampler() is not scorer._capacity or scorer._capacity is None:
+            raise AssertionError("the scorer's sampler is not the active one")
+        churn = Churn(cluster, cache, lambda name: scorer.mark_dirty(group=name),
+                      CAPACITY_ROUNDS)
+        zero_counts()
+        for r in range(CAPACITY_ROUNDS):
+            if r:
+                churn(r)
+            scorer.refresh(cluster, cache)
+        launches = read_counts()
+        torch.cuda.synchronize()
+        sampler = scorer._capacity
+        if sampler.samples != CAPACITY_ROUNDS:
+            raise AssertionError(f"{sampler.samples} samples in {CAPACITY_ROUNDS} refreshes")
+        # the last batch's resident tensors, on the card and as CPU copies
+        snap = scorer.snapshot
+        resident = scorer._device_state.last_args()
+        host = scorer._state.result
+        progress = snap.progress_args()
+        kw = dict(group_names=snap.group_names, scheduled=progress[1], matched=progress[2])
+        with torch.cuda.stream(scorer.stream):
+            on_card = cap.capacity_summary(resident, host, device="cuda", **kw)
+            cpu_args = tuple(a.cpu() if hasattr(a, "cpu") else a for a in resident)
+        on_cpu = cap.capacity_summary(cpu_args, host, device="cpu", **kw)
+        if on_card != on_cpu or on_card != sampler.last():
+            raise AssertionError("the summary on the card differs from the CPU's")
+        tid, labels = tenancy.batch_tenants(snap.group_names, resident[2].shape[0])
+        cols = (*resident[:6], np.asarray(host["placed"]).astype(np.int32),
+                host["assignment_nodes"], host["assignment_counts"], progress[1],
+                progress[2], tid, np.zeros(resident[2].shape[0], np.int32))
+        dts = (np.int32,) * 4 + (np.bool_, np.bool_) + (np.int32,) * 7
+
+        def kernel_args(device):
+            from batch_scheduler_tpu_torch.ops.convert import _place_one
+
+            dev = torch.device(device)
+            return tuple(
+                _place_one(a.cpu().numpy() if device == "cpu" and hasattr(a, "cpu") else a,
+                           dt, dev)
+                for a, dt in zip(cols, dts))
+
+        card_args = kernel_args("cuda")
+        runs = [cap._capacity_kernel(*card_args, tenants=len(labels)) for _ in range(2)]
+        cpu_out = cap._capacity_kernel(*kernel_args("cpu"), tenants=len(labels))
+        torch.cuda.synchronize()
+        rel_err = 0.0
+        for k, v in cpu_out.items():
+            a, b = runs[0][k].cpu(), runs[1][k].cpu()
+            if not torch.equal(a, b):
+                raise AssertionError(f"two card runs differ in {k}")
+            if v.dtype == torch.float32:
+                rel_err = max(rel_err, float(((a - v).abs() / v.abs().clamp(min=1)).max()))
+            elif not torch.equal(a, v):
+                raise AssertionError(f"{k} on the card differs from the CPU's")
+        kernel_ms = cuda_ms(lambda: cap._capacity_kernel(*card_args, tenants=len(labels)),
+                            CAPACITY_REPS)
+        busy_ms, device_ops = device_work(
+            lambda: cap._capacity_kernel(*card_args, tenants=len(labels)))
+        bound_ms, bound_by = capacity_bound(card_args, len(labels))
+        if not log.flush(120.0):
+            raise AssertionError("the audit log did not flush")
+        records = list(AuditReader(tmp).records())
+        batch_ids = [r["audit_id"] for r in records if r.get("kind") == "batch"]
+        event_ids = [r["audit_id"] for r in records
+                     if r.get("kind") == "event" and r["event"] == "capacity_sample"]
+        if len(batch_ids) != CAPACITY_ROUNDS or event_ids != batch_ids or None in batch_ids:
+            raise AssertionError(f"audit ids: batches {batch_ids}, samples {event_ids}")
+        log.stop()
+        out.update(refreshes=CAPACITY_ROUNDS, launches_by_kernel=launches,
+                   summary_equal_cpu=True, repeat_bit_equal=True,
+                   float_max_rel_err_vs_cpu=rel_err, kernel_ms=kernel_ms,
+                   device_busy_ms=busy_ms, device_ops_a_call=device_ops,
+                   bound_ms=bound_ms, bound_by=bound_by, tenants=len(labels),
+                   sample_wall_ms=sampler.last_kernel_s * 1e3,
+                   audit_events=len(event_ids),
+                   last_summary={k: on_card[k] for k in (
+                       "nodes", "fragmentation_index", "largest_placeable_gang",
+                       "stranded", "pending", "placed", "top_tenant")})
+        # the sidecar's traced sample, attributed to the announced tenant
+        saved = read_counts()
+        server_mod._server_capacity = None
+        srv = serve_background(device="cuda")
+        try:
+            client = OracleClient(*srv.address, timeout=120)
+            kind, body = client._round_trip(
+                proto.MsgType.SCHEDULE_REQ,
+                proto.pack_schedule_request(snapshot_request(snap)),
+                trace_ctx=(new_trace_id(), ""), tenant="tenant-cap")
+            tele = client.last_telemetry
+            client.close()
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        restore_counts(saved)
+        shares = server_mod._capacity_tenant_shares()
+        if "capacity" not in tele or set(shares) != {"tenant-cap"}:
+            raise AssertionError(f"sidecar capacity: telemetry keys {sorted(tele)}, "
+                                 f"shares {shares}")
+        out["sidecar_capacity"] = {"telemetry": tele["capacity"], "shares": shares}
+    # the default budget, capacity on and off in turns on one cluster
+    saved = read_counts()
+    cluster, cache = north_star_state()
+    with env_set({"BST_CAPACITY": "1", "BST_CAPACITY_BUDGET_FRAC": None}):
+        on = OracleScorer(device="cuda")
+    with env_set({"BST_CAPACITY": "0"}):
+        off = OracleScorer(device="cuda")
+    hook_s = []
+    on._capacity_sample = timed_calls(on._capacity_sample, hook_s)
+
+    def mark(name):
+        on.mark_dirty(group=name)
+        off.mark_dirty(group=name)
+
+    churn = Churn(cluster, cache, mark, CAPACITY_CHURN + 1)
+    times = {"on": [], "off": []}
+    for s in (on, off):
+        s.refresh(cluster, cache)
+    sampled0 = on._capacity.samples
+    for r in range(1, CAPACITY_CHURN + 1):
+        churn(r % CHURN_ROUNDS + CHURN_ROUNDS)  # off the priority/request rounds
+        pair = ((on, "on"), (off, "off")) if r % 2 else ((off, "off"), (on, "on"))
+        for s, label in pair:
+            t0 = time.perf_counter()
+            s.refresh(cluster, cache)
+            torch.cuda.synchronize()
+            times[label].append(time.perf_counter() - t0)
+    restore_counts(saved)
+    if samples.value(outcome="error") != errors0:
+        raise AssertionError(f"{samples.value(outcome='error') - errors0} capacity errors")
+    med = lambda xs: statistics.median(xs) * 1e3  # noqa: E731
+    out["default_budget"] = {
+        "churn_refreshes": CAPACITY_CHURN,
+        "samples": on._capacity.samples - sampled0,
+        "hook_share_of_refresh_wall": sum(hook_s[1:]) / sum(times["on"]),
+        "churn_refresh_ms_median": {"capacity_on": med(times["on"]),
+                                    "capacity_off": med(times["off"])},
+        "budget_frac": cap.capacity_budget_frac(),
+    }
+    if "assign_scan" in results:
+        results["assign_scan"]["launches_by_path"]["capacity"] = launches["assign_scan"]
+    if launches != {"assign_scan": CAPACITY_ROUNDS, "assign_wave": 0, "assign_policy": 0}:
+        raise AssertionError(f"{launches} launches in {CAPACITY_ROUNDS} refreshes")
+    return out
 
 
 # benchmarks/ladder.py:250 config5_churn: 10,000 gangs of 10 pods (4 cpu,
@@ -3153,6 +4051,11 @@ def main() -> int:
     preemption(results)
     audit_replay(results)
     sidecar(results)
+    coalesce_span(results)
+    coalesce_mega(results)
+    coalesce_drf(results)
+    coalesce_busy(results)
+    capacity(results)
     north_star_wave(results)
     mixed_wave(results)
     race_wave(results)
@@ -3161,6 +4064,7 @@ def main() -> int:
     policy_wave(results)
     audit_replay_wave(results)
     sidecar_wave(results)
+    coalesce_span_wave(results)
 
     sources = {
         "assign_scan": ("batch_scheduler_tpu_torch/csrc/assign_scan.cu",
