@@ -8,6 +8,10 @@ pure-Python module it needs, and imports nothing of the reference.
 
 Layout:
 
+- ``analysis``  the invariant gate (``python -m
+             batch_scheduler_tpu_torch.analysis``: the ``guarded-by``,
+             ``knobs``, ``wire`` and ``metrics`` checkers over this
+             package) and the ``BST_LOCKCHECK=1`` runtime lock checker
 - ``api``    PodGroup/Pod/Node data model, quantities, placement fit
 - ``cache``  PodGroup status cache + TTL match caches
 - ``core``   gang scheduling semantics (``ScheduleOperation``) and the
@@ -37,8 +41,9 @@ Layout:
                  ``BST_AUDIT_FORMAT`` / ``BST_AUDIT_KEYFRAME_EVERY``
                  readers (with the CLI)
   - ``metrics``  the counter / gauge / histogram registry and its text
-                 rendering. To come: ``serve_metrics`` and its HTTP
-                 surfaces
+                 rendering; the batch path records the reference's batch
+                 and refresh series there. To come: ``serve_metrics`` and
+                 its HTTP surfaces
   - ``trace``    ``new_trace_id`` and ``current_context`` (always None).
                  To come: the span ring and the flight recorder
   - ``tenancy``  the capped tenant-label registry. To come: the
@@ -51,3 +56,12 @@ a machine without CUDA the default device raises.
 """
 
 __version__ = "0.1.0"
+
+# BST_LOCKCHECK=1 arms the runtime lock-discipline checker
+# (analysis/lockcheck.py): every class annotated `# guarded-by:` is
+# instrumented so an unguarded cross-thread access raises with both
+# stacks. A no-op (one env probe) when the knob is unset.
+from .analysis.lockcheck import maybe_install as _lockcheck_maybe_install
+
+_lockcheck_maybe_install()
+del _lockcheck_maybe_install

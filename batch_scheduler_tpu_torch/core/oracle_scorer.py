@@ -65,6 +65,7 @@ from ..utils import tenancy
 from ..utils import trace as trace_mod
 from ..utils.errors import StaleBatchError
 from ..utils.health import IdentityAuditor
+from ..utils.metrics import DEFAULT_REGISTRY, LONG_OP_BUCKETS
 from ..utils.labels import (
     POLICY_AFFINITY_LABEL,
     POLICY_ANTI_AFFINITY_LABEL,
@@ -499,8 +500,10 @@ class OracleScorer:
         # reconcile against (None -> the fold cannot prove coverage)
         self._fold_version = None  # guarded-by: _refresh_lock
         self._fold_mut_base = None  # guarded-by: _refresh_lock
-        # fold attempts by outcome (_try_fold), and the last one
-        self.fold_outcomes: Dict[str, int] = {}  # guarded-by: _refresh_lock
+        # fold attempts by outcome (_try_fold, under the refresh lock), and
+        # the last one. The counts take the stats lock too: stats() copies
+        # them from any thread without waiting out a refresh
+        self.fold_outcomes: Dict[str, int] = {}  # guarded-by: _stats_lock
         self.last_fold_outcome: Optional[str] = None  # guarded-by: _refresh_lock
         # Device-resident cluster state (ops.device_state): the packed
         # [N,R]/[G,R] buffers stay on the device across batches and each
@@ -646,13 +649,26 @@ class OracleScorer:
             "keyframe" if snap.delta is None or snap.delta.kind == "keyframe"
             else "fold" if snap.delta.source == "events" else "scan"
         )
+        batch_s = t2 - t1
         with self._stats_lock:
             self.pack_seconds.append(pack_s)
-            self.batch_seconds.append(t2 - t1)
+            self.batch_seconds.append(batch_s)
             del self.pack_seconds[:-1000], self.batch_seconds[:-1000]
             by_path = self.pack_seconds_by_path.setdefault(path, [])
             by_path.append(pack_s)
             del by_path[:-1000]
+        # the reference's batch series (its refresh publishes them here too)
+        DEFAULT_REGISTRY.counter(
+            "bst_oracle_batches_total", "Fused oracle batches executed"
+        ).inc()
+        DEFAULT_REGISTRY.histogram(
+            "bst_oracle_batch_seconds",
+            "Device time per fused oracle batch (compiles included)",
+            buckets=LONG_OP_BUCKETS,
+        ).observe(batch_s)
+        DEFAULT_REGISTRY.histogram(
+            "bst_oracle_pack_seconds", "Host snapshot-pack time per batch"
+        ).observe(pack_s)
 
     def _pack_current(self, cluster, status_cache: PGStatusCache):  # lock-held: _refresh_lock
         """Read cluster state and build one snapshot — the O(churn) event
@@ -780,8 +796,14 @@ class OracleScorer:
                             (g.full_name, _demand_fp(g)) for g in group_updates
                         ],
                     }
-        self.fold_outcomes[outcome] = self.fold_outcomes.get(outcome, 0) + 1
+        with self._stats_lock:
+            self.fold_outcomes[outcome] = self.fold_outcomes.get(outcome, 0) + 1
         self.last_fold_outcome = outcome
+        DEFAULT_REGISTRY.counter(
+            "bst_event_folds_total",
+            "Event-fold refresh attempts by outcome (folded = O(churn) "
+            "pack served; every other outcome fell back to the full scan)",
+        ).inc(outcome=outcome)
         return snap
 
     def _note_pack(self, snap) -> None:  # lock-held: _refresh_lock
@@ -945,9 +967,11 @@ class OracleScorer:
         and the device holder's keyframes / scatters / derivations; and
         the audit layer's (``audit``: errors swallowed at publish, the
         audit log's and the identity auditor's counters when attached)."""
+        with self._stats_lock:
+            fold_outcomes = dict(self.fold_outcomes)
         out = {
             "batches_run": self.batches_run,
-            "fold_outcomes": dict(self.fold_outcomes),
+            "fold_outcomes": fold_outcomes,
             "packer": self._packer.stats(),
             "device_state": (
                 self._device_state.stats()

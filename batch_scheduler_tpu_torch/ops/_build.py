@@ -42,9 +42,12 @@ VARIANTS = {"assign_policy": ("assign_scan", ("-DBST_POLICY_SCAN=1",))}
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
+# _lock guards both tables and is held only to read or write them; a
+# build holds its library's own entry in _locks, so one library's nvcc
+# never waits for another's
 _lock = threading.Lock()
 _locks: Dict[str, threading.Lock] = {}  # guarded-by: _lock
-_libs: Dict[str, ctypes.CDLL] = {}  # guarded-by: the library's entry in _locks
+_libs: Dict[str, ctypes.CDLL] = {}  # guarded-by: _lock
 
 
 def _nvcc() -> str:
@@ -88,10 +91,14 @@ def library(name: str) -> ctypes.CDLL:
     Different libraries build concurrently when called from several
     threads."""
     with _lock:
-        lock = _locks.setdefault(name, threading.Lock())
-    with lock:
         lib = _libs.get(name)
         if lib is not None:
+            return lib
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
+        with _lock:
+            lib = _libs.get(name)
+        if lib is not None:  # built while this thread waited for the lock
             return lib
         stem, extra = VARIANTS.get(name, (name, ()))
         src = CSRC_DIR / f"{stem}.cu"
@@ -107,5 +114,7 @@ def library(name: str) -> ctypes.CDLL:
                 tmp.unlink(missing_ok=True)
                 raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stdout}")
             os.replace(tmp, out)
-        lib = _libs[name] = ctypes.CDLL(str(out))
+        lib = ctypes.CDLL(str(out))
+        with _lock:
+            _libs[name] = lib
         return lib

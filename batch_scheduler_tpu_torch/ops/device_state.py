@@ -54,6 +54,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.metrics import DEFAULT_REGISTRY
 from .convert import resolve_device
 
 __all__ = ["DeviceStateHolder", "derive_columns", "stage_rows"]
@@ -151,6 +152,25 @@ class DeviceStateHolder:
 
     def _note_keyframe(self, reason: str) -> None:  # lock-held: _lock
         self.keyframes[reason] = self.keyframes.get(reason, 0) + 1
+        DEFAULT_REGISTRY.counter(
+            "bst_device_keyframe_resyncs_total",
+            "Device-resident state resyncs from a full keyframe, by reason",
+        ).inc(reason=reason)
+        self._note_generation()
+
+    def _note_generation(self) -> None:  # lock-held: _lock
+        DEFAULT_REGISTRY.gauge(
+            "bst_device_state_generation",
+            "Generation of the device-resident cluster state (per holder)",
+        ).set(float(self.generation), holder=self.label)
+
+    def _count_scattered(self, rows: int) -> None:  # lock-held: _lock
+        self.rows_scattered += rows
+        DEFAULT_REGISTRY.counter(
+            "bst_device_rows_scattered_total",
+            "Churned rows applied to device-resident state via "
+            "jit'd scatter-updates (vs a full re-upload)",
+        ).inc(rows)
 
     def _scatter(self, buf: torch.Tensor, idx, rows) -> None:  # lock-held: _lock
         """Resident ``buf`` rows at ``idx`` become ``rows``, in place — THE
@@ -235,7 +255,9 @@ class DeviceStateHolder:
                 scattered += int(len(idx))
             self.generation = int(generation)
             self.deltas_applied += 1
-            self.rows_scattered += scattered
+            if scattered:
+                self._count_scattered(scattered)
+            self._note_generation()
             return self._resident_args(small_args)
 
     # -- the scorer-side entry point ---------------------------------------
@@ -330,6 +352,12 @@ class DeviceStateHolder:
             self._meta_gen = gen
             fit, order = self._derived
             self.derived_batches += 1
+            DEFAULT_REGISTRY.counter(
+                "bst_refresh_derived_batches_total",
+                "Batches whose fit-mask/queue-order columns were derived "
+                "on device from resident meta columns instead of host "
+                "precompute + upload",
+            ).inc()
             return out[:4] + (fit, out[5], order)
 
     def sync_policy_cols(self, snap) -> Optional[tuple]:
@@ -364,7 +392,7 @@ class DeviceStateHolder:
                 # [N] scatters as [N, 1] rows: index_copy_ needs a row axis
                 self._scatter(self._policy_dom[:, None], idx,
                               np.asarray(node_dom)[idx][:, None])
-                self.rows_scattered += int(len(idx))
+                self._count_scattered(int(len(idx)))
             return (prio, aff, anti, gang_dom, self._policy_hash, self._policy_dom)
 
     # -- observability ------------------------------------------------------

@@ -678,7 +678,7 @@ def _batch_blob(alloc_lanes, requested, group_req, remaining, fit_mask,
 
 
 # Batches dispatched and not yet collected, process-wide (the reference's
-# _note_inflight; the metrics registry it feeds is not ported).
+# _note_inflight, with its gauge).
 _inflight_lock = threading.Lock()
 _inflight_count = 0  # guarded-by: _inflight_lock
 
@@ -687,6 +687,12 @@ def _note_inflight(delta: int) -> None:
     global _inflight_count
     with _inflight_lock:
         _inflight_count += delta
+        count = _inflight_count
+    DEFAULT_REGISTRY.gauge(
+        "bst_oracle_inflight_batches",
+        "Fused oracle batches dispatched to the device and not yet "
+        "collected (>1 means the pipeline is overlapping batches)",
+    ).set(float(count))
 
 
 def inflight_batches() -> int:
@@ -840,27 +846,54 @@ def collect_batch(pending: PendingBatch):
             wave_demotions=int(stats[1]),
             wave_uniform=int(stats[2]),
         )
-    _count_scan_batch(host["telemetry"])
+    _fold_batch_metrics(host["telemetry"])
     out = pending.out
     device_result = {"capacity": out["capacity"], "scores": out["scores"]}
     return host, device_result
 
 
-def _count_scan_batch(telemetry: dict) -> None:
-    """The reference's scan-path counter (``_fold_batch_metrics``'s
-    ``bst_scan_batches_total``): one increment per collected batch, by
-    scan path and this thread's batch tenant (``utils.tenancy``: the
-    scorer's dominant tenant, or the tenant a sidecar connection
-    announced; "-" when none is armed)."""
+def _fold_batch_metrics(telemetry: dict) -> None:
+    """The reference's per-batch series of a collected batch (its
+    ``_fold_batch_metrics``), from the telemetry dict ``collect_batch``
+    built on the host: ``bst_scan_batches_total`` by scan path and this
+    thread's batch tenant (``utils.tenancy``: the scorer's dominant
+    tenant, or the tenant a sidecar connection announced; "-" when none
+    is armed), and the wavefront series. The port has no wave demotion
+    ladder, so ``bst_scan_wave_enabled`` stays 1. The top-K, sharded and
+    compile series belong to rungs not ported."""
     path = (
         "policy" if telemetry["scan_policy"]
         else "wavefront" if telemetry["wave_width"] > 1
         else "serial"
     )
-    DEFAULT_REGISTRY.counter(
+    reg = DEFAULT_REGISTRY
+    reg.counter(
         "bst_scan_batches_total",
         "Oracle batches by assignment-scan path and dominant tenant",
     ).inc(path=path, tenant=current_batch_tenant() or "-")
+    reg.gauge(
+        "bst_scan_wave_enabled",
+        "1 while the wavefront scan path is enabled (0 after a failure "
+        "permanently demoted the process to the serial scan)",
+    ).set(1.0)
+    if "waves_per_batch" in telemetry:
+        reg.histogram(
+            "bst_scan_waves_per_batch",
+            "Sequential wavefront steps per oracle batch",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024),
+        ).observe(float(telemetry["waves_per_batch"]))
+        reg.counter(
+            "bst_scan_waves_total", "Wavefront steps executed"
+        ).inc(telemetry["waves_per_batch"])
+        reg.counter(
+            "bst_scan_wave_demotions_total",
+            "Waves demoted to the serial replay (conflict or infeasible "
+            "boundary)",
+        ).inc(telemetry["wave_demotions"])
+        reg.counter(
+            "bst_scan_wave_uniform_total",
+            "Waves served by the uniform-demand aggregate fast path",
+        ).inc(telemetry["wave_uniform"])
 
 
 def execute_batch_host(batch_args, progress_args, device="cuda", policy=None):

@@ -33,6 +33,7 @@ import numpy as np
 
 from ..api.fit import selector_matches, tolerates_all
 from ..api.types import Node, Pod, Toleration
+from ..utils.metrics import DEFAULT_REGISTRY
 from .bucketing import pad_oracle_batch, pad_rows
 from .lanes import LaneSchema
 
@@ -203,6 +204,22 @@ def _demand_fp(g: GroupDemand) -> tuple:
     )
 
 
+def _count_rows_rewritten(n: int) -> None:
+    DEFAULT_REGISTRY.counter(
+        "bst_pack_rows_rewritten",
+        "Node lane rows rewritten by the delta snapshot packer "
+        "(2N on a full repack)",
+    ).inc(n)
+
+
+def _count_label_truncations(n: int) -> None:
+    DEFAULT_REGISTRY.counter(
+        "bst_policy_label_truncations_total",
+        "Node labels beyond the packed hash lanes "
+        "(affinity against them can never match)",
+    ).inc(n)
+
+
 class ClusterSnapshot:
     """Padded, device-ready view of (nodes × groups) for one batch."""
 
@@ -371,10 +388,14 @@ class ClusterSnapshot:
             spread_key = engine.config.spread_node_key
             node_hash = np.zeros((len(nodes), HASH_LANES), np.int32)
             node_dom = np.zeros(len(nodes), np.int32)
+            truncated = 0
             for i, n in enumerate(nodes):
-                node_hash[i], node_dom[i], _ = node_policy_row(
+                node_hash[i], node_dom[i], trunc = node_policy_row(
                     n.metadata.labels or {}, spread_key
                 )
+                truncated += trunc
+            if truncated:
+                _count_label_truncations(truncated)
         prio = np.array([g.priority for g in groups], np.int32)
         aff = np.array([g.affinity_hash for g in groups], np.int32)
         anti = np.array([g.anti_hash for g in groups], np.int32)
@@ -971,6 +992,11 @@ class DeltaSnapshotPacker:
         lite.creation_rank = creation_rank
         lite.meta = (inv_prio, ts_hi, ts_lo, lite.meta[3])
         self.order_resorts += 1
+        DEFAULT_REGISTRY.counter(
+            "bst_refresh_order_resorts_total",
+            "Queue-order resorts forced by priority/creation-ts churn on "
+            "the snapshot-lite path",
+        ).inc()
 
     def _lite_snapshot(self, delta: SnapshotDelta) -> ClusterSnapshot:
         """Materialise a ClusterSnapshot from the lite working set without
@@ -1024,6 +1050,12 @@ class DeltaSnapshotPacker:
         self.delta_packs += 1
         self.last_rows_rewritten = len(node_rows)
         self.rows_rewritten += self.last_rows_rewritten
+        _count_rows_rewritten(self.last_rows_rewritten)
+        DEFAULT_REGISTRY.counter(
+            "bst_refresh_lite_packs_total",
+            "Snapshot-lite packs that skipped the full ClusterSnapshot "
+            "construction, by refresh path (scan | fold)",
+        ).inc(path="fold" if source == "events" else "scan")
         return self._lite_snapshot(delta)
 
     def _lite_delta_pack(self, groups, node_idx) -> Optional[ClusterSnapshot]:
@@ -1123,16 +1155,28 @@ class DeltaSnapshotPacker:
             self._policy_dom = np.zeros(n, np.int32)
             self._policy_labels = [None] * n
         rewritten_idx: list = []
+        truncated = 0
         for i, node in enumerate(nodes):
             labels = node.metadata.labels or {}
             key = tuple(sorted(labels.items()))
             if self._policy_labels[i] == key:
                 continue
-            self._policy_hash[i], self._policy_dom[i], _ = node_policy_row(labels, spread_key)
+            self._policy_hash[i], self._policy_dom[i], trunc = node_policy_row(
+                labels, spread_key
+            )
             self._policy_labels[i] = key
             rewritten_idx.append(i)
+            truncated += trunc
         self.policy_rows_rewritten = len(rewritten_idx)
         self._policy_rows_idx = rewritten_idx
+        if rewritten_idx:
+            DEFAULT_REGISTRY.counter(
+                "bst_pack_policy_rows_rewritten",
+                "Node policy (label-hash/spread-domain) rows rewritten by "
+                "the delta snapshot packer",
+            ).inc(len(rewritten_idx))
+        if truncated:
+            _count_label_truncations(truncated)
         return self._policy_hash.copy(), self._policy_dom.copy()
 
     def pack(
@@ -1183,6 +1227,7 @@ class DeltaSnapshotPacker:
             self._full_repack(nodes, alloc_dicts, req_dicts, groups)
             group_req = self._group_rows(groups)
         self.rows_rewritten += self.last_rows_rewritten
+        _count_rows_rewritten(self.last_rows_rewritten)
 
         # group-side churn: with the group NAME SET stable, row indices are
         # positional and the per-row diff against the previous pack is the

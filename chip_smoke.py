@@ -221,6 +221,32 @@ Phases (one JSON line each; any failure makes the exit code non-zero):
                    the observatory on and off in turns: the hook's share of
                    the refresh wall clock and both refresh medians.
 
+- metrics          the in-process batch path's series in the port's
+                   DEFAULT_REGISTRY: north_star_churn's deployment and churn
+                   (a keyframe and 8 churn refreshes) through a fresh
+                   OracleScorer on cuda, serial and with BST_SCAN_WAVE=8
+                   (run after north_star_churn_wave). Each series' delta
+                   across the refreshes must equal what the run counts
+                   itself: batches and the pack and batch histograms' counts
+                   the refreshes, fold outcomes the scorer's stats(), rows
+                   scattered, keyframes by reason, derived batches and the
+                   generation the holder's, rows rewritten, lite packs and
+                   resorts the packer's, waves, demotions and uniform waves
+                   the batches' telemetry. The churn refresh median with
+                   the series recorded, beside north_star_churn(_wave)'s,
+                   and (report-only) 10 pairs of churn refreshes with the
+                   recording on and off in turns.
+- lockcheck        a child process (chip_smoke.py --lockcheck-child) with
+                   BST_LOCKCHECK=1, the instrumentation kept out of every
+                   other phase (run last): the number of instrumented
+                   classes; 8 threads storm one OracleCoalescer over a live
+                   OracleServer(device="cuda") executor with BASELINE
+                   config 2 batches (schedule, check_admission, stats); one
+                   thread refreshes OracleScorer(device="cuda") on
+                   north_star_churn's deployment and churn while 3 threads
+                   call stats(). Any LockDisciplineError fails the phase
+                   (both stacks on stderr); the storm and refresh times.
+
 With BST_SCAN_WAVE unset, the phases above (but policy) run the serial
 kernel (assign_scan) and never the wave kernel. The wavefront path
 (BST_SCAN_WAVE=W, the wave kernel assign_wave):
@@ -271,7 +297,8 @@ north_star_churn, churn_loop, policy, audit_replay (and its policy ring),
 sidecar, coalesce_span, coalesce_mega, coalesce_drf, coalesce_busy,
 capacity, north_star_wave, race_wave, north_star_churn_wave,
 churn_loop_wave, policy_wave, audit_replay_wave, sidecar_wave,
-coalesce_span_wave, and the audit phases' replays
+coalesce_span_wave, metrics, metrics_wave, lockcheck (counted in its
+child), and the audit phases' replays
 (``audit_replay_replays``, ``audit_replay_wave_replays``,
 ``audit_replay_policy_replays``) — with every kernel's count zeroed just
 before the path and read just after; ``launches`` in the kernels line is
@@ -1194,6 +1221,7 @@ def north_star_churn(results):
                              "(want assign_scan once per refresh, assign_wave never)")
     if "assign_scan" in results:
         results["assign_scan"]["launches_by_path"]["north_star_churn"] = launches["assign_scan"]
+    FIGURES["north_star_churn"] = report["refresh_ms_median"]
     return {**report, "launches": launches["assign_scan"],
             "residency_vs_upload": residency_vs_upload()}
 
@@ -1213,7 +1241,376 @@ def north_star_churn_wave(results):
     if "assign_wave" in results:
         results["assign_wave"]["launches_by_path"]["north_star_churn_wave"] = \
             launches["assign_wave"]
+    FIGURES["north_star_churn_wave"] = report["refresh_ms_median"]
     return {**report, "launches": launches["assign_wave"]}
+
+
+# the metrics phase: the in-process batch path's series in the port's
+# DEFAULT_REGISTRY (the reference's names, kinds and labels), read as
+# deltas across north_star_churn's churn and held against what the scorer,
+# its packer and its holder count themselves
+METRICS_ROUNDS = 8  # churn refreshes after the keyframe
+METRICS_AB_PAIRS = 10  # report-only: churn refreshes with recording on / off
+METRICS_COUNTERS = (
+    "bst_oracle_batches_total", "bst_event_folds_total", "bst_scan_waves_total",
+    "bst_scan_wave_demotions_total", "bst_scan_wave_uniform_total",
+    "bst_pack_rows_rewritten", "bst_refresh_lite_packs_total",
+    "bst_pack_policy_rows_rewritten", "bst_refresh_order_resorts_total",
+    "bst_policy_label_truncations_total", "bst_device_keyframe_resyncs_total",
+    "bst_device_rows_scattered_total", "bst_refresh_derived_batches_total",
+)
+METRICS_GAUGES = ("bst_oracle_inflight_batches", "bst_scan_wave_enabled",
+                  "bst_device_state_generation")
+METRICS_HISTOGRAMS = ("bst_oracle_batch_seconds", "bst_oracle_pack_seconds",
+                      "bst_scan_waves_per_batch")
+# launches of paths whose kernel's results entry is made by a later phase,
+# merged into the kernels line at the end: {(kernel, path): launches}
+LATE_PATHS = {}
+FIGURES = {}  # figures one phase reports beside another's
+
+
+def registry_series():
+    """The batch path's series in the port's DEFAULT_REGISTRY: counters
+    and gauges by label set, histograms by observation count."""
+    from batch_scheduler_tpu_torch.utils.metrics import DEFAULT_REGISTRY
+
+    out = {}
+    for name in METRICS_COUNTERS + METRICS_GAUGES:
+        m = DEFAULT_REGISTRY.get(name)
+        out[name] = {} if m is None else {
+            ",".join(f"{k}={v}" for k, v in key): val for key, val in m.values().items()}
+    for name in METRICS_HISTOGRAMS:
+        m = DEFAULT_REGISTRY.get(name)
+        out[name] = {} if m is None else {
+            ",".join(f"{k}={v}" for k, v in key): snap[2]
+            for key, snap in m.snapshots().items()}
+    return out
+
+
+def series_delta(before, after):
+    """Counters and histogram counts as differences (label sets that
+    moved); gauges as their values after."""
+    out = {}
+    for name, now in after.items():
+        if name in METRICS_GAUGES:
+            out[name] = dict(now)
+        else:
+            out[name] = {k: v - before[name].get(k, 0) for k, v in now.items()
+                         if v != before[name].get(k, 0)}
+    return out
+
+
+class _NullMetric:
+    def inc(self, *args, **labels):
+        pass
+
+    set = observe = inc
+
+
+@contextlib.contextmanager
+def recording_off():
+    """The port's DEFAULT_REGISTRY records nothing inside the block: its
+    counter / gauge / histogram lookups answer a metric that drops every
+    value (every module shares the one registry object)."""
+    from batch_scheduler_tpu_torch.utils.metrics import DEFAULT_REGISTRY
+
+    null = _NullMetric()
+    for kind in ("counter", "gauge", "histogram"):
+        setattr(DEFAULT_REGISTRY, kind, lambda *args, **kwargs: null)
+    try:
+        yield
+    finally:
+        for kind in ("counter", "gauge", "histogram"):
+            delattr(DEFAULT_REGISTRY, kind)
+
+
+def drive_metrics(wave):
+    """north_star_churn's deployment and churn through a fresh
+    ``OracleScorer(device="cuda")`` with ``BST_SCAN_WAVE`` at ``wave``: a
+    keyframe refresh and METRICS_ROUNDS churn refreshes (16 node rows and 4
+    gang rows each), the registry read just before and just after, kernel
+    counts zeroed and read around the same refreshes. Every series must
+    agree with what the run counts itself. Report-only, then
+    METRICS_AB_PAIRS pairs of churn refreshes with the recording on and
+    off (``recording_off``), in turns, which side first alternating.
+    Returns (launches, report)."""
+    import torch
+
+    from batch_scheduler_tpu_torch.core import OracleScorer
+
+    cluster, cache = north_star_state()
+    scorer = OracleScorer(device="cuda")
+    churn = Churn(cluster, cache, lambda name: scorer.mark_dirty(group=name),
+                  METRICS_ROUNDS + 1 + 2 * METRICS_AB_PAIRS)
+    refresh_s, tele = [], []
+
+    def timed_refresh():
+        t0 = time.perf_counter()
+        scorer.refresh(cluster, cache)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    with scan_wave_env(wave):
+        before = registry_series()
+        zero_counts()
+        for r in range(METRICS_ROUNDS + 1):
+            if r:
+                churn(r)
+            refresh_s.append(timed_refresh())
+            tele.append(dict(scorer.last_telemetry))
+        launches = read_counts()
+        delta = series_delta(before, registry_series())
+        stats = scorer.stats()
+        saved = read_counts()
+        on_s, off_s = [], []
+        r = METRICS_ROUNDS + 1
+        for pair in range(METRICS_AB_PAIRS):
+            for recording in ((True, False) if pair % 2 else (False, True)):
+                churn(r)
+                r += 1
+                if recording:
+                    on_s.append(timed_refresh())
+                else:
+                    with recording_off():
+                        off_s.append(timed_refresh())
+        restore_counts(saved)
+    ds, packer = stats["device_state"], stats["packer"]
+    batches = METRICS_ROUNDS + 1
+    one = lambda n: {"": n} if n else {}  # noqa: E731 — an unlabelled series
+    want = {
+        "bst_oracle_batches_total": one(batches),
+        "bst_oracle_batch_seconds": one(batches),
+        "bst_oracle_pack_seconds": one(batches),
+        "bst_event_folds_total": {f"outcome={k}": v for k, v in stats["fold_outcomes"].items()},
+        "bst_device_keyframe_resyncs_total": {f"reason={k}": v
+                                              for k, v in ds["keyframes"].items()},
+        "bst_device_rows_scattered_total": one(ds["rows_scattered"]),
+        "bst_refresh_derived_batches_total": one(ds["derived_batches"]),
+        "bst_pack_rows_rewritten": one(packer["rows_rewritten"]),
+        "bst_refresh_lite_packs_total": {
+            **({"path=scan": packer["lite_packs"]} if packer["lite_packs"] else {}),
+            **({"path=fold": packer["fold_packs"]} if packer["fold_packs"] else {})},
+        "bst_refresh_order_resorts_total": one(packer["order_resorts"]),
+        "bst_pack_policy_rows_rewritten": {},
+        "bst_policy_label_truncations_total": {},
+        "bst_scan_waves_total": one(sum(t.get("waves_per_batch", 0) for t in tele)),
+        "bst_scan_wave_demotions_total": one(sum(t.get("wave_demotions", 0) for t in tele)),
+        "bst_scan_wave_uniform_total": one(sum(t.get("wave_uniform", 0) for t in tele)),
+        "bst_scan_waves_per_batch": one(batches if wave else 0),
+    }
+    bad = {name: {"recorded": delta[name], "want": w} for name, w in want.items()
+           if {k: float(v) for k, v in delta[name].items()}
+           != {k: float(v) for k, v in w.items()}}
+    gauges = {"bst_oracle_inflight_batches": 0.0, "bst_scan_wave_enabled": 1.0}
+    bad.update({name: {"recorded": delta[name].get(""), "want": v}
+                for name, v in gauges.items() if delta[name].get("") != v})
+    gen = delta["bst_device_state_generation"].get("holder=scorer")
+    if gen != ds["generation"]:
+        bad["bst_device_state_generation"] = {"recorded": gen, "want": ds["generation"]}
+    if bad:
+        raise AssertionError(f"series disagree with the run's own counts: {bad}")
+    if stats["fold_outcomes"] != {"no-base": 1, "folded": METRICS_ROUNDS}:
+        raise AssertionError(f"fold outcomes {stats['fold_outcomes']}")
+    timed = refresh_s[1 + CHURN_WARMUP - 1:]
+    return launches, {
+        "refreshes": batches, "launches_by_kernel": launches,
+        "refresh_ms_median": statistics.median(timed) * 1e3,
+        "refresh_ms": [t * 1e3 for t in timed],
+        "keyframe_refresh_ms": refresh_s[0] * 1e3,
+        # report-only: the same churn with the recording on and off in turns
+        "recording_on_ms_median": statistics.median(on_s) * 1e3,
+        "recording_off_ms_median": statistics.median(off_s) * 1e3,
+        "recording_on_ms": [t * 1e3 for t in on_s],
+        "recording_off_ms": [t * 1e3 for t in off_s],
+        "series": delta,
+    }
+
+
+@phase("metrics")
+def metrics(results):
+    """The metrics phase, serial and at W=8 (see drive_metrics), beside
+    north_star_churn(_wave)'s medians of the same churn."""
+    out = {}
+    for wave, kernel, path in ((None, "assign_scan", "metrics"),
+                               (8, "assign_wave", "metrics_wave")):
+        launches, report = drive_metrics(wave)
+        others = [k for k in KERNELS if k != kernel and launches[k]]
+        if launches[kernel] != report["refreshes"] or others:
+            raise AssertionError(f"{path}: {launches} launches in {report['refreshes']} "
+                                 f"refreshes (want {kernel} once a refresh, no other)")
+        LATE_PATHS[(kernel, path)] = launches[kernel]
+        report["north_star_churn_refresh_ms_median"] = FIGURES.get(
+            "north_star_churn" if wave is None else "north_star_churn_wave")
+        out["serial" if wave is None else "wave8"] = report
+    return out
+
+
+# the lockcheck phase: a child process with BST_LOCKCHECK=1 (the
+# instrumentation stays out of every other phase's timings)
+LOCKCHECK_THREADS = 8
+LOCKCHECK_JOBS = 6  # schedule calls a storm thread makes
+LOCKCHECK_READERS = 3
+LOCKCHECK_TIMEOUT = 600
+
+
+def lockcheck_child() -> int:
+    """The lockcheck phase's child (``chip_smoke.py --lockcheck-child``,
+    BST_LOCKCHECK=1 set): (a) LOCKCHECK_THREADS threads storm one
+    OracleCoalescer over a live ``OracleServer(device="cuda")`` executor
+    with BASELINE config 2 batches (schedule, check_admission, stats);
+    (b) one thread runs ``OracleScorer(device="cuda")`` refreshes on
+    north_star_churn's deployment and churn while LOCKCHECK_READERS
+    threads call ``stats()``. Prints one JSON line; any error (a
+    LockDisciplineError with both stacks) goes to stderr and exits 1."""
+    import threading
+
+    import torch
+
+    from batch_scheduler_tpu_torch.analysis import lockcheck
+    from batch_scheduler_tpu_torch.core import OracleScorer
+    from batch_scheduler_tpu_torch.ops.bucketing import pad_oracle_batch
+    from batch_scheduler_tpu_torch.service import serve_background
+    from batch_scheduler_tpu_torch.service.coalescer import CoalesceJob, CoalesceSaturated
+
+    if not lockcheck._installed[0]:
+        print("chip_smoke: BST_LOCKCHECK=1 did not install the checker", file=sys.stderr)
+        return 1
+    classes = lockcheck.install()
+    errors = []
+
+    def guarded(fn, *args):
+        try:
+            fn(*args)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    def job(req, tenant):
+        args, progress = pad_oracle_batch(
+            alloc=req.alloc, requested=req.requested, group_req=req.group_req,
+            remaining=req.remaining, fit_mask=req.fit_mask, group_valid=req.group_valid,
+            order=req.order, min_member=req.min_member, scheduled=req.scheduled,
+            matched=req.matched, ineligible=req.ineligible, creation_rank=req.creation_rank)
+        raw = (req.alloc, req.requested, req.group_req, req.remaining, req.fit_mask,
+               req.group_valid, req.order, req.min_member, req.scheduled, req.matched,
+               req.ineligible, req.creation_rank)
+        return CoalesceJob(tenant=tenant, n=req.alloc.shape[0], g=req.group_req.shape[0],
+                           r=req.alloc.shape[1], padded_args=args, progress_args=progress,
+                           raw_fn=lambda raw=raw: raw)
+
+    streams = [tenant_stream(t, LOCKCHECK_JOBS, *MEGA_SHAPE) for t in range(3)]
+    server = serve_background(device="cuda", coalesce=True)
+    coal = server.coalescer
+    groups = record_groups(coal)
+    busy = [0]
+
+    def storm(i):
+        for b in range(LOCKCHECK_JOBS):
+            try:
+                coal.check_admission()
+                coal.schedule(job(streams[i % 3][b], f"tenant-{i % 3}"))
+            except CoalesceSaturated:
+                busy[0] += 1
+                time.sleep(0.005)
+            coal.stats()
+
+    zero_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=guarded, args=(storm, i))
+               for i in range(LOCKCHECK_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(LOCKCHECK_TIMEOUT)
+    storm_s = time.perf_counter() - t0
+    coal_stats = coal.stats()
+    server.shutdown()
+    server.server_close()
+
+    cluster, cache = north_star_state()
+    scorer = OracleScorer(device="cuda")
+    churn = Churn(cluster, cache, lambda name: scorer.mark_dirty(group=name),
+                  METRICS_ROUNDS + 1)
+    done = threading.Event()
+    reads = [0]
+
+    def refresher():
+        try:
+            for r in range(METRICS_ROUNDS + 1):
+                if r:
+                    churn(r)
+                scorer.ensure_fresh(cluster, cache)
+            torch.cuda.synchronize()
+        finally:
+            done.set()
+
+    def reader():
+        while not done.is_set():
+            scorer.stats()
+            reads[0] += 1
+        scorer.stats()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=guarded, args=(refresher,))]
+    threads += [threading.Thread(target=guarded, args=(reader,))
+                for _ in range(LOCKCHECK_READERS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(LOCKCHECK_TIMEOUT)
+    scorer_s = time.perf_counter() - t0
+    launches = read_counts()
+    stats = scorer.stats()
+    for e in errors:
+        print(f"{type(e).__name__}: {e}", file=sys.stderr)
+    emit({"lockcheck_child": True, "instrumented_classes": len(classes),
+          "classes": classes, "storm_threads": LOCKCHECK_THREADS,
+          "storm_jobs": LOCKCHECK_THREADS * LOCKCHECK_JOBS, "storm_s": storm_s,
+          "busy_answers": busy[0], "groups": sorted(set(groups)),
+          "groups_run": coal_stats["groups_run"], "mega_groups": coal_stats["mega_groups"],
+          "storm_jobs_run": sum(w for _, w in groups),
+          # one launch a span job, one a mega group
+          "storm_launches_want": sum(w if mode == "span" else 1 for mode, w in groups),
+          "scorer_refreshes": stats["batches_run"], "scorer_s": scorer_s,
+          "stats_reads": reads[0], "fold_outcomes": stats["fold_outcomes"],
+          "launches_by_kernel": launches,
+          "errors": [f"{type(e).__name__}: {str(e)[:300]}" for e in errors]})
+    return 1 if errors else 0
+
+
+@phase("lockcheck")
+def lockcheck_phase(results):
+    """Runs lockcheck_child in a child process with BST_LOCKCHECK=1 and
+    requires it clean: no LockDisciplineError, every storm job answered
+    or refused BUSY, every refresh run. Its kernel launches are the
+    ``lockcheck`` path."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, BST_LOCKCHECK="1")
+    env.pop("BST_SCAN_WAVE", None)
+    proc = subprocess.run(
+        [sys.executable, os.path.join(here, "chip_smoke.py"), "--lockcheck-child"],
+        cwd=here, env=env, capture_output=True, text=True, timeout=LOCKCHECK_TIMEOUT + 120)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"lockcheck_child"')]
+    if proc.returncode != 0 or not lines:
+        sys.stderr.write(proc.stderr[-20000:])
+        raise AssertionError(f"lockcheck child exited {proc.returncode}: "
+                             f"{proc.stderr[-1500:]}")
+    out = json.loads(lines[-1])
+    out.pop("lockcheck_child")
+    launches = out["launches_by_kernel"]
+    refreshes = METRICS_ROUNDS + 1
+    if out["scorer_refreshes"] != refreshes:
+        raise AssertionError(f"{out['scorer_refreshes']} refreshes (want {refreshes})")
+    if out["storm_jobs_run"] + out["busy_answers"] != out["storm_jobs"]:
+        raise AssertionError(f"{out['storm_jobs_run']} storm jobs run and "
+                             f"{out['busy_answers']} refused of {out['storm_jobs']}")
+    want = refreshes + out["storm_launches_want"]
+    if launches["assign_scan"] != want or launches["assign_wave"] or launches["assign_policy"]:
+        raise AssertionError(f"launches {launches} (want assign_scan {want}: {refreshes} "
+                             f"refreshes and the storm's groups {out['groups']})")
+    if "assign_scan" in results:
+        results["assign_scan"]["launches_by_path"]["lockcheck"] = launches["assign_scan"]
+    out["lock_violations"] = 0
+    return out
 
 
 # the audit phases: north_star_churn's deployment and churn recorded to an
@@ -4022,6 +4419,8 @@ def card_line():
 
 
 def main() -> int:
+    if sys.argv[1:] == ["--lockcheck-child"]:
+        return lockcheck_child()
     try:
         import torch
     except ImportError:
@@ -4060,11 +4459,16 @@ def main() -> int:
     mixed_wave(results)
     race_wave(results)
     north_star_churn_wave(results)
+    metrics(results)
     churn_loop_wave(results)
     policy_wave(results)
     audit_replay_wave(results)
     sidecar_wave(results)
     coalesce_span_wave(results)
+    lockcheck_phase(results)
+    for (kernel, path), n in LATE_PATHS.items():
+        if kernel in results:
+            results[kernel]["launches_by_path"][path] = n
 
     sources = {
         "assign_scan": ("batch_scheduler_tpu_torch/csrc/assign_scan.cu",

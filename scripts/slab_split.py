@@ -84,8 +84,9 @@ def use(libs, which):
     slabs)."""
     from batch_scheduler_tpu_torch.ops import _build, assign_scan
 
-    for name, pair in libs.items():
-        _build._libs[name] = pair[which]
+    with _build._lock:
+        for name, pair in libs.items():
+            _build._libs[name] = pair[which]
     assign_scan._entry_points.cache_clear()
 
 
