@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 from ..api.types import Pod, PodGroup
 from ..utils.ttl_cache import TTLCache
@@ -97,11 +97,20 @@ class PGStatusCache:
         # without an event (a silently added/removed entry would otherwise
         # let a targeted fold serve a wrong-group-set snapshot)
         self._mutations = 0  # guarded-by: _lock
+        # registration-time list; delete() iterates it OUTSIDE the lock on
+        # purpose (callbacks may re-enter this cache)
+        self._on_delete: list = []
 
     def mutations(self) -> int:
         """Monotone count of set/delete calls (membership churn proxy)."""
         with self._lock:
             return self._mutations
+
+    def on_delete(self, fn: Callable[[str], None]) -> None:
+        """Register a callback fired (outside the lock) with the full name
+        of every entry removed — lets per-gang derived state (the pending
+        tracker, the lifecycle ledger) die with the gang."""
+        self._on_delete.append(fn)
 
     def get(self, full_name: str) -> Optional[PodGroupMatchStatus]:
         with self._lock:
@@ -118,6 +127,8 @@ class PGStatusCache:
             self._mutations += 1
         if status is not None:
             status.close()
+        for fn in self._on_delete:
+            fn(full_name)
 
     def snapshot(self) -> Dict[str, PodGroupMatchStatus]:
         """Consistent point-in-time view for batch scoring."""

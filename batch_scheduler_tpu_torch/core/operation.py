@@ -9,7 +9,12 @@ pkg/scheduler/core/core.go:49-434) — with the hot loops swapped for the
 batch oracle when ``scorer="oracle"`` (this package's ``OracleScorer`` on
 ``device``, or a scorer instance such as ``service.RemoteScorer``, whose
 batch runs on the sidecar) and the reference-parity host path when
-``scorer="serial"``.
+``scorer="serial"``. Its evidence is the reference's: a coalesced
+``pre_filter`` flight record per oracle denial (blame and feasible-node
+count), a ``policy`` record per placed gang of a policy batch (the
+per-term blame on the snapshot's host columns), the operation's
+``PendingGangTracker`` (the health model's pending signal) and the
+lifecycle ledger's permit and delete events.
 """
 
 from __future__ import annotations
@@ -24,8 +29,11 @@ from ..cache.pg_cache import PGStatusCache, PodGroupMatchStatus, PodNodePair
 from ..policy.engine import PolicyConfig, PolicyEngine
 from ..policy.preempt import PreemptionPlanner
 from ..utils import errors as errs
+from ..utils.health import PendingGangTracker, set_active_pending
 from ..utils.labels import get_wait_seconds, pod_group_name
+from ..utils.lifecycle import DEFAULT_LEDGER
 from ..utils.metrics import DEFAULT_REGISTRY
+from ..utils.trace import DEFAULT_FLIGHT_RECORDER
 from ..utils.ttl_cache import TTLCache
 from . import resources as rmath
 from .oracle_scorer import OracleScorer
@@ -159,6 +167,15 @@ class ScheduleOperation:
         # (reference core.go:58-59,118-127).
         self.max_finished_pg: str = ""
         self.max_pg_status: Optional[PodGroupMatchStatus] = None
+        # pending-gang aging (utils.health): per-operation so gangs from
+        # a torn-down harness never age into a later harness's health
+        # verdict; registered as the process's active tracker
+        self.pending_tracker = PendingGangTracker()
+        set_active_pending(self.pending_tracker)
+        # same isolation rule for the gang lifecycle ledger
+        # (utils.lifecycle): a fresh operation starts a fresh story
+        DEFAULT_LEDGER.reset()
+        status_cache.on_delete(self._forget_gang)
 
     # ------------------------------------------------------------------
     # scorer lifecycle
@@ -242,18 +259,49 @@ class ScheduleOperation:
             if feasible:
                 return
             self.add_to_deny_cache(full_name)
-            raise errs.ResourceNotEnoughError(
-                deny_degraded_reason(full_name, pgs.pod_group.spec.min_member)
+            reason = deny_degraded_reason(
+                full_name, pgs.pod_group.spec.min_member
             )
+            self._record_denial(full_name, reason, oracle)
+            raise errs.ResourceNotEnoughError(reason)
         self.add_to_deny_cache(full_name)
         if oracle.gang_feasible(full_name):
             # Feasible alone, but higher-priority gangs consume the space in
             # this batch — the exact form of the reference's 0.7 reserve
             # heuristic (core.go:157-165).
-            raise errs.ResourceNotEnoughError(deny_reserved_reason(full_name))
-        raise errs.ResourceNotEnoughError(
-            deny_infeasible_reason(full_name, pgs.pod_group.spec.min_member)
+            reason = deny_reserved_reason(full_name)
+            self._record_denial(full_name, reason, oracle)
+            raise errs.ResourceNotEnoughError(reason)
+        reason = deny_infeasible_reason(
+            full_name, pgs.pod_group.spec.min_member
         )
+        self._record_denial(full_name, reason, oracle)
+        raise errs.ResourceNotEnoughError(reason)
+
+    def _record_denial(
+        self, full_name: str, reason: str, oracle: OracleScorer
+    ) -> None:
+        """One pre_filter flight record per oracle denial: the blame
+        string PLUS the capacity-row feasible-node count (one capacity row
+        read from the batch, on the denial path only). Evidence only,
+        never the decision path; the deny-cache fast path does NOT
+        re-record, so the original blame stays the gang's last pre_filter
+        record through the backoff."""
+        try:
+            fields = {"batch": oracle.batches_run}
+            count = oracle.feasible_node_count(full_name)
+            if count is not None:
+                fields["feasible_nodes"] = count
+            DEFAULT_FLIGHT_RECORDER.record(
+                full_name,
+                phase="pre_filter",
+                verdict="denied",
+                reason=reason,
+                coalesce=True,  # one record per distinct blame, not per retry
+                **fields,
+            )
+        except Exception:  # noqa: BLE001 — evidence, never the decision
+            pass
 
     def _pre_filter_serial(
         self, full_name: str, pgs: PodGroupMatchStatus, pod: Pod
@@ -319,6 +367,33 @@ class ScheduleOperation:
         pgs.plan_base_matched = self._matched_per_node(pgs)
         pgs.placement_plan = oracle.assignment(full_name)
         pgs.plan_batch_seq = seq
+        if self.policy is not None and pgs.placement_plan:
+            # per-term score contributions at the chosen seats — the
+            # flight recorder's policy blame: why THESE nodes, in the
+            # terms' own units. Computed on the snapshot's HOST policy
+            # columns (no device read per gang). Evidence only, never the
+            # decision path.
+            try:
+                snap = oracle.snapshot
+                if snap is not None and snap.policy_cols is not None:
+                    g = snap.group_index(full_name)
+                    idx = [
+                        snap.node_index(n)
+                        for n in pgs.placement_plan
+                        if snap.node_index(n) is not None
+                    ]
+                    terms = self.policy.explain(snap.policy_cols, g, idx)
+                    if terms:
+                        DEFAULT_FLIGHT_RECORDER.record(
+                            full_name,
+                            phase="policy",
+                            verdict="info",
+                            batch=seq,
+                            nodes=len(idx),
+                            terms=terms,
+                        )
+            except Exception:  # noqa: BLE001 — blame is evidence only
+                pass
 
     def gang_plan(self, pod: Pod):
         """Whole-gang fast-lane eligibility. Returns ``(slots, needed)`` —
@@ -372,6 +447,8 @@ class ScheduleOperation:
         # the gang's progress row (phase, released flag) moved outside the
         # evented cluster mutators — note it for the next event fold
         self._gang_event(full_name)
+        self.pending_tracker.note_placed(full_name)
+        DEFAULT_LEDGER.note_permit(full_name)
         return True
 
     # ------------------------------------------------------------------
@@ -490,10 +567,11 @@ class ScheduleOperation:
         eviction: its members were deleted (and are recreated Pending), so
         the gang re-enters the queue as a fresh unit — phase back to
         PENDING, scheduled count zeroed, plan dropped — and its demand row
-        is marked dirty. Left out until they are ported: the reference's
-        best-effort status patch through the PodGroup client (ROADMAP Queue
-        1 item 12) and the pending tracker's ``note_evicted``, which keeps
-        the gang's pending clock (the observability half, item 7b)."""
+        is marked dirty. The pending tracker's ``note_evicted`` re-arms the
+        gang's pending clock at its ORIGINAL first denial, so pending age
+        includes the preemption churn. Left out until it is ported: the
+        reference's best-effort status patch through the PodGroup client
+        (ROADMAP Queue 1 item 12)."""
         with self._lock:
             pgs = self.status_cache.get(full_name)
             if pgs is None:
@@ -507,6 +585,7 @@ class ScheduleOperation:
             pgs.placement_plan = None
             for uid in list(pgs.matched_pod_nodes.items()):
                 pgs.matched_pod_nodes.delete(uid)
+        self.pending_tracker.note_evicted(full_name)
         # the member deletions rode the evented cluster mutators; the
         # gang-row reset above is the only out-of-band change: name it
         self.mark_dirty(group=full_name)
@@ -664,6 +743,8 @@ class ScheduleOperation:
         matched = len(pgs.matched_pod_nodes.items())
         if matched >= pg.spec.min_member - pg.status.scheduled:
             pgs.scheduled = True
+            self.pending_tracker.note_placed(full_name)
+            DEFAULT_LEDGER.note_permit(full_name)
             return PermitOutcome(True, pg_name, None)
         return PermitOutcome(False, pg_name, errs.WaitingError())
 
@@ -750,6 +831,16 @@ class ScheduleOperation:
 
     def add_to_deny_cache(self, full_name: str) -> None:
         self.last_denied_pg.add(full_name, "", DENY_TTL)
+        # pending-gang aging (utils.health): every denial extends the
+        # gang's pending window and its deny streak; placement resolves it
+        self.pending_tracker.note_deny(full_name)
+
+    def _forget_gang(self, full_name: str) -> None:
+        """The status cache dropped the gang: it is no longer pending (its
+        age never resolves into the placement histogram) and its
+        lifecycle ends with a delete event."""
+        self.pending_tracker.forget(full_name)
+        DEFAULT_LEDGER.note_delete(full_name)
 
     def _fill_occupied(self, pgs: PodGroupMatchStatus, pod: Pod) -> None:
         """Owner-reference fencing: a PodGroup belongs to the first workload

@@ -31,7 +31,12 @@ audit, and ``replay_batch`` / ``replay_audit_record`` re-execute a
 recorded batch on a named rung (``REPLAY_RUNGS``); and the capacity
 observatory (``ops.capacity``): every published batch offers a budget-gated
 capacity sample over the resident tensors it ran on, under the same audit
-id as its audit record and identity audit. It subsumes the
+id as its audit record and identity audit; and the observability layer:
+under a live trace (``utils.trace``) a refresh is the span
+``oracle.refresh`` with its pack or fold, device-state sync and batch as
+children, every published batch leaves a ``_batch`` flight record and
+arms the lifecycle ledger's batch context (``utils.lifecycle``), all from
+host values. It subsumes the
 reference's findMaxPG + compareClusterResourceAndRequire serial loops
 (reference pkg/scheduler/core/core.go:514-632,701-739) with exact batch
 answers.
@@ -65,6 +70,7 @@ from ..utils import tenancy
 from ..utils import trace as trace_mod
 from ..utils.errors import StaleBatchError
 from ..utils.health import IdentityAuditor
+from ..utils.lifecycle import DEFAULT_LEDGER
 from ..utils.metrics import DEFAULT_REGISTRY, LONG_OP_BUCKETS
 from ..utils.labels import (
     POLICY_AFFINITY_LABEL,
@@ -600,7 +606,13 @@ class OracleScorer:
     def refresh(self, cluster, status_cache: PGStatusCache) -> None:
         """Pack the current state (event fold or scan) and run one batch.
         Callers serialize refreshes (``ensure_fresh`` holds the refresh
-        lock)."""
+        lock). Under a live trace (utils.trace) the refresh is the span
+        ``oracle.refresh``, with the pack, the device-state sync and the
+        batch as its children."""
+        with trace_mod.span("oracle.refresh", cat="oracle"):
+            self._refresh_traced(cluster, status_cache)
+
+    def _refresh_traced(self, cluster, status_cache: PGStatusCache) -> None:
         with torch.cuda.stream(self.stream):
             snap, dirty_gen, version_base, pack_s = self._pack_current(
                 cluster, status_cache
@@ -610,7 +622,13 @@ class OracleScorer:
             # before the next pack's scatter rewrites them
             resident = getattr(snap, "device_state_args", None)
             t1 = time.perf_counter()
-            host, rows = self._execute(snap)
+            # host wall time: it covers the device batch because
+            # collect_batch waits on the batch's event and host copy
+            with trace_mod.span(
+                "oracle.batch", cat="oracle",
+                groups=len(snap.group_names), nodes=len(snap.node_names),
+            ):
+                host, rows = self._execute(snap)
             t2 = time.perf_counter()
         # markers a remote batch rides on its host dict, consumed at
         # publication so the served result never carries them: whether
@@ -632,6 +650,41 @@ class OracleScorer:
         # credits offset the OLD batch's staleness check and die with it
         with self._credits_lock:
             self._version_credits = 0
+        batch_s = t2 - t1
+        # flight-recorder batch record: the evidence later gang decisions
+        # rest on, host values only. The telemetry dict is NESTED, never
+        # splatted: on the remote path it arrives verbatim from the peer's
+        # TRACE_INFO JSON, and a key colliding with record()'s own
+        # parameters must not fail the refresh
+        telemetry = host.get("telemetry")
+        record_telemetry = telemetry if isinstance(telemetry, dict) else {}
+        waves = record_telemetry.get("waves_per_batch")
+        if (
+            isinstance(waves, (int, float))
+            and not isinstance(waves, bool)
+            and waves > 0
+            and "per_wave_device_seconds" not in record_telemetry
+        ):
+            # the per-wave share of the batch, on the record's own copy:
+            # the served telemetry stays the batch's as it ran
+            record_telemetry = dict(
+                record_telemetry,
+                per_wave_device_seconds=round(batch_s / waves, 6),
+            )
+        trace_mod.DEFAULT_FLIGHT_RECORDER.record(
+            "_batch",
+            phase="batch",
+            verdict="info",
+            batch=self.batches_run,
+            batch_ms=round(batch_s * 1000, 2),
+            pack_ms=round(pack_s * 1000, 2),
+            groups=len(snap.group_names),
+            nodes=len(snap.node_names),
+            degraded=bool(self.degraded),
+            speculative=False,
+            audit_id=audit_id,
+            telemetry=record_telemetry,
+        )
         # one audit id for the whole evidence chain: the audit record, the
         # identity audit AND the capacity sample all correlate by it
         if audit_id is None and (
@@ -640,6 +693,13 @@ class OracleScorer:
             or self._capacity is not None
         ):
             audit_id = audit_mod.new_audit_id()
+        # lifecycle batch context (utils.lifecycle): every gang event
+        # noted until the NEXT publish stamps this audit id, and the
+        # sidecar coalescer's queue wait (TRACE_INFO telemetry; absent
+        # when the client ran untraced) is attributed once per gang
+        DEFAULT_LEDGER.note_batch_context(
+            audit_id, telemetry if isinstance(telemetry, dict) else None
+        )
         if self.audit_log is not None or self._identity is not None:
             self._audit_publish(snap, host, audit_id)
         if self._capacity is not None:
@@ -649,7 +709,6 @@ class OracleScorer:
             "keyframe" if snap.delta is None or snap.delta.kind == "keyframe"
             else "fold" if snap.delta.source == "events" else "scan"
         )
-        batch_s = t2 - t1
         with self._stats_lock:
             self.pack_seconds.append(pack_s)
             self.batch_seconds.append(batch_s)
@@ -692,7 +751,8 @@ class OracleScorer:
             snap = self._try_fold(cluster, status_cache, version_base, mut_base)
         if snap is None:
             nodes, node_req, demands = read_cluster_inputs(cluster, status_cache)
-            snap = self._packer.pack(nodes, node_req, demands)
+            with trace_mod.span("oracle.snapshot_pack", cat="oracle"):
+                snap = self._packer.pack(nodes, node_req, demands)
         if log is not None:
             self._fold_version = version_base
             self._fold_mut_base = mut_base
@@ -783,7 +843,8 @@ class OracleScorer:
             if unresolved:
                 outcome = "unknown-name"
             else:
-                snap = self._packer.pack_fold(node_updates, group_updates)
+                with trace_mod.span("oracle.event_fold", cat="oracle"):
+                    snap = self._packer.pack_fold(node_updates, group_updates)
                 outcome = "folded" if snap is not None else "packer-bail"
                 if snap is not None:
                     # the drained, name-coalesced batch this pack consumed
@@ -812,9 +873,14 @@ class OracleScorer:
         generation contiguity holds pack to pack), the node policy columns
         too when the snapshot carries them."""
         t0 = time.perf_counter()
-        snap.device_state_args = self._device_state.sync(snap)
-        if snap.policy_cols is not None:
-            snap.device_state_policy_cols = self._device_state.sync_policy_cols(snap)
+        # host wall time of enqueueing the row scatters on the scorer's
+        # stream: the scatters themselves run asynchronously
+        with trace_mod.span("oracle.device_state_sync", cat="oracle"):
+            snap.device_state_args = self._device_state.sync(snap)
+            if snap.policy_cols is not None:
+                snap.device_state_policy_cols = (
+                    self._device_state.sync_policy_cols(snap)
+                )
         with self._stats_lock:
             self.sync_seconds.append(time.perf_counter() - t0)
             del self.sync_seconds[:-1000]

@@ -67,6 +67,8 @@ __all__ = [
     "capacity_budget_frac",
     "set_active_sampler",
     "active_sampler",
+    "annotate_summary",
+    "capacity_debug_view",
     "TIERS",
 ]
 
@@ -398,6 +400,27 @@ def capacity_summary(
     }
 
 
+def annotate_summary(
+    summary: dict, lane_names: Optional[List[str]] = None
+) -> dict:
+    """A display copy of a canonical summary with lane indices resolved
+    to schema names (``lane<i>`` when unknown). The CANONICAL summary
+    stays index-keyed — names never enter the bit-compared series."""
+    names = list(lane_names or [])
+
+    def lname(i: int) -> str:
+        return names[i] if 0 <= i < len(names) else f"lane{i}"
+
+    out = dict(summary)
+    out["lanes"] = [
+        {**lane, "name": lname(lane["lane"])} for lane in summary["lanes"]
+    ]
+    stranded = dict(summary["stranded"])
+    stranded["top_lane_name"] = lname(stranded["top_lane"])
+    out["stranded"] = stranded
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the budget-gated sampler
 # ---------------------------------------------------------------------------
@@ -591,9 +614,34 @@ class CapacitySampler:
         with self._lock:
             return self._last
 
+    def lane_names(self) -> Optional[List[str]]:
+        with self._lock:
+            return list(self._lane_names) if self._lane_names else None
+
     def series(self, max_points: Optional[int] = None) -> List[dict]:
         """The sampled history, oldest first (``utils.timeseries``)."""
         return self._ring.series(max_points)
+
+    def report(self, series_points: int = 512) -> dict:
+        """The ``/debug/capacity`` report: the last sample (lane names
+        resolved), the counters and the downsampled series. Reads what
+        the last sample left; runs no sample itself."""
+        with self._lock:
+            last = self._last
+            names = list(self._lane_names or [])
+            samples, skipped = self.samples, self.skipped
+            kernel_s = self.last_kernel_s
+        return {
+            "label": self.label,
+            "samples": samples,
+            "skipped": skipped,
+            "last_kernel_s": round(kernel_s, 6),
+            "budget_frac": capacity_budget_frac(),
+            "lane_names": names,
+            "last": annotate_summary(last, names) if last else None,
+            "ring": self._ring.stats(),
+            "series": self.series(max_points=series_points),
+        }
 
 
 # ---------------------------------------------------------------------------
@@ -612,3 +660,33 @@ def set_active_sampler(sampler: Optional[CapacitySampler]) -> None:
 
 def active_sampler() -> Optional[CapacitySampler]:
     return _active[0]
+
+
+def capacity_debug_view(params: Optional[dict] = None) -> tuple:
+    """The /debug/capacity payload: (payload, http status). Bare GETs are
+    self-describing 200s (the /debug/ index probe's contract)."""
+    sampler = _active[0]
+    if sampler is None:
+        return (
+            {
+                "enabled": capacity_enabled(),
+                "sampler": None,
+                "hint": "no capacity sampler registered (oracle mode "
+                        "with BST_CAPACITY on required)",
+            },
+            200,
+        )
+    params = params or {}
+    points = 512
+    raw = params.get("points")
+    if raw is not None:
+        # parse BEFORE building the report: the series copy is the
+        # expensive part and must be taken exactly once, at the
+        # requested trim
+        try:
+            points = max(1, int(raw))
+        except ValueError:
+            return {"error": f"malformed points={raw!r}"}, 400
+    report = sampler.report(series_points=points)
+    report["enabled"] = capacity_enabled()
+    return report, 200

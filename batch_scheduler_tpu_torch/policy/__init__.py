@@ -3,15 +3,19 @@ composable scoring terms over the batch's packed columns.
 
 - policy.terms   — the term registry and packed-column conventions
 - policy.engine  — PolicyConfig / PolicyEngine (environment knobs,
-                   fingerprint, counters)
+                   fingerprint, counters, explain) and policy_debug_view
 - policy.preempt — the victim planner and its dry-run verifier
 
-The port of ``batch_scheduler_tpu/policy``. Still to come (the
-observability half, ROADMAP Queue 1 item 7b): ``PolicyEngine.explain``
-and ``policy_debug_view``.
+The port of ``batch_scheduler_tpu/policy``.
 """
 
-from .engine import PolicyConfig, PolicyEngine, active_engine, active_fingerprint
+from .engine import (
+    PolicyConfig,
+    PolicyEngine,
+    active_engine,
+    active_fingerprint,
+    policy_debug_view,
+)
 from .preempt import PreemptionPlanner, VictimPlan, plan_victims
 from .terms import (
     DOMAIN_BUCKETS,
@@ -33,6 +37,7 @@ __all__ = [
     "plan_victims",
     "active_engine",
     "active_fingerprint",
+    "policy_debug_view",
     "DOMAIN_BUCKETS",
     "HASH_LANES",
     "SCORING_TERMS",

@@ -7,12 +7,10 @@ policy.terms (composed into the assignment scan: the policy variant of
 the serial scan kernel on the card) and the preemption pass in
 policy.preempt. Everything here is host bookkeeping: the environment
 parse (a mistyped knob degrades to "policies off", never a failed
-batch), the config fingerprint that audit records carry, and the
-counters.
-
-Still to come (the observability half, ROADMAP Queue 1 item 7b):
-``PolicyEngine.explain`` (the flight recorder's per-term blame),
-``debug_view`` and ``policy_debug_view`` (the ``/debug/policy`` view).
+batch), the config fingerprint that audit records carry, the
+counters, ``PolicyEngine.explain`` (the flight recorder's per-term blame,
+computed on the snapshot's host columns) and ``policy_debug_view`` (the
+``/debug/policy`` view).
 """
 
 from __future__ import annotations
@@ -23,9 +21,11 @@ import os
 import sys
 import threading
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
-from .terms import SCORING_TERMS, TERM_REGISTRY
+import numpy as np
+
+from .terms import DOMAIN_BUCKETS, HASH_LANES, SCORING_TERMS, TERM_REGISTRY
 
 __all__ = [
     "PolicyConfig",
@@ -33,6 +33,7 @@ __all__ = [
     "set_active_engine",
     "active_engine",
     "active_fingerprint",
+    "policy_debug_view",
 ]
 
 _POLICY_ENV = "BST_POLICY"
@@ -148,9 +149,10 @@ class PolicyConfig:
 
 
 class PolicyEngine:
-    """Host-side policy runtime: config and counters. One per
+    """Host-side policy runtime: config + counters + explain(). One per
     ScheduleOperation; the most recently constructed enabled engine is
-    also the process's active engine (``active_fingerprint``)."""
+    also the process's active engine (``active_fingerprint``, the
+    ``/debug/policy`` view)."""
 
     def __init__(self, config: Optional[PolicyConfig] = None):
         self.config = config if config is not None else PolicyConfig.from_env()
@@ -183,9 +185,62 @@ class PolicyEngine:
             else:
                 self.preempt_no_plan += 1
 
+    # -- flight-recorder blame ---------------------------------------------
+
+    def explain(self, policy_cols, g: int, node_indices) -> Dict[str, int]:
+        """Per-term score contributions for one gang at its chosen nodes —
+        the flight recorder's policy blame payload. Pure numpy on the
+        snapshot's host columns (``ClusterSnapshot.policy_cols``, never
+        the resident device copies); O(len(node_indices)) per placed
+        gang."""
+        if policy_cols is None or not node_indices:
+            return {}
+        prio, aff, anti, gang_dom, node_hash, node_dom = (
+            np.asarray(a) for a in policy_cols
+        )
+        idx = [int(n) for n in node_indices if 0 <= int(n) < node_dom.shape[0]]
+        if not idx or g >= aff.shape[0]:
+            return {}
+        out: Dict[str, int] = {"priority_class": int(prio[g])}
+        w_aff, w_spread, cap = self.config.weights
+        if "affinity" in self.config.terms and aff[g] > 0:
+            miss = sum(
+                1 for n in idx if aff[g] not in node_hash[n]
+            )
+            out["affinity_penalty"] = int(miss * w_aff)
+        if "spread" in self.config.terms:
+            pen = sum(
+                min(int(gang_dom[g, int(node_dom[n])]), cap) * w_spread
+                for n in idx
+            )
+            out["spread_penalty"] = int(pen)
+        if "anti-affinity" in self.config.terms and anti[g] > 0:
+            out["anti_affinity_active"] = 1
+        return out
+
+    def debug_view(self) -> dict:
+        """The /debug/policy payload (utils.metrics)."""
+        with self._lock:
+            counters = {
+                "batches_scored": self.batches_scored,
+                "preempt_plans": self.preempt_plans,
+                "preempt_no_plan": self.preempt_no_plan,
+            }
+        return {
+            "config": self.config.fingerprint(),
+            "registry": {
+                name: kind for name, (kind, _) in sorted(TERM_REGISTRY.items())
+            },
+            "columns": {
+                "domain_buckets": DOMAIN_BUCKETS,
+                "hash_lanes": HASH_LANES,
+            },
+            "counters": counters,
+        }
+
 
 # ---------------------------------------------------------------------------
-# process-wide view (config fingerprinting)
+# process-wide view (the /debug/policy endpoint + config fingerprinting)
 # ---------------------------------------------------------------------------
 
 _active: list = [None]
@@ -207,3 +262,12 @@ def active_fingerprint() -> Optional[dict]:
     if eng is None or not eng.enabled:
         return None
     return eng.config.fingerprint()
+
+
+def policy_debug_view() -> dict:
+    eng = _active[0]
+    if eng is None:
+        return {"enabled": False}
+    view = eng.debug_view()
+    view["enabled"] = eng.enabled
+    return view

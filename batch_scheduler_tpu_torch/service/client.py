@@ -18,11 +18,12 @@ whether the oracle lives in-process on the local card or behind the sidecar
 The port of ``batch_scheduler_tpu/service/client.py``: the same frames, so
 these clients talk to either package's server. ``RemoteScorer`` needs no
 device in its own process (the card sits behind the sidecar): it builds no
-resident state and opens no stream. Until the span ring is ported (ROADMAP
-Queue 1 item 7b) no span is ever live, so ``schedule`` sends no TRACE
-frame; a caller that wants the sidecar's TRACE_INFO (its phase split and
-device telemetry, kept in ``last_telemetry``) passes ``trace_ctx`` to
-``OracleClient._round_trip`` itself.
+resident state and opens no stream. With tracing on (utils.trace) a
+request sent under a live span carries its context in the TRACE frame;
+the sidecar's TRACE_INFO reply brings back its spans, folded into this
+process's span ring under the ``oracle-server`` track with the client's
+trace id, and its device telemetry (``last_telemetry``). A remote batch's
+round trip is the span ``oracle.wire_round_trip`` under ``oracle.batch``.
 """
 
 from __future__ import annotations
@@ -224,6 +225,9 @@ class OracleClient:
 
     def _absorb_trace_info(self, payload: bytes) -> None:
         info = proto.unpack_trace_info(payload)
+        spans = info.get("spans")
+        if isinstance(spans, list):
+            trace_mod.record_remote_spans(spans, pid="oracle-server")
         telemetry = info.get("telemetry")
         if isinstance(telemetry, dict):
             self.last_telemetry = telemetry
@@ -259,9 +263,9 @@ class OracleClient:
         tenant: Optional[str] = None,
     ) -> proto.ScheduleResponse:
         # propagate the live span context over the wire (the TRACE
-        # annotation frame); None when no span is open, which keeps the
-        # wire bytes identical to a pre-trace client
-        trace_ctx = trace_mod.current_context()
+        # annotation frame); None when tracing is off or no span is open,
+        # which keeps the wire bytes identical to a pre-trace client
+        trace_ctx = trace_mod.current_context() if trace_mod.enabled() else None
         # last_telemetry is per-request: cleared up front so an untraced
         # (sampled-out) batch can never be attributed the PREVIOUS traced
         # batch's device evidence
@@ -303,7 +307,7 @@ class OracleClient:
         ``base_generation``. A DELTA_RESYNC answer raises
         DeltaResyncRequired — in-band, never retried: the caller resends
         a keyframe."""
-        trace_ctx = trace_mod.current_context()
+        trace_ctx = trace_mod.current_context() if trace_mod.enabled() else None
         self.last_telemetry = None
         if kind == proto.DELTA_KEYFRAME:
             payload = proto.pack_delta_keyframe(new_generation, body)
@@ -1317,23 +1321,25 @@ class RemoteScorer(OracleScorer):
         if self._wire_tenant_ok:
             tenant = self.tenant or self.dominant_tenant(snap) or None
         try:
-            try:
-                resp = self._wire_schedule(
-                    client, cursor, snap, req, audit_id, policy_fp,
-                    tenant=tenant,
-                )
-            except RuntimeError as e:
-                if not (tenant and "unknown message type 16" in str(e)):
-                    raise
-                # old peer: no TENANT frame. The stream still holds the
-                # un-consumed real response behind the in-band error, so
-                # drop the lane and resend plain — and never announce
-                # again (DEADLINE ship-together rule, degraded gracefully).
-                self._wire_tenant_ok = False
-                self._drop_lane(client, cursor)
-                resp = self._wire_schedule(
-                    client, cursor, snap, req, audit_id, policy_fp
-                )
+            with trace_mod.span("oracle.wire_round_trip", cat="oracle"):
+                try:
+                    resp = self._wire_schedule(
+                        client, cursor, snap, req, audit_id, policy_fp,
+                        tenant=tenant,
+                    )
+                except RuntimeError as e:
+                    if not (tenant and "unknown message type 16" in str(e)):
+                        raise
+                    # old peer: no TENANT frame. The stream still holds the
+                    # un-consumed real response behind the in-band error,
+                    # so drop the lane and resend plain — and never
+                    # announce again (DEADLINE ship-together rule, degraded
+                    # gracefully).
+                    self._wire_tenant_ok = False
+                    self._drop_lane(client, cursor)
+                    resp = self._wire_schedule(
+                        client, cursor, snap, req, audit_id, policy_fp
+                    )
         except _TRANSPORT_ERRORS + (
             OracleDeadlineError, OracleBusyError, OracleDrainingError,
         ) as e:

@@ -14,11 +14,14 @@ default raises). Every message the reference's single-device server
 answers is answered here with the same bytes, the multi-tenant coalescer
 (``service.coalescer``, ``coalesce=`` / ``BST_COALESCE``) and its BUSY
 answer included, and a traced request's ``TRACE_INFO`` carries the
-sidecar's capacity sample (``ops.capacity``). Left out, each with the
-ROADMAP item it waits for: the compile warmer and ``warmth_snapshot`` /
-``replicate_warmth`` and the profiler's memory telemetry (item 12; the
-port builds its kernels once and compiles nothing per shape), the mesh
-(item 11) and the local span ring (item 7b).
+sidecar's capacity sample (``ops.capacity``). The spans a ``TRACE_INFO``
+reply carries are built from the request's phase timings under the
+client's trace id (no span is opened on the executor thread), and with
+tracing on (utils.trace) they also land in this process's span ring.
+Left out, each with the ROADMAP item it waits for: the compile warmer and
+``warmth_snapshot`` / ``replicate_warmth`` and the profiler's memory
+telemetry (item 12; the port builds its kernels once and compiles nothing
+per shape) and the mesh (item 11).
 
 Deadline enforcement: a DEADLINE annotation frame bounds the next request;
 request bodies run on a per-connection daemon worker so the handler can
@@ -55,6 +58,7 @@ from ..ops.lanes import LANE_MAX
 from ..ops.oracle import collect_batch, dispatch_batch, inflight_batches
 from ..utils import audit as audit_mod
 from ..utils import tenancy
+from ..utils import trace as trace_mod
 from ..utils.metrics import DEFAULT_REGISTRY, LONG_OP_BUCKETS
 from . import protocol as proto
 from .coalescer import (
@@ -960,6 +964,10 @@ class _Handler(socketserver.BaseRequestHandler):
                     compiled=telemetry.get("compiled"),
                 ),
             ]
+            if trace_mod.enabled():
+                # the server-side local ring: the same spans land in this
+                # process's /debug/trace too
+                trace_mod.record_remote_spans(spans, pid="oracle-server")
             proto.write_frame(
                 self.request,
                 proto.MsgType.TRACE_INFO,

@@ -8,16 +8,31 @@ the same text in both packages. Components take a ``Registry`` or use the
 process-wide ``DEFAULT_REGISTRY``: the audit log counts its records and
 gauges its ring, the identity auditor counts its outcomes, and the
 sidecar's server and clients (``service/``) count and time their
-batches, retries and fallbacks under the reference's names. Still to come
-(ROADMAP Queue 1 item 7b): ``serve_metrics`` with its HTTP handler and
-``/debug`` surfaces.
+batches, retries and fallbacks under the reference's names.
+
+``serve_metrics(registry)`` exposes ``/metrics`` and ``/healthz`` over a
+small threaded HTTP endpoint, plus the reference's debug surfaces whose
+modules the port has: ``/debug/trace`` (the span ring as Chrome-trace
+JSON, utils.trace), ``/debug/decisions`` (the gang decision flight
+recorder), ``/debug/gangs`` and ``/debug/events`` (the lifecycle ledger,
+utils.lifecycle), ``/debug/health`` (the SLO health model, utils.health),
+``/debug/policy`` (the active policy engine) and ``/debug/capacity`` (the
+capacity observatory, ops.capacity). ``/debug/`` serves the index
+(``DEBUG_ENDPOINTS``). The reference's ``/debug/buckets``, ``/debug/perf``,
+``/debug/profile`` and ``/debug/drain`` (ROADMAP Queue 1 item 12) and
+``/debug/explain`` and ``/debug/whatif`` (item 9) are not served yet:
+they answer 404, as an unknown path does. Every handler reads a copy its
+owner takes under its own lock, and none launches device work.
 """
 
 from __future__ import annotations
 
+import json
 import threading
 import time
-from typing import Dict, Sequence, Tuple
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Dict, Optional, Sequence, Tuple
+from urllib.parse import parse_qs, urlparse
 
 __all__ = [
     "Counter",
@@ -25,7 +40,9 @@ __all__ = [
     "Histogram",
     "Registry",
     "DEFAULT_REGISTRY",
+    "DEBUG_ENDPOINTS",
     "LONG_OP_BUCKETS",
+    "serve_metrics",
 ]
 
 # schedule-cycle / extension-point latencies live in the ms..s range
@@ -274,3 +291,159 @@ class Registry:
 
 
 DEFAULT_REGISTRY = Registry()
+
+
+# The /debug/ index payload: one entry per surface this endpoint serves,
+# in the reference's words. Kept as data so the index, the handler
+# dispatch and the endpoint test cannot drift apart silently.
+DEBUG_ENDPOINTS = {
+    "/metrics": "Prometheus text exposition (every bst_* series)",
+    "/healthz": "liveness",
+    "/debug/": "this index",
+    "/debug/trace": "the span ring as Chrome-trace JSON (utils.trace)",
+    "/debug/decisions": "the gang decision flight recorder "
+                        "(?gang=ns/name | ?tenant=T scope; ?limit=K caps "
+                        "to the K most recently active gangs)",
+    "/debug/gangs": "reconstructed gang lifecycle timelines "
+                    "(utils.lifecycle): arrival->bind events with phase "
+                    "decomposition and trace/audit cross-stamps; "
+                    "?gang=ns/name | ?tenant=T | ?limit=K",
+    "/debug/events": "the lifecycle event stream: ?since=CURSOR answers "
+                     "occurrences newer than the monotonic cursor "
+                     "(?limit=K, ?timeout_s=N long-polls) — push-shaped "
+                     "gang events for external consumers",
+    "/debug/health": "the live SLO health model (utils.health)",
+    "/debug/policy": "the active policy engine's terms/weights/counters",
+    "/debug/capacity": "the capacity observatory (ops.capacity): last "
+                       "summary + the downsampled time series — per-lane "
+                       "utilization/headroom spectra, fragmentation, "
+                       "stranded capacity, seat tightness, tenant "
+                       "shares; ?points=K trims the series",
+}
+
+
+def _parse_limit(raw):
+    """Shared ``?limit=K`` validation for the gang-scoped debug
+    surfaces: None passes through (no cap); otherwise a non-negative
+    int or a 400-able error string — a malformed limit must answer 400,
+    never dump the unbounded payload."""
+    if raw is None:
+        return None, None
+    try:
+        limit = int(raw)
+        if limit < 0:
+            raise ValueError(raw)
+    except (TypeError, ValueError):
+        return None, f"malformed limit={raw!r}"
+    return limit, None
+
+
+def _debug_payload(path: str, query: dict) -> Tuple[object, int]:
+    """(payload, HTTP status) of one JSON debug route — a JSON-able value,
+    or bytes already encoded; (None, 404) for a path this endpoint does
+    not serve. The owners' modules are imported here, on the first
+    request: utils.metrics is imported by every layer below them."""
+    first = {k: v[0] for k, v in query.items() if v}
+    if path == "/debug/trace":
+        from . import trace as trace_mod
+
+        return trace_mod.DEFAULT_RECORDER.chrome_trace(), 200
+    if path in ("/debug/decisions", "/debug/gangs"):
+        limit, err = _parse_limit(first.get("limit"))
+        if err is not None:
+            return {"ok": False, "error": err}, 400
+        gang, tenant = first.get("gang"), first.get("tenant")
+        if path == "/debug/decisions":
+            from . import trace as trace_mod
+
+            return trace_mod.DEFAULT_FLIGHT_RECORDER.to_json(
+                gang, tenant=tenant, limit=limit
+            ), 200
+        from . import lifecycle as lifecycle_mod
+
+        return lifecycle_mod.DEFAULT_LEDGER.snapshot(
+            gang=gang, tenant=tenant, limit=limit
+        ), 200
+    if path == "/debug/events":
+        from . import lifecycle as lifecycle_mod
+
+        try:
+            since = int(first.get("since", "0"))
+            limit = int(first.get("limit", "256"))
+            timeout_s = float(first.get("timeout_s", "0"))
+            if since < 0 or limit < 0 or not (timeout_s >= 0):
+                raise ValueError("negative")
+        except (TypeError, ValueError):
+            return {
+                "ok": False, "error": "malformed since=/limit=/timeout_s=",
+            }, 400
+        return lifecycle_mod.DEFAULT_LEDGER.events_since(
+            since, limit=limit, timeout_s=timeout_s
+        ), 200
+    if path == "/debug/health":
+        from . import health as health_mod
+
+        return health_mod.DEFAULT_HEALTH.evaluate(), 200
+    if path == "/debug/policy":
+        from ..policy.engine import policy_debug_view
+
+        return policy_debug_view(), 200
+    if path == "/debug/capacity":
+        from ..ops.capacity import capacity_debug_view
+
+        return capacity_debug_view(first)
+    if path in ("/debug", "/debug/"):
+        return {"endpoints": DEBUG_ENDPOINTS}, 200
+    return None, 404
+
+
+class _MetricsHandler(BaseHTTPRequestHandler):
+    registry: Registry = None
+
+    def log_message(self, *args) -> None:
+        pass
+
+    def do_GET(self) -> None:
+        url = urlparse(self.path)
+        path = url.path
+        if path == "/metrics":
+            status = 200
+            body = self.registry.render().encode()
+            ctype = "text/plain; version=0.0.4"
+        elif path == "/healthz":
+            status, body, ctype = 200, b"ok\n", "text/plain"
+        else:
+            payload, status = _debug_payload(path, parse_qs(url.query))
+            if payload is None:
+                self.send_response(404)
+                self.end_headers()
+                return
+            body = (
+                payload if isinstance(payload, bytes)
+                else json.dumps(payload, default=str).encode()
+            )
+            ctype = "application/json"
+        self.send_response(status)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+
+def serve_metrics(
+    registry: Optional[Registry] = None, host: str = "127.0.0.1", port: int = 0
+) -> ThreadingHTTPServer:
+    """Expose /metrics, /healthz and the debug routes in a background
+    thread; returns the server (``server.server_address`` has the bound
+    port; stop it with ``shutdown()`` then ``server_close()``)."""
+    handler = type(
+        "BoundMetricsHandler",
+        (_MetricsHandler,),
+        {"registry": registry or DEFAULT_REGISTRY},
+    )
+    server = ThreadingHTTPServer((host, port), handler)
+    server.daemon_threads = True
+    threading.Thread(
+        target=server.serve_forever, name="metrics-endpoint", daemon=True
+    ).start()
+    return server

@@ -236,6 +236,33 @@ Phases (one JSON line each; any failure makes the exit code non-zero):
                    the series recorded, beside north_star_churn(_wave)'s,
                    and (report-only) 10 pairs of churn refreshes with the
                    recording on and off in turns.
+- observability    the observability layer (utils.trace, utils.lifecycle,
+                   utils.health, serve_metrics) at the north star:
+                   north_star_churn's deployment and churn through a
+                   ScheduleOperation's OracleScorer on cuda (audit log on),
+                   tracing on at sample 1.0, a keyframe and 8 churn
+                   refreshes, each under a schedule_cycle root. Each
+                   refresh's span tree is the reference's (refresh > pack or
+                   fold, device-state sync, batch), oracle.batch carries the
+                   shape and is no shorter than the scan kernel's CUDA-event
+                   time in that refresh (events recorded around the launch,
+                   no synchronization), one _batch flight record with host
+                   values only under the refresh's trace id, the ledger's
+                   batch context carries the audit record's id, the audit
+                   records carry the refreshes' trace ids; health ok. Then,
+                   report-only, 10 pairs of churn refreshes traced and
+                   untraced in turns and evaluate()'s time; serve_metrics
+                   up while a thread refreshes 4 more times: every ported
+                   route 200 with the reference's keys, the left-out ones
+                   404; mixed's node shapes and gang demands (seed 11)
+                   through PreFilter: every denied gang's pre_filter record
+                   has feasible_nodes equal to the served capacity row's
+                   count; the policy deployment's refresh through PreFilter:
+                   one policy record a placed gang, no row read from the
+                   card; traced RemoteScorer refreshes against
+                   serve_background(device="cuda"): the sidecar's spans
+                   stitched under the client's trace id.
+- observability_wave  observability with BST_SCAN_WAVE=8.
 - lockcheck        a child process (chip_smoke.py --lockcheck-child) with
                    BST_LOCKCHECK=1, the instrumentation kept out of every
                    other phase (run last): the number of instrumented
@@ -243,9 +270,11 @@ Phases (one JSON line each; any failure makes the exit code non-zero):
                    OracleServer(device="cuda") executor with BASELINE
                    config 2 batches (schedule, check_admission, stats); one
                    thread refreshes OracleScorer(device="cuda") on
-                   north_star_churn's deployment and churn while 3 threads
-                   call stats(). Any LockDisciplineError fails the phase
-                   (both stacks on stderr); the storm and refresh times.
+                   north_star_churn's deployment and churn (traced) while 3
+                   threads call stats() and one scrapes every ported
+                   serve_metrics route. Any LockDisciplineError fails the
+                   phase (both stacks on stderr); the storm and refresh
+                   times, the scrapes.
 
 With BST_SCAN_WAVE unset, the phases above (but policy) run the serial
 kernel (assign_scan) and never the wave kernel. The wavefront path
@@ -297,7 +326,8 @@ north_star_churn, churn_loop, policy, audit_replay (and its policy ring),
 sidecar, coalesce_span, coalesce_mega, coalesce_drf, coalesce_busy,
 capacity, north_star_wave, race_wave, north_star_churn_wave,
 churn_loop_wave, policy_wave, audit_replay_wave, sidecar_wave,
-coalesce_span_wave, metrics, metrics_wave, lockcheck (counted in its
+coalesce_span_wave, metrics, metrics_wave, observability(_wave) and its
+scrape, mixed, policy and sidecar paths, lockcheck (counted in its
 child), and the audit phases' replays
 (``audit_replay_replays``, ``audit_replay_wave_replays``,
 ``audit_replay_policy_replays``) — with every kernel's count zeroed just
@@ -1445,6 +1475,605 @@ def metrics(results):
     return out
 
 
+# the observability phases: north_star_churn's deployment and churn traced
+# (utils.trace on, every root kept) through a ScheduleOperation's scorer
+OBS_ROUNDS = 8  # churn refreshes after the keyframe
+OBS_AB_PAIRS = 10  # report-only: churn refreshes with tracing on / off in turns
+OBS_SCRAPE_ROUNDS = 4  # churn refreshes on a thread while every route is scraped
+OBS_SIDECAR_ROUNDS = 2  # traced remote refreshes: a keyframe, then a wire delta
+OBS_EVAL_REPS = 20  # report-only: HealthModel.evaluate() calls timed
+# the reference's span tree of one traced in-process refresh: (span, parent)
+OBS_TREE = {
+    "keyframe": sorted([("schedule_cycle", None), ("oracle.refresh", "schedule_cycle"),
+                        ("oracle.snapshot_pack", "oracle.refresh"),
+                        ("oracle.device_state_sync", "oracle.refresh"),
+                        ("oracle.batch", "oracle.refresh")]),
+    "fold": sorted([("schedule_cycle", None), ("oracle.refresh", "schedule_cycle"),
+                    ("oracle.event_fold", "oracle.refresh"),
+                    ("oracle.device_state_sync", "oracle.refresh"),
+                    ("oracle.batch", "oracle.refresh")]),
+}
+# the sidecar's spans a TRACE_INFO reply carries (service/server.py)
+OBS_SERVER_SPANS = ("oracle.schedule", "oracle.unpack_pad", "oracle.lock_wait",
+                    "oracle.device_batch")
+# every ported route and the reference's payload keys (utils/metrics.py);
+# /debug/policy and /debug/capacity answer one of two shapes
+OBS_ROUTE_KEYS = {
+    "/debug/": [{"endpoints"}],
+    "/debug/trace": [{"traceEvents", "displayTimeUnit", "otherData"}],
+    "/debug/decisions": [{"decisions", "dropped_gangs"}],
+    "/debug/gangs": [{"gangs", "count", "dropped_gangs"}],
+    "/debug/events?since=0": [{"events", "cursor", "dropped"}],
+    "/debug/health": [{"verdict", "ts", "window_s", "signals"}],
+    "/debug/policy": [{"enabled"}, {"config", "registry", "columns", "counters", "enabled"}],
+    "/debug/capacity": [{"enabled", "sampler", "hint"},
+                        {"label", "samples", "skipped", "last_kernel_s", "budget_frac",
+                         "lane_names", "last", "ring", "series", "enabled"}],
+}
+OBS_LEFT_OUT = ("/debug/buckets", "/debug/perf", "/debug/profile", "/debug/explain",
+                "/debug/whatif", "/debug/drain")
+
+
+class _EventTimed:
+    """A scan wrapper's stand-in: records a CUDA event pair on the
+    launching stream around each launch (no synchronization) and keeps the
+    wrapped function's launch count."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.pairs = []
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+    def __call__(self, *args, **kwargs):
+        import torch
+
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.fn(*args, **kwargs)
+        end.record()
+        self.pairs.append((start, end))
+        return out
+
+    def take_ms(self):
+        """The event times of the launches since the last call (each end
+        event waited for: the batch has already completed)."""
+        pairs, self.pairs = self.pairs, []
+        for _, end in pairs:
+            end.synchronize()
+        return [start.elapsed_time(end) for start, end in pairs]
+
+
+@contextlib.contextmanager
+def kernel_event_times():
+    """The serial and wave scan wrappers of ops.assign_scan replaced, in the
+    block, by _EventTimed stand-ins (ops.oracle looks them up at each
+    batch); yields {kernel: stand-in}."""
+    from batch_scheduler_tpu_torch.ops import assign_scan
+
+    timed = {"assign_scan": _EventTimed(assign_scan.assign_gangs_cuda),
+             "assign_wave": _EventTimed(assign_scan.assign_gangs_wave_cuda)}
+    assign_scan.assign_gangs_cuda = timed["assign_scan"]
+    assign_scan.assign_gangs_wave_cuda = timed["assign_wave"]
+    try:
+        yield timed
+    finally:
+        assign_scan.assign_gangs_cuda = timed["assign_scan"].fn
+        assign_scan.assign_gangs_wave_cuda = timed["assign_wave"].fn
+
+
+def span_tree(events, ids=None):
+    """(name, parent name) of each span event, sorted; ``ids`` maps the
+    span ids of parents recorded elsewhere."""
+    names = dict(ids or {})
+    names.update({e["args"]["span_id"]: e["name"] for e in events if "span_id" in e["args"]})
+    return sorted((e["name"], names.get(e["args"].get("parent_id"))) for e in events)
+
+
+def no_tensor(obj):
+    """True when ``obj`` holds no torch tensor (host values only)."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return False
+    if isinstance(obj, dict):
+        return all(no_tensor(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return all(no_tensor(v) for v in obj)
+    return True
+
+
+def http_get(port, path):
+    """(status, body, ms) of one GET on the local metrics endpoint."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as resp:
+            status, body = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read()
+    return status, body, (time.perf_counter() - t0) * 1e3
+
+
+def check_routes(port):
+    """Every ported route once: 200 and the reference's keys (``/metrics``
+    with the batch series, ``/healthz`` ok); every left-out route 404.
+    Returns ({route: ms}, problems)."""
+    ms, bad = {}, []
+    status, body, ms["/metrics"] = http_get(port, "/metrics")
+    if status != 200 or b"bst_oracle_batches_total" not in body \
+            or b"bst_oracle_batch_seconds_bucket" not in body:
+        bad.append(f"/metrics: {status}")
+    status, body, ms["/healthz"] = http_get(port, "/healthz")
+    if (status, body) != (200, b"ok\n"):
+        bad.append(f"/healthz: {status} {body[:40]!r}")
+    for route, shapes in OBS_ROUTE_KEYS.items():
+        status, body, ms[route] = http_get(port, route)
+        keys = set(json.loads(body)) if status == 200 else None
+        if keys not in shapes:
+            bad.append(f"{route}: {status} keys {keys}")
+    for route in OBS_LEFT_OUT:
+        status, body, _ = http_get(port, route)
+        if (status, body) != (404, b""):
+            bad.append(f"{route}: {status} (want 404, as an unknown path)")
+    return ms, bad
+
+
+def mixed_state(num_nodes, num_groups, seed):
+    """mixed's node shapes and gang demands drawn from its seed, as a
+    ClusterState and a status cache: 4 node shapes, gangs of 1-64 members
+    in mixed's six demand shapes, ~3% asking 200 cpus (no node has more
+    than 96: infeasible)."""
+    import numpy as np
+
+    from batch_scheduler_tpu_torch.api.types import PodGroupPhase
+    from batch_scheduler_tpu_torch.cache import PGStatusCache, PodGroupMatchStatus
+    from batch_scheduler_tpu_torch.framework import ClusterState
+    from batch_scheduler_tpu_torch.sim.scenarios import (
+        make_member_pods, make_sim_group, make_sim_node)
+
+    rng = np.random.default_rng(seed)
+    shapes = [
+        {"cpu": "64", "memory": "256Gi", "ephemeral-storage": "100Gi", "pods": "110", GPU: "8"},
+        {"cpu": "32", "memory": "128Gi", "ephemeral-storage": "50Gi", "pods": "110"},
+        {"cpu": "96", "memory": "384Gi", "ephemeral-storage": "200Gi", "pods": "250", GPU: "4"},
+        {"cpu": "16", "memory": "64Gi", "ephemeral-storage": "20Gi", "pods": "64"},
+    ]
+    demands = [
+        {"cpu": "100m", "memory": "256Mi"},
+        {"cpu": "500m", "memory": "1Gi", "ephemeral-storage": "512Mi"},
+        {"cpu": "2", "memory": "4Gi"},
+        {"cpu": "4", "memory": "8Gi", GPU: "1"},
+        {"cpu": "8", "memory": "32Gi", "ephemeral-storage": "1Gi", GPU: "2"},
+        {"cpu": "200", "memory": "1Gi"},
+    ]
+    kind = rng.integers(0, 4, size=num_nodes)
+    cluster = ClusterState()
+    for i in range(num_nodes):
+        cluster.add_node(make_sim_node(f"m{i:05d}", shapes[kind[i]]))
+    pick = rng.choice(len(demands), size=num_groups, p=[0.2, 0.2, 0.2, 0.2, 0.17, 0.03])
+    members = rng.integers(1, 65, size=num_groups)
+    cache = PGStatusCache()
+    for k in range(num_groups):
+        name = f"mixed-{k:04d}"
+        pg = make_sim_group(name, int(members[k]), creation_ts=float(k))
+        pg.status.phase = PodGroupPhase.PENDING
+        pgs = PodGroupMatchStatus(pg)
+        pgs.pod = make_member_pods(name, 1, demands[pick[k]])[0]
+        pg.spec.min_resources = pgs.pod.resource_require()
+        cache.set(pg.full_name(), pgs)
+    return cluster, cache, int((pick == len(demands) - 1).sum())
+
+
+def obs_denials(wave):
+    """mixed_state through a ScheduleOperation on cuda, every gang's
+    representative pod through PreFilter under a live trace: every denied
+    gang's pre_filter record carries feasible_nodes equal to the served
+    capacity row's count of nodes with room (0 for the gangs that fit no
+    node). Returns (launches, report)."""
+    from batch_scheduler_tpu_torch.core import ScheduleOperation
+    from batch_scheduler_tpu_torch.utils import errors as errs
+    from batch_scheduler_tpu_torch.utils import trace
+
+    cluster, cache, infeasible = mixed_state(*MIXED)
+    op = ScheduleOperation(cache, cluster, device="cuda")
+    trace.DEFAULT_FLIGHT_RECORDER.clear()
+    denied = []
+    with scan_wave_env(wave):
+        zero_counts()
+        t0 = time.perf_counter()
+        with trace.start_trace("schedule_cycle"):
+            for name, pgs in sorted(cache.snapshot().items()):
+                try:
+                    op.pre_filter(pgs.pod)
+                except errs.SchedulingError:
+                    denied.append(name)
+        prefilter_s = time.perf_counter() - t0
+        launches = read_counts()
+    state = op.oracle._state
+    n_real = len(state.snapshot.node_names)
+    bad, zero = [], 0
+    for name in denied:
+        recs = [r for r in trace.DEFAULT_FLIGHT_RECORDER.snapshot(gang=name).get(name, [])
+                if r["phase"] == "pre_filter"]
+        row = state.row("capacity", state.snapshot.group_index(name))
+        want = int((row[:n_real] > 0).sum())
+        zero += want == 0
+        if len(recs) != 1 or recs[0].get("feasible_nodes") != want or \
+                recs[0]["verdict"] != "denied" or not recs[0]["reason"]:
+            bad.append((name, recs, want))
+    if bad or zero < infeasible or not denied:
+        raise AssertionError(f"denial records: {len(denied)} denied, {zero} with no node "
+                             f"(want >= {infeasible}); disagreeing: {bad[:3]}")
+    return launches, {"gangs": len(cache), "denied": len(denied),
+                      "denied_fitting_no_node": zero, "infeasible_drawn": infeasible,
+                      "prefilter_ms": prefilter_s * 1e3}
+
+
+def obs_policy(wave):
+    """One traced refresh of the policy deployment (POLICY_ENV) through a
+    ScheduleOperation, every gang's pod through PreFilter: one ``policy``
+    flight record a placed gang, its terms computed on the snapshot's host
+    columns (numpy) with no capacity or score row read from the card.
+    Returns (launches, report)."""
+    import numpy as np
+
+    from batch_scheduler_tpu_torch.core import ScheduleOperation
+    from batch_scheduler_tpu_torch.core.oracle_scorer import _BatchState
+    from batch_scheduler_tpu_torch.utils import trace
+
+    with env_set({**POLICY_ENV, "BST_SCAN_WAVE": None if wave is None else str(wave)}):
+        cluster, cache = policy_state()
+        op = ScheduleOperation(cache, cluster, device="cuda")
+        trace.DEFAULT_FLIGHT_RECORDER.clear()
+        rows = [0]
+        row = _BatchState.row
+
+        def counted_row(self, kind, g):
+            rows[0] += 1
+            return row(self, kind, g)
+
+        _BatchState.row = counted_row
+        zero_counts()
+        try:
+            t0 = time.perf_counter()
+            with trace.start_trace("schedule_cycle"):
+                for name, pgs in sorted(cache.snapshot().items()):
+                    op.pre_filter(pgs.pod)
+            prefilter_s = time.perf_counter() - t0
+        finally:
+            _BatchState.row = row
+        launches = read_counts()
+    scorer = op.oracle
+    names = sorted(cache.snapshot())
+    placed = [n for n in names if scorer.placed(n)]
+    records = {n: [r for r in recs if r["phase"] == "policy"]
+               for n, recs in trace.DEFAULT_FLIGHT_RECORDER.snapshot().items()}
+    per_gang = [len(records.get(n, [])) for n in placed]
+    host_cols = all(isinstance(c, np.ndarray) for c in scorer.snapshot.policy_cols)
+    if per_gang != [1] * len(placed) or len(placed) != len(names) or rows[0] or not host_cols:
+        raise AssertionError(f"policy records: {len(placed)} of {len(names)} placed, "
+                             f"records a placed gang {sorted(set(per_gang))}, {rows[0]} "
+                             f"rows read from the card, host columns {host_cols}")
+    terms = sorted({k for recs in records.values() for r in recs for k in r["terms"]})
+    return launches, {"placed": len(placed), "policy_records": sum(per_gang),
+                      "row_reads": rows[0], "terms": terms,
+                      "prefilter_ms": prefilter_s * 1e3}
+
+
+def obs_sidecar(wave):
+    """Traced RemoteScorer refreshes (a keyframe, then one Churn round on
+    wire deltas) against serve_background(device="cuda"): the round trip
+    nests under oracle.batch, and the sidecar's four spans come back under
+    the client's trace id with the round trip as their parent — twice, as
+    the server's own ring and the client's are one ring in this process.
+    Returns (launches, report)."""
+    from batch_scheduler_tpu_torch.service import (
+        RemoteScorer, ResilientOracleClient, serve_background)
+    from batch_scheduler_tpu_torch.utils import trace
+
+    with scan_wave_env(wave):
+        server = serve_background(device="cuda")
+        try:
+            cluster, cache = north_star_state()
+            remote = RemoteScorer(ResilientOracleClient(*server.address, window=2))
+            churn = Churn(cluster, cache, lambda name: remote.mark_dirty(group=name),
+                          OBS_SIDECAR_ROUNDS)
+            trees, round_trip_ms = [], []
+            zero_counts()
+            for r in range(OBS_SIDECAR_ROUNDS):
+                if r:
+                    churn(r)
+                trace.DEFAULT_RECORDER.clear()
+                with trace.start_trace("schedule_cycle"):
+                    tid = trace.current_context()[0]
+                    remote.refresh(cluster, cache)
+                events = trace.DEFAULT_RECORDER.snapshot()
+                if {e["args"].get("trace_id") for e in events} != {tid}:
+                    raise AssertionError(f"round {r}: spans outside trace {tid}")
+                tree = span_tree(events)
+                trees.append(tree)
+                want = [(name, "oracle.wire_round_trip") for name in OBS_SERVER_SPANS
+                        for _ in range(2)]
+                server_spans = sorted((n, p) for n, p in tree if n in OBS_SERVER_SPANS)
+                if server_spans != sorted(want) or \
+                        ("oracle.wire_round_trip", "oracle.batch") not in tree:
+                    raise AssertionError(f"round {r}: span tree {tree}")
+                round_trip_ms += [e["dur"] / 1e3 for e in events
+                                  if e["name"] == "oracle.wire_round_trip"]
+            launches = read_counts()
+            remote.close()
+        finally:
+            server.shutdown()
+            server.server_close()
+    return launches, {"refreshes": OBS_SIDECAR_ROUNDS, "span_trees": trees,
+                      "wire_round_trip_ms": round_trip_ms}
+
+
+OBS_HOOK_REPS = 2000
+
+
+def untraced_hooks_us(telemetry):
+    """Report-only: microseconds of host time a refresh spends in the
+    observability hooks with tracing off (its four span sites, one
+    ``_batch`` record, one ledger batch context), the mean of OBS_HOOK_REPS
+    repetitions into a private recorder and ledger."""
+    from batch_scheduler_tpu_torch.utils import trace
+    from batch_scheduler_tpu_torch.utils.lifecycle import GangLifecycleLedger
+    from batch_scheduler_tpu_torch.utils.metrics import Registry
+
+    recorder, ledger = trace.FlightRecorder(), GangLifecycleLedger(registry=Registry())
+    span_sites = [name for name, parent in OBS_TREE["fold"] if parent]
+    was = trace.enabled()
+    trace.configure(enabled=False)
+    try:
+        t0 = time.perf_counter()
+        for i in range(OBS_HOOK_REPS):
+            for name in span_sites:
+                with trace.span(name, cat="oracle"):
+                    pass
+            recorder.record("_batch", phase="batch", verdict="info", batch=i,
+                            batch_ms=1.0, pack_ms=0.5, groups=NORTH_STAR_GANGS,
+                            nodes=NORTH_STAR_NODES, degraded=False, speculative=False,
+                            audit_id=None, telemetry=telemetry)
+            ledger.note_batch_context("a" * 16, telemetry)
+        return (time.perf_counter() - t0) / OBS_HOOK_REPS * 1e6
+    finally:
+        trace.configure(enabled=was)
+
+
+def drive_observability(wave):
+    """north_star_churn's deployment through a ScheduleOperation's
+    OracleScorer on cuda (audit log on) with tracing on at sample 1.0 and
+    BST_SCAN_WAVE at ``wave``: a keyframe and OBS_ROUNDS churn refreshes,
+    each under a ``schedule_cycle`` root, kernel counts zeroed just before
+    and read just after. Per refresh: the reference's span tree, oracle.batch
+    (groups, nodes) no shorter than the scan kernel's CUDA-event time, one
+    ``_batch`` flight record with host values only under the refresh's
+    trace id, the ledger's batch context carrying the audit record's id;
+    the audit records keyed by the refreshes' trace ids; health ok. Then,
+    report-only, OBS_AB_PAIRS pairs of churn refreshes with tracing on and
+    off in turns and evaluate()'s time; every route scraped while a thread
+    refreshes (OBS_SCRAPE_ROUNDS); obs_denials, obs_policy, obs_sidecar.
+    Returns {path: launches} and the report."""
+    import tempfile
+    import threading
+
+    import torch
+
+    from batch_scheduler_tpu_torch.core import ScheduleOperation
+    from batch_scheduler_tpu_torch.utils import audit as audit_mod
+    from batch_scheduler_tpu_torch.utils import health, lifecycle, metrics, trace
+
+    kernel = "assign_wave" if wave else "assign_scan"
+    suffix = "_wave" if wave else ""
+    paths, out = {}, {}
+    trace.configure(enabled=True, sample=1.0, capacity=trace.DEFAULT_CAPACITY)
+    trace.DEFAULT_FLIGHT_RECORDER.clear()
+    try:
+        with scan_wave_env(wave), tempfile.TemporaryDirectory() as tmp:
+            cluster, cache = north_star_state()
+            log = audit_mod.AuditLog(tmp, fmt="array", keyframe_every=16)
+            op = ScheduleOperation(cache, cluster, device="cuda", audit_log=log)
+            scorer = op.oracle
+            health.DEFAULT_HEALTH.reset()
+            churn = Churn(cluster, cache, lambda name: scorer.mark_dirty(group=name),
+                          OBS_ROUNDS + 1 + OBS_SCRAPE_ROUNDS + 2 * OBS_AB_PAIRS)
+            root_ids, spans_ms, problems = [], [], []
+            with kernel_event_times() as timed:
+                zero_counts()
+                for r in range(OBS_ROUNDS + 1):
+                    if r:
+                        churn(r)
+                    trace.DEFAULT_RECORDER.clear()
+                    with trace.start_trace("schedule_cycle", round=r):
+                        root_ids.append(trace.current_context()[0])
+                        scorer.refresh(cluster, cache)
+                    lifecycle.DEFAULT_LEDGER.note_admitted(f"smoke/probe-{r:02d}")
+                    kernel_ms = timed[kernel].take_ms()
+                    events = trace.DEFAULT_RECORDER.snapshot()
+                    tree = span_tree(events)
+                    want = OBS_TREE["keyframe" if r == 0 else "fold"]
+                    batch = [e for e in events if e["name"] == "oracle.batch"]
+                    if tree != want:
+                        problems.append(f"refresh {r}: span tree {tree}")
+                    if {e["args"]["trace_id"] for e in events} != {root_ids[-1]}:
+                        problems.append(f"refresh {r}: spans outside the root's trace")
+                    if len(batch) != 1 or len(kernel_ms) != 1 or \
+                            batch[0]["args"].get("groups") != NORTH_STAR_GANGS or \
+                            batch[0]["args"].get("nodes") != NORTH_STAR_NODES:
+                        problems.append(f"refresh {r}: oracle.batch {batch[:1]}, "
+                                        f"{len(kernel_ms)} kernel launches")
+                        continue
+                    spans_ms.append((batch[0]["dur"] / 1e3, kernel_ms[0]))
+                    if spans_ms[-1][0] < spans_ms[-1][1]:
+                        problems.append(f"refresh {r}: oracle.batch {spans_ms[-1][0]} ms "
+                                        f"shorter than the kernel's {spans_ms[-1][1]} ms")
+                launches = read_counts()
+            paths[(kernel, f"observability{suffix}")] = launches[kernel]
+            if launches[kernel] != OBS_ROUNDS + 1 or any(
+                    n for k, n in launches.items() if k != kernel):
+                problems.append(f"launches {launches} (want {kernel} {OBS_ROUNDS + 1})")
+            if scorer.stats()["fold_outcomes"] != {"no-base": 1, "folded": OBS_ROUNDS}:
+                problems.append(f"fold outcomes {scorer.stats()['fold_outcomes']}")
+            records = trace.DEFAULT_FLIGHT_RECORDER.snapshot(gang="_batch")["_batch"]
+            if [r.get("trace_id") for r in records] != root_ids or \
+                    not all(no_tensor(r) and r["phase"] == "batch" for r in records) or \
+                    [r["batch"] for r in records] != list(range(1, OBS_ROUNDS + 2)):
+                problems.append(f"_batch records {records[:2]}")
+            log.flush()
+            audit, skipped = audit_mod.AuditReader(tmp).batches()
+            probes = lifecycle.DEFAULT_LEDGER.snapshot()["gangs"]
+            probe_aids = [probes[f"smoke/probe-{r:02d}"]["events"][0].get("audit_id")
+                          for r in range(OBS_ROUNDS + 1)]
+            if [rec.get("trace_id") for rec in audit] != root_ids or skipped or \
+                    [rec.get("audit_id") for rec in audit] != probe_aids or None in probe_aids:
+                problems.append(f"audit trace ids {[rec.get('trace_id') for rec in audit]} "
+                                f"vs roots {root_ids}; ledger audit ids {probe_aids}")
+            t0 = time.perf_counter()
+            verdict = health.DEFAULT_HEALTH.evaluate()
+            first_eval_ms = (time.perf_counter() - t0) * 1e3
+            not_ok = {k: v for k, v in verdict["signals"].items() if v["verdict"] != "ok"}
+            if verdict["verdict"] != "ok":
+                problems.append(f"health {verdict['verdict']}: {not_ok}")
+            eval_ms = []
+            for _ in range(OBS_EVAL_REPS):
+                t0 = time.perf_counter()
+                health.DEFAULT_HEALTH.evaluate()
+                eval_ms.append((time.perf_counter() - t0) * 1e3)
+            if problems:
+                raise AssertionError("; ".join(problems))
+            out["main"] = {
+                "refreshes": OBS_ROUNDS + 1, "launches_by_kernel": launches,
+                "batch_span_vs_kernel_ms": spans_ms,
+                "spans_a_refresh": len(OBS_TREE["fold"]),
+                "health": verdict["verdict"],
+                "health_observations": {k: verdict["signals"][k].get("observations")
+                                        for k in ("pack", "batch", "cycle", "device")},
+                "evaluate_ms_first": first_eval_ms,
+                "evaluate_ms_median": statistics.median(eval_ms),
+            }
+
+            # report-only: churn refreshes with tracing on and off in turns
+            saved = read_counts()
+            on_s, off_s = [], []
+            r = OBS_ROUNDS + 1
+            for pair in range(OBS_AB_PAIRS):
+                for traced in ((True, False) if pair % 2 else (False, True)):
+                    churn(r)
+                    r += 1
+                    trace.configure(enabled=traced, sample=1.0)
+                    t0 = time.perf_counter()
+                    with trace.start_trace("schedule_cycle"):
+                        scorer.refresh(cluster, cache)
+                    torch.cuda.synchronize()
+                    (on_s if traced else off_s).append(time.perf_counter() - t0)
+            trace.configure(enabled=True, sample=1.0)
+            restore_counts(saved)
+            out["tracing_ab"] = {
+                "untraced_hooks_us": untraced_hooks_us(scorer.last_telemetry),
+                "traced_ms_median": statistics.median(on_s) * 1e3,
+                "untraced_ms_median": statistics.median(off_s) * 1e3,
+                "traced_ms": [t * 1e3 for t in on_s],
+                "untraced_ms": [t * 1e3 for t in off_s],
+                "traced_spread_ms": (max(on_s) - min(on_s)) * 1e3,
+                "untraced_spread_ms": (max(off_s) - min(off_s)) * 1e3,
+            }
+
+            # every route scraped while a thread refreshes the card
+            server = metrics.serve_metrics(port=0)
+            port = server.server_address[1]
+            done, errors, scrape_ms = threading.Event(), [], {}
+
+            def refresher(first):
+                try:
+                    for k in range(OBS_SCRAPE_ROUNDS):
+                        churn(first + k)
+                        with trace.start_trace("schedule_cycle"):
+                            scorer.refresh(cluster, cache)
+                    torch.cuda.synchronize()
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append(e)
+                finally:
+                    done.set()
+
+            zero_counts()
+            thread = threading.Thread(target=refresher, args=(r,))
+            passes = 0
+            try:
+                thread.start()
+                while not done.is_set() or passes < 2:
+                    ms, bad = check_routes(port)
+                    passes += 1
+                    for route, t in ms.items():
+                        scrape_ms.setdefault(route, []).append(t)
+                    if bad:
+                        errors.append(AssertionError(f"pass {passes}: {bad}"))
+                        break
+                thread.join(LOCKCHECK_TIMEOUT)
+            finally:
+                server.shutdown()
+                server.server_close()
+            scrape_launches = read_counts()
+            paths[(kernel, f"observability_scrape{suffix}")] = scrape_launches[kernel]
+            if errors or scrape_launches[kernel] != OBS_SCRAPE_ROUNDS:
+                raise AssertionError(f"scrape: {errors[:3]}, launches {scrape_launches}")
+            out["routes"] = {"passes": passes, "ms_median": {
+                route: statistics.median(t) for route, t in scrape_ms.items()}}
+    finally:
+        trace.configure(enabled=True, sample=1.0)
+
+    try:
+        launches, out["denials"] = obs_denials(wave)
+        paths[(kernel, f"observability_mixed{suffix}")] = launches[kernel]
+        if launches[kernel] != 1:
+            raise AssertionError(f"denials: launches {launches}")
+        launches, out["policy"] = obs_policy(wave)
+        paths[("assign_policy", f"observability_policy{suffix}")] = launches["assign_policy"]
+        if launches["assign_policy"] != 1 or launches["assign_scan"] or launches["assign_wave"]:
+            raise AssertionError(f"policy: launches {launches}")
+        launches, out["sidecar"] = obs_sidecar(wave)
+        paths[(kernel, f"observability_sidecar{suffix}")] = launches[kernel]
+        if launches[kernel] != OBS_SIDECAR_ROUNDS:
+            raise AssertionError(f"sidecar: launches {launches}")
+    finally:
+        trace.configure(enabled=False)
+        trace.DEFAULT_RECORDER.clear()
+        trace.DEFAULT_FLIGHT_RECORDER.clear()
+    return paths, out
+
+
+def observability_phase(wave, results):
+    paths, out = drive_observability(wave)
+    for key, n in paths.items():
+        LATE_PATHS[key] = n
+    out["launches_by_path"] = {path: n for (_, path), n in paths.items()}
+    out["north_star_churn_refresh_ms_median"] = FIGURES.get(
+        "north_star_churn" if wave is None else "north_star_churn_wave")
+    return out
+
+
+@phase("observability")
+def observability(results):
+    """The observability layer at the north star with the serial kernel
+    (drive_observability)."""
+    return observability_phase(None, results)
+
+
+@phase("observability_wave")
+def observability_wave(results):
+    """observability with BST_SCAN_WAVE=8 (the wave kernel)."""
+    return observability_phase(8, results)
+
+
 # the lockcheck phase: a child process with BST_LOCKCHECK=1 (the
 # instrumentation stays out of every other phase's timings)
 LOCKCHECK_THREADS = 8
@@ -1471,6 +2100,9 @@ def lockcheck_child() -> int:
     from batch_scheduler_tpu_torch.ops.bucketing import pad_oracle_batch
     from batch_scheduler_tpu_torch.service import serve_background
     from batch_scheduler_tpu_torch.service.coalescer import CoalesceJob, CoalesceSaturated
+    from batch_scheduler_tpu_torch.utils import trace
+    from batch_scheduler_tpu_torch.utils.metrics import (
+        DEFAULT_REGISTRY, LONG_OP_BUCKETS, serve_metrics)
 
     if not lockcheck._installed[0]:
         print("chip_smoke: BST_LOCKCHECK=1 did not install the checker", file=sys.stderr)
@@ -1532,13 +2164,18 @@ def lockcheck_child() -> int:
                   METRICS_ROUNDS + 1)
     done = threading.Event()
     reads = [0]
+    scrapes = [0]
+    # the refreshes traced, and every ported /debug route scraped meanwhile
+    trace.configure(enabled=True, sample=1.0)
+    endpoint = serve_metrics(port=0)
 
     def refresher():
         try:
             for r in range(METRICS_ROUNDS + 1):
                 if r:
                     churn(r)
-                scorer.ensure_fresh(cluster, cache)
+                with trace.start_trace("schedule_cycle"):
+                    scorer.ensure_fresh(cluster, cache)
             torch.cuda.synchronize()
         finally:
             done.set()
@@ -1549,15 +2186,32 @@ def lockcheck_child() -> int:
             reads[0] += 1
         scorer.stats()
 
+    def scraper():
+        # /metrics holds the batch series once the first batch has published
+        # them (batches_run moves a few lines before they are observed)
+        batch_hist = DEFAULT_REGISTRY.histogram("bst_oracle_batch_seconds",
+                                                buckets=LONG_OP_BUCKETS)
+        while not batch_hist.count() and not done.is_set():
+            time.sleep(0.01)
+        while not done.is_set() or not scrapes[0]:
+            _, bad = check_routes(endpoint.server_address[1])
+            if bad:
+                raise AssertionError(f"scrape {scrapes[0]}: {bad}")
+            scrapes[0] += 1
+
     t0 = time.perf_counter()
     threads = [threading.Thread(target=guarded, args=(refresher,))]
     threads += [threading.Thread(target=guarded, args=(reader,))
                 for _ in range(LOCKCHECK_READERS)]
+    threads.append(threading.Thread(target=guarded, args=(scraper,)))
     for t in threads:
         t.start()
     for t in threads:
         t.join(LOCKCHECK_TIMEOUT)
     scorer_s = time.perf_counter() - t0
+    endpoint.shutdown()
+    endpoint.server_close()
+    trace.configure(enabled=False)
     launches = read_counts()
     stats = scorer.stats()
     for e in errors:
@@ -1571,7 +2225,8 @@ def lockcheck_child() -> int:
           # one launch a span job, one a mega group
           "storm_launches_want": sum(w if mode == "span" else 1 for mode, w in groups),
           "scorer_refreshes": stats["batches_run"], "scorer_s": scorer_s,
-          "stats_reads": reads[0], "fold_outcomes": stats["fold_outcomes"],
+          "stats_reads": reads[0], "debug_scrapes": scrapes[0],
+          "fold_outcomes": stats["fold_outcomes"],
           "launches_by_kernel": launches,
           "errors": [f"{type(e).__name__}: {str(e)[:300]}" for e in errors]})
     return 1 if errors else 0
@@ -1600,6 +2255,8 @@ def lockcheck_phase(results):
     refreshes = METRICS_ROUNDS + 1
     if out["scorer_refreshes"] != refreshes:
         raise AssertionError(f"{out['scorer_refreshes']} refreshes (want {refreshes})")
+    if out["debug_scrapes"] < 1:
+        raise AssertionError("no /debug scrape completed during the stats() storm")
     if out["storm_jobs_run"] + out["busy_answers"] != out["storm_jobs"]:
         raise AssertionError(f"{out['storm_jobs_run']} storm jobs run and "
                              f"{out['busy_answers']} refused of {out['storm_jobs']}")
@@ -4465,6 +5122,8 @@ def main() -> int:
     audit_replay_wave(results)
     sidecar_wave(results)
     coalesce_span_wave(results)
+    observability(results)
+    observability_wave(results)
     lockcheck_phase(results)
     for (kernel, path), n in LATE_PATHS.items():
         if kernel in results:

@@ -285,3 +285,93 @@ def test_lockcheck_scorer_stats_during_refresh():
         assert stats["fold_outcomes"].get("folded", 0) == 40, stats
         print("OK")
     """)
+
+
+def test_lockcheck_debug_scrape_storm_during_traced_refresh():
+    """A scorer refreshing under a live trace (spans, ``_batch`` flight
+    records, the ledger's batch context, denials in the flight recorder,
+    the ledger and the pending tracker) while three threads scrape every
+    ported route of ``serve_metrics``: every view copies under its owner's
+    lock, so the instrumented recorders, ledger, health model and tracker
+    stay quiet and every route answers 200."""
+    _run_armed("""
+        import threading
+        import urllib.request
+
+        from batch_scheduler_tpu_torch.cache.pg_cache import (
+            PGStatusCache, PodGroupMatchStatus)
+        from batch_scheduler_tpu_torch.core.oracle_scorer import OracleScorer
+        from batch_scheduler_tpu_torch.framework.cluster import ClusterState
+        from batch_scheduler_tpu_torch.sim import scenarios as scen
+        from batch_scheduler_tpu_torch.utils import health, lifecycle, metrics, trace
+
+        trace.configure(enabled=True, sample=1.0)
+        cluster = ClusterState()
+        for i in range(16):
+            cluster.add_node(scen.make_sim_node(
+                f"n{i:02d}", {"cpu": "16", "memory": "64Gi", "pods": "110"}))
+        cache = PGStatusCache()
+        for j in range(6):
+            pg = scen.make_sim_group(f"gang-{j}", 2 + j % 4, creation_ts=float(j))
+            pg.spec.min_resources = {"cpu": 3000, "memory": 2**30}
+            pgs = PodGroupMatchStatus(pg)
+            pgs.pod = scen.make_member_pods(f"gang-{j}", 1, {"cpu": "3"})[0]
+            cache.set(pg.full_name(), pgs)
+        pods = scen.make_member_pods("churn", 40, {"cpu": "1", "memory": "1Gi"})
+        tracker = health.PendingGangTracker()
+        health.set_active_pending(tracker)
+        scorer = OracleScorer(device="cpu")
+        srv = metrics.serve_metrics(port=0)
+        host, port = srv.server_address
+        routes = [r for r in metrics.DEBUG_ENDPOINTS if r != "/debug/events"]
+        routes += ["/debug/events?since=0&limit=16", "/debug/decisions?limit=2",
+                   "/debug/gangs?tenant=default", "/debug/capacity?points=4"]
+        errors = []
+        statuses = []
+        done = threading.Event()
+
+        def refresher():
+            try:
+                for k in range(30):
+                    cluster.assume(pods[k], f"n{k % 16:02d}")
+                    gang = f"default/gang-{k % 6}"
+                    with trace.start_trace("cycle"):
+                        scorer.ensure_fresh(cluster, cache)
+                        trace.DEFAULT_FLIGHT_RECORDER.record(
+                            gang, phase="pre_filter", verdict="denied",
+                            reason="r", coalesce=True, batch=k)
+                        lifecycle.DEFAULT_LEDGER.note_deny(gang, "r")
+                        tracker.note_deny(gang)
+                    if k % 5 == 4:
+                        tracker.note_placed(gang)
+                        lifecycle.DEFAULT_LEDGER.note_permit(gang)
+            except Exception as e:
+                errors.append(e)
+            finally:
+                done.set()
+
+        def scraper():
+            try:
+                while not done.is_set():
+                    for r in routes:
+                        with urllib.request.urlopen(
+                                f"http://{host}:{port}{r}", timeout=20) as resp:
+                            resp.read()
+                            statuses.append(resp.status)
+            except Exception as e:
+                errors.append(e)
+
+        threads = [threading.Thread(target=refresher)]
+        threads += [threading.Thread(target=scraper) for _ in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=40)
+        srv.shutdown()
+        srv.server_close()
+        assert not errors, "\\n\\n".join(f"{type(e).__name__}: {e}" for e in errors)
+        assert statuses and set(statuses) == {200}, set(statuses)
+        assert scorer.stats()["batches_run"] == 30
+        assert len(trace.DEFAULT_RECORDER.snapshot()) >= 30 * 5
+        print("OK")
+    """)

@@ -104,12 +104,17 @@ def _read(pkg):
 def _delta(before, after):
     """Counters and histogram counts as differences; gauges as their values
     after the sequence (the holder gauge for this sequence's holder label
-    only: other tests' holders share the registry)."""
+    only: other tests' holders share the registry), but the in-flight
+    gauge as its change: it counts every batch in flight in the process,
+    so a batch another test left dispatched shows in its value, and the
+    sequence must leave it where it found it."""
     out = {}
     for name, now in after.items():
         if name == "bst_device_state_generation":
             key = (("holder", HOLDER_LABEL),)
             out[name] = {key: now.get(key)}
+        elif name == "bst_oracle_inflight_batches":
+            out[name] = {k: v - before[name].get(k, 0) for k, v in now.items()}
         elif name in GAUGES:
             out[name] = dict(now)
         else:
