@@ -36,6 +36,7 @@ from ..utils.metrics import DEFAULT_REGISTRY
 from ..utils.trace import DEFAULT_FLIGHT_RECORDER
 from ..utils.ttl_cache import TTLCache
 from . import resources as rmath
+from .explain import Observatory, set_active_observatory
 from .oracle_scorer import OracleScorer
 
 __all__ = [
@@ -172,6 +173,14 @@ class ScheduleOperation:
         # verdict; registered as the process's active tracker
         self.pending_tracker = PendingGangTracker()
         set_active_pending(self.pending_tracker)
+        # the explain/what-if observatory (core.explain), process-wide for
+        # /debug/explain and /debug/whatif; a non-oracle operation registers
+        # None, so a torn-down oracle operation's observatory never answers
+        set_active_observatory(
+            Observatory(self, device=device)
+            if self.scorer_kind == "oracle" and self.oracle is not None
+            else None
+        )
         # same isolation rule for the gang lifecycle ledger
         # (utils.lifecycle): a fresh operation starts a fresh story
         DEFAULT_LEDGER.reset()

@@ -16,8 +16,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "device_stream", "batch_from_numpy", "policy_from_numpy",
-           "BATCH_DTYPES", "PROGRESS_DTYPES"]
+__all__ = ["resolve_device", "device_stream", "batch_from_numpy", "args_from_numpy",
+           "policy_from_numpy", "BATCH_DTYPES", "PROGRESS_DTYPES"]
 
 # (alloc, requested, group_req, remaining, fit_mask, group_valid, order)
 BATCH_DTYPES = (np.int32, np.int32, np.int32, np.int32, np.bool_, np.bool_, np.int32)
@@ -86,6 +86,12 @@ def batch_from_numpy(batch_args, progress_args, device="cuda"):
         _place(batch_args, BATCH_DTYPES, dev),
         _place(progress_args, PROGRESS_DTYPES, dev),
     )
+
+
+def args_from_numpy(batch_args, device="cuda"):
+    """The packed 7-tuple alone as tensors on ``device`` (the first half of
+    ``batch_from_numpy``)."""
+    return _place(batch_args, BATCH_DTYPES, resolve_device(device))
 
 
 def policy_from_numpy(policy_cols, device="cuda"):

@@ -30,14 +30,22 @@ batch, so every scatter is enqueued after the batch that read the rows it
 rewrites, on the same stream, and cannot overtake it. Nothing else holds
 the resident tensors: a published snapshot keeps its own host arrays.
 
+Forks (the what-if engine's state, core.explain): ``fork`` starts a holder
+on its parent's tensors without a copy, and ``apply_batch`` scatters a
+counterfactual's changed rows into it. Because a scatter writes in place,
+a fork clones a borrowed tensor at its first write (copy-on-write,
+``_own``): the parent's values and storage never change through a fork,
+and neither do a fork's through its own forks. The reference's forks are
+safe without this (jax arrays are immutable) and pin donation off
+instead.
+
 The port of ``batch_scheduler_tpu/ops/device_state.py`` on one explicit
 ``device``, without:
 
 - the mesh and sharding branches (the sharded rungs are not ported);
 - the jit row buckets (nothing here compiles per shape; unique delta rows
   keep ``index_copy_`` deterministic on CUDA);
-- ``fork``/``apply_batch``/``reset`` (no caller of the port forks or
-  drops the state);
+- ``reset`` (no caller of the port drops the state);
 - the knobs ``BST_DEVICE_STATE``/``BST_DEVICE_DERIVE``: the holder is
   always on (every scorer syncs one), and the columns are derived
   whenever the snapshot carries meta columns.
@@ -58,6 +66,9 @@ from ..utils.metrics import DEFAULT_REGISTRY
 from .convert import resolve_device
 
 __all__ = ["DeviceStateHolder", "derive_columns", "stage_rows"]
+
+# the resident tensors a fork starts on (the reference's fork shares these)
+_FORK_SHARED = ("_alloc", "_requested", "_group_req", "_policy_hash", "_policy_dom")
 
 
 def stage_rows(idx, rows, device, row_shape) -> tuple:
@@ -139,6 +150,10 @@ class DeviceStateHolder:
         # domains; None until a policy pack syncs, and after a keyframe
         self._policy_hash = None  # guarded-by: _lock
         self._policy_dom = None  # guarded-by: _lock
+        # a fork (``fork``) starts on its parent's tensors: the names of
+        # those it still borrows, each cloned at its first in-place write
+        self._forked = False
+        self._borrowed: set = set()  # guarded-by: _lock
 
     # -- internals ----------------------------------------------------------
 
@@ -171,6 +186,15 @@ class DeviceStateHolder:
             "Churned rows applied to device-resident state via "
             "jit'd scatter-updates (vs a full re-upload)",
         ).inc(rows)
+
+    def _own(self, name: str) -> torch.Tensor:  # lock-held: _lock
+        """The resident tensor ``name`` ready for an in-place write: a
+        tensor a fork still borrows from its parent is cloned first, so a
+        write through a fork never reaches the parent (copy-on-write)."""
+        if name in self._borrowed:
+            setattr(self, name, getattr(self, name).clone())
+            self._borrowed.discard(name)
+        return getattr(self, name)
 
     def _scatter(self, buf: torch.Tensor, idx, rows) -> None:  # lock-held: _lock
         """Resident ``buf`` rows at ``idx`` become ``rows``, in place — THE
@@ -205,6 +229,7 @@ class DeviceStateHolder:
             self._requested = self._place(requested)
             self._group_req = self._place(group_req)
             self._policy_hash = self._policy_dom = None
+            self._borrowed.clear()
             self.generation = int(generation)
             self._note_keyframe(reason)
             return self._resident_args(batch_args[3:])
@@ -251,7 +276,7 @@ class DeviceStateHolder:
                 plan.append((name, idx, rows))
             scattered = 0
             for name, idx, rows in plan:
-                self._scatter(getattr(self, "_" + name), idx, rows)
+                self._scatter(self._own("_" + name), idx, rows)
                 scattered += int(len(idx))
             self.generation = int(generation)
             self.deltas_applied += 1
@@ -386,14 +411,69 @@ class DeviceStateHolder:
             if not resident or delta is None or delta.kind != "delta":
                 self._policy_hash = self._place(node_hash)
                 self._policy_dom = self._place(node_dom)
+                self._borrowed -= {"_policy_hash", "_policy_dom"}
             elif len(delta.policy_node_rows):
                 idx = delta.policy_node_rows
-                self._scatter(self._policy_hash, idx, np.asarray(node_hash)[idx])
+                self._scatter(self._own("_policy_hash"), idx, np.asarray(node_hash)[idx])
                 # [N] scatters as [N, 1] rows: index_copy_ needs a row axis
-                self._scatter(self._policy_dom[:, None], idx,
+                self._scatter(self._own("_policy_dom")[:, None], idx,
                               np.asarray(node_dom)[idx][:, None])
                 self._count_scattered(int(len(idx)))
             return (prio, aff, anti, gang_dom, self._policy_hash, self._policy_dom)
+
+    # -- copy-on-write forks (core.explain's what-if) -----------------------
+
+    def fork(self, label: Optional[str] = None) -> "DeviceStateHolder":
+        """A copy-on-write fork of this holder on its device: it starts on
+        this holder's resident tensors and generation without a copy, and
+        clones each tensor at its first in-place write (``_own``), so this
+        holder's values, storage, generation and counters never change
+        through the fork. The what-if engine's state: apply a
+        counterfactual to the fork, score it, drop the fork."""
+        out = DeviceStateHolder(self.device, label=label or f"{self.label}~fork")
+        with self._lock, out._lock:
+            out._forked = True
+            for name in _FORK_SHARED:
+                setattr(out, name, getattr(self, name))
+            out._borrowed = {n for n in _FORK_SHARED if getattr(out, n) is not None}
+            out.generation = self.generation
+        return out
+
+    def apply_batch(self, batch_args: tuple, base_args: tuple) -> tuple:
+        """Counterfactual apply for a FORK: bring the resident tensors from
+        ``base_args`` (the host arrays they mirror now) to ``batch_args``
+        by scattering only the rows that differ, or install a ``fork-shape``
+        keyframe when the padded shapes changed (added nodes grow the
+        bucket) or nothing is resident. Returns device-ready batch args
+        like ``sync``. Refused (RuntimeError) on a holder that is not a
+        fork: the live holder moves only by ``sync``/``apply_rows``, checked
+        by generation."""
+        if not self._forked:
+            raise RuntimeError(
+                "apply_batch is fork-only; the live holder syncs from the "
+                "packer's generation stream"
+            )
+        alloc, requested, group_req = (np.asarray(a) for a in batch_args[:3])
+        with self._lock:
+            resident = self._alloc is not None and all(
+                tuple(t.shape) == a.shape
+                for t, a in ((self._alloc, alloc), (self._requested, requested),
+                             (self._group_req, group_req))
+            )
+        if not resident:
+            return self.keyframe(batch_args, self.current_generation(), "fork-shape")
+        with self._lock:
+            scattered = 0
+            for name, new, base in (("_alloc", alloc, base_args[0]),
+                                    ("_requested", requested, base_args[1]),
+                                    ("_group_req", group_req, base_args[2])):
+                idx = np.nonzero((new != np.asarray(base)).any(axis=1))[0]
+                if len(idx):
+                    self._scatter(self._own(name), idx, new[idx])
+                    scattered += int(len(idx))
+            self.deltas_applied += 1
+            self.rows_scattered += scattered
+            return self._resident_args(batch_args[3:])
 
     # -- observability ------------------------------------------------------
 
@@ -410,6 +490,7 @@ class DeviceStateHolder:
             out = {
                 "label": self.label,
                 "device": str(self.device),
+                "forked": self._forked,
                 "generation": self.generation,
                 "resident": self._requested is not None,
                 "deltas_applied": self.deltas_applied,

@@ -16,13 +16,16 @@ modules the port has: ``/debug/trace`` (the span ring as Chrome-trace
 JSON, utils.trace), ``/debug/decisions`` (the gang decision flight
 recorder), ``/debug/gangs`` and ``/debug/events`` (the lifecycle ledger,
 utils.lifecycle), ``/debug/health`` (the SLO health model, utils.health),
-``/debug/policy`` (the active policy engine) and ``/debug/capacity`` (the
-capacity observatory, ops.capacity). ``/debug/`` serves the index
-(``DEBUG_ENDPOINTS``). The reference's ``/debug/buckets``, ``/debug/perf``,
-``/debug/profile`` and ``/debug/drain`` (ROADMAP Queue 1 item 12) and
-``/debug/explain`` and ``/debug/whatif`` (item 9) are not served yet:
-they answer 404, as an unknown path does. Every handler reads a copy its
-owner takes under its own lock, and none launches device work.
+``/debug/policy`` (the active policy engine), ``/debug/explain`` and
+``/debug/whatif`` (the gang observatory, core.explain) and
+``/debug/capacity`` (the capacity observatory, ops.capacity). ``/debug/``
+serves the index (``DEBUG_ENDPOINTS``). The reference's
+``/debug/buckets``, ``/debug/perf``, ``/debug/profile`` and
+``/debug/drain`` (ROADMAP Queue 1 item 12) are not served yet: they
+answer 404, as an unknown path does. Every handler but two reads a copy
+its owner takes under its own lock and launches no device work; a
+``/debug/explain`` or ``/debug/whatif`` query runs its scans on the
+observatory's device.
 """
 
 from __future__ import annotations
@@ -314,6 +317,13 @@ DEBUG_ENDPOINTS = {
                      "gang events for external consumers",
     "/debug/health": "the live SLO health model (utils.health)",
     "/debug/policy": "the active policy engine's terms/weights/counters",
+    "/debug/explain": "?gang=NS/NAME structured denial breakdown for one "
+                      "gang — deficits, binding lane, near-miss nodes, "
+                      "preemption candidacy (core.explain)",
+    "/debug/whatif": "score a counterfactual on a forked device-state "
+                     "copy: ?drain=N | ?cordon=N | ?add_nodes=K | "
+                     "?bump_gang=G&tier=T | ?remove_gang=G "
+                     "(core.explain; docs/observability.md grammar)",
     "/debug/capacity": "the capacity observatory (ops.capacity): last "
                        "summary + the downsampled time series — per-lane "
                        "utilization/headroom spectra, fragmentation, "
@@ -388,6 +398,14 @@ def _debug_payload(path: str, query: dict) -> Tuple[object, int]:
         from ..policy.engine import policy_debug_view
 
         return policy_debug_view(), 200
+    if path == "/debug/explain":
+        from ..core.explain import explain_debug_view
+
+        return explain_debug_view(first.get("gang"))
+    if path == "/debug/whatif":
+        from ..core.explain import whatif_debug_view
+
+        return whatif_debug_view(first)
     if path == "/debug/capacity":
         from ..ops.capacity import capacity_debug_view
 

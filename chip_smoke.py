@@ -263,6 +263,35 @@ Phases (one JSON line each; any failure makes the exit code non-zero):
                    serve_background(device="cuda"): the sidecar's spans
                    stitched under the client's trace id.
 - observability_wave  observability with BST_SCAN_WAVE=8.
+- explain_whatif   explain and what-if (core.explain, ops.explain):
+                   benchmarks/whatif_gate.py's four phases on the card at
+                   its sizes, and the explain scan's kernel route (two
+                   launches of the serial kernel, of its policy variant for
+                   a policy batch) against its plain capture scan on the
+                   CPU, every field, for the first, a middle, the last and
+                   an unplaced gang of the north star, mixed (both mask
+                   modes) and the policy deployment, with 5 timed queries
+                   and the bound (twice scan_bound) at the north star.
+                   Identity: at 48 nodes / 24 gangs each of the five
+                   counterfactuals' plan digests (and the baseline's) equal
+                   to a cluster that applied the change, on steady,
+                   wavefront and cpu-ladder. Isolation: 4 threads x 3
+                   what-if queries fork a live OracleScorer's holder at the
+                   north star while a thread runs 4 churn refreshes; the
+                   holder's generation, rows scattered, keyframes and next
+                   batch's plan digest equal a run without the storm, and
+                   its tensors' data pointers never move. Blame: mixed's
+                   denials through PreFilter, then /debug/explain
+                   (serve_metrics) for every denied gang agrees with its
+                   pre_filter record. Latency, report-only: the warm
+                   what-if query (split into pack, batches and diff)
+                   against one steady batch at 5,120 nodes / 2,048 gangs x
+                   5; the reference gate's 2.0x ceiling is printed beside
+                   the ratio, not enforced.
+- explain_whatif_wave  explain_whatif with BST_SCAN_WAVE=8 (the what-if
+                   steady rung on the wave kernel; the explain scan stays
+                   serial), the explain scan on the north star and mixed's
+                   per-group batch.
 - lockcheck        a child process (chip_smoke.py --lockcheck-child) with
                    BST_LOCKCHECK=1, the instrumentation kept out of every
                    other phase (run last): the number of instrumented
@@ -327,8 +356,9 @@ sidecar, coalesce_span, coalesce_mega, coalesce_drf, coalesce_busy,
 capacity, north_star_wave, race_wave, north_star_churn_wave,
 churn_loop_wave, policy_wave, audit_replay_wave, sidecar_wave,
 coalesce_span_wave, metrics, metrics_wave, observability(_wave) and its
-scrape, mixed, policy and sidecar paths, lockcheck (counted in its
-child), and the audit phases' replays
+scrape, mixed, policy and sidecar paths, explain_whatif(_wave)'s explain
+scan, what-if rungs, storm, blame and latency paths, lockcheck (counted
+in its child), and the audit phases' replays
 (``audit_replay_replays``, ``audit_replay_wave_replays``,
 ``audit_replay_policy_replays``) — with every kernel's count zeroed just
 before the path and read just after; ``launches`` in the kernels line is
@@ -1509,9 +1539,11 @@ OBS_ROUTE_KEYS = {
     "/debug/capacity": [{"enabled", "sampler", "hint"},
                         {"label", "samples", "skipped", "last_kernel_s", "budget_frac",
                          "lane_names", "last", "ring", "series", "enabled"}],
+    # a bare GET describes the route (no device work)
+    "/debug/explain": [{"usage", "serves"}],
+    "/debug/whatif": [{"usage", "kinds", "serves"}],
 }
-OBS_LEFT_OUT = ("/debug/buckets", "/debug/perf", "/debug/profile", "/debug/explain",
-                "/debug/whatif", "/debug/drain")
+OBS_LEFT_OUT = ("/debug/buckets", "/debug/perf", "/debug/profile", "/debug/drain")
 
 
 class _EventTimed:
@@ -1552,20 +1584,23 @@ class _EventTimed:
 
 @contextlib.contextmanager
 def kernel_event_times():
-    """The serial and wave scan wrappers of ops.assign_scan replaced, in the
-    block, by _EventTimed stand-ins (ops.oracle looks them up at each
-    batch); yields {kernel: stand-in}."""
+    """The three scan wrappers of ops.assign_scan replaced, in the block,
+    by _EventTimed stand-ins (ops.oracle and ops.explain look them up at
+    each call); yields {kernel: stand-in}."""
     from batch_scheduler_tpu_torch.ops import assign_scan
 
     timed = {"assign_scan": _EventTimed(assign_scan.assign_gangs_cuda),
-             "assign_wave": _EventTimed(assign_scan.assign_gangs_wave_cuda)}
+             "assign_wave": _EventTimed(assign_scan.assign_gangs_wave_cuda),
+             "assign_policy": _EventTimed(assign_scan.assign_gangs_policy_cuda)}
     assign_scan.assign_gangs_cuda = timed["assign_scan"]
     assign_scan.assign_gangs_wave_cuda = timed["assign_wave"]
+    assign_scan.assign_gangs_policy_cuda = timed["assign_policy"]
     try:
         yield timed
     finally:
         assign_scan.assign_gangs_cuda = timed["assign_scan"].fn
         assign_scan.assign_gangs_wave_cuda = timed["assign_wave"].fn
+        assign_scan.assign_gangs_policy_cuda = timed["assign_policy"].fn
 
 
 def span_tree(events, ids=None):
@@ -5064,6 +5099,539 @@ def policy_ring(directory):
         "audit": {k: v for k, v in stats.items() if k != "audit_dir"}}
 
 
+# -- explain and what-if (core.explain, ops.explain) ---------------------------
+# benchmarks/whatif_gate.py's four phases on the card at the gate's sizes
+# (:64-70): counterfactual identity and fork isolation at 48 nodes / 24
+# gangs, latency at 5,120 nodes / 2,048 gangs x 5 members. The explain scan
+# is also held against its plain version at the north star (bench.py:37-104),
+# on mixed's inputs (both mask modes) and on the policy cell's deployment.
+WHATIF_SMALL = (48, 24)
+WHATIF_LATENCY = (5120, 2048, 5)
+WHATIF_REPS = 7  # warm what-if queries and steady batches timed for the medians
+WHATIF_STORM_THREADS, WHATIF_STORM_QUERIES = 4, 3
+WHATIF_STORM_ROUNDS = 4  # churn refreshes the live scorer runs under the storm
+EXPLAIN_TIMED = 5  # kernel-route explain queries timed at the north star
+WHATIF_RUNGS = ("steady", "wavefront", "cpu-ladder")
+
+
+def whatif_inputs(n_nodes, n_groups, members=3, seed=7):
+    """benchmarks/whatif_gate.py's ``_inputs`` with the port's types:
+    32-cpu nodes, half of them partly requested, gangs of ``members`` with
+    1-8 cpus and 1-8 GiB each in three priority tiers."""
+    import numpy as np
+
+    from batch_scheduler_tpu_torch.ops.snapshot import GroupDemand
+    from batch_scheduler_tpu_torch.sim.scenarios import make_sim_node
+
+    rng = np.random.default_rng(seed)
+    nodes = [make_sim_node(f"node-{i:04d}", {"cpu": "32", "memory": "128Gi", "pods": "110"})
+             for i in range(n_nodes)]
+    node_req = {n.metadata.name: {"cpu": int(rng.integers(0, 16000)), "pods": 2}
+                for n in nodes[: n_nodes // 2]}
+    demands = [
+        GroupDemand(f"default/gang-{g:04d}", members,
+                    member_request={"cpu": int(rng.integers(1000, 8000)),
+                                    "memory": int(rng.integers(1, 8)) * 1024**3},
+                    priority=int(rng.integers(0, 3)), creation_ts=float(g))
+        for g in range(n_groups)
+    ]
+    return nodes, node_req, demands
+
+
+def whatif_cfs(nodes, demands):
+    """The gate's five counterfactuals (whatif_gate.py ``_counterfactuals``)."""
+    return [
+        {"kind": "drain", "node": nodes[1].metadata.name},
+        {"kind": "cordon", "node": nodes[2].metadata.name},
+        {"kind": "add-nodes", "count": 4,
+         "shape": {"cpu": "32", "memory": "128Gi", "pods": "110"}},
+        {"kind": "bump-gang", "gang": demands[-1].full_name, "tier": 9},
+        {"kind": "remove-gang", "gang": demands[0].full_name},
+    ]
+
+
+def direct_digest(nodes, node_req, demands):
+    """The plan digest of a cluster that holds these inputs, packed and run
+    as one batch on the card (launches restored: a comparison)."""
+    from batch_scheduler_tpu_torch.ops.oracle import execute_batch_host
+    from batch_scheduler_tpu_torch.ops.snapshot import ClusterSnapshot
+    from batch_scheduler_tpu_torch.utils.audit import plan_digest
+
+    saved = read_counts()
+    snap = ClusterSnapshot(nodes, node_req, demands)
+    host, _ = execute_batch_host(snap.device_args(), snap.progress_args(), device="cuda")
+    restore_counts(saved)
+    return plan_digest(host)
+
+
+def explain_inputs(full):
+    """(name, batch args, progress args, real nodes, policy payload) of the
+    inputs the explain scan is checked on: the north star and mixed's
+    per-group batch, and with ``full`` also mixed's broadcast batch and the
+    policy cell's deployment (its policy columns, terms and weights)."""
+    from batch_scheduler_tpu_torch.core.oracle_scorer import read_cluster_inputs
+    from batch_scheduler_tpu_torch.ops.snapshot import ClusterSnapshot
+    from batch_scheduler_tpu_torch.policy import engine as engine_mod
+
+    cluster, cache = north_star_cluster()
+    snap = ClusterSnapshot(*read_cluster_inputs(cluster, cache))
+    out = [("north_star", snap.device_args(), snap.progress_args(), NORTH_STAR_NODES, None)]
+    modes = (("mixed_per_group", True), ("mixed_broadcast", False))
+    for mode, per_group in modes if full else modes[:1]:
+        args, prog = mixed_batch(*MIXED, per_group)
+        out.append((mode, args, prog, MIXED[0], None))
+    if full:
+        cluster, cache = policy_state()
+        saved = engine_mod._active[0]
+        try:
+            with env_set(POLICY_ENV):
+                eng = engine_mod.PolicyEngine(engine_mod.PolicyConfig.from_env())
+            snap = ClusterSnapshot(*read_cluster_inputs(cluster, cache), policy_engine=eng)
+            out.append(("policy", snap.device_args(), snap.progress_args(),
+                        NORTH_STAR_NODES, snap.policy_payload()))
+        finally:
+            engine_mod._active[0] = saved
+    return out
+
+
+def explain_targets(batch_args, host):
+    """Gang indices at the first, a middle and the last position of the
+    queue order (real gangs), and the first unplaced gang with a need."""
+    valid = batch_args[5]
+    order = [int(o) for o in batch_args[6] if valid[o]]
+    targets = {"first": order[0], "middle": order[len(order) // 2], "last": order[-1]}
+    unplaced = [g for g in order if not host["placed"][g] and batch_args[3][g] > 0]
+    if unplaced:
+        targets["unplaced"] = unplaced[0]
+    return targets
+
+
+def check_explain_scan(full):
+    """The explain scan's kernel route (two launches of the serial kernel,
+    or of its policy variant for the policy input) against its plain
+    version on the CPU (the capture scan step by step), every field equal,
+    for each input's targets; then EXPLAIN_TIMED timed queries at the north
+    star: the two launches' CUDA-event time and the whole call's wall
+    clock, the plain version's time on the card and on the CPU, and the
+    bound (twice the serial scan's). Returns (launches by kernel, report)."""
+    import numpy as np
+    import torch
+
+    from batch_scheduler_tpu_torch.ops.convert import args_from_numpy, policy_from_numpy
+    from batch_scheduler_tpu_torch.ops.explain import explain_gang, explain_gang_plain
+    from batch_scheduler_tpu_torch.ops.oracle import execute_batch_host, left_resources
+
+    launches = {k: 0 for k in KERNELS}
+    report, problems = {}, []
+    queries = 0
+    for name, args, prog, n_real, policy in explain_inputs(full):
+        saved = read_counts()
+        host, _ = execute_batch_host(args, prog, device="cuda", policy=policy)
+        restore_counts(saved)
+        kernel = "assign_scan" if policy is None else "assign_policy"
+        dev_args, cpu_args = args_from_numpy(args, "cuda"), args_from_numpy(args, "cpu")
+        kw_dev = kw_cpu = {}
+        if policy is not None:
+            cols, terms, weights = policy
+            kw_dev = {"policy_cols": policy_from_numpy(cols, "cuda"),
+                      "policy_terms": terms, "policy_weights": weights}
+            kw_cpu = dict(kw_dev, policy_cols=policy_from_numpy(cols, "cpu"))
+        rows = {}
+        for target, g in explain_targets(args, host).items():
+            zero_counts()
+            with kernel_event_times() as timed:
+                t0 = time.perf_counter()
+                got = {k: v.cpu().numpy() for k, v in explain_gang(
+                    *dev_args, g, n_real, **kw_dev).items()}
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                event_ms = timed[kernel].take_ms()
+            counted = read_counts()
+            queries += 1
+            for k, n in counted.items():
+                launches[k] += n
+            t0 = time.perf_counter()
+            want = {k: v.numpy() for k, v in explain_gang_plain(
+                *cpu_args, g, n_real, **kw_cpu).items()}
+            plain_cpu_ms = (time.perf_counter() - t0) * 1e3
+            diff = [k for k in want if not np.array_equal(got[k], want[k])]
+            if diff or counted[kernel] != 2 or sum(counted.values()) != 2:
+                problems.append(f"{name}/{target} (gang {g}): fields {diff}, launches {counted}")
+            rows[target] = {"gang": g, "placed": bool(host["placed"][g]),
+                            "nodes_entry": int(got["nodes_entry"]),
+                            "nodes_indep": int(got["nodes_indep"]),
+                            "feasible_at_entry": bool(got["feasible_entry"]),
+                            "two_launches_ms": sum(event_ms), "query_wall_ms": wall_ms,
+                            "plain_cpu_ms": plain_cpu_ms}
+        report[name] = {"shape": [int(args[2].shape[0]), int(args[0].shape[0]),
+                                  int(args[0].shape[1])], "mask_rows": int(args[4].shape[0]),
+                        "kernel": kernel, "targets": rows}
+        if name == "north_star":
+            g = rows["middle"]["gang"]
+            event_ms, wall_ms = [], []
+            zero_counts()
+            with kernel_event_times() as timed:
+                for _ in range(EXPLAIN_TIMED):
+                    t0 = time.perf_counter()
+                    out = explain_gang(*dev_args, g, n_real)
+                    out["near_idx"].cpu()
+                    wall_ms.append((time.perf_counter() - t0) * 1e3)
+                    event_ms.append(sum(timed["assign_scan"].take_ms()))
+            counted = read_counts()
+            queries += EXPLAIN_TIMED
+            for k, n in counted.items():
+                launches[k] += n
+            saved = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            explain_gang_plain(*dev_args, g, n_real)["near_idx"].cpu()
+            plain_cuda_ms = (time.perf_counter() - t0) * 1e3
+            restore_counts(saved)
+            left = left_resources(dev_args[0], dev_args[1])
+            bound_ms, bound_by, nbytes, ops = scan_bound(left, *dev_args[2:5], dev_args[6])
+            report["north_star_timed"] = {
+                "gang": g, "queries": EXPLAIN_TIMED,
+                "two_launches_ms_median": statistics.median(event_ms),
+                "two_launches_ms": event_ms,
+                "query_wall_ms_median": statistics.median(wall_ms), "query_wall_ms": wall_ms,
+                "plain_cuda_ms": plain_cuda_ms,
+                "plain_cpu_ms": rows["middle"]["plain_cpu_ms"],
+                "bound_ms": 2 * bound_ms, "bound_by": bound_by, "bytes": 2 * nbytes,
+                "int_ops": 2 * ops,
+            }
+    if problems:
+        raise AssertionError("explain scan: " + "; ".join(problems[:4]))
+    report["queries"] = queries
+    return launches, report
+
+
+def check_whatif_identity(kernel):
+    """The gate's counterfactual identity on the card: for each rung and
+    each of the five kinds, the what-if plan digest equals a cluster that
+    applied the change and ran the batch directly, and the baseline digest
+    a direct baseline. Launches (one baseline and five counterfactual
+    batches a rung) counted per rung. Returns (launches by rung, report)."""
+    from batch_scheduler_tpu_torch.core.explain import WhatIfEngine, apply_counterfactual
+
+    nodes, node_req, demands = whatif_inputs(*WHATIF_SMALL)
+    cfs = whatif_cfs(nodes, demands)
+    base = direct_digest(nodes, node_req, demands)
+    applied = {cf["kind"]: direct_digest(*apply_counterfactual(nodes, node_req, demands, cf))
+               for cf in cfs}
+    report, problems, by_rung = {}, [], {}
+    want_kernel = {"steady": kernel, "wavefront": "assign_wave", "cpu-ladder": None}
+    for rung in WHATIF_RUNGS:
+        engine = WhatIfEngine(device="cuda")
+        zero_counts()
+        answers = [engine.query_on(nodes, node_req, demands, cf, rung=rung,
+                                   baseline_key="identity") for cf in cfs]
+        counted = read_counts()
+        by_rung[rung] = counted
+        k = want_kernel[rung]
+        want = {name: (len(cfs) + 1 if name == k else 0) for name in KERNELS}
+        if counted != want:
+            problems.append(f"{rung}: launches {counted}, want {want}")
+        for cf, res in zip(cfs, answers):
+            if res["whatif"]["plan_digest"] != applied[cf["kind"]] or \
+                    res["base"]["plan_digest"] != base:
+                problems.append(f"{rung}/{cf['kind']}: digests differ")
+        report[rung] = {res["kind"]: {"newly_placeable": len(res["newly_placeable"]),
+                                      "no_longer_placeable": len(res["no_longer_placeable"]),
+                                      "displaced_seats": res["displaced_seats"],
+                                      "whatif_nodes": res["whatif"]["nodes"]}
+                        for res in answers}
+    if problems:
+        raise AssertionError("what-if identity: " + "; ".join(problems[:4]))
+    return by_rung, report
+
+
+def storm_run(storm):
+    """north_star_churn's deployment through an OracleScorer on cuda: a
+    first refresh, then WHATIF_STORM_ROUNDS churn refreshes on a thread
+    and, with ``storm``, WHATIF_STORM_THREADS threads of what-if queries
+    forking the live holder meanwhile; then one more churn round and
+    refresh (the next batch). Returns the holder's stats, its data
+    pointers after the first refresh (``ptrs0``) and at the end
+    (``ptrs1``), the next batch's plan digest, the launches while the
+    threads ran (``during``) and of the next batch (``next``), and the
+    what-if queries run."""
+    import threading
+
+    import torch
+
+    from batch_scheduler_tpu_torch.core import OracleScorer
+    from batch_scheduler_tpu_torch.core.explain import WhatIfEngine
+    from batch_scheduler_tpu_torch.core.oracle_scorer import read_cluster_inputs
+    from batch_scheduler_tpu_torch.utils.audit import plan_digest
+
+    cluster, cache = north_star_state()
+    scorer = OracleScorer(device="cuda")
+    churn = Churn(cluster, cache, lambda name: scorer.mark_dirty(group=name),
+                  WHATIF_STORM_ROUNDS + 2)
+    scorer.refresh(cluster, cache)
+    holder = scorer._device_state
+    names = ("_alloc", "_requested", "_group_req")
+    ptrs0 = {n: getattr(holder, n).data_ptr() for n in names}
+    nodes, node_req, demands = read_cluster_inputs(cluster, cache)
+    cfs = whatif_cfs(nodes, demands)
+    engine = WhatIfEngine(holder_source=lambda: holder, device="cuda")
+    errors = []
+
+    def refresher():
+        try:
+            for r in range(1, WHATIF_STORM_ROUNDS + 1):
+                churn(r)
+                scorer.refresh(cluster, cache)
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    def storm_thread(w):
+        try:
+            for i in range(WHATIF_STORM_QUERIES):
+                engine.query_on(nodes, node_req, demands, cfs[(w + i) % len(cfs)],
+                                baseline_key="storm")
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    zero_counts()
+    threads = [threading.Thread(target=refresher)]
+    if storm:
+        threads += [threading.Thread(target=storm_thread, args=(w,))
+                    for w in range(WHATIF_STORM_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(LOCKCHECK_TIMEOUT)
+    during = read_counts()
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"storm run (storm={storm}): {errors[:3]}")
+    churn(WHATIF_STORM_ROUNDS + 1)
+    zero_counts()
+    scorer.refresh(cluster, cache)
+    return {"stats": holder.stats(), "ptrs0": ptrs0,
+            "ptrs1": {n: getattr(holder, n).data_ptr() for n in names},
+            "digest": plan_digest(scorer._state.result), "during": during,
+            "next": read_counts(), "queries": engine.queries}
+
+
+def check_fork_isolation(kernel):
+    """The gate's fork isolation at the north star on the card: the storm
+    run's live holder ends with the generation, rows scattered, keyframes
+    and next-batch plan digest of the run without the storm, and its
+    tensors' data pointers never move. Returns (launches, report)."""
+    control = storm_run(False)
+    stormed = storm_run(True)
+    keys = ("generation", "rows_scattered", "keyframes", "deltas_applied")
+    problems = [k for k in keys if control["stats"][k] != stormed["stats"][k]]
+    if control["digest"] != stormed["digest"]:
+        problems.append("next-batch plan digest")
+    for run in (control, stormed):
+        if run["ptrs0"] != run["ptrs1"]:
+            problems.append(f"live data pointers moved {run['ptrs0']} -> {run['ptrs1']}")
+    rounds = WHATIF_STORM_ROUNDS
+    queries = WHATIF_STORM_THREADS * WHATIF_STORM_QUERIES
+    if control["during"][kernel] != rounds or \
+            stormed["during"][kernel] != rounds + queries + 1 or \
+            stormed["next"][kernel] != 1 or stormed["queries"] != queries:
+        problems.append(f"launches: control {control['during']}, storm {stormed['during']} "
+                        f"(want {rounds} and {rounds} + {queries} + 1 {kernel}), "
+                        f"next {stormed['next']}, queries {stormed['queries']}")
+    if problems:
+        raise AssertionError("fork isolation: " + "; ".join(problems))
+    return stormed["during"][kernel] - rounds, {
+        **{k: stormed["stats"][k] for k in keys}, "storm_queries": queries,
+        "churn_refreshes": rounds, "next_batch_digest_equal": True,
+        "data_ptrs_unchanged": True}
+
+
+def check_explain_agrees(kernel):
+    """mixed's denials (obs_denials' deployment) through a ScheduleOperation
+    on cuda, every gang's pod through PreFilter; then for every denied gang
+    in the flight recorder, /debug/explain served by serve_metrics: 200,
+    recorded_agrees true, the recorded blame and feasible-node count.
+    Returns (PreFilter launches, explain launches, report)."""
+    from batch_scheduler_tpu_torch.core import ScheduleOperation
+    from batch_scheduler_tpu_torch.utils import errors as errs
+    from batch_scheduler_tpu_torch.utils import metrics, trace
+
+    cluster, cache, _ = mixed_state(*MIXED)
+    op = ScheduleOperation(cache, cluster, device="cuda")
+    trace.DEFAULT_FLIGHT_RECORDER.clear()
+    denied = []
+    zero_counts()
+    for name, pgs in sorted(cache.snapshot().items()):
+        try:
+            op.pre_filter(pgs.pod)
+        except errs.SchedulingError:
+            denied.append(name)
+    prefilter = read_counts()
+    server = metrics.serve_metrics(port=0)
+    port = server.server_address[1]
+    bad, ms, verdicts = [], [], {}
+    try:
+        zero_counts()
+        recorded = trace.DEFAULT_FLIGHT_RECORDER.snapshot()
+        checked = 0
+        for gang, recs in sorted(recorded.items()):
+            rec = next((r for r in reversed(recs) if r.get("phase") == "pre_filter"), None)
+            if rec is None or rec.get("verdict") != "denied":
+                continue
+            status, body, t = http_get(port, f"/debug/explain?gang={gang}")
+            ms.append(t)
+            checked += 1
+            exp = json.loads(body) if status == 200 else {}
+            verdicts[exp.get("feasible_alone")] = verdicts.get(exp.get("feasible_alone"), 0) + 1
+            if status != 200 or exp.get("recorded_agrees") is not True or \
+                    exp.get("deny_reason") != rec.get("reason") or \
+                    exp.get("feasible_nodes") != rec.get("feasible_nodes"):
+                bad.append((gang, status, {k: exp.get(k) for k in (
+                    "deny_reason", "feasible_nodes", "recorded_agrees", "error")}, rec))
+        explained = read_counts()
+    finally:
+        server.shutdown()
+        server.server_close()
+    if bad or not checked or checked != len(denied) or prefilter[kernel] != 1 or \
+            explained["assign_scan"] != 2 * checked or \
+            sum(explained.values()) != 2 * checked:
+        raise AssertionError(f"explain vs recorded blame: {len(denied)} denied, {checked} "
+                             f"checked, PreFilter launches {prefilter}, explain launches "
+                             f"{explained}; disagreeing {bad[:3]}")
+    return prefilter[kernel], explained["assign_scan"], {
+        "gangs": len(cache), "denied": len(denied), "explained": checked,
+        "recorded_agrees": checked, "feasible_alone": {str(k): v for k, v in verdicts.items()},
+        "explain_route_ms_median": statistics.median(ms), "explain_route_ms_max": max(ms)}
+
+
+def check_whatif_latency():
+    """The gate's latency at its acceptance bucket on the card: the median
+    of WHATIF_REPS warm what-if queries (baseline cached) against the
+    median of WHATIF_REPS steady execute_batch_host calls, each query split
+    into pack (the counterfactual's ClusterSnapshot and the fork's row
+    scatters), batches (the fork's batch) and diff (the rest: fork, digests,
+    placement diff, metrics). The reference gate's 2.0x ceiling is printed
+    beside the ratio, not enforced. Returns (launches, report)."""
+    import numpy as np
+
+    from batch_scheduler_tpu_torch.core import explain as explain_mod
+    from batch_scheduler_tpu_torch.ops.device_state import DeviceStateHolder
+    from batch_scheduler_tpu_torch.ops.oracle import execute_batch_host
+    from batch_scheduler_tpu_torch.ops.snapshot import ClusterSnapshot
+
+    nodes, node_req, demands = whatif_inputs(*WHATIF_LATENCY, seed=3)
+    snap = ClusterSnapshot(nodes, node_req, demands)
+    args, prog = snap.device_args(), snap.progress_args()
+    zero_counts()
+    execute_batch_host(args, prog, device="cuda")
+    steady = []
+    for _ in range(WHATIF_REPS):
+        t0 = time.perf_counter()
+        execute_batch_host(args, prog, device="cuda")
+        steady.append((time.perf_counter() - t0) * 1e3)
+    engine = explain_mod.WhatIfEngine(device="cuda")
+    cf = {"kind": "drain", "node": nodes[1].metadata.name}
+    t0 = time.perf_counter()
+    engine.query_on(nodes, node_req, demands, cf, baseline_key="lat")
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    parts = {"pack": 0.0, "batches": 0.0}
+
+    def timed(fn, part):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                parts[part] += time.perf_counter() - t
+        return run
+
+    orig_exec, orig_pack, orig_apply = (explain_mod._execute_rung, engine._pack,
+                                        DeviceStateHolder.apply_batch)
+    explain_mod._execute_rung = timed(orig_exec, "batches")
+    engine._pack = timed(orig_pack, "pack")
+    DeviceStateHolder.apply_batch = timed(orig_apply, "pack")
+    rows = []
+    try:
+        for _ in range(WHATIF_REPS):
+            parts.update(pack=0.0, batches=0.0)
+            t0 = time.perf_counter()
+            res = engine.query_on(nodes, node_req, demands, cf, baseline_key="lat")
+            total = (time.perf_counter() - t0) * 1e3
+            if not res["baseline_cached"]:
+                raise AssertionError("the warm what-if query rebuilt its baseline")
+            rows.append((total, parts["pack"] * 1e3, parts["batches"] * 1e3))
+    finally:
+        explain_mod._execute_rung = orig_exec
+        del engine._pack
+        DeviceStateHolder.apply_batch = orig_apply
+    launches = read_counts()
+    total = [r[0] for r in rows]
+    med = statistics.median(total)
+    steady_med = statistics.median(steady)
+    k = int(np.argsort(total)[len(total) // 2])
+    return launches, {
+        "shape": {"nodes": WHATIF_LATENCY[0], "groups": WHATIF_LATENCY[1],
+                  "pods": WHATIF_LATENCY[1] * WHATIF_LATENCY[2],
+                  "bucket": [int(args[2].shape[0]), int(args[0].shape[0]),
+                             int(args[0].shape[1])]},
+        "steady_batch_ms_median": steady_med, "steady_batch_ms": steady,
+        "whatif_query_ms_median": med, "whatif_query_ms": total,
+        "whatif_cold_query_ms": cold_ms,
+        "ratio": med / steady_med, "reference_ceiling": 2.0,
+        "split_ms_of_median_query": {"pack": rows[k][1], "batches": rows[k][2],
+                                     "diff": rows[k][0] - rows[k][1] - rows[k][2]},
+        "split_ms_medians": {
+            "pack": statistics.median(r[1] for r in rows),
+            "batches": statistics.median(r[2] for r in rows),
+            "diff": statistics.median(r[0] - r[1] - r[2] for r in rows)},
+    }
+
+
+def explain_whatif_phase(wave, results):
+    """The four gate phases and the explain scan check, with
+    BST_SCAN_WAVE at ``wave`` (the explain scan is the serial kernel's on
+    every rung; the what-if steady rung follows the knob)."""
+    kernel = "assign_wave" if wave else "assign_scan"
+    suffix = "_wave" if wave else ""
+    paths, out = {}, {}
+    with scan_wave_env(wave):
+        launches, out["explain_scan"] = check_explain_scan(full=wave is None)
+        for k, n in launches.items():
+            if n:
+                paths[(k, f"explain_scan{suffix}")] = n
+        by_rung, out["identity"] = check_whatif_identity(kernel)
+        for rung, counted in by_rung.items():
+            for k, n in counted.items():
+                if n:
+                    paths[(k, f"whatif_{rung}{suffix}")] = n
+        n, out["isolation"] = check_fork_isolation(kernel)
+        paths[(kernel, f"whatif_storm{suffix}")] = n
+        n_pre, n_exp, out["explain_agrees"] = check_explain_agrees(kernel)
+        paths[(kernel, f"explain_agrees_prefilter{suffix}")] = n_pre
+        paths[("assign_scan", f"explain_agrees{suffix}")] = n_exp
+        launches, out["latency"] = check_whatif_latency()
+        paths[(kernel, f"whatif_latency{suffix}")] = launches[kernel]
+        if sum(launches.values()) != launches[kernel]:
+            raise AssertionError(f"latency launches {launches}")
+    for (k, path), n in paths.items():
+        if k in results:
+            results[k]["launches_by_path"][path] = n
+    out["launches_by_path"] = {f"{k}:{path}": n for (k, path), n in paths.items()}
+    return out
+
+
+@phase("explain_whatif")
+def explain_whatif(results):
+    """Explain and what-if on the card with the serial kernel."""
+    return explain_whatif_phase(None, results)
+
+
+@phase("explain_whatif_wave")
+def explain_whatif_wave(results):
+    """explain_whatif with BST_SCAN_WAVE=8 (the what-if steady rung on the
+    wave kernel; the explain scan stays on the serial kernel)."""
+    return explain_whatif_phase(8, results)
+
+
 def card_line():
     try:
         out = subprocess.run(
@@ -5124,6 +5692,8 @@ def main() -> int:
     coalesce_span_wave(results)
     observability(results)
     observability_wave(results)
+    explain_whatif(results)
+    explain_whatif_wave(results)
     lockcheck_phase(results)
     for (kernel, path), n in LATE_PATHS.items():
         if kernel in results:

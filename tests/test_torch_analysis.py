@@ -127,6 +127,25 @@ def test_port_annotations_are_found():
     assert len(ANNOTATED) >= 18, ANNOTATED
 
 
+def test_observatory_annotations_match_reference():
+    """The gang observatory's classes carry the reference's guarded-by
+    registry for the shared names (the port adds the observatory's lazy
+    engine), and the guard checker finds nothing in either package's
+    module."""
+    port_path = os.path.join(REPO, "batch_scheduler_tpu_torch", "core", "explain.py")
+    ref_path = os.path.join(REPO, "batch_scheduler_tpu", "core", "explain.py")
+    port = port_ann.scan_module(port_path, _read(port_path))
+    ref = ref_ann.scan_module(ref_path, _read(ref_path))
+    assert port.classes["WhatIfEngine"].guarded == ref.classes["WhatIfEngine"].guarded == {
+        "_baseline": "_lock", "queries": "_lock"}
+    assert port.classes["Observatory"].guarded == {"_engine": "_lock"}
+    assert _guards(port_ann, port_guards, port_path, _read(port_path)) == []
+    holder = os.path.join(REPO, "batch_scheduler_tpu_torch", "ops", "device_state.py")
+    scanned = port_ann.scan_module(holder, _read(holder))
+    assert scanned.classes["DeviceStateHolder"].guarded["_borrowed"] == "_lock"
+    assert "_own" in scanned.classes["DeviceStateHolder"].lock_held
+
+
 @pytest.mark.parametrize("relpath", ANNOTATED)
 def test_scan_module_agrees_on_port_file(relpath):
     """One annotation means the same in both packages: both scanners give

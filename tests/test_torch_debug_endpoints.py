@@ -22,9 +22,9 @@ import pytest
 PACKAGES = ("batch_scheduler_tpu", "batch_scheduler_tpu_torch")
 PORTED = ("/metrics", "/healthz", "/debug/", "/debug/trace",
           "/debug/decisions", "/debug/gangs", "/debug/events",
-          "/debug/health", "/debug/policy", "/debug/capacity")
-LEFT_OUT = ("/debug/buckets", "/debug/perf", "/debug/profile",
-            "/debug/explain", "/debug/whatif", "/debug/drain")
+          "/debug/health", "/debug/policy", "/debug/explain",
+          "/debug/whatif", "/debug/capacity")
+LEFT_OUT = ("/debug/buckets", "/debug/perf", "/debug/profile", "/debug/drain")
 QUERIES = (
     "/debug/decisions?gang=ns-a/g0", "/debug/decisions?tenant=ns-b",
     "/debug/decisions?limit=1", "/debug/gangs?gang=ns-a/g0",

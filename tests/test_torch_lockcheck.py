@@ -375,3 +375,65 @@ def test_lockcheck_debug_scrape_storm_during_traced_refresh():
         assert len(trace.DEFAULT_RECORDER.snapshot()) >= 30 * 5
         print("OK")
     """)
+
+
+def test_lockcheck_whatif_storm_against_live_holder():
+    """Four threads run what-if queries through one ``WhatIfEngine`` (its
+    baseline cache and fork chain under ``_lock``) while the main thread
+    syncs churn into the live holder it forks and runs batches from it:
+    the instrumented engine, holder and forks stay quiet, and every live
+    batch's digest equals a fork-free control pipeline's."""
+    _run_armed("""
+        import threading
+
+        from batch_scheduler_tpu_torch.core.explain import WhatIfEngine
+        from batch_scheduler_tpu_torch.ops.device_state import DeviceStateHolder
+        from batch_scheduler_tpu_torch.ops.oracle import execute_batch_host
+        from batch_scheduler_tpu_torch.ops.snapshot import DeltaSnapshotPacker, GroupDemand
+        from batch_scheduler_tpu_torch.sim.scenarios import make_sim_node
+        from batch_scheduler_tpu_torch.utils.audit import plan_digest
+
+        assert WhatIfEngine.__dict__.get("_lockcheck_instrumented")
+        assert DeviceStateHolder.__dict__.get("_lockcheck_instrumented")
+        nodes = [make_sim_node(f"n{i:02d}", {"cpu": "16", "memory": "64Gi", "pods": "110"})
+                 for i in range(16)]
+        node_req = {f"n{i:02d}": {"cpu": 1000 * i, "pods": 1} for i in range(8)}
+        demands = [GroupDemand(f"default/gang-{j}", 3, member_request={"cpu": 2000 + 500 * j},
+                               priority=j % 3, creation_ts=float(j)) for j in range(8)]
+        holder = DeviceStateHolder("cpu", label="live")
+        packer, control = DeltaSnapshotPacker(), DeltaSnapshotPacker()
+        engine = WhatIfEngine(holder_source=lambda: holder, device="cpu")
+        cfs = [{"kind": "drain", "node": "n03"},
+               {"kind": "add-nodes", "count": 20,
+                "shape": {"cpu": "16", "memory": "64Gi", "pods": "110"}},
+               {"kind": "remove-gang", "gang": "default/gang-1"}]
+        errors = []
+
+        def storm(w):
+            try:
+                for i in range(5):
+                    engine.query_on(nodes, node_req, demands, cfs[(w + i) % 3],
+                                    baseline_key="storm")
+            except Exception as e:
+                errors.append(e)
+
+        threads = [threading.Thread(target=storm, args=(w,)) for w in range(4)]
+        for t in threads:
+            t.start()
+        live_req = dict(node_req)
+        for tick in range(6):
+            live_req["n09"] = {"cpu": 500 + tick, "pods": 1}
+            snap = packer.pack(nodes, live_req, demands)
+            host, _ = execute_batch_host(holder.sync(snap), snap.progress_args(), device="cpu")
+            csnap = control.pack(nodes, live_req, demands)
+            chost, _ = execute_batch_host(csnap.device_args(), csnap.progress_args(),
+                                          device="cpu")
+            assert plan_digest(host) == plan_digest(chost), tick
+            holder.stats()
+        for t in threads:
+            t.join(timeout=30)
+        assert not errors, "\\n\\n".join(f"{type(e).__name__}: {e}" for e in errors)
+        assert holder.current_generation() == packer.generation
+        assert holder.stats()["keyframes"] == {"first": 1}
+        print("OK")
+    """)

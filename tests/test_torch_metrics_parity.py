@@ -248,3 +248,80 @@ def test_batch_path_metrics_deltas_match_reference():
     assert sum(folds.values()) == batches
     assert outcomes == folds
     assert port["bst_device_state_generation"] != {(("holder", HOLDER_LABEL),): None}
+
+
+# ---------------------------------------------------------------------------
+# the gang observatory's series (core.explain)
+# ---------------------------------------------------------------------------
+
+OBSERVATORY_SERIES = (
+    ("bst_explain_queries_total", "counter"),
+    ("bst_whatif_queries_total", "counter"),
+    ("bst_whatif_query_seconds", "histogram"),
+    ("bst_device_keyframe_resyncs_total", "counter"),
+)
+
+
+def _read_observatory(pkg):
+    reg = _registry(pkg)
+    out = {}
+    for name, kind in OBSERVATORY_SERIES:
+        metric = reg.get(name)
+        if metric is None:
+            out[name] = {}
+        elif kind == "histogram":
+            out[name] = {k: snap[2] for k, snap in metric.snapshots().items()}
+        else:
+            out[name] = dict(metric.values())
+    return out
+
+
+def _observatory_script(pkg):
+    """Explain both gangs of a two-gang world through an oracle
+    ScheduleOperation's observatory, then one what-if query of each kind
+    through it (one baseline, the rest cached; add-nodes past the node
+    bucket keyframes its fork), then one on another rung."""
+    scen, cm, cluster, cache, _ = _world(pkg, n=8, g=2)
+    exp = importlib.import_module(f"{pkg}.core.explain")
+    health = importlib.import_module(f"{pkg}.utils.health")
+    saved = (exp.active_observatory(), health.active_pending())
+    kw = {"device": "cpu"} if pkg.endswith("_torch") else {}
+    try:
+        op = importlib.import_module(f"{pkg}.core.operation").ScheduleOperation(
+            cache, cluster, scorer="oracle", **kw)
+        op.oracle.ensure_fresh(cluster, cache)
+        obs = exp.active_observatory()
+        for gang in ("default/gang-0", "default/gang-1", "default/uni-0"):
+            obs.explain(gang)
+        for cf in ({"kind": "drain", "node": "n01"}, {"kind": "cordon", "node": "n02"},
+                   {"kind": "add-nodes", "count": 12,
+                    "shape": {"cpu": "16", "memory": "64Gi", "pods": "110"}},
+                   {"kind": "bump-gang", "gang": "default/gang-1", "tier": 7},
+                   {"kind": "remove-gang", "gang": "default/uni-3"}):
+            obs.whatif(cf)
+        obs.whatif({"kind": "drain", "node": "n03"}, rung="cpu-ladder")
+    finally:
+        exp.set_active_observatory(saved[0])
+        health.set_active_pending(saved[1])
+
+
+def test_observatory_metrics_deltas_match_reference():
+    deltas = {}
+    for pkg in PACKAGES:
+        before = _read_observatory(pkg)
+        _observatory_script(pkg)
+        after = _read_observatory(pkg)
+        deltas[pkg] = {
+            name: {k: v - before[name].get(k, 0) for k, v in now.items()
+                   if v != before[name].get(k, 0)}
+            for name, now in after.items()
+        }
+    ref, port = deltas["batch_scheduler_tpu"], deltas["batch_scheduler_tpu_torch"]
+    assert port == ref
+    assert port["bst_explain_queries_total"] == {(): 3}
+    assert port["bst_whatif_queries_total"] == {
+        (("kind", k),): n for k, n in (("drain", 2), ("cordon", 1), ("add-nodes", 1),
+                                       ("bump-gang", 1), ("remove-gang", 1))}
+    assert port["bst_whatif_query_seconds"] == {(): 6}
+    keyframes = {dict(k)["reason"]: v for k, v in port["bst_device_keyframe_resyncs_total"].items()}
+    assert keyframes["whatif-base"] == 2 and keyframes["fork-shape"] == 1
