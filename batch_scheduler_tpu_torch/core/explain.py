@@ -29,9 +29,8 @@ The batches run on the calling thread's current stream: a query's fork is
 keyframed from its own pack before anything reads it, so it shares no
 tensor with a scorer and enters no scorer stream.
 
-Left out until their items: the ``topk`` rung (ROADMAP Queue 1 item 10),
-which answers the reference's ``unknown what-if rung`` error; the
-``explain`` / ``whatif`` CLI subcommands and the harness views (item 12).
+Left out: the ``explain`` / ``whatif`` CLI subcommands and the harness
+views, which come with the control plane (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -72,8 +71,10 @@ COUNTERFACTUAL_KINDS = (
 # the rung a serving thread runs.
 WHATIF_RUNGS = REPLAY_RUNGS
 
-# the wave width the wavefront rung pins (the reference's)
+# the wave width the wavefront and topk rungs pin, and the topk rung's
+# candidate width (the reference's)
 _WHATIF_WAVE = 8
+_WHATIF_TOPK = 16
 
 _GRAMMAR = (
     "?drain=NODE | ?cordon=NODE | ?add_nodes=N[&node_cpu=..][&node_memory=..]"
@@ -200,16 +201,19 @@ def _execute_rung(batch_args, progress_args, rung: str, device, policy=None) -> 
     ``steady`` dispatches exactly what this process would serve now on
     ``device`` (the fork's resident tensors ride through untouched);
     ``wavefront`` runs on ``device`` under the thread-local
-    ``forced_scan_rung`` pin at W=8; ``cpu-ladder`` copies every tensor to
+    ``forced_scan_rung`` pin at W=8, ``topk`` under the pin at W=8 and
+    K=16 (the top-K kernel on cuda); ``cpu-ladder`` copies every tensor to
     host numpy and runs the plain serial scan on the CPU under the pin at
     0. A policy batch runs the policy scan on every rung."""
-    from ..ops.bucketing import wave_width_bucket
+    from ..ops.bucketing import topk_bucket, wave_width_bucket
     from ..ops.oracle import execute_batch_host, forced_scan_rung
 
     if rung == "steady":
         return execute_batch_host(batch_args, progress_args, device=device, policy=policy)[0]
-    if rung == "wavefront":
-        with forced_scan_rung(wave_width_bucket(_WHATIF_WAVE)):
+    if rung in ("wavefront", "topk"):
+        pin = (wave_width_bucket(_WHATIF_WAVE),
+               topk_bucket(_WHATIF_TOPK) if rung == "topk" else 0)
+        with forced_scan_rung(*pin):
             return execute_batch_host(batch_args, progress_args, device=device,
                                       policy=policy)[0]
     if rung == "cpu-ladder":

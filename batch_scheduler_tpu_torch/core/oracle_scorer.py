@@ -57,6 +57,7 @@ from ..ops.capacity import CapacitySampler, capacity_enabled, set_active_sampler
 from ..ops.convert import device_stream, resolve_device
 from ..ops.device_state import DeviceStateHolder
 from ..ops.events import EventLog
+from ..ops.bucketing import topk_bucket, wave_width_bucket
 from ..ops.oracle import execute_batch_host, forced_scan_rung
 from ..ops.snapshot import (
     ClusterSnapshot,
@@ -222,26 +223,25 @@ def demand_from_status(full_name: str, pgs: PodGroupMatchStatus) -> GroupDemand:
 #               scan kernel of that rung.
 #   wavefront — the wavefront scan pinned at width 8 on the caller's
 #               device: the wave kernel on cuda.
+#   topk      — the hierarchical top-K scan pinned at width 8 and K = 16
+#               candidates on the caller's device: the top-K kernel on
+#               cuda (the rung's claim is the serial plan bit for bit).
 #   cpu-ladder— the plain serial scan on the CPU, the counterpart of the
 #               reference's serial lax.scan on a CPU device: what the
 #               identity audit (utils.health.IdentityAuditor) re-verifies
 #               against, and the cross-backend probe for rings recorded on
 #               the card.
-# The reference's topk rung comes with the top-K scan (ROADMAP Queue 1
-# item 10).
-REPLAY_RUNGS = ("steady", "wavefront", "cpu-ladder")
-
-# the wave width the wavefront rung pins (the reference's default; already
-# a wave_width_bucket width)
-_REPLAY_WAVE = 8
+REPLAY_RUNGS = ("steady", "wavefront", "cpu-ladder", "topk")
 
 
 def replay_batch(batch_args, progress_args, against: str = "steady",
-                 device="cuda", policy=None):
+                 device="cuda", policy=None, wave: int = 8, topk: int = 16):
     """Re-execute one recorded batch's EXACT packed inputs on the requested
     rung and return ``(host, device_result)`` like ``execute_batch_host``.
-    ``device`` is where the ``steady`` and ``wavefront`` rungs run
-    (``cpu-ladder`` always runs on the CPU). The arrays are host numpy
+    ``device`` is where the ``steady``, ``wavefront`` and ``topk`` rungs
+    run (``cpu-ladder`` always runs on the CPU); ``wave`` is the width the
+    ``wavefront`` and ``topk`` rungs pin (``wave_width_bucket``) and
+    ``topk`` the candidate width of the ``topk`` rung (``topk_bucket``). The arrays are host numpy
     (a replay touches no scorer's resident tensor) and are uploaded on the
     calling thread's current stream, never on a scorer's stream. The rung
     pin is thread-local (ops.oracle.forced_scan_rung), so a replay —
@@ -252,9 +252,9 @@ def replay_batch(batch_args, progress_args, against: str = "steady",
     ``policy`` is a recorded batch's ``(policy_cols, terms, weights)``
     payload: a policy batch always re-executes the policy scan (the
     composite is part of its semantics; ``dispatch_batch`` ignores the wave
-    width for it), so every rung runs the policy scan on its device: the
-    composite-key kernel on ``steady`` and ``wavefront`` on cuda, the
-    plain policy scan on ``cpu-ladder``."""
+    and candidate widths for it), so every rung runs the policy scan on its
+    device: the composite-key kernel on ``steady``, ``wavefront`` and
+    ``topk`` on cuda, the plain policy scan on ``cpu-ladder``."""
     if against not in REPLAY_RUNGS:
         raise ValueError(
             f"unknown replay rung {against!r} (use one of {REPLAY_RUNGS})"
@@ -266,8 +266,9 @@ def replay_batch(batch_args, progress_args, against: str = "steady",
         policy = (tuple(np.asarray(c) for c in cols), tuple(terms), tuple(weights))
     if against == "steady":
         return execute_batch_host(batch_args, progress_args, device=device, policy=policy)
-    if against == "wavefront":
-        with forced_scan_rung(_REPLAY_WAVE):
+    if against in ("wavefront", "topk"):
+        rung = (wave_width_bucket(wave), topk_bucket(topk) if against == "topk" else 0)
+        with forced_scan_rung(*rung):
             return execute_batch_host(batch_args, progress_args, device=device,
                                       policy=policy)
     with forced_scan_rung(0):
@@ -279,7 +280,8 @@ def replay_audit_record(record: dict, against: str = "steady",
     """Replay one reconstructed audit record (utils.audit.AuditReader) and
     bit-compare the resulting plan against the recorded digest. Returns a
     per-batch report: the rung that executed (``executed_rung``: device,
-    scan, wave width, and ``scan_policy`` for a policy batch, from the
+    scan, wave width, ``scan_topk`` for a top-K batch and ``scan_policy``
+    for a policy batch, from the
     replay's telemetry) and, on a divergence, a
     structured blame dict — config fingerprints on both sides, bucket
     shape, the executed rung, and the first differing plan field / gang /
@@ -307,6 +309,8 @@ def replay_audit_record(record: dict, against: str = "steady",
     identical = digest == record.get("plan_digest")
     telemetry = host["telemetry"]
     executed = {k: telemetry[k] for k in ("device", "scan", "wave_width")}
+    if telemetry["scan_topk"]:
+        executed["scan_topk"] = telemetry["scan_topk"]
     if telemetry["scan_policy"]:
         executed["scan_policy"] = True
     out = {

@@ -21,7 +21,11 @@ division numbers before the scan. ``assign_gangs_policy_cuda`` is the
 serial scan with the policy terms' composite selection key
 (``ops.oracle.assign_gangs_policy``): the serial kernel's source built
 with ``BST_POLICY_SCAN`` (library ``assign_policy``), laid out by
-``kernel_plan(..., policy=True)``. For tensors on the CPU each runs its
+``kernel_plan(..., policy=True)``. ``assign_gangs_topk_cuda`` is the
+hierarchical top-K scan (``ops.oracle.assign_gangs_topk``, whose reference
+is lax): ``csrc/assign_topk.cu``, a cluster laid out by
+``topk_kernel_plan``, with the same prepare kernel as the wave kernel's,
+returning the three per-wave series. For tensors on the CPU each runs its
 plain version; for CUDA tensors it launches its kernel or raises. There is
 no switch that turns a kernel off.
 """
@@ -37,18 +41,19 @@ import torch
 from . import _build
 from .lanes import LANE_MAX
 from .oracle import assign_gangs as assign_gangs_plain
-from .oracle import assign_gangs_policy, assign_gangs_wavefront
+from .oracle import assign_gangs_policy, assign_gangs_topk, assign_gangs_wavefront
 
 __all__ = [
     "assign_gangs_cuda", "assign_gangs_plain", "assign_gangs_policy_cuda",
-    "assign_gangs_wave_cuda", "division_magic", "kernel_plan", "policy_scan_plan",
-    "scan_plan", "ScanPlan", "wave_kernel_plan", "wave_scan_plan", "wave_uniform",
-    "CLUSTER_SIZES", "WAVE_WIDTHS",
+    "assign_gangs_topk_cuda", "assign_gangs_wave_cuda", "division_magic", "kernel_plan",
+    "policy_scan_plan", "scan_plan", "ScanPlan", "topk_kernel_plan", "topk_scan_plan",
+    "wave_kernel_plan", "wave_scan_plan", "wave_uniform", "CLUSTER_SIZES", "WAVE_WIDTHS",
 ]
 
 _THREADS = 1024  # the kernels' largest block
 WAVE_WIDTHS = (2, 4, 8, 16, 32)  # the widths ops.bucketing.wave_width_bucket gives
 _MAX_WAVE = 32  # the wave kernel sizes its inboxes and stage for this width
+_MAX_TOPK = 128  # the top-K kernel's widest candidate slice (topk_bucket's top)
 # the kernels' cluster sizes, largest first: 16 needs the non-portable
 # cluster size, 8 is the portable limit
 CLUSTER_SIZES = (16, 8)
@@ -74,7 +79,8 @@ _HASH_LANES, _DOMAIN_BUCKETS = 4, 16  # policy.terms' HASH_LANES, DOMAIN_BUCKETS
 
 
 # the launch entry point's C signature, bst_<name>(pointers..., ints..., stream)
-_LAUNCH_ARGS = {"assign_scan": (11, 10), "assign_wave": (14, 11), "assign_policy": (16, 14)}
+_LAUNCH_ARGS = {"assign_scan": (11, 10), "assign_wave": (14, 11), "assign_policy": (16, 14),
+                "assign_topk": (16, 11)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -554,3 +560,107 @@ def _launch_policy(plan: ScanPlan, left0, group_req, remaining, fit_mask, order,
             f"{err(rc).decode(errors='replace')} (CUDA error {rc})"
         )
     return alloc, placed, left_after
+
+
+def topk_kernel_plan(n: int, r: int, wave: int, kk: int, cluster_max: int) -> ScanPlan:
+    """The top-K kernel's launch shape for N nodes, R lanes, width ``wave``
+    and ``kk`` candidates a gang, with at most ``cluster_max`` blocks: the
+    serial kernel's node split (``_node_split``), threads covering a block's
+    nodes. The leftover always lives in global scratch (``scratch_ints``:
+    R ints a node slot), beside a byte a node slot and wave position for the
+    tightness keys. Dynamic shared memory (``_topk_shared_bytes``) holds the
+    wave's lane rows, a 128-bin count histogram a position and five
+    ``[wave, kk]`` candidate tables."""
+    c, block_nodes, per = _node_split(n, cluster_max)
+    threads = -(-block_nodes // per)
+    threads = -(-threads // 32) * 32
+    return ScanPlan(c, block_nodes, threads, per, "global", _topk_shared_bytes(wave, kk, r),
+                    c * r * per * threads)
+
+
+def _topk_shared_bytes(wave: int, kk: int, r: int) -> int:
+    """assign_topk.cu's dynamic shared memory: rows [W][R] (16 bytes each),
+    hist [W][128], four [W][kk] tables of (node, capacity) pairs and the
+    [W][kk] takes."""
+    return wave * (16 * r + 4 * 128 + 36 * kk)
+
+
+@functools.lru_cache(maxsize=None)
+def topk_scan_plan(n: int, r: int, wave: int, kk: int, device_index: int) -> ScanPlan:
+    """The plan ``assign_gangs_topk_cuda`` launches on CUDA device
+    ``device_index``: ``topk_kernel_plan`` at the largest cluster the device
+    can schedule."""
+    return _device_plan(
+        "assign_topk", lambda n_, r_, cmax, _budget: topk_kernel_plan(n_, r_, wave, kk, cmax),
+        n, r, device_index)
+
+
+def assign_gangs_topk_cuda(left0, group_req, remaining, fit_mask, order, wave: int, k: int):
+    """The hierarchical top-K assignment scan at width ``wave`` (one of
+    ``WAVE_WIDTHS``) with ``k`` candidates a gang (1..128; the scan uses
+    ``max(2, min(k, N))``): the CUDA kernel for CUDA tensors, the plain
+    ``ops.oracle.assign_gangs_topk(..., with_stats=True)`` for CPU tensors.
+    Returns ``(alloc, placed, left_after, (conflicts[S], megas[S],
+    dense_demotions[S]))``, S = ceil(G / wave). ``order`` must be a
+    permutation of [0, G) and ``remaining`` non-negative. Every launch adds
+    one to ``assign_gangs_topk_cuda.launches``."""
+    if not isinstance(wave, int) or wave not in WAVE_WIDTHS:
+        raise ValueError(f"wave must be one of {WAVE_WIDTHS}, got {wave!r}")
+    if not isinstance(k, int) or not 1 <= k <= _MAX_TOPK:
+        raise ValueError(f"k must be an int in [1, {_MAX_TOPK}], got {k!r}")
+    _check(left0, group_req, remaining, fit_mask, order)
+    dev = left0.device
+    if dev.type == "cpu":
+        return assign_gangs_topk(left0, group_req, remaining, fit_mask, order,
+                                 wave=wave, k=k, with_stats=True)
+    _check_cuda("assign_gangs_topk_cuda", left0, group_req, remaining, fit_mask, order)
+    n, r = left0.shape
+    kk = max(2, min(k, n))
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    out = _launch_topk(topk_scan_plan(n, r, wave, kk, index), left0, group_req, remaining,
+                       fit_mask, order, wave, kk)
+    assign_gangs_topk_cuda.launches += 1
+    return out
+
+
+assign_gangs_topk_cuda.launches = 0
+
+
+def _launch_topk(plan: ScanPlan, left0, group_req, remaining, fit_mask, order, wave: int,
+                 kk: int):
+    """One launch of the top-K kernel with ``plan`` on checked CUDA inputs."""
+    n, r = left0.shape
+    g = group_req.shape[0]
+    dev = left0.device
+    steps = -(-g // wave)
+    launch, _, err = _entry_points("assign_topk")
+    with torch.cuda.device(dev):
+        magic = torch.empty_like(group_req)
+        shift = torch.empty_like(group_req)
+        uniform = torch.zeros(2 * steps, dtype=torch.uint8, device=dev)
+        # alloc must start zeroed: the kernel writes only nonzero takes
+        alloc = torch.zeros((g, n), dtype=torch.int32, device=dev)
+        placed = torch.zeros(g, dtype=torch.bool, device=dev)
+        left_after = torch.empty_like(left0)
+        conflicts = torch.empty(steps, dtype=torch.bool, device=dev)
+        megas = torch.empty(steps, dtype=torch.bool, device=dev)
+        demotions = torch.empty(steps, dtype=torch.int32, device=dev)
+        scratch = torch.empty(plan.scratch_ints, dtype=torch.int32, device=dev)
+        keys = torch.empty(plan.cluster_blocks * wave * plan.per_thread * plan.threads,
+                           dtype=torch.uint8, device=dev)
+        rc = launch(
+            left0.data_ptr(), group_req.data_ptr(), remaining.data_ptr(),
+            fit_mask.data_ptr(), order.data_ptr(), magic.data_ptr(), shift.data_ptr(),
+            uniform.data_ptr(), alloc.data_ptr(), placed.data_ptr(), left_after.data_ptr(),
+            conflicts.data_ptr(), megas.data_ptr(), demotions.data_ptr(),
+            scratch.data_ptr(), keys.data_ptr(),
+            n, g, r, int(fit_mask.shape[0] != 1), wave, kk, plan.cluster_blocks,
+            plan.block_nodes, plan.threads, plan.per_thread, plan.shared_bytes,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"assign_topk kernel launch failed for {plan}: "
+            f"{err(rc).decode(errors='replace')} (CUDA error {rc})"
+        )
+    return alloc, placed, left_after, (conflicts, megas, demotions)

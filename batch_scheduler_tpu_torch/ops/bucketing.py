@@ -12,7 +12,8 @@ import numpy as np
 
 from .lanes import LANE_MAX
 
-__all__ = ["bucket_size", "wave_width_bucket", "pad_to", "pad_rows", "pad_oracle_batch"]
+__all__ = ["bucket_size", "wave_width_bucket", "topk_bucket", "pad_to", "pad_rows",
+           "pad_oracle_batch"]
 
 _MIN_BUCKET = 8
 
@@ -20,6 +21,11 @@ _MIN_BUCKET = 8
 # and 32. Below 2 the wave is the serial scan; 32 is one gang per warp of
 # the CUDA kernel's per-wave selection and the reference's upper bound.
 _WAVE_MIN, _WAVE_MAX = 2, 32
+
+# Candidate widths the hierarchical top-K scan runs at (``BST_SCAN_TOPK``):
+# powers of two between 4 and 128. 128 is ASSIGNMENT_TOP_K, the widest span
+# a gang's compact readback reports, and the CUDA kernel's largest slice.
+_TOPK_MIN, _TOPK_MAX = 4, 128
 
 
 def bucket_size(n: int) -> int:
@@ -38,6 +44,18 @@ def wave_width_bucket(w: int) -> int:
         return 0
     b = _WAVE_MIN
     while b < w and b < _WAVE_MAX:
+        b <<= 1
+    return b
+
+
+def topk_bucket(k: int) -> int:
+    """Candidate width of the hierarchical top-K scan for a requested ``k``
+    (the ``BST_SCAN_TOPK`` knob): 0 or less means the rung is off and maps
+    to 0; anything else rounds up to a power of two in [4, 128]."""
+    if k <= 0:
+        return 0
+    b = _TOPK_MIN
+    while b < k and b < _TOPK_MAX:
         b <<= 1
     return b
 

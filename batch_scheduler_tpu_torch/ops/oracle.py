@@ -17,6 +17,13 @@ batch). Plain functions on int32 tensors:
                       the serial one, a wave of gangs at a time; selected
                       by ``BST_SCAN_WAVE``, and on a CUDA tensor run by
                       ``ops.assign_scan.assign_gangs_wave_cuda``
+- ``assign_gangs_topk``  the plain hierarchical top-K scan, bit-identical
+                      to the serial one: a wave of gangs at a time, each
+                      gang's exact selection on its K tightest candidate
+                      nodes, with a dense-column demotion where they cannot
+                      cover it; selected by ``BST_SCAN_TOPK``, and on a
+                      CUDA tensor run by
+                      ``ops.assign_scan.assign_gangs_topk_cuda``
 - ``assign_gangs_policy``  the plain serial scan with each gang's selection
                       key shifted by the policy terms (``policy.terms``);
                       a batch with a policy runs it and no other scan, on a
@@ -48,7 +55,7 @@ import torch
 
 from ..utils.metrics import DEFAULT_REGISTRY
 from ..utils.tenancy import current_batch_tenant
-from .bucketing import wave_width_bucket
+from .bucketing import topk_bucket, wave_width_bucket
 from .convert import batch_from_numpy, policy_from_numpy, resolve_device
 
 __all__ = [
@@ -60,6 +67,7 @@ __all__ = [
     "assign_gangs",
     "assign_gangs_wavefront",
     "assign_gangs_policy",
+    "assign_gangs_topk",
     "schedule_batch",
     "batch_top_k",
     "find_max_group_host",
@@ -490,6 +498,212 @@ def assign_gangs_wavefront(left0, group_req, remaining, fit_mask, order,
     return alloc, placed, left
 
 
+def _coarse_rank(cap, k: int, span: int):
+    """The top-``k`` candidate columns of each ``[..., N]`` capacity row,
+    ordered by (tightness bucket, node index), the order the exact
+    selection consumes nodes in: ``(idx[..., k], v[..., k])`` with the
+    composite ``v = min(cap, 127) * (span + 1) + index`` ascending where
+    ``cap > 0``, and the sentinel ``_BIG`` in the slots past the last
+    fitting node (whose index is arbitrary: callers mask the capacities
+    gathered there by ``v < _BIG``). The composites of fitting nodes are
+    unique, so any exact top-k gives the reference's candidates; the
+    reference's two-level block rank is its answer to a slow sort on the
+    CPU and changes nothing here."""
+    pos = torch.arange(cap.shape[-1], dtype=torch.int64, device=cap.device)
+    v = torch.where(cap > 0, cap.clamp(max=_BINS - 1).to(torch.int64) * (span + 1) + pos, _BIG)
+    vals, idx = torch.topk(v, k, dim=-1, largest=False, sorted=True)
+    return idx, vals
+
+
+def _topk_replay(left, req_c, need_c, mask_c, kk: int):
+    """The top-K scan's gang-at-a-time replay of one wave: each gang ranks
+    its candidates against the live leftover at its turn and selects on
+    them when they cover its need (or when nothing could), else on the
+    full row, a dense-column demotion. Returns (takes[W,N], feasible[W],
+    left, demotions)."""
+    n = left.shape[0]
+    takes = torch.zeros((len(need_c), n), dtype=torch.int32, device=left.device)
+    feas = torch.zeros(len(need_c), dtype=torch.bool, device=left.device)
+    dense_n = 0
+    for j, need in enumerate(need_c):
+        cap_j = _member_capacity(left, req_c[j][None, :]) * mask_c[j]
+        capc_j = cap_j.clamp(max=need)
+        pooled = int(capc_j.sum())
+        idx_j, vals_j = _coarse_rank(cap_j, kk, n)
+        live = (vals_j < _BIG).to(torch.int32)
+        cap_jk, capc_jk = cap_j[idx_j] * live, capc_j[idx_j] * live
+        if int(capc_jk.sum()) >= need or pooled < need:
+            t_k, feas[j] = _select_best_fit(cap_jk, capc_jk, need)
+            take = torch.zeros(n, dtype=torch.int32, device=left.device).index_add_(0, idx_j, t_k)
+        else:
+            take, feas[j] = _select_best_fit(cap_j, capc_j, need)
+            dense_n += 1
+        left = left - take[:, None] * req_c[j][None, :]
+        takes[j] = take
+    return takes, feas, left, dense_n
+
+
+def _topk_mega(left, req0, need_c, mask0, kk: int):
+    """A uniform wave's aggregate member stream restricted to the K
+    candidates of its shared row: (takes[W,N], left) when the candidates
+    cover the wave's total need and every gang is feasible at its
+    boundary, else None (the caller replays the wave). The stream consumes
+    nodes in candidate order, so covering candidates make the plain
+    exclusive prefix over them the whole boundary machinery; a boundary's
+    feasibility is the pooled full-row sum less the candidates' entry
+    terms plus their post-take terms."""
+    n = left.shape[0]
+    total_need = sum(need_c)
+    cap0 = _member_capacity(left, req0[None, :]) * mask0
+    idx, vals = _coarse_rank(cap0, kk, n)
+    live = (vals < _BIG).to(torch.int64)
+    cap_k = cap0[idx].to(torch.int64) * live
+    capc_k = cap0.clamp(max=total_need)[idx].to(torch.int64) * live
+    if int(capc_k.sum()) < total_need:
+        return None
+    needs = torch.tensor(need_c, dtype=torch.int64, device=left.device)  # [W]
+    pooled_need = torch.minimum(cap0.to(torch.int64)[None, :], needs[:, None]).sum(dim=1)
+    prefix = capc_k.cumsum(0) - capc_k
+    bounds = torch.cat([needs.new_zeros(1), needs.cumsum(0)])  # [W+1]
+    taken = torch.minimum((bounds[:, None] - prefix[None, :]).clamp(min=0), capc_k[None, :])
+    cand_entry = torch.minimum(cap_k[None, :], needs[:, None]).sum(dim=1)
+    cand_post = torch.minimum(cap_k[None, :] - taken[:-1], needs[:, None]).sum(dim=1)
+    if not bool((pooled_need - cand_entry + cand_post >= needs).all()):
+        return None
+    takes = torch.zeros((len(need_c), n), dtype=torch.int64, device=left.device)
+    takes.index_add_(1, idx, taken[1:] - taken[:-1])
+    delta = torch.zeros(n, dtype=torch.int64, device=left.device).index_add_(0, idx, taken[-1])
+    return takes.to(torch.int32), left - delta.to(torch.int32)[:, None] * req0[None, :]
+
+
+def _topk_speculative(left, req_c, need_c, mask_c, kk: int):
+    """Every gang of a wave selects on its candidates against the
+    wave-start leftover; the wave commits (takes[W,N], feasible[W], left)
+    only if every gang's candidates cover its need (or nothing could) and
+    no gang's capacity changes, on the union of the wave's candidate
+    columns, under the exclusive prefix of the earlier gangs' takes; else
+    None (a conflict: the caller replays). Takes land only on candidate
+    columns, so the union holds every column a take touched."""
+    n = left.shape[0]
+    w = len(need_c)
+    needs = torch.tensor(need_c, dtype=torch.int64, device=left.device)
+    cap = group_capacity(left, req_c, mask_c)  # [W, N]
+    capc = torch.minimum(cap.to(torch.int64), needs[:, None])
+    pooled = capc.sum(dim=1)
+    idx, vals = _coarse_rank(cap, kk, n)  # [W, kk]
+    live = (vals < _BIG).to(torch.int32)
+    cap_k = torch.gather(cap, 1, idx) * live
+    capc_k = torch.gather(capc, 1, idx).to(torch.int32) * live
+    ok_gang = (capc_k.sum(dim=1) >= needs) | (pooled < needs)
+    if not bool(ok_gang.all()):
+        return None
+    takes_k, feas = zip(*(_select_best_fit(cap_k[j], capc_k[j], need)
+                          for j, need in enumerate(need_c)))
+    takes_k = torch.stack(takes_k).to(torch.int64)  # [W, kk]
+    ucols = idx.reshape(-1)  # [U]
+    eq = (idx[:, :, None] == ucols[None, None, :]).to(torch.int64)
+    t_u = (takes_k[:, :, None] * eq).sum(dim=1)  # [W, U]
+    deltas = t_u[:, :, None] * req_c.to(torch.int64)[:, None, :]  # [W, U, R]
+    acc = left[ucols].to(torch.int64)
+    prefixed = []
+    for j in range(w):
+        prefixed.append(acc)
+        acc = torch.clamp(acc - deltas[j], min=-_BIG)
+    mask_u = mask_c[:, ucols]
+    cap_pref = _member_capacity(torch.stack(prefixed), req_c.to(torch.int64)[:, None, :]) * mask_u
+    if bool((cap_pref != cap[:, ucols]).any()):
+        return None
+    takes = torch.zeros((w, n), dtype=torch.int64, device=left.device)
+    takes.scatter_add_(1, idx, takes_k)
+    flat = (takes_k[:, :, None] * req_c.to(torch.int64)[:, None, :]).reshape(-1, req_c.shape[1])
+    delta = torch.zeros(left.shape, dtype=torch.int64, device=left.device).index_add_(0, ucols, flat)
+    return takes.to(torch.int32), torch.stack(feas), left - delta.to(torch.int32)
+
+
+def assign_gangs_topk(left0, group_req, remaining, fit_mask, order,
+                      wave: int = 8, k: int = 16, with_stats: bool = False):
+    """Hierarchical top-K form of ``assign_gangs``: the same outputs bit for
+    bit, one wave of ``wave`` consecutive gangs (scan order) at a time,
+    with each gang's exact selection run on its ``k`` candidate columns
+    (``_coarse_rank``) instead of the full row. The plain version of
+    ``csrc/assign_topk.cu`` and the port of the reference's
+    ``assign_gangs_topk``, step for step:
+
+    1. mega: a wave whose gangs share one demand row (and, per group, one
+       mask row) and whose needs keep the stream inside int32 takes one
+       aggregate fill over the candidates (``_topk_mega``);
+    2. speculative: otherwise every gang selects on its candidates against
+       the wave-start leftover, and the conflict check on the candidate
+       union commits the wave (``_topk_speculative``);
+    3. replay: a wave that cannot commit replays gang by gang
+       (``_topk_replay``), each gang ranking afresh and demoting to the
+       full row when its candidates cannot cover its need while the
+       pooled capacity says it may fit.
+
+    The candidates of a gang are the first ``kk = max(2, min(k, N))``
+    nodes in the selection's own consumption order, so covering
+    candidates make the restricted selection the dense one; a gang that
+    is pooled-infeasible needs no demotion. The group axis is padded to a
+    wave multiple with zero requests and needs, which enter the last
+    wave's uniform test as the reference's do. ``with_stats`` also
+    returns ``(conflicts[S], megas[S], dense_demotions[S])``: waves
+    replayed, waves that passed the uniform test (committed or replayed),
+    and the dense-column demotions of each wave."""
+    n, r = left0.shape
+    g = group_req.shape[0]
+    w = max(int(wave), 2)
+    kk = max(2, min(int(k), n))
+    per_group = fit_mask.shape[0] != 1
+    if per_group and fit_mask.shape[0] != g:
+        raise ValueError(f"fit_mask rows {fit_mask.shape[0]} must be 1 or match group count {g}")
+    steps = -(-g // w)
+    pad = steps * w - g
+    dev = left0.device
+    idx = order.long()
+    gr = torch.cat([group_req[idx], group_req.new_zeros((pad, r))])
+    needs = remaining[idx].tolist() + [0] * pad
+    mask = fit_mask.to(torch.int32)
+    if per_group:
+        mask = torch.cat([mask[idx], mask.new_zeros((pad, n))])
+    mega_need_max = (2**31 - 1) // max(n, 1)
+    left = left0.clone()
+    takes = torch.zeros((steps * w, n), dtype=torch.int32, device=dev)
+    feas = torch.zeros(steps * w, dtype=torch.bool, device=dev)
+    conflicts = torch.zeros(steps, dtype=torch.bool, device=dev)
+    megas = torch.zeros(steps, dtype=torch.bool, device=dev)
+    dense = torch.zeros(steps, dtype=torch.int32, device=dev)
+    ones = torch.ones(w, dtype=torch.bool, device=dev)
+    for s in range(steps):
+        lo, hi = s * w, (s + 1) * w
+        req_c, need_c = gr[lo:hi], needs[lo:hi]
+        mask_c = mask[lo:hi] if per_group else mask.expand(w, n)
+        uniform = bool((req_c == req_c[0:1]).all())
+        if per_group and uniform:
+            uniform = bool((mask_c == mask_c[0:1]).all())
+        mega = uniform and sum(need_c) <= mega_need_max
+        if mega:
+            done = _topk_mega(left, req_c[0], need_c, mask_c[0], kk)
+            if done is not None:
+                done = (done[0], ones, done[1])
+        else:
+            done = _topk_speculative(left, req_c, need_c, mask_c, kk)
+        if done is None:
+            wave_takes, wave_feas, left, dense[s] = _topk_replay(left, req_c, need_c, mask_c, kk)
+            conflicts[s] = True
+        else:
+            wave_takes, wave_feas, left = done
+        takes[lo:hi] = wave_takes
+        feas[lo:hi] = wave_feas
+        megas[s] = mega
+    alloc = torch.zeros((g, n), dtype=torch.int32, device=dev)
+    placed = torch.zeros(g, dtype=torch.bool, device=dev)
+    alloc[idx] = takes[:g]
+    placed[idx] = feas[:g]
+    if with_stats:
+        return alloc, placed, left, (conflicts, megas, dense)
+    return alloc, placed, left
+
+
 def _top_k_ties_by_index(assignment, k: int):
     """(counts, nodes) of the k largest entries per row, ties in ascending
     node order — what the reference's ``lax.top_k`` returns (the decode and
@@ -499,6 +713,10 @@ def _top_k_ties_by_index(assignment, k: int):
 
 
 _WAVE_ENV = "BST_SCAN_WAVE"
+_TOPK_ENV = "BST_SCAN_TOPK"
+# the wave width the top-K scan runs when BST_SCAN_WAVE is unset (the
+# reference's _SHARD_DEFAULT_WAVE): the rung never runs a gang at a time
+_TOPK_DEFAULT_WAVE = 8
 
 
 @functools.lru_cache(maxsize=None)
@@ -523,6 +741,28 @@ def _scan_wave_from_env() -> int:
     return wave_width_bucket(requested)
 
 
+@functools.lru_cache(maxsize=None)
+def _warn_unparseable_topk(raw: str) -> None:
+    print(f"ignoring unparseable {_TOPK_ENV}={raw!r}; using the dense "
+          "assignment scan", file=sys.stderr)
+
+
+def _scan_topk_from_env() -> int:
+    """The candidate width ``BST_SCAN_TOPK`` asks for: unset or <= 0 is the
+    rung off (0, the dense scans); anything else is bucketed by
+    ``topk_bucket``. An unparseable value is the dense scan, with one
+    warning on stderr per distinct value."""
+    raw = os.environ.get(_TOPK_ENV, "")
+    if not raw:
+        return 0
+    try:
+        requested = int(raw)
+    except ValueError:
+        _warn_unparseable_topk(raw)
+        return 0
+    return topk_bucket(requested)
+
+
 # Thread-local scan-rung pin for deterministic replay
 # (core.oracle_scorer.replay_batch) and the identity audit
 # (utils.health.IdentityAuditor): forces this thread's dispatch_batch onto
@@ -534,17 +774,19 @@ _rung_override = threading.local()
 class forced_scan_rung:
     """Context manager pinning this thread's batches to one scan rung:
     ``scan_wave`` 0 is the serial scan, a width > 1 the wavefront scan at
-    that width (already bucketed). While the pin is set ``dispatch_batch``
-    reads it in place of ``BST_SCAN_WAVE``. The reference's ``use_pallas``
-    half of the pin has no counterpart: on a CUDA tensor the kernel always
-    runs."""
+    that width (already bucketed); ``scan_topk`` > 0 (a ``topk_bucket``
+    width) the hierarchical top-K scan at that candidate width, at
+    ``scan_wave`` or, below 2, at the rung's default width 8. While the pin
+    is set ``dispatch_batch`` reads it in place of ``BST_SCAN_WAVE`` and
+    ``BST_SCAN_TOPK``. The reference's ``use_pallas`` half of the pin has no
+    counterpart: on a CUDA tensor the kernel always runs."""
 
-    def __init__(self, scan_wave: int):
-        self._wave = int(scan_wave)
+    def __init__(self, scan_wave: int, scan_topk: int = 0):
+        self._rung = (int(scan_wave), int(scan_topk))
 
     def __enter__(self):
         self._prev = getattr(_rung_override, "value", None)
-        _rung_override.value = self._wave
+        _rung_override.value = self._rung
         return self
 
     def __exit__(self, *exc):
@@ -554,20 +796,25 @@ class forced_scan_rung:
 
 def schedule_batch(alloc_lanes, requested, group_req, remaining, fit_mask,
                    group_valid, order, top_k: int = ASSIGNMENT_TOP_K,
-                   scan_wave: int = 0, policy=None):
+                   scan_wave: int = 0, policy=None, scan_topk: int = 0):
     """The full-batch oracle: leftover -> capacity -> feasibility -> scores
-    -> greedy gang assignment -> compact top-K readback. ``scan_wave`` > 1
-    runs the wavefront scan at that width and adds its per-wave
-    ``wave_conflicts``/``wave_megas`` flags to the output; otherwise the
-    serial scan runs. ``policy`` = ``(policy_cols, terms, weights)`` (the
+    -> greedy gang assignment -> compact top-K readback. ``scan_topk`` > 0
+    runs the hierarchical top-K scan with that many candidates a gang, at
+    width ``scan_wave`` (8 when ``scan_wave`` < 2), and adds its per-wave
+    ``wave_conflicts``/``wave_megas`` flags and ``topk_demotions`` to the
+    output; else ``scan_wave`` > 1 runs the wavefront scan at that width
+    and adds its flags; otherwise the serial scan runs. ``policy`` = ``(policy_cols, terms, weights)`` (the
     six column tensors) with at least one term runs the policy scan
     instead of either, and folds the hard-mask terms into the capacity
     matrix, so feasibility and scores agree with what the scan refuses
-    (the caller, ``dispatch_batch``, has already set ``scan_wave`` to 0).
+    (the caller, ``dispatch_batch``, has already set ``scan_wave`` and
+    ``scan_topk`` to 0).
     Every scan runs its hand-written CUDA kernel for CUDA tensors and its
     plain version for CPU tensors (the wrappers in ``ops.assign_scan``
     decide by device)."""
-    from .assign_scan import assign_gangs_cuda, assign_gangs_policy_cuda, assign_gangs_wave_cuda
+    from .assign_scan import (
+        assign_gangs_cuda, assign_gangs_policy_cuda, assign_gangs_topk_cuda,
+        assign_gangs_wave_cuda)
 
     policy_on = policy is not None and bool(policy[1])
     left = left_resources(alloc_lanes, requested)
@@ -579,11 +826,17 @@ def schedule_batch(alloc_lanes, requested, group_req, remaining, fit_mask,
         cap = cap * compose_keep_dense(terms, cols[2], cols[4])
     feasible = gang_feasible(cap, remaining, group_valid)
     scores = score_nodes(cap)
-    wave_stats = None
+    wave_stats = topk_demotions = None
     if policy_on:
         assignment, placed, left_after = assign_gangs_policy_cuda(
             left, group_req, remaining, fit_mask, order, *cols, terms, weights
         )
+    elif scan_topk > 0:
+        assignment, placed, left_after, stats = assign_gangs_topk_cuda(
+            left, group_req, remaining, fit_mask, order,
+            scan_wave if scan_wave > 1 else _TOPK_DEFAULT_WAVE, scan_topk,
+        )
+        wave_stats, topk_demotions = stats[:2], stats[2]
     elif scan_wave > 1:
         assignment, placed, left_after, wave_stats = assign_gangs_wave_cuda(
             left, group_req, remaining, fit_mask, order, scan_wave
@@ -608,6 +861,8 @@ def schedule_batch(alloc_lanes, requested, group_req, remaining, fit_mask,
     }
     if wave_stats is not None:
         out["wave_conflicts"], out["wave_megas"] = wave_stats
+    if topk_demotions is not None:
+        out["topk_demotions"] = topk_demotions
     if assignment.shape[1] <= 2**15:
         # compact fetch: (node << 16 | count), counts saturating at 65535
         out["assignment_packed"] = (
@@ -631,7 +886,8 @@ def batch_top_k(n_bucket: int, remaining_max: int) -> int:
 def _batch_blob(alloc_lanes, requested, group_req, remaining, fit_mask,
                 group_valid, order, min_member, scheduled, matched,
                 ineligible, creation_rank, pack_assignment: bool = True,
-                top_k: int = ASSIGNMENT_TOP_K, scan_wave: int = 0, policy=None):
+                top_k: int = ASSIGNMENT_TOP_K, scan_wave: int = 0, policy=None,
+                scan_topk: int = 0):
     """The batch plus findMaxPG, with every O(G) host-needed output
     concatenated into one int32 blob (one device-to-host copy).
 
@@ -643,13 +899,14 @@ def _batch_blob(alloc_lanes, requested, group_req, remaining, fit_mask,
       [3G+1]       best_exists (0/1)
       [3G+2:...]   assignment top-K: packed (node<<16|count), G*K — or,
                    when ``pack_assignment=False``, nodes then counts, 2*G*K
-      [tail]       only when the wavefront scan ran (``scan_wave`` > 1):
-                   3 ints — waves, waves replayed serially, waves that
-                   took the uniform branch
+      [tail]       only when the wavefront or top-K scan ran: 3 ints —
+                   waves, waves replayed serially, waves that took the
+                   uniform branch — and on the top-K scan a 4th, the
+                   dense-column demotions
     """
     out = schedule_batch(alloc_lanes, requested, group_req, remaining,
                          fit_mask, group_valid, order, top_k=top_k,
-                         scan_wave=scan_wave, policy=policy)
+                         scan_wave=scan_wave, policy=policy, scan_topk=scan_topk)
     best, exists, progress = find_max_group(
         min_member, scheduled, matched, ineligible, creation_rank
     )
@@ -667,13 +924,16 @@ def _batch_blob(alloc_lanes, requested, group_req, remaining, fit_mask,
     ]
     if "wave_conflicts" in out:
         conflicts, megas = out["wave_conflicts"], out["wave_megas"]
-        parts.append(torch.stack([
+        stats = [
             # a fill on the device: a host tensor here would be a pageable
             # copy, which waits for the stream (the whole scan)
             conflicts.new_full((), conflicts.shape[0], dtype=torch.int32),
             conflicts.sum(dtype=torch.int32),
             megas.sum(dtype=torch.int32),
-        ]))
+        ]
+        if "topk_demotions" in out:
+            stats.append(out["topk_demotions"].sum(dtype=torch.int32))
+        parts.append(torch.stack(stats))
     return torch.cat(parts), out
 
 
@@ -713,10 +973,10 @@ class PendingBatch:
     ``blob`` is the finished blob and ``done`` is None."""
 
     __slots__ = ("blob", "done", "out", "pack", "top_k", "scan_wave", "mask_mode",
-                 "n_bucket", "g_bucket", "device", "used_policy")
+                 "n_bucket", "g_bucket", "device", "used_policy", "used_topk")
 
     def __init__(self, blob, done, out, pack, top_k, scan_wave, mask_mode,
-                 n_bucket, g_bucket, device, used_policy=False):
+                 n_bucket, g_bucket, device, used_policy=False, used_topk=0):
         self.blob = blob
         self.done = done
         self.out = out
@@ -728,6 +988,7 @@ class PendingBatch:
         self.g_bucket = g_bucket
         self.device = device
         self.used_policy = used_policy
+        self.used_topk = used_topk
 
 
 def dispatch_batch(batch_args, progress_args, device="cuda", policy=None) -> PendingBatch:
@@ -748,9 +1009,12 @@ def dispatch_batch(batch_args, progress_args, device="cuda", policy=None) -> Pen
     do: ``torch.cuda.stream(...)``), so no batch reads a buffer that a later
     scatter on another stream could overtake.
 
-    ``BST_SCAN_WAVE`` is read once per batch, unless this thread's
-    ``forced_scan_rung`` pin is set: a width > 1 runs the wavefront
-    scan.
+    ``BST_SCAN_WAVE`` and ``BST_SCAN_TOPK`` are read once per batch,
+    unless this thread's ``forced_scan_rung`` pin is set: a candidate width
+    runs the top-K scan (at the wave width, or 8 below 2; the batch's wave
+    width is then that width); else a width > 1 runs the wavefront scan.
+    On CUDA the top-K kernel runs or the batch raises: there is no
+    fallback to a dense scan.
 
     ``policy`` = ``(policy_cols, terms, weights)``
     (``ClusterSnapshot.policy_payload()``; the columns host numpy or, for
@@ -758,15 +1022,20 @@ def dispatch_batch(batch_args, progress_args, device="cuda", policy=None) -> Pen
     the wave width is 0 for the batch whatever ``BST_SCAN_WAVE`` or a pin
     says (the wavefront's uniform and speculative branches assume a key
     that depends on capacity alone), and on CUDA the composite-key kernel
-    runs or the batch raises; there is no fallback to another scan."""
+    runs or the batch raises; there is no fallback to another scan. A
+    policy batch never takes the top-K rung either."""
     dev = resolve_device(device)
-    scan_wave = getattr(_rung_override, "value", None)
-    if scan_wave is None:
-        scan_wave = _scan_wave_from_env()
+    pin = getattr(_rung_override, "value", None)
+    if pin is None:
+        scan_wave, scan_topk = _scan_wave_from_env(), _scan_topk_from_env()
+    else:
+        scan_wave, scan_topk = pin
     if policy is not None:
         cols, terms, weights = policy
         policy = (policy_from_numpy(cols, dev), tuple(terms), tuple(weights))
-        scan_wave = 0
+        scan_wave = scan_topk = 0
+    if scan_topk > 0 and scan_wave < 2:
+        scan_wave = _TOPK_DEFAULT_WAVE
     # np.shape reads a tensor's own shape (a CUDA tensor is never copied)
     mask_mode = "per_group" if np.shape(batch_args[4])[0] != 1 else "broadcast"
     n_bucket = int(np.shape(batch_args[0])[0])
@@ -779,7 +1048,8 @@ def dispatch_batch(batch_args, progress_args, device="cuda", policy=None) -> Pen
     top_k = batch_top_k(n_bucket, remaining_max)
     batch, progress = batch_from_numpy(batch_args, progress_args, dev)
     blob, out = _batch_blob(*batch, *progress, pack_assignment=pack,
-                            top_k=top_k, scan_wave=scan_wave, policy=policy)
+                            top_k=top_k, scan_wave=scan_wave, policy=policy,
+                            scan_topk=scan_topk)
     done = None
     if dev.type == "cuda":
         blob = blob.to("cpu", non_blocking=True)
@@ -787,7 +1057,8 @@ def dispatch_batch(batch_args, progress_args, device="cuda", policy=None) -> Pen
         done.record(torch.cuda.current_stream(dev))
     _note_inflight(1)
     return PendingBatch(blob, done, out, pack, top_k, scan_wave, mask_mode,
-                        n_bucket, g_bucket, dev, used_policy=policy is not None)
+                        n_bucket, g_bucket, dev, used_policy=policy is not None,
+                        used_topk=scan_topk)
 
 
 def collect_batch(pending: PendingBatch):
@@ -797,10 +1068,11 @@ def collect_batch(pending: PendingBatch):
     Returns ``(host, device_result)``: ``host`` is the reference's host
     dict (``placed``, ``gang_feasible``, ``progress``, ``best``,
     ``best_exists``, ``assignment_nodes``, ``assignment_counts``,
-    ``telemetry``; with the wavefront scan the telemetry carries
+    ``telemetry``; with the wavefront or top-K scan the telemetry carries
     ``waves_per_batch``, ``wave_demotions`` and ``wave_uniform`` beside
-    ``wave_width``, and ``scan_policy`` says whether the batch had a
-    policy); ``device_result`` keeps the [G,N] ``capacity`` and
+    ``wave_width``, ``scan_topk`` is the top-K scan's candidate width (0
+    off) and, with it, ``topk_demotions`` the batch's dense-column
+    demotions, and ``scan_policy`` says whether the batch had a policy); ``device_result`` keeps the [G,N] ``capacity`` and
     ``scores`` tensors on the device for lazy row reads (complete once this
     returns: the event follows the whole batch on its stream)."""
     try:
@@ -836,6 +1108,7 @@ def collect_batch(pending: PendingBatch):
             "n_bucket": pending.n_bucket,
             "g_bucket": g,
             "wave_width": pending.scan_wave,
+            "scan_topk": pending.used_topk,
             "scan_policy": pending.used_policy,
         },
     }
@@ -846,6 +1119,8 @@ def collect_batch(pending: PendingBatch):
             wave_demotions=int(stats[1]),
             wave_uniform=int(stats[2]),
         )
+        if pending.used_topk:
+            host["telemetry"]["topk_demotions"] = int(stats[3])
     _fold_batch_metrics(host["telemetry"])
     out = pending.out
     device_result = {"capacity": out["capacity"], "scores": out["scores"]}
@@ -858,11 +1133,12 @@ def _fold_batch_metrics(telemetry: dict) -> None:
     built on the host: ``bst_scan_batches_total`` by scan path and this
     thread's batch tenant (``utils.tenancy``: the scorer's dominant
     tenant, or the tenant a sidecar connection announced; "-" when none
-    is armed), and the wavefront series. The port has no wave demotion
-    ladder, so ``bst_scan_wave_enabled`` stays 1. The top-K, sharded and
-    compile series belong to rungs not ported."""
+    is armed), the top-K series and the wavefront series. The port has no
+    wave demotion ladder, so ``bst_scan_wave_enabled`` stays 1. The
+    sharded and compile series belong to rungs not ported."""
     path = (
         "policy" if telemetry["scan_policy"]
+        else "topk" if telemetry["scan_topk"] > 0
         else "wavefront" if telemetry["wave_width"] > 1
         else "serial"
     )
@@ -871,6 +1147,18 @@ def _fold_batch_metrics(telemetry: dict) -> None:
         "bst_scan_batches_total",
         "Oracle batches by assignment-scan path and dominant tenant",
     ).inc(path=path, tenant=current_batch_tenant() or "-")
+    if telemetry["scan_topk"] > 0:
+        reg.gauge(
+            "bst_scan_topk_k",
+            "Candidate width K of the hierarchical top-K scan (last top-K "
+            "batch)",
+        ).set(float(telemetry["scan_topk"]))
+        reg.counter(
+            "bst_topk_demotions_total",
+            "Gangs demoted to the dense-column replay because their top-K "
+            "candidates could not cover the need while pooled capacity "
+            "remained (the K-mistuned signal)",
+        ).inc(telemetry.get("topk_demotions", 0))
     reg.gauge(
         "bst_scan_wave_enabled",
         "1 while the wavefront scan path is enabled (0 after a failure "

@@ -1,6 +1,7 @@
 """Scenarios: the reference README's resource-race demo, the mixed-tier
-preemption scenario, and the node / group / member-pod constructors they
-and the smoke drive use.
+preemption scenario, the node / group / member-pod constructors they and
+the smoke drive use, and the XL tier's packed scan operands
+(``XLClusterSpec``, ``xl_scan_operands``, ``xl_churn_burst``).
 
 Copies of the reference's ``batch_scheduler_tpu/sim/scenarios.py``
 builders. The race scenario reproduces the README demo (two minMember=5
@@ -11,6 +12,7 @@ schedules).
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 from ..api.quantity import parse_resource_list
@@ -29,7 +31,8 @@ from ..api.types import (
 from ..utils.labels import POD_GROUP_LABEL
 
 __all__ = ["make_sim_node", "make_sim_group", "make_member_pods", "race_scenario",
-           "spot_vs_guaranteed_scenario"]
+           "spot_vs_guaranteed_scenario", "XLClusterSpec", "xl_scan_operands",
+           "xl_churn_burst"]
 
 
 def make_sim_node(
@@ -156,3 +159,86 @@ def spot_vs_guaranteed_scenario(
             name, min_member, {"cpu": member_cpu}, priority=guaranteed_priority,
         )
     return node_objs, groups, pods
+
+
+@dataclass
+class XLClusterSpec:
+    """The 100k-node XL scale tier (the hierarchical top-K scan's
+    deployment): packed scan operands, not API objects. The reference's
+    spec, field for field:
+
+    - zipf-sized gangs (``zipf_a``, clipped to [``gang_min``,
+      ``gang_cap``]): most gangs place on a handful of nodes, a few span
+      hundreds;
+    - hot-pool skew (``hot_fraction`` of the nodes at ``hot_load``, the rest
+      at ``cold_load``), so the tightest nodes concentrate in the hot pool;
+    - churn bursts (``churn_fraction``, ``xl_churn_burst``) between scans;
+    - ``request_profiles`` > 1 mixes member-request rows, so waves stop
+      being uniform and the speculative branch carries load."""
+
+    num_nodes: int = 100_000
+    num_groups: int = 4096
+    lanes: int = 6
+    zipf_a: float = 1.4
+    gang_min: int = 2
+    gang_cap: int = 512
+    hot_fraction: float = 0.125
+    hot_load: float = 0.85
+    cold_load: float = 0.25
+    churn_fraction: float = 0.02
+    request_profiles: int = 1
+    seed: int = 0
+
+
+def xl_scan_operands(spec: XLClusterSpec):
+    """Packed assignment-scan operands of one XL batch, ``(left[N, R],
+    group_req[G, R], remaining[G], fit_mask[1, N], order[G])``, int32 numpy,
+    drawn from ``spec.seed`` in the reference's order (so both packages
+    give the same arrays). Lane 0 is cpu-like (millicores), lane 1
+    memory-like (MiB), lane 2 pod slots, the rest sparse extended lanes."""
+    import numpy as np
+
+    rng = np.random.default_rng(spec.seed)
+    n, g, r = spec.num_nodes, spec.num_groups, spec.lanes
+    cpu = rng.choice([32_000, 64_000, 96_000], size=n, p=[0.2, 0.6, 0.2])
+    lanes = [cpu, cpu * 4, np.full(n, 110)]
+    for _ in range(r - 3):
+        # a small slice of the nodes expose an extended lane
+        lanes.append(np.where(rng.random(n) < 0.05, 8, 0))
+    capacity = np.stack(lanes[:r], axis=1).astype(np.int64)
+    hot = rng.random(n) < spec.hot_fraction
+    load = np.where(hot, spec.hot_load, spec.cold_load)
+    load = load * rng.uniform(0.85, 1.15, size=n)
+    used = (capacity.astype(np.float64) * load[:, None]).astype(np.int64)
+    left = np.clip(capacity - used, 0, None).astype(np.int32)
+
+    sizes = rng.zipf(spec.zipf_a, size=g)
+    remaining = np.clip(sizes + spec.gang_min - 1, spec.gang_min, spec.gang_cap).astype(np.int32)
+    profiles = []
+    for p in range(max(1, spec.request_profiles)):
+        row = np.zeros(r, np.int32)
+        row[0] = 4_000 + 1_000 * p
+        row[1] = 8_192 + 2_048 * p
+        row[2] = 1
+        profiles.append(row)
+    which = rng.integers(0, len(profiles), size=g)
+    if len(profiles) == 1:
+        which[:] = 0
+    group_req = np.stack([profiles[i] for i in which]).astype(np.int32)
+    fit_mask = np.ones((1, n), np.int32)
+    order = rng.permutation(g).astype(np.int32)
+    return left, group_req, remaining, fit_mask, order
+
+
+def xl_churn_burst(spec: XLClusterSpec, left, step: int):
+    """One churn burst on the packed leftover: a ``churn_fraction`` cohort
+    of nodes has its lanes scaled by a factor in [0.5, 1.5) (gangs finishing
+    or landing between scans). Deterministic in ``(spec.seed, step)``."""
+    import numpy as np
+
+    rng = np.random.default_rng((spec.seed << 16) ^ (step + 1))
+    cohort = rng.random(left.shape[0]) < spec.churn_fraction
+    scale = rng.uniform(0.5, 1.5, size=(int(cohort.sum()), 1))
+    out = np.array(left, copy=True)
+    out[cohort] = np.clip(out[cohort].astype(np.float64) * scale, 0, 2**30 - 1).astype(np.int32)
+    return out

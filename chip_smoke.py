@@ -9,9 +9,9 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (one JSON line each; any failure makes the exit code non-zero):
 
 - build            nvcc csrc/assign_scan.cu (twice: the serial kernel, and
-                   with -DBST_POLICY_SCAN its policy variant) and
-                   csrc/assign_wave.cu, one nvcc each, started together, into
-                   the gitignored build/
+                   with -DBST_POLICY_SCAN its policy variant),
+                   csrc/assign_wave.cu and csrc/assign_topk.cu, one nvcc
+                   each, started together, into the gitignored build/
 - north_star       bench.py's deployment — 5,000 nodes (64 cpu, 256Gi, 110
                    pods, 8 GPUs), 1,000 gangs x 10 pods (4 cpu, 8 GiB, 1 GPU)
                    -> [G=1024, N=8192, R=5], broadcast mask — through
@@ -348,6 +348,37 @@ kernel (assign_scan) and never the wave kernel. The wavefront path
 - coalesce_span_wave  coalesce_span with W=8 on both servers: the wave
                    kernel once a tenant batch, the serial kernel never.
 
+The top-K rung (BST_SCAN_TOPK=K, the top-K kernel assign_topk):
+
+- north_star_topk  north_star_churn's deployment and churn through
+                   OracleScorer(device="cuda") with BST_SCAN_TOPK=16 (W
+                   unset: the rung's 8) and an ``array`` audit ring: a
+                   keyframe and 8 churn refreshes, the top-K kernel once a
+                   refresh and no other kernel; each refresh's host dict
+                   equal to the full pack's on the serial rung; each
+                   batch's kernel series (replayed and uniform waves,
+                   demotions) equal to the plain top-K scan's on its scan
+                   inputs and to the refresh's telemetry. The ring replays
+                   identically on steady (the serial kernel) and its last
+                   3 records on cpu-ladder; a serial-recorded ring (a
+                   keyframe and 2 refreshes) replays identically on topk.
+                   /debug/whatif?rung=topk on a live observatory gives the
+                   steady rung's digests. The kernel on the last batch's
+                   inputs timed against the wave kernel in turns, the
+                   plain version's time and topk_bound.
+- xl_topk          the XL tier: XLClusterSpec() (100,000 nodes padded to
+                   131072, 4,096 gangs, 6 lanes, seed 0), the same with 3
+                   request profiles, and benchmarks/xl_scaling.py's
+                   acceptance bucket [G=2048, N=65536] (seed 1): the serial
+                   kernel, the wave kernel at W=8 and the top-K kernel at
+                   K=16 and K=128, every output bit-identical, the top-K
+                   series equal to the plain top-K scan's on the card, all
+                   timed in turns; 3 xl_churn_burst re-runs at K=128, each
+                   held to the serial kernel; one full batch through
+                   execute_batch_host, BST_SCAN_TOPK=128 against unset,
+                   the host dicts equal (the unpacked tail), with the
+                   device batch's split (head, scan, compaction).
+
 Then the card's name and power limit (nvidia-smi), one ``kernels`` line and,
 last, ``{"ok": true, "device": {...}}``. Launch counts are read for each
 path that drives the scorer or the re-scorer — north_star, race,
@@ -357,13 +388,15 @@ capacity, north_star_wave, race_wave, north_star_churn_wave,
 churn_loop_wave, policy_wave, audit_replay_wave, sidecar_wave,
 coalesce_span_wave, metrics, metrics_wave, observability(_wave) and its
 scrape, mixed, policy and sidecar paths, explain_whatif(_wave)'s explain
-scan, what-if rungs, storm, blame and latency paths, lockcheck (counted
-in its child), and the audit phases' replays
-(``audit_replay_replays``, ``audit_replay_wave_replays``,
-``audit_replay_policy_replays``) — with every kernel's count zeroed just
-before the path and read just after; ``launches`` in the kernels line is
-the path's of the kernel's first phase (north_star, north_star_wave,
-policy), ``launches_by_path`` holds each path. Comparison and timing
+scan, what-if rungs, storm, blame and latency paths, north_star_topk (its
+refreshes, its rings' replays and its what-if query), xl_topk (its
+kernel calls and its full batch), lockcheck (counted in its child), and
+the audit phases' replays (``audit_replay_replays``,
+``audit_replay_wave_replays``, ``audit_replay_policy_replays``) — with
+every kernel's count zeroed just before the path and read just after;
+``launches`` in the kernels line is the path's of the kernel's first
+phase (north_star, north_star_wave, policy, north_star_topk),
+``launches_by_path`` holds each path. Comparison and timing
 launches are not counted.
 """
 
@@ -526,10 +559,16 @@ def counters():
     """The port's kernel wrappers by kernel name; each counts its launches
     in ``.launches``."""
     from batch_scheduler_tpu_torch.ops.assign_scan import (
-        assign_gangs_cuda, assign_gangs_policy_cuda, assign_gangs_wave_cuda)
+        assign_gangs_cuda, assign_gangs_policy_cuda, assign_gangs_topk_cuda,
+        assign_gangs_wave_cuda)
 
     return {"assign_scan": assign_gangs_cuda, "assign_wave": assign_gangs_wave_cuda,
-            "assign_policy": assign_gangs_policy_cuda}
+            "assign_policy": assign_gangs_policy_cuda, "assign_topk": assign_gangs_topk_cuda}
+
+
+def only(**launches):
+    """A launch count for every kernel: the named ones, 0 for the rest."""
+    return {name: launches.get(name, 0) for name in KERNELS}
 
 
 def zero_counts():
@@ -674,7 +713,7 @@ WAVE_TELEMETRY = ("wave_width", "waves_per_batch", "wave_demotions", "wave_unifo
 
 # -- phases -------------------------------------------------------------------
 
-KERNELS = ("assign_scan", "assign_wave", "assign_policy")
+KERNELS = ("assign_scan", "assign_wave", "assign_policy", "assign_topk")
 
 
 @phase("build")
@@ -806,7 +845,7 @@ def north_star(results):
     scorer, launches, report = drive_north_star(None)
     batches = report["batches"]
     if launches["assign_scan"] != batches or launches["assign_wave"] != 0 \
-            or launches["assign_policy"] != 0:
+            or launches["assign_policy"] != 0 or launches["assign_topk"] != 0:
         raise AssertionError(f"{launches} launches in {batches} batches "
                              "(want assign_scan once per batch, assign_wave never)")
     args = scan_inputs(scorer.snapshot.device_args())
@@ -893,7 +932,7 @@ def north_star_wave(results):
         raise AssertionError(f"north-star wave plan {plan} is not a cluster")
     batches = report["batches"]
     if launches["assign_wave"] != batches or launches["assign_scan"] != 0 \
-            or launches["assign_policy"] != 0:
+            or launches["assign_policy"] != 0 or launches["assign_topk"] != 0:
         raise AssertionError(f"{launches} launches in {batches} batches "
                              "(want assign_wave once per batch, assign_scan never)")
     waves = NORTH_STAR_SHAPE[0] // wave
@@ -1276,7 +1315,7 @@ def north_star_churn(results):
     launches, report = drive_north_star_churn(None)
     n = report["refreshes"]
     if launches["assign_scan"] != n or launches["assign_wave"] != 0 \
-            or launches["assign_policy"] != 0:
+            or launches["assign_policy"] != 0 or launches["assign_topk"] != 0:
         raise AssertionError(f"{launches} launches in {n} refreshes "
                              "(want assign_scan once per refresh, assign_wave never)")
     if "assign_scan" in results:
@@ -1292,7 +1331,7 @@ def north_star_churn_wave(results):
     launches, report = drive_north_star_churn(wave)
     n = report["refreshes"]
     if launches["assign_wave"] != n or launches["assign_scan"] != 0 \
-            or launches["assign_policy"] != 0:
+            or launches["assign_policy"] != 0 or launches["assign_topk"] != 0:
         raise AssertionError(f"{launches} launches in {n} refreshes "
                              "(want assign_wave once per refresh, assign_scan never)")
     tele = report["telemetry"]
@@ -2073,7 +2112,8 @@ def drive_observability(wave):
             raise AssertionError(f"denials: launches {launches}")
         launches, out["policy"] = obs_policy(wave)
         paths[("assign_policy", f"observability_policy{suffix}")] = launches["assign_policy"]
-        if launches["assign_policy"] != 1 or launches["assign_scan"] or launches["assign_wave"]:
+        if launches["assign_policy"] != 1 or launches["assign_scan"] or launches["assign_wave"] \
+                or launches["assign_topk"]:
             raise AssertionError(f"policy: launches {launches}")
         launches, out["sidecar"] = obs_sidecar(wave)
         paths[(kernel, f"observability_sidecar{suffix}")] = launches[kernel]
@@ -2296,7 +2336,8 @@ def lockcheck_phase(results):
         raise AssertionError(f"{out['storm_jobs_run']} storm jobs run and "
                              f"{out['busy_answers']} refused of {out['storm_jobs']}")
     want = refreshes + out["storm_launches_want"]
-    if launches["assign_scan"] != want or launches["assign_wave"] or launches["assign_policy"]:
+    if launches["assign_scan"] != want or launches["assign_wave"] or launches["assign_policy"] \
+            or launches["assign_topk"]:
         raise AssertionError(f"launches {launches} (want assign_scan {want}: {refreshes} "
                              f"refreshes and the storm's groups {out['groups']})")
     if "assign_scan" in results:
@@ -2624,7 +2665,7 @@ def audit_replay(results):
     out = audit_phase(results, None, "audit_replay")
     with tempfile.TemporaryDirectory(prefix="bst-audit-policy-") as tmp:
         launches, replays, report = policy_ring(tmp)
-    if launches != {"assign_scan": 0, "assign_wave": 0, "assign_policy": report["records"]}:
+    if launches != only(assign_policy=report["records"]):
         raise AssertionError(f"policy ring refreshes: {launches}")
     if "assign_policy" in results:
         by_path = results["assign_policy"]["launches_by_path"]
@@ -3065,7 +3106,7 @@ def drive_sidecar(wave):
 def sidecar(results):
     launches, report = drive_sidecar(None)
     batches = 2 * report["refreshes"]  # the two remote scorers' batches
-    if launches != {"assign_scan": batches, "assign_wave": 0, "assign_policy": 0}:
+    if launches != only(assign_scan=batches):
         raise AssertionError(f"{launches} launches in {batches} server batches "
                              "(want assign_scan once per batch, assign_wave never)")
     if "assign_scan" in results:
@@ -3078,7 +3119,7 @@ def sidecar_wave(results):
     wave = 8
     launches, report = drive_sidecar(wave)
     batches = 2 * report["refreshes"]
-    if launches != {"assign_scan": 0, "assign_wave": batches, "assign_policy": 0}:
+    if launches != only(assign_wave=batches):
         raise AssertionError(f"{launches} launches in {batches} server batches "
                              "(want assign_wave once per batch, assign_scan never)")
     tele = report["server_telemetry"]
@@ -3279,7 +3320,7 @@ def drive_coalesce_span(wave):
 @phase("coalesce_span")
 def coalesce_span(results):
     launches, report = drive_coalesce_span(None)
-    want = {"assign_scan": report["batches"], "assign_wave": 0, "assign_policy": 0}
+    want = only(assign_scan=report["batches"])
     if launches != want:
         raise AssertionError(f"{launches} launches in {report['batches']} tenant batches "
                              "(want assign_scan once per batch)")
@@ -3291,7 +3332,7 @@ def coalesce_span(results):
 @phase("coalesce_span_wave")
 def coalesce_span_wave(results):
     launches, report = drive_coalesce_span(8)
-    want = {"assign_scan": 0, "assign_wave": report["batches"], "assign_policy": 0}
+    want = only(assign_wave=report["batches"])
     if launches != want:
         raise AssertionError(f"{launches} launches in {report['batches']} tenant batches "
                              "(want assign_wave once per batch)")
@@ -3457,7 +3498,7 @@ def coalesce_mega(results):
     if not stats["mega_groups"] or stats["mega_failures"] \
             or stats["mega_groups"] != MEGA_ROUNDS:
         raise AssertionError(f"coalescer stats {stats}")
-    if launches != {"assign_scan": stats["groups_run"], "assign_wave": 0, "assign_policy": 0}:
+    if launches != only(assign_scan=stats["groups_run"]):
         raise AssertionError(f"{launches} launches in {stats['groups_run']} merged groups")
     if "assign_scan" in results:
         results["assign_scan"]["launches_by_path"]["coalesce_mega"] = launches["assign_scan"]
@@ -3557,7 +3598,7 @@ def coalesce_drf(results):
     storm = (DRF_WHALES + 1) * DRF_REQUESTS
     batches = sum(w if mode == "span" else 1 for mode, w in groups)
     if sum(w for _, w in groups) != storm or stats["mega_failures"] \
-            or launches != {"assign_scan": batches, "assign_wave": 0, "assign_policy": 0}:
+            or launches != only(assign_scan=batches):
         raise AssertionError(f"{launches} launches in {storm} storm requests, groups "
                              f"{groups}, stats {stats}")
     cap_errors = samples.value(outcome="error") - errors0
@@ -3702,7 +3743,7 @@ def coalesce_busy(results):
             25 <= ms <= 5000 for ms in refused):
         raise AssertionError(f"fillers {answers}, BUSY hints {refused}")
     batches = BUSY_DEPTH + 1 + 2
-    if launches != {"assign_scan": batches, "assign_wave": 0, "assign_policy": 0}:
+    if launches != only(assign_scan=batches):
         raise AssertionError(f"{launches} launches in {batches} batches")
     if "assign_scan" in results:
         results["assign_scan"]["launches_by_path"]["coalesce_busy"] = launches["assign_scan"]
@@ -3933,7 +3974,7 @@ def capacity(results):
     }
     if "assign_scan" in results:
         results["assign_scan"]["launches_by_path"]["capacity"] = launches["assign_scan"]
-    if launches != {"assign_scan": CAPACITY_ROUNDS, "assign_wave": 0, "assign_policy": 0}:
+    if launches != only(assign_scan=CAPACITY_ROUNDS):
         raise AssertionError(f"{launches} launches in {CAPACITY_ROUNDS} refreshes")
     return out
 
@@ -4160,7 +4201,7 @@ def drive_churn_loop(wave):
 def churn_loop(results):
     launches, dispatches, report = drive_churn_loop(None)
     if launches["assign_scan"] != dispatches or launches["assign_wave"] != 0 \
-            or launches["assign_policy"] != 0:
+            or launches["assign_policy"] != 0 or launches["assign_topk"] != 0:
         raise AssertionError(f"{launches} launches in {dispatches} dispatched ticks "
                              "(want assign_scan once a tick, assign_wave never)")
     if "assign_scan" in results:
@@ -4172,7 +4213,7 @@ def churn_loop(results):
 def churn_loop_wave(results):
     launches, dispatches, report = drive_churn_loop(8)
     if launches["assign_wave"] != dispatches or launches["assign_scan"] != 0 \
-            or launches["assign_policy"] != 0:
+            or launches["assign_policy"] != 0 or launches["assign_topk"] != 0:
         raise AssertionError(f"{launches} launches in {dispatches} dispatched ticks "
                              "(want assign_wave once a tick, assign_scan never)")
     if "assign_wave" in results:
@@ -4477,7 +4518,7 @@ def race(results):
     batches = report["batches"]
     if launches["assign_scan"] == 0 or launches["assign_scan"] != batches \
             or launches["assign_wave"] != 0 \
-            or launches["assign_policy"] != 0:
+            or launches["assign_policy"] != 0 or launches["assign_topk"] != 0:
         raise AssertionError(f"{launches} launches in {batches} batches "
                              "(want assign_scan once per batch, assign_wave never)")
     args = scan_inputs(op.oracle.snapshot.device_args())
@@ -4500,7 +4541,7 @@ def race_wave(results):
     batches = report["batches"]
     if launches["assign_wave"] == 0 or launches["assign_wave"] != batches \
             or launches["assign_scan"] != 0 \
-            or launches["assign_policy"] != 0:
+            or launches["assign_policy"] != 0 or launches["assign_topk"] != 0:
         raise AssertionError(f"{launches} launches in {batches} batches "
                              "(want assign_wave once per batch, assign_scan never)")
     tele = report["telemetry"]
@@ -4751,7 +4792,7 @@ def policy(results):
 
     scorer, launches, digests, report = drive_policy(None)
     n = report["refreshes"]
-    if launches != {"assign_scan": 0, "assign_wave": 0, "assign_policy": n}:
+    if launches != only(assign_policy=n):
         raise AssertionError(f"{launches} launches in {n} refreshes (want assign_policy once "
                              "a refresh and no other kernel)")
     args = scan_inputs(scorer.snapshot.device_args())
@@ -4795,7 +4836,7 @@ def policy_wave(results):
     policy phase's (its plan_digest sequence)."""
     scorer, launches, digests, report = drive_policy(8)
     n = report["refreshes"]
-    if launches != {"assign_scan": 0, "assign_wave": 0, "assign_policy": n}:
+    if launches != only(assign_policy=n):
         raise AssertionError(f"{launches} launches in {n} refreshes with BST_SCAN_WAVE=8 "
                              "(want assign_policy once a refresh, assign_wave never)")
     if "policy_digests" in results and digests != results["policy_digests"]:
@@ -5091,7 +5132,7 @@ def policy_ring(directory):
                 raise AssertionError(f"policy record {rec['seq']} on {rung}: {rep}")
         ms[rung] = {"replays": len(times), "ms_median": statistics.median(times)}
     replays = read_counts()
-    if replays != {"assign_scan": 0, "assign_wave": 0, "assign_policy": len(batches)}:
+    if replays != only(assign_policy=len(batches)):
         raise AssertionError(f"policy ring replays: {replays}")
     return launches, replays, {
         "records": len(batches), "replay": ms, "launches_refresh": launches,
@@ -5632,6 +5673,464 @@ def explain_whatif_wave(results):
     return explain_whatif_phase(8, results)
 
 
+# -- the hierarchical top-K rung (BST_SCAN_TOPK) --------------------------------
+
+XL_PAD = 131072  # XLClusterSpec()'s 100,000 nodes in their bucket
+XL_ACCEPT = (2048, 65536)  # benchmarks/xl_scaling.py:250, the acceptance bucket
+TOPK_WAVE = 8  # the rung's width with BST_SCAN_WAVE unset
+XL_K = (16, 128)
+XL_REPS = 3
+XL_CHURN_STEPS = 3
+TOPK_K = 16  # north_star_topk's BST_SCAN_TOPK (the reference's replay rung)
+TOPK_ROUNDS = 8  # churn refreshes after the keyframe
+TOPK_SERIAL_ROUNDS = 2  # churn refreshes of the serial-recorded ring
+
+
+def topk_bound(left, group_req, remaining, fit_mask, order, wave, stats):
+    """(bound_ms, bound_by, bytes, ops) of one top-K scan on these inputs
+    with this run's per-wave ``stats`` (conflicts, megas, demotions): each
+    input read once and each output written once (scan_bound's, plus the
+    three series: 6 bytes a wave), against the integer operations the
+    waves need: the coarse pass evaluates every gang's capacity on every
+    node once (scan_bound's count), a replayed wave evaluates its gangs
+    again and a demoted gang once more (the data-dependent part, counted
+    from ``stats`` at the batch's mean requested lanes a gang)."""
+    n = left.shape[0]
+    g = group_req.shape[0]
+    _, _, nbytes, ops = scan_bound(left, group_req, remaining, fit_mask, order)
+    conflicts, _, demotions = (int(x.sum().item()) for x in stats)
+    nbytes += 6 * -(-g // wave)
+    per_gang_node = ops / (n * g)  # scan_bound's operations a gang and node
+    ops += (min(conflicts * wave, g) + demotions) * n * per_gang_node
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, ops)
+
+
+def xl_operands(spec, pad):
+    """xl_scan_operands(spec) on the card, the node axis padded to ``pad``
+    (padded nodes: no leftover, out of the fit row, as the batch pads)."""
+    import numpy as np
+    import torch
+
+    from batch_scheduler_tpu_torch.sim.scenarios import xl_scan_operands
+
+    left, req, rem, mask, order = xl_scan_operands(spec)
+    left = np.pad(left, ((0, pad - left.shape[0]), (0, 0)))
+    mask = np.pad(mask, ((0, 0), (0, pad - mask.shape[1]))) != 0
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                 for a in (left, req, rem, mask, order))
+
+
+def series(stats):
+    """The three per-wave series as lists (flags as 0/1)."""
+    import torch
+
+    return [x.to("cpu", torch.int32).tolist() for x in stats]
+
+
+def check_xl(name, args):
+    """The serial kernel, the wave kernel at TOPK_WAVE and the top-K kernel at
+    each of XL_K on one XL input: every output bit-identical across them,
+    the top-K series equal to the plain top-K scan's (run on the card), the
+    kernels timed under CUDA events (XL_REPS each, in turns: serial, wave,
+    top-K, top-K, wave, serial), the plain scan's wall clock."""
+    import torch
+
+    from batch_scheduler_tpu_torch.ops.assign_scan import (
+        assign_gangs_cuda, assign_gangs_topk_cuda, assign_gangs_wave_cuda)
+    from batch_scheduler_tpu_torch.ops.oracle import assign_gangs_topk
+
+    serial = assign_gangs_cuda(*args)
+    wave = assign_gangs_wave_cuda(*args, TOPK_WAVE)
+    err, equal = max_err(wave[:3], serial)
+    if not equal:
+        raise AssertionError(f"{name}: the wave kernel differs from the serial one ({err})")
+    out = {"shape": [args[1].shape[0], args[0].shape[0], args[0].shape[1]],
+           "serial_ms": [], "wave_ms": []}
+    runs = {"serial": lambda: assign_gangs_cuda(*args),
+            "wave": lambda: assign_gangs_wave_cuda(*args, TOPK_WAVE)}
+    out["serial_ms"].append(cuda_ms(runs["serial"], XL_REPS))
+    out["wave_ms"].append(cuda_ms(runs["wave"], XL_REPS))
+    for k in XL_K:
+        got = assign_gangs_topk_cuda(*args, TOPK_WAVE, k)
+        err, equal = max_err(got[:3], serial)
+        if not equal:
+            raise AssertionError(f"{name}, K={k}: the top-K kernel differs from the serial "
+                                 f"one (max abs err {err})")
+        t0 = time.perf_counter()
+        plain = assign_gangs_topk(*args, wave=TOPK_WAVE, k=k, with_stats=True)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        perr, pequal = max_err(list(got[:3]) + list(got[3]), list(plain[:3]) + list(plain[3]))
+        if not pequal:
+            raise AssertionError(f"{name}, K={k}: the top-K kernel differs from the plain "
+                                 f"version (max abs err {perr})")
+        run = lambda: assign_gangs_topk_cuda(*args, TOPK_WAVE, k)  # noqa: E731
+        ms = [cuda_ms(run, XL_REPS), cuda_ms(run, XL_REPS)]
+        conflicts, megas, dem = series(got[3])
+        bound_ms, bound_by, nbytes, ops = topk_bound(*args, TOPK_WAVE, got[3])
+        out[f"topk_{k}"] = {
+            "kernel_ms": ms, "plain_s": plain_s, "max_abs_err": max(err, perr),
+            "waves": len(conflicts), "replayed": sum(conflicts), "uniform": sum(megas),
+            "demotions": sum(dem), "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes, "int_ops": ops}
+        del got, plain
+    out["wave_ms"].append(cuda_ms(runs["wave"], XL_REPS))
+    out["serial_ms"].append(cuda_ms(runs["serial"], XL_REPS))
+    out["bit_identical"] = True
+    return out
+
+
+def xl_batch_args(args):
+    """The padded XL operands as a packed batch: the leftover as
+    allocatable with nothing requested, every gang valid, the needs as
+    min_member with nothing scheduled."""
+    import numpy as np
+
+    left, req, rem, mask, order = (a.cpu().numpy() for a in args)
+    g = req.shape[0]
+    batch = (left, np.zeros_like(left), req, rem, mask, np.ones(g, bool), order)
+    progress = (rem.copy(), np.zeros(g, np.int32), np.zeros(g, np.int32), np.zeros(g, bool),
+                np.arange(g, dtype=np.int32))
+    return batch, progress
+
+
+def xl_full_batch(args):
+    """One full batch on the padded XL operands through execute_batch_host,
+    BST_SCAN_TOPK=128 against unset: the host dicts equal (the unpacked
+    tail: N > 2^15); one top-K launch; the device batch's split: the head
+    (leftover, capacity, feasibility, scores), the scan kernel and the
+    compaction (_top_k_ties_by_index), each timed alone under CUDA events
+    on the batch's own tensors, beside the whole batch's wall clock."""
+    import numpy as np
+    import torch
+
+    from batch_scheduler_tpu_torch.ops.assign_scan import (
+        assign_gangs_cuda, assign_gangs_topk_cuda)
+    from batch_scheduler_tpu_torch.ops.convert import batch_from_numpy
+    from batch_scheduler_tpu_torch.ops.oracle import (
+        _top_k_ties_by_index, batch_top_k, execute_batch_host, gang_feasible,
+        group_capacity, left_resources, score_nodes)
+
+    batch, progress = xl_batch_args(args)
+    walls, hosts = {}, {}
+    zero_counts()
+    for label, env in (("topk", "128"), ("serial", None), ("topk_again", "128")):
+        with env_set({"BST_SCAN_TOPK": env, "BST_SCAN_WAVE": None}):
+            t0 = time.perf_counter()
+            hosts[label], _ = execute_batch_host(batch, progress, device="cuda")
+            torch.cuda.synchronize()
+            walls[label] = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    if launches != only(assign_scan=1, assign_topk=2):
+        raise AssertionError(f"full XL batches launched {launches}")
+    diff = [k for k in HOST_KEYS if not np.array_equal(hosts["topk"][k], hosts["serial"][k])]
+    tele = hosts["topk"]["telemetry"]
+    if diff or tele["scan_topk"] != 128 or tele["n_bucket"] != XL_PAD:
+        raise AssertionError(f"full XL batch: top-K against serial differs in {diff}; "
+                             f"telemetry {tele}")
+    k = batch_top_k(XL_PAD, int(batch[3].max()))
+    if hosts["topk"]["assignment_nodes"].shape != (batch[2].shape[0], k):
+        raise AssertionError("full XL batch: the unpacked tail's shape")
+    saved = read_counts()
+    dev_batch, _ = batch_from_numpy(batch, progress, "cuda")
+    alloc, requested, group_req, remaining, fit_mask, group_valid, order = dev_batch
+
+    def head():
+        left = left_resources(alloc, requested)
+        cap = group_capacity(left, group_req, fit_mask)
+        return left, cap, gang_feasible(cap, remaining, group_valid), score_nodes(cap)
+
+    left = head()[0]
+    scan_args = (left, group_req, remaining, fit_mask, order)
+    assignment = assign_gangs_topk_cuda(*scan_args, TOPK_WAVE, 128)[0]
+    split = {"head_ms": cuda_ms(head, XL_REPS),
+             "scan_topk_128_ms": cuda_ms(lambda: assign_gangs_topk_cuda(*scan_args, TOPK_WAVE, 128),
+                                         XL_REPS),
+             "scan_serial_ms": cuda_ms(lambda: assign_gangs_cuda(*scan_args), XL_REPS),
+             "compaction_ms": cuda_ms(lambda: _top_k_ties_by_index(assignment, k), XL_REPS)}
+    restore_counts(saved)
+    return {"batch_wall_ms": walls, "device_split": split, "top_k": k,
+            "telemetry": {key: tele[key] for key in ("scan_topk", "wave_width", "waves_per_batch",
+                                                     "wave_demotions", "wave_uniform",
+                                                     "topk_demotions")},
+            "launches": launches, "host_equal_serial": True}
+
+
+@phase("xl_topk")
+def xl_topk(results):
+    """The XL tier on the card (see the module docstring)."""
+    from batch_scheduler_tpu_torch.ops.assign_scan import assign_gangs_cuda, assign_gangs_topk_cuda
+    from batch_scheduler_tpu_torch.sim.scenarios import XLClusterSpec, xl_churn_burst
+
+    report = {}
+    zero_counts()
+    inputs = (("xl", XLClusterSpec(), XL_PAD),
+              ("xl_3_profiles", XLClusterSpec(request_profiles=3), XL_PAD),
+              ("accept", XLClusterSpec(num_nodes=XL_ACCEPT[1], num_groups=XL_ACCEPT[0], seed=1),
+               XL_ACCEPT[1]))
+    for name, spec, pad in inputs:
+        report[name] = check_xl(name, xl_operands(spec, pad))
+    # churn: bursts of the reference's xl_churn_burst, each re-run held to
+    # the serial kernel
+    spec = XLClusterSpec()
+    args = xl_operands(spec, XL_PAD)
+    left = args[0].cpu().numpy()[: spec.num_nodes]
+    churn = []
+    for step in range(1, XL_CHURN_STEPS + 1):
+        left = xl_churn_burst(spec, left, step)
+        burst = (xl_operands_left(left, XL_PAD),) + args[1:]
+        got = assign_gangs_topk_cuda(*burst, TOPK_WAVE, 128)
+        err, equal = max_err(got[:3], assign_gangs_cuda(*burst))
+        if not equal:
+            raise AssertionError(f"churn step {step}: the top-K kernel differs from the serial "
+                                 f"one (max abs err {err})")
+        conflicts, megas, dem = series(got[3])
+        churn.append({"step": step, "kernel_ms": cuda_ms(
+            lambda: assign_gangs_topk_cuda(*burst, TOPK_WAVE, 128), XL_REPS),
+            "replayed": sum(conflicts), "demotions": sum(dem)})
+    report["churn_k128"] = churn
+    launches = read_counts()
+    report["full_batch"] = xl_full_batch(args)
+    if "assign_topk" in results:
+        paths = results["assign_topk"]["launches_by_path"]
+        paths["xl_topk"] = launches["assign_topk"]
+        paths["xl_topk_full_batch"] = report["full_batch"]["launches"]["assign_topk"]
+    return report
+
+
+def xl_operands_left(left, pad):
+    """A churned XL leftover on the card, padded to ``pad`` nodes."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(np.pad(left, ((0, pad - left.shape[0]),
+                                                               (0, 0))))).cuda()
+
+
+def check_topk_series(scorer, snap):
+    """The top-K kernel on the scorer's last batch's scan inputs against
+    the plain top-K scan (outputs and series), and its series held to the
+    batch's telemetry. Launches restored. Returns (max_abs_err, args,
+    kernel output)."""
+    from batch_scheduler_tpu_torch.ops.assign_scan import assign_gangs_topk_cuda
+    from batch_scheduler_tpu_torch.ops.oracle import assign_gangs_topk
+
+    saved = read_counts()
+    args = scan_inputs(snap.device_args())
+    got = assign_gangs_topk_cuda(*args, TOPK_WAVE, TOPK_K)
+    plain = assign_gangs_topk(*args, wave=TOPK_WAVE, k=TOPK_K, with_stats=True)
+    restore_counts(saved)
+    err, equal = max_err(list(got[:3]) + list(got[3]), list(plain[:3]) + list(plain[3]))
+    conflicts, megas, dem = series(got[3])
+    tele = scorer.last_telemetry
+    want = {"wave_width": TOPK_WAVE, "scan_topk": TOPK_K, "waves_per_batch": len(conflicts),
+            "wave_demotions": sum(conflicts), "wave_uniform": sum(megas),
+            "topk_demotions": sum(dem)}
+    if not equal or {k: tele.get(k) for k in want} != want:
+        raise AssertionError(f"top-K kernel against plain equal={equal} (err {err}); "
+                             f"series {want}, telemetry {tele}")
+    return err, args, got
+
+
+def serial_diff(scorer, cluster, cache):
+    """What differs between the scorer's last batch and the full pack of the
+    same state run on the serial rung (forced_scan_rung(0)), launches
+    restored."""
+    import numpy as np
+
+    from batch_scheduler_tpu_torch.core.oracle_scorer import read_cluster_inputs
+    from batch_scheduler_tpu_torch.ops.oracle import execute_batch_host, forced_scan_rung
+    from batch_scheduler_tpu_torch.ops.snapshot import ClusterSnapshot
+
+    saved = read_counts()
+    snap = ClusterSnapshot(*read_cluster_inputs(cluster, cache))
+    with forced_scan_rung(0):
+        want, _ = execute_batch_host(snap.device_args(), snap.progress_args(), device="cuda")
+    restore_counts(saved)
+    got = scorer._state.result
+    return [k for k in HOST_KEYS if not np.array_equal(got[k], want[k])], snap
+
+
+def topk_ring(directory, topk, rounds):
+    """north_star_churn's deployment through OracleScorer(device="cuda")
+    with an ``array`` AuditLog, BST_SCAN_TOPK=``topk`` (None: unset) and
+    BST_SCAN_WAVE unset: a keyframe and ``rounds`` churn refreshes (Churn),
+    every kernel's count zeroed just before and read just after; each
+    refresh's host dict equal to the serial rung's full pack, and on the
+    top-K rung its series checked (check_topk_series). Returns (scorer,
+    launches, refresh seconds, max_abs_err, the last scan args and the
+    kernel's output on them, the ring's records)."""
+    import torch
+
+    from batch_scheduler_tpu_torch.core import OracleScorer
+    from batch_scheduler_tpu_torch.utils.audit import AuditLog, AuditReader
+
+    cluster, cache = north_star_state()
+    log = AuditLog(directory, fmt="array", keyframe_every=16)
+    scorer = OracleScorer(device="cuda", audit_log=log)
+    churn = Churn(cluster, cache, lambda name: scorer.mark_dirty(group=name), rounds + 1)
+    refresh_s, err, last = [], 0, None
+    with env_set({"BST_SCAN_TOPK": None if topk is None else str(topk), "BST_SCAN_WAVE": None}):
+        zero_counts()
+        for r in range(rounds + 1):
+            if r:
+                churn(r)
+            t0 = time.perf_counter()
+            scorer.refresh(cluster, cache)
+            torch.cuda.synchronize()
+            refresh_s.append(time.perf_counter() - t0)
+            diff, snap = serial_diff(scorer, cluster, cache)
+            if diff:
+                raise AssertionError(f"refresh {r}: the plan differs from the serial rung's "
+                                     f"in {diff}")
+            if topk is not None:
+                e, args, out = check_topk_series(scorer, snap)
+                err, last = max(err, e), (args, out)
+        launches = read_counts()
+    if not log.flush(120.0):
+        raise AssertionError("the audit writer did not finish")
+    batches, skipped = AuditReader(directory).batches()
+    if skipped or len(batches) != rounds + 1:
+        raise AssertionError(f"{len(batches)} records of {rounds + 1}, skipped {skipped[:2]}")
+    return scorer, cluster, cache, launches, refresh_s, err, last, batches
+
+
+def topk_replays(batches, rungs):
+    """Replay the records on each (rung, how many of the last, the executed
+    (scan, wave width, scan_topk)); every one identical. Returns the
+    launches of the cuda rungs' replays by kernel and ms by rung."""
+    from batch_scheduler_tpu_torch.core.oracle_scorer import replay_audit_record
+
+    ms = {}
+    zero_counts()
+    for rung, last, executed in rungs:
+        times = []
+        for rec in batches[-last:]:
+            t0 = time.perf_counter()
+            rep = replay_audit_record(rec, against=rung)
+            times.append((time.perf_counter() - t0) * 1e3)
+            ran = rep["executed_rung"]
+            if not rep["identical"] or \
+                    (ran["scan"], ran["wave_width"], ran.get("scan_topk", 0)) != executed:
+                raise AssertionError(f"record {rec['seq']} on {rung}: {rep}")
+        ms[rung] = {"replays": len(times), "ms_median": statistics.median(times)}
+    return read_counts(), ms
+
+
+def whatif_topk(cluster, cache):
+    """/debug/whatif?rung=topk on a live observatory (an oracle
+    ScheduleOperation on the card over north_star_churn's deployment,
+    BST_SCAN_TOPK unset) against rung=steady: the same what-if and
+    baseline digests. Returns (launches of the topk query, report)."""
+    from batch_scheduler_tpu_torch.core import ScheduleOperation
+    from batch_scheduler_tpu_torch.utils.metrics import serve_metrics
+
+    op = ScheduleOperation(cache, cluster, device="cuda")
+    op.oracle.refresh(cluster, cache)
+    node = cluster.list_nodes()[1].metadata.name
+    srv = serve_metrics(port=0)
+    try:
+        port = srv.server_address[1]
+        answers, launches = {}, {}
+        for rung in ("steady", "topk"):
+            zero_counts()
+            status, body, ms = http_get(port, f"/debug/whatif?drain={node}&rung={rung}")
+            launches[rung] = read_counts()
+            if status != 200:
+                raise AssertionError(f"/debug/whatif rung={rung}: {status} {body[:300]!r}")
+            answers[rung] = (json.loads(body), ms)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    (steady, steady_ms), (topk, topk_ms) = answers["steady"], answers["topk"]
+    if topk["rung"] != "topk" or any(topk[s]["plan_digest"] != steady[s]["plan_digest"]
+                                     for s in ("base", "whatif")):
+        raise AssertionError(f"/debug/whatif: topk {topk} against steady {steady}")
+    if launches["topk"]["assign_topk"] < 1:
+        raise AssertionError(f"/debug/whatif rung=topk launched {launches['topk']}")
+    return launches["topk"], {"route_ms": {"steady": steady_ms, "topk": topk_ms},
+                              "plan_digest": topk["whatif"]["plan_digest"],
+                              "placed": topk["whatif"]["placed"]}
+
+
+@phase("north_star_topk")
+def north_star_topk(results):
+    """The north star through the normal entry point on the top-K rung (see
+    the module docstring)."""
+    import tempfile
+
+    from batch_scheduler_tpu_torch.ops.assign_scan import (
+        assign_gangs_topk_cuda, assign_gangs_wave_cuda, topk_scan_plan)
+    from batch_scheduler_tpu_torch.ops.oracle import assign_gangs_topk
+
+    with tempfile.TemporaryDirectory() as tmp:
+        scorer, cluster, cache, launches, refresh_s, err, (args, out), batches = topk_ring(
+            os.path.join(tmp, "topk"), TOPK_K, TOPK_ROUNDS)
+        n = TOPK_ROUNDS + 1
+        if launches != only(assign_topk=n):
+            raise AssertionError(f"{launches} launches in {n} refreshes (want assign_topk once a "
+                                 "refresh and no other kernel)")
+        if any(rec["telemetry"].get("scan_topk") != TOPK_K for rec in batches):
+            raise AssertionError("a record's telemetry is not the top-K rung's")
+        # a ring recorded on topk replays on steady (BST_SCAN_TOPK unset: the
+        # serial kernel) and cpu-ladder; a serial-recorded ring on topk
+        replays, replay_ms = topk_replays(batches, (
+            ("steady", len(batches), ("cuda_kernel", 0, 0)),
+            ("cpu-ladder", AUDIT_CPU_REPLAYS, ("plain", 0, 0))))
+        if replays != only(assign_scan=len(batches)):
+            raise AssertionError(f"steady replays launched {replays}")
+        _, _, _, serial_launches, _, _, _, serial_batches = topk_ring(
+            os.path.join(tmp, "serial"), None, TOPK_SERIAL_ROUNDS)
+        if serial_launches != only(assign_scan=TOPK_SERIAL_ROUNDS + 1):
+            raise AssertionError(f"serial ring launched {serial_launches}")
+        topk_replay, topk_replay_ms = topk_replays(serial_batches, (
+            ("topk", len(serial_batches), ("cuda_kernel", TOPK_WAVE, TOPK_K)),))
+        if topk_replay != only(assign_topk=len(serial_batches)):
+            raise AssertionError(f"topk replays launched {topk_replay}")
+    whatif_launches, whatif = whatif_topk(cluster, cache)
+    # the kernel on the last batch's inputs: timed against the plain version
+    # and the wave kernel in turns (launches restored)
+    saved = read_counts()
+    run = lambda: assign_gangs_topk_cuda(*args, TOPK_WAVE, TOPK_K)  # noqa: E731
+    wave_run = lambda: assign_gangs_wave_cuda(*args, TOPK_WAVE)  # noqa: E731
+    wave_ms = [cuda_ms(wave_run, 20)]
+    ms = [cuda_ms(run, 20), cuda_ms(run, 20)]
+    wave_ms.append(cuda_ms(wave_run, 20))
+    plain_ms = cuda_ms(lambda: assign_gangs_topk(*args, wave=TOPK_WAVE, k=TOPK_K,
+                                                 with_stats=True), 1)
+    restore_counts(saved)
+    bound_ms, bound_by, nbytes, ops = topk_bound(*args, TOPK_WAVE, out[3])
+    plan = topk_scan_plan(args[0].shape[0], args[0].shape[1], TOPK_WAVE, TOPK_K, 0)
+    conflicts, megas, dem = series(out[3])
+    results["assign_topk"] = {
+        "launches": n,
+        "launches_by_path": {"north_star_topk": n, "north_star_topk_replays": topk_replay[
+            "assign_topk"], "whatif_topk": whatif_launches["assign_topk"]},
+        "max_abs_err": err, "matched": True, "ms": min(ms), "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "cluster_blocks": plan.cluster_blocks, "leftover": plan.leftover,
+        "us_per_wave": min(ms) * 1e3 / len(conflicts),
+    }
+    timed = slice(2, None)
+    return {
+        "shape": list(scorer.snapshot.shape), "k": TOPK_K, "wave": TOPK_WAVE,
+        "refreshes": n, "launches": launches,
+        "refresh_ms_median": statistics.median(refresh_s[timed]) * 1e3,
+        "refresh_ms": [t * 1e3 for t in refresh_s[timed]],
+        "device_batch_ms_median": statistics.median(scorer.batch_seconds[timed]) * 1e3,
+        "telemetry": dict(scorer.last_telemetry),
+        "series_last_batch": {"waves": len(conflicts), "replayed": sum(conflicts),
+                              "uniform": sum(megas), "demotions": sum(dem)},
+        "kernel_ms": ms, "wave_kernel_ms_same_inputs": wave_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "int_ops": ops,
+        "plan": plan._asdict(), "max_abs_err": err, "plans_equal_serial": True,
+        "replays": {"topk_ring": replay_ms, "serial_ring_on_topk": topk_replay_ms},
+        "whatif": whatif,
+    }
+
+
 def card_line():
     try:
         out = subprocess.run(
@@ -5694,6 +6193,8 @@ def main() -> int:
     observability_wave(results)
     explain_whatif(results)
     explain_whatif_wave(results)
+    north_star_topk(results)
+    xl_topk(results)
     lockcheck_phase(results)
     for (kernel, path), n in LATE_PATHS.items():
         if kernel in results:
@@ -5708,6 +6209,10 @@ def main() -> int:
         # BST_POLICY_SCAN); its reference is the lax rung assign_gangs_policy
         "assign_policy": ("batch_scheduler_tpu_torch/csrc/assign_scan.cu",
                           "batch_scheduler_tpu/ops/oracle.py:438"),
+        # the top-K rung's cluster kernel; its reference is the lax rung
+        # assign_gangs_topk
+        "assign_topk": ("batch_scheduler_tpu_torch/csrc/assign_topk.cu",
+                        "batch_scheduler_tpu/ops/oracle.py:1156"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": sources[name][0],

@@ -509,7 +509,16 @@ def test_replay_rung_pin_is_thread_local(monkeypatch):
 
 @pytest.mark.parametrize("rung", ["gpu-ladder", "topk"])
 def test_replay_unknown_rung(rung):
+    """An unknown rung is refused, naming the rungs. ``topk`` was one until
+    the port had the top-K scan; now it replays the steady rung's plan."""
     snap = _make_snapshot()
+    if rung == "topk":
+        host, _ = replay_batch(snap.device_args(), snap.progress_args(), against=rung,
+                               device="cpu")
+        steady, _ = replay_batch(snap.device_args(), snap.progress_args(), device="cpu")
+        assert host["telemetry"]["scan_topk"] == 16 and host["telemetry"]["wave_width"] == 8
+        assert audit_mod.plan_digest(host) == audit_mod.plan_digest(steady)
+        return
     with pytest.raises(ValueError, match="unknown replay rung") as err:
         replay_batch(snap.device_args(), snap.progress_args(), against=rung, device="cpu")
     assert all(r in str(err.value) for r in REPLAY_RUNGS)

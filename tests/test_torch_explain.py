@@ -470,7 +470,7 @@ def _direct_digest(pkg, nodes, node_req, demands, policy_engine=None):
     return _mod(pkg, "utils.audit").plan_digest(host)
 
 
-@pytest.mark.parametrize("rung", ["steady", "wavefront", "cpu-ladder"])
+@pytest.mark.parametrize("rung", ["steady", "wavefront", "cpu-ladder", "topk"])
 @pytest.mark.parametrize("policy", [False, True], ids=["base", "policy"])
 @pytest.mark.parametrize("kind", list(CFS))
 def test_whatif_matches_reference_and_applied_cluster(kind, policy, rung):
@@ -531,13 +531,22 @@ def test_bump_gang_reorders_queue():
 
 @pytest.mark.parametrize("rung", ["warp-speed", "topk"])
 def test_rung_rejected(rung):
+    """An unknown rung is refused by both packages. ``topk`` was refused by
+    the port until it had the top-K scan; now both packages answer it, with
+    the same plans."""
     nodes, node_req, demands = _inputs(PORT, 4, 2)
+    if rung == "topk":
+        got = _engine(PORT).query_on(nodes, node_req, demands, CFS["drain"], rung=rung)
+        want = _engine(REF).query_on(*_inputs(REF, 4, 2), CFS["drain"], rung=rung)
+        assert got["rung"] == "topk"
+        for side in ("base", "whatif"):
+            assert got[side]["plan_digest"] == want[side]["plan_digest"], side
+        return
     with pytest.raises(ValueError, match="unknown what-if rung"):
         _engine(PORT).query_on(nodes, node_req, demands, CFS["drain"], rung=rung)
-    if rung != "topk":  # the reference serves topk (item 10 brings it here)
-        nodes, node_req, demands = _inputs(REF, 4, 2)
-        with pytest.raises(ValueError, match="unknown what-if rung"):
-            _engine(REF).query_on(nodes, node_req, demands, CFS["drain"], rung=rung)
+    nodes, node_req, demands = _inputs(REF, 4, 2)
+    with pytest.raises(ValueError, match="unknown what-if rung"):
+        _engine(REF).query_on(nodes, node_req, demands, CFS["drain"], rung=rung)
 
 
 def test_whatif_engine_default_device_needs_cuda():
@@ -730,7 +739,9 @@ def test_debug_views_bare_none_and_500_like_reference():
         assert exp.explain_debug_view("d/g") == ({"error": "KeyError: 'd/g'"}, 500)
         assert exp.whatif_debug_view({"drain": "n"}) == ({"error": "RuntimeError: boom"}, 500)
     port_usage = _mod(PORT, "core.explain").whatif_debug_view({})[0]["usage"]
-    assert port_usage.endswith("[&rung=steady|wavefront|cpu-ladder]")
+    ref_usage = _mod(REF, "core.explain").whatif_debug_view({})[0]["usage"]
+    assert port_usage.endswith("[&rung=steady|wavefront|cpu-ladder|topk]")
+    assert ref_usage.endswith("[&rung=steady|wavefront|cpu-ladder|topk]")
 
 
 # ---------------------------------------------------------------------------
@@ -819,7 +830,8 @@ def test_live_observatory_routes_served_by_the_port():
         assert status == 200 and body["baseline_cached"] is True
         assert _get(addr, "/debug/whatif?drain=ghost")[0] == 400
         assert _get(addr, "/debug/whatif?drain=a&cordon=b")[0] == 400
-        assert _get(addr, f"/debug/whatif?drain={node}&rung=topk")[0] == 400
+        status, body = _get(addr, f"/debug/whatif?drain={node}&rung=topk")
+        assert status == 200 and body["rung"] == "topk" and body["whatif"]["placed"] == 0
     finally:
         srv.shutdown()
         srv.server_close()

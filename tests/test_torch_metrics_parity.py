@@ -325,3 +325,82 @@ def test_observatory_metrics_deltas_match_reference():
     assert port["bst_whatif_query_seconds"] == {(): 6}
     keyframes = {dict(k)["reason"]: v for k, v in port["bst_device_keyframe_resyncs_total"].items()}
     assert keyframes["whatif-base"] == 2 and keyframes["fork-shape"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the top-K rung's series (BST_SCAN_TOPK)
+# ---------------------------------------------------------------------------
+
+TOPK_COUNTERS = (
+    "bst_scan_batches_total",
+    "bst_topk_demotions_total",
+    "bst_scan_waves_total",
+    "bst_scan_wave_demotions_total",
+    "bst_scan_wave_uniform_total",
+)
+TOPK_GAUGES = ("bst_scan_topk_k",)
+
+
+def _read_topk(pkg):
+    reg = _registry(pkg)
+    out = {}
+    for name in TOPK_COUNTERS + TOPK_GAUGES:
+        metric = reg.get(name)
+        out[name] = dict(metric.values()) if metric is not None else {}
+    metric = reg.get("bst_scan_waves_per_batch")
+    out["bst_scan_waves_per_batch"] = (
+        {k: snap[2] for k, snap in metric.snapshots().items()} if metric is not None else {})
+    return out
+
+
+def _topk_script(pkg):
+    """Twelve 4-cpu nodes and gangs of 3-cpu members (one a node): a
+    6-member gang outruns K=4 candidates and demotes to the dense column,
+    K=16 covers it. Refreshes at K=4, K=16 (W=4), then the dense scans."""
+    scen = importlib.import_module(f"{pkg}.sim.scenarios")
+    cm = importlib.import_module(f"{pkg}.cache.pg_cache")
+    cluster = importlib.import_module(f"{pkg}.framework.cluster").ClusterState()
+    for i in range(12):
+        cluster.add_node(scen.make_sim_node(f"n{i:02d}", {"cpu": "4", "memory": "16Gi",
+                                                          "pods": "110"}))
+    cache = cm.PGStatusCache()
+    for j in range(5):
+        pg = scen.make_sim_group(f"wide-{j}", 2 + 2 * (j % 3), creation_ts=float(j))
+        pg.spec.min_resources = {"cpu": 3000}
+        pgs = cm.PodGroupMatchStatus(pg)
+        pgs.pod = scen.make_member_pods(f"wide-{j}", 1, {"cpu": "3"})[0]
+        cache.set(pg.full_name(), pgs)
+    pods = scen.make_member_pods("churn", 4, {"cpu": "1"})
+    scorer = _scorer(pkg)
+    steps = [
+        ({"BST_SCAN_TOPK": "4"}, lambda: None),
+        ({"BST_SCAN_TOPK": "4"}, lambda: cluster.assume(pods[0], "n00")),
+        ({"BST_SCAN_TOPK": "16", "BST_SCAN_WAVE": "4"}, lambda: cluster.assume(pods[1], "n01")),
+        ({"BST_SCAN_TOPK": "x"}, lambda: cluster.assume(pods[2], "n02")),
+        ({"BST_SCAN_WAVE": "8"}, lambda: cluster.assume(pods[3], "n03")),
+    ]
+    for env, act in steps:
+        act()
+        with _env({"BST_SCAN_TOPK": None, "BST_SCAN_WAVE": None, **env}):
+            scorer.refresh(cluster, cache)
+
+
+def test_topk_metrics_deltas_match_reference():
+    deltas = {}
+    for pkg in PACKAGES:
+        before = _read_topk(pkg)
+        _topk_script(pkg)
+        after = _read_topk(pkg)
+        deltas[pkg] = {
+            name: (dict(now) if name in TOPK_GAUGES else
+                   {k: v - before[name].get(k, 0) for k, v in now.items()
+                    if v != before[name].get(k, 0)})
+            for name, now in after.items()
+        }
+    ref, port = deltas["batch_scheduler_tpu"], deltas["batch_scheduler_tpu_torch"]
+    for name in TOPK_COUNTERS + TOPK_GAUGES + ("bst_scan_waves_per_batch",):
+        assert port[name] == ref[name], name
+    paths = {dict(k)["path"]: v for k, v in port["bst_scan_batches_total"].items()}
+    assert paths == {"topk": 3, "serial": 1, "wavefront": 1}
+    assert port["bst_scan_topk_k"] == {(): 16.0}
+    assert sum(port["bst_topk_demotions_total"].values()) > 0

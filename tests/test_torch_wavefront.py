@@ -174,9 +174,14 @@ def test_scan_wave_knob_matches_reference(raw, monkeypatch, capsys):
 
 
 def _padded(case):
+    return pad_scan_args(*SCAN_CASES[case][0]())
+
+
+def pad_scan_args(left, group_req, remaining, mask, order):
+    """A scan case as the reference's padded batch and progress args, with
+    seeded requests on the nodes."""
     from batch_scheduler_tpu.ops.bucketing import pad_oracle_batch
 
-    left, group_req, remaining, mask, order = SCAN_CASES[case][0]()
     n, r = left.shape
     g = group_req.shape[0]
     rng = np.random.default_rng(5)
