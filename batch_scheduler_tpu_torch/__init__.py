@@ -12,44 +12,38 @@ Layout:
              batch_scheduler_tpu_torch.analysis``: the ``guarded-by``,
              ``knobs``, ``wire`` and ``metrics`` checkers over this
              package) and the ``BST_LOCKCHECK=1`` runtime lock checker
-- ``api``    PodGroup/Pod/Node data model, quantities, placement fit
+- ``api``    PodGroup/Pod/Node data model, quantities, placement fit, the
+             dict codec (``to_dict``, ``serde``) and the CRD constants
 - ``cache``  PodGroup status cache + TTL match caches
-- ``core``   gang scheduling semantics (``ScheduleOperation``) and the
-             batch scorer (``OracleScorer``)
-- ``framework``  ``ClusterState``, the live node/pod view whose event
-             hooks feed the scorer's O(churn) event fold, and whose
-             ``pods_on`` gives the preemption planner its victims
+- ``client`` the in-memory API server (watch events, the batched bind
+             verb), the typed clientset and the shared informers
+- ``controller``  the PodGroup controller (phase machine, GC horizon) on
+             a rate-limited work queue
+- ``core``   gang scheduling semantics (``ScheduleOperation``), the batch
+             scorer (``OracleScorer``: blocking, coalesced, background and
+             dispatch-ahead refreshes) and the explain / what-if
+             observatory
+- ``framework``  the scheduler loop (``Scheduler``: queue, the whole-gang
+             fast lane, bind workers, the preemption commit),
+             ``ClusterState`` (whose event hooks feed the scorer's O(churn)
+             fold), the scheduling queue and the permit waits
+- ``plugin`` the batch plugin, the extension-point gate, leases and the
+             factory (``PluginConfig``, ``new_plugin_runtime``)
 - ``policy`` the policy engine: ``PolicyConfig`` (``BST_POLICY``) and
              ``PolicyEngine``, the affinity / anti-affinity / spread terms
-             the policy scan composes into its selection key (the
-             composite-key variant of the serial scan kernel), and the
-             preemption planner (``plan_victims``, ``PreemptionPlanner``).
-             To come: ``PolicyEngine.explain`` and the ``/debug/policy``
-             view
+             the policy scan composes into its selection key, and the
+             preemption planner (``plan_victims``, ``PreemptionPlanner``)
 - ``ops``    host packing (numpy: the full pack, the delta / snapshot-lite
              packer, the event log), the device-resident state and the
              device batch (torch), with the hand-written CUDA assignment
              scans in ``ops/assign_scan.py`` (sources ``csrc/``)
-- ``sim``    scenario builders
-- ``utils``  labels, TTL cache, errors, and the audit layer:
-  - ``audit``    the audit ring (``AuditLog``: ``array`` and ``v2``
-                 records; ``AuditReader`` with the v2 re-fold), the plan
-                 and input digests, ``config_fingerprint``; the replay
-                 rungs are ``core.oracle_scorer.replay_batch`` /
-                 ``replay_audit_record``; a policy batch's record
-                 carries its policy columns. To come: the
-                 ``BST_AUDIT_FORMAT`` / ``BST_AUDIT_KEYFRAME_EVERY``
-                 readers (with the CLI)
-  - ``metrics``  the counter / gauge / histogram registry and its text
-                 rendering; the batch path records the reference's batch
-                 and refresh series there. To come: ``serve_metrics`` and
-                 its HTTP surfaces
-  - ``trace``    ``new_trace_id`` and ``current_context`` (always None).
-                 To come: the span ring and the flight recorder
-  - ``tenancy``  the capped tenant-label registry. To come: the
-                 ``BST_TENANT_LABEL_MAX`` knob and ``batch_tenants``
-  - ``health``   ``IdentityAuditor``, the sampled identity audit. To come:
-                 the SLO ``HealthModel`` and its ``note_identity`` signal
+- ``service`` the oracle sidecar (protocol, server with its executor and
+             coalescer, clients, ``RemoteScorer``)
+- ``sim``    ``SimCluster`` (the whole stack in process over a simulated
+             kubelet) and scenario constructors
+- ``utils``  labels, TTL cache, errors, JSON merge patches, work queues,
+             and the audit ring, metrics registry, trace and flight
+             recorder, lifecycle ledger, health model and tenancy
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 a machine without CUDA the default device raises.

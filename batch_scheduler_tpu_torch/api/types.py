@@ -16,6 +16,7 @@ makes the scheduling oracle stateless per batch.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import enum
 import itertools
 from dataclasses import dataclass, field
@@ -224,3 +225,128 @@ class PodGroup:
 
     def deepcopy(self) -> "PodGroup":
         return copy.deepcopy(self)
+
+
+def _meta_dict(m: ObjectMeta) -> dict:
+    return {
+        "name": m.name,
+        "namespace": m.namespace,
+        "uid": m.uid,
+        "labels": dict(m.labels),
+        "annotations": dict(m.annotations),
+        "owner_references": list(m.owner_references),
+        "creation_timestamp": m.creation_timestamp,
+        "resource_version": m.resource_version,
+    }
+
+
+def _pod_dict(p: "Pod") -> dict:
+    return {
+        "metadata": _meta_dict(p.metadata),
+        "spec": {
+            "containers": [
+                {
+                    "name": c.name,
+                    "requests": dict(c.requests),
+                    "limits": dict(c.limits),
+                }
+                for c in p.spec.containers
+            ],
+            "node_selector": dict(p.spec.node_selector),
+            "tolerations": [
+                {
+                    "key": t.key,
+                    "operator": t.operator,
+                    "value": t.value,
+                    "effect": t.effect,
+                }
+                for t in p.spec.tolerations
+            ],
+            "priority": p.spec.priority,
+            "node_name": p.spec.node_name,
+        },
+        "status": {"phase": p.status.phase.value},
+    }
+
+
+def _node_dict(n: "Node") -> dict:
+    return {
+        "metadata": _meta_dict(n.metadata),
+        "spec": {
+            "taints": [
+                {"key": t.key, "value": t.value, "effect": t.effect}
+                for t in n.spec.taints
+            ],
+            "unschedulable": n.spec.unschedulable,
+        },
+        "status": {
+            "allocatable": dict(n.status.allocatable),
+            "capacity": dict(n.status.capacity),
+        },
+    }
+
+
+def _pg_status_dict(s: PodGroupStatus) -> dict:
+    return {
+        "phase": s.phase.value,
+        "occupied_by": s.occupied_by,
+        "scheduled": s.scheduled,
+        "running": s.running,
+        "succeeded": s.succeeded,
+        "failed": s.failed,
+        "schedule_start_time": s.schedule_start_time,
+    }
+
+
+def _pg_dict(g: "PodGroup") -> dict:
+    return {
+        "metadata": _meta_dict(g.metadata),
+        "spec": {
+            "min_member": g.spec.min_member,
+            "priority_class_name": g.spec.priority_class_name,
+            "min_resources": (
+                dict(g.spec.min_resources)
+                if g.spec.min_resources is not None
+                else None
+            ),
+            "max_schedule_time": g.spec.max_schedule_time,
+        },
+        "status": _pg_status_dict(g.status),
+    }
+
+
+_TO_DICT_FAST = {}  # populated below Pod/Node/PodGroup definitions
+
+
+def to_dict(obj) -> dict:
+    """Serialise an API object to plain JSON-able data (for patches/storage).
+
+    The API kinds (and PodGroupStatus, the controller's patch unit) have
+    explicit encoders — ``dataclasses.asdict`` walks the reduce protocol per
+    field and was the control plane's single largest CPU line at 10k-pod
+    scale. Output is field-for-field identical (asserted in
+    tests/test_patch.py); unknown dataclasses still fall back to asdict.
+    """
+    fast = _TO_DICT_FAST.get(type(obj))
+    if fast is not None:
+        return fast(obj)
+
+    def encode(v):
+        if isinstance(v, enum.Enum):
+            return v.value
+        return v
+
+    def factory(items):
+        return {k: encode(v) for k, v in items}
+
+    return dataclasses.asdict(obj, dict_factory=factory)
+
+
+_TO_DICT_FAST.update(
+    {
+        Pod: _pod_dict,
+        Node: _node_dict,
+        PodGroup: _pg_dict,
+        PodGroupStatus: _pg_status_dict,
+    }
+)

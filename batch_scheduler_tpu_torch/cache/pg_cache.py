@@ -97,12 +97,15 @@ class PGStatusCache:
         # without an event (a silently added/removed entry would otherwise
         # let a targeted fold serve a wrong-group-set snapshot)
         self._mutations = 0  # guarded-by: _lock
-        # registration-time list; delete() iterates it OUTSIDE the lock on
-        # purpose (callbacks may re-enter this cache)
+        # registration-time lists; delete() and set() iterate them OUTSIDE
+        # the lock on purpose (callbacks may re-enter this cache)
         self._on_delete: list = []
+        self._on_update: list = []
 
     def mutations(self) -> int:
-        """Monotone count of set/delete calls (membership churn proxy)."""
+        """Monotone count of membership changes: every delete, and every
+        set but one that re-stores the entry already held (a status update
+        in place, which ``on_update`` callbacks hear about instead)."""
         with self._lock:
             return self._mutations
 
@@ -112,14 +115,27 @@ class PGStatusCache:
         tracker, the lifecycle ledger) die with the gang."""
         self._on_delete.append(fn)
 
+    def on_update(self, fn: Callable[[str], None]) -> None:
+        """Register a callback fired (outside the lock) with the full name
+        of an entry re-stored in place (``set`` of the object already
+        held: the controller's status sync). The scorer's event fold
+        hears of the changed gang row through it (ops.events), where the
+        reference bumps the membership counter and scans."""
+        self._on_update.append(fn)
+
     def get(self, full_name: str) -> Optional[PodGroupMatchStatus]:
         with self._lock:
             return self._map.get(full_name)
 
     def set(self, full_name: str, status: PodGroupMatchStatus) -> None:
         with self._lock:
+            in_place = self._map.get(full_name) is status
             self._map[full_name] = status
-            self._mutations += 1
+            if not in_place:
+                self._mutations += 1
+        if in_place:
+            for fn in self._on_update:
+                fn(full_name)
 
     def delete(self, full_name: str) -> None:
         with self._lock:
@@ -138,3 +154,7 @@ class PGStatusCache:
     def __len__(self) -> int:
         with self._lock:
             return len(self._map)
+
+    def for_each(self, fn: Callable[[str, PodGroupMatchStatus], None]) -> None:
+        for name, status in self.snapshot().items():
+            fn(name, status)

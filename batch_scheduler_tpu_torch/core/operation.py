@@ -14,7 +14,11 @@ batch runs on the sidecar) and the reference-parity host path when
 count), a ``policy`` record per placed gang of a policy batch (the
 per-term blame on the snapshot's host columns), the operation's
 ``PendingGangTracker`` (the health model's pending signal) and the
-lifecycle ledger's permit and delete events.
+lifecycle ledger's permit and delete events. The scheduler's own entry
+points ride on top: the queue key (``sort_key``), the plan hint
+(``suggested_node``), the whole-gang transaction's bulk bind commit
+(``post_bind_gangs``), the assume credit (``on_assume``), and the status
+patches through ``pg_client`` when one is given.
 """
 
 from __future__ import annotations
@@ -22,10 +26,12 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass
+import warnings
 from typing import Callable, Dict, Optional, Protocol, Tuple
 
 from ..api.types import Pod, PodGroup, PodGroupPhase
 from ..cache.pg_cache import PGStatusCache, PodGroupMatchStatus, PodNodePair
+from ..ops.capacity import set_active_sampler
 from ..policy.engine import PolicyConfig, PolicyEngine
 from ..policy.preempt import PreemptionPlanner
 from ..utils import errors as errs
@@ -68,6 +74,23 @@ def deny_degraded_reason(full_name: str, min_member: int) -> str:
     )
 
 
+class _RevStr:
+    """String wrapper ordering REVERSE-lexicographically — the Compare
+    chain's ``name1 > name2`` tiebreak (reference core.go:404) embedded in
+    a sort-key tuple."""
+
+    __slots__ = ("s",)
+
+    def __init__(self, s: str):
+        self.s = s
+
+    def __lt__(self, other: "_RevStr") -> bool:
+        return self.s > other.s
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, _RevStr) and self.s == other.s
+
+
 # Score stub ceiling (reference core.go:46).
 MAX_SCORE = 2**31 - 1
 
@@ -103,9 +126,14 @@ class ScheduleOperation:
         self,
         status_cache: PGStatusCache,
         cluster: ClusterStateProvider,
+        pg_client=None,
+        max_schedule_seconds: Optional[float] = None,
         pg_lister: Optional[Callable[[str, str], Optional[PodGroup]]] = None,
         scorer="oracle",
         clock: Callable[[], float] = time.monotonic,
+        min_batch_interval: float = 0.0,
+        background_refresh: bool = False,
+        dispatch_ahead: bool = False,
         device="cuda",
         audit_log=None,
         identity_audit_every: int = 0,
@@ -113,6 +141,10 @@ class ScheduleOperation:
     ):
         self.status_cache = status_cache
         self.cluster = cluster
+        # the PodGroup client the status transitions patch through (None:
+        # local state only, as the hand-driven paths run)
+        self.pg_client = pg_client
+        self.max_schedule_seconds = max_schedule_seconds
         self.pg_lister = pg_lister
         if isinstance(scorer, str) and scorer not in ("oracle", "serial"):
             raise ValueError(
@@ -140,6 +172,9 @@ class ScheduleOperation:
                     audit_log=audit_log,
                     identity_audit_every=identity_audit_every,
                     policy_engine=self.policy,
+                    min_batch_interval=min_batch_interval,
+                    background_refresh=background_refresh,
+                    dispatch_ahead=dispatch_ahead,
                 )
                 if scorer == "oracle"
                 else None
@@ -149,6 +184,24 @@ class ScheduleOperation:
             # sidecar)
             self.scorer_kind = "oracle"
             self.oracle = scorer
+            # requested batching is applied to the instance (only when
+            # asked, so an instance configured directly keeps its own):
+            # do not share one scorer across operations that disagree
+            if min_batch_interval:
+                scorer.min_batch_interval = min_batch_interval
+            for flag, asked in (("background_refresh", background_refresh),
+                                ("dispatch_ahead", dispatch_ahead)):
+                if not asked:
+                    continue
+                if getattr(scorer, f"supports_{flag}", True):
+                    setattr(scorer, flag, True)
+                else:
+                    warnings.warn(
+                        f"{flag} requested but {type(scorer).__name__} does "
+                        "not support it (a single-connection transport would "
+                        "stall row reads behind the off-cycle batch); running "
+                        "with blocking refresh"
+                    )
             if audit_log is not None or identity_audit_every:
                 # the audit records are made client-side from the padded
                 # snapshot the wire carried; the batch's AUDIT_ID frame
@@ -164,6 +217,12 @@ class ScheduleOperation:
         self.last_denied_pg = TTLCache(DENY_CACHE_DEFAULT_TTL, DENY_CACHE_JANITOR, clock=clock)
         self.last_permitted_pod = TTLCache(PERMITTED_CACHE_DEFAULT_TTL, DENY_CACHE_JANITOR, clock=clock)
         self._lock = threading.RLock()
+        # sort_key's per-group creation-timestamp cache: immutable for a
+        # group's lifetime, and dropped with the group (the status-cache
+        # delete hook), so a recreated group re-reads its own stamp
+        self._creation_cache: Dict[Tuple[str, str], float] = {}
+        self._creation_tombstones: Dict[Tuple[str, str], float] = {}
+        self._clock = clock
         # Cross-call max-progress group state used by the serial Filter path
         # (reference core.go:58-59,118-127).
         self.max_finished_pg: str = ""
@@ -184,7 +243,15 @@ class ScheduleOperation:
         # same isolation rule for the gang lifecycle ledger
         # (utils.lifecycle): a fresh operation starts a fresh story
         DEFAULT_LEDGER.reset()
-        status_cache.on_delete(self._forget_gang)
+        # same isolation rule for the capacity observatory: a non-oracle
+        # operation clears a predecessor scorer's sampler (an OracleScorer
+        # registers its own at construction)
+        if self.scorer_kind != "oracle" or self.oracle is None:
+            set_active_sampler(None)
+        status_cache.on_delete(self._forget_creation)
+        # a status synced in place (the controller) changed the gang's row:
+        # name it for the next event fold, as the plan-covered paths do
+        status_cache.on_update(self._gang_event)
 
     # ------------------------------------------------------------------
     # scorer lifecycle
@@ -404,6 +471,25 @@ class ScheduleOperation:
             except Exception:  # noqa: BLE001 — blame is evidence only
                 pass
 
+    def suggested_node(self, pod: Pod) -> Optional[str]:
+        """The plan's next open slot for this pod's gang, or None (the
+        caller falls back to the full node scan). Served entirely from the
+        stamped plan on the host: no batch query, no re-batch."""
+        if self.scorer_kind != "oracle":
+            return None
+        pg_name, ok = pod_group_name(pod)
+        if not ok:
+            return None
+        pgs = self.status_cache.get(f"{pod.metadata.namespace}/{pg_name}")
+        if pgs is None or not pgs.placement_plan:
+            return None
+        current = self._matched_per_node(pgs)
+        base = pgs.plan_base_matched
+        for node, planned in pgs.placement_plan.items():
+            if planned > current.get(node, 0) - base.get(node, 0):
+                return node
+        return None
+
     def gang_plan(self, pod: Pod):
         """Whole-gang fast-lane eligibility. Returns ``(slots, needed)`` —
         the current batch's placement plan ``{node: member_count}`` and the
@@ -459,6 +545,110 @@ class ScheduleOperation:
         self.pending_tracker.note_placed(full_name)
         DEFAULT_LEDGER.note_permit(full_name)
         return True
+
+    def post_bind_gang(self, full_name: str, bound: int) -> None:
+        """One status transition for ``bound`` members bound as a unit
+        (the per-gang form of ``bound`` post_bind calls); a thin wrapper
+        over :meth:`post_bind_gangs`."""
+        self.post_bind_gangs([(full_name, bound)])
+
+    def post_bind_gangs(self, items) -> None:
+        """Flush form of :meth:`post_bind_gang` for gangs bound together
+        (the scheduler's cross-gang commit buffer): ONE lock pass, ONE
+        bulk status patch per namespace, ONE batch invalidation.
+        ``items``: (full_name, bound_count) pairs. Local state commits
+        first and the patch is best-effort: the binds are already durable,
+        and the controller re-derives a missed phase from live member
+        pods (reference controller.go:201-222)."""
+        patches_by_ns: Dict[str, list] = {}
+        completed_any = False
+        with self._lock:
+            for full_name, bound in items:
+                if bound <= 0:
+                    continue
+                pgs = self.status_cache.get(full_name)
+                if pgs is None:
+                    continue
+                pg = pgs.pod_group
+                pgs.binds_committed += bound
+                new_scheduled = max(pg.status.scheduled, pgs.binds_committed)
+                completed = new_scheduled >= pg.spec.min_member
+                new_phase = (
+                    PodGroupPhase.SCHEDULED
+                    if completed
+                    else PodGroupPhase.SCHEDULING
+                )
+                new_start = pg.status.schedule_start_time or time.time()
+                # patch on a scheduled-count advance too, not just a phase
+                # change: two partial flushes both landing in SCHEDULING
+                # must still move the API server's count
+                if self.pg_client is not None and (
+                    new_phase != pg.status.phase
+                    or new_scheduled > pg.status.scheduled
+                ):
+                    patches_by_ns.setdefault(
+                        pg.metadata.namespace, []
+                    ).append(
+                        (
+                            pg.metadata.name,
+                            {
+                                "status": {
+                                    "phase": new_phase.value,
+                                    "scheduled": new_scheduled,
+                                    "schedule_start_time": new_start,
+                                }
+                            },
+                        )
+                    )
+                pg.status.phase = new_phase
+                pg.status.schedule_start_time = new_start
+                pg.status.scheduled = new_scheduled
+                pgs.placement_plan = None
+                completed_any = completed_any or completed
+        for ns, patches in patches_by_ns.items():
+            try:
+                self.pg_client.podgroups(ns).patch_many(patches)
+            except Exception:  # noqa: BLE001 — the controller reconciles
+                pass
+        # every touched gang's progress row moved: name them all for the
+        # next event fold, then invalidate once per flush (not per gang)
+        # when any gang completed
+        touched = [full_name for full_name, bound in items if bound > 0]
+        for full_name in touched:
+            self._gang_event(full_name)
+        if completed_any:
+            self.mark_dirty(group=touched[0] if touched else None)
+
+    def on_assume(
+        self, pod: Pod, node_name: str, from_plan: bool = False
+    ) -> None:
+        """Called after the framework assumes a pod onto a node. A gang
+        member SEATED THROUGH the plan (``from_plan``) whose plan the
+        CURRENT batch stamped is exactly the capacity charge that batch
+        already accounted: credit the version bump instead of
+        invalidating. Everything else (non-gang pods, planless gangs, scan
+        fallbacks, a superseded batch's plan) dirties the batch."""
+        pg_name, ok = pod_group_name(pod)
+        full_name = f"{pod.metadata.namespace}/{pg_name}" if ok else None
+        if (
+            self.scorer_kind == "oracle"
+            and self.oracle is not None
+            and from_plan
+            and ok
+        ):
+            pgs = self.status_cache.get(full_name)
+            if (
+                pgs is not None
+                and pgs.placement_plan is not None
+                and node_name in pgs.placement_plan
+                and pgs.plan_batch_seq == self.oracle.batches_run
+            ):
+                self.oracle.credit_expected_change(1)
+                return
+        # the node-row change itself is evented by the cluster mutator
+        # (ClusterState.assume); a known gang name keeps the invalidation
+        # attributed, so the next refresh can still fold
+        self.mark_dirty(group=full_name)
 
     # ------------------------------------------------------------------
     # Filter (reference core.go:170-191,514-564)
@@ -576,11 +766,11 @@ class ScheduleOperation:
         eviction: its members were deleted (and are recreated Pending), so
         the gang re-enters the queue as a fresh unit — phase back to
         PENDING, scheduled count zeroed, plan dropped — and its demand row
-        is marked dirty. The pending tracker's ``note_evicted`` re-arms the
-        gang's pending clock at its ORIGINAL first denial, so pending age
-        includes the preemption churn. Left out until it is ported: the
-        reference's best-effort status patch through the PodGroup client
-        (ROADMAP Queue 1 item 12)."""
+        is marked dirty. The status patch through ``pg_client`` is
+        best-effort (the controller re-derives the phase from live member
+        pods). The pending tracker's ``note_evicted`` re-arms the gang's
+        pending clock at its ORIGINAL first denial, so pending age
+        includes the preemption churn."""
         with self._lock:
             pgs = self.status_cache.get(full_name)
             if pgs is None:
@@ -594,6 +784,21 @@ class ScheduleOperation:
             pgs.placement_plan = None
             for uid in list(pgs.matched_pod_nodes.items()):
                 pgs.matched_pod_nodes.delete(uid)
+            ns, name = pg.metadata.namespace, pg.metadata.name
+        if self.pg_client is not None:
+            try:
+                self.pg_client.podgroups(ns).patch(
+                    name,
+                    {
+                        "status": {
+                            "phase": PodGroupPhase.PENDING.value,
+                            "scheduled": 0,
+                            "schedule_start_time": None,
+                        }
+                    },
+                )
+            except Exception:  # noqa: BLE001 — the controller reconciles
+                pass
         self.pending_tracker.note_evicted(full_name)
         # the member deletions rode the evented cluster mutators; the
         # gang-row reset above is the only out-of-band change: name it
@@ -730,8 +935,7 @@ class ScheduleOperation:
             pg.status.phase = PodGroupPhase.PRE_SCHEDULING
 
         pod_key = f"{pod.metadata.namespace}/{pod.metadata.name}"
-        # no scheduler-wide wait flag: spec.max_schedule_time, else the default
-        wait = get_wait_seconds(pg, None)
+        wait = get_wait_seconds(pg, self.max_schedule_seconds)
         pgs.matched_pod_nodes.set(
             pod.metadata.uid, PodNodePair(pod_key, node_name), wait
         )
@@ -782,8 +986,30 @@ class ScheduleOperation:
                 new_phase = PodGroupPhase.SCHEDULING
                 new_start = pg.status.schedule_start_time or time.time()
 
-            pg.status.phase = new_phase
-            pg.status.schedule_start_time = new_start
+            if new_phase != pg.status.phase and self.pg_client is not None:
+                # once per phase transition (at most 2 a gang): a targeted
+                # status merge patch of exactly the fields this transition
+                # owns; a failed patch leaves local state unadvanced, so
+                # the next bind retries the transition
+                try:
+                    updated = self.pg_client.podgroups(
+                        pg.metadata.namespace
+                    ).patch(
+                        pg.metadata.name,
+                        {
+                            "status": {
+                                "phase": new_phase.value,
+                                "scheduled": new_scheduled,
+                                "schedule_start_time": new_start,
+                            }
+                        },
+                    )
+                    pg.status.phase = updated.status.phase
+                except Exception:  # noqa: BLE001
+                    return
+            else:
+                pg.status.phase = new_phase
+                pg.status.schedule_start_time = new_start
             pg.status.scheduled = new_scheduled
             completed = new_scheduled >= pg.spec.min_member
         # Plan-covered member binds are pre-accounted; re-batch once per
@@ -834,6 +1060,61 @@ class ScheduleOperation:
             return True
         return prio1 == prio2 and c1 == c2 and name1 == name2 and ts1 < ts2
 
+    # After a group's cache entry dies, its name is TOMBSTONED for this
+    # long: sort_key keeps answering from the (possibly lagging) lister
+    # but does NOT re-cache, so a recreated group cannot get pinned to its
+    # predecessor's creation timestamp read off a stale informer doc.
+    CREATION_TOMBSTONE_S = 5.0
+
+    def _forget_creation(self, full_name: str) -> None:
+        """The status cache dropped the gang: its creation stamp leaves
+        the sort-key cache (tombstoned), it is no longer pending (its age
+        never resolves into the placement histogram) and its lifecycle
+        ends with a delete event."""
+        ns, _, name = full_name.partition("/")
+        self._creation_cache.pop((ns, name), None)
+        self._creation_tombstones[(ns, name)] = (
+            self._clock() + self.CREATION_TOMBSTONE_S
+        )
+        self.pending_tracker.forget(full_name)
+        DEFAULT_LEDGER.note_delete(full_name)
+
+    def sort_key(self, info) -> tuple:
+        """Total-order queue key equivalent to :meth:`compare` (reference
+        Compare, core.go:368-411): priority desc → non-gang before gang →
+        group creation asc → group name REVERSE-lex → queue timestamp asc.
+        Computed once per push from the entry's scalar fields.
+
+        One documented deviation: a gang pod whose PodGroup the lister has
+        not yet observed gets creation=+inf (sorts after known gangs of
+        equal priority); the comparator form answers "incomparable" there.
+        Both resolve the same way once the group is observed — such pods
+        fail PreFilter with PodGroupNotFound until then."""
+        if not info.gang:
+            return (-info.priority, 0, 0.0, _RevStr(""), info.timestamp)
+        cache_key = (info.namespace, info.gang)
+        created = self._creation_cache.get(cache_key)
+        if created is None:
+            created = float("inf")
+            if self.pg_lister is not None:
+                pg = self.pg_lister(info.namespace, info.gang)
+                if pg is not None:
+                    created = pg.metadata.creation_timestamp
+            tomb = self._creation_tombstones.get(cache_key)
+            if tomb is not None and self._clock() < tomb:
+                pass  # recently deleted: the lister may still be stale
+            elif created != float("inf"):
+                if tomb is not None:
+                    del self._creation_tombstones[cache_key]
+                self._creation_cache[cache_key] = created
+        return (
+            -info.priority,
+            1,
+            created,
+            _RevStr(info.gang),
+            info.timestamp,
+        )
+
     # ------------------------------------------------------------------
     # helpers
     # ------------------------------------------------------------------
@@ -844,12 +1125,13 @@ class ScheduleOperation:
         # gang's pending window and its deny streak; placement resolves it
         self.pending_tracker.note_deny(full_name)
 
-    def _forget_gang(self, full_name: str) -> None:
-        """The status cache dropped the gang: it is no longer pending (its
-        age never resolves into the placement histogram) and its
-        lifecycle ends with a delete event."""
-        self.pending_tracker.forget(full_name)
-        DEFAULT_LEDGER.note_delete(full_name)
+    def get_pod_node_pairs(self, full_name: str) -> Optional[TTLCache]:
+        pgs = self.status_cache.get(full_name)
+        return pgs.matched_pod_nodes if pgs is not None else None
+
+    def get_pod_name_uids(self, full_name: str) -> Optional[TTLCache]:
+        pgs = self.status_cache.get(full_name)
+        return pgs.pod_name_uids if pgs is not None else None
 
     def _fill_occupied(self, pgs: PodGroupMatchStatus, pod: Pod) -> None:
         """Owner-reference fencing: a PodGroup belongs to the first workload

@@ -16,8 +16,13 @@ the device (``ops.device_state``), which scatters the churned rows and
 derives the fit row and queue order there, and the batch runs from those
 resident tensors.
 
-The port of ``batch_scheduler_tpu/core/oracle_scorer.py``'s blocking
-in-process path: generation-based dirty tracking, cluster-version credits,
+The port of ``batch_scheduler_tpu/core/oracle_scorer.py``: the blocking
+in-process path and the three ways the scheduler keeps a batch off its
+cycle's critical path (``min_batch_interval`` coalescing, the background
+refresh thread and dispatch-ahead, whose speculative batch is enqueued
+with ``ops.oracle.dispatch_batch`` and collected when it is consumed),
+all on the scorer's own stream; generation-based dirty tracking,
+cluster-version credits,
 the event-fold refresh, device-resident state, the query API, the
 remote scorer's seams (a batch's [G,N] rows may come from a row-fetcher
 callable, the ``degraded`` flag of a conservative fallback batch, and
@@ -44,6 +49,7 @@ answers.
 
 from __future__ import annotations
 
+import sys
 import threading
 import time
 import weakref
@@ -58,7 +64,12 @@ from ..ops.convert import device_stream, resolve_device
 from ..ops.device_state import DeviceStateHolder
 from ..ops.events import EventLog
 from ..ops.bucketing import topk_bucket, wave_width_bucket
-from ..ops.oracle import execute_batch_host, forced_scan_rung
+from ..ops.oracle import (
+    collect_batch,
+    dispatch_batch,
+    execute_batch_host,
+    forced_scan_rung,
+)
 from ..ops.snapshot import (
     ClusterSnapshot,
     DeltaSnapshotPacker,
@@ -93,18 +104,25 @@ __all__ = [
 def read_cluster_inputs(cluster, status_cache: PGStatusCache):
     """ONE consistent read of the oracle's cluster inputs: (nodes,
     node_requested, demands) — the projection every snapshot pack
-    consumes."""
+    consumes. A provider with ``nodes_requested`` (``ClusterState``)
+    answers every node's requested resources in one lock pass."""
     statuses = status_cache.snapshot()
     demands: List[GroupDemand] = [
         demand_from_status(name, pgs)
         for name, pgs in sorted(statuses.items())
     ]
     nodes = cluster.list_nodes()
-    node_req = {
-        n.metadata.name: cluster.node_requested(n.metadata.name)
-        for n in nodes
-    }
-    return nodes, node_req, demands
+    names = [n.metadata.name for n in nodes]
+    return nodes, _nodes_requested(cluster, names), demands
+
+
+def _nodes_requested(cluster, names) -> Dict[str, Dict[str, int]]:
+    """``cluster.node_requested`` of each name, in one call where the
+    provider offers the batch form."""
+    many = getattr(cluster, "nodes_requested", None)
+    if callable(many):
+        return many(names)
+    return {name: cluster.node_requested(name) for name in names}
 
 
 def conservative_cpu_batch(snap: ClusterSnapshot):
@@ -459,8 +477,25 @@ class OracleScorer:
 
     ``device=None`` keeps no local device, stream or resident state: the
     batch runs elsewhere (``service.client.RemoteScorer``, whose sidecar
-    keeps the resident mirror)."""
+    keeps the resident mirror).
 
+    ``min_batch_interval`` > 0 serves a merely-stale batch (every queried
+    gang known) until the interval since the last publication elapses;
+    ``background_refresh`` re-batches such a batch on a daemon thread
+    while callers keep reading the old answers; ``dispatch_ahead`` packs
+    and enqueues the NEXT batch on a daemon thread after each publication
+    (``dispatch_batch`` returns before the blob lands), and a later
+    ``ensure_fresh`` publishes it iff nothing changed since it was packed
+    (else it is collected and discarded). Every one of them runs its
+    device work on ``stream`` under the refresh lock, so the holder's
+    in-place scatters never overtake a batch that reads the resident
+    tensors. ``drain_background`` waits them out (and collects a banked
+    speculative batch): call it before teardown."""
+
+    supports_background_refresh = True
+    # in-process batches dispatch ahead freely; RemoteScorer narrows both
+    # to transports with a second lane
+    supports_dispatch_ahead = True
     # True while the served batch came from a degraded (conservative
     # fallback) path: RemoteScorer flips it, the in-process scorer never
     # degrades. ScheduleOperation reads it to relax the deny-by-default
@@ -468,7 +503,10 @@ class OracleScorer:
     degraded = False
 
     def __init__(self, device="cuda", audit_log=None,
-                 identity_audit_every: int = 0, policy_engine=None):
+                 identity_audit_every: int = 0, policy_engine=None,
+                 min_batch_interval: float = 0.0,
+                 background_refresh: bool = False,
+                 dispatch_ahead: bool = False):
         self.device = None if device is None else resolve_device(device)
         self.stream = None if device is None else device_stream(self.device)
         # Dirty tracking is a GENERATION pair: refresh() records the
@@ -480,6 +518,34 @@ class OracleScorer:
         self._refresh_lock = threading.Lock()
         self._cluster_version = None
         self.batches_run = 0
+        # Background refresh: a stale-but-servable batch (every queried
+        # gang known) re-batches on a daemon thread while callers keep
+        # reading the old answers. A missing gang or a failed background
+        # batch still takes the BLOCKING path, so errors surface in a
+        # cycle.
+        self.background_refresh = background_refresh
+        self._bg_thread: Optional[threading.Thread] = None  # guarded-by: _bg_lock
+        self._bg_lock = threading.Lock()
+        self._bg_error: Optional[Exception] = None
+        # Re-batch coalescing: a dirty batch whose answers can still be
+        # served is refreshed at most once per interval (denials are
+        # 20 s-sticky through the deny cache anyway).
+        self.min_batch_interval = min_batch_interval
+        self._last_batch_t = 0.0
+        # Dispatch-ahead: the banked speculative batch (snap, finish, gen,
+        # version, pack_s, dispatch_s, resident) travels under the REFRESH
+        # lock (packed and consumed inside it); _spec_lock only
+        # serializes the thread's lifecycle
+        self.dispatch_ahead = dispatch_ahead
+        self._spec_lock = threading.Lock()
+        self._spec_thread: Optional[threading.Thread] = None  # guarded-by: _spec_lock
+        self._spec: Optional[tuple] = None  # guarded-by: _refresh_lock
+        self._spec_error: Optional[Exception] = None
+        self.spec_served = 0
+        self.spec_discarded = 0
+        # speculative batches enqueued (each one launch of the scan): the
+        # served, the discarded and one a drain collected unconsumed
+        self.spec_dispatched = 0
         # Plan-covered cluster changes (member assumes/binds the current
         # batch already charged via its gang placement) are credited rather
         # than invalidating the batch.
@@ -633,7 +699,17 @@ class OracleScorer:
                 groups=len(snap.group_names), nodes=len(snap.node_names),
             ):
                 host, rows = self._execute(snap)
-            t2 = time.perf_counter()
+            batch_s = time.perf_counter() - t1
+        self._publish(snap, host, rows, dirty_gen, version_base, pack_s,
+                      batch_s, resident)
+
+    def _publish(self, snap, host, rows, dirty_gen, version_base,
+                 pack_s: float, batch_s: float, resident,
+                 speculative: bool = False) -> None:
+        """Install one executed batch as the served state: the blocking
+        refresh's and the dispatch-ahead consume path's shared tail.
+        ``resident`` is the holder's tensors the batch read (the capacity
+        sample reads them before the next pack's scatter)."""
         # markers a remote batch rides on its host dict, consumed at
         # publication so the served result never carries them: whether
         # this is a conservative fallback batch, and the audit id it
@@ -654,7 +730,7 @@ class OracleScorer:
         # credits offset the OLD batch's staleness check and die with it
         with self._credits_lock:
             self._version_credits = 0
-        batch_s = t2 - t1
+        self._last_batch_t = time.monotonic()
         # flight-recorder batch record: the evidence later gang decisions
         # rest on, host values only. The telemetry dict is NESTED, never
         # splatted: on the remote path it arrives verbatim from the peer's
@@ -685,7 +761,7 @@ class OracleScorer:
             groups=len(snap.group_names),
             nodes=len(snap.node_names),
             degraded=bool(self.degraded),
-            speculative=False,
+            speculative=speculative,
             audit_id=audit_id,
             telemetry=record_telemetry,
         )
@@ -705,7 +781,7 @@ class OracleScorer:
             audit_id, telemetry if isinstance(telemetry, dict) else None
         )
         if self.audit_log is not None or self._identity is not None:
-            self._audit_publish(snap, host, audit_id)
+            self._audit_publish(snap, host, audit_id, speculative)
         if self._capacity is not None:
             with torch.cuda.stream(self.stream):
                 self._capacity_sample(snap, host, audit_id, resident)
@@ -832,14 +908,18 @@ class OracleScorer:
         elif mut_base is None or self._fold_mut_base != mut_base:
             outcome = "group-churn"
         else:
-            node_updates = [
-                (name, cluster.node_requested(name))
-                for name in sorted(batch.node_names)
-            ]
+            node_updates = list(
+                _nodes_requested(cluster, sorted(batch.node_names)).items()
+            )
             group_updates = []
             unresolved = False
+            # one lock pass for every named gang: the status cache's lock
+            # is taken per event by the controller's workers and the
+            # scheduling thread, and a contended acquisition per gang
+            # hands the interpreter lock away each time
+            statuses = status_cache.snapshot()
             for full_name in sorted(batch.group_names):
-                pgs = status_cache.get(full_name)
+                pgs = statuses.get(full_name)
                 if pgs is None:
                     unresolved = True
                     break
@@ -889,7 +969,7 @@ class OracleScorer:
             self.sync_seconds.append(time.perf_counter() - t0)
             del self.sync_seconds[:-1000]
 
-    def _audit_publish(self, snap, host, audit_id) -> None:
+    def _audit_publish(self, snap, host, audit_id, speculative: bool = False) -> None:
         """Durable evidence for one PUBLISHED batch: the audit record (the
         exact padded host inputs + plan digest, enqueued to the daemon
         writer) and the sampled identity audit, under the batch's audit id
@@ -937,6 +1017,7 @@ class OracleScorer:
                     audit_id=audit_id,
                     trace_id=ctx[0] if ctx else None,
                     telemetry=host.get("telemetry") or {},
+                    speculative=speculative,
                     degraded=bool(self.degraded),
                     extra=extra,
                     policy=policy,
@@ -949,7 +1030,14 @@ class OracleScorer:
                         if snap.lite_fps is not None else None
                     ),
                 )
-            if self._identity is not None and not self.degraded:
+            # a served speculative batch equals the blocking refresh it
+            # replaces (the consume-time generation check), as in the
+            # reference it is recorded but not identity-audited
+            if (
+                self._identity is not None
+                and not speculative
+                and not self.degraded
+            ):
                 self._identity.note_batch(
                     snap.device_args(), snap.progress_args(), digest, audit_id,
                     self.audit_log, policy=policy,
@@ -1014,13 +1102,7 @@ class OracleScorer:
         policy batch its resident node policy columns too); the snapshot
         then drops them (the next scatter rewrites them in place), keeping
         only its host arrays."""
-        batch_args = snap.device_state_args
-        snap.device_state_args = None
-        policy = snap.policy_payload()
-        if policy is not None:
-            self.policy_engine.note_batch()
-            policy = (snap.device_state_policy_cols, policy[1], policy[2])
-            snap.device_state_policy_cols = None
+        batch_args, policy = self._batch_inputs(snap)
         # the batch's dominant tenant labels the scan counter
         # (ops.oracle.collect_batch), cleared so a reused thread never
         # inherits it
@@ -1031,6 +1113,39 @@ class OracleScorer:
             )
         finally:
             tenancy.set_batch_tenant(None)
+
+    def _batch_inputs(self, snap: ClusterSnapshot):
+        """The resident tensors and policy payload one batch reads, taken
+        off the snapshot (which keeps only its host arrays)."""
+        batch_args = snap.device_state_args
+        snap.device_state_args = None
+        policy = snap.policy_payload()
+        if policy is not None:
+            self.policy_engine.note_batch()
+            policy = (snap.device_state_policy_cols, policy[1], policy[2])
+            snap.device_state_policy_cols = None
+        return batch_args, policy
+
+    def _dispatch_ahead(self, snap: ClusterSnapshot):
+        """Enqueue one batch WITHOUT waiting for it (``dispatch_batch``, on
+        the caller's current stream: the scorer's) and return the
+        zero-argument ``finish`` that collects it into ``_execute``'s
+        ``(host, rows)``. A subclass whose batch runs elsewhere
+        (RemoteScorer) runs it here and returns its result."""
+        batch_args, policy = self._batch_inputs(snap)
+        pending = dispatch_batch(
+            batch_args, snap.progress_args(), device=self.device, policy=policy
+        )
+        tenant = self.dominant_tenant(snap)
+
+        def finish():
+            tenancy.set_batch_tenant(tenant)
+            try:
+                return collect_batch(pending)
+            finally:
+                tenancy.set_batch_tenant(None)
+
+        return finish
 
     def stats(self) -> dict:
         """Refresh-path counters: fold outcomes, the packer's pack counts
@@ -1051,6 +1166,10 @@ class OracleScorer:
         log = self._event_log
         if log is not None:
             out["event_log"] = log.stats()
+        if self.dispatch_ahead or self.spec_dispatched:
+            out["spec_served"] = self.spec_served
+            out["spec_discarded"] = self.spec_discarded
+            out["spec_dispatched"] = self.spec_dispatched
         audit = {"publish_errors": self.audit_errors}
         if self.audit_log is not None:
             audit.update(self.audit_log.stats())
@@ -1096,12 +1215,187 @@ class OracleScorer:
         self, cluster, status_cache: PGStatusCache, group: Optional[str] = None
     ) -> None:
         """Re-batch if dirty, the cluster changed, or ``group`` (a group the
-        caller is about to query) is missing from the cached snapshot."""
-        if not self._stale(cluster) and not self._group_missing(group):
-            return
+        caller is about to query) is missing from the cached snapshot —
+        newly created PodGroups must not be denied off a stale batch.
+
+        With ``min_batch_interval`` > 0, a merely-stale batch (the queried
+        group is known) is served as-is until the interval elapses; with
+        ``background_refresh`` it is re-batched on a daemon thread instead
+        of on the caller's; with ``dispatch_ahead`` a blocking re-batch
+        first tries the banked speculative batch."""
+        if not self._stale(cluster):
+            if not self._group_missing(group):
+                return
+        elif not self._group_missing(group) and self._state is not None:
+            if (
+                self.min_batch_interval > 0
+                and time.monotonic() - self._last_batch_t < self.min_batch_interval
+            ):
+                return
+            if self.background_refresh and self._bg_error is None:
+                self._kick_background_refresh(cluster, status_cache)
+                return
+        published = False
         with self._refresh_lock:
             if self._stale(cluster) or self._group_missing(group):
-                self.refresh(cluster, status_cache)
+                if self._consume_speculative(cluster, group):
+                    published = True
+                else:
+                    # a background or speculative failure is consumed
+                    # here: this blocking refresh either succeeds
+                    # (recovery) or raises into the caller's cycle
+                    self._bg_error = None
+                    self._spec_error = None
+                    self.refresh(cluster, status_cache)
+                    published = True
+        if published and self.dispatch_ahead:
+            self._kick_speculative(cluster, status_cache)
+
+    def drain_background(self, timeout: float = 60.0) -> bool:
+        """Wait out any in-flight background or speculative batch, then
+        collect (and drop) a banked speculative batch, so no batch stays
+        dispatched and uncollected (``ops.oracle.inflight_batches``) and
+        no daemon thread dies inside a CUDA call at teardown. The flag
+        flips and the thread reads share the kick paths' locks, so no new
+        thread starts after this returns. Returns True when nothing is
+        left in flight."""
+        with self._bg_lock:
+            self.background_refresh = False  # no new kicks after the drain
+            t = self._bg_thread
+        with self._spec_lock:
+            self.dispatch_ahead = False
+            spec_t = self._spec_thread
+        ok = True
+        for name, th in (("background", t), ("dispatch-ahead", spec_t)):
+            if th is not None and th.is_alive():
+                th.join(timeout)
+                if th.is_alive():
+                    print(
+                        f"drain_background: {name} batch still in flight "
+                        f"after {timeout}s",
+                        file=sys.stderr,
+                    )
+                    ok = False
+        if ok:
+            with self._refresh_lock:
+                spec, self._spec = self._spec, None
+            if spec is not None:
+                with torch.cuda.stream(self.stream):
+                    spec[1]()
+        if self._identity is not None:
+            ok = self._identity.drain(timeout) and ok
+        return ok
+
+    # -- dispatch-ahead ---------------------------------------------------
+
+    def _consume_speculative(self, cluster, group: Optional[str]) -> bool:  # lock-held: _refresh_lock
+        """Publish the banked speculative batch iff NOTHING changed since
+        it was packed — the generation and the raw cluster version, with
+        no credit forgiveness (a credited bump is an assume the
+        speculative snapshot may predate). Either way the batch is
+        collected (its blob waited for), so nothing stays in flight.
+        Returns True when the batch was published."""
+        spec = self._spec
+        if spec is None:
+            return False
+        self._spec = None  # consumed either way
+        snap, finish, gen, version, pack_s, dispatch_s, resident = spec
+        t0 = time.perf_counter()
+        with torch.cuda.stream(self.stream):
+            host, rows = finish()
+        batch_s = dispatch_s + time.perf_counter() - t0
+        version_fn = getattr(cluster, "version", None)
+        current_version = version_fn() if callable(version_fn) else None
+        spec_counter = DEFAULT_REGISTRY.counter(
+            "bst_oracle_spec_batches_total",
+            "Dispatch-ahead speculative batches by outcome (served = "
+            "published without a blocking device round-trip; discarded = "
+            "invalidated by a mid-flight cluster change)",
+        )
+        if (
+            gen != self._dirty_gen
+            or current_version != version
+            or (group is not None and snap.group_index(group) is None)
+        ):
+            self.spec_discarded += 1
+            spec_counter.inc(outcome="discarded")
+            return False
+        self._publish(snap, host, rows, gen, version, pack_s, batch_s,
+                      resident, speculative=True)
+        self.spec_served += 1
+        spec_counter.inc(outcome="served")
+        return True
+
+    def _kick_speculative(self, cluster, status_cache: PGStatusCache) -> None:
+        """Pack and enqueue the NEXT batch on a daemon thread so a later
+        ensure_fresh can publish it without a blocking round trip. At most
+        one in flight; a failure parks the mode until the next successful
+        blocking refresh."""
+        with self._spec_lock:
+            if not self.dispatch_ahead or self._spec_error is not None:
+                return
+            if self._spec_thread is not None and self._spec_thread.is_alive():
+                return
+
+            def _run() -> None:
+                try:
+                    with self._refresh_lock:
+                        if self._spec is not None:
+                            return  # an unconsumed batch is already banked
+                        with torch.cuda.stream(self.stream):
+                            snap, gen, version, pack_s = self._pack_current(
+                                cluster, status_cache
+                            )
+                            # invalidated while packing: consume would
+                            # discard it anyway, so skip the batch
+                            version_fn = getattr(cluster, "version", None)
+                            if gen != self._dirty_gen or (
+                                callable(version_fn) and version_fn() != version
+                            ):
+                                return
+                            resident = getattr(snap, "device_state_args", None)
+                            t1 = time.perf_counter()
+                            with trace_mod.span(
+                                "oracle.spec_batch", cat="oracle",
+                                groups=len(snap.group_names),
+                                nodes=len(snap.node_names),
+                            ):
+                                finish = self._dispatch_ahead(snap)
+                            self._spec = (
+                                snap, finish, gen, version, pack_s,
+                                time.perf_counter() - t1, resident,
+                            )
+                            self.spec_dispatched += 1
+                except Exception as e:  # noqa: BLE001 — surfaced via consume
+                    self._spec_error = e
+
+            self._spec_thread = threading.Thread(
+                target=_run, name="oracle-dispatch-ahead", daemon=True
+            )
+            self._spec_thread.start()
+
+    def _kick_background_refresh(self, cluster, status_cache: PGStatusCache) -> None:
+        with self._bg_lock:
+            # recheck under the lock: ensure_fresh's unlocked read can race
+            # a concurrent drain_background, and spawning after the drain
+            # would start a batch the drain no longer waits for
+            if not self.background_refresh:
+                return
+            if self._bg_thread is not None and self._bg_thread.is_alive():
+                return
+
+            def _run() -> None:
+                try:
+                    with self._refresh_lock:
+                        if self._stale(cluster):
+                            self.refresh(cluster, status_cache)
+                except Exception as e:  # noqa: BLE001 — surfaced via _bg_error
+                    self._bg_error = e
+
+            self._bg_thread = threading.Thread(
+                target=_run, name="oracle-refresh", daemon=True
+            )
+            self._bg_thread.start()
 
     # -- query API (host-side, post-batch) ---------------------------------
 

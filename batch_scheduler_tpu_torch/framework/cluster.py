@@ -9,9 +9,12 @@ have not committed — so successive scheduling cycles see reserved capacity.
 The port of ``batch_scheduler_tpu/framework/cluster.py``: the typed pod and
 node mutators with the version counter and the event hooks
 (``subscribe_events``) that make the scorer's O(churn) event fold
-reachable, and ``pods_on`` (the preemption planner's victim candidates).
-Implements core.ClusterStateProvider, so the oracle snapshot packs
-straight from here.
+reachable; the scheduler's batch forms (``assume_many``,
+``finish_binding_many``) and the informers' raw-dict forms
+(``observe_pod_raw``, ``remove_pod_raw``), which emit into the event log
+exactly what the reference's do; and ``pods_on`` (the preemption
+planner's victim candidates). Implements core.ClusterStateProvider, so
+both the serial scorer and the oracle snapshot pack straight from here.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ class ClusterState:
         # pod uid -> node, for pods assumed but not yet observed bound
         self._assumed: Dict[str, str] = {}  # guarded-by: _lock
         self._pod_nodes: Dict[str, str] = {}  # guarded-by: _lock
-        # pod uid -> Pod object, for the preemption planner's victim search
+        # pod uid -> Pod object, for victim search in the preemption cycle
         self._pod_objs: Dict[str, Pod] = {}  # guarded-by: _lock
         # bumped on every capacity-relevant change; the oracle scorer uses it
         # to invalidate its batch without explicit mark_dirty plumbing
@@ -125,6 +128,29 @@ class ClusterState:
             )
             self._emit("node-requested", touched)
 
+    def assume_many(self, pairs) -> None:
+        """Batch form of :meth:`assume` — one lock pass for a whole gang's
+        seat assignment (per-member acquisitions contend with the watch
+        handlers ~quorum times per gang). ``pairs``: (pod, node_name)."""
+        with self._lock:
+            for pod, node_name in pairs:
+                uid = pod.metadata.uid
+                prev = self._pod_nodes.get(uid)
+                if prev is not None and prev != node_name:
+                    self._requested.get(prev, {}).pop(uid, None)
+                self._requested.setdefault(node_name, {})[uid] = self._require(
+                    pod
+                )
+                self._assumed[uid] = node_name
+                self._pod_nodes[uid] = node_name
+                self._pod_objs[uid] = pod
+                touched = (
+                    (node_name,) if prev in (None, node_name)
+                    else (node_name, prev)
+                )
+                self._emit("node-requested", touched)
+            self._version += len(pairs)
+
     def forget(self, pod_uid: str) -> None:
         """Drop an assumed pod whose permit/bind failed."""
         with self._lock:
@@ -140,6 +166,11 @@ class ClusterState:
     def finish_binding(self, pod_uid: str) -> None:
         with self._lock:
             self._assumed.pop(pod_uid, None)
+
+    def finish_binding_many(self, pod_uids) -> None:
+        with self._lock:
+            for uid in pod_uids:
+                self._assumed.pop(uid, None)
 
     def observe_pod(self, pod: Pod) -> None:
         """Apply an informer event for a pod: bound pods charge their node,
@@ -182,8 +213,45 @@ class ClusterState:
                 )
                 self._emit("node-requested", touched)
 
+    def observe_pod_raw(self, d: dict) -> None:
+        """Raw-dict fast path for pod watch events (the informer's ``raw``
+        handler form): terminal phases release by uid, and a pod already
+        charged to the same node is a no-op WITHOUT parsing its resource
+        quantities — k8s pod requests are immutable, so same (uid, node)
+        implies same charge. Only a placement this state has never charged
+        (an external/bound-elsewhere pod) pays typed rehydration and
+        delegates to :meth:`observe_pod`."""
+        spec = d.get("spec") or {}
+        node = spec.get("node_name")
+        if not node:
+            return
+        meta = d.get("metadata") or {}
+        uid = meta.get("uid", "")
+        phase = (d.get("status") or {}).get("phase") or "Pending"
+        with self._lock:
+            if phase in ("Succeeded", "Failed"):
+                charged = self._requested.get(node, {}).pop(uid, None)
+                known = self._pod_nodes.pop(uid, None)
+                self._assumed.pop(uid, None)
+                self._pod_objs.pop(uid, None)
+                if charged is not None or known is not None:
+                    self._version += 1
+                    self._emit("node-requested", (node,))
+                return
+            if self._pod_nodes.get(uid) == node:
+                self._assumed.pop(uid, None)  # bind commit observed
+                return
+        from ..api.serde import pod_from_dict
+
+        # no defensive deepcopy: pod_from_dict copies every nested
+        # container it keeps (same contract PodInfo.pod relies on)
+        self.observe_pod(pod_from_dict(d))
+
     def remove_pod(self, pod: Pod) -> None:
         self._remove_uid(pod.metadata.uid)
+
+    def remove_pod_raw(self, d: dict) -> None:
+        self._remove_uid(((d.get("metadata") or {}).get("uid", "")))
 
     def _remove_uid(self, uid: str) -> None:
         with self._lock:
@@ -209,16 +277,43 @@ class ClusterState:
                     total[k] = total.get(k, 0) + v
             return total
 
+    def nodes_requested(self, names=None) -> Dict[str, Dict[str, int]]:
+        """``node_requested`` of every node (or of ``names``) in ONE lock
+        pass: the scorer's pack reads thousands of nodes while the
+        informers, the scheduling thread and the bind workers take this
+        lock per event, and a contended acquisition per node hands the
+        interpreter lock away each time (a port-only batch form; the
+        values are ``node_requested``'s)."""
+        with self._lock:
+            if names is None:
+                names = list(self._nodes)
+            out: Dict[str, Dict[str, int]] = {}
+            for name in names:
+                total: Dict[str, int] = {}
+                for req in self._requested.get(name, {}).values():
+                    for k, v in req.items():
+                        total[k] = total.get(k, 0) + v
+                out[name] = total
+            return out
+
     def get_node(self, name: str) -> Optional[Node]:
         with self._lock:
             return self._nodes.get(name)
 
+    def pod_count(self, node_name: str) -> int:
+        with self._lock:
+            return len(self._requested.get(node_name, {}))
+
     def pods_on(self, node_name: str) -> List[Pod]:
-        """Pods currently charged to a node (bound or assumed): the victim
-        candidate set of the preemption planner."""
+        """Pods currently charged to a node (bound or assumed) — the victim
+        candidate set for the preemption cycle."""
         with self._lock:
             return [
                 self._pod_objs[uid]
                 for uid in self._requested.get(node_name, {})
                 if uid in self._pod_objs
             ]
+
+    def is_assumed(self, pod_uid: str) -> bool:
+        with self._lock:
+            return pod_uid in self._assumed

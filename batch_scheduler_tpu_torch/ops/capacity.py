@@ -68,6 +68,7 @@ __all__ = [
     "set_active_sampler",
     "active_sampler",
     "annotate_summary",
+    "format_capacity_verdict",
     "capacity_debug_view",
     "TIERS",
 ]
@@ -419,6 +420,40 @@ def annotate_summary(
     stranded["top_lane_name"] = lname(stranded["top_lane"])
     out["stranded"] = stranded
     return out
+
+
+def format_capacity_verdict(
+    summary: dict, lane_names: Optional[List[str]] = None
+) -> str:
+    """The one-line verdict form of a capacity summary (``capacity: frag
+    ..., largest placeable ..., busiest lane ...``), as the reference's
+    sim prints it beside its ``slo health:`` line."""
+    view = annotate_summary(summary, lane_names)
+    util = {
+        lane["name"]: lane["utilization"] for lane in view["lanes"]
+        if lane["alloc"] > 0
+    }
+    busiest = max(util.items(), key=lambda kv: kv[1], default=("-", 0.0))
+    pend = summary["pending"]
+    parts = [
+        f"frag {summary['fragmentation_index']:.2f}",
+        f"largest placeable {summary['largest_placeable_gang']}",
+        f"busiest lane {busiest[0]} {busiest[1] * 100:.0f}%",
+    ]
+    if summary["stranded"]["nodes"]:
+        parts.append(
+            f"stranded {summary['stranded']['nodes']} nodes "
+            f"(top {view['stranded']['top_lane_name']})"
+        )
+    if summary["top_tenant"]:
+        parts.append(
+            f"top tenant {summary['top_tenant']} "
+            f"{summary['top_tenant_share'] * 100:.0f}%"
+        )
+    if pend["unplaceable_gangs"]:
+        parts.append(f"UNPLACEABLE {pend['unplaceable_gangs']} gangs")
+    return "capacity: " + ", ".join(parts)
+
 
 
 # ---------------------------------------------------------------------------

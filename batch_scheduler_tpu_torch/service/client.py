@@ -1074,6 +1074,11 @@ class RemoteScorer(OracleScorer):
             self._clients = [client]
         self._next = 0
         self.fallback = fallback
+        # background refresh and dispatch-ahead need the second lane: on
+        # one connection the off-cycle batch's round trip would hold the
+        # connection the cycle's row reads need
+        self.supports_background_refresh = len(self._clients) > 1
+        self.supports_dispatch_ahead = len(self._clients) > 1
         # wire tenant identity (docs/multitenancy.md): an explicit label
         # (multi-client sims, fleet deployments with a configured tenant)
         # wins; otherwise each batch announces its snapshot's dominant
@@ -1273,6 +1278,12 @@ class RemoteScorer(OracleScorer):
             return client.schedule(
                 req, audit_id=audit_id, policy_fp=policy_fp, tenant=tenant
             )
+
+    def _dispatch_ahead(self, snap: ClusterSnapshot):
+        """The speculative batch runs on the sidecar like any other (the
+        round trip happens here, on the dispatch-ahead thread)."""
+        result = self._execute(snap)
+        return lambda: result
 
     def _execute(self, snap: ClusterSnapshot):
         # fit_mask may be the [1,N] broadcast fast path; the wire carries

@@ -1,3 +1,21 @@
-from .scenarios import make_member_pods, make_sim_group, make_sim_node, race_scenario
+from .harness import SimCluster
+from .kubelet import SimKubelet
+from .scenarios import (
+    SyntheticSpec,
+    make_member_pods,
+    make_sim_group,
+    make_sim_node,
+    race_scenario,
+    synthetic_cluster,
+)
 
-__all__ = ["make_member_pods", "make_sim_group", "make_sim_node", "race_scenario"]
+__all__ = [
+    "SimCluster",
+    "SimKubelet",
+    "SyntheticSpec",
+    "make_member_pods",
+    "make_sim_group",
+    "make_sim_node",
+    "race_scenario",
+    "synthetic_cluster",
+]

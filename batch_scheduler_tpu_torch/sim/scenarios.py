@@ -11,8 +11,9 @@ schedules).
 
 from __future__ import annotations
 
+import random
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 from ..api.quantity import parse_resource_list
@@ -30,9 +31,20 @@ from ..api.types import (
 )
 from ..utils.labels import POD_GROUP_LABEL
 
-__all__ = ["make_sim_node", "make_sim_group", "make_member_pods", "race_scenario",
-           "spot_vs_guaranteed_scenario", "XLClusterSpec", "xl_scan_operands",
-           "xl_churn_burst"]
+__all__ = [
+    "make_sim_node",
+    "make_sim_group",
+    "make_member_pods",
+    "race_scenario",
+    "readback_tail_scenarios",
+    "spot_vs_guaranteed_scenario",
+    "synthetic_cluster",
+    "SyntheticSpec",
+    "tenant_oracle_stream",
+    "XLClusterSpec",
+    "xl_scan_operands",
+    "xl_churn_burst",
+]
 
 
 def make_sim_node(
@@ -117,6 +129,44 @@ def race_scenario() -> Tuple[List[Node], List[PodGroup], Dict[str, List[Pod]]]:
         for g in groups
     }
     return [node], groups, pods
+
+
+def readback_tail_scenarios():
+    """Inputs of the compact-readback tail checks: a gang spanning more
+    distinct nodes than the assignment's top-K with remaining near the
+    packed halfword, and a single node whose per-member count exceeds it.
+
+    Returns ((wide_nodes, wide_groups), (big_nodes, big_groups))."""
+    from ..ops.snapshot import GroupDemand
+
+    wide_nodes = [
+        make_sim_node(
+            f"w{i:03d}", {"cpu": "64", "memory": "256Gi", "pods": "200"}
+        )
+        for i in range(512)
+    ]
+    wide_groups = [
+        GroupDemand(
+            full_name="default/wide",
+            min_member=60000,
+            member_request={"cpu": 100},
+            creation_ts=0.0,
+        )
+    ]
+    big_nodes = [
+        make_sim_node(
+            "big", {"cpu": "100000", "memory": "1024Gi", "pods": "70000"}
+        )
+    ]
+    big_groups = [
+        GroupDemand(
+            full_name="default/huge",
+            min_member=66000,
+            member_request={"cpu": 1},
+            creation_ts=0.0,
+        )
+    ]
+    return (wide_nodes, wide_groups), (big_nodes, big_groups)
 
 
 def spot_vs_guaranteed_scenario(
@@ -241,4 +291,96 @@ def xl_churn_burst(spec: XLClusterSpec, left, step: int):
     scale = rng.uniform(0.5, 1.5, size=(int(cohort.sum()), 1))
     out = np.array(left, copy=True)
     out[cohort] = np.clip(out[cohort].astype(np.float64) * scale, 0, 2**30 - 1).astype(np.int32)
+    return out
+
+
+@dataclass
+class SyntheticSpec:
+    num_nodes: int
+    num_groups: int
+    members_per_group: int
+    node_shape: Dict = field(
+        default_factory=lambda: {"cpu": "64", "memory": "256Gi", "pods": "110"}
+    )
+    member_request: Dict = field(default_factory=lambda: {"cpu": "4", "memory": "8Gi"})
+    extended: Optional[Dict] = None  # e.g. {"nvidia.com/gpu": 8} per node
+    member_extended: Optional[Dict] = None  # e.g. {"nvidia.com/gpu": 1}
+    priority_classes: int = 1
+    seed: int = 0
+
+
+def synthetic_cluster(
+    spec: SyntheticSpec,
+) -> Tuple[List[Node], List[PodGroup], Dict[str, List[Pod]]]:
+    """Generator for BASELINE configs 2-5: N nodes, G gangs, mixed
+    priorities, optional extended resources."""
+    rng = random.Random(spec.seed)
+    node_shape = dict(spec.node_shape)
+    if spec.extended:
+        node_shape.update(spec.extended)
+    nodes = [
+        make_sim_node(f"node-{i:05d}", node_shape) for i in range(spec.num_nodes)
+    ]
+    member_request = dict(spec.member_request)
+    if spec.member_extended:
+        member_request.update(spec.member_extended)
+    groups, pods = [], {}
+    base_ts = time.time() - spec.num_groups * 1e-3
+    for g in range(spec.num_groups):
+        name = f"gang-{g:05d}"
+        prio = rng.randrange(spec.priority_classes) if spec.priority_classes > 1 else 0
+        pg = make_sim_group(
+            name, spec.members_per_group, creation_ts=base_ts + g * 1e-3
+        )
+        groups.append(pg)
+        pods[name] = make_member_pods(
+            name, spec.members_per_group, member_request, priority=prio
+        )
+    return nodes, groups, pods
+
+
+def tenant_oracle_stream(tenant: int, batches: int, nodes: int = 256,
+                         gangs: int = 32, lanes: int = 4, seed: int = 0):
+    """Deterministic per-tenant oracle request stream for the multi-client
+    coalescer sim (``sim.harness.drive_multi_client``): ``batches`` ScheduleRequests
+    over one synthetic [nodes, lanes] cluster with light per-batch churn
+    (a few requested rows and gang remainders move each step). Pure
+    numpy — the coalescer acceptance compares plan digests between a
+    coalescing sidecar and dedicated sidecars, so the SAME stream must be
+    replayable against both; everything derives from (tenant, seed, batch
+    index), nothing from wall-clock."""
+    import numpy as np
+
+    from ..service.protocol import ScheduleRequest
+
+    rng = random.Random(seed * 1000003 + tenant)
+    np_rng = np.random.RandomState(seed * 9176 + tenant)
+    alloc = np_rng.randint(8, 96, size=(nodes, lanes)).astype("int32")
+    requested = np_rng.randint(0, 6, size=(nodes, lanes)).astype("int32")
+    group_req = np_rng.randint(1, 5, size=(gangs, lanes)).astype("int32")
+    remaining = np_rng.randint(1, 6, size=gangs).astype("int32")
+    out = []
+    for b in range(batches):
+        # churn: a handful of node rows and one gang's demand move
+        for _ in range(4):
+            row = rng.randrange(nodes)
+            requested[row] = np_rng.randint(0, 6, size=lanes)
+        g = rng.randrange(gangs)
+        remaining[g] = rng.randrange(1, 6)
+        out.append(
+            ScheduleRequest(
+                alloc=alloc.copy(),
+                requested=requested.copy(),
+                group_req=group_req.copy(),
+                remaining=remaining.copy(),
+                fit_mask=np.ones((1, nodes), dtype=bool),
+                group_valid=np.ones(gangs, dtype=bool),
+                order=np.arange(gangs, dtype="int32"),
+                min_member=remaining.copy(),
+                scheduled=np.zeros(gangs, dtype="int32"),
+                matched=np.zeros(gangs, dtype="int32"),
+                ineligible=np.zeros(gangs, dtype=bool),
+                creation_rank=np.arange(gangs, dtype="int32"),
+            )
+        )
     return out

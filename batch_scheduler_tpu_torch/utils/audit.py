@@ -515,6 +515,7 @@ class AuditLog:
         event_fold: Optional[dict] = None,
         refold=None,
         degraded: bool = False,
+        speculative: bool = False,
     ) -> str:
         """Enqueue one batch record; returns its audit ID. Array arguments
         are held BY REFERENCE — callers pass published (immutable)
@@ -532,16 +533,15 @@ class AuditLog:
         records to reconstruct from.
 
         ``degraded`` marks a remote scorer's conservative fallback batch
-        (replay skips it: it has no device plan). The port's batches are
-        never speculative (it has no dispatch-ahead): that key is written
-        False, as the reference writes it for such a batch."""
+        (replay skips it: it has no device plan); ``speculative`` a batch
+        the dispatch-ahead path published."""
         aid = audit_id or new_audit_id()
         item = {
             "kind": "batch",
             "audit_id": aid,
             "ts": time.time(),
             "trace_id": trace_id,
-            "speculative": False,
+            "speculative": bool(speculative),
             "degraded": bool(degraded),
             "telemetry": telemetry or {},
             "plan_digest": plan_digest,

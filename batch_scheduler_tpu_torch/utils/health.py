@@ -24,8 +24,8 @@ identity  (state)     bst_identity_audit_total          breach sticky
 
 In the port, ``pack`` and ``batch`` are observed by every published
 batch (``core.oracle_scorer``) and ``device`` by a traced remote batch's
-TRACE_INFO (``service.client``); ``cycle`` is observed only by the
-framework's scheduler loop (ROADMAP Queue 1 item 12). A signal with zero
+TRACE_INFO (``service.client``); ``cycle`` by every scheduling cycle of
+the scheduler loop (``framework.scheduler``). A signal with zero
 observations in the window reports ``ok`` with ``observations: 0`` —
 absence of traffic is not a breach, and no verdict is invented.
 

@@ -31,10 +31,10 @@ Offline reconstruction is exact: every occurrence is also emitted as a
 folding the flat records by (gang, seq) with the same coalesce rule the
 live ring applies (``_coalesce_into``) reproduces the live timeline.
 
-In the port, ``core.operation`` notes permit, eviction and delete, and
-``core.oracle_scorer`` the batch context; arrival, admission, deny and
-bind are noted by the framework's scheduler loop (ROADMAP Queue 1 item
-12), which the port does not have yet.
+In the port, ``core.operation`` notes permit, eviction and delete,
+``core.oracle_scorer`` the batch context, and the scheduler loop
+(``framework.scheduler``) arrival, admission, deny, eviction and bind, as
+in the reference.
 
 Lock discipline: one mutex (a Condition, for the long-poll) guards every
 mutable structure; file/audit emission happens OUTSIDE it so a slow disk

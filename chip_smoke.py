@@ -379,6 +379,59 @@ The top-K rung (BST_SCAN_TOPK=K, the top-K kernel assign_topk):
                    the host dicts equal (the unpacked tail), with the
                    device batch's split (head, scan, compaction).
 
+The scheduler loop (framework/, plugin/, controller/, client/, sim/):
+
+- framework_e2e    BASELINE config 6 as benchmarks/ladder.py:469-600
+                   builds it: SimCluster(scorer="oracle", device="cuda")
+                   with the ladder's settings (16 bind workers, kubelet
+                   start 50 ms, backoff 0.5-5 s, controller resync 2 s,
+                   min_batch_interval 1 s, the background refresh), 5,000
+                   nodes (64 cpu, 256Gi, 110 pods, 8 GPUs), 1,000 gangs x
+                   10 pods (4 cpu, 8 GiB, 1 GPU; the member shape in the
+                   group spec, recent creation stamps); the controller's
+                   phase sweep and the standing batch before the clock;
+                   the pod documents serialized outside it; the window
+                   under the ladder's 20 ms switch interval and GC
+                   thresholds + freeze. Fails unless all 10,000 pods bind
+                   and every gang reaches Running, no gang is bound in part
+                   before its release at any sample (a pass over the API
+                   server's store under
+                   its lock every 250 ms: a gang seen part-bound must be
+                   released, its quorum permitted; the fast lane binds a
+                   gang in one bind_many, the per-pod path member by
+                   member after the release), the last batch's inputs give
+                   the same assignment on the kernel as on the plain scan,
+                   the ledger holds 1,000 arrivals, admissions and binds,
+                   bst_schedule_cycle_seconds counts the cycles run (and
+                   preFilter's and the bind counter's series theirs), a
+                   traced cycle (a gang whose first member arrives alone)
+                   has the reference's spans (schedule_cycle -> pre_filter,
+                   gang_transaction, select_node), the health verdict
+                   (/debug/health's: the rolling 300 s window ending after
+                   the flood) is ok, the settled state's refresh (a fold)
+                   equals its full pack, the kernel launches once a batch
+                   and no batch is in flight after stop.
+                   Reported: ladder config 6's detail keys, fold outcomes,
+                   and a second flood of 200 new gangs under the profiler
+                   (the device's idle share) and a stack sampler (the
+                   host's running share by thread and function).
+- framework_e2e_wave  the same with BST_SCAN_WAVE=8 (the wave kernel).
+- sim_scenarios    the README's scenarios through SimCluster(device=
+                   "cuda"), built in code: the race (one gang binds, the
+                   other nothing), example1's gang of 9 on 4 nodes of 4
+                   cpu, the zone-pinned gang, and spot_vs_guaranteed with
+                   BST_POLICY set (the guaranteed gang placed through the
+                   scheduler's own _policy_preempt / _evict_gang_plan, a
+                   spot gang respawned); each scenario's kernel once a
+                   batch (the policy kernel for the last).
+
+The metrics phase also holds the scheduler loop's series (cycles, the
+extension points, binds, releases, time to placement) to a SimCluster
+run's own counts, and the lockcheck child also runs the race and a seeded
+200-node x 40-gang SimCluster (background refresh, the 1 s interval and
+dispatch-ahead on) with every LockDisciplineError counted, swallowed or
+not.
+
 Then the card's name and power limit (nvidia-smi), one ``kernels`` line and,
 last, ``{"ok": true, "device": {...}}``. Launch counts are read for each
 path that drives the scorer or the re-scorer — north_star, race,
@@ -390,7 +443,10 @@ coalesce_span_wave, metrics, metrics_wave, observability(_wave) and its
 scrape, mixed, policy and sidecar paths, explain_whatif(_wave)'s explain
 scan, what-if rungs, storm, blame and latency paths, north_star_topk (its
 refreshes, its rings' replays and its what-if query), xl_topk (its
-kernel calls and its full batch), lockcheck (counted in its child), and
+kernel calls and its full batch), framework_e2e(_wave) (the standing
+batch through the flood, and the profiled flood), sim_scenarios (each
+scenario), metrics_framework, lockcheck and lockcheck_sims (counted in
+its child), and
 the audit phases' replays (``audit_replay_replays``,
 ``audit_replay_wave_replays``, ``audit_replay_policy_replays``) — with
 every kernel's count zeroed just before the path and read just after;
@@ -1541,6 +1597,10 @@ def metrics(results):
         report["north_star_churn_refresh_ms_median"] = FIGURES.get(
             "north_star_churn" if wave is None else "north_star_churn_wave")
         out["serial" if wave is None else "wave8"] = report
+    # the scheduler loop's series (framework.scheduler, plugin.batch_plugin,
+    # the ledger's time to placement) against its own counts
+    launches, out["framework"] = drive_framework_metrics()
+    LATE_PATHS[("assign_scan", "metrics_framework")] = launches["assign_scan"]
     return out
 
 
@@ -2184,6 +2244,16 @@ def lockcheck_child() -> int:
         return 1
     classes = lockcheck.install()
     errors = []
+    # every LockDisciplineError raised, also where a thread's own handler
+    # swallows it (the scheduler requeues a pod whose cycle raised)
+    raised = []
+
+    class Recorded(lockcheck.LockDisciplineError):
+        def __init__(self, *args):
+            super().__init__(*args)
+            raised.append(self)
+
+    lockcheck.LockDisciplineError = Recorded
 
     def guarded(fn, *args):
         try:
@@ -2289,6 +2359,17 @@ def lockcheck_child() -> int:
     trace.configure(enabled=False)
     launches = read_counts()
     stats = scorer.stats()
+    # the scheduler loop: its own launch count (one kernel launch a batch)
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        sims, sim_batches = lockcheck_sims()
+    except Exception as e:  # noqa: BLE001 — reported below
+        errors.append(e)
+        sims, sim_batches = {}, None
+    sims_s = time.perf_counter() - t0
+    sim_launches = read_counts()
+    errors += [e for e in raised if e not in errors]
     for e in errors:
         print(f"{type(e).__name__}: {e}", file=sys.stderr)
     emit({"lockcheck_child": True, "instrumented_classes": len(classes),
@@ -2303,6 +2384,8 @@ def lockcheck_child() -> int:
           "stats_reads": reads[0], "debug_scrapes": scrapes[0],
           "fold_outcomes": stats["fold_outcomes"],
           "launches_by_kernel": launches,
+          "sims": sims, "sims_s": sims_s, "sim_batches": sim_batches,
+          "sim_launches_by_kernel": sim_launches, "lock_errors_raised": len(raised),
           "errors": [f"{type(e).__name__}: {str(e)[:300]}" for e in errors]})
     return 1 if errors else 0
 
@@ -2340,9 +2423,13 @@ def lockcheck_phase(results):
             or launches["assign_topk"]:
         raise AssertionError(f"launches {launches} (want assign_scan {want}: {refreshes} "
                              f"refreshes and the storm's groups {out['groups']})")
+    if out["sim_launches_by_kernel"] != only(assign_scan=out["sim_batches"]):
+        raise AssertionError(f"scheduler loop: {out['sim_launches_by_kernel']} launches in "
+                             f"{out['sim_batches']} batches (want assign_scan once a batch)")
     if "assign_scan" in results:
         results["assign_scan"]["launches_by_path"]["lockcheck"] = launches["assign_scan"]
-    out["lock_violations"] = 0
+        results["assign_scan"]["launches_by_path"]["lockcheck_sims"] = out["sim_batches"]
+    out["lock_violations"] = out["lock_errors_raised"]
     return out
 
 
@@ -6131,6 +6218,849 @@ def north_star_topk(results):
     }
 
 
+
+# -- the scheduler loop (framework/, plugin/, controller/, client/, sim/) ----
+# BASELINE config 6 as benchmarks/ladder.py:469 builds it: 5,000 nodes of
+# 64 cpu / 256Gi / 110 pods / 8 GPUs, 1,000 gangs x 10 pods of 4 cpu / 8 GiB
+# / 1 GPU, through SimCluster(scorer="oracle", device="cuda") with the
+# ladder's settings (ladder.py:506-526) and its interpreter posture for the
+# measured window (the 20 ms GIL switch interval; ladder.py:622-631's GC
+# thresholds and freeze, the reference's utils/runtime_tuning.py values)
+FRAMEWORK_SHAPE = (5000, 1000, 10)  # nodes, gangs, members
+FRAMEWORK_SETTINGS = {"bind_workers": 16, "kubelet_start_delay": 0.05, "backoff_base": 0.5,
+                      "backoff_cap": 5.0, "controller_resync_seconds": 2.0,
+                      "min_batch_interval": 1.0, "oracle_background_refresh": True}
+FRAMEWORK_SWITCH_INTERVAL = 0.02
+FRAMEWORK_GC_THRESHOLD = (50000, 100, 100)
+FRAMEWORK_SAMPLE_S = 0.25  # the bound-gang sampler's period in the window
+FRAMEWORK_STACK_S = 0.005  # the stack sampler's period (the profiled second flood)
+FRAMEWORK_PROFILED_GANGS = 200  # a second flood of new gangs, under the profiler
+FRAMEWORK_TIMEOUT = 300.0
+
+
+def framework_nodes(num_nodes):
+    from batch_scheduler_tpu_torch.sim.scenarios import make_sim_node
+
+    return [make_sim_node(f"n{i:05d}", {"cpu": "64", "memory": "256Gi", "pods": "110",
+                                        GPU: "8"}) for i in range(num_nodes)]
+
+
+def framework_gangs(cluster, names, members):
+    """PodGroups with the spec-level member shape (their demand rows are
+    real before any pod arrives) and recent creation stamps in order (an
+    epoch-old stamp trips the controller's 48 h GC horizon); returns the
+    member pods' documents, serialized here, outside any clock."""
+    from batch_scheduler_tpu_torch.api.types import to_dict
+    from batch_scheduler_tpu_torch.sim.scenarios import make_member_pods, make_sim_group
+
+    base_ts = time.time() - len(names) * 1e-3
+    docs = []
+    for g, name in enumerate(names):
+        pg = make_sim_group(name, members, creation_ts=base_ts + g * 1e-3)
+        pg.spec.min_resources = {"cpu": 4000, "memory": 8 * 1024**3, GPU: 1}
+        cluster.create_group(pg)
+        docs += [to_dict(p) for p in
+                 make_member_pods(name, members, {"cpu": "4", "memory": "8Gi", GPU: "1"})]
+    return docs
+
+
+def phases_settled(cluster, timeout=60.0):
+    """The controller's ""->Pending sweep over every PodGroup done."""
+    return cluster.wait_for(lambda: all((pg.get("status") or {}).get("phase")
+                                        for pg in cluster.api.list("PodGroup")),
+                            timeout=timeout, interval=0.05)
+
+
+class BoundSampler:
+    """Every FRAMEWORK_SAMPLE_S, one pass over the API server's pod store
+    under its lock (a bind_many commits under the same lock): the gangs
+    with some but not all members bound. Such a gang must already be
+    released (``released(gang)``: its whole quorum permitted, the status
+    cache's flag that precedes every bind) — the all-or-nothing rule. A
+    gang the fast lane admits binds in one bind_many and is never seen
+    part-bound; one that took the per-pod path (its members arrived apart)
+    binds member by member after its release, as in the reference, and is
+    counted in ``mid_bind``. Sample passes are timed."""
+
+    def __init__(self, api, members, released):
+        import threading
+
+        self.api, self.members, self.released = api, members, released
+        self.samples, self.partial, self.mid_bind, self.seconds = 0, [], 0, 0.0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="bound-sampler", daemon=True)
+
+    def sample(self):
+        from batch_scheduler_tpu_torch.utils.labels import POD_GROUP_LABEL
+
+        t0 = time.perf_counter()
+        bound = {}
+        with self.api._lock:
+            for d in self.api._kind_store("Pod").values():
+                gang = ((d.get("metadata") or {}).get("labels") or {}).get(POD_GROUP_LABEL)
+                if gang and (d.get("spec") or {}).get("node_name"):
+                    bound[gang] = bound.get(gang, 0) + 1
+        self.seconds += time.perf_counter() - t0
+        self.samples += 1
+        part = [(g, n) for g, n in bound.items() if n % self.members]
+        self.mid_bind += len(part)
+        self.partial += [(g, n) for g, n in part if not self.released(g)]
+        return bound
+
+    def _run(self):
+        while not self._stop.wait(FRAMEWORK_SAMPLE_S):
+            self.sample()
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+class StackSampler:
+    """Report-only host profile of a window: every FRAMEWORK_STACK_S, every
+    thread's current frame (``sys._current_frames``). A thread whose
+    innermost frame is a wait (a lock, a condition, a queue, a sleep, a
+    poll) counts as parked; a running one is charged to its innermost
+    frame in the port's package, by thread group (the name without its
+    index) and by function. The sampler holds the interpreter lock while
+    it reads the frames, so the window runs a little slower under it."""
+
+    PARKED = {"wait", "get", "sleep", "select", "acquire", "poll", "join", "accept",
+              "_wait_for_tstate_lock", "wait_for", "readinto", "recv", "recv_into"}
+    # a C call (time.sleep, Lock.acquire) leaves no Python frame: read the
+    # innermost frame's current line
+    # (and a thread blocked entering ``with self._lock:`` shows that line)
+    PARKED_LINE = (r"(sleep\(|\.wait\(|\.get\(timeout|\.get\(\)|select\(|\.acquire\(|"
+                   r"\.join\(|\.recv|^\s*with [\w.]*(lock|_cond)\w*:)")
+
+    def __init__(self):
+        import threading
+
+        self.samples = 0
+        self.by_thread, self.by_function = {}, {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="stack-sampler", daemon=True)
+
+    def _run(self):
+        import linecache
+        import re
+        import threading
+
+        parked_line = re.compile(self.PARKED_LINE)
+        me = threading.get_ident()
+        while not self._stop.wait(FRAMEWORK_STACK_S):
+            names = {t.ident: re.sub(r"[-_]?\d+$", "", t.name) for t in threading.enumerate()}
+            self.samples += 1
+            for ident, frame in sys._current_frames().items():
+                if ident == me or ident not in names:
+                    continue
+                group = names[ident]
+                running = frame.f_code.co_name not in self.PARKED and not parked_line.search(
+                    linecache.getline(frame.f_code.co_filename, frame.f_lineno))
+                row = self.by_thread.setdefault(group, [0, 0])
+                row[0] += 1
+                row[1] += running
+                if not running:
+                    continue
+                f = frame
+                while f is not None and "batch_scheduler_tpu_torch" not in f.f_code.co_filename:
+                    f = f.f_back
+                if f is None:
+                    continue
+                mod = f.f_code.co_filename.split("batch_scheduler_tpu_torch/")[-1]
+                key = f"{mod}:{f.f_code.co_name}"
+                self.by_function[key] = self.by_function.get(key, 0) + 1
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    def report(self, top=15):
+        """Running share of each thread group (sampled running / sampled),
+        the samples' count, and the functions most often running."""
+        return {
+            "samples": self.samples,
+            "running_share_by_thread": {
+                g: {"running": r, "sampled": n, "share": r / n if n else 0.0}
+                for g, (n, r) in sorted(self.by_thread.items(), key=lambda kv: -kv[1][1])},
+            "top_running_functions": sorted(self.by_function.items(),
+                                            key=lambda kv: -kv[1])[:top],
+        }
+
+
+def framework_series():
+    """The scheduler loop's series in the port's DEFAULT_REGISTRY: the
+    cycle histogram's count and sum, the plugin's extension points' counts
+    and sums by point, and the bind / release / error / preemption
+    counters by label set."""
+    from batch_scheduler_tpu_torch.utils.metrics import DEFAULT_REGISTRY
+
+    out = {}
+    for name in ("bst_schedule_cycle_seconds", "bst_extension_point_seconds",
+                 "bst_gang_ttp_seconds"):
+        m = DEFAULT_REGISTRY.get(name)
+        out[name] = {} if m is None else {
+            ",".join(f"{k}={v}" for k, v in key): (snap[2], snap[1])
+            for key, snap in m.snapshots().items()}
+    for name in ("bst_pods_bound_total", "bst_gang_releases_total", "bst_cycle_errors_total",
+                 "bst_preemptions_total"):
+        m = DEFAULT_REGISTRY.get(name)
+        out[name] = {} if m is None else {
+            ",".join(f"{k}={v}" for k, v in key): v for key, v in m.values().items()}
+    return out
+
+
+def framework_delta(before, after):
+    """Counts (and histogram sums) that moved between two reads."""
+    out = {}
+    for name, now in after.items():
+        moved = {}
+        for key, v in now.items():
+            was = before[name].get(key, (0, 0.0) if isinstance(v, tuple) else 0)
+            if isinstance(v, tuple):
+                if v[0] != was[0]:
+                    moved[key] = (v[0] - was[0], v[1] - was[1])
+            elif v != was:
+                moved[key] = v - was
+        out[name] = moved
+    return out
+
+
+def traced_cycle(cluster):
+    """One gang (2 members of the config's shape) whose first member arrives
+    alone, traced at sample 1.0: its cycle's root span ``schedule_cycle``
+    with the reference's children pre_filter, gang_transaction (the
+    partial arrival falls through) and select_node in that order (the
+    member parks in Permit); then the second member completes the gang.
+    Returns the cycle's (name, parent name) pairs in start order."""
+    from batch_scheduler_tpu_torch.api.types import to_dict
+    from batch_scheduler_tpu_torch.sim.scenarios import make_member_pods, make_sim_group
+    from batch_scheduler_tpu_torch.utils import trace
+
+    pg = make_sim_group("traced", 2, creation_ts=time.time())
+    pg.spec.min_resources = {"cpu": 4000, "memory": 8 * 1024**3, GPU: 1}
+    cluster.create_group(pg)
+    if not cluster.wait_for(lambda: cluster.runtime.operation.status_cache.get(
+            "default/traced") is not None, timeout=30.0):
+        raise AssertionError("traced gang never reached the status cache")
+    pods = make_member_pods("traced", 2, {"cpu": "4", "memory": "8Gi", GPU: "1"})
+    trace.configure(enabled=True, sample=1.0)
+    try:
+        trace.DEFAULT_RECORDER.clear()
+        cluster.create_pod_docs([to_dict(pods[0])])
+        if not cluster.wait_for(lambda: len(cluster.scheduler.waiting) >= 1, timeout=30.0):
+            raise AssertionError("the traced member never parked in Permit")
+        events = trace.DEFAULT_RECORDER.snapshot()
+    finally:
+        trace.configure(enabled=False)
+    cluster.create_pod_docs([to_dict(pods[1])])
+    if not cluster.wait_for_bound("traced", 2, timeout=30.0):
+        raise AssertionError("the traced gang did not bind")
+    roots = [e for e in events if e["name"] == "schedule_cycle"
+             and e["args"].get("pod") == pods[0].metadata.name]
+    if not roots:
+        raise AssertionError("no schedule_cycle root for the traced member")
+    root = roots[-1]
+    tid = root["args"].get("trace_id")
+    spans = sorted((e for e in events if e["args"].get("trace_id") == tid),
+                   key=lambda e: e["ts"])
+    return span_tree(spans), [e["name"] for e in spans
+                              if e["args"].get("parent_id") == root["args"]["span_id"]]
+
+
+def drive_framework_e2e(wave, shape):
+    """Config 6 through the port's scheduler loop on the card (see the
+    module docstring). Returns (launches of the main path, report)."""
+    import gc
+
+    import torch
+
+    from batch_scheduler_tpu_torch.api.types import PodGroupPhase
+    from batch_scheduler_tpu_torch.ops.oracle import inflight_batches
+    from batch_scheduler_tpu_torch.sim import SimCluster
+    from batch_scheduler_tpu_torch.utils.health import DEFAULT_HEALTH
+    from batch_scheduler_tpu_torch.utils.lifecycle import DEFAULT_LEDGER
+    from batch_scheduler_tpu_torch.utils.metrics import DEFAULT_REGISTRY
+
+    num_nodes, num_groups, members = shape
+    total = num_groups * members
+    marks = {}
+    t_setup = time.perf_counter()
+    with scan_wave_env(wave):
+        cluster = SimCluster(scorer="oracle", device="cuda", **FRAMEWORK_SETTINGS)
+        try:
+            op = cluster.runtime.operation
+            if op.oracle.device.type != "cuda":
+                raise AssertionError(f"scorer on {op.oracle.device}")
+            cluster.add_nodes(framework_nodes(num_nodes))
+            names = [f"gang-{g:04d}" for g in range(num_groups)]
+            docs = framework_gangs(cluster, names, members)
+            cluster.start()
+            if not phases_settled(cluster):
+                raise AssertionError("controller phase sweep did not finish")
+            marks["setup_s"] = time.perf_counter() - t_setup
+            # the main path's counts zeroed just before the standing batch,
+            # read just after the flood
+            zero_counts()
+            batches0 = op.oracle.batches_run
+            t_standing = time.perf_counter()
+            op.oracle.ensure_fresh(cluster.cluster, op.status_cache)
+            torch.cuda.synchronize()
+            standing_s = time.perf_counter() - t_standing
+            batches_prewarm = op.oracle.batches_run
+            series0 = framework_series()
+            stats0 = dict(cluster.scheduler.stats)
+            cyc = DEFAULT_REGISTRY.histogram("bst_schedule_cycle_seconds")
+            cyc0 = cyc.snapshot()
+            prev_switch = sys.getswitchinterval()
+            prev_gc = gc.get_threshold()
+            gc.set_threshold(*FRAMEWORK_GC_THRESHOLD)
+            gc.collect()
+            gc.freeze()
+            sys.setswitchinterval(FRAMEWORK_SWITCH_INTERVAL)
+            try:
+                def released(gang):
+                    pgs = op.status_cache.get(f"default/{gang}")
+                    return pgs is not None and pgs.scheduled
+
+                with BoundSampler(cluster.api, members, released) as sampler:
+                    t0 = time.perf_counter()
+                    cluster.create_pod_docs(docs)
+                    ok = cluster.wait_for(lambda: cluster.scheduler.stats["binds"] >= total,
+                                          timeout=FRAMEWORK_TIMEOUT, interval=0.02)
+                    elapsed = time.perf_counter() - t0
+            finally:
+                sys.setswitchinterval(prev_switch)
+                gc.set_threshold(*prev_gc)
+                gc.unfreeze()
+            if not ok:
+                raise AssertionError(f"{cluster.scheduler.stats['binds']}/{total} pods bound "
+                                     f"in {elapsed:.1f}s")
+            # a background refresh still in flight belongs to the main path
+            bg = getattr(op.oracle, "_bg_thread", None)
+            if bg is not None:
+                bg.join(60.0)
+            torch.cuda.synchronize()
+            launches = read_counts()
+            batches = op.oracle.batches_run
+            stats = {k: v - stats0.get(k, 0) for k, v in cluster.scheduler.stats.items()}
+            series = framework_delta(series0, framework_series())
+            cyc1 = cyc.snapshot()
+            ostats = op.oracle.stats()
+            # the last batch's inputs: the kernel against the plain scan
+            args = scan_inputs(op.oracle.snapshot.device_args())
+            saved = read_counts()
+            if wave:
+                err, equal, _, _ = compare_wave(args, wave)
+            else:
+                err, equal = compare_scan(args)
+            restore_counts(saved)
+            if not equal:
+                raise AssertionError(f"last batch: kernel disagrees with the plain scan "
+                                     f"(max abs err {err})")
+            final = sampler.sample()
+            if not cluster.wait_for(lambda: all(
+                    (pg.get("status") or {}).get("phase") == PodGroupPhase.RUNNING.value
+                    for pg in cluster.api.list("PodGroup")), timeout=120.0, interval=0.2):
+                raise AssertionError("not every gang reached Running")
+            ledger = DEFAULT_LEDGER.snapshot()["gangs"]
+            kinds = {}
+            for view in ledger.values():
+                for kind in {e["event"] for e in view["events"]}:
+                    kinds[kind] = kinds.get(kind, 0) + 1
+            # the verdict /debug/health serves: the model's rolling window
+            # (BST_SLO_WINDOW_S, 300 s) ending now, the flood included.
+            # Not re-baselined at the run's start: a p95 over the window's
+            # 1-4 refreshes alone is its maximum, which one pack starved by
+            # the window's busy threads decides
+            health = DEFAULT_HEALTH.evaluate()
+            # the settled state refreshed once more (a fold of the events
+            # since the last pack) against its full pack; a controller
+            # resync landing between the two reads is retried once
+            for _ in range(2):
+                with op.oracle._refresh_lock:
+                    op.oracle.refresh(cluster.cluster, op.status_cache)
+                fold_check = {"outcome": op.oracle.last_fold_outcome,
+                              "diff": full_pack_diff(op.oracle, cluster.cluster,
+                                                     op.status_cache)}
+                if not fold_check["diff"]:
+                    break
+            # a second flood of new gangs under the profiler: new demand
+            # rows (the blocking refresh on the card), the same loop
+            saved = read_counts()
+            zero_counts()
+            more = framework_gangs(cluster, [f"more-{g:04d}" for g in
+                                             range(FRAMEWORK_PROFILED_GANGS)], members)
+            if not phases_settled(cluster):
+                raise AssertionError("controller phase sweep (second flood) did not finish")
+            target = total + FRAMEWORK_PROFILED_GANGS * members
+            b_prof = op.oracle.batches_run
+
+            def flood():
+                cluster.create_pod_docs(more)
+                if not cluster.wait_for(lambda: cluster.scheduler.stats["binds"] >= target,
+                                        timeout=FRAMEWORK_TIMEOUT, interval=0.02):
+                    raise AssertionError("second flood not bound")
+
+            # the profiler's own overhead stretches this flood's host times:
+            # its refreshes stay out of the registry (recording_off), so
+            # the health model's pack signal never reads them
+            with StackSampler() as stacks, recording_off():
+                profiled = profile_window(flood, "profiled_flood_ms")
+            profiled["host_stacks"] = stacks.report()
+            profiled["batches"] = op.oracle.batches_run - b_prof
+            profiled["pods"] = FRAMEWORK_PROFILED_GANGS * members
+            profiled["launches"] = read_counts()
+            restore_counts(saved)
+            spans, children = traced_cycle(cluster)
+        finally:
+            cluster.stop()
+    if inflight_batches() != 0:
+        raise AssertionError(f"{inflight_batches()} batches still in flight after stop")
+    kernel = "assign_wave" if wave else "assign_scan"
+    if launches != only(**{kernel: batches - batches0}) or not launches[kernel]:
+        raise AssertionError(f"{launches} launches in {batches - batches0} batches "
+                             f"(want {kernel} once a batch, no other kernel)")
+    if profiled["launches"] != only(**{kernel: profiled["batches"]}):
+        raise AssertionError(f"profiled flood: {profiled['launches']} launches in "
+                             f"{profiled['batches']} batches")
+    if fold_check["diff"]:
+        raise AssertionError(f"the settled refresh ({fold_check['outcome']}) differs from "
+                             f"the full pack: {fold_check['diff']}")
+    if len(final) != num_groups or any(n != members for n in final.values()):
+        raise AssertionError("the final sample is not every gang whole")
+    if sampler.partial:
+        raise AssertionError(f"gangs partly bound before their release: {sampler.partial[:5]}")
+    for kind in ("arrival", "admitted", "bind"):
+        if kinds.get(kind) != num_groups:
+            raise AssertionError(f"ledger: {kinds.get(kind)} gangs with a {kind} event "
+                                 f"(want {num_groups})")
+    cycles = cyc1[2] - cyc0[2]
+    if cycles != stats["cycles"]:
+        raise AssertionError(f"bst_schedule_cycle_seconds counted {cycles} cycles, "
+                             f"the scheduler ran {stats['cycles']}")
+    points = {k.split("=", 1)[1]: v for k, v in
+              series["bst_extension_point_seconds"].items()}
+    if series["bst_pods_bound_total"] != {"": stats["binds"]}:
+        raise AssertionError(f"bst_pods_bound_total {series['bst_pods_bound_total']} "
+                             f"(binds {stats['binds']})")
+    if points.get("preFilter", (0, 0))[0] != stats["cycles"]:
+        raise AssertionError(f"preFilter observed {points.get('preFilter')} "
+                             f"in {stats['cycles']} cycles")
+    want_children = ["pre_filter", "gang_transaction", "select_node"]
+    if children[:3] != want_children:
+        raise AssertionError(f"traced cycle's children {children} (want {want_children} first)")
+    if health.get("verdict") != "ok":
+        bad = {k: v for k, v in health.get("signals", {}).items() if v.get("verdict") != "ok"}
+        raise AssertionError(f"health verdict {health.get('verdict')}: {json.dumps(bad)[:800]}; "
+                             f"wall {elapsed:.3f} s, pack s {op.oracle.pack_seconds}, "
+                             f"batch s {op.oracle.batch_seconds}, cycles {stats['cycles']}")
+    ext = lambda p: points.get(p, (0, 0.0))[1]  # noqa: E731
+    report = {
+        "nodes": num_nodes, "gangs": num_groups, "pods": total, "wave": wave,
+        "wall_clock_s": elapsed, "pods_per_sec": total / max(elapsed, 1e-9),
+        "standing_batch_s": standing_s, "binds": stats["binds"],
+        "oracle_batches": batches - batches0,
+        "oracle_batches_in_window": batches - batches_prewarm,
+        "gil_switch_interval_s": FRAMEWORK_SWITCH_INTERVAL,
+        "cycle_breakdown": {
+            "cycle_p50_ms": cyc.quantile(0.5, since=cyc0) * 1e3,
+            "cycle_p95_ms": cyc.quantile(0.95, since=cyc0) * 1e3,
+            "cycle_total_s": cyc1[1] - cyc0[1], "cycles": cycles,
+            "prefilter_total_s": ext("preFilter"), "permit_total_s": ext("permit"),
+            "postbind_total_s": ext("postBind"),
+        },
+        "unschedulable_retries": stats["unschedulable"],
+        "permit_rejects": stats["permit_rejects"], "permit_waits": stats["permit_waits"],
+        "fold_outcomes": ostats["fold_outcomes"], "launches_by_kernel": launches,
+        "oracle_stats": {"batch_ms": [t * 1e3 for t in op.oracle.batch_seconds],
+                         "pack_ms": [t * 1e3 for t in op.oracle.pack_seconds],
+                         "spec_served": ostats.get("spec_served"),
+                         "device_state": ostats["device_state"]},
+        "kernel_vs_plain_equal": equal, "max_abs_err": err,
+        "settled_refresh": fold_check,
+        "bound_samples": sampler.samples, "partly_bound_unreleased": 0,
+        "mid_bind_gangs_seen": sampler.mid_bind,
+        "sampler_ms_total": sampler.seconds * 1e3,
+        "ledger_gangs_by_event": kinds, "health": health.get("verdict"),
+        "series": series, "traced_cycle": {"spans": spans, "root_children": children},
+        "profiled_flood": profiled, "setup_s": marks["setup_s"],
+    }
+    return launches, report
+
+
+@phase("framework_e2e")
+def framework_e2e(results):
+    """Config 6 through SimCluster on the card, serial kernel."""
+    launches, report = drive_framework_e2e(None, FRAMEWORK_SHAPE)
+    if "assign_scan" in results:
+        results["assign_scan"]["launches_by_path"]["framework_e2e"] = launches["assign_scan"]
+        results["assign_scan"]["launches_by_path"]["framework_e2e_profiled"] = \
+            report["profiled_flood"]["launches"]["assign_scan"]
+    return report
+
+
+@phase("framework_e2e_wave")
+def framework_e2e_wave(results):
+    """Config 6 through SimCluster on the card with BST_SCAN_WAVE=8."""
+    launches, report = drive_framework_e2e(8, FRAMEWORK_SHAPE)
+    if "assign_wave" in results:
+        results["assign_wave"]["launches_by_path"]["framework_e2e_wave"] = \
+            launches["assign_wave"]
+        results["assign_wave"]["launches_by_path"]["framework_e2e_wave_profiled"] = \
+            report["profiled_flood"]["launches"]["assign_wave"]
+    return report
+
+
+def sim_cluster(**kwargs):
+    from batch_scheduler_tpu_torch.sim import SimCluster
+
+    c = SimCluster(scorer="oracle", device="cuda", **kwargs)
+    if c.runtime.operation.oracle.device.type != "cuda":
+        raise AssertionError(f"scorer on {c.runtime.operation.oracle.device}")
+    return c
+
+
+def bound_of(c, gang):
+    return sorted(p.spec.node_name for p in c.member_pods(gang) if p.spec.node_name)
+
+
+def scenario_race():
+    """README race: one gang of five binds, the other binds nothing."""
+    from batch_scheduler_tpu_torch.api.types import PodGroupPhase
+    from batch_scheduler_tpu_torch.sim.scenarios import make_member_pods, race_scenario
+
+    c = sim_cluster()
+    try:
+        nodes, groups, pods = race_scenario()
+        c.add_nodes(nodes)
+        sysload = make_member_pods("sysload", 1, {"cpu": "900m"})[0]
+        sysload.metadata.labels = {}
+        sysload.spec.node_name = "node-1"
+        c.clientset.pods().create(sysload)
+        for pg in groups:
+            c.create_group(pg)
+        c.start()
+        for group_pods in pods.values():
+            c.create_pods(group_pods)
+        ok = c.wait_for_group_phase("web-group-race1", PodGroupPhase.RUNNING, timeout=60.0)
+        denied = c.wait_for(lambda: c.scheduler.stats["unschedulable"] >= 1, timeout=60.0)
+        out = {"race1": bound_of(c, "web-group-race1"), "race2": bound_of(c, "web-group-race2"),
+               "race1_phase": c.group_phase("web-group-race1").value,
+               "race2_phase": c.group_phase("web-group-race2").value}
+    finally:
+        c.stop()
+    # read after stop: a retrying denied gang may still be refreshing
+    out["batches"] = c.runtime.operation.oracle.batches_run
+    if not (ok and denied) or len(out["race1"]) != 5 or out["race2"]:
+        raise AssertionError(f"race: {out}")
+    return out
+
+
+def scenario_example1():
+    """examples/example1.yaml with --nodes 4 --node-cpu 4: a gang of 9
+    one-cpu pods across four 4-cpu nodes."""
+    from batch_scheduler_tpu_torch.api.types import PodGroupPhase
+    from batch_scheduler_tpu_torch.sim.scenarios import (
+        make_member_pods, make_sim_group, make_sim_node)
+
+    c = sim_cluster()
+    try:
+        c.add_nodes([make_sim_node(f"sim-node-{i:04d}", {"cpu": "4", "memory": "16Gi",
+                                                         "pods": "110"}) for i in range(4)])
+        c.create_group(make_sim_group("group1", 9))
+        c.start()
+        c.create_pods(make_member_pods("group1", 9, {"cpu": "1"}))
+        ok = c.wait_for_group_phase("group1", PodGroupPhase.RUNNING, timeout=60.0)
+        out = {"bound": bound_of(c, "group1"), "phase": c.group_phase("group1").value}
+    finally:
+        c.stop()
+    out["batches"] = c.runtime.operation.oracle.batches_run
+    if not ok or len(out["bound"]) != 9:
+        raise AssertionError(f"example1: {out}")
+    return out
+
+
+def scenario_zones():
+    """examples/zones.yaml: the east-pinned gang lands entirely on east-1
+    although west-1 has more room; the free gang takes what fits."""
+    from batch_scheduler_tpu_torch.api.types import PodGroupPhase
+    from batch_scheduler_tpu_torch.sim.scenarios import (
+        make_member_pods, make_sim_group, make_sim_node)
+
+    c = sim_cluster()
+    try:
+        c.add_nodes([make_sim_node("east-1", {"cpu": "4", "memory": "16Gi", "pods": "110"},
+                                   labels={"zone": "east"}),
+                     make_sim_node("west-1", {"cpu": "16", "memory": "64Gi", "pods": "110"},
+                                   labels={"zone": "west"})])
+        c.create_group(make_sim_group("pinned-east", 3))
+        c.create_group(make_sim_group("free-roam", 4))
+        c.start()
+        pinned = make_member_pods("pinned-east", 3, {"cpu": "1"})
+        for p in pinned:
+            p.spec.node_selector = {"zone": "east"}
+        c.create_pods(pinned)
+        c.create_pods(make_member_pods("free-roam", 4, {"cpu": "2"}))
+        ok = all(c.wait_for_group_phase(g, PodGroupPhase.RUNNING, timeout=60.0)
+                 for g in ("pinned-east", "free-roam"))
+        out = {"pinned-east": bound_of(c, "pinned-east"), "free-roam": bound_of(c, "free-roam")}
+    finally:
+        c.stop()
+    out["batches"] = c.runtime.operation.oracle.batches_run
+    if not ok or out["pinned-east"] != ["east-1"] * 3 or len(out["free-roam"]) != 4:
+        raise AssertionError(f"zones: {out}")
+    return out
+
+
+def scenario_spot_vs_guaranteed():
+    """spot_vs_guaranteed_scenario with BST_POLICY set: the spot gangs fill
+    the cluster, the guaranteed gang is denied, and the scheduler's own
+    preemption commit (_policy_preempt: the victim plan on the card, the
+    live re-verification, _evict_gang_plan: eviction, note_gang_evicted,
+    the respawn) places it."""
+    from batch_scheduler_tpu_torch.sim.scenarios import spot_vs_guaranteed_scenario
+    from batch_scheduler_tpu_torch.utils.lifecycle import DEFAULT_LEDGER
+    from batch_scheduler_tpu_torch.utils.metrics import DEFAULT_REGISTRY
+
+    preempts = DEFAULT_REGISTRY.counter("bst_preemptions_total", "")
+    before = preempts.value(reason="priority-tier")
+    with env_set(POLICY_ENV):
+        c = sim_cluster(kubelet_start_delay=0.01)
+        try:
+            if c.runtime.operation.preempt_planner is None:
+                raise AssertionError("BST_POLICY did not arm the preemption planner")
+            nodes, groups, pods = spot_vs_guaranteed_scenario()
+            c.add_nodes(nodes)
+            spot = [g.metadata.name for g in groups if g.metadata.name.startswith("spot")]
+            for g in groups:
+                if g.metadata.name in spot:
+                    c.create_group(g)
+            c.start()
+            for name in spot:
+                c.create_pods(pods[name])
+            spot_ok = all(c.wait_for_bound(name, 4, timeout=120.0) for name in spot)
+            uids = {name: {p.metadata.uid for p in c.member_pods(name)} for name in spot}
+            for g in groups:
+                if g.metadata.name.startswith("guaranteed"):
+                    c.create_group(g)
+            c.create_pods(pods["guaranteed-000"])
+            ok = c.wait_for_bound("guaranteed-000", 4, timeout=120.0)
+
+            def evicted_respawned():
+                return [g for g, tv in DEFAULT_LEDGER.snapshot()["gangs"].items()
+                        if {"evicted", "respawn"} <= {e["event"] for e in tv["events"]}]
+
+            respawn_seen = c.wait_for(lambda: bool(evicted_respawned()), timeout=30.0)
+            respawned = [name for name in spot
+                         if not ({p.metadata.uid for p in c.member_pods(name)} & uids[name])]
+            out = {"spot_bound_first": spot_ok, "guaranteed": bound_of(c, "guaranteed-000"),
+                   "preemptions": c.scheduler.stats["preemptions"],
+                   "priority_tier_preemptions": preempts.value(reason="priority-tier") - before,
+                   "respawned_gangs": respawned, "ledger_evicted_respawn": evicted_respawned(),
+                   "telemetry": dict(c.runtime.operation.oracle.last_telemetry or {})}
+        finally:
+            c.stop()
+        # read after stop: the respawned spot gang retries (and refreshes)
+        # until the scheduler stops
+        out["batches"] = c.runtime.operation.oracle.batches_run
+    if not (spot_ok and ok and respawn_seen) or out["preemptions"] < 1 \
+            or out["priority_tier_preemptions"] < 1 or not respawned \
+            or not out["telemetry"].get("scan_policy"):
+        raise AssertionError(f"spot_vs_guaranteed: {out}")
+    return out
+
+
+
+LOCKCHECK_SIM_SHAPE = (200, 40)  # the seeded cluster: nodes, gangs
+
+
+def settled_start(cluster):
+    """SimCluster.start() with the scheduler held back: informers, plugin
+    runtime and kubelet started, caches synced and the controller's
+    ""->Pending sweep done; the caller queues pods and then starts
+    ``cluster.scheduler`` (each pod's queue key then sees its group)."""
+    cluster._started = True
+    cluster._fwk_informers.start()
+    cluster.runtime.start()
+    cluster.kubelet.start()
+    cluster._fwk_informers.wait_for_cache_sync()
+    cluster.runtime.informers.wait_for_cache_sync()
+    cluster._wait_for_status_cache()
+    if not phases_settled(cluster):
+        raise AssertionError("controller phase sweep did not finish")
+
+
+def seeded_sim_cluster(cluster, num_nodes, num_gangs, seed=5):
+    """A seeded cluster (3 node shapes, 3 zones; gangs of 2-11 members of
+    1-3 cpu, a third pinned to a zone, a third at priority 1), every pod
+    queued before the scheduler starts; returns the pod count."""
+    import random
+
+    from batch_scheduler_tpu_torch.sim.scenarios import (
+        make_member_pods, make_sim_group, make_sim_node)
+
+    rng = random.Random(seed)
+    cluster.add_nodes([make_sim_node(f"s{i:03d}", {"cpu": rng.choice(["4", "8", "16"]),
+                                                   "memory": "64Gi", "pods": "110"},
+                                     labels={"zone": rng.choice(["a", "b", "c"])})
+                       for i in range(num_nodes)])
+    base_ts = time.time() - 1.0
+    pods = []
+    for g in range(num_gangs):
+        members, cpu = rng.randrange(2, 12), rng.choice(["1", "2", "3"])
+        zone, prio = rng.choice(["", "", "a"]), rng.choice([0, 0, 1])
+        cluster.create_group(make_sim_group(f"sg{g:02d}", members,
+                                            creation_ts=base_ts + g * 1e-3))
+        for p in make_member_pods(f"sg{g:02d}", members, {"cpu": cpu, "memory": "1Gi"},
+                                  priority=prio):
+            if zone:
+                p.spec.node_selector = {"zone": zone}
+            pods.append(p)
+    settled_start(cluster)
+    cluster.create_pods(pods)
+    if not cluster.wait_for(lambda: len(cluster.scheduler.queue) == len(pods), timeout=60.0):
+        raise AssertionError("pods not queued")
+    cluster.scheduler.start()
+    return len(pods)
+
+
+def lockcheck_sims():
+    """The scheduler loop under the lock checker: the README race, then the
+    seeded 200-node x 40-gang cluster with the background refresh, the
+    1 s batch interval and dispatch-ahead on, through
+    SimCluster(device="cuda"). Returns (report, batches)."""
+    from batch_scheduler_tpu_torch.ops.oracle import inflight_batches
+
+    race = scenario_race()
+    nodes, gangs = LOCKCHECK_SIM_SHAPE
+    c = sim_cluster(min_batch_interval=1.0, oracle_background_refresh=True,
+                    oracle_dispatch_ahead=True, bind_workers=16)
+    oracle = c.runtime.operation.oracle
+    try:
+        total = seeded_sim_cluster(c, nodes, gangs)
+        ok = c.wait_for(lambda: c.scheduler.stats["binds"] >= total, timeout=120.0)
+        stats = dict(c.scheduler.stats)
+    finally:
+        c.stop()  # drains the background and speculative batches
+    if not ok:
+        raise AssertionError(f"seeded cluster: {stats}")
+    if inflight_batches():
+        raise AssertionError(f"{inflight_batches()} batches in flight after stop")
+    # one launch a blocking refresh, one a speculative dispatch (served,
+    # discarded, or collected unconsumed by the drain)
+    spec = {k: getattr(oracle, k) for k in ("spec_served", "spec_discarded", "spec_dispatched")}
+    launched = oracle.batches_run - spec["spec_served"] + spec["spec_dispatched"]
+    return {"race": race, "seeded": {"pods": total, "stats": stats,
+                                      "batches": oracle.batches_run, **spec}}, \
+        race["batches"] + launched
+
+
+def drive_framework_metrics():
+    """The scheduler loop's series held to the run's own counts: a
+    SimCluster(device="cuda") of 6 gangs of 3 that fit and one of 2 that
+    fits nowhere, every pod queued before the scheduler starts, each
+    whole-gang transaction committed before the next cycle
+    (``FLUSH_GANGS = 1``) and a backoff past the run, so each count is
+    fixed: one cycle a placed gang (the fast lane), one a denied member.
+    The series' deltas must equal the scheduler's stats, six releases
+    and six time-to-placement observations; the serial kernel once a
+    batch. Returns (launches, report)."""
+    from batch_scheduler_tpu_torch.sim.scenarios import (
+        make_member_pods, make_sim_group, make_sim_node)
+
+    c = sim_cluster(backoff_base=300.0, backoff_cap=300.0)
+    try:
+        c.add_nodes([make_sim_node(f"m{i}", {"cpu": "8", "memory": "32Gi", "pods": "64"})
+                     for i in range(6)])
+        base = time.time() - 1.0
+        pods = []
+        for g in range(7):
+            members, cpu = (3, "2") if g < 6 else (2, "64")
+            c.create_group(make_sim_group(f"fw{g}", members, creation_ts=base + g * 1e-3))
+            pods += make_member_pods(f"fw{g}", members, {"cpu": cpu})
+        settled_start(c)
+        c.create_pods(pods)
+        if not c.wait_for(lambda: len(c.scheduler.queue) == len(pods), timeout=60.0):
+            raise AssertionError("pods not queued")
+        c.scheduler.FLUSH_GANGS = 1
+        before = framework_series()
+        zero_counts()
+        b0 = c.runtime.operation.oracle.batches_run
+        c.scheduler.start()
+        ok = c.wait_for(lambda: c.scheduler.stats["binds"] >= 18
+                        and c.scheduler.stats["unschedulable"] >= 2, timeout=60.0)
+        launches = read_counts()
+        batches = c.runtime.operation.oracle.batches_run - b0
+        stats = dict(c.scheduler.stats)
+        delta = framework_delta(before, framework_series())
+    finally:
+        c.stop()
+    if not ok:
+        raise AssertionError(f"framework metrics run: {stats}")
+    counts = {name: {k: (v[0] if isinstance(v, tuple) else v) for k, v in d.items()}
+              for name, d in delta.items()}
+    want = {
+        "bst_schedule_cycle_seconds": {"": stats["cycles"]},
+        "bst_pods_bound_total": {"": stats["binds"]},
+        "bst_gang_releases_total": {"": 6},
+        "bst_cycle_errors_total": {},
+        "bst_preemptions_total": {},
+    }
+    bad = {n: {"recorded": counts[n], "want": w} for n, w in want.items()
+           if {k: float(v) for k, v in counts[n].items()} != {k: float(v) for k, v in w.items()}}
+    points = {k.split("=", 1)[1]: v for k, v in counts["bst_extension_point_seconds"].items()}
+    if points.get("preFilter") != stats["cycles"] or points.get("permit") != 6:
+        bad["bst_extension_point_seconds"] = {"recorded": points,
+                                              "want": {"preFilter": stats["cycles"],
+                                                       "permit": 6}}
+    if sum(counts["bst_gang_ttp_seconds"].values()) != 6:
+        bad["bst_gang_ttp_seconds"] = {"recorded": counts["bst_gang_ttp_seconds"], "want": 6}
+    if stats["cycles"] != 8 or stats["binds"] != 18:
+        bad["stats"] = stats
+    if bad:
+        raise AssertionError(f"scheduler series disagree with the run's own counts: {bad}")
+    if launches != only(assign_scan=batches) or not batches:
+        raise AssertionError(f"{launches} launches in {batches} batches")
+    return launches, {"batches": batches, "stats": stats, "series": counts,
+                      "launches_by_kernel": launches}
+
+@phase("sim_scenarios")
+def sim_scenarios(results):
+    """The README's scenarios through SimCluster(device="cuda"), built in
+    code: each scenario's launches counted on its own (the policy one runs
+    the policy kernel, the others the serial kernel, once a batch)."""
+    out = {}
+    for name, fn, kernel in (("race", scenario_race, "assign_scan"),
+                             ("example1", scenario_example1, "assign_scan"),
+                             ("zones", scenario_zones, "assign_scan"),
+                             ("spot_vs_guaranteed", scenario_spot_vs_guaranteed,
+                              "assign_policy")):
+        zero_counts()
+        t0 = time.perf_counter()
+        report = fn()
+        report["seconds"] = time.perf_counter() - t0
+        launches = read_counts()
+        if launches != only(**{kernel: report["batches"]}) or not report["batches"]:
+            raise AssertionError(f"{name}: {launches} launches in {report['batches']} batches "
+                                 f"(want {kernel} once a batch)")
+        report["launches_by_kernel"] = launches
+        out[name] = report
+        if kernel in results:
+            results[kernel]["launches_by_path"][f"sim_{name}"] = launches[kernel]
+        else:
+            LATE_PATHS[(kernel, f"sim_{name}")] = launches[kernel]
+    return out
+
+
 def card_line():
     try:
         out = subprocess.run(
@@ -6195,6 +7125,9 @@ def main() -> int:
     explain_whatif_wave(results)
     north_star_topk(results)
     xl_topk(results)
+    framework_e2e(results)
+    framework_e2e_wave(results)
+    sim_scenarios(results)
     lockcheck_phase(results)
     for (kernel, path), n in LATE_PATHS.items():
         if kernel in results:

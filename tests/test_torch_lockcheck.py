@@ -437,3 +437,58 @@ def test_lockcheck_whatif_storm_against_live_holder():
         assert holder.stats()["keyframes"] == {"first": 1}
         print("OK")
     """)
+
+
+def test_lockcheck_armed_scheduler_loop_stays_quiet():
+    """The scheduler loop under the checker: a SimCluster on the CPU (the
+    race, then a 60-node cluster of 12 gangs with the background refresh,
+    the 1 s batch interval and dispatch-ahead on), every pod bound, and no
+    LockDisciplineError raised anywhere, also where a thread's own handler
+    would swallow it (the scheduler requeues a pod whose cycle raised)."""
+    _run_armed("""
+        import time
+
+        from batch_scheduler_tpu_torch.analysis import lockcheck
+        from batch_scheduler_tpu_torch.ops.oracle import inflight_batches
+        from batch_scheduler_tpu_torch.sim import SimCluster
+        from batch_scheduler_tpu_torch.sim.scenarios import (
+            make_member_pods, make_sim_group, make_sim_node, race_scenario)
+
+        raised = []
+
+        class Recorded(lockcheck.LockDisciplineError):
+            def __init__(self, *args):
+                super().__init__(*args)
+                raised.append(self)
+
+        lockcheck.LockDisciplineError = Recorded
+        assert "batch_scheduler_tpu_torch.framework.scheduler:Scheduler" in lockcheck.install()
+
+        sim = SimCluster(scorer="oracle", device="cpu")
+        nodes, groups, pods = race_scenario()
+        sim.add_nodes(nodes)
+        for pg in groups:
+            sim.create_group(pg)
+        sim.start()
+        for group_pods in pods.values():
+            sim.create_pods(group_pods)
+        assert sim.wait_for_bound("web-group-race1", 5, timeout=30)
+        sim.stop()
+
+        sim = SimCluster(scorer="oracle", device="cpu", min_batch_interval=1.0,
+                         oracle_background_refresh=True, oracle_dispatch_ahead=True,
+                         bind_workers=8)
+        sim.add_nodes([make_sim_node(f"n{i:02d}", {"cpu": "8", "pods": "110"})
+                       for i in range(60)])
+        base = time.time() - 1.0
+        for g in range(12):
+            sim.create_group(make_sim_group(f"g{g}", 4, creation_ts=base + g * 1e-3))
+        sim.start()
+        for g in range(12):
+            sim.create_pods(make_member_pods(f"g{g}", 4, {"cpu": "1"}))
+        assert sim.wait_for(lambda: sim.scheduler.stats["binds"] >= 48, timeout=30)
+        sim.stop()
+        assert inflight_batches() == 0
+        assert not raised, raised[0]
+        print("OK")
+    """)

@@ -404,3 +404,102 @@ def test_topk_metrics_deltas_match_reference():
     assert paths == {"topk": 3, "serial": 1, "wavefront": 1}
     assert port["bst_scan_topk_k"] == {(): 16.0}
     assert sum(port["bst_topk_demotions_total"].values()) > 0
+
+
+# ---------------------------------------------------------------------------
+# the scheduler loop's series (framework.scheduler, plugin.batch_plugin,
+# the lifecycle ledger's time-to-placement)
+# ---------------------------------------------------------------------------
+
+FRAMEWORK_COUNTERS = (
+    "bst_pods_bound_total",
+    "bst_gang_releases_total",
+    "bst_cycle_errors_total",
+    "bst_preemptions_total",
+)
+FRAMEWORK_HISTOGRAMS = (
+    "bst_schedule_cycle_seconds",
+    "bst_extension_point_seconds",
+    "bst_gang_ttp_seconds",
+    "bst_gang_ttp_phase_seconds",
+)
+
+
+def _read_framework(pkg):
+    reg = _registry(pkg)
+    out = {}
+    for name in FRAMEWORK_COUNTERS:
+        metric = reg.get(name)
+        out[name] = dict(metric.values()) if metric is not None else {}
+    for name in FRAMEWORK_HISTOGRAMS:
+        metric = reg.get(name)
+        out[name] = (
+            {k: snap[2] for k, snap in metric.snapshots().items()}
+            if metric is not None else {}
+        )
+    return out
+
+
+def _framework_script(pkg, scorer):
+    """One SimCluster run: 6 gangs that fit and one that fits nowhere, every
+    pod queued before the scheduler starts, each whole-gang transaction
+    committed before the next cycle, and a backoff far past the run, so
+    every count is fixed by the inputs: one cycle a gang on the oracle's
+    fast lane (a pod on the serial path), one a denied member."""
+    sim = importlib.import_module(f"{pkg}.sim")
+    scen = importlib.import_module(f"{pkg}.sim.scenarios")
+    from test_torch_sim_e2e import _start_settled
+
+    kw = {"device": "cpu"} if pkg.endswith("_torch") else {}
+    c = sim.SimCluster(scorer=scorer, backoff_base=300.0, backoff_cap=300.0, **kw)
+    try:
+        c.add_nodes([scen.make_sim_node(f"m{i}", {"cpu": "8", "memory": "32Gi", "pods": "64"})
+                     for i in range(6)])
+        import time as _time
+
+        base = _time.time() - 1.0
+        pods = []
+        for g in range(7):
+            members, cpu = (3, "2") if g < 6 else (2, "64")
+            c.create_group(scen.make_sim_group(f"fw{g}", members, creation_ts=base + g * 1e-3))
+            pods.extend(scen.make_member_pods(f"fw{g}", members, {"cpu": cpu}))
+        _start_settled(c, len(pods))
+        c.create_pods(pods)
+        assert c.wait_for(lambda: len(c.scheduler.queue) == len(pods), timeout=30.0)
+        c.scheduler.FLUSH_GANGS = 1
+        c.scheduler.start()
+        assert c.wait_for(lambda: c.scheduler.stats["binds"] >= 18
+                          and c.scheduler.stats["unschedulable"] >= 2, timeout=30.0), \
+            c.scheduler.stats
+        stats = dict(c.scheduler.stats)
+    finally:
+        c.stop()
+    return stats
+
+
+@pytest.mark.parametrize("scorer", ["oracle", "serial"])
+def test_framework_metrics_deltas_match_reference(scorer):
+    deltas, stats = {}, {}
+    for pkg in PACKAGES:
+        before = _read_framework(pkg)
+        stats[pkg] = _framework_script(pkg, scorer)
+        after = _read_framework(pkg)
+        deltas[pkg] = {
+            name: {k: v - before[name].get(k, 0) for k, v in now.items()
+                   if v != before[name].get(k, 0)}
+            for name, now in after.items()
+        }
+    ref, port = deltas["batch_scheduler_tpu"], deltas["batch_scheduler_tpu_torch"]
+    assert stats["batch_scheduler_tpu_torch"] == stats["batch_scheduler_tpu"]
+    for name in FRAMEWORK_COUNTERS + FRAMEWORK_HISTOGRAMS:
+        assert port[name] == ref[name], name
+    s = stats["batch_scheduler_tpu_torch"]
+    # the series are the run's own counts
+    assert port["bst_schedule_cycle_seconds"] == {(): s["cycles"]}
+    assert port["bst_pods_bound_total"] == {(): s["binds"]} and s["binds"] == 18
+    assert port["bst_gang_releases_total"] == {(): 6}
+    points = {dict(k)["point"]: v for k, v in port["bst_extension_point_seconds"].items()}
+    assert points["preFilter"] == s["cycles"]
+    assert sum(port["bst_gang_ttp_seconds"].values()) == 6
+    if scorer == "oracle":
+        assert s["cycles"] == 6 + 2 and points["permit"] == 6

@@ -119,6 +119,45 @@ def test_import_guard_walks_the_refresh_modules():
             "ops/snapshot.py", "core/oracle_scorer.py"} <= walked
 
 
+def test_import_guard_walks_the_scheduler_loop_modules():
+    walked = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert {"api/serde.py", "api/register.py", "utils/patch.py", "utils/workqueue.py",
+            "utils/drain.py", "client/apiserver.py", "client/clientset.py",
+            "client/informers.py", "client/fake.py", "framework/types.py",
+            "framework/waiting.py", "framework/queue.py", "framework/scheduler.py",
+            "controller/controller.py", "plugin/gate.py", "plugin/leader.py",
+            "plugin/batch_plugin.py", "plugin/factory.py", "sim/kubelet.py",
+            "sim/harness.py"} <= walked
+
+
+def test_scheduler_entry_points_default_to_cuda():
+    """SimCluster, new_plugin_runtime and Scheduler run on the card unless
+    the caller asks for the CPU: without CUDA the default raises."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from batch_scheduler_tpu_torch.client import APIServer, Clientset
+    from batch_scheduler_tpu_torch.framework import ClusterState, Scheduler
+    from batch_scheduler_tpu_torch.plugin import PluginConfig, new_plugin_runtime
+    from batch_scheduler_tpu_torch.sim import SimCluster
+
+    class _Handle:
+        cluster = ClusterState()
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SimCluster()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        new_plugin_runtime(APIServer(), _Handle())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Scheduler(Clientset(APIServer()), ClusterState())
+    # asking for the CPU works, the serial scorer included
+    for scorer in ("oracle", "serial"):
+        sim = SimCluster(scorer=scorer, device="cpu")
+        assert sim.scheduler.device.type == "cpu"
+        sim.stop()
+    rt = new_plugin_runtime(APIServer(), _Handle(), PluginConfig(device="cpu"))
+    assert rt.operation.oracle.device.type == "cpu"
+
+
 def test_default_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
