@@ -10,6 +10,8 @@ cache is the gang timeout signal (see controller wiring).
 from __future__ import annotations
 
 import threading
+import types
+import weakref
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
@@ -85,6 +87,12 @@ class PodGroupMatchStatus:
         self.pod_name_uids.close()
 
 
+def _live(sub):
+    """An ``on_update`` entry's callable: a weakly held bound method's
+    target while its object lives (else None), any other callable as is."""
+    return sub() if isinstance(sub, weakref.WeakMethod) else sub
+
+
 class PGStatusCache:
     """Thread-safe full-name -> PodGroupMatchStatus map
     (reference pkg/scheduler/cache/cache.go:45-116)."""
@@ -120,8 +128,14 @@ class PGStatusCache:
         of an entry re-stored in place (``set`` of the object already
         held: the controller's status sync). The scorer's event fold
         hears of the changed gang row through it (ops.events), where the
-        reference bumps the membership counter and scans."""
-        self._on_update.append(fn)
+        reference bumps the membership counter and scans. A bound method
+        is held weakly (as ``ClusterState.subscribe_events`` holds its
+        subscribers) and dropped once its object is collected; any other
+        callable is held for the cache's life."""
+        with self._lock:
+            self._on_update[:] = [r for r in self._on_update if _live(r) is not None]
+            self._on_update.append(
+                weakref.WeakMethod(fn) if isinstance(fn, types.MethodType) else fn)
 
     def get(self, full_name: str) -> Optional[PodGroupMatchStatus]:
         with self._lock:
@@ -134,8 +148,12 @@ class PGStatusCache:
             if not in_place:
                 self._mutations += 1
         if in_place:
-            for fn in self._on_update:
-                fn(full_name)
+            with self._lock:
+                subs = list(self._on_update)
+            for ref in subs:
+                fn = _live(ref)
+                if fn is not None:
+                    fn(full_name)
 
     def delete(self, full_name: str) -> None:
         with self._lock:

@@ -269,6 +269,19 @@ class APIServer:
                 raise NotFoundError(f"{kind} {namespace}/{name} not found")
             return json_deepcopy(obj)
 
+    def bound_pods_by_label(self, key: str) -> Dict[Tuple[str, str], int]:
+        """(namespace, value of label ``key``) -> pods carrying it that are
+        bound to a node: one pass over the stored pods, nothing copied (a
+        poll of every gang's bound members, where ``list`` per gang would
+        copy and decode each member)."""
+        out: Dict[Tuple[str, str], int] = {}
+        with self._lock:
+            for (namespace, _), obj in self._kind_store("Pod").items():
+                value = self._labels_of(obj).get(key)
+                if value is not None and (obj.get("spec") or {}).get("node_name"):
+                    out[(namespace, value)] = out.get((namespace, value), 0) + 1
+        return out
+
     def list(
         self,
         kind: str,

@@ -249,9 +249,6 @@ class ScheduleOperation:
         if self.scorer_kind != "oracle" or self.oracle is None:
             set_active_sampler(None)
         status_cache.on_delete(self._forget_creation)
-        # a status synced in place (the controller) changed the gang's row:
-        # name it for the next event fold, as the plan-covered paths do
-        status_cache.on_update(self._gang_event)
 
     # ------------------------------------------------------------------
     # scorer lifecycle

@@ -452,6 +452,13 @@ class _BatchState:
         return row
 
 
+def _request_lanes(snap: ClusterSnapshot) -> int:
+    """The nonzero entries of the batch's [G,R] request, counted on the
+    snapshot's host copy (the batch reads the resident one): the lanes
+    of the bound ``/debug/buckets`` gives a bucket's first batch."""
+    return int(np.count_nonzero(snap.group_req > 0))
+
+
 class OracleScorer:
     """Caches one batch of oracle results; invalidated by ``mark_dirty``.
 
@@ -867,6 +874,12 @@ class OracleScorer:
             return
         log = EventLog(label="scorer")
         subscribe(log.note_bump)  # weakly held: dies with this scorer
+        on_update = getattr(status_cache, "on_update", None)
+        if callable(on_update):
+            # an entry re-stored in place (the controller's status sync)
+            # is no mutation of the cache: the fold hears of the gang
+            # here (weakly held: dies with this log)
+            on_update(log.note_group)
         self._event_log = log
         self._event_cluster_ref = weakref.ref(cluster)
         self._event_cache_ref = weakref.ref(status_cache)
@@ -1109,7 +1122,8 @@ class OracleScorer:
         tenancy.set_batch_tenant(self.dominant_tenant(snap))
         try:
             return execute_batch_host(
-                batch_args, snap.progress_args(), device=self.device, policy=policy
+                batch_args, snap.progress_args(), device=self.device, policy=policy,
+                request_lanes=_request_lanes(snap),
             )
         finally:
             tenancy.set_batch_tenant(None)
@@ -1134,7 +1148,8 @@ class OracleScorer:
         (RemoteScorer) runs it here and returns its result."""
         batch_args, policy = self._batch_inputs(snap)
         pending = dispatch_batch(
-            batch_args, snap.progress_args(), device=self.device, policy=policy
+            batch_args, snap.progress_args(), device=self.device, policy=policy,
+            request_lanes=_request_lanes(snap),
         )
         tenant = self.dominant_tenant(snap)
 

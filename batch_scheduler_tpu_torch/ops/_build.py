@@ -9,7 +9,9 @@ their own ``nvcc`` beside the base kernel's). Libraries land in
 ``batch_scheduler_tpu_torch/build/`` (gitignored), named by a digest of
 the source, the ``csrc/*.cuh`` headers it includes and the flags
 (``digest``), so an edited source or header rebuilds and an unchanged one
-loads at once.
+loads at once: the build directory is the port's compilation cache. Each
+library a process gets, built or loaded, lands one entry in the compile
+ledger (``utils.profiler.COMPILE_LEDGER``).
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
@@ -24,6 +26,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict
 
@@ -89,7 +92,8 @@ def library(name: str) -> ctypes.CDLL:
     ``VARIANTS`` entry ``name``), built on first use.
     Raises RuntimeError, with the compiler's output, if the build fails.
     Different libraries build concurrently when called from several
-    threads."""
+    threads. The first call for a library records it in the compile
+    ledger."""
     with _lock:
         lib = _libs.get(name)
         if lib is not None:
@@ -100,10 +104,13 @@ def library(name: str) -> ctypes.CDLL:
             lib = _libs.get(name)
         if lib is not None:  # built while this thread waited for the lock
             return lib
+        t0 = time.perf_counter()
         stem, extra = VARIANTS.get(name, (name, ()))
         src = CSRC_DIR / f"{stem}.cu"
-        out = BUILD_DIR / f"lib{name}_{digest(src, extra)}.so"
-        if not out.exists():
+        key = digest(src, extra)
+        out = BUILD_DIR / f"lib{name}_{key}.so"
+        built = not out.exists()
+        if built:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             proc = subprocess.run(
@@ -117,4 +124,7 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         with _lock:
             _libs[name] = lib
-        return lib
+    from ..utils.profiler import COMPILE_LEDGER
+
+    COMPILE_LEDGER.record(name, key, time.perf_counter() - t0, built)
+    return lib

@@ -38,6 +38,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.metrics import DEFAULT_REGISTRY
 from . import _build
 from .lanes import LANE_MAX
 from .oracle import assign_gangs as assign_gangs_plain
@@ -334,6 +335,16 @@ def _check_cuda(caller, left0, group_req, remaining, fit_mask, order):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _count_launch(kernel: str) -> None:
+    """One launch of ``kernel`` into ``bst_kernel_launches_total``: each
+    wrapper counts here beside its ``.launches``, where it launches, so a
+    process's /metrics carries its kernels' own launch counts."""
+    DEFAULT_REGISTRY.counter(
+        "bst_kernel_launches_total",
+        "Launches of each hand-written kernel, counted by its wrapper",
+    ).inc(kernel=kernel)
+
+
 def assign_gangs_cuda(left0, group_req, remaining, fit_mask, order):
     """The assignment scan: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. ``order`` must be a permutation of [0, G)
@@ -348,6 +359,7 @@ def assign_gangs_cuda(left0, group_req, remaining, fit_mask, order):
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     out = _launch_scan(scan_plan(n, r, index), left0, group_req, remaining, fit_mask, order)
     assign_gangs_cuda.launches += 1
+    _count_launch("assign_scan")
     return out
 
 
@@ -410,6 +422,7 @@ def assign_gangs_wave_cuda(left0, group_req, remaining, fit_mask, order, wave: i
     out = _launch_wave(wave_scan_plan(n, r, index), left0, group_req, remaining,
                        fit_mask, order, wave)
     assign_gangs_wave_cuda.launches += 1
+    _count_launch("assign_wave")
     return out
 
 
@@ -517,6 +530,7 @@ def assign_gangs_policy_cuda(left0, group_req, remaining, fit_mask, order, prio,
                          fit_mask, order, aff, anti, gang_dom, node_hash, node_dom,
                          _policy_weights(terms, weights))
     assign_gangs_policy_cuda.launches += 1
+    _count_launch("assign_policy")
     return out
 
 
@@ -620,6 +634,7 @@ def assign_gangs_topk_cuda(left0, group_req, remaining, fit_mask, order, wave: i
     out = _launch_topk(topk_scan_plan(n, r, wave, kk, index), left0, group_req, remaining,
                        fit_mask, order, wave, kk)
     assign_gangs_topk_cuda.launches += 1
+    _count_launch("assign_topk")
     return out
 
 

@@ -57,6 +57,7 @@ CPU.
 from __future__ import annotations
 
 import threading
+import weakref
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -65,7 +66,7 @@ import torch
 from ..utils.metrics import DEFAULT_REGISTRY
 from .convert import resolve_device
 
-__all__ = ["DeviceStateHolder", "derive_columns", "stage_rows"]
+__all__ = ["DeviceStateHolder", "derive_columns", "device_state_report", "stage_rows"]
 
 # the resident tensors a fork starts on (the reference's fork shares these)
 _FORK_SHARED = ("_alloc", "_requested", "_group_req", "_policy_hash", "_policy_dom")
@@ -114,6 +115,19 @@ def derive_columns(inv_prio, ts_hi, ts_lo, name_rank, node_valid):
     return node_valid[None, :], perm.to(torch.int32)
 
 
+# holder registry (the /debug/perf device-state section)
+_holders_lock = threading.Lock()
+_holders: "weakref.WeakSet" = weakref.WeakSet()  # guarded-by: _holders_lock
+
+
+def device_state_report() -> list:
+    """Per-holder state summary for /debug/perf (utils.profiler): each live
+    holder's ``stats()``."""
+    with _holders_lock:
+        live = list(_holders)
+    return [h.stats() for h in live]
+
+
 class DeviceStateHolder:
     """Owner of one set of device-resident oracle buffers on ``device``.
 
@@ -154,6 +168,8 @@ class DeviceStateHolder:
         # those it still borrows, each cloned at its first in-place write
         self._forked = False
         self._borrowed: set = set()  # guarded-by: _lock
+        with _holders_lock:
+            _holders.add(self)
 
     # -- internals ----------------------------------------------------------
 

@@ -78,6 +78,7 @@ __all__ = [
     "execute_batch_host",
     "inflight_batches",
     "forced_scan_rung",
+    "bucket_cost_report",
     "ASSIGNMENT_TOP_K",
     "GANG_MAX",
 ]
@@ -973,10 +974,12 @@ class PendingBatch:
     ``blob`` is the finished blob and ``done`` is None."""
 
     __slots__ = ("blob", "done", "out", "pack", "top_k", "scan_wave", "mask_mode",
-                 "n_bucket", "g_bucket", "device", "used_policy", "used_topk")
+                 "n_bucket", "g_bucket", "device", "used_policy", "used_topk",
+                 "cost_probe")
 
     def __init__(self, blob, done, out, pack, top_k, scan_wave, mask_mode,
-                 n_bucket, g_bucket, device, used_policy=False, used_topk=0):
+                 n_bucket, g_bucket, device, used_policy=False, used_topk=0,
+                 cost_probe=None):
         self.blob = blob
         self.done = done
         self.out = out
@@ -989,9 +992,13 @@ class PendingBatch:
         self.device = device
         self.used_policy = used_policy
         self.used_topk = used_topk
+        # (requested lanes, scan input bytes, lanes R), host numbers, for
+        # a bucket and rung /debug/buckets has not priced yet
+        self.cost_probe = cost_probe
 
 
-def dispatch_batch(batch_args, progress_args, device="cuda", policy=None) -> PendingBatch:
+def dispatch_batch(batch_args, progress_args, device="cuda", policy=None,
+                   request_lanes=None) -> PendingBatch:
     """Enqueue one batch + max-progress selection on ``device`` and start
     the copy of its O(G) blob to the host WITHOUT waiting for either.
     Takes the packed numpy batch (``ClusterSnapshot.device_args()`` /
@@ -1023,7 +1030,13 @@ def dispatch_batch(batch_args, progress_args, device="cuda", policy=None) -> Pen
     says (the wavefront's uniform and speculative branches assume a key
     that depends on capacity alone), and on CUDA the composite-key kernel
     runs or the batch raises; there is no fallback to another scan. A
-    policy batch never takes the top-K rung either."""
+    policy batch never takes the top-K rung either.
+
+    ``request_lanes`` is the count of nonzero entries of the [G,R] request
+    (``batch_args[2]``), for the bound ``/debug/buckets`` gives the first
+    batch of a bucket: a caller whose request is already on the card
+    counts it on its host copy. Without it a host request is counted here,
+    and a card-resident one leaves the bucket to a later batch."""
     dev = resolve_device(device)
     pin = getattr(_rung_override, "value", None)
     if pin is None:
@@ -1050,6 +1063,18 @@ def dispatch_batch(batch_args, progress_args, device="cuda", policy=None) -> Pen
     blob, out = _batch_blob(*batch, *progress, pack_assignment=pack,
                             top_k=top_k, scan_wave=scan_wave, policy=policy,
                             scan_topk=scan_topk)
+    rung = _path_name(policy is not None, scan_topk, scan_wave)
+    cost_probe = None
+    if _bucket_cost_enabled() and not _bucket_cost_known(g_bucket, n_bucket, rung):
+        lanes = request_lanes
+        if lanes is None and not (torch.is_tensor(batch_args[2])
+                                  and batch_args[2].device.type != "cpu"):
+            lanes = int(np.count_nonzero(np.asarray(batch_args[2]) > 0))
+        if lanes is not None:
+            cost_probe = (int(lanes),
+                          sum(t.numel() * t.element_size()
+                              for t in (batch[0], batch[2], batch[3], batch[4], batch[6])),
+                          int(batch[0].shape[1]))
     done = None
     if dev.type == "cuda":
         blob = blob.to("cpu", non_blocking=True)
@@ -1058,7 +1083,7 @@ def dispatch_batch(batch_args, progress_args, device="cuda", policy=None) -> Pen
     _note_inflight(1)
     return PendingBatch(blob, done, out, pack, top_k, scan_wave, mask_mode,
                         n_bucket, g_bucket, dev, used_policy=policy is not None,
-                        used_topk=scan_topk)
+                        used_topk=scan_topk, cost_probe=cost_probe)
 
 
 def collect_batch(pending: PendingBatch):
@@ -1121,6 +1146,7 @@ def collect_batch(pending: PendingBatch):
         )
         if pending.used_topk:
             host["telemetry"]["topk_demotions"] = int(stats[3])
+    _note_bucket_cost(pending, host["telemetry"])
     _fold_batch_metrics(host["telemetry"])
     out = pending.out
     device_result = {"capacity": out["capacity"], "scores": out["scores"]}
@@ -1136,12 +1162,8 @@ def _fold_batch_metrics(telemetry: dict) -> None:
     is armed), the top-K series and the wavefront series. The port has no
     wave demotion ladder, so ``bst_scan_wave_enabled`` stays 1. The
     sharded and compile series belong to rungs not ported."""
-    path = (
-        "policy" if telemetry["scan_policy"]
-        else "topk" if telemetry["scan_topk"] > 0
-        else "wavefront" if telemetry["wave_width"] > 1
-        else "serial"
-    )
+    path = _path_name(telemetry["scan_policy"], telemetry["scan_topk"],
+                      telemetry["wave_width"])
     reg = DEFAULT_REGISTRY
     reg.counter(
         "bst_scan_batches_total",
@@ -1184,11 +1206,134 @@ def _fold_batch_metrics(telemetry: dict) -> None:
         ).inc(telemetry["wave_uniform"])
 
 
-def execute_batch_host(batch_args, progress_args, device="cuda", policy=None):
+def _path_name(policy: bool, scan_topk: int, scan_wave: int) -> str:
+    """The scan path of a batch: the ``path`` label of
+    ``bst_scan_batches_total`` and the rung of ``/debug/buckets``."""
+    return (
+        "policy" if policy
+        else "topk" if scan_topk > 0
+        else "wavefront" if scan_wave > 1
+        else "serial"
+    )
+
+
+# -- per-bucket kernel plans and bounds (/debug/buckets) ---------------------
+#
+# The reference serves, per (G, N) bucket, the compiled XLA module's HLO
+# cost. The port compiles nothing per shape: each kernel is one library
+# (ops._build). So its entry for a bucket is, for each scan path that ran
+# on it, the kernel, the launch plan the card chose (ops.assign_scan's
+# layouts; None for the plain version on the CPU) and the bound of the
+# first such batch (ops.bounds: the bytes and operations this data needs),
+# with the batches collected. BST_BUCKET_COST=0 disables it, as in the
+# reference.
+
+_KERNEL_OF_PATH = {"serial": "assign_scan", "wavefront": "assign_wave",
+                   "policy": "assign_policy", "topk": "assign_topk"}
+_bucket_cost_lock = threading.Lock()
+_bucket_costs: dict = {}  # guarded-by: _bucket_cost_lock
+
+
+def _bucket_cost_enabled() -> bool:
+    return os.environ.get("BST_BUCKET_COST", "").strip() != "0"
+
+
+def _bucket_cost_known(g_bucket: int, n_bucket: int, path: str) -> bool:
+    with _bucket_cost_lock:
+        entry = _bucket_costs.get((g_bucket, n_bucket))
+        return entry is not None and path in entry["rungs"]
+
+
+def _kernel_plan_of(path: str, pending, r: int):
+    """The launch plan the wrapper used for this batch on its card (the
+    lru-cached query the launch made), or None on the CPU."""
+    from . import assign_scan as scan
+
+    dev = pending.device
+    if dev.type != "cuda":
+        return None
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    n = pending.n_bucket
+    if path == "policy":
+        plan = scan.policy_scan_plan(n, r, index)
+    elif path == "topk":
+        plan = scan.topk_scan_plan(n, r, pending.scan_wave,
+                                   max(2, min(pending.used_topk, n)), index)
+    elif path == "wavefront":
+        plan = scan.wave_scan_plan(n, r, index)
+    else:
+        plan = scan.scan_plan(n, r, index)
+    return plan._asdict()
+
+
+def _note_bucket_cost(pending, telemetry: dict) -> None:
+    """Count a collected batch into its bucket's entry and, for the first
+    batch of a path on the bucket, price it (telemetry only: never raises
+    into the batch)."""
+    if not _bucket_cost_enabled():
+        return
+    g, n = pending.g_bucket, pending.n_bucket
+    path = _path_name(pending.used_policy, pending.used_topk, pending.scan_wave)
+    with _bucket_cost_lock:
+        entry = _bucket_costs.setdefault(
+            (g, n), {"g_bucket": g, "n_bucket": n, "batches": 0, "rungs": {}})
+        entry["batches"] += 1
+        rung = entry["rungs"].get(path)
+        if rung is not None:
+            rung["batches"] += 1
+            return
+    if pending.cost_probe is None:
+        return
+    from .bounds import bound, policy_work, scan_work, topk_work
+
+    try:
+        lanes, in_bytes, r = pending.cost_probe
+        wave = pending.scan_wave if path == "wavefront" else 0
+        nbytes, ops = scan_work(n, r, g, in_bytes, lanes, wave)
+        if path == "policy":
+            nbytes, ops = policy_work(n, g, nbytes, ops)
+        elif path == "topk":
+            nbytes, ops = topk_work(n, g, nbytes, ops, pending.scan_wave,
+                                    telemetry.get("wave_demotions", 0),
+                                    telemetry.get("topk_demotions", 0))
+        bound_ms, bound_by = bound(nbytes, ops)
+        rung = {
+            "kernel": _KERNEL_OF_PATH[path],
+            "device": str(pending.device),
+            "plan": _kernel_plan_of(path, pending, r),
+            "lanes": r,
+            "wave_width": pending.scan_wave,
+            "scan_topk": pending.used_topk,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "bytes": int(nbytes),
+            "int_ops": int(ops),
+            "batches": 1,
+        }
+    except Exception as e:  # noqa: BLE001 — telemetry, never the batch
+        rung = {"kernel": _KERNEL_OF_PATH[path], "error": repr(e)[:300], "batches": 1}
+    with _bucket_cost_lock:
+        _bucket_costs[(g, n)]["rungs"].setdefault(path, rung)
+
+
+def bucket_cost_report() -> dict:
+    """Per-bucket entries keyed "GxN" — the payload of the metrics
+    endpoint's /debug/buckets (utils.metrics): for each scan path that
+    ran on the bucket, its kernel, launch plan and bound (a copy)."""
+    with _bucket_cost_lock:
+        return {
+            f"{g}x{n}": {**entry, "rungs": {k: dict(v) for k, v in entry["rungs"].items()}}
+            for (g, n), entry in sorted(_bucket_costs.items())
+        }
+
+
+def execute_batch_host(batch_args, progress_args, device="cuda", policy=None,
+                       request_lanes=None):
     """Run one batch + max-progress selection on ``device`` and return its
     ``(host, device_result)``: the synchronous form of the split,
     ``collect_batch(dispatch_batch(...))``, whose docstrings give the
     arguments (``policy`` too), the streams and what comes back. The O(G)
     host vectors come back as one blob, through the pinned copy and the
     event of the split; the [G,N] tensors stay on the device."""
-    return collect_batch(dispatch_batch(batch_args, progress_args, device, policy))
+    return collect_batch(dispatch_batch(batch_args, progress_args, device, policy,
+                                        request_lanes))

@@ -14,7 +14,7 @@ its interface passed as ``api``).
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 from ..api.types import Node, Pod, PodGroup, PodGroupPhase, PodPhase, to_dict
 from ..client.apiserver import APIServer
@@ -380,6 +380,11 @@ class SimCluster:
         return self.clientset.pods(namespace).list(
             label_selector={POD_GROUP_LABEL: group}
         )
+
+    def bound_member_counts(self) -> Dict[Tuple[str, str], int]:
+        """(namespace, gang) -> its member pods bound to a node, for every
+        gang at once (``len`` of ``member_pods`` with a node, per gang)."""
+        return self.api.bound_pods_by_label(POD_GROUP_LABEL)
 
     def member_phase_counts(self, group: str, namespace: str = "default") -> Dict[str, int]:
         counts: Dict[str, int] = {}

@@ -59,9 +59,10 @@ A policy batch's record also carries its packed policy columns
 ``policy`` terms and weights; the reader hands them to replay as
 ``policy_args``.
 
-Still to come: the ``BST_AUDIT_FORMAT`` / ``BST_AUDIT_KEYFRAME_EVERY``
-environment readers (with the CLI, ROADMAP Queue 1 item 12; the format and
-chain length are the constructor's ``fmt=`` / ``keyframe_every=``).
+The format and the chain length are the constructor's ``fmt=`` /
+``keyframe_every=``, which default to the ``BST_AUDIT_FORMAT`` /
+``BST_AUDIT_KEYFRAME_EVERY`` readers (``audit_format``,
+``audit_keyframe_every``), as the reference's do.
 """
 
 from __future__ import annotations
@@ -72,6 +73,7 @@ import hashlib
 import json
 import os
 import queue
+import sys
 import threading
 import time
 import weakref
@@ -91,6 +93,8 @@ from .trace import new_trace_id
 __all__ = [
     "AuditLog",
     "AuditReader",
+    "audit_format",
+    "audit_keyframe_every",
     "new_audit_id",
     "plan_digest",
     "canonical_plan",
@@ -152,6 +156,57 @@ _BOOL_ARRAYS = ("fit_mask", "group_valid", "ineligible", "placed",
 # re-folded inputs and the digest bit-checks assignments too.
 EVENT_RESULT_FIELDS = ("placed", "gang_feasible", "progress", "best",
                        "best_exists")
+
+
+_FORMAT_ENV = "BST_AUDIT_FORMAT"
+_format_warned = [False]
+
+
+def audit_format() -> str:
+    """Parse-guarded ``BST_AUDIT_FORMAT`` read: ``array`` (default) keeps
+    the keyframe+row-delta ARRAY records; ``v2`` records the event stream
+    itself between periodic array keyframes. Unrecognized values warn once
+    to stderr and keep the default — a typo must degrade the ring format,
+    never crash the scheduler."""
+    raw = os.environ.get(_FORMAT_ENV, "").strip().lower()
+    if raw in ("", "array", "v1"):
+        return "array"
+    if raw == "v2":
+        return "v2"
+    if not _format_warned[0]:
+        _format_warned[0] = True
+        print(
+            f"ignoring unrecognized {_FORMAT_ENV}={raw!r} "
+            "(expected 'array' or 'v2'); audit format stays 'array'",
+            file=sys.stderr,
+        )
+    return "array"
+
+
+_KEYFRAME_ENV = "BST_AUDIT_KEYFRAME_EVERY"
+_KEYFRAME_DEFAULT = 16
+_keyframe_warned = [False]
+
+
+def audit_keyframe_every() -> int:
+    """Parse-guarded ``BST_AUDIT_KEYFRAME_EVERY`` read: the audit chain
+    length — every Nth batch record is a full array keyframe (delta or
+    event records ride between). Non-integer values warn once and keep
+    the default; values below 1 clamp to 1 (every record full)."""
+    raw = os.environ.get(_KEYFRAME_ENV, "").strip()
+    if not raw:
+        return _KEYFRAME_DEFAULT
+    try:
+        return max(int(raw), 1)
+    except ValueError:
+        if not _keyframe_warned[0]:
+            _keyframe_warned[0] = True
+            print(
+                f"ignoring non-integer {_KEYFRAME_ENV}={raw!r}; "
+                f"keyframe cadence stays {_KEYFRAME_DEFAULT}",
+                file=sys.stderr,
+            )
+        return _KEYFRAME_DEFAULT
 
 
 def input_digest(arrays: Dict[str, np.ndarray]) -> str:
@@ -426,22 +481,28 @@ class AuditLog:
     ``cap_bytes``.
 
     Retention: ``cap_bytes`` (total ring size), ``keyframe_every``
-    (delta/event chain length; 1 = every record full), ``fmt`` (``array``
-    or ``v2``).
+    (delta/event chain length; 1 = every record full; None reads
+    ``BST_AUDIT_KEYFRAME_EVERY``), ``fmt`` (``array`` or ``v2``; None reads
+    ``BST_AUDIT_FORMAT``).
     """
 
     def __init__(
         self,
         directory: str,
         cap_bytes: int = 256 * 1024 * 1024,
-        keyframe_every: int = 16,
-        fmt: str = "array",
+        keyframe_every: Optional[int] = None,
+        fmt: Optional[str] = None,
     ):
         self.directory = directory
         os.makedirs(directory, exist_ok=True)
         self.cap_bytes = max(int(cap_bytes), 1)
         self.segment_bytes = _SEGMENT_BYTES
-        self.keyframe_every = max(int(keyframe_every), 1)
+        self.keyframe_every = (
+            audit_keyframe_every() if keyframe_every is None
+            else max(int(keyframe_every), 1)
+        )
+        if fmt is None:
+            fmt = audit_format()
         if fmt not in ("array", "v2"):
             raise ValueError(f"unknown audit format {fmt!r}")
         self.fmt = fmt

@@ -18,19 +18,22 @@ recorder), ``/debug/gangs`` and ``/debug/events`` (the lifecycle ledger,
 utils.lifecycle), ``/debug/health`` (the SLO health model, utils.health),
 ``/debug/policy`` (the active policy engine), ``/debug/explain`` and
 ``/debug/whatif`` (the gang observatory, core.explain) and
-``/debug/capacity`` (the capacity observatory, ops.capacity). ``/debug/``
-serves the index (``DEBUG_ENDPOINTS``). The reference's
-``/debug/buckets``, ``/debug/perf``, ``/debug/profile`` and
-``/debug/drain`` (ROADMAP Queue 1 item 12) are not served yet: they
-answer 404, as an unknown path does. Every handler but two reads a copy
-its owner takes under its own lock and launches no device work; a
-``/debug/explain`` or ``/debug/whatif`` query runs its scans on the
-observatory's device.
+``/debug/capacity`` (the capacity observatory, ops.capacity),
+``/debug/buckets`` (each bucket's kernel plans and bounds,
+ops.oracle.bucket_cost_report, where the reference serves an XLA HLO
+cost), ``/debug/perf`` (utils.profiler.perf_report), ``/debug/profile``
+(a bounded ``torch.profiler`` capture) and ``/debug/drain`` (drains the
+in-process sidecars). ``/debug/`` serves the index (``DEBUG_ENDPOINTS``).
+Every reading handler reads a copy its owner takes under its own lock and
+launches no device work; a ``/debug/explain`` or ``/debug/whatif`` query
+runs its scans on the observatory's device, ``/debug/profile?seconds=N``
+blocks its handler for the capture and ``/debug/drain?go=1`` drains.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -316,7 +319,13 @@ DEBUG_ENDPOINTS = {
                      "(?limit=K, ?timeout_s=N long-polls) — push-shaped "
                      "gang events for external consumers",
     "/debug/health": "the live SLO health model (utils.health)",
+    "/debug/buckets": "per-bucket kernel plans and bounds (ops.oracle)",
     "/debug/policy": "the active policy engine's terms/weights/counters",
+    "/debug/perf": "rolling per-phase p50/p95, scan-rung mix, device "
+                   "memory, device-resident state holders, compile "
+                   "ledger (utils.profiler)",
+    "/debug/profile": "?seconds=N runs a torch.profiler capture and "
+                      "returns the trace dir; bare GET reports state",
     "/debug/explain": "?gang=NS/NAME structured denial breakdown for one "
                       "gang — deficits, binding lane, near-miss nodes, "
                       "preemption candidacy (core.explain)",
@@ -329,6 +338,12 @@ DEBUG_ENDPOINTS = {
                        "utilization/headroom spectra, fragmentation, "
                        "stranded capacity, seat tightness, tenant "
                        "shares; ?points=K trims the series",
+    "/debug/drain": "?go=1 gracefully drains every in-process "
+                    "OracleServer (stop admitting, finish the in-flight "
+                    "window, flush ledgers; docs/resilience.md \"High "
+                    "availability\") and answers the drain reports — the "
+                    "HTTP face of SIGTERM, idempotent; bare GET reports "
+                    "drain state only",
 }
 
 
@@ -348,7 +363,39 @@ def _parse_limit(raw):
     return limit, None
 
 
-def _debug_payload(path: str, query: dict) -> Tuple[object, int]:
+def _profile_payload(raw) -> Tuple[dict, int]:
+    """/debug/profile: without ``seconds`` the capture state; with a
+    finite ``seconds`` one bounded capture; a malformed duration answers
+    400 and runs nothing (it would block a handler and take the profiler)."""
+    from . import profiler as profiler_mod
+
+    if raw is None:
+        return profiler_mod.profile_state(), 200
+    try:
+        seconds = float(raw)
+        if not math.isfinite(seconds):
+            raise ValueError(raw)
+    except ValueError:
+        return {"ok": False, "error": f"malformed seconds={raw!r}"}, 400
+    return profiler_mod.capture_profile(seconds), 200
+
+
+def _drain_payload(go) -> dict:
+    """/debug/drain: ``?go=1`` drains every live in-process OracleServer
+    and answers the reports (idempotent: a second call waits on the first
+    drain and returns the same report); a bare GET only reports drain
+    state. The process is not exited here."""
+    from ..service.server import active_servers
+
+    servers = active_servers()
+    if go in ("1", "true", "yes"):
+        return {"ok": True, "servers": len(servers),
+                "reports": [srv.drain() for srv in servers]}
+    return {"ok": True, "servers": len(servers),
+            "draining": [srv.draining() for srv in servers]}
+
+
+def _debug_payload(path: str, query: dict, registry=None) -> Tuple[object, int]:
     """(payload, HTTP status) of one JSON debug route — a JSON-able value,
     or bytes already encoded; (None, 404) for a path this endpoint does
     not serve. The owners' modules are imported here, on the first
@@ -410,6 +457,18 @@ def _debug_payload(path: str, query: dict) -> Tuple[object, int]:
         from ..ops.capacity import capacity_debug_view
 
         return capacity_debug_view(first)
+    if path == "/debug/buckets":
+        from ..ops.oracle import bucket_cost_report
+
+        return bucket_cost_report(), 200
+    if path == "/debug/perf":
+        from . import profiler as profiler_mod
+
+        return profiler_mod.perf_report(registry), 200
+    if path == "/debug/profile":
+        return _profile_payload(first.get("seconds"))
+    if path == "/debug/drain":
+        return _drain_payload(first.get("go", "0")), 200
     if path in ("/debug", "/debug/"):
         return {"endpoints": DEBUG_ENDPOINTS}, 200
     return None, 404
@@ -431,7 +490,7 @@ class _MetricsHandler(BaseHTTPRequestHandler):
         elif path == "/healthz":
             status, body, ctype = 200, b"ok\n", "text/plain"
         else:
-            payload, status = _debug_payload(path, parse_qs(url.query))
+            payload, status = _debug_payload(path, parse_qs(url.query), self.registry)
             if payload is None:
                 self.send_response(404)
                 self.end_headers()

@@ -4,7 +4,7 @@
 The one tenant identity every object already carries is its NAMESPACE (a
 gang's full name is ``namespace/name``). :func:`tenant_label` makes it a
 label with the cardinality discipline Prometheus requires: at most
-``TENANT_LABEL_MAX`` distinct namespaces get their own label, first seen
+:func:`tenant_cap` distinct namespaces get their own label, first seen
 first served, and everything beyond overflows into ``other``. First-seen
 keeps a tenant's label stable for the process lifetime. The audit log
 stamps each record's gangs per tenant label with it, and a remote scorer
@@ -13,7 +13,7 @@ announces its batch's dominant label on the wire (the TENANT frame).
 :func:`batch_tenants` is the other mode, deliberately different: the
 PER-BATCH deterministic mapping the capacity kernel (ops.capacity)
 attributes shares with. Namespaces are ranked by (gang count desc, name
-asc) within that one batch, the top ``TENANT_LABEL_MAX`` get indices and
+asc) within that one batch, the top :func:`tenant_cap` get indices and
 the tail folds into ``other``. Determinism from the batch's own names is
 what lets a recorded batch's capacity sample replay bit-identically, with
 no process history involved.
@@ -24,12 +24,13 @@ sidecar's device executor sets the tenant a connection announced around
 each batch it collects, as the reference's do; ``ops.oracle.collect_batch``
 reads it into the scan counter's tenant label.
 
-Still to come: the ``BST_TENANT_LABEL_MAX`` knob (with the CLI, ROADMAP
-Queue 1 item 12; the cap is the reference's default until then).
+The cap is ``BST_TENANT_LABEL_MAX`` (default 32), read as the reference
+reads it.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -37,7 +38,7 @@ import numpy as np
 
 __all__ = [
     "OTHER_TENANT",
-    "TENANT_LABEL_MAX",
+    "tenant_cap",
     "tenant_label",
     "gang_namespace",
     "batch_tenants",
@@ -48,9 +49,8 @@ __all__ = [
 
 OTHER_TENANT = "other"
 
-# distinct tenant labels before overflow into OTHER_TENANT (the
-# reference's default of BST_TENANT_LABEL_MAX)
-TENANT_LABEL_MAX = 32
+_ENV = "BST_TENANT_LABEL_MAX"
+_DEFAULT_CAP = 32
 
 _registry_lock = threading.Lock()
 # first-seen namespace -> its own label; beyond the cap, OTHER_TENANT
@@ -67,6 +67,19 @@ def gang_namespace(full_name: str) -> str:
     return ns if sep else ""
 
 
+def tenant_cap() -> int:
+    """Parse-guarded BST_TENANT_LABEL_MAX (the BST_SCAN_WAVE idiom): the
+    maximum number of distinct tenant labels before overflow into
+    ``other``. A typo'd knob keeps the default, never crashes."""
+    raw = os.environ.get(_ENV, "").strip()
+    if raw:
+        try:
+            return max(1, int(raw))
+        except ValueError:
+            pass
+    return _DEFAULT_CAP
+
+
 def tenant_label(namespace: str) -> str:
     """The process-stable label for a namespace: itself while the
     registry has room, ``other`` beyond the cap. Empty namespaces (no
@@ -74,11 +87,12 @@ def tenant_label(namespace: str) -> str:
     ns = str(namespace)
     if not ns:
         return ""
+    cap = tenant_cap()
     with _registry_lock:
         label = _registry.get(ns)
         if label is not None:
             return label
-        label = ns if len(_registry) < TENANT_LABEL_MAX else OTHER_TENANT
+        label = ns if len(_registry) < cap else OTHER_TENANT
         _registry[ns] = label
         return label
 
@@ -91,13 +105,13 @@ def batch_tenants(
     always ``other`` (the overflow bucket, also where padded rows and
     namespace-less gangs land — they carry zero demand, so the bucket
     stays honest). Ranking is (gang count desc, namespace asc) over THIS
-    batch's names only, capped at ``TENANT_LABEL_MAX`` named tenants."""
+    batch's names only, capped at :func:`tenant_cap` named tenants."""
     counts: Dict[str, int] = {}
     for name in group_names:
         ns = gang_namespace(name)
         if ns:
             counts[ns] = counts.get(ns, 0) + 1
-    ranked = sorted(counts, key=lambda ns: (-counts[ns], ns))[:TENANT_LABEL_MAX]
+    ranked = sorted(counts, key=lambda ns: (-counts[ns], ns))[: tenant_cap()]
     labels = ranked + [OTHER_TENANT]
     index = {ns: i for i, ns in enumerate(ranked)}
     other = len(labels) - 1

@@ -252,9 +252,11 @@ Phases (one JSON line each; any failure makes the exit code non-zero):
                    records carry the refreshes' trace ids; health ok. Then,
                    report-only, 10 pairs of churn refreshes traced and
                    untraced in turns and evaluate()'s time; serve_metrics
-                   up while a thread refreshes 4 more times: every ported
-                   route 200 with the reference's keys, the left-out ones
-                   404; mixed's node shapes and gang demands (seed 11)
+                   up while a thread refreshes 4 more times: every route
+                   200 with the reference's keys (since PR 16 also
+                   /debug/buckets, /debug/perf, /debug/profile and
+                   /debug/drain, bare GETs), an unknown one 404; mixed's
+                   node shapes and gang demands (seed 11)
                    through PreFilter: every denied gang's pre_filter record
                    has feasible_nodes equal to the served capacity row's
                    count; the policy deployment's refresh through PreFilter:
@@ -417,13 +419,71 @@ The scheduler loop (framework/, plugin/, controller/, client/, sim/):
                    host's running share by thread and function).
 - framework_e2e_wave  the same with BST_SCAN_WAVE=8 (the wave kernel).
 - sim_scenarios    the README's scenarios through SimCluster(device=
-                   "cuda"), built in code: the race (one gang binds, the
+                   "cuda"), the first three read from examples/*.yaml by
+                   the port's manifest loader: the race (one gang binds, the
                    other nothing), example1's gang of 9 on 4 nodes of 4
                    cpu, the zone-pinned gang, and spot_vs_guaranteed with
                    BST_POLICY set (the guaranteed gang placed through the
                    scheduler's own _policy_preempt / _evict_gang_plan, a
                    spot gang respawned); each scenario's kernel once a
                    batch (the policy kernel for the last).
+
+- cli              the CLI (python -m batch_scheduler_tpu_torch) in child
+                   processes from the repository root: version,
+                   check-config on the shipped config, and the README's
+                   manifests with the README's outcomes (race.yaml: one
+                   gang Running with 5 bound, the other 0; example1.yaml
+                   --nodes 4 --node-cpu 4: the gang of 9 Running;
+                   zones.yaml: every recorded plan puts the pinned gang on
+                   east-1), spot-vs-guaranteed with BST_POLICY set (the
+                   guaranteed gang Running through a preemption, one spot
+                   gang evicted); explain and whatif --rung steady|topk
+                   against the live race process (the two what-ifs equal
+                   but for their rung and time);
+                   the full-width run `sim --scenario synthetic --nodes
+                   5000 --node-cpu 64 --node-memory 256Gi --groups 1000
+                   --members 10 --scorer oracle` (with --settle 60) with
+                   --audit-dir (--audit-cap-mb 64), --lifecycle-dir and
+                   --metrics-port (all 10,000 pods
+                   bound, every gang Running; its wall clock and pods a
+                   second, batches and fold outcomes); replay, explain,
+                   capacity and timeline on its audit ring, each equal to
+                   the in-process function on the same records (replay:
+                   every record identical in the child, the last 4 also in
+                   process); the same deployment through `serve` and
+                   `sim --oracle-addr`, then the served process's
+                   /debug/buckets (the north-star bucket's plan and bound),
+                   /debug/perf, /debug/profile?seconds=1 (a torch.profiler
+                   trace naming the scan kernel, while the smoke sends
+                   requests) and /debug/drain?go=1, after which SIGTERM
+                   ends it with exit 0; and one run with
+                   CUDA_VISIBLE_DEVICES= that must exit non-zero (no CPU
+                   fallback). The served process's launches of each
+                   kernel (bst_kernel_launches_total, counted by the
+                   wrappers) just before the remote run and just after it
+                   are cli_serve: one a batch of the run, plus its warm
+                   batch; the profiled window's are reported apart.
+- cli_wave         with BST_SCAN_WAVE=8 in the children: replay --against
+                   wavefront and topk (and explain, capacity, timeline) on
+                   the cli phase's full-width ring; the full-width
+                   deployment in a sim child with one more gang that never
+                   fits (the child stays up once the 10,000 pods are
+                   bound): its launches against its batches (cli_wave),
+                   then whatif --rung steady and --rung topk (one added
+                   256-cpu node) against it live, equal to each other and
+                   to its /debug/whatif, the held gang newly placeable;
+                   and the full-width deployment through `serve` with its
+                   routes as in cli (cli_wave_serve). The README's
+                   examples, the no-card run and the direct full-width run
+                   only in cli, where the first two run beside the third
+                   (they mostly wait): a full-width run with the CLI's
+                   defaults makes a batch a gang (PERF.md).
+- cli_main         last: cmd.main.main(argv) of the full-width run in
+                   process, each kernel's count zeroed just before and read
+                   just after (cli_main), under the stack sampler and
+                   torch.profiler recording the card (its idle share over
+                   the run); the CLI's GC thresholds, freeze and switch
+                   interval put back after it.
 
 The metrics phase also holds the scheduler loop's series (cycles, the
 extension points, binds, releases, time to placement) to a SimCluster
@@ -446,7 +506,9 @@ refreshes, its rings' replays and its what-if query), xl_topk (its
 kernel calls and its full batch), framework_e2e(_wave) (the standing
 batch through the flood, and the profiled flood), sim_scenarios (each
 scenario), metrics_framework, lockcheck and lockcheck_sims (counted in
-its child), and
+its child), cli_serve, cli_wave_serve and cli_wave (a child's
+bst_kernel_launches_total just before and just after its run, or at its
+held state), cli_main (the CLI's full-width run in process), and
 the audit phases' replays (``audit_replay_replays``,
 ``audit_replay_wave_replays``, ``audit_replay_policy_replays``) — with
 every kernel's count zeroed just before the path and read just after;
@@ -468,10 +530,6 @@ import time
 import traceback
 
 GPU = "nvidia.com/gpu"
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-# int32 rate: the data sheet's 67 TFLOP/s float32 counts an FMA as two
-# operations on 128 lanes per SM; Hopper has 64 int32 lanes per SM.
-INT32_OPS_PER_S = 67e12 / 4
 PHASES = []  # (name, ok)
 # bench.py's deployment: nodes, gangs of 10 members, and the padded batch
 NORTH_STAR_NODES, NORTH_STAR_GANGS = 5000, 1000
@@ -552,15 +610,18 @@ def profile_refresh(scorer, cluster, cache):
     return profile_window(lambda: scorer.refresh(cluster, cache), "profiled_refresh_ms")
 
 
-def profile_window(fn, wall_key):
+def profile_window(fn, wall_key, host_ops=True):
     """``fn()`` under torch.profiler, the card synchronized at its end: its
     wall clock (under ``wall_key``), the device's busy time (sum of kernel
     and copy self-times on the card, whichever thread launched them), the
-    idle share and the five device ops that took longest."""
+    idle share and the five device ops that took longest. ``host_ops``
+    False records the card's activity alone (less overhead on a long
+    window)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if host_ops else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -588,27 +649,6 @@ def profile_window(fn, wall_key):
             {"op": key[:80], "ms": ms, "calls": n} for ms, key, n in rows[:5]
         ],
     }
-
-
-def scan_bound(left, group_req, remaining, fit_mask, order, wave=0):
-    """(bound_ms, bound_by, bytes, ops) of one scan on these inputs: each
-    input read once and each output written once over HBM bandwidth, vs
-    the integer operations these inputs need over the int32 rate (per
-    gang and node: a division and a minimum per lane the gang requests,
-    plus the mask, need clip, bin key, histogram add, threshold compare
-    and take select). The wavefront scan computes the same function plus
-    two flag bytes per wave (``wave`` > 0)."""
-    n, r = left.shape
-    g = group_req.shape[0]
-    in_bytes = sum(t.numel() * t.element_size()
-                   for t in (left, group_req, remaining, fit_mask, order))
-    out_bytes = g * n * 4 + g + n * r * 4 + (2 * -(-g // wave) if wave else 0)
-    lanes = int((group_req > 0).sum().item())
-    ops = n * (2 * lanes + 6 * g)
-    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S
-    t_ops = ops / INT32_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
-            in_bytes + out_bytes, ops)
 
 
 def counters():
@@ -916,6 +956,8 @@ def north_star(results):
     kernel_ms2 = cuda_ms(lambda: assign_gangs_cuda(*args), 20)
     steps = design_steps(args, want, plan)
     plain_ms = cuda_ms(lambda: assign_gangs_plain(*args), 2)
+    from batch_scheduler_tpu_torch.ops.bounds import scan_bound
+
     bound_ms, bound_by, nbytes, ops = scan_bound(*args)
     ms = min(kernel_ms, kernel_ms2)
     gangs = args[1].shape[0]
@@ -1015,6 +1057,8 @@ def north_star_wave(results):
     plain_ms = cuda_ms(
         lambda: assign_gangs_wavefront(*args, wave=wave, with_stats=True), 2)
     steps = design_steps(args, plain, plan, wave)
+    from batch_scheduler_tpu_torch.ops.bounds import scan_bound
+
     bound_ms, bound_by, nbytes, ops = scan_bound(*args, wave=wave)
     waves = len(conflicts)
     results["assign_wave"] = {
@@ -1641,8 +1685,14 @@ OBS_ROUTE_KEYS = {
     # a bare GET describes the route (no device work)
     "/debug/explain": [{"usage", "serves"}],
     "/debug/whatif": [{"usage", "kinds", "serves"}],
+    # PR 16's four: a bare GET of each reads a copy (a capture and a drain
+    # need ?seconds= and ?go=1)
+    "/debug/perf": [{"phases", "scan_rung_mix", "device_memory", "device_state", "audit",
+                     "compile_ledger", "profiler"}],
+    "/debug/profile": [{"profile_dir", "busy", "closed", "captures", "last_capture"}],
+    "/debug/drain": [{"ok", "servers", "draining"}],
 }
-OBS_LEFT_OUT = ("/debug/buckets", "/debug/perf", "/debug/profile", "/debug/drain")
+OBS_UNKNOWN = ("/debug/nope",)
 
 
 class _EventTimed:
@@ -1738,9 +1788,9 @@ def http_get(port, path):
 
 
 def check_routes(port):
-    """Every ported route once: 200 and the reference's keys (``/metrics``
-    with the batch series, ``/healthz`` ok); every left-out route 404.
-    Returns ({route: ms}, problems)."""
+    """Every route once: 200 and the reference's keys (``/metrics`` with the
+    batch series, ``/healthz`` ok; ``/debug/buckets`` an entry a bucket that
+    ran); an unknown path 404. Returns ({route: ms}, problems)."""
     ms, bad = {}, []
     status, body, ms["/metrics"] = http_get(port, "/metrics")
     if status != 200 or b"bst_oracle_batches_total" not in body \
@@ -1754,7 +1804,11 @@ def check_routes(port):
         keys = set(json.loads(body)) if status == 200 else None
         if keys not in shapes:
             bad.append(f"{route}: {status} keys {keys}")
-    for route in OBS_LEFT_OUT:
+    status, body, ms["/debug/buckets"] = http_get(port, "/debug/buckets")
+    buckets = json.loads(body) if status == 200 else None
+    if not buckets or not all("rungs" in entry for entry in buckets.values()):
+        bad.append(f"/debug/buckets: {status} {str(buckets)[:200]}")
+    for route in OBS_UNKNOWN:
         status, body, _ = http_get(port, route)
         if (status, body) != (404, b""):
             bad.append(f"{route}: {status} (want 404, as an unknown path)")
@@ -3875,9 +3929,9 @@ def capacity_bound(args, tenants):
     out_bytes = 4 * (r * (5 + 128) + 128 + 2 * 4 + 4 + tenants * (r + 1) + 10)
     lanes = int((args[2] > 0).sum().item())
     ops = 2 * n * (2 * lanes + 2 * g) + n * r * 6 + 5 * 19 * n * 2 + g * k * r * 2
-    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S
-    t_ops = ops / INT32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    from batch_scheduler_tpu_torch.ops.bounds import bound
+
+    return bound(in_bytes + out_bytes, ops)
 
 
 @phase("capacity")
@@ -4755,21 +4809,6 @@ def policy_full_pack_diff(scorer, cluster, cache):
     return diff
 
 
-def policy_bound(args, cols):
-    """scan_bound of the policy scan: the serial scan's bytes plus the
-    node columns it reads (4 label hashes and a domain, 20 bytes a node)
-    and the gang columns (aff, anti and 16 domain counts, 72 bytes a gang),
-    and its operations plus, per gang and node, the 8 hash compares, the
-    domain clamp and read, the penalty and the key (~14)."""
-    n, g = args[0].shape[0], args[1].shape[0]
-    bound_ms, bound_by, nbytes, ops = scan_bound(*args)
-    nbytes += n * 20 + g * 72
-    ops += 14 * n * g
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
-            nbytes, ops)
-
-
 def policy_cols_cuda(snap):
     """A snapshot's six policy columns as CUDA tensors."""
     from batch_scheduler_tpu_torch.ops.convert import policy_from_numpy
@@ -4897,7 +4936,9 @@ def policy(results):
     base_ms.append(cuda_ms(lambda: assign_gangs_cuda(*args), 20))
     plain_ms = cuda_ms(lambda: assign_gangs_policy(*args, *cols, POLICY_TERMS,
                                                    POLICY_WEIGHTS), 1)
-    bound_ms, bound_by, nbytes, ops = policy_bound(args, cols)
+    from batch_scheduler_tpu_torch.ops.bounds import policy_bound
+
+    bound_ms, bound_by, nbytes, ops = policy_bound(args)
     ms = min(policy_ms)
     results["assign_policy"] = {
         "launches": launches["assign_policy"],
@@ -5415,6 +5456,8 @@ def check_explain_scan(full):
             plain_cuda_ms = (time.perf_counter() - t0) * 1e3
             restore_counts(saved)
             left = left_resources(dev_args[0], dev_args[1])
+            from batch_scheduler_tpu_torch.ops.bounds import scan_bound
+
             bound_ms, bound_by, nbytes, ops = scan_bound(left, *dev_args[2:5], dev_args[6])
             report["north_star_timed"] = {
                 "gang": g, "queries": EXPLAIN_TIMED,
@@ -5773,27 +5816,6 @@ TOPK_ROUNDS = 8  # churn refreshes after the keyframe
 TOPK_SERIAL_ROUNDS = 2  # churn refreshes of the serial-recorded ring
 
 
-def topk_bound(left, group_req, remaining, fit_mask, order, wave, stats):
-    """(bound_ms, bound_by, bytes, ops) of one top-K scan on these inputs
-    with this run's per-wave ``stats`` (conflicts, megas, demotions): each
-    input read once and each output written once (scan_bound's, plus the
-    three series: 6 bytes a wave), against the integer operations the
-    waves need: the coarse pass evaluates every gang's capacity on every
-    node once (scan_bound's count), a replayed wave evaluates its gangs
-    again and a demoted gang once more (the data-dependent part, counted
-    from ``stats`` at the batch's mean requested lanes a gang)."""
-    n = left.shape[0]
-    g = group_req.shape[0]
-    _, _, nbytes, ops = scan_bound(left, group_req, remaining, fit_mask, order)
-    conflicts, _, demotions = (int(x.sum().item()) for x in stats)
-    nbytes += 6 * -(-g // wave)
-    per_gang_node = ops / (n * g)  # scan_bound's operations a gang and node
-    ops += (min(conflicts * wave, g) + demotions) * n * per_gang_node
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
-            nbytes, ops)
-
-
 def xl_operands(spec, pad):
     """xl_scan_operands(spec) on the card, the node axis padded to ``pad``
     (padded nodes: no leftover, out of the fit row, as the batch pads)."""
@@ -5856,6 +5878,8 @@ def check_xl(name, args):
         run = lambda: assign_gangs_topk_cuda(*args, TOPK_WAVE, k)  # noqa: E731
         ms = [cuda_ms(run, XL_REPS), cuda_ms(run, XL_REPS)]
         conflicts, megas, dem = series(got[3])
+        from batch_scheduler_tpu_torch.ops.bounds import topk_bound
+
         bound_ms, bound_by, nbytes, ops = topk_bound(*args, TOPK_WAVE, got[3])
         out[f"topk_{k}"] = {
             "kernel_ms": ms, "plain_s": plain_s, "max_abs_err": max(err, perr),
@@ -6188,6 +6212,8 @@ def north_star_topk(results):
     plain_ms = cuda_ms(lambda: assign_gangs_topk(*args, wave=TOPK_WAVE, k=TOPK_K,
                                                  with_stats=True), 1)
     restore_counts(saved)
+    from batch_scheduler_tpu_torch.ops.bounds import topk_bound
+
     bound_ms, bound_by, nbytes, ops = topk_bound(*args, TOPK_WAVE, out[3])
     plan = topk_scan_plan(args[0].shape[0], args[0].shape[1], TOPK_WAVE, TOPK_K, 0)
     conflicts, megas, dem = series(out[3])
@@ -6231,7 +6257,6 @@ FRAMEWORK_SETTINGS = {"bind_workers": 16, "kubelet_start_delay": 0.05, "backoff_
                       "backoff_cap": 5.0, "controller_resync_seconds": 2.0,
                       "min_batch_interval": 1.0, "oracle_background_refresh": True}
 FRAMEWORK_SWITCH_INTERVAL = 0.02
-FRAMEWORK_GC_THRESHOLD = (50000, 100, 100)
 FRAMEWORK_SAMPLE_S = 0.25  # the bound-gang sampler's period in the window
 FRAMEWORK_STACK_S = 0.005  # the stack sampler's period (the profiled second flood)
 FRAMEWORK_PROFILED_GANGS = 200  # a second flood of new gangs, under the profiler
@@ -6333,9 +6358,11 @@ class StackSampler:
               "_wait_for_tstate_lock", "wait_for", "readinto", "recv", "recv_into"}
     # a C call (time.sleep, Lock.acquire) leaves no Python frame: read the
     # innermost frame's current line
-    # (and a thread blocked entering ``with self._lock:`` shows that line)
+    # (and a thread blocked entering ``with self._lock:`` shows that line;
+    # one entering ``with self._cond:`` shows Condition.__enter__'s)
     PARKED_LINE = (r"(sleep\(|\.wait\(|\.get\(timeout|\.get\(\)|select\(|\.acquire\(|"
-                   r"\.join\(|\.recv|^\s*with [\w.]*(lock|_cond)\w*:)")
+                   r"\.join\(|\.recv|^\s*with [\w.]*(lock|_cond)\w*:|"
+                   r"return self\._lock\.__enter__\(\))")
 
     def __init__(self):
         import threading
@@ -6489,6 +6516,7 @@ def drive_framework_e2e(wave, shape):
     from batch_scheduler_tpu_torch.utils.health import DEFAULT_HEALTH
     from batch_scheduler_tpu_torch.utils.lifecycle import DEFAULT_LEDGER
     from batch_scheduler_tpu_torch.utils.metrics import DEFAULT_REGISTRY
+    from batch_scheduler_tpu_torch.utils.runtime_tuning import apply_gc_tuning, freeze_startup
 
     num_nodes, num_groups, members = shape
     total = num_groups * members
@@ -6522,9 +6550,10 @@ def drive_framework_e2e(wave, shape):
             cyc0 = cyc.snapshot()
             prev_switch = sys.getswitchinterval()
             prev_gc = gc.get_threshold()
-            gc.set_threshold(*FRAMEWORK_GC_THRESHOLD)
-            gc.collect()
-            gc.freeze()
+            # the CLI's runtime tuning (cmd.main: GC thresholds, then the
+            # freeze after warmup), undone after the window
+            apply_gc_tuning()
+            freeze_startup()
             sys.setswitchinterval(FRAMEWORK_SWITCH_INTERVAL)
             try:
                 def released(gang):
@@ -6733,25 +6762,41 @@ def bound_of(c, gang):
     return sorted(p.spec.node_name for p in c.member_pods(gang) if p.spec.node_name)
 
 
-def scenario_race():
-    """README race: one gang of five binds, the other binds nothing."""
-    from batch_scheduler_tpu_torch.api.types import PodGroupPhase
-    from batch_scheduler_tpu_torch.sim.scenarios import make_member_pods, race_scenario
+def manifest(name):
+    """(nodes, groups, pods) of ``examples/<name>.yaml`` through the port's
+    manifest loader (api/manifest.py), as ``sim -f`` reads it."""
+    from batch_scheduler_tpu_torch.api.manifest import load_manifest_file
+    from batch_scheduler_tpu_torch.api.types import Node, Pod, PodGroup
 
+    objs = load_manifest_file(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                           "examples", f"{name}.yaml"))
+    return ([o for o in objs if isinstance(o, Node)],
+            [o for o in objs if isinstance(o, PodGroup)],
+            [o for o in objs if isinstance(o, Pod)])
+
+
+def run_manifest(name, extra_nodes=(), wait_running=()):
+    """``examples/<name>.yaml`` (plus ``extra_nodes``) through a
+    SimCluster on the card: every gang named in ``wait_running`` waited
+    for until Running. Returns (cluster, [all Running])."""
+    from batch_scheduler_tpu_torch.api.types import PodGroupPhase
+
+    nodes, groups, pods = manifest(name)
     c = sim_cluster()
+    c.add_nodes(nodes + list(extra_nodes))
+    for pg in groups:
+        c.create_group(pg)
+    c.start()
+    c.create_pods(pods)
+    ok = [c.wait_for_group_phase(g, PodGroupPhase.RUNNING, timeout=60.0) for g in wait_running]
+    return c, all(ok)
+
+
+def scenario_race():
+    """README race (examples/race.yaml): one gang of five binds, the other
+    binds nothing."""
+    c, ok = run_manifest("race", wait_running=("web-group-race1",))
     try:
-        nodes, groups, pods = race_scenario()
-        c.add_nodes(nodes)
-        sysload = make_member_pods("sysload", 1, {"cpu": "900m"})[0]
-        sysload.metadata.labels = {}
-        sysload.spec.node_name = "node-1"
-        c.clientset.pods().create(sysload)
-        for pg in groups:
-            c.create_group(pg)
-        c.start()
-        for group_pods in pods.values():
-            c.create_pods(group_pods)
-        ok = c.wait_for_group_phase("web-group-race1", PodGroupPhase.RUNNING, timeout=60.0)
         denied = c.wait_for(lambda: c.scheduler.stats["unschedulable"] >= 1, timeout=60.0)
         out = {"race1": bound_of(c, "web-group-race1"), "race2": bound_of(c, "web-group-race2"),
                "race1_phase": c.group_phase("web-group-race1").value,
@@ -6766,20 +6811,14 @@ def scenario_race():
 
 
 def scenario_example1():
-    """examples/example1.yaml with --nodes 4 --node-cpu 4: a gang of 9
-    one-cpu pods across four 4-cpu nodes."""
-    from batch_scheduler_tpu_torch.api.types import PodGroupPhase
-    from batch_scheduler_tpu_torch.sim.scenarios import (
-        make_member_pods, make_sim_group, make_sim_node)
+    """examples/example1.yaml with ``--nodes 4 --node-cpu 4`` (the CLI's
+    synthetic nodes): a gang of 9 one-cpu pods across four 4-cpu nodes."""
+    from batch_scheduler_tpu_torch.sim.scenarios import make_sim_node
 
-    c = sim_cluster()
+    extra = [make_sim_node(f"sim-node-{i:04d}", {"cpu": "4", "memory": "128Gi", "pods": "110"})
+             for i in range(4)]
+    c, ok = run_manifest("example1", extra, wait_running=("group1",))
     try:
-        c.add_nodes([make_sim_node(f"sim-node-{i:04d}", {"cpu": "4", "memory": "16Gi",
-                                                         "pods": "110"}) for i in range(4)])
-        c.create_group(make_sim_group("group1", 9))
-        c.start()
-        c.create_pods(make_member_pods("group1", 9, {"cpu": "1"}))
-        ok = c.wait_for_group_phase("group1", PodGroupPhase.RUNNING, timeout=60.0)
         out = {"bound": bound_of(c, "group1"), "phase": c.group_phase("group1").value}
     finally:
         c.stop()
@@ -6792,26 +6831,8 @@ def scenario_example1():
 def scenario_zones():
     """examples/zones.yaml: the east-pinned gang lands entirely on east-1
     although west-1 has more room; the free gang takes what fits."""
-    from batch_scheduler_tpu_torch.api.types import PodGroupPhase
-    from batch_scheduler_tpu_torch.sim.scenarios import (
-        make_member_pods, make_sim_group, make_sim_node)
-
-    c = sim_cluster()
+    c, ok = run_manifest("zones", wait_running=("pinned-east", "free-roam"))
     try:
-        c.add_nodes([make_sim_node("east-1", {"cpu": "4", "memory": "16Gi", "pods": "110"},
-                                   labels={"zone": "east"}),
-                     make_sim_node("west-1", {"cpu": "16", "memory": "64Gi", "pods": "110"},
-                                   labels={"zone": "west"})])
-        c.create_group(make_sim_group("pinned-east", 3))
-        c.create_group(make_sim_group("free-roam", 4))
-        c.start()
-        pinned = make_member_pods("pinned-east", 3, {"cpu": "1"})
-        for p in pinned:
-            p.spec.node_selector = {"zone": "east"}
-        c.create_pods(pinned)
-        c.create_pods(make_member_pods("free-roam", 4, {"cpu": "2"}))
-        ok = all(c.wait_for_group_phase(g, PodGroupPhase.RUNNING, timeout=60.0)
-                 for g in ("pinned-east", "free-roam"))
         out = {"pinned-east": bound_of(c, "pinned-east"), "free-roam": bound_of(c, "free-roam")}
     finally:
         c.stop()
@@ -7035,9 +7056,10 @@ def drive_framework_metrics():
 
 @phase("sim_scenarios")
 def sim_scenarios(results):
-    """The README's scenarios through SimCluster(device="cuda"), built in
-    code: each scenario's launches counted on its own (the policy one runs
-    the policy kernel, the others the serial kernel, once a batch)."""
+    """The README's scenarios through SimCluster(device="cuda"), the first
+    three read from examples/*.yaml by the port's manifest loader: each
+    scenario's launches counted on its own (the policy one runs the policy
+    kernel, the others the serial kernel, once a batch)."""
     out = {}
     for name, fn, kernel in (("race", scenario_race, "assign_scan"),
                              ("example1", scenario_example1, "assign_scan"),
@@ -7059,6 +7081,734 @@ def sim_scenarios(results):
         else:
             LATE_PATHS[(kernel, f"sim_{name}")] = launches[kernel]
     return out
+
+
+# ---------------------------------------------------------------------------
+# the CLI (python -m batch_scheduler_tpu_torch) in child processes
+# ---------------------------------------------------------------------------
+
+CLI_FULL = ("--scenario", "synthetic", "--nodes", "5000", "--node-cpu", "64",
+            "--node-memory", "256Gi", "--groups", "1000", "--members", "10",
+            "--scorer", "oracle")  # BASELINE config 6's count: [1024, 8192, R]
+# sim ends when every gang is terminal, or after --settle seconds with no
+# change: the default 3 s ended a full-width flood on a loaded host after
+# 80 binds, so the full-width runs wait 60 s before calling it settled
+CLI_FULL_RUN = ("--timeout", "300", "--settle", "60")
+# the full-width ring's cap: the newest ~quarter of its ~1,000 records
+CLI_AUDIT_CAP_MB = "64"
+CLI_FULL_NODES, CLI_FULL_GANGS, CLI_FULL_PODS = 5000, 1000, 10000
+CLI_TIMEOUT = 420  # seconds a child may take
+CLI_EXPLAIN_GANG = "default/group-999"  # the last gang placed: in the capped ring
+CLI_REPLAY_SAMPLE = 4  # records replayed in process beside the children's full replays
+CLI_KNOBS = ("BST_SCAN_WAVE", "BST_SCAN_TOPK", "BST_POLICY", "BST_COORDINATOR")
+
+
+def cli_env(**extra):
+    """The children's environment: the smoke's, without the rung and policy
+    knobs an earlier phase may have left, plus ``extra``."""
+    env = {k: v for k, v in os.environ.items() if k not in CLI_KNOBS}
+    env.update(extra)
+    return env
+
+
+def cli_start(args, env=None):
+    """``python -m batch_scheduler_tpu_torch args`` started in the
+    repository root; its stdout is a pipe, its stderr a temporary file (a
+    long-lived child never blocks on a full pipe), both read by
+    ``cli_wait``."""
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    err = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([sys.executable, "-m", "batch_scheduler_tpu_torch", *args],
+                            cwd=here, env=env or cli_env(), stdout=subprocess.PIPE,
+                            stderr=err, text=True)
+    proc.err_file = err
+    return proc
+
+
+def cli_wait(proc, timeout=CLI_TIMEOUT):
+    """(exit code, stdout, stderr) of a started child; killed at the
+    timeout."""
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+        timed_out = False
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+        timed_out = True
+    proc.err_file.seek(0)
+    err = proc.err_file.read()
+    proc.err_file.close()
+    if timed_out:
+        raise AssertionError(f"CLI child {proc.args[3:]} ran past {timeout} s: "
+                             f"{err[-1500:]}")
+    return proc.returncode, out, err
+
+
+def cli(args, env=None, want_rc=0, timeout=CLI_TIMEOUT):
+    """One CLI child run to its end; fails unless it exits ``want_rc``."""
+    rc, out, err = cli_wait(cli_start(args, env), timeout)
+    if want_rc is not None and rc != want_rc:
+        raise AssertionError(f"`{' '.join(args)}` exited {rc} (want {want_rc}): "
+                             f"{err[-1500:]} {out[-500:]}")
+    return rc, out, err
+
+
+def cli_json(out):
+    """The JSON document a read-side command prints last (from the first
+    line that opens it)."""
+    lines = out.splitlines()
+    for i, line in enumerate(lines):
+        if line.startswith("{"):
+            try:
+                return json.loads("\n".join(lines[i:]))
+            except ValueError:
+                continue
+    raise AssertionError(f"no JSON document in: {out[-800:]}")
+
+
+def sim_table(out):
+    """The sim table's rows: gang -> (phase, min_member, bound)."""
+    rows = {}
+    for line in out.splitlines():
+        if line.startswith("default/"):
+            f = line.split()
+            rows[f[0]] = (f[1], int(f[2]), int(f[3]))
+    return rows
+
+
+def sim_wall(out):
+    """(wall seconds, pods bound, pods/s) of the sim's ``sim wall:`` line."""
+    import re
+
+    for line in out.splitlines():
+        m = re.match(r"sim wall: ([\d.]+)s .*?, (\d+) of (\d+) pods bound \(([\d.]+) pods/s\)",
+                     line)
+        if m:
+            return float(m.group(1)), int(m.group(2)), float(m.group(4))
+    raise AssertionError(f"no `sim wall:` line in: {out[-800:]}")
+
+
+def read_port(proc, pattern, timeout=120.0):
+    """The first match of ``pattern`` in a running child's stdout (its
+    lines before it are kept in ``proc.seen``)."""
+    import re
+
+    proc.seen = getattr(proc, "seen", [])
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        line = proc.stdout.readline()
+        if not line:
+            break
+        proc.seen.append(line)
+        m = re.search(pattern, line)
+        if m:
+            return m.group(1)
+    raise AssertionError(f"child never printed {pattern!r}: {''.join(proc.seen)[-800:]}")
+
+
+def metric_values(port, name):
+    """{labels text: value} of one series on a child's /metrics."""
+    status, body, _ = http_get(port, "/metrics")
+    if status != 200:
+        raise AssertionError(f"/metrics answered {status}")
+    out = {}
+    for line in body.decode().splitlines():
+        if line.startswith(name + "{") or line.startswith(name + " "):
+            key, _, value = line.rpartition(" ")
+            out[key[len(name):]] = float(value)
+    return out
+
+
+def kernel_launches(port):
+    """A child's launches of each kernel (``bst_kernel_launches_total``,
+    counted by each wrapper where it launches)."""
+    launches = only()
+    for labels, v in metric_values(port, "bst_kernel_launches_total").items():
+        for kernel in KERNELS:
+            if f'kernel="{kernel}"' in labels:
+                launches[kernel] += int(v)
+    return launches
+
+
+def launch_delta(before, after):
+    return {k: after[k] - before[k] for k in KERNELS}
+
+
+def check_readme_examples(tmp):
+    """version, check-config, and the README's manifests (examples/*.yaml)
+    with the README's outcomes, all started together. The race run stays
+    up (``--settle 20``: its denied gang never turns terminal) so that
+    ``explain`` and ``whatif --rung steady|topk`` query it live."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    zones_audit = os.path.join(tmp, "zones-audit")
+    procs = {
+        "version": cli_start(["version"]),
+        "check_config": cli_start(["check-config", "--config", os.path.join(
+            here, "deploy", "scheduler", "config", "batch_scheduler_config.json")]),
+        "example1": cli_start(["sim", "-f", "examples/example1.yaml", "--nodes", "4",
+                               "--node-cpu", "4", "--timeout", "60", "--settle", "2"]),
+        "zones": cli_start(["sim", "-f", "examples/zones.yaml", "--timeout", "60",
+                            "--settle", "2", "--audit-dir", zones_audit]),
+        "spot_vs_guaranteed": cli_start(["sim", "--scenario", "spot-vs-guaranteed",
+                                         "--timeout", "120"], cli_env(**POLICY_ENV)),
+    }
+    race = cli_start(["sim", "-f", "examples/race.yaml", "--timeout", "150", "--settle", "30",
+                      "--metrics-port", "0"])
+    port = int(read_port(race, r"metrics on :(\d+)"))
+    # the race settles when race2's denial is on record
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline:
+        status, body, _ = http_get(port, "/debug/decisions?gang=default/web-group-race2")
+        if status == 200 and b'"denied"' in body:
+            break
+        time.sleep(0.2)
+    addr = f"127.0.0.1:{port}"
+    live = {"explain": cli_start(["explain", "default/web-group-race2", "--addr", addr])}
+    for rung in ("steady", "topk"):
+        live[rung] = cli_start(["whatif", "--addr", addr, "--cordon", "node-1", "--rung", rung])
+    answers = {}
+    for name, proc in live.items():
+        rc, out, err = cli_wait(proc)
+        if rc != 0:
+            raise AssertionError(f"live {name} exited {rc}: {err[-800:]} {out[-800:]}")
+        answers[name] = cli_json(out)
+    live_explain = answers.pop("explain")
+    whatifs = answers
+    report = {}
+    rc, out, err = cli_wait(race)
+    race_out = "".join(race.seen) + out
+    report["race"] = {k: v for k, v in sim_table(race_out).items()}
+    if rc != 0 or report["race"].get("default/web-group-race1", ("",))[0] != "Running" \
+            or report["race"]["default/web-group-race1"][2] != 5 \
+            or report["race"].get("default/web-group-race2", ("", 0, -1))[2] != 0:
+        raise AssertionError(f"race: rc {rc}, {report['race']} {err[-800:]}")
+    if live_explain.get("gang") != "default/web-group-race2" or "error" in live_explain:
+        raise AssertionError(f"explain --addr: {live_explain}")
+    plans = {r: {k: v for k, v in w.items() if k not in ("rung", "elapsed_s", "baseline_cached")}
+             for r, w in whatifs.items()}
+    if any("error" in w for w in whatifs.values()) or plans["steady"] != plans["topk"]:
+        raise AssertionError(f"whatif steady/topk differ: {whatifs}")
+    report["whatif_keys"] = sorted(whatifs["topk"])
+    outs = {}
+    for name, proc in procs.items():
+        rc, out, err = cli_wait(proc)
+        if rc != 0:
+            raise AssertionError(f"{name}: exit {rc}: {err[-1500:]}")
+        outs[name] = out
+    if "batch-scheduler-tpu-torch v" not in outs["version"]:
+        raise AssertionError(f"version: {outs['version']}")
+    cfg = json.loads(outs["check_config"])
+    if not cfg.get("valid") or cfg.get("scorer") != "oracle":
+        raise AssertionError(f"check-config: {cfg}")
+    report["example1"] = sim_table(outs["example1"])
+    if report["example1"].get("default/group1") != ("Running", 9, 9):
+        raise AssertionError(f"example1: {report['example1']}")
+    report["zones"] = sim_table(outs["zones"])
+    if report["zones"].get("default/pinned-east", ("",))[0] != "Running" \
+            or report["zones"].get("default/free-roam", ("",))[0] != "Running":
+        raise AssertionError(f"zones: {report['zones']}")
+    report["zones_pinned_to"] = zones_pinned_to(zones_audit)
+    if report["zones_pinned_to"] != ["east-1"]:
+        raise AssertionError(f"zones: pinned-east planned onto {report['zones_pinned_to']}")
+    report["spot_vs_guaranteed"] = spot = sim_table(outs["spot_vs_guaranteed"])
+    bound = sorted(spot.get(f"default/spot-{i:03d}", ("", 0, -1))[2] for i in range(2))
+    if spot.get("default/guaranteed-000") != ("Running", 4, 4) or bound != [0, 4] \
+            or "'preemptions': 0" in outs["spot_vs_guaranteed"]:
+        raise AssertionError(f"spot-vs-guaranteed: {spot} {outs['spot_vs_guaranteed'][-1500:]}")
+    return report
+
+
+def zones_pinned_to(audit_dir):
+    """The nodes every recorded plan gives the pinned-east gang."""
+    from batch_scheduler_tpu_torch.utils.audit import AuditReader
+
+    nodes = set()
+    for rec in AuditReader(audit_dir).batches()[0]:
+        names = rec.get("names") or {}
+        groups, node_names = names.get("groups") or [], names.get("nodes") or []
+        if "default/pinned-east" not in groups:
+            continue
+        g = groups.index("default/pinned-east")
+        res = rec["result_arrays"]
+        for n, k in zip(res["assignment_nodes"][g], res["assignment_counts"][g]):
+            if k > 0:
+                nodes.add(node_names[int(n)])
+    return sorted(nodes)
+
+
+def full_width_sim(tmp, extra=(), env=None, tag="direct"):
+    """The full-width synthetic run (5,000 nodes, 1,000 gangs x 10) with an
+    audit ring, a lifecycle export and a metrics port: every gang Running
+    with 10 bound. Returns its report."""
+    audit, life = os.path.join(tmp, f"{tag}-audit"), os.path.join(tmp, f"{tag}-life")
+    _, out, _ = cli(["sim", *CLI_FULL, *CLI_FULL_RUN, "--audit-dir", audit, "--audit-cap-mb",
+                     CLI_AUDIT_CAP_MB, "--lifecycle-dir", life, "--metrics-port", "0", *extra],
+                    env=env)
+    rows = sim_table(out)
+    wall, bound, rate = sim_wall(out)
+    running = sum(1 for phase, _, b in rows.values() if phase == "Running" and b == 10)
+    if len(rows) != CLI_FULL_GANGS or running != CLI_FULL_GANGS or bound != CLI_FULL_PODS:
+        raise AssertionError(f"{tag}: {running} of {len(rows)} gangs Running, {bound} pods "
+                             f"bound: {out[-1500:]}")
+    events = os.path.join(life, "events.jsonl")
+    with open(events) as f:
+        lines = sum(1 for _ in f)
+    if not lines:
+        raise AssertionError(f"{tag}: empty lifecycle export {events}")
+    return {"wall_s": wall, "pods_bound": bound, "pods_per_s": rate,
+            "gangs_running": running, "lifecycle_events": lines, **oracle_stats(out),
+            "phases": sorted({phase for phase, _, _ in rows.values()}),
+            "audit_dir": audit, "lifecycle_dir": life}
+
+
+def oracle_stats(out):
+    """The batches and fold outcomes of a sim child's ``oracle stats:``
+    line (and its scheduler cycles)."""
+    import ast
+
+    got = {}
+    for line in out.splitlines():
+        if line.startswith("oracle stats: "):
+            stats = ast.literal_eval(line[len("oracle stats: "):])
+            got.update(batches=stats.get("batches_run"),
+                       fold_outcomes=stats.get("fold_outcomes"))
+        elif line.startswith("scheduler stats: "):
+            got["cycles"] = ast.literal_eval(line[len("scheduler stats: "):]).get("cycles")
+    return got
+
+
+def strip_ms(obj):
+    """A payload without its wall-clock fields (``*_ms``, ``*seconds``)."""
+    if isinstance(obj, dict):
+        return {k: strip_ms(v) for k, v in obj.items()
+                if not (k.endswith("_ms") or k.endswith("seconds") or k.endswith("_s"))}
+    if isinstance(obj, list):
+        return [strip_ms(v) for v in obj]
+    return obj
+
+
+def check_read_side(audit, rungs, env):
+    """replay (each of ``rungs``), explain, capacity and timeline on a
+    full-width run's audit ring, each a child that exits 0 and equals the
+    in-process function on the same records (the replays: every record
+    identical in the child, and the last ``CLI_REPLAY_SAMPLE`` records
+    identical in process too)."""
+    from batch_scheduler_tpu_torch.core.explain import explain_arrays
+    from batch_scheduler_tpu_torch.core.oracle_scorer import replay_audit_record
+    from batch_scheduler_tpu_torch.ops.capacity import capacity_summary
+    from batch_scheduler_tpu_torch.utils.audit import AuditReader
+    from batch_scheduler_tpu_torch.utils.lifecycle import GangLifecycleLedger
+
+    procs = {f"replay_{r}": cli_start(["replay", audit, "--against", r], env) for r in rungs}
+    procs["explain"] = cli_start(["explain", CLI_EXPLAIN_GANG, "--audit-dir", audit])
+    procs["capacity"] = cli_start(["capacity", "--audit-dir", audit])
+    procs["timeline"] = cli_start(["timeline", CLI_EXPLAIN_GANG, "--audit-dir", audit])
+    outs = {}
+    for name, proc in procs.items():
+        rc, out, err = cli_wait(proc)
+        if rc != 0:
+            raise AssertionError(f"{name}: exit {rc}: {err[-1500:]} {out[-500:]}")
+        outs[name] = cli_json(out.splitlines()[-1] if name.startswith("replay") else out)
+    reader = AuditReader(audit)
+    batches, _ = reader.batches()
+    report = {"records": len(batches)}
+    for r in rungs:
+        got = outs[f"replay_{r}"]
+        sample = batches[-CLI_REPLAY_SAMPLE:]
+        reps = [replay_audit_record(rec, against=r, device="cuda") for rec in sample]
+        if got["divergent"] or got["identical"] != len(batches) \
+                or not all(rep.get("identical") for rep in reps):
+            raise AssertionError(f"replay {r}: {got}; in process {reps}")
+        report[f"replay_{r}"] = got["identical"]
+    report["ring_bytes"] = sum(os.path.getsize(os.path.join(audit, f)) for f in os.listdir(audit))
+    rec = batches[-1]
+    names = rec.get("names") or {}
+    want = explain_arrays(rec["batch_args"], names["groups"].index(CLI_EXPLAIN_GANG),
+                          node_names=names.get("nodes"), policy=rec.get("policy_args"),
+                          device="cuda")
+    got = outs["explain"]
+    if strip_ms(json.loads(json.dumps(want, default=str))) != strip_ms(
+            {k: v for k, v in got.items() if k not in ("gang", "source")}):
+        raise AssertionError(f"explain differs from explain_arrays: {got}")
+    cap = outs["capacity"]
+    if cap["divergent"] or cap["replayed"] != len(batches):
+        raise AssertionError(f"capacity: {cap['divergent']} divergent, {cap['replayed']} "
+                             f"of {len(batches)}")
+    for entry, rec in zip(cap["series"], batches):
+        res = rec["result_arrays"]
+        want = capacity_summary(rec["batch_args"], res,
+                                group_names=(rec.get("names") or {}).get("groups") or [],
+                                scheduled=rec["progress_args"][1],
+                                matched=rec["progress_args"][2], device="cuda")
+        if json.loads(json.dumps(want, sort_keys=True)) != entry["summary"]:
+            raise AssertionError(f"capacity seq {entry['seq']} differs from capacity_summary")
+    report["capacity_compared"] = cap["compared"]
+    records = [r for r in reader.records()
+               if r.get("kind") == "event" and r.get("event") == "gang_lifecycle"]
+    folded = GangLifecycleLedger.fold(records)
+    want = {CLI_EXPLAIN_GANG: GangLifecycleLedger.timeline_view(folded[CLI_EXPLAIN_GANG])}
+    if outs["timeline"]["gangs"] != json.loads(json.dumps(want, default=str)):
+        raise AssertionError(f"timeline differs from the ledger's fold: {outs['timeline']}")
+    report["timeline_events"] = len(want[CLI_EXPLAIN_GANG].get("events", []))
+    return report
+
+
+# one gang that no 64-cpu node can hold: keeps a full-width sim child up
+# past its flood (a denied gang never turns terminal) for live queries
+CLI_HELD_GANG = """apiVersion: batch.scheduler.tpu/v1
+kind: PodGroup
+metadata:
+  name: held
+spec:
+  minMember: 1
+---
+apiVersion: apps/v1
+kind: StatefulSet
+metadata:
+  name: held
+spec:
+  podManagementPolicy: Parallel
+  replicas: 1
+  template:
+    metadata:
+      labels:
+        group.batch.scheduler.tpu: "held"
+    spec:
+      containers:
+        - name: held
+          image: nginx
+          resources:
+            requests:
+              cpu: "128"
+"""
+CLI_WHATIF = ("--add-nodes", "1", "--node-cpu", "256")  # places the held gang
+
+
+def whatif_plan(w):
+    """A what-if answer without its rung, clock and cache flag."""
+    return {k: v for k, v in w.items() if k not in ("rung", "elapsed_s", "baseline_cached")}
+
+
+def live_full_width(tmp, env):
+    """The full-width deployment in a sim child (``env``'s rung) with one
+    more gang that never fits, so the child stays up once the 10,000 pods
+    are bound. Then, live at full width: its launches of each kernel
+    against its batches (one launch a batch, plus the warm batch), and
+    ``whatif --rung steady|topk`` (add one 256-cpu node) from CLI children,
+    equal to each other and to ``/debug/whatif`` on the same process, the
+    held gang newly placeable. The child is then stopped. Returns (report,
+    launches by kernel)."""
+    held = os.path.join(tmp, "held.yaml")
+    with open(held, "w") as f:
+        f.write(CLI_HELD_GANG)
+    child = cli_start(["sim", *CLI_FULL, "--timeout", "300", "--settle", "300",
+                       "-f", held, "--metrics-port", "0"], env)
+    try:
+        port = int(read_port(child, r"metrics on :(\d+)"))
+        t0 = time.perf_counter()
+        deadline = t0 + CLI_TIMEOUT
+        while time.perf_counter() < deadline:
+            bound = sum(metric_values(port, "bst_pods_bound_total").values())
+            if bound >= CLI_FULL_PODS:
+                break
+            if child.poll() is not None:
+                raise AssertionError(f"the held sim exited {child.returncode}")
+            time.sleep(0.5)
+        else:
+            raise AssertionError(f"{bound} of {CLI_FULL_PODS} pods bound by the deadline")
+        report = {"pods_bound_s": time.perf_counter() - t0}
+        # the held gang's retries keep batching: a read whose counts
+        # straddle a batch (launched, not yet collected) is taken again
+        for _ in range(20):
+            launches = kernel_launches(port)
+            batches = int(sum(metric_values(port, "bst_oracle_batches_total").values()))
+            if sum(launches.values()) == batches + 1:
+                break
+            time.sleep(0.25)
+        report.update(batches=batches, launches=launches)
+        addr = f"127.0.0.1:{port}"
+        procs = {r: cli_start(["whatif", "--addr", addr, *CLI_WHATIF, "--rung", r], env)
+                 for r in ("steady", "topk")}
+        answers = {}
+        for rung, proc in procs.items():
+            rc, out, err = cli_wait(proc)
+            if rc != 0:
+                raise AssertionError(f"whatif --rung {rung}: exit {rc}: {err[-800:]} "
+                                     f"{out[-800:]}")
+            answers[rung] = cli_json(out)
+        status, body, _ = http_get(port, "/debug/whatif?add_nodes=1&node_cpu=256&rung=topk")
+        route = json.loads(body)
+    finally:
+        child.terminate()
+        try:
+            child.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            child.communicate()
+        child.err_file.close()
+    plans = {r: whatif_plan(w) for r, w in answers.items()}
+    if status != 200 or any("error" in w for w in (*answers.values(), route)) \
+            or plans["steady"] != plans["topk"] or whatif_plan(route) != plans["topk"] \
+            or "default/held" not in plans["topk"]["newly_placeable"] \
+            or plans["topk"]["base"]["nodes"] != CLI_FULL_NODES:
+        raise AssertionError(f"full-width whatif: steady {answers.get('steady')}, topk "
+                             f"{answers.get('topk')}, route {status} {route}")
+    if sum(launches.values()) != batches + 1:
+        raise AssertionError(f"held sim: launches {launches} against {batches} batches + 1")
+    report["whatif"] = {"newly_placeable": plans["topk"]["newly_placeable"],
+                        "base": plans["topk"]["base"], "whatif": plans["topk"]["whatif"],
+                        "elapsed_s": {r: w["elapsed_s"] for r, w in answers.items()}}
+    return report, launches
+
+
+def drive_sidecar_requests(addr, stop):
+    """Schedule requests of a small deployment sent to a sidecar until
+    ``stop`` is set (the profiled window's work); returns how many."""
+    from batch_scheduler_tpu_torch.ops.snapshot import ClusterSnapshot, GroupDemand
+    from batch_scheduler_tpu_torch.service.client import OracleClient
+    from batch_scheduler_tpu_torch.sim.scenarios import make_sim_node
+
+    nodes = [make_sim_node(f"p{i}", {"cpu": "8", "memory": "32Gi", "pods": "110"})
+             for i in range(64)]
+    demands = [GroupDemand(f"default/p{g}", 4, member_request={"cpu": 1000})
+               for g in range(32)]
+    req = snapshot_request(ClusterSnapshot(nodes, {}, demands))
+    host, port = addr.rsplit(":", 1)
+    client = OracleClient(host, int(port))
+    sent = 0
+    try:
+        while not stop.is_set():
+            client.schedule(req)
+            sent += 1
+    finally:
+        client.close()
+    return sent
+
+
+def check_served(tmp, env, wave):
+    """``serve --port 0 --metrics-port 0``, the full-width deployment through
+    it (``sim ... --oracle-addr``), then the four routes scraped from the
+    served process: /debug/buckets lists the north-star bucket with its
+    plan and bound, /debug/perf, /debug/profile?seconds=1 writes a trace
+    naming the scan kernel (while the smoke sends it requests), and
+    /debug/drain?go=1 drains, after which SIGTERM ends it with exit 0.
+    Returns (report, the served main path's launches by kernel: the
+    server's ``bst_kernel_launches_total`` just before and just after the
+    remote run)."""
+    import signal
+    import threading
+
+    profile_dir = os.path.join(tmp, f"profiles-{wave or 0}")
+    server = cli_start(["serve", "--port", "0", "--metrics-port", "0",
+                        "--profile-dir", profile_dir], env)
+    try:
+        mport = int(read_port(server, r"metrics on :(\d+)"))
+        addr = read_port(server, r"listening on ([\d.]+:\d+)")
+        kernel = "assign_wave" if wave else "assign_scan"
+        # the served main path's launches: the counts just before the
+        # remote run and just after it, before any other request
+        before = kernel_launches(mport)
+        _, out, _ = cli(["sim", *CLI_FULL, *CLI_FULL_RUN, "--oracle-addr", addr], env=env)
+        launches = launch_delta(before, kernel_launches(mport))
+        rows = sim_table(out)
+        wall, bound, rate = sim_wall(out)
+        running = sum(1 for phase, _, b in rows.values() if phase == "Running" and b == 10)
+        if running != CLI_FULL_GANGS or bound != CLI_FULL_PODS:
+            raise AssertionError(f"remote: {running} gangs Running, {bound} pods bound: "
+                                 f"{out[-1500:]}")
+        report = {"remote": {"wall_s": wall, "pods_bound": bound, "pods_per_s": rate,
+                             "gangs_running": running, **oracle_stats(out)}}
+        # one launch a batch: the run's batches and its warm batch (sent
+        # over the wire before the first pod)
+        warm = int("oracle warmup batch:" in out)
+        want = report["remote"]["batches"] + warm
+        if launches != only(**{kernel: want}):
+            raise AssertionError(f"served run: launches {launches}, want {kernel} {want} "
+                                 f"({report['remote']['batches']} batches + {warm} warm)")
+        report["remote"]["launches"] = launches[kernel]
+        status, body, _ = http_get(mport, "/debug/buckets")
+        buckets = json.loads(body)
+        path = "wavefront" if wave else "serial"
+        ns = (buckets.get("1024x8192") or {}).get("rungs", {}).get(path) or {}
+        if status != 200 or ns.get("kernel") != kernel or not ns.get("plan") \
+                or not ns.get("bound_ms"):
+            raise AssertionError(f"/debug/buckets {status}: {buckets}")
+        report["north_star_bucket"] = ns
+        status, body, _ = http_get(mport, "/debug/perf")
+        perf = json.loads(body)
+        if status != 200 or not perf.get("device_memory") \
+                or not perf["compile_ledger"]["totals"] or not perf["scan_rung_mix"]:
+            raise AssertionError(f"/debug/perf {status}: {perf}")
+        report["perf"] = {k: perf[k] for k in ("phases", "scan_rung_mix", "device_memory",
+                                               "compile_ledger")}
+        stop = threading.Event()
+        sent = []
+        before = kernel_launches(mport)
+        sender = threading.Thread(target=lambda: sent.append(drive_sidecar_requests(addr, stop)))
+        sender.start()
+        try:
+            time.sleep(0.3)
+            status, body, _ = http_get(mport, "/debug/profile?seconds=1")
+        finally:
+            stop.set()
+            sender.join(60)
+        capture = json.loads(body)
+        trace = capture.get("trace") or ""
+        text = open(trace).read() if trace and os.path.exists(trace) else ""
+        if status != 200 or not capture.get("ok") or not capture.get("cuda") \
+                or f"{kernel}_kernel" not in text:
+            raise AssertionError(f"/debug/profile {status}: {capture}, {len(text)} bytes, "
+                                 f"{sent} requests sent")
+        report["profile"] = {"events": capture["events"], "trace_bytes": len(text),
+                             "requests_in_window": sent[0] if sent else None,
+                             "launches_in_window": launch_delta(
+                                 before, kernel_launches(mport))[kernel]}
+        status, body, _ = http_get(mport, "/debug/drain?go=1")
+        drained = json.loads(body)
+        if status != 200 or drained.get("servers") != 1 \
+                or not all(r.get("drained") for r in drained["reports"]):
+            raise AssertionError(f"/debug/drain?go=1 {status}: {drained}")
+        report["drain"] = drained["reports"][0]
+        server.send_signal(signal.SIGTERM)
+        rc, out, err = cli_wait(server, 120)
+        if rc != 0 or "drain complete" not in "".join(getattr(server, "seen", [])) + out:
+            raise AssertionError(f"serve exited {rc} after the drain: {err[-1500:]}")
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.communicate()
+    return report, launches
+
+
+def check_no_card():
+    """A cuda command with no card visible exits non-zero: no CPU fallback."""
+    rc, out, err = cli(["sim", "-f", "examples/race.yaml", "--timeout", "30"],
+                       env=cli_env(CUDA_VISIBLE_DEVICES=""), want_rc=None)
+    if rc == 0 or "no CUDA card" not in err:
+        raise AssertionError(f"no-card run exited {rc}: {err[-800:]} {out[-400:]}")
+    return {"exit": rc}
+
+
+CLI_RING = {}  # the cli phase's full-width audit ring, read again by cli_wave
+
+
+def cli_phase(results, wave):
+    """The CLI phase (see the module docstring); ``wave`` sets BST_SCAN_WAVE
+    in the children. Seconds of each step under ``step_s``."""
+    import atexit
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    env = cli_env(**({"BST_SCAN_WAVE": str(wave)} if wave else {}))
+    tag = "cli_wave" if wave else "cli"
+    report, steps = {}, {}
+
+    def step(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        steps[name] = time.perf_counter() - t0
+        return out
+
+    kernel = "assign_wave" if wave else "assign_scan"
+    if wave:
+        if "audit" not in CLI_RING:
+            raise AssertionError("the cli phase left no full-width audit ring")
+        tmp = CLI_RING["tmp"]
+    else:
+        tmp = tempfile.mkdtemp(prefix="cli-")
+        atexit.register(shutil.rmtree, tmp, True)
+        # the README's examples and the no-card run mostly wait (deny
+        # windows, settles, a refused start): they run beside the
+        # full-width run's child
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            readme = pool.submit(step, "readme", check_readme_examples, tmp)
+            no_card = pool.submit(step, "no_card", check_no_card)
+            full = step("full_width", full_width_sim, tmp, (), env)
+            report["readme"], report["no_card"] = readme.result(), no_card.result()
+        report["full_width"] = {k: v for k, v in full.items() if not k.endswith("_dir")}
+        CLI_RING.update(tmp=tmp, audit=full["audit_dir"])
+    report["read_side"] = step("read_side", check_read_side, CLI_RING["audit"],
+                               ("wavefront", "topk") if wave else ("steady",), env)
+    if wave:
+        report["live"], launches = step("live", live_full_width, tmp, env)
+        if launches != only(**{kernel: launches[kernel]}) or not launches[kernel]:
+            raise AssertionError(f"held sim launches {launches} (want {kernel} only)")
+        note_path(results, kernel, tag, launches[kernel])
+    report["served"], launches = step("served", check_served, tmp, env, wave)
+    note_path(results, kernel, f"{tag}_serve", launches[kernel])
+    report["step_s"] = steps
+    return report
+
+
+@phase("cli")
+def cli_serial(results):
+    return cli_phase(results, None)
+
+
+@phase("cli_wave")
+def cli_wave(results):
+    return cli_phase(results, 8)
+
+
+CLI_MAIN_ARGV = ("sim", *CLI_FULL, *CLI_FULL_RUN)
+
+
+@phase("cli_main")
+def cli_main(results):
+    """The CLI's main path counted in process: ``cmd.main.main(argv)`` of the
+    full-width run, each kernel's count zeroed just before and read just
+    after, under the stack sampler (where the host's time goes, by thread
+    and function) and torch.profiler recording the card alone (its busy
+    time and idle share over the run). Runs last: the CLI's GC
+    thresholds, freeze and switch interval are put back after the call."""
+    import contextlib as _contextlib
+    import gc
+    import io
+
+    from batch_scheduler_tpu_torch.cmd.main import main as cli_main_fn
+
+    out = {}
+    for wave, kernel, path in ((None, "assign_scan", "cli_main"),):
+        prev = (sys.getswitchinterval(), gc.get_threshold())
+        buf = io.StringIO()
+        ran = {}
+        try:
+            with scan_wave_env(wave), _contextlib.redirect_stdout(buf), \
+                    StackSampler() as stacks:
+                zero_counts()
+                prof = profile_window(
+                    lambda: ran.setdefault("rc", cli_main_fn(list(CLI_MAIN_ARGV))),
+                    "profiled_ms", host_ops=False)
+                launches = read_counts()
+            rc = ran.get("rc")
+        finally:
+            sys.setswitchinterval(prev[0])
+            gc.set_threshold(*prev[1])
+            gc.unfreeze()
+        text = buf.getvalue()
+        rows = sim_table(text)
+        running = sum(1 for phase_, _, b in rows.values() if phase_ == "Running" and b == 10)
+        if rc != 0 or running != CLI_FULL_GANGS:
+            raise AssertionError(f"{path}: exit {rc}, {running} gangs Running: {text[-1500:]}")
+        if launches != only(**{kernel: launches[kernel]}) or not launches[kernel]:
+            raise AssertionError(f"{path}: launches {launches} (want {kernel} only)")
+        wall, bound, rate = sim_wall(text)
+        out[path] = {"launches": launches, "wall_s": wall, "pods_per_s": rate,
+                     **oracle_stats(text), "profile": prof, "host_stacks": stacks.report(20)}
+        note_path(results, kernel, path, launches[kernel])
+    return out
+
+
+def note_path(results, kernel, path, n):
+    """A path's launches of ``kernel`` into the kernels line (kept for the
+    end when the kernel's first phase has not reported)."""
+    if kernel in results:
+        results[kernel]["launches_by_path"][path] = n
+    else:
+        LATE_PATHS[(kernel, path)] = n
 
 
 def card_line():
@@ -7128,7 +7878,10 @@ def main() -> int:
     framework_e2e(results)
     framework_e2e_wave(results)
     sim_scenarios(results)
+    cli_serial(results)
+    cli_wave(results)
     lockcheck_phase(results)
+    cli_main(results)
     for (kernel, path), n in LATE_PATHS.items():
         if kernel in results:
             results[kernel]["launches_by_path"][path] = n

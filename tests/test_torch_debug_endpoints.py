@@ -4,8 +4,10 @@ registry: after the same script (span ring, flight recorder, lifecycle
 ledger, health model, policy engine and capacity sampler fed the same
 way in both packages), every route the port serves answers with the
 reference's status and payload keys (``/metrics`` with the same text),
-the routes the port leaves out answer 404 as an unknown path does, and
-malformed queries answer 400 in both. Then the denial and policy-blame
+the four routes whose payloads name the port's own machinery
+(``/debug/buckets``, ``/debug/perf``, ``/debug/profile``, ``/debug/drain``)
+answer 200 with the reference's top-level keys, an unknown path answers
+404, and malformed queries answer 400 in both. Then the denial and policy-blame
 flight records that a ``ScheduleOperation`` writes are equal in both
 packages (times and trace ids aside).
 
@@ -24,7 +26,12 @@ PORTED = ("/metrics", "/healthz", "/debug/", "/debug/trace",
           "/debug/decisions", "/debug/gangs", "/debug/events",
           "/debug/health", "/debug/policy", "/debug/explain",
           "/debug/whatif", "/debug/capacity")
-LEFT_OUT = ("/debug/buckets", "/debug/perf", "/debug/profile", "/debug/drain")
+# served since PR 16; their values describe the port's kernels, its
+# allocator and its compile ledger, so only their top-level keys compare
+SERVED = ("/debug/buckets", "/debug/perf", "/debug/profile", "/debug/drain")
+# index entries whose text names the port's counterpart of the reference's
+# XLA machinery (kernel plans and bounds, torch.profiler)
+RETOLD = {"/debug/buckets", "/debug/profile"}
 QUERIES = (
     "/debug/decisions?gang=ns-a/g0", "/debug/decisions?tenant=ns-b",
     "/debug/decisions?limit=1", "/debug/gangs?gang=ns-a/g0",
@@ -33,7 +40,8 @@ QUERIES = (
 )
 MALFORMED = ("/debug/decisions?limit=-1", "/debug/gangs?limit=x",
              "/debug/events?since=-3", "/debug/events?timeout_s=nan",
-             "/debug/capacity?points=many")
+             "/debug/capacity?points=many", "/debug/profile?seconds=5s",
+             "/debug/profile?seconds=nan", "/debug/profile?seconds=inf")
 
 
 def _get(addr, path):
@@ -174,9 +182,9 @@ def test_ported_route_matches_reference(endpoints, path):
         ref["signals"].pop("failover", None)
         port["signals"].pop("failover", None)
     if path.startswith("/debug?") or path == "/debug/":
-        assert set(ref["endpoints"]) - set(port["endpoints"]) == set(LEFT_OUT)
-        assert {k: ref["endpoints"][k] for k in port["endpoints"]} == port["endpoints"]
-        assert set(port["endpoints"]) == set(PORTED)
+        assert set(ref["endpoints"]) == set(port["endpoints"]) == set(PORTED + SERVED)
+        assert {k: v for k, v in ref["endpoints"].items() if k not in RETOLD} == {
+            k: v for k, v in port["endpoints"].items() if k not in RETOLD}
         return
     assert _keys(ref) == _keys(port), path
 
@@ -207,7 +215,27 @@ def test_payload_values_match_reference(endpoints):
         e["name"] for e in trace[1]["traceEvents"])
 
 
-@pytest.mark.parametrize("path", LEFT_OUT + ("/nope", "/debug/nope", "/debug/trace/x"))
+@pytest.mark.parametrize("path", SERVED)
+def test_served_routes_answer_with_reference_keys(endpoints, path):
+    """Bare GETs: a copy of the bucket entries, the perf report, the
+    capture state and the drain state, with the reference's top-level
+    keys (the bucket entries' own keys name the port's kernels); the perf
+    report's phases are the same script's in both."""
+    (s_ref, b_ref), (s_port, b_port) = _payloads(endpoints, path)
+    assert s_ref == s_port == 200, (path, s_ref, s_port)
+    ref, port = json.loads(b_ref), json.loads(b_port)
+    assert isinstance(ref, dict) and isinstance(port, dict)
+    if path == "/debug/buckets":
+        assert all("rungs" in entry for entry in port.values()), port
+        return
+    assert set(ref) == set(port), path
+    if path == "/debug/perf":
+        assert ref["phases"] == port["phases"]
+        assert ref["scan_rung_mix"] == port["scan_rung_mix"]
+        assert ref["device_memory"] is port["device_memory"] is None
+
+
+@pytest.mark.parametrize("path", ("/nope", "/debug/nope", "/debug/trace/x"))
 def test_left_out_routes_answer_as_unknown(endpoints, path):
     assert _get(endpoints["batch_scheduler_tpu_torch"], path) == (404, b"")
 

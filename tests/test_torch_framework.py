@@ -490,3 +490,85 @@ def test_in_place_status_sync_folds_as_a_gang_event():
     for k in ("placed", "gang_feasible", "progress", "assignment_nodes", "assignment_counts"):
         assert np.array_equal(got[k], want[k]), k
     assert op.oracle.snapshot.progress_args()[1].tolist()[:3] == full.progress_args()[1].tolist()[:3]
+
+
+def _bare_scorer_in_place_sync(pkg):
+    """A bare scorer over a ``ClusterState`` and a status cache (no
+    operation listens to the cache): two refreshes, a status field moved
+    in place, the entry re-stored, a refresh. Returns the served result,
+    the full pack's result and the fold outcome."""
+    cm = _m(pkg, "cache.pg_cache")
+    scen = _m(pkg, "sim.scenarios")
+    fc = _m(pkg, "framework.cluster")
+    scorer_mod = _m(pkg, "core.oracle_scorer")
+    snapshot = _m(pkg, "ops.snapshot")
+    oracle = _m(pkg, "ops.oracle")
+    cpu = {"device": "cpu"} if pkg.endswith("_torch") else {}
+
+    cluster = fc.ClusterState()
+    for i in range(4):
+        cluster.add_node(scen.make_sim_node(f"n{i}", {"cpu": "8", "pods": "20"}))
+    cache = cm.PGStatusCache()
+    for j in range(3):
+        g = scen.make_sim_group(f"gang{j}", 3, creation_ts=float(j))
+        g.spec.min_resources = {"cpu": 1000}
+        cache.set(g.full_name(), cm.PodGroupMatchStatus(g))
+    scorer = scorer_mod.OracleScorer(**cpu)
+    scorer.refresh(cluster, cache)
+    scorer.refresh(cluster, cache)
+    live = cache.get("default/gang1")
+    live.pod_group.status.scheduled = 2
+    cache.set("default/gang1", live)
+    scorer.refresh(cluster, cache)
+    full = snapshot.ClusterSnapshot(*scorer_mod.read_cluster_inputs(cluster, cache))
+    want, _ = oracle.execute_batch_host(full.device_args(), full.progress_args(), **cpu)
+    served = (scorer._state.result, scorer.snapshot.progress_args()[1].tolist()[:3])
+    return served, want, getattr(scorer, "last_fold_outcome", None)
+
+
+def test_bare_scorer_hears_an_in_place_status_sync():
+    """A scorer wired to the status cache with no operation in between
+    still hears of an entry re-stored in place: the refresh folds the
+    named gang and serves the full pack's rows (progress ``[0, 2, 0]``),
+    the JAX package's (which scans) bit for bit."""
+    import numpy as np
+
+    (ref, ref_scheduled), _, _ = _bare_scorer_in_place_sync(PACKAGES[0])
+    (got, scheduled), want, outcome = _bare_scorer_in_place_sync(PACKAGES[1])
+    assert outcome == "folded"
+    assert scheduled == ref_scheduled == [0, 2, 0]
+    for k in ("placed", "gang_feasible", "progress", "assignment_nodes", "assignment_counts"):
+        assert np.array_equal(got[k], want[k]), k
+        assert np.array_equal(np.asarray(got[k]), np.asarray(ref[k])), k
+
+
+def test_status_cache_forgets_a_collected_scorers_log():
+    """The status cache holds a scorer's ``on_update`` subscription weakly:
+    scorers wired one after another leave one live entry, not one each,
+    and a re-stored entry after that still folds in the live scorer."""
+    import gc
+
+    cm = _m(PACKAGES[1], "cache.pg_cache")
+    scen = _m(PACKAGES[1], "sim.scenarios")
+    fc = _m(PACKAGES[1], "framework.cluster")
+    scorer_mod = _m(PACKAGES[1], "core.oracle_scorer")
+
+    cluster = fc.ClusterState()
+    for i in range(4):
+        cluster.add_node(scen.make_sim_node(f"n{i}", {"cpu": "8", "pods": "20"}))
+    cache = cm.PGStatusCache()
+    g = scen.make_sim_group("gang0", 3, creation_ts=0.0)
+    g.spec.min_resources = {"cpu": 1000}
+    live = cm.PodGroupMatchStatus(g)
+    cache.set(g.full_name(), live)
+    for _ in range(5):
+        scorer = scorer_mod.OracleScorer(device="cpu")
+        scorer.refresh(cluster, cache)
+        del scorer
+        gc.collect()
+    scorer = scorer_mod.OracleScorer(device="cpu")
+    scorer.refresh(cluster, cache)  # its registration prunes the dead ones
+    assert len(cache._on_update) == 1
+    cache.set(g.full_name(), live)  # in place
+    scorer.refresh(cluster, cache)
+    assert scorer.last_fold_outcome == "folded"

@@ -11,6 +11,7 @@ equality. An injected identity mismatch reaches ``note_identity`` and
 breaches ``DEFAULT_HEALTH`` in both packages."""
 
 import importlib
+import weakref
 
 import pytest
 
@@ -62,6 +63,10 @@ class _World:
         self.capacity = importlib.import_module(f"{name}.ops.capacity")
         self.clock = _Clock()
         monkeypatch.setattr(self.health, "time", self.clock)
+        # the failover signal reads the process-wide pool registry: a
+        # pooled client another test left alive must not reach this world
+        client = importlib.import_module(f"{name}.service.client")
+        monkeypatch.setattr(client, "_POOLED_CLIENTS", weakref.WeakSet())
         self.reg = metrics.Registry()
         self.long = metrics.LONG_OP_BUCKETS
         self.model = self.health.HealthModel(registry=self.reg)
@@ -133,6 +138,10 @@ def _script(w):
      "BST_SLO_TTP_P99_S": "nope", "BST_SLO_BATCH_P95_S": ""},
 ], ids=["defaults", "tightened", "malformed"])
 def test_same_observations_same_verdicts(monkeypatch, env):
+    _same_observations_same_verdicts(monkeypatch, env)
+
+
+def _same_observations_same_verdicts(monkeypatch, env):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     worlds = [_World(n, monkeypatch) for n in PACKAGES]
@@ -160,6 +169,34 @@ def test_same_observations_same_verdicts(monkeypatch, env):
     finally:
         for w in worlds:
             w.close()
+
+
+def test_a_leftover_pooled_client_stays_out(monkeypatch):
+    """A multi-address client with a recent standby promotion, left alive
+    in each package by earlier work in the process, reaches neither
+    world: the parity script runs as on a clean process, with no failover
+    signal in any payload."""
+    left = []
+    for name in PACKAGES:
+        client = importlib.import_module(f"{name}.service.client")
+        c = client.ResilientOracleClient("127.0.0.1:1,127.0.0.1:2", name="left")
+        assert c._promote("crash")
+        left.append(c)
+    seen = []
+    for name in PACKAGES:
+        health = importlib.import_module(f"{name}.utils.health")
+        real = health.HealthModel.evaluate
+
+        def evaluate(self, _real=real):
+            payload = _real(self)
+            seen.append(payload)
+            return payload
+
+        monkeypatch.setattr(health.HealthModel, "evaluate", evaluate)
+    _same_observations_same_verdicts(monkeypatch, {})
+    assert seen and all("failover" not in p["signals"] for p in seen)
+    for c in left:
+        c.close()
 
 
 def test_verdicts_move_as_the_reference_says(monkeypatch):
