@@ -70,6 +70,12 @@ class PodGroupMatchStatus:
         # double it (and vice versa for binds whose API responses were
         # lost, which only the controller ever sees).
         self.binds_committed = 0
+        # The resource version of a policy eviction's status reset
+        # (ScheduleOperation.note_gang_evicted; 0: none pending): the
+        # controller skips any view of the group older than it, so a view
+        # that still counts the evicted members cannot undo the reset.
+        # Set and cleared under count_lock.
+        self.evicted_rv = 0
         # Gang-granular admission plan (no reference equivalent — it admits
         # gangs pod by pod against a TTL cache, core.go:268-309): the oracle
         # batch that places this gang stamps its node->member-count plan

@@ -7,6 +7,8 @@ from .apiserver import (
 )
 from .clientset import Clientset, NodeInterface, PodGroupInterface, PodInterface
 from .fake import new_simple_clientset
+from .http_apiserver import HTTPAPIServer
+from .http_gateway import GatewayServer, serve_gateway
 from .informers import PodGroupLister, SharedInformer, SharedInformerFactory
 
 __all__ = [
@@ -20,6 +22,9 @@ __all__ = [
     "PodGroupInterface",
     "PodInterface",
     "new_simple_clientset",
+    "HTTPAPIServer",
+    "GatewayServer",
+    "serve_gateway",
     "PodGroupLister",
     "SharedInformer",
     "SharedInformerFactory",

@@ -14,8 +14,8 @@ extension-point set consumed by
 ``max_schedule_time`` keeps the reference's **minutes** interpretation
 (batchscheduler.go:406). The ``scorer`` arg is the north-star ``--scorer=tpu``
 gate: "oracle" (the batch on the card) or "serial" (reference-parity
-in-process path). ``oracle_compile_warmer: true`` parses and is then refused
-by ``PluginConfig``: the port has no compile warmer yet.
+in-process path). ``oracle_compile_warmer: true`` turns on the in-process
+scorer's bucket warmer (``ops.bucketing.CompileWarmer``).
 """
 
 from __future__ import annotations

@@ -24,10 +24,11 @@ The port's deltas from the reference:
   card: the reference's degrade-to-CPU probe is not carried over, and
   neither is its persistent XLA compilation cache (the kernel libraries'
   build directory, ``ops._build``, is the port's).
-- Refused with exit 2, never ignored: ``--compile-warmer`` (no compile
-  warmer yet), ``--device-state off`` (the port always keeps the cluster
-  state on the device) and ``serve`` with ``BST_COORDINATOR`` set (no
-  multi-process bootstrap yet).
+- ``--compile-warmer`` (``sim``, ``serve``) runs the bucket warmer
+  (``ops.bucketing.CompileWarmer``) on the card.
+- Refused with exit 2, never ignored: ``--device-state off`` (the port
+  always keeps the cluster state on the device) and ``serve`` with
+  ``BST_COORDINATOR`` set (no multi-process bootstrap yet).
 - ``--oracle-background-refresh`` with ``--oracle-addr`` runs on the
   resilient client's second connection slot (the port's ``RemoteScorer``
   has no separate background client).
@@ -303,8 +304,11 @@ def build_parser() -> argparse.ArgumentParser:
     sim.add_argument(
         "--compile-warmer",
         action="store_true",
-        help="the reference's bucket precompiler: refused (the port has "
-             "no compile warmer yet)",
+        help="run one batch at each (G, N) bucket shape adjacent to the "
+             "live working set on a daemon thread, so a bucket transition "
+             "finds the kernel loaded and its plan cached (in-process "
+             "oracle; for --oracle-addr pass --compile-warmer to `serve` "
+             "instead)",
     )
     sim.add_argument(
         "--device-state", choices=["on", "off"], default=None,
@@ -356,8 +360,10 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument(
         "--compile-warmer",
         action="store_true",
-        help="the reference's bucket precompiler: refused (the port has "
-             "no compile warmer yet)",
+        help="keep a background thread running one batch at each (G, N) "
+             "bucket shape adjacent to live traffic, so bucket transitions "
+             "find the kernel loaded and its plan cached (hit/miss counters in "
+             "/metrics and the traced telemetry)",
     )
     serve.add_argument(
         "--coalesce",
@@ -1082,8 +1088,6 @@ def cmd_serve(args) -> int:
             "BST_COORDINATOR is set, but the port's sidecar has no "
             "multi-process bootstrap yet: unset it to serve one process"
         )
-    if args.compile_warmer:
-        return _refused("--compile-warmer: the port has no compile warmer yet")
     if not _require_device(args):
         return 2
 
@@ -1106,6 +1110,7 @@ def cmd_serve(args) -> int:
         audit_log=_maybe_audit_log(args),
         # flag is sugar over BST_COALESCE; None lets the env decide
         coalesce=True if args.coalesce else None,
+        compile_warmer=args.compile_warmer,
     )
     # sidecar-side lifecycle export: nothing flows unless a scheduler
     # runs in-process, but the flag contract is uniform across sim/serve
@@ -1236,8 +1241,6 @@ def cmd_sim(args) -> int:
             "--device-state off: the port always keeps the cluster state "
             "on the device (there is no host-upload rung to fall back to)"
         )
-    if args.compile_warmer or cfg.plugin_config.oracle_compile_warmer:
-        return _refused("--compile-warmer: the port has no compile warmer yet")
     if not _require_device(args):
         return 2
 
@@ -1258,6 +1261,9 @@ def cmd_sim(args) -> int:
     want_dispatch_ahead = (
         args.dispatch_ahead or cfg.plugin_config.oracle_dispatch_ahead
     )
+    want_warmer = (
+        args.compile_warmer or cfg.plugin_config.oracle_compile_warmer
+    )
     if args.oracle_addr:
         from ..service.client import RemoteScorer, ResilientOracleClient
 
@@ -1276,6 +1282,13 @@ def cmd_sim(args) -> int:
         )
         scorer = RemoteScorer(oracle_client, fallback=args.oracle_fallback)
         remote_scorer = scorer
+        if want_warmer:
+            print(
+                "note: --compile-warmer warms the LOCAL batch path; with "
+                "--oracle-addr batches run on the sidecar — start "
+                "`serve --compile-warmer` there instead",
+                file=sys.stderr,
+            )
 
     policy_cfg = None
     if args.policy:
@@ -1301,6 +1314,7 @@ def cmd_sim(args) -> int:
         min_batch_interval=cfg.plugin_config.min_batch_interval_seconds,
         oracle_background_refresh=want_bg_refresh,
         oracle_dispatch_ahead=want_dispatch_ahead,
+        oracle_compile_warmer=want_warmer and oracle_client is None,
         audit_log=audit_log,
         identity_audit_every=args.identity_audit_every,
         policy=policy_cfg,

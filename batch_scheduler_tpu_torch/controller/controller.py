@@ -179,6 +179,29 @@ class PodGroupController:
             pgs = self._init_match_status(pg, key)
             self.pg_cache.set(key, pgs)
 
+        # count_lock makes this sync one step against a policy eviction's
+        # reset of the gang (ScheduleOperation.note_gang_evicted), which
+        # stamps evicted_rv with its status patch's resource version. A
+        # view older than that predates the eviction: it counts the
+        # deleted members and, folded in below, would restore the gang's
+        # old progress over the reset for good (the respawned members then
+        # pass Permit as if the gang were already released). Such a view
+        # is skipped; the reset's own watch event syncs the gang again.
+        # (A port-only fence: the reference has the race.)
+        with pgs.count_lock:
+            if pg.metadata.resource_version < pgs.evicted_rv:
+                resync = True
+            else:
+                pgs.evicted_rv = 0
+                resync = self._sync_status(pg, key, pgs)
+        if resync:
+            # periodic resync keeps pod-count-driven transitions flowing
+            # (reference re-enqueues unconditionally, controller.go:310)
+            self.queue.add_after(key, self.resync_seconds)
+
+    def _sync_status(self, pg: PodGroup, key: str, pgs: PodGroupMatchStatus) -> bool:
+        """The phase machine's body for one view ``pg`` of the group
+        (count_lock held). Returns whether the group resyncs later."""
         # pgs.pod_group may alias pg (cache holds the informer object); diff
         # against an immutable snapshot so cache syncs don't mask the patch.
         # Only status is ever mutated here and its fields are all scalars,
@@ -232,7 +255,7 @@ class PodGroupController:
             - pg_copy.metadata.creation_timestamp
             > GC_HORIZON_SECONDS
         ):
-            return
+            return False
 
         if pg_copy.status.phase in (
             PodGroupPhase.SCHEDULED,
@@ -251,23 +274,22 @@ class PodGroupController:
             PodGroupPhase.PRE_SCHEDULING,
         ):
             members = self._member_phases(pg_copy)
-            with pgs.count_lock:
-                not_pending = 0
-                running = 0
-                for uid, phase in members:
-                    if phase == PodPhase.RUNNING.value:
-                        running += 1
-                    elif phase == PodPhase.SUCCEEDED.value:
-                        pgs.succeed[uid] = ""
-                    elif phase == PodPhase.FAILED.value:
-                        pgs.failed[uid] = ""
-                    if phase != PodPhase.PENDING.value:
-                        not_pending += 1
-                pg_copy.status.failed = len(pgs.failed)
-                pg_copy.status.succeeded = len(pgs.succeed)
-                pg_copy.status.running = running
-                if not_pending > pg_copy.status.scheduled:
-                    pg_copy.status.scheduled = not_pending
+            not_pending = 0
+            running = 0
+            for uid, phase in members:
+                if phase == PodPhase.RUNNING.value:
+                    running += 1
+                elif phase == PodPhase.SUCCEEDED.value:
+                    pgs.succeed[uid] = ""
+                elif phase == PodPhase.FAILED.value:
+                    pgs.failed[uid] = ""
+                if phase != PodPhase.PENDING.value:
+                    not_pending += 1
+            pg_copy.status.failed = len(pgs.failed)
+            pg_copy.status.succeeded = len(pgs.succeed)
+            pg_copy.status.running = running
+            if not_pending > pg_copy.status.scheduled:
+                pg_copy.status.scheduled = not_pending
 
             # demote when members went missing (reference :276-279)
             if 0 != not_pending < pg_copy.spec.min_member:
@@ -299,10 +321,7 @@ class PodGroupController:
                 # cache's on_update callbacks (the scorer's event fold)
                 self.pg_cache.set(key, pgs)
             self.queue.forget(key)
-        if not terminal:
-            # periodic resync keeps pod-count-driven transitions flowing
-            # (reference re-enqueues unconditionally, controller.go:310)
-            self.queue.add_after(key, self.resync_seconds)
+        return not terminal
 
     # -- helpers -----------------------------------------------------------
 

@@ -134,6 +134,7 @@ class ScheduleOperation:
         min_batch_interval: float = 0.0,
         background_refresh: bool = False,
         dispatch_ahead: bool = False,
+        compile_warmer: bool = False,
         device="cuda",
         audit_log=None,
         identity_audit_every: int = 0,
@@ -175,6 +176,7 @@ class ScheduleOperation:
                     min_batch_interval=min_batch_interval,
                     background_refresh=background_refresh,
                     dispatch_ahead=dispatch_ahead,
+                    compile_warmer=compile_warmer,
                 )
                 if scorer == "oracle"
                 else None
@@ -767,35 +769,43 @@ class ScheduleOperation:
         best-effort (the controller re-derives the phase from live member
         pods). The pending tracker's ``note_evicted`` re-arms the gang's
         pending clock at its ORIGINAL first denial, so pending age
-        includes the preemption churn."""
-        with self._lock:
-            pgs = self.status_cache.get(full_name)
-            if pgs is None:
-                return
-            pg = pgs.pod_group
-            pg.status.phase = PodGroupPhase.PENDING
-            pg.status.scheduled = 0
-            pg.status.schedule_start_time = None
-            pgs.binds_committed = 0
-            pgs.scheduled = False
-            pgs.placement_plan = None
-            for uid in list(pgs.matched_pod_nodes.items()):
-                pgs.matched_pod_nodes.delete(uid)
-            ns, name = pg.metadata.namespace, pg.metadata.name
-        if self.pg_client is not None:
-            try:
-                self.pg_client.podgroups(ns).patch(
-                    name,
-                    {
-                        "status": {
-                            "phase": PodGroupPhase.PENDING.value,
-                            "scheduled": 0,
-                            "schedule_start_time": None,
-                        }
-                    },
-                )
-            except Exception:  # noqa: BLE001 — the controller reconciles
-                pass
+        includes the preemption churn.
+
+        The reset and its patch run under the gang's ``count_lock``, one
+        step against the controller's sync, and the patch's resource
+        version fences the controller's older views (``evicted_rv``): a
+        sync that read the group while the deleted members still counted
+        would otherwise write their progress back over the reset."""
+        pgs = self.status_cache.get(full_name)
+        if pgs is None:
+            return
+        with pgs.count_lock:
+            with self._lock:
+                pg = pgs.pod_group
+                pg.status.phase = PodGroupPhase.PENDING
+                pg.status.scheduled = 0
+                pg.status.schedule_start_time = None
+                pgs.binds_committed = 0
+                pgs.scheduled = False
+                pgs.placement_plan = None
+                for uid in list(pgs.matched_pod_nodes.items()):
+                    pgs.matched_pod_nodes.delete(uid)
+                ns, name = pg.metadata.namespace, pg.metadata.name
+            if self.pg_client is not None:
+                try:
+                    updated = self.pg_client.podgroups(ns).patch(
+                        name,
+                        {
+                            "status": {
+                                "phase": PodGroupPhase.PENDING.value,
+                                "scheduled": 0,
+                                "schedule_start_time": None,
+                            }
+                        },
+                    )
+                    pgs.evicted_rv = updated.metadata.resource_version
+                except Exception:  # noqa: BLE001 — the controller reconciles
+                    pass
         self.pending_tracker.note_evicted(full_name)
         # the member deletions rode the evented cluster mutators; the
         # gang-row reset above is the only out-of-band change: name it

@@ -513,7 +513,8 @@ class OracleScorer:
                  identity_audit_every: int = 0, policy_engine=None,
                  min_batch_interval: float = 0.0,
                  background_refresh: bool = False,
-                 dispatch_ahead: bool = False):
+                 dispatch_ahead: bool = False,
+                 compile_warmer: bool = False):
         self.device = None if device is None else resolve_device(device)
         self.stream = None if device is None else device_stream(self.device)
         # Dirty tracking is a GENERATION pair: refresh() records the
@@ -553,6 +554,17 @@ class OracleScorer:
         # speculative batches enqueued (each one launch of the scan): the
         # served, the discarded and one a drain collected unconsumed
         self.spec_dispatched = 0
+        # The bucket warmer (ops.bucketing.CompileWarmer): runs one batch at
+        # each bucket shape adjacent to the live working set on a daemon
+        # thread, so a bucket transition finds the kernel loaded and its
+        # plan cached (ops.bucketing says what stays cold).
+        # Local batches only: a remote scorer's batches run on the sidecar,
+        # which has its own warmer.
+        self._warmer = None
+        if compile_warmer and self.device is not None:
+            from ..ops.bucketing import maybe_compile_warmer
+
+            self._warmer = maybe_compile_warmer(self.device)
         # Plan-covered cluster changes (member assumes/binds the current
         # batch already charged via its gang placement) are credited rather
         # than invalidating the batch.
@@ -758,6 +770,13 @@ class OracleScorer:
                 record_telemetry,
                 per_wave_device_seconds=round(batch_s / waves, 6),
             )
+        if self._warmer is not None:
+            try:
+                self._warmer.note_batch(
+                    snap.device_args(), snap.progress_args(), record_telemetry,
+                )
+            except Exception:  # noqa: BLE001 — warm accounting never fatal
+                pass
         trace_mod.DEFAULT_FLIGHT_RECORDER.record(
             "_batch",
             phase="batch",
@@ -1191,6 +1210,8 @@ class OracleScorer:
         if self._identity is not None:
             audit.update(self._identity.stats())
         out["audit"] = audit
+        if self._warmer is not None:
+            out.update(self._warmer.stats())
         return out
 
     def _set_degraded(self, flag: bool) -> None:
@@ -1281,6 +1302,10 @@ class OracleScorer:
             self.dispatch_ahead = False
             spec_t = self._spec_thread
         ok = True
+        # the warmer stops first: it is a batch producer of its own, and
+        # its thread must not be inside a CUDA call at teardown
+        if self._warmer is not None:
+            ok = self._warmer.stop(timeout) and ok
         for name, th in (("background", t), ("dispatch-ahead", spec_t)):
             if th is not None and th.is_alive():
                 th.join(timeout)

@@ -317,3 +317,9 @@ class ClusterState:
     def is_assumed(self, pod_uid: str) -> bool:
         with self._lock:
             return pod_uid in self._assumed
+
+    def is_placed(self, pod_uid: str) -> bool:
+        """Whether the pod is charged to a node here, assumed or bound (a
+        bind this scheduler finished counts before the informer's event)."""
+        with self._lock:
+            return pod_uid in self._pod_nodes

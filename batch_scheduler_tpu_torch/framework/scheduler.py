@@ -329,28 +329,38 @@ class Scheduler:
                 if p is not None:
                     members.append((sib, p))
 
-        # consumed siblings bypass _schedule_one's marker discard, so
-        # handle their kept assumes HERE: a sib still in members just
-        # passed an unbound liveness read — the same evidence the pop
-        # path uses — so release its ghost; either way discard the
-        # marker, or it outlives this consumption and lets a duplicate
-        # queue entry forget the re-assumed LIVE reservation later.
-        # (guarded: _kept_assumes is empty except during outage recovery)
-        if self._kept_assumes:
-            stale = False
-            member_uids = {m.uid for m, _ in members}
-            for sib in sibs:
-                if sib.uid in self._kept_assumes:
-                    self._kept_assumes.discard(sib.uid)
-                    if (
-                        sib.uid in member_uids
-                        and self.cluster.is_assumed(sib.uid)
-                        and not self._assume_owned(sib.uid)
-                    ):
-                        self.cluster.forget(sib.uid)
-                        stale = True
-            if stale:
-                plugin.mark_dirty()
+        # consumed siblings bypass _schedule_one's checks, so apply them
+        # HERE, on the pop path's evidence. A sib this scheduler bound, or
+        # an assumed one without the kept marker (or whose assume has a
+        # live owner), is a duplicate entry: dropped. A kept one (an
+        # ambiguous bind failure) is read fresh through the API
+        # (_unbound_in_store; the informer's view may predate the lost
+        # bind): unbound releases its ghost; bound drops the sib (its
+        # charge stays, the informer's bound event squares it); a failed
+        # read keeps the charge and requeues it. Either way the marker
+        # goes, or it outlives this consumption and lets a duplicate queue
+        # entry forget the re-assumed LIVE reservation later.
+        kept = {s.uid for s in sibs if s.uid in self._kept_assumes}
+        self._kept_assumes -= kept
+        stale = False
+        retained = [members[0]]
+        for sib, p in members[1:]:
+            if not self.cluster.is_assumed(sib.uid):
+                if not self.cluster.is_placed(sib.uid):
+                    retained.append((sib, p))
+                continue
+            if sib.uid in kept and not self._assume_owned(sib.uid):
+                unbound = self._unbound_in_store(sib)
+                if unbound:
+                    self.cluster.forget(sib.uid)
+                    stale = True
+                    retained.append((sib, p))
+                elif unbound is None:
+                    self._kept_assumes.add(sib.uid)
+                    self.queue.push_backoff(sib)
+        members = retained
+        if stale:
+            plugin.mark_dirty()
 
         def hand_back() -> bool:
             # everything except the popped pod returns to the queue; the
@@ -607,6 +617,20 @@ class Scheduler:
         info.pod = pod
         return pod
 
+    def _unbound_in_store(self, info: PodInfo) -> Optional[bool]:
+        """A kept assume's evidence: one read through the API server (the
+        live gateway generation), never the informer's cache, which may not
+        have delivered the lost bind yet. True: the pod is there, unbound;
+        False: it is bound (the lost bind applied), gone or replaced; None:
+        the read failed (the API server is still unreachable)."""
+        try:
+            pod = self.clientset.pods(info.namespace).get(info.name)
+        except NotFoundError:
+            return False
+        except Exception:  # noqa: BLE001 — an outage: the outcome is unknown
+            return None
+        return not pod.spec.node_name and pod.metadata.uid == info.uid
+
     def _schedule_one(self, info: PodInfo) -> Optional[str]:
         self.stats["cycles"] += 1
         kept = info.uid in self._kept_assumes
@@ -616,30 +640,46 @@ class Scheduler:
         if pod is None:
             return
 
-        if (
-            kept
-            and self.cluster.is_assumed(info.uid)
-            and not self._assume_owned(info.uid)
-        ):
+        if not self.cluster.is_assumed(info.uid):
+            if self.cluster.is_placed(info.uid):
+                # a duplicate queue entry of a pod this scheduler bound,
+                # the informer's bound event not yet in: never bind again
+                return
+        elif not kept or self._assume_owned(info.uid):
+            # a duplicate queue entry: an informer's relist re-adds a pod
+            # that is parked in Permit, buffered for a flush or being
+            # bound, and its owner holds the assume. Scheduling this copy
+            # would bind the pod a second time, to another node, and the
+            # assume it moves frees the first node while the store has it
+            # filled (config 6 over the HTTP gateway over-committed nodes
+            # that way after a restart; the reference shares the fault).
+            return
+        else:
             # a kept assume from an ambiguous bind failure (the worker/
-            # flush keep-capacity policy): the liveness read above just
-            # showed the pod UNBOUND, which resolves the ambiguity — the
-            # lost request never applied AND never will (a read can only
-            # be served by the live gateway generation, whose startup
-            # fenced every older generation's in-flight binds out of the
-            # backing store — serve_gateway/APIServer.bind_pods; without
-            # that fence a zombie handler could land the "lost" bind
-            # after this forget and over-commit the node) — so release
-            # the ghost reservation before planning. Without this the pod competes
-            # against its own charge and a gang that exactly fills a node
-            # livelocks on it forever. Two gates protect LIVE reservations
-            # from this forget: the _kept_assumes marker (only the
-            # ambiguous-failure paths set it, so an ordinary duplicate
-            # queue entry never triggers it) and _assume_owned (a marker
-            # raced by a duplicate-entry re-assume that re-parked the pod
-            # must not release the new owner's charge). (A stale informer
-            # view self-heals: a late bound event re-charges the node via
-            # observe_pod.)
+            # flush keep-capacity policy). The informer's view above can
+            # predate the lost bind (its watch reconnects and relists after
+            # an outage): only a fresh read through the API server, served
+            # by the live gateway generation (whose startup fenced every
+            # older generation's in-flight binds out of the store,
+            # serve_gateway / APIServer.bind_pods; both bind routes here,
+            # the flush and _bind, take that fenced verb), proves the lost
+            # request never applied and never will. Without it the forget
+            # below freed a node the store had filled.
+            unbound = self._unbound_in_store(info)
+            if unbound is None:
+                # still unreachable: keep the charge and the marker
+                self._kept_assumes.add(info.uid)
+                self.queue.push_backoff(info)
+                return
+            if not unbound:
+                # bound in the store (or gone): the entry is stale, the
+                # charge stays until the informer's event squares it
+                return
+            # unbound: release the ghost reservation before planning, or
+            # the pod competes against its own charge and a gang that
+            # exactly fills a node livelocks on it forever. (A stale
+            # informer view self-heals: a late bound event re-charges the
+            # node via observe_pod.)
             self.cluster.forget(info.uid)
             if self.plugin is not None:
                 self.plugin.mark_dirty()
@@ -1118,11 +1158,15 @@ class Scheduler:
         self.queue.push_backoff(info)
 
     def _bind(self, pod: Pod, node_name: str) -> None:
-        try:
-            self.clientset.pods(pod.metadata.namespace).bind(
-                pod.metadata.name, node_name
-            )
-        except NotFoundError:
+        # the batched verb with one pair, not the per-pod PATCH: over the
+        # HTTP gateway it carries the generation's bind epoch, so a bind a
+        # restart severed cannot land after a newer generation served
+        # _unbound_in_store's read (the gateway fences nothing else)
+        bound = self.clientset.pods(pod.metadata.namespace).bind_many(
+            [(pod.metadata.name, node_name)]
+        )
+        if pod.metadata.name not in bound:
+            # missing from the store (the reference's NotFound)
             self.cluster.forget(pod.metadata.uid)
             return
         self.cluster.finish_binding(pod.metadata.uid)

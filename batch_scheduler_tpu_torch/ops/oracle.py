@@ -4,7 +4,7 @@ nodes and places whole gangs greedily in queue order.
 The port of ``batch_scheduler_tpu/ops/oracle.py`` (the single-device
 batch). Plain functions on int32 tensors:
 
-- ``left_resources``  per-node leftover = floor(alloc·percent) − requested
+- ``left_resources``  per-node leftover = alloc − requested
 - ``group_capacity``  members-per-node capacity matrix cap[G,N]
 - ``gang_feasible``   Σ_n min(cap, remaining) ≥ remaining
 - ``score_nodes``     per-(group,node) best-fit ranks for Score
@@ -115,7 +115,8 @@ def _member_capacity(left, req):
 
 def left_resources(alloc, requested):
     """Per-node leftover lanes: alloc − requested (the batch admits at 100%
-    of allocatable; the reference's percent argument has no caller here)."""
+    of allocatable; the reference's ``percent_num`` / ``percent_den``
+    keywords have no caller in either package and are not ported)."""
     return alloc - requested
 
 
@@ -975,11 +976,11 @@ class PendingBatch:
 
     __slots__ = ("blob", "done", "out", "pack", "top_k", "scan_wave", "mask_mode",
                  "n_bucket", "g_bucket", "device", "used_policy", "used_topk",
-                 "cost_probe")
+                 "cost_probe", "compiled")
 
     def __init__(self, blob, done, out, pack, top_k, scan_wave, mask_mode,
                  n_bucket, g_bucket, device, used_policy=False, used_topk=0,
-                 cost_probe=None):
+                 cost_probe=None, compiled=False):
         self.blob = blob
         self.done = done
         self.out = out
@@ -995,6 +996,28 @@ class PendingBatch:
         # (requested lanes, scan input bytes, lanes R), host numbers, for
         # a bucket and rung /debug/buckets has not priced yet
         self.cost_probe = cost_probe
+        # the first batch of this process at its shape key (_first_at_key)
+        self.compiled = compiled
+
+
+# The shape keys this process has run a batch at: the port's counterpart of
+# the reference's jit cache. The port compiles nothing per shape, but the
+# first batch at a key still pays first-use costs the later ones do not:
+# the kernel library's load and CUDA's lazy load of that instantiation, the
+# launch plan's lru-cached queries and the shared-memory attribute it sets,
+# and the caching allocator's first blocks at that size. The telemetry flag
+# ``compiled`` marks that batch (ops.bucketing.CompileWarmer reads it).
+_first_lock = threading.Lock()
+_keys_run: set = set()  # guarded-by: _first_lock
+
+
+def _first_at_key(key: tuple) -> bool:
+    """True for the first batch of this process at ``key``."""
+    with _first_lock:
+        if key in _keys_run:
+            return False
+        _keys_run.add(key)
+        return True
 
 
 def dispatch_batch(batch_args, progress_args, device="cuda", policy=None,
@@ -1075,6 +1098,9 @@ def dispatch_batch(batch_args, progress_args, device="cuda", policy=None,
                           sum(t.numel() * t.element_size()
                               for t in (batch[0], batch[2], batch[3], batch[4], batch[6])),
                           int(batch[0].shape[1]))
+    compiled = _first_at_key((str(dev), g_bucket, n_bucket,
+                              int(np.shape(batch_args[0])[1]), mask_mode, rung,
+                              scan_wave, scan_topk))
     done = None
     if dev.type == "cuda":
         blob = blob.to("cpu", non_blocking=True)
@@ -1083,7 +1109,8 @@ def dispatch_batch(batch_args, progress_args, device="cuda", policy=None,
     _note_inflight(1)
     return PendingBatch(blob, done, out, pack, top_k, scan_wave, mask_mode,
                         n_bucket, g_bucket, dev, used_policy=policy is not None,
-                        used_topk=scan_topk, cost_probe=cost_probe)
+                        used_topk=scan_topk, cost_probe=cost_probe,
+                        compiled=compiled)
 
 
 def collect_batch(pending: PendingBatch):
@@ -1097,7 +1124,9 @@ def collect_batch(pending: PendingBatch):
     ``waves_per_batch``, ``wave_demotions`` and ``wave_uniform`` beside
     ``wave_width``, ``scan_topk`` is the top-K scan's candidate width (0
     off) and, with it, ``topk_demotions`` the batch's dense-column
-    demotions, and ``scan_policy`` says whether the batch had a policy); ``device_result`` keeps the [G,N] ``capacity`` and
+    demotions, ``scan_policy`` says whether the batch had a policy, and
+    ``compiled`` whether it was this process's first batch at its shape
+    key); ``device_result`` keeps the [G,N] ``capacity`` and
     ``scores`` tensors on the device for lazy row reads (complete once this
     returns: the event follows the whole batch on its stream)."""
     try:
@@ -1135,6 +1164,7 @@ def collect_batch(pending: PendingBatch):
             "wave_width": pending.scan_wave,
             "scan_topk": pending.used_topk,
             "scan_policy": pending.used_policy,
+            "compiled": pending.compiled,
         },
     }
     if pending.scan_wave > 1:

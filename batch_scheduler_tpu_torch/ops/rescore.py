@@ -32,6 +32,13 @@ runs on its own stream (``ChurnRescorer.stream``), entered by
 ``tick_dispatch`` on whichever thread dispatches (``TickPipeline``
 dispatches on a helper thread), so they run in enqueue order.
 ``tick_collect`` only waits on the batch's event on the host.
+
+Deltas: the reference's keywords ``ChurnRescorer.warm(with_selectors=,
+max_remaining=)``, ``probe_link_depth(probe_width=, samples=, cap=)`` and
+``TickPipeline.drain(record_stats=)`` have no caller in either package
+outside tests; the port keeps their defaults as the module constants
+``_WARM_MAX_REMAINING``, ``_PROBE_WIDTH``, ``_PROBE_SAMPLES`` and
+``_MAX_DEPTH``, and ``drain`` always un-records.
 """
 
 from __future__ import annotations

@@ -11,9 +11,8 @@ controller -> leader-gated controller runner.
 The port of ``batch_scheduler_tpu/plugin/factory.py``. ``PluginConfig``
 carries the port's ``device`` (``cuda`` by default: ``new_plugin_runtime``
 raises on a machine without CUDA unless the config asks for ``cpu``),
-which reaches the ``ScheduleOperation`` and its scorer. The reference's
-``oracle_compile_warmer`` (an XLA bucket precompiler) has no counterpart
-yet: the config refuses it rather than ignoring it.
+which reaches the ``ScheduleOperation`` and its scorer, and
+``oracle_compile_warmer`` its bucket warmer (``ops.bucketing``).
 """
 
 from __future__ import annotations
@@ -89,16 +88,11 @@ class PluginConfig:
     enabled_points: frozenset = ALL_EXTENSION_POINTS
     controller_resync_seconds: float = 0.5
     identity: str = field(default_factory=socket.gethostname)
-    # the reference's compile-ahead bucket warmer (an XLA precompiler):
-    # no counterpart yet, so asking for it raises rather than being ignored
+    # Bucket warmer (ops.bucketing.CompileWarmer): run one batch at each
+    # (G, N) bucket shape adjacent to the live working set on a daemon
+    # thread, so a bucket transition finds the kernel loaded and its plan
+    # cached (ops.bucketing says what stays cold).
     oracle_compile_warmer: bool = False
-
-    def __post_init__(self) -> None:
-        if self.oracle_compile_warmer:
-            raise ValueError(
-                "oracle_compile_warmer (the reference's XLA bucket "
-                "precompiler) has no counterpart in the port yet"
-            )
 
     @property
     def max_schedule_seconds(self) -> Optional[float]:
@@ -209,6 +203,7 @@ def new_plugin_runtime(
         min_batch_interval=config.min_batch_interval_seconds,
         background_refresh=config.oracle_background_refresh,
         dispatch_ahead=config.oracle_dispatch_ahead,
+        compile_warmer=config.oracle_compile_warmer,
         device=device,
         audit_log=config.oracle_audit_log,
         identity_audit_every=config.oracle_identity_audit_every,

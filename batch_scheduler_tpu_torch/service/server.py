@@ -18,10 +18,11 @@ sidecar's capacity sample (``ops.capacity``). The spans a ``TRACE_INFO``
 reply carries are built from the request's phase timings under the
 client's trace id (no span is opened on the executor thread), and with
 tracing on (utils.trace) they also land in this process's span ring.
-Left out, each with the ROADMAP item it waits for: the compile warmer and
-``warmth_snapshot`` / ``replicate_warmth`` and the profiler's memory
-telemetry (item 12; the port builds its kernels once and compiles nothing
-per shape) and the mesh (item 11).
+``compile_warmer=True`` runs the bucket warmer (``ops.bucketing``) on the
+shapes the sidecar serves, and ``warmth_snapshot`` / ``replicate_warmth``
+hand its shapes to a standby. Left out, each with the ROADMAP item it
+waits for: the profiler's memory telemetry (item 12; the port builds its
+kernels once and compiles nothing per shape) and the mesh (item 11).
 
 Deadline enforcement: a DEADLINE annotation frame bounds the next request;
 request bodies run on a per-connection daemon worker so the handler can
@@ -870,6 +871,7 @@ class _Handler(socketserver.BaseRequestHandler):
             host, batch = res.host, res.rows
             queue_wait, run_s = res.queue_wait, res.run_seconds
             audit_args = res.audit_args
+            self._note_warmer(args, progress_args, host)
         else:
             # host-side padded args: the audit record must replay anywhere
             audit_args = (
@@ -878,6 +880,7 @@ class _Handler(socketserver.BaseRequestHandler):
             host, batch, queue_wait, run_s = executor.run_batch(
                 args, progress_args, tenant=self._tenant,
             )
+            self._note_warmer(args, progress_args, host)
         if traced:
             # the sidecar's capacity sample for the traced client
             # (budget-gated; rides TRACE_INFO), attributed to the
@@ -895,6 +898,17 @@ class _Handler(socketserver.BaseRequestHandler):
             "device": run_s,
         }
         return host, batch, (n, g), timings, audit_args
+
+    def _note_warmer(self, args, progress_args, host) -> None:
+        """The executor's served batch, noted by the bucket warmer (when
+        the server runs one) with the host-side padded args it ran."""
+        warmer = self.server.warmer
+        if warmer is None:
+            return
+        try:
+            warmer.note_batch(args, progress_args, host.get("telemetry") or {})
+        except Exception:  # noqa: BLE001 — warm accounting never fatal
+            pass
 
     def _finish_schedule(self, outcome, req_trace, req_audit) -> None:
         """Shared tail of the full and delta schedule paths: install the
@@ -949,6 +963,9 @@ class _Handler(socketserver.BaseRequestHandler):
                 )
             if req_audit is not None:
                 telemetry["audit_id"] = req_audit
+            if self.server.warmer is not None:
+                # the warmer's counters ride back with the telemetry
+                telemetry.update(self.server.warmer.stats())
             ts0 = timings["ts0"]
             spans = [
                 self._mk_span("oracle.schedule", ts0, total_s, req_trace,
@@ -1131,9 +1148,10 @@ class OracleServer(socketserver.ThreadingTCPServer):
     annotation. ``coalesce`` puts the multi-tenant coalescer
     (``service.coalescer.OracleCoalescer``, its DRF order weighted by the
     sidecar's capacity shares) in front of the executor; None reads
-    ``BST_COALESCE`` (default off). ``server_close`` hangs up every open
-    connection, as a stopped sidecar process would: its clients see the
-    transport fail."""
+    ``BST_COALESCE`` (default off). ``compile_warmer`` runs the bucket
+    warmer on ``device`` (``ops.bucketing.maybe_compile_warmer``).
+    ``server_close`` hangs up every open connection, as a stopped sidecar
+    process would: its clients see the transport fail."""
 
     allow_reuse_address = True
     daemon_threads = True
@@ -1145,11 +1163,17 @@ class OracleServer(socketserver.ThreadingTCPServer):
         audit_log=None,
         device="cuda",
         coalesce: Optional[bool] = None,
+        compile_warmer: bool = False,
     ):
         self.device = resolve_device(device)
         super().__init__((host, port), _Handler)
         self.audit_log = audit_log
         self.executor = DeviceExecutor(self.device)
+        self.warmer = None
+        if compile_warmer:
+            from ..ops.bucketing import maybe_compile_warmer
+
+            self.warmer = maybe_compile_warmer(self.device)
         # the multi-tenant cross-client coalescer: a DRF-fair merge queue
         # in front of the executor
         want_coalesce = (
@@ -1246,8 +1270,11 @@ class OracleServer(socketserver.ThreadingTCPServer):
             if inflight <= 0 or time.monotonic() >= deadline:
                 break
             time.sleep(0.02)
-        # coalescer before executor: it is an executor PRODUCER, and a
-        # group dispatched after executor.stop would fail its waiters
+        # producers before the executor: the warmer's thread must not be
+        # inside a batch at teardown, and the coalescer feeds the executor
+        # (a group dispatched after executor.stop would fail its waiters)
+        if self.warmer is not None:
+            self.warmer.stop(timeout=10.0)
         if self.coalescer is not None:
             self.coalescer.stop(timeout=10.0)
         self.executor.stop(timeout=10.0)
@@ -1267,6 +1294,21 @@ class OracleServer(socketserver.ThreadingTCPServer):
         self._drain_done.set()
         return dict(self._drain_report)
 
+    def warmth_snapshot(self) -> list:
+        """The bucket warmer's observed shape prototypes: the primary side
+        of warmth replication to a standby ([] with no warmer)."""
+        if self.warmer is None:
+            return []
+        return self.warmer.warmth_snapshot()
+
+    def replicate_warmth(self, protos) -> int:
+        """Feed another sidecar's observed shapes into this server's
+        warmer, so a promotion finds them warm; returns how many
+        prototypes were enqueued (0 with no warmer)."""
+        if self.warmer is None or not protos:
+            return 0
+        return self.warmer.replicate(protos)
+
     def server_close(self) -> None:
         try:
             with self._inflight_lock:
@@ -1276,6 +1318,8 @@ class OracleServer(socketserver.ThreadingTCPServer):
                     conn.shutdown(socket.SHUT_RDWR)
                 except OSError:
                     pass
+            if self.warmer is not None:
+                self.warmer.stop(timeout=10.0)
             if self.coalescer is not None:
                 self.coalescer.stop(timeout=10.0)
             self.executor.stop(timeout=10.0)
@@ -1287,13 +1331,14 @@ class OracleServer(socketserver.ThreadingTCPServer):
 
 def serve_background(
     host: str = "127.0.0.1", port: int = 0, audit_log=None, device="cuda",
-    coalesce: Optional[bool] = None,
+    coalesce: Optional[bool] = None, compile_warmer: bool = False,
 ) -> OracleServer:
     """Start an OracleServer on a daemon thread; returns it (``.address``
     has the bound port, ``.shutdown()`` stops it, ``.server_close()``
-    releases the socket and stops the coalescer and the executor)."""
+    releases the socket and stops the warmer, the coalescer and the
+    executor)."""
     server = OracleServer(host, port, audit_log=audit_log, device=device,
-                          coalesce=coalesce)
+                          coalesce=coalesce, compile_warmer=compile_warmer)
     t = threading.Thread(
         target=server.serve_forever, name="oracle-server", daemon=True
     )

@@ -1,3 +1,4 @@
+from .chaos import ChaosProxy
 from .harness import SimCluster
 from .kubelet import SimKubelet
 from .scenarios import (
@@ -10,6 +11,7 @@ from .scenarios import (
 )
 
 __all__ = [
+    "ChaosProxy",
     "SimCluster",
     "SimKubelet",
     "SyntheticSpec",

@@ -208,7 +208,8 @@ class SimCluster:
         device="cuda",
     ):
         # ``api``: any APIServer-interface implementation (the whole stack
-        # runs against it instead of the in-memory server)
+        # runs against it instead of the in-memory server; an HTTPAPIServer
+        # runs it over a k8s-shaped endpoint)
         self.api = api if api is not None else APIServer()
         self.clientset = Clientset(self.api)
         self.cluster = ClusterState()
@@ -221,7 +222,6 @@ class SimCluster:
             min_batch_interval_seconds=min_batch_interval,
             oracle_background_refresh=oracle_background_refresh,
             oracle_dispatch_ahead=oracle_dispatch_ahead,
-            # refused by PluginConfig: the port has no compile warmer yet
             oracle_compile_warmer=oracle_compile_warmer,
             oracle_audit_log=audit_log,
             oracle_identity_audit_every=identity_audit_every,
@@ -383,8 +383,21 @@ class SimCluster:
 
     def bound_member_counts(self) -> Dict[Tuple[str, str], int]:
         """(namespace, gang) -> its member pods bound to a node, for every
-        gang at once (``len`` of ``member_pods`` with a node, per gang)."""
-        return self.api.bound_pods_by_label(POD_GROUP_LABEL)
+        gang at once (``len`` of ``member_pods`` with a node, per gang).
+        The in-memory server answers in one pass over its store; any other
+        ``APIServer``-interface object (an ``HTTPAPIServer``) with one LIST
+        of the pods."""
+        by_label = getattr(self.api, "bound_pods_by_label", None)
+        if by_label is not None:
+            return by_label(POD_GROUP_LABEL)
+        out: Dict[Tuple[str, str], int] = {}
+        for doc in self.api.list("Pod"):
+            meta = doc.get("metadata") or {}
+            value = (meta.get("labels") or {}).get(POD_GROUP_LABEL)
+            if value is not None and (doc.get("spec") or {}).get("node_name"):
+                key = (meta.get("namespace", "default"), value)
+                out[key] = out.get(key, 0) + 1
+        return out
 
     def member_phase_counts(self, group: str, namespace: str = "default") -> Dict[str, int]:
         counts: Dict[str, int] = {}

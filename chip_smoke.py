@@ -427,6 +427,57 @@ The scheduler loop (framework/, plugin/, controller/, client/, sim/):
                    scheduler's own _policy_preempt / _evict_gang_plan, a
                    spot gang respawned); each scenario's kernel once a
                    batch (the policy kernel for the last).
+- http_e2e         config 6 (framework_e2e's deployment and settings) run
+                   as SimCluster(api=HTTPAPIServer(host, port, qps=0),
+                   device="cuda") against serve_gateway(APIServer()) over
+                   loopback sockets: nodes and gangs created through the
+                   scheduler's client, the 10,000 pods by a load generator
+                   with its own client; once a third of the pods are bound
+                   in the backing store the gateway is shut down and
+                   restarted on the same port after 0.5 s
+                   (benchmarks/http_e2e.py's restart). Fails unless every
+                   pod is bound in the backing store, every gang Running
+                   there, no gang part-bound before its release at any
+                   sample of the store, no node over-committed (judged
+                   from the store), the serial kernel once a batch and
+                   nothing in flight after stop. Reported: the wall clock
+                   from the first pod to the last bind in the store, pods a
+                   second, batches, the restart's binds_before and
+                   outage, beside framework_e2e's in-memory wall clock.
+- chaos            the port's sidecar on the card (serve_background(
+                   device="cuda")) behind sim.chaos.ChaosProxy at the north
+                   star: each of reset, hang, delay, truncate and garbage
+                   once through a ResilientOracleClient, the answer equal to
+                   a dedicated sidecar's for the same request; on the wire-
+                   delta stream a dropped and a duplicated request frame
+                   (refused on the generation check, resynced through a
+                   keyframe) and the primary killed mid-stream (a pooled
+                   client fails over to a standby and resyncs), every
+                   refresh's host dict equal to a remote scorer's on the
+                   dedicated sidecar; all of it at W unset and at
+                   BST_SCAN_WAVE=8; then tests/test_fuzz_e2e.py:296's
+                   drizzle (delay 0.15, reset 0.04, truncate 0.03, garbage
+                   0.03) under SimCluster(device="cuda") with
+                   RemoteScorer(fallback="local-cpu"): the feasible set
+                   bound, the infeasible gangs not, no over-commit, the
+                   server's launches against the client's fallback
+                   batches (the card must have served batches).
+- warmer           the bucket warmer in fresh child processes
+                   (chip_smoke.py --warmer-child MODE): two with it off and
+                   two with it on, alternating, each an OracleScorer at the
+                   north star [1024, 8192] and then the cluster grown to
+                   8,200 nodes (N bucket 16384): the first and a second
+                   batch there; then a sidecar started as `serve --warmup
+                   --compile-warmer` is (one warm-up batch, the warmer on)
+                   serving the north star twice, its warmth_snapshot()
+                   replicated into a second such sidecar in another
+                   process (replicate_warmth) and that standby's first and
+                   second request. Fails unless the
+                   four grown plans are equal, the warmed first grown batch
+                   is a hit (not ``compiled``) and the unwarmed one is
+                   ``compiled``, and the standby's first request is a hit.
+                   Reported: the batch times (first and second grown batch
+                   by mode), the counters and the wait for the warm shape.
 
 - cli              the CLI (python -m batch_scheduler_tpu_torch) in child
                    processes from the repository root: version,
@@ -442,7 +493,7 @@ The scheduler loop (framework/, plugin/, controller/, client/, sim/):
                    but for their rung and time);
                    the full-width run `sim --scenario synthetic --nodes
                    5000 --node-cpu 64 --node-memory 256Gi --groups 1000
-                   --members 10 --scorer oracle` (with --settle 60) with
+                   --members 10 --scorer oracle` (with --settle 20) with
                    --audit-dir (--audit-cap-mb 64), --lifecycle-dir and
                    --metrics-port (all 10,000 pods
                    bound, every gang Running; its wall clock and pods a
@@ -450,9 +501,10 @@ The scheduler loop (framework/, plugin/, controller/, client/, sim/):
                    capacity and timeline on its audit ring, each equal to
                    the in-process function on the same records (replay:
                    every record identical in the child, the last 4 also in
-                   process); the same deployment through `serve` and
+                   process); the synthetic deployment at a quarter of the
+                   count (1,250 nodes, 250 gangs x 10) through `serve` and
                    `sim --oracle-addr`, then the served process's
-                   /debug/buckets (the north-star bucket's plan and bound),
+                   /debug/buckets (the [256, 2048] bucket's plan and bound),
                    /debug/perf, /debug/profile?seconds=1 (a torch.profiler
                    trace naming the scan kernel, while the smoke sends
                    requests) and /debug/drain?go=1, after which SIGTERM
@@ -465,22 +517,24 @@ The scheduler loop (framework/, plugin/, controller/, client/, sim/):
                    batch; the profiled window's are reported apart.
 - cli_wave         with BST_SCAN_WAVE=8 in the children: replay --against
                    wavefront and topk (and explain, capacity, timeline) on
-                   the cli phase's full-width ring; the full-width
-                   deployment in a sim child with one more gang that never
-                   fits (the child stays up once the 10,000 pods are
-                   bound): its launches against its batches (cli_wave),
+                   the cli phase's full-width ring; the quarter deployment
+                   in a sim child with one more gang that never fits (the
+                   child stays up once the 2,500 pods are bound): its
+                   launches against its batches (cli_wave),
                    then whatif --rung steady and --rung topk (one added
                    256-cpu node) against it live, equal to each other and
                    to its /debug/whatif, the held gang newly placeable;
-                   and the full-width deployment through `serve` with its
+                   and the quarter deployment through `serve` with its
                    routes as in cli (cli_wave_serve). The README's
                    examples, the no-card run and the direct full-width run
                    only in cli, where the first two run beside the third
                    (they mostly wait): a full-width run with the CLI's
                    defaults makes a batch a gang (PERF.md).
-- cli_main         last: cmd.main.main(argv) of the full-width run in
-                   process, each kernel's count zeroed just before and read
-                   just after (cli_main), under the stack sampler and
+- cli_main         last: cmd.main.main(argv) of the synthetic run at a
+                   quarter of config 6's count (1,250 nodes, 250 gangs x
+                   10; the full-width runs are cli's) in process, each
+                   kernel's count zeroed just before and read just after
+                   (cli_main), under the stack sampler and
                    torch.profiler recording the card (its idle share over
                    the run); the CLI's GC thresholds, freeze and switch
                    interval put back after it.
@@ -504,11 +558,12 @@ scrape, mixed, policy and sidecar paths, explain_whatif(_wave)'s explain
 scan, what-if rungs, storm, blame and latency paths, north_star_topk (its
 refreshes, its rings' replays and its what-if query), xl_topk (its
 kernel calls and its full batch), framework_e2e(_wave) (the standing
-batch through the flood, and the profiled flood), sim_scenarios (each
-scenario), metrics_framework, lockcheck and lockcheck_sims (counted in
+batch through the flood, and the profiled flood), http_e2e (the same over
+the HTTP gateway), sim_scenarios (each scenario), chaos, chaos_wave and
+chaos_drizzle (the sidecar's batches through the proxy), metrics_framework, lockcheck and lockcheck_sims (counted in
 its child), cli_serve, cli_wave_serve and cli_wave (a child's
 bst_kernel_launches_total just before and just after its run, or at its
-held state), cli_main (the CLI's full-width run in process), and
+held state), cli_main (the CLI's quarter-width run in process), and
 the audit phases' replays (``audit_replay_replays``,
 ``audit_replay_wave_replays``, ``audit_replay_policy_replays``) — with
 every kernel's count zeroed just before the path and read just after;
@@ -2494,7 +2549,9 @@ AUDIT_RINGS = (("array", 16), ("v2", 4))
 AUDIT_ROUNDS = 12
 AUDIT_IDENTITY_EVERY = 2
 AUDIT_CPU_REPLAYS = 3  # cpu-ladder replays: the last records of each ring
-AUDIT_TIMING_ROUNDS = 12  # report-only: pairs of refreshes, audit off / on
+# report-only: pairs of refreshes, audit off / on (cut from 12 for the
+# smoke's time)
+AUDIT_TIMING_ROUNDS = 6
 
 
 def ran_input_digest(scorer):
@@ -5276,7 +5333,9 @@ def policy_ring(directory):
 # on mixed's inputs (both mask modes) and on the policy cell's deployment.
 WHATIF_SMALL = (48, 24)
 WHATIF_LATENCY = (5120, 2048, 5)
-WHATIF_REPS = 7  # warm what-if queries and steady batches timed for the medians
+# warm what-if queries and steady batches timed for the medians (cut from 7
+# for the smoke's time)
+WHATIF_REPS = 4
 WHATIF_STORM_THREADS, WHATIF_STORM_QUERIES = 4, 3
 WHATIF_STORM_ROUNDS = 4  # churn refreshes the live scorer runs under the storm
 EXPLAIN_TIMED = 5  # kernel-route explain queries timed at the north star
@@ -6730,6 +6789,7 @@ def drive_framework_e2e(wave, shape):
 def framework_e2e(results):
     """Config 6 through SimCluster on the card, serial kernel."""
     launches, report = drive_framework_e2e(None, FRAMEWORK_SHAPE)
+    FIGURES["framework_e2e_wall_s"] = report["wall_clock_s"]
     if "assign_scan" in results:
         results["assign_scan"]["launches_by_path"]["framework_e2e"] = launches["assign_scan"]
         results["assign_scan"]["launches_by_path"]["framework_e2e_profiled"] = \
@@ -7092,11 +7152,23 @@ CLI_FULL = ("--scenario", "synthetic", "--nodes", "5000", "--node-cpu", "64",
             "--scorer", "oracle")  # BASELINE config 6's count: [1024, 8192, R]
 # sim ends when every gang is terminal, or after --settle seconds with no
 # change: the default 3 s ended a full-width flood on a loaded host after
-# 80 binds, so the full-width runs wait 60 s before calling it settled
-CLI_FULL_RUN = ("--timeout", "300", "--settle", "60")
+# 80 binds, so the full-width runs wait 20 s before calling it settled (a
+# full-width flood binds continuously: no bind for 20 s means it is done)
+CLI_FULL_RUN = ("--timeout", "300", "--settle", "20")
 # the full-width ring's cap: the newest ~quarter of its ~1,000 records
 CLI_AUDIT_CAP_MB = "64"
 CLI_FULL_NODES, CLI_FULL_GANGS, CLI_FULL_PODS = 5000, 1000, 10000
+# the served, the held and the in-process runs at a quarter of config 6's
+# count (the smoke's time; the cli phase's ring run keeps the full width):
+# [G=256, N=2048]
+CLI_QUARTER_NODES, CLI_QUARTER_GANGS, CLI_QUARTER_PODS = 1250, 250, 2500
+CLI_QUARTER = ("--scenario", "synthetic", "--nodes", str(CLI_QUARTER_NODES), "--node-cpu",
+               "64", "--node-memory", "256Gi", "--groups", str(CLI_QUARTER_GANGS),
+               "--members", "10", "--scorer", "oracle")
+CLI_QUARTER_BUCKET = "256x2048"
+# a quarter run binds its 2,500 pods in a few seconds: 10 s without a change
+# ends it
+CLI_QUARTER_RUN = ("--timeout", "300", "--settle", "10")
 CLI_TIMEOUT = 420  # seconds a child may take
 CLI_EXPLAIN_GANG = "default/group-999"  # the last gang placed: in the capped ring
 CLI_REPLAY_SAMPLE = 4  # records replayed in process beside the children's full replays
@@ -7247,10 +7319,12 @@ def check_readme_examples(tmp):
         "version": cli_start(["version"]),
         "check_config": cli_start(["check-config", "--config", os.path.join(
             here, "deploy", "scheduler", "config", "batch_scheduler_config.json")]),
+        # --settle 10: started beside the full-width run, a child's first
+        # batch can take more than 2 s, and a 2 s settle ended one before it
         "example1": cli_start(["sim", "-f", "examples/example1.yaml", "--nodes", "4",
-                               "--node-cpu", "4", "--timeout", "60", "--settle", "2"]),
+                               "--node-cpu", "4", "--timeout", "60", "--settle", "10"]),
         "zones": cli_start(["sim", "-f", "examples/zones.yaml", "--timeout", "60",
-                            "--settle", "2", "--audit-dir", zones_audit]),
+                            "--settle", "10", "--audit-dir", zones_audit]),
         "spot_vs_guaranteed": cli_start(["sim", "--scenario", "spot-vs-guaranteed",
                                          "--timeout", "120"], cli_env(**POLICY_ENV)),
     }
@@ -7492,9 +7566,9 @@ def whatif_plan(w):
 
 
 def live_full_width(tmp, env):
-    """The full-width deployment in a sim child (``env``'s rung) with one
-    more gang that never fits, so the child stays up once the 10,000 pods
-    are bound. Then, live at full width: its launches of each kernel
+    """The quarter deployment in a sim child (``env``'s rung) with one
+    more gang that never fits, so the child stays up once the 2,500 pods
+    are bound. Then, live: its launches of each kernel
     against its batches (one launch a batch, plus the warm batch), and
     ``whatif --rung steady|topk`` (add one 256-cpu node) from CLI children,
     equal to each other and to ``/debug/whatif`` on the same process, the
@@ -7503,7 +7577,7 @@ def live_full_width(tmp, env):
     held = os.path.join(tmp, "held.yaml")
     with open(held, "w") as f:
         f.write(CLI_HELD_GANG)
-    child = cli_start(["sim", *CLI_FULL, "--timeout", "300", "--settle", "300",
+    child = cli_start(["sim", *CLI_QUARTER, "--timeout", "300", "--settle", "300",
                        "-f", held, "--metrics-port", "0"], env)
     try:
         port = int(read_port(child, r"metrics on :(\d+)"))
@@ -7511,13 +7585,13 @@ def live_full_width(tmp, env):
         deadline = t0 + CLI_TIMEOUT
         while time.perf_counter() < deadline:
             bound = sum(metric_values(port, "bst_pods_bound_total").values())
-            if bound >= CLI_FULL_PODS:
+            if bound >= CLI_QUARTER_PODS:
                 break
             if child.poll() is not None:
                 raise AssertionError(f"the held sim exited {child.returncode}")
             time.sleep(0.5)
         else:
-            raise AssertionError(f"{bound} of {CLI_FULL_PODS} pods bound by the deadline")
+            raise AssertionError(f"{bound} of {CLI_QUARTER_PODS} pods bound by the deadline")
         report = {"pods_bound_s": time.perf_counter() - t0}
         # the held gang's retries keep batching: a read whose counts
         # straddle a batch (launched, not yet collected) is taken again
@@ -7552,7 +7626,7 @@ def live_full_width(tmp, env):
     if status != 200 or any("error" in w for w in (*answers.values(), route)) \
             or plans["steady"] != plans["topk"] or whatif_plan(route) != plans["topk"] \
             or "default/held" not in plans["topk"]["newly_placeable"] \
-            or plans["topk"]["base"]["nodes"] != CLI_FULL_NODES:
+            or plans["topk"]["base"]["nodes"] != CLI_QUARTER_NODES:
         raise AssertionError(f"full-width whatif: steady {answers.get('steady')}, topk "
                              f"{answers.get('topk')}, route {status} {route}")
     if sum(launches.values()) != batches + 1:
@@ -7588,9 +7662,9 @@ def drive_sidecar_requests(addr, stop):
 
 
 def check_served(tmp, env, wave):
-    """``serve --port 0 --metrics-port 0``, the full-width deployment through
+    """``serve --port 0 --metrics-port 0``, the quarter deployment through
     it (``sim ... --oracle-addr``), then the four routes scraped from the
-    served process: /debug/buckets lists the north-star bucket with its
+    served process: /debug/buckets lists its [256, 2048] bucket with its
     plan and bound, /debug/perf, /debug/profile?seconds=1 writes a trace
     naming the scan kernel (while the smoke sends it requests), and
     /debug/drain?go=1 drains, after which SIGTERM ends it with exit 0.
@@ -7610,12 +7684,12 @@ def check_served(tmp, env, wave):
         # the served main path's launches: the counts just before the
         # remote run and just after it, before any other request
         before = kernel_launches(mport)
-        _, out, _ = cli(["sim", *CLI_FULL, *CLI_FULL_RUN, "--oracle-addr", addr], env=env)
+        _, out, _ = cli(["sim", *CLI_QUARTER, *CLI_QUARTER_RUN, "--oracle-addr", addr], env=env)
         launches = launch_delta(before, kernel_launches(mport))
         rows = sim_table(out)
         wall, bound, rate = sim_wall(out)
         running = sum(1 for phase, _, b in rows.values() if phase == "Running" and b == 10)
-        if running != CLI_FULL_GANGS or bound != CLI_FULL_PODS:
+        if running != CLI_QUARTER_GANGS or bound != CLI_QUARTER_PODS:
             raise AssertionError(f"remote: {running} gangs Running, {bound} pods bound: "
                                  f"{out[-1500:]}")
         report = {"remote": {"wall_s": wall, "pods_bound": bound, "pods_per_s": rate,
@@ -7631,11 +7705,11 @@ def check_served(tmp, env, wave):
         status, body, _ = http_get(mport, "/debug/buckets")
         buckets = json.loads(body)
         path = "wavefront" if wave else "serial"
-        ns = (buckets.get("1024x8192") or {}).get("rungs", {}).get(path) or {}
+        ns = (buckets.get(CLI_QUARTER_BUCKET) or {}).get("rungs", {}).get(path) or {}
         if status != 200 or ns.get("kernel") != kernel or not ns.get("plan") \
                 or not ns.get("bound_ms"):
             raise AssertionError(f"/debug/buckets {status}: {buckets}")
-        report["north_star_bucket"] = ns
+        report["served_bucket"] = {CLI_QUARTER_BUCKET: ns}
         status, body, _ = http_get(mport, "/debug/perf")
         perf = json.loads(body)
         if status != 200 or not perf.get("device_memory") \
@@ -7753,14 +7827,14 @@ def cli_wave(results):
     return cli_phase(results, 8)
 
 
-CLI_MAIN_ARGV = ("sim", *CLI_FULL, *CLI_FULL_RUN)
+CLI_MAIN_ARGV = ("sim", *CLI_QUARTER, *CLI_QUARTER_RUN)
 
 
 @phase("cli_main")
 def cli_main(results):
     """The CLI's main path counted in process: ``cmd.main.main(argv)`` of the
-    full-width run, each kernel's count zeroed just before and read just
-    after, under the stack sampler (where the host's time goes, by thread
+    synthetic run at a quarter of config 6's count, each kernel's count
+    zeroed just before and read just after, under the stack sampler (where the host's time goes, by thread
     and function) and torch.profiler recording the card alone (its busy
     time and idle share over the run). Runs last: the CLI's GC
     thresholds, freeze and switch interval are put back after the call."""
@@ -7791,7 +7865,7 @@ def cli_main(results):
         text = buf.getvalue()
         rows = sim_table(text)
         running = sum(1 for phase_, _, b in rows.values() if phase_ == "Running" and b == 10)
-        if rc != 0 or running != CLI_FULL_GANGS:
+        if rc != 0 or running != CLI_QUARTER_GANGS:
             raise AssertionError(f"{path}: exit {rc}, {running} gangs Running: {text[-1500:]}")
         if launches != only(**{kernel: launches[kernel]}) or not launches[kernel]:
             raise AssertionError(f"{path}: launches {launches} (want {kernel} only)")
@@ -7800,6 +7874,679 @@ def cli_main(results):
                      **oracle_stats(text), "profile": prof, "host_stacks": stacks.report(20)}
         note_path(results, kernel, path, launches[kernel])
     return out
+
+
+# -- the HTTP control plane, the chaos proxy and the bucket warmer ----------
+
+HTTP_E2E_RESTART_AT = 1 / 3  # tests/test_fuzz_e2e.py:572: a third of the binds landed
+HTTP_E2E_OUTAGE_S = 0.5  # benchmarks/http_e2e.py:133: the gateway dark this long
+HTTP_E2E_TIMEOUT = 300.0
+
+
+def store_bound_count(backing):
+    """Pods bound to a node in the backing store (the store's truth)."""
+    from batch_scheduler_tpu_torch.utils.labels import POD_GROUP_LABEL
+
+    return sum(backing.bound_pods_by_label(POD_GROUP_LABEL).values())
+
+
+def store_overcommit(backing, nodes):
+    """Nodes whose bound, non-terminal pods in the backing store ask for
+    more than the node's allocatable on some lane (the pod slot counted)."""
+    from batch_scheduler_tpu_torch.api.serde import pod_from_dict
+
+    alloc = {n.metadata.name: n.status.allocatable for n in nodes}
+    used = {}
+    for d in backing.list("Pod"):
+        node = (d.get("spec") or {}).get("node_name")
+        if not node or (d.get("status") or {}).get("phase") in ("Succeeded", "Failed"):
+            continue
+        u = used.setdefault(node, {})
+        for k, v in pod_from_dict(d).resource_require().items():
+            u[k] = u.get(k, 0) + v
+        u["pods"] = u.get("pods", 0) + 1
+    return [(name, k, v) for name, u in used.items() for k, v in u.items()
+            if name not in alloc or v > int(alloc[name].get(k, 0))]
+
+
+class PodCreator:
+    """The load generator: one thread with its own keep-alive client
+    (``make_client``) POSTs the pod documents in order, as
+    benchmarks/http_e2e.py runs it. A create the outage cut is sent again
+    once the gateway answers; AlreadyExists on a re-send means the first
+    one landed (its answer was lost). ``resent`` and ``errors`` are read
+    after ``join``."""
+
+    def __init__(self, make_client, docs):
+        import threading
+
+        self.resent, self.errors = 0, []
+        self.client = make_client()
+        self.thread = threading.Thread(target=self._run, name="pod-creator", daemon=True,
+                                       args=(docs,))
+
+    def start(self):
+        self.thread.start()
+
+    def join(self, timeout):
+        self.thread.join(timeout)
+
+    def close(self):
+        self.client.close()
+
+    def _run(self, docs):
+        import http.client
+
+        from batch_scheduler_tpu_torch.client import AlreadyExistsError
+
+        try:
+            for d in docs:
+                for attempt in range(400):
+                    try:
+                        self.client.create("Pod", d)
+                        break
+                    except AlreadyExistsError:
+                        if not attempt:
+                            raise
+                        break
+                    except (OSError, http.client.HTTPException):
+                        self.resent += 1
+                        time.sleep(0.05)
+                else:
+                    raise AssertionError("the gateway did not come back for a create")
+        except Exception as e:  # noqa: BLE001 — reported by the phase
+            self.errors.append(e)
+
+
+def http_mark(t0, what):
+    """A progress mark on stderr (a run cut by its time limit shows where
+    it got to)."""
+    print(f"# http_e2e {time.perf_counter() - t0:.2f} s {what}", file=sys.stderr, flush=True)
+
+
+def drive_http_e2e(shape):
+    """Config 6 through the port's scheduler loop over its HTTP gateway on
+    the card (see the module docstring). Returns (launches, report)."""
+    import torch
+
+    from batch_scheduler_tpu_torch.client import APIServer, HTTPAPIServer, serve_gateway
+    from batch_scheduler_tpu_torch.ops.oracle import inflight_batches
+    from batch_scheduler_tpu_torch.sim import SimCluster
+
+    num_nodes, num_groups, members = shape
+    total = num_groups * members
+    creator = None
+    backing = APIServer()
+    server = serve_gateway(backing)
+    host, port = server.server_address[:2]
+    # throttles off, as tests/test_fuzz_e2e.py:492-495 runs the composition
+    api = HTTPAPIServer(host, port, qps=0)
+    t_setup = time.perf_counter()
+    with scan_wave_env(None):
+        cluster = SimCluster(scorer="oracle", device="cuda", api=api, **FRAMEWORK_SETTINGS)
+        try:
+            op = cluster.runtime.operation
+            if op.oracle.device.type != "cuda":
+                raise AssertionError(f"scorer on {op.oracle.device}")
+            nodes = framework_nodes(num_nodes)
+            cluster.add_nodes(nodes)
+            docs = framework_gangs(cluster, [f"gang-{g:04d}" for g in range(num_groups)],
+                                   members)
+            cluster.start()
+            if not phases_settled(cluster, timeout=120.0):
+                raise AssertionError("controller phase sweep did not finish")
+            setup_s = time.perf_counter() - t_setup
+            http_mark(t_setup, "set up")
+            zero_counts()
+            batches0 = op.oracle.batches_run
+            op.oracle.ensure_fresh(cluster.cluster, op.status_cache)
+            torch.cuda.synchronize()
+
+            def released(gang):
+                pgs = op.status_cache.get(f"default/{gang}")
+                return pgs is not None and pgs.scheduled
+
+            creator = PodCreator(lambda: HTTPAPIServer(host, port, qps=0), docs)
+            with BoundSampler(backing, members, released) as sampler:
+                t0 = time.perf_counter()
+                creator.start()
+                # the store is polled every 0.5 s: a pass over 10,000 pods
+                # under its lock, which the gateway's handlers wait for
+                if not cluster.wait_for(
+                        lambda: store_bound_count(backing) >= total * HTTP_E2E_RESTART_AT,
+                        timeout=HTTP_E2E_TIMEOUT, interval=0.5):
+                    raise AssertionError(f"{store_bound_count(backing)} pods bound before "
+                                         "the restart point")
+                binds_before = store_bound_count(backing)
+                http_mark(t0, f"restart at {binds_before} bound")
+                t_kill = time.perf_counter()
+                server.shutdown()
+                server.server_close()
+                time.sleep(HTTP_E2E_OUTAGE_S)
+                server = serve_gateway(backing, host, port)  # same port, same store
+                restart = {"binds_before": binds_before, "outage_s": HTTP_E2E_OUTAGE_S,
+                           "at_s": t_kill - t0, "restored_at_s": time.perf_counter() - t0}
+                marks = [time.perf_counter()]
+
+                def all_bound():
+                    n = store_bound_count(backing)
+                    if time.perf_counter() - marks[-1] >= 5.0:
+                        marks.append(time.perf_counter())
+                        http_mark(t0, f"{n} bound, {cluster.scheduler.stats}")
+                    return n >= total
+
+                ok = cluster.wait_for(all_bound, timeout=HTTP_E2E_TIMEOUT, interval=0.5)
+                elapsed = time.perf_counter() - t0
+                http_mark(t0, f"all bound: {ok}")
+                creator.join(60)
+            if creator.errors:
+                raise AssertionError(f"pod creation failed: {creator.errors[:3]!r}")
+            if not ok:
+                raise AssertionError(f"{store_bound_count(backing)}/{total} pods bound in the "
+                                     f"store in {elapsed:.1f}s ({cluster.scheduler.stats})")
+            bg = getattr(op.oracle, "_bg_thread", None)
+            if bg is not None:
+                bg.join(60.0)
+            torch.cuda.synchronize()
+            launches = read_counts()
+            batches = op.oracle.batches_run
+            final = sampler.sample()
+            if not cluster.wait_for(lambda: all(
+                    (pg.get("status") or {}).get("phase") == "Running"
+                    for pg in backing.list("PodGroup")), timeout=120.0, interval=0.2):
+                raise AssertionError("not every gang reached Running in the store")
+            over = store_overcommit(backing, nodes)
+            stats = dict(cluster.scheduler.stats)
+        finally:
+            cluster.stop()
+            api.close()
+            if creator is not None:
+                creator.close()
+            server.shutdown()
+            server.server_close()
+    if inflight_batches() != 0:
+        raise AssertionError(f"{inflight_batches()} batches still in flight after stop")
+    if launches != only(assign_scan=batches - batches0) or not launches["assign_scan"]:
+        raise AssertionError(f"{launches} launches in {batches - batches0} batches "
+                             "(want assign_scan once a batch, no other kernel)")
+    if over:
+        raise AssertionError(f"over-committed in the store: {over[:5]}")
+    if len(final) != num_groups or any(n != members for n in final.values()):
+        raise AssertionError("the final sample is not every gang whole")
+    if sampler.partial:
+        raise AssertionError(f"gangs partly bound before their release: {sampler.partial[:5]}")
+    report = {
+        "nodes": num_nodes, "gangs": num_groups, "pods": total,
+        "wall_clock_s": elapsed, "pods_per_sec": total / max(elapsed, 1e-9),
+        "oracle_batches": batches - batches0, "launches_by_kernel": launches,
+        "gateway_restart": restart, "creates_resent": creator.resent,
+        "creator_threads": 1,
+        "binds_counted_by_scheduler": stats["binds"], "bound_in_store": total,
+        "unschedulable_retries": stats["unschedulable"],
+        "permit_rejects": stats["permit_rejects"],
+        "bound_samples": sampler.samples, "mid_bind_gangs_seen": sampler.mid_bind,
+        "partly_bound_unreleased": 0, "overcommitted_nodes": 0, "setup_s": setup_s,
+        "framework_e2e_wall_clock_s": FIGURES.get("framework_e2e_wall_s"),
+        "transport": "HTTP/1.1 keep-alive over loopback, reflector watches, pods:bindmany",
+    }
+    return launches, report
+
+
+@phase("http_e2e")
+def http_e2e(results):
+    """Config 6 over the HTTP gateway, serial kernel, with a gateway restart."""
+    launches, report = drive_http_e2e(FRAMEWORK_SHAPE)
+    note_path(results, "assign_scan", "http_e2e", launches["assign_scan"])
+    return report
+
+
+CHAOS_DELTA_ROUNDS = 3  # churn refreshes after the keyframe on each delta stream
+CHAOS_HANG_S = 0.5  # the proxy's black-hole before it drops the connection
+CHAOS_DRIZZLE = {"delay": 0.15, "reset": 0.04, "truncate": 0.03, "garbage": 0.03}
+CHAOS_DRIZZLE_SEED = 909  # tests/test_fuzz_e2e.py:296
+
+
+def chaos_client(addr, window=1, **kw):
+    from batch_scheduler_tpu_torch.service import ResilientOracleClient
+    from batch_scheduler_tpu_torch.utils.metrics import Registry
+    from batch_scheduler_tpu_torch.utils.retry import CircuitBreaker, RetryPolicy
+
+    # a (host, port) pair, or the pooled address spec "h1:p1,h2:p2"
+    return ResilientOracleClient(
+        *((addr,) if isinstance(addr, str) else addr), timeout=kw.pop("timeout", 5.0),
+        registry=Registry(), window=window,
+        retry_policy=RetryPolicy(max_attempts=kw.pop("attempts", 4), base_delay=0.01,
+                                 max_delay=0.05),
+        breaker=CircuitBreaker(failure_threshold=kw.pop("failure_threshold", 8),
+                               reset_timeout=kw.pop("reset_timeout", 0.3)), **kw)
+
+
+def chaos_faults(server, dedicated_answer, req):
+    """Each response-direction fault once through a ChaosProxy in front of
+    ``server``: the answer equals the dedicated sidecar's, the breaker
+    stays closed, the fault was injected."""
+    from batch_scheduler_tpu_torch.sim.chaos import FAULT_KINDS, ChaosProxy
+
+    out = {}
+    for kind in FAULT_KINDS:
+        proxy = ChaosProxy(*server.address)
+        client = chaos_client(proxy.address, timeout=1.0)
+        try:
+            if not same_response(client.schedule(req), dedicated_answer):
+                raise AssertionError(f"{kind}: the healthy answer differs")
+            proxy.set_fault(kind, probability=1.0, limit=1, delay_s=0.1, hang_s=CHAOS_HANG_S)
+            t0 = time.perf_counter()
+            resp = client.schedule(req)
+            ms = (time.perf_counter() - t0) * 1e3
+            injected = proxy.injected_counts()[kind]
+            if injected != 1 or client.breaker.state != "closed" \
+                    or not same_response(resp, dedicated_answer):
+                raise AssertionError(f"{kind}: injected {injected}, breaker "
+                                     f"{client.breaker.state}, answer equal "
+                                     f"{same_response(resp, dedicated_answer)}")
+            if not client.ping():
+                raise AssertionError(f"{kind}: the link is not usable afterwards")
+            out[kind] = {"recovered_request_ms": ms}
+        finally:
+            client.close()
+            proxy.stop()
+    return out
+
+
+def chaos_delta_stream(server, dedicated, standby):
+    """The wire-delta stream at the north star through proxies: a dropped
+    and a duplicated request frame (the duplicate refused on the generation
+    check, the client resyncing through a keyframe), then the primary
+    killed mid-stream with a pooled client failing over to the standby and
+    resyncing. After every refresh the remote scorer's host dict equals a
+    second remote scorer's on the dedicated sidecar."""
+    from batch_scheduler_tpu_torch.service import RemoteScorer
+    from batch_scheduler_tpu_torch.sim.chaos import ChaosProxy
+    from batch_scheduler_tpu_torch.utils.metrics import DEFAULT_REGISTRY
+
+    kinds = DEFAULT_REGISTRY.counter("bst_oracle_wire_delta_batches_total")
+    resyncs = DEFAULT_REGISTRY.counter("bst_oracle_wire_delta_resyncs_total")
+    out = {}
+    for case in ("drop_c2s", "dup_c2s", "kill"):
+        cluster, cache = north_star_state()
+        if case == "kill":
+            proxy = ChaosProxy(*server.address)
+            client = chaos_client("%s:%s,%s:%s" % (proxy.address + standby.address),
+                                  attempts=6, failure_threshold=2, reset_timeout=5.0)
+        else:
+            proxy = ChaosProxy(*server.address, c2s_frames=True)
+            client = chaos_client(proxy.address, failure_threshold=16)
+        remote = RemoteScorer(client, fallback="deny")
+        remote._wire_tenant_ok = False  # one frame a request: the fault hits the delta
+        want = RemoteScorer(chaos_client(dedicated.address), fallback="deny")
+        scorers = (remote, want)
+        churn = Churn(cluster, cache, lambda name: [s.mark_dirty(group=name) for s in scorers],
+                      CHAOS_DELTA_ROUNDS + 2)
+        seen = {"resyncs": resyncs.value(), "keyframes": kinds.value(kind="keyframe")}
+        try:
+            for r in range(CHAOS_DELTA_ROUNDS + 1):
+                if r:
+                    churn(r)
+                if r == 2:
+                    if case == "kill":
+                        primary = client.active_address
+                        proxy.kill_endpoint()
+                    else:
+                        proxy.set_fault(case, probability=1.0, limit=1)
+                for s in scorers:
+                    s.ensure_fresh(cluster, cache)
+                diff = host_diff(remote._state.result, want._state.result)
+                if diff:
+                    raise AssertionError(f"{case} round {r}: differs from the dedicated "
+                                         f"sidecar on {diff}")
+            rep = {"resyncs": resyncs.value() - seen["resyncs"],
+                   "keyframes": kinds.value(kind="keyframe") - seen["keyframes"]}
+            if case == "kill":
+                if client.active_address == primary or \
+                        tuple(client.active_address) != tuple(standby.address):
+                    raise AssertionError(f"no failover: active {client.active_address}")
+                rep["failed_over_to_standby"] = True
+            else:
+                rep["injected"] = proxy.injected_counts()[case]
+                if rep["injected"] != 1:
+                    raise AssertionError(f"{case}: injected {rep['injected']}")
+            if rep["resyncs"] < 1 or rep["keyframes"] < 2:
+                raise AssertionError(f"{case}: no resync through a keyframe: {rep}")
+            out[case] = rep
+        finally:
+            remote.close()
+            want.close()
+            proxy.stop()
+    return out
+
+
+def drive_chaos(wave):
+    """The faults and the delta-stream drills at ``wave`` (None: unset)
+    against a sidecar on the card; each answer against a dedicated sidecar.
+    Returns (the served launches, report)."""
+    import torch
+
+    from batch_scheduler_tpu_torch.core.oracle_scorer import read_cluster_inputs
+    from batch_scheduler_tpu_torch.ops.snapshot import ClusterSnapshot
+    from batch_scheduler_tpu_torch.service import OracleClient, serve_background
+
+    kernel = "assign_wave" if wave else "assign_scan"
+    with scan_wave_env(wave):
+        server = serve_background(device="cuda")
+        dedicated = serve_background(device="cuda")
+        standby = serve_background(device="cuda")
+        try:
+            req = snapshot_request(ClusterSnapshot(*read_cluster_inputs(*north_star_cluster())))
+            client = OracleClient(*dedicated.address)
+            want = client.schedule(req)
+            client.close()
+            zero_counts()
+            faults = chaos_faults(server, want, req)
+            deltas = chaos_delta_stream(server, dedicated, standby)
+            torch.cuda.synchronize()
+            launches = read_counts()
+        finally:
+            for srv in (server, dedicated, standby):
+                srv.shutdown()
+                srv.server_close()
+    if launches != only(**{kernel: launches[kernel]}) or not launches[kernel]:
+        raise AssertionError(f"launches {launches} (want {kernel} only)")
+    return launches, {"faults": faults, "delta_stream": deltas}
+
+
+def chaos_drizzle():
+    """tests/test_fuzz_e2e.py:296's drizzle of faults under the scheduler
+    loop on the card: the sidecar on the card behind a proxy, a
+    RemoteScorer(fallback="local-cpu") in a SimCluster(device="cuda"), the
+    reference's seeded scenario. Returns (the server's launches, report)."""
+    import numpy as np
+
+    from batch_scheduler_tpu_torch.service import RemoteScorer, serve_background
+    from batch_scheduler_tpu_torch.sim import SimCluster
+    from batch_scheduler_tpu_torch.sim.chaos import ChaosProxy
+    from batch_scheduler_tpu_torch.sim.scenarios import (
+        make_member_pods, make_sim_group, make_sim_node)
+    from batch_scheduler_tpu_torch.utils.metrics import DEFAULT_REGISTRY
+
+    fallback = DEFAULT_REGISTRY.counter("bst_oracle_fallback_batches_total")
+    server = serve_background(device="cuda")
+    proxy = ChaosProxy(*server.address, seed=CHAOS_DRIZZLE_SEED)
+    proxy.set_fault(dict(CHAOS_DRIZZLE), delay_s=0.03, hang_s=1.0)
+    scorer = RemoteScorer(chaos_client(proxy.address, failure_threshold=4),
+                          fallback="local-cpu")
+    rng = np.random.default_rng(CHAOS_DRIZZLE_SEED)
+    cluster = SimCluster(scorer=scorer, device="cuda", max_schedule_minutes=0.05,
+                         backoff_base=0.1, backoff_cap=0.5)
+    f0 = fallback.value()
+    zero_counts()
+    try:
+        n_nodes = int(rng.integers(8, 24))
+        node_cpus = rng.choice([4, 8, 16], size=n_nodes)
+        nodes = [make_sim_node(f"fz-n{i:03d}", {"cpu": str(int(c)),
+                                                "memory": f"{int(c) * 4}Gi", "pods": "110"})
+                 for i, c in enumerate(node_cpus)]
+        cluster.add_nodes(nodes)
+        budget, max_cpu = int(node_cpus.sum()) * 0.6, int(node_cpus.max())
+        feasible, infeasible, batches = [], [], []
+        n_gangs = int(rng.integers(10, 25))
+        for g in range(n_gangs):
+            members, prio = int(rng.integers(2, 6)), int(rng.integers(0, 3))
+            if rng.random() < 0.2:
+                cpu, name = max_cpu + int(rng.integers(1, 4)), f"fz-bad-{g:03d}"
+                infeasible.append((name, members))
+            else:
+                cpu = int(rng.integers(1, 4))
+                if budget - members * cpu < 0:
+                    continue
+                budget -= members * cpu
+                name = f"fz-ok-{g:03d}"
+                feasible.append((name, members))
+            cluster.create_group(make_sim_group(
+                name, members, creation_ts=time.time() - (n_gangs - g) * 1e-3))
+            batches.append(make_member_pods(name, members, {"cpu": str(cpu)}, priority=prio))
+        loose = make_member_pods("fz-loose", int(rng.integers(3, 8)), {"cpu": "1"})
+        for p in loose:
+            p.metadata.labels = {}
+        batches.append(loose)
+        cluster.start()
+        t0 = time.perf_counter()
+        for i in rng.permutation(len(batches)):
+            cluster.create_pods(batches[int(i)])
+        expected = sum(m for _, m in feasible) + len(loose)
+        if not cluster.wait_for(lambda: cluster.scheduler.stats["binds"] >= expected,
+                                timeout=120.0, interval=0.2):
+            raise AssertionError(f"feasible work never bound under the drizzle: "
+                                 f"{cluster.scheduler.stats}, {proxy.injected_counts()}")
+        elapsed = time.perf_counter() - t0
+        over = store_overcommit(cluster.api, nodes)
+        bound = cluster.bound_member_counts()
+        launches = read_counts()
+        injected = proxy.injected_counts()
+    finally:
+        cluster.stop()
+        scorer.close()
+        proxy.stop()
+        server.shutdown()
+        server.server_close()
+    if over:
+        raise AssertionError(f"over-committed: {over[:5]}")
+    short = [n for n, m in feasible if bound.get(("default", n), 0) < m]
+    wrong = [n for n, _ in infeasible if bound.get(("default", n), 0)]
+    if short or wrong:
+        raise AssertionError(f"feasible gangs short {short}, infeasible bound {wrong}")
+    fell_back = fallback.value() - f0
+    if not launches["assign_scan"] or sum(injected.values()) == 0:
+        raise AssertionError(f"the card served {launches} (fallback batches {fell_back}), "
+                             f"injected {injected}")
+    return launches, {"wall_s": elapsed, "feasible_gangs": len(feasible),
+                      "infeasible_gangs": len(infeasible), "injected": injected,
+                      "server_launches": launches["assign_scan"],
+                      "client_fallback_batches": fell_back}
+
+
+@phase("chaos")
+def chaos(results):
+    """The port's sidecar on the card behind ChaosProxy (see the module
+    docstring): every fault kind and the delta-stream drills at W unset
+    and W=8, then the drizzle under the scheduler loop."""
+    report = {}
+    for wave, kernel in ((None, "assign_scan"), (8, "assign_wave")):
+        launches, rep = drive_chaos(wave)
+        tag = "chaos_wave" if wave else "chaos"
+        note_path(results, kernel, tag, launches[kernel])
+        report[tag] = {**rep, "launches": launches[kernel]}
+    launches, report["drizzle"] = chaos_drizzle()
+    note_path(results, "assign_scan", "chaos_drizzle", launches["assign_scan"])
+    return report
+
+
+WARMER_GROWN_NODES = 8200  # past the 8192 boundary: N bucket 16384
+WARMER_GROWN_BUCKET = 16384
+WARMER_TIMEOUT = 300  # seconds a warmer child may take
+
+
+def warmer_child(mode) -> int:
+    """One fresh process of the warmer phase (``--warmer-child MODE``),
+    printing one JSON line. ``on`` / ``off``: an OracleScorer at the north
+    star with the warmer on or off, then the cluster grown to
+    WARMER_GROWN_NODES (the next N bucket): the first and a second batch
+    there. ``primary:FILE``: a sidecar warmed up as ``serve --warmup``
+    does, with the warmer, serving the north star twice, its
+    warmth_snapshot written to FILE. ``standby:FILE``: the same sidecar,
+    which replicates FILE's snapshot, then serves the north star twice."""
+    import pickle
+
+    import torch
+
+    from batch_scheduler_tpu_torch.core import OracleScorer
+    from batch_scheduler_tpu_torch.utils.audit import plan_digest
+
+    if build() is None:
+        return 1
+    out = {"mode": mode.split(":")[0]}
+    if mode in ("on", "off"):
+        cluster, cache = north_star_cluster()
+        scorer = OracleScorer(device="cuda", compile_warmer=mode == "on")
+        times = []
+        for _ in range(2):
+            scorer.mark_dirty()
+            scorer.refresh(cluster, cache)
+            times.append(scorer.batch_seconds[-1] * 1e3)
+        out["north_star_batch_ms"] = times
+        if scorer._warmer is not None:
+            # the grown bucket's key: (G, N, lanes, per-gang mask, wave)
+            key = (NORTH_STAR_SHAPE[0], WARMER_GROWN_BUCKET, NORTH_STAR_SHAPE[2], False, 0)
+            t0 = time.perf_counter()
+            while key not in scorer._warmer.warmed_shapes():
+                if time.perf_counter() - t0 > 60:
+                    raise AssertionError("the warmer never warmed the grown bucket")
+                time.sleep(0.01)
+            out["warm_wait_s"] = time.perf_counter() - t0
+        from batch_scheduler_tpu_torch.sim.scenarios import make_sim_node
+
+        cluster.nodes += [make_sim_node(f"g{i:05d}", {"cpu": "64", "memory": "256Gi",
+                                                     "pods": "110", GPU: "8"})
+                          for i in range(WARMER_GROWN_NODES - len(cluster.nodes))]
+        cluster.bound.update({n.metadata.name: [] for n in cluster.nodes})
+        grown = []
+        for _ in range(2):
+            scorer.mark_dirty()
+            scorer.refresh(cluster, cache)
+            torch.cuda.synchronize()
+            grown.append({"batch_ms": scorer.batch_seconds[-1] * 1e3,
+                          "compiled": scorer.last_telemetry.get("compiled"),
+                          "n_bucket": scorer.last_telemetry.get("n_bucket")})
+        out.update(grown=grown, digest=plan_digest(scorer._state.result),
+                   placed=int(sum(scorer._state.result["placed"])),
+                   stats={k: v for k, v in scorer.stats().items() if k.startswith("warmer")})
+        if not scorer.drain_background(60.0):
+            raise AssertionError("drain left work in flight")
+        # the process's launches: one a batch, served or warm (counted from
+        # the process's start: nothing else launched here)
+        out.update(launches=read_counts(), batches=scorer.batches_run,
+                   warm_batches=0 if scorer._warmer is None
+                   else int(scorer._warmer._warms.value()))
+    else:
+        from batch_scheduler_tpu_torch.core.oracle_scorer import read_cluster_inputs
+        from batch_scheduler_tpu_torch.ops.snapshot import ClusterSnapshot
+        from batch_scheduler_tpu_torch.service import OracleClient, serve_background
+
+        from batch_scheduler_tpu_torch.cmd.main import warm_oracle
+
+        kind, path = mode.split(":", 1)
+        req = snapshot_request(ClusterSnapshot(*read_cluster_inputs(*north_star_cluster())))
+        # both sidecars start as `serve --warmup --compile-warmer` does: one
+        # warm-up batch first, so the standby's first request is compared
+        # with a warmed-up sidecar's, and only the replication differs
+        out["warmup_s"] = warm_oracle(device="cuda")
+        server = serve_background(device="cuda", compile_warmer=True)
+        try:
+            if kind == "standby":
+                with open(path, "rb") as f:
+                    protos = pickle.load(f)
+                out["replicated"] = server.replicate_warmth(protos)
+                t0 = time.perf_counter()
+                while len(server.warmer.warmed_shapes()) < 1 + 4:
+                    if time.perf_counter() - t0 > 60:
+                        raise AssertionError(f"standby warmed {server.warmer.warmed_shapes()}")
+                    time.sleep(0.01)
+                out["warm_wait_s"] = time.perf_counter() - t0
+            client = OracleClient(*server.address)
+            times, answers = [], []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                answers.append(client.schedule(req))
+                times.append((time.perf_counter() - t0) * 1e3)
+            client.close()
+            out["request_ms"] = times
+            out["placed"] = int(answers[0].placed.sum())
+            out["same_answers"] = same_response(*answers)
+            out["stats"] = server.warmer.stats()
+            if kind == "primary":
+                with open(path, "wb") as f:
+                    pickle.dump(server.warmth_snapshot(), f)
+        finally:
+            server.shutdown()
+            server.server_close()
+        # the warm-up batch, the two requests, and the warmer's batches
+        out.update(launches=read_counts(), batches=1 + len(times),
+                   warm_batches=int(server.warmer._warms.value()))
+    emit(out)
+    return 0
+
+
+def warmer_run(mode):
+    """One warmer child run to its end; its JSON line."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--warmer-child", mode],
+                          cwd=here, env=cli_env(), capture_output=True, text=True,
+                          timeout=WARMER_TIMEOUT)
+    if proc.returncode != 0:
+        raise AssertionError(f"warmer child {mode} exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@phase("warmer")
+def warmer(results):
+    """The bucket warmer in fresh processes (see the module docstring):
+    two with it off and two with it on, alternating, each at the north
+    star and then grown past one N bucket; then a primary sidecar's warmth
+    replicated to a standby's. Passes on equal plans and on the counters;
+    the times are reported."""
+    import tempfile
+
+    runs = [warmer_run(mode) for mode in ("off", "on", "off", "on")]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "warmth.pkl")
+        primary = warmer_run(f"primary:{path}")
+        standby = warmer_run(f"standby:{path}")
+    for r in (*runs, primary, standby):
+        want = only(assign_scan=r["batches"] + r["warm_batches"])
+        if r["launches"] != want:
+            raise AssertionError(f"{r['mode']} child: launches {r['launches']}, want {want} "
+                                 "(one a served or warm batch)")
+    note_path(results, "assign_scan", "warmer",
+              sum(r["launches"]["assign_scan"] for r in (*runs, primary, standby)))
+    digests = {r["digest"] for r in runs}
+    if len(digests) != 1 or any(r["placed"] != NORTH_STAR_GANGS for r in runs):
+        raise AssertionError(f"the grown plans differ: {[(r['mode'], r['digest'][:12], r['placed']) for r in runs]}")
+    for r in runs:
+        first, second = r["grown"]
+        if first["n_bucket"] != WARMER_GROWN_BUCKET or second["compiled"]:
+            raise AssertionError(f"{r['mode']}: grown batches {r['grown']}")
+        if r["mode"] == "off" and (r["stats"] or not first["compiled"]):
+            raise AssertionError(f"warmer off: {r['stats']}, first grown {first}")
+        if r["mode"] == "on" and (first["compiled"] or r["stats"].get("warmer_hits") != 1
+                                  or r["stats"].get("warmer_misses") != 1
+                                  or r["stats"].get("warmer_shapes", 0) < 1):
+            raise AssertionError(f"warmer on: {r['stats']}, first grown {first}")
+    if primary["placed"] != NORTH_STAR_GANGS or standby["placed"] != NORTH_STAR_GANGS \
+            or not standby["same_answers"] or standby["replicated"] != 1 \
+            or standby["stats"]["warmer_hits"] != 1 or standby["stats"]["warmer_misses"]:
+        raise AssertionError(f"replication: primary {primary}, standby {standby}")
+    by_mode = {m: [r for r in runs if r["mode"] == m] for m in ("off", "on")}
+    return {
+        "grown_nodes": WARMER_GROWN_NODES,
+        "grown_bucket": [NORTH_STAR_SHAPE[0], WARMER_GROWN_BUCKET],
+        "first_grown_batch_ms": {m: [r["grown"][0]["batch_ms"] for r in rs]
+                                 for m, rs in by_mode.items()},
+        "second_grown_batch_ms": {m: [r["grown"][1]["batch_ms"] for r in rs]
+                                  for m, rs in by_mode.items()},
+        "north_star_batch_ms": {m: [r["north_star_batch_ms"] for r in rs]
+                                for m, rs in by_mode.items()},
+        "warm_wait_s": [r["warm_wait_s"] for r in by_mode["on"]],
+        "counters_on": [r["stats"] for r in by_mode["on"]],
+        "launches": {r["mode"]: r["launches"]["assign_scan"] for r in (primary, standby)},
+        "launches_by_child": [(r["mode"], r["batches"], r["warm_batches"])
+                              for r in (*runs, primary, standby)],
+        "plans_equal": True,
+        "replication": {"warmup_s": [primary["warmup_s"], standby["warmup_s"]],
+                        "primary_request_ms": primary["request_ms"],
+                        "standby_request_ms": standby["request_ms"],
+                        "standby_warm_wait_s": standby["warm_wait_s"],
+                        "standby_counters": standby["stats"]},
+    }
 
 
 def note_path(results, kernel, path, n):
@@ -7825,6 +8572,8 @@ def card_line():
 def main() -> int:
     if sys.argv[1:] == ["--lockcheck-child"]:
         return lockcheck_child()
+    if sys.argv[1:2] == ["--warmer-child"] and len(sys.argv) == 3:
+        return warmer_child(sys.argv[2])
     try:
         import torch
     except ImportError:
@@ -7877,7 +8626,10 @@ def main() -> int:
     xl_topk(results)
     framework_e2e(results)
     framework_e2e_wave(results)
+    http_e2e(results)
     sim_scenarios(results)
+    chaos(results)
+    warmer(results)
     cli_serial(results)
     cli_wave(results)
     lockcheck_phase(results)

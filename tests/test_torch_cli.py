@@ -138,18 +138,18 @@ def test_configs_load_alike(path):
     {"pluginConfig": [{"name": "batch-scheduler", "args": {"oracle_compile_warmer": True}}]},
 ], ids=["batching", "string-bool", "bad-kind", "bad-point", "one-point", "warmer"])
 def test_config_documents_alike(doc):
-    """The same document: the same configuration, or a ValueError — in the
-    port also for the compile warmer, which its PluginConfig refuses."""
+    """The same document: the same configuration, or a ValueError, in both
+    packages (the compile warmer included: the port has its bucket
+    warmer)."""
     got = []
     for pkg in PACKAGES:
         try:
             got.append(_config_view(_m(pkg, "cmd.config").SchedulerConfiguration.from_dict(doc)))
         except ValueError:
             got.append("ValueError")
+    assert got[0] == got[1]
     if "oracle_compile_warmer" in json.dumps(doc):
-        assert got[0] != "ValueError" and got[1] == "ValueError"
-    else:
-        assert got[0] == got[1]
+        assert got[1] != "ValueError" and got[1][8] is True
 
 
 class _RecordingPlugin:
@@ -356,17 +356,28 @@ def test_no_card_refusal(argv, capsys, runtime):
 
 @pytest.mark.parametrize("argv,env,needle", [
     (["serve", "--port", "0", "--device", "cpu"], {"BST_COORDINATOR": "h:1"}, "BST_COORDINATOR"),
-    (["serve", "--port", "0", "--device", "cpu", "--compile-warmer"], {}, "compile warmer"),
-    (["sim", "-f", "examples/race.yaml", "--device", "cpu", "--compile-warmer"], {},
-     "compile warmer"),
     (["sim", "-f", "examples/race.yaml", "--device", "cpu", "--device-state", "off"], {},
      "device-state off"),
-], ids=["coordinator", "serve-warmer", "sim-warmer", "device-state-off"])
+], ids=["coordinator", "device-state-off"])
 def test_refusals(argv, env, needle, capsys, monkeypatch, runtime):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     rc = _m(PACKAGES[1], "cmd.main").main(list(argv))
     assert rc == 2 and needle in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("extra", [["--compile-warmer"],
+                                   ["--compile-warmer", "--dispatch-ahead"]],
+                         ids=["warmer", "warmer-dispatch-ahead"])
+def test_cli_sim_compile_warmer_alike(extra, capsys, runtime):
+    """``sim --compile-warmer`` (once refused by the port) runs the README
+    race with the bucket warmer on in both CLIs: the same table, exit 0."""
+    argv = ["sim", "-f", os.path.join(REPO, "examples", "race.yaml"), "--timeout", "30",
+            "--settle", "2", *extra]
+    (rc_ref, out_ref), (rc_port, out_port) = (_run(pkg, argv, capsys) for pkg in PACKAGES)
+    assert rc_ref == rc_port == 0
+    assert _table(out_ref) == _table(out_port)
+    assert _table(out_port)["default/web-group-race1"] == ("Running", "5", "5")
 
 
 def test_main_sets_the_runtime_knobs(capsys, monkeypatch, runtime):

@@ -75,7 +75,10 @@ def test_split_matches_execute_and_reference(mode, wave, monkeypatch):
     _assert_same(split, whole)
     if jax_oracle is not None:
         _assert_same(split, jax_oracle.execute_batch_host(batch_args, progress_args))
-    assert split[0]["telemetry"] == whole[0]["telemetry"]
+    # ``compiled`` marks a process's first batch at its shape key, so the
+    # second of two identical batches is never it; the rest is equal
+    assert {**split[0]["telemetry"], "compiled": False} == whole[0]["telemetry"]
+    assert whole[0]["telemetry"]["compiled"] is False
     assert split[0]["telemetry"]["mask_mode"] == mode
     assert 0 < split[0]["placed"].sum() < 12
 

@@ -572,3 +572,163 @@ def test_status_cache_forgets_a_collected_scorers_log():
     cache.set(g.full_name(), live)  # in place
     scorer.refresh(cluster, cache)
     assert scorer.last_fold_outcome == "folded"
+
+
+@pytest.mark.parametrize("store", ["bound", "unbound", "unreachable"])
+def test_kept_assume_released_only_on_a_fresh_read(store, monkeypatch):
+    """A kept assume (a bind whose answer an outage cut) is released only
+    when a read through the API server shows the pod unbound, not on the
+    informer's view, which can predate the lost bind: the store has the pod
+    bound while the informer still shows it unbound, and the charge must
+    stay (the forget here let config 6 over the HTTP gateway bind a ninth
+    1-GPU pod to an 8-GPU node across a restart). A failed read keeps the
+    charge and the marker; a read showing the pod unbound releases it."""
+    from batch_scheduler_tpu_torch.api.types import to_dict
+    from batch_scheduler_tpu_torch.framework.types import PodInfo
+    from batch_scheduler_tpu_torch.sim import SimCluster
+    from batch_scheduler_tpu_torch.sim.scenarios import make_member_pods, make_sim_node
+
+    c = SimCluster(scorer="oracle", device="cpu")
+    try:
+        node = make_sim_node("n0", {"cpu": "1", "memory": "4Gi", "pods": "110"})
+        c.add_nodes([node])
+        c.cluster.add_node(node)
+        pod = make_member_pods("x", 1, {"cpu": "1"})[0]
+        pod.metadata.labels = {}
+        c.create_pods([pod])
+        pod.metadata.uid = c.api.get("Pod", "default", pod.metadata.name)["metadata"]["uid"]
+        unbound_doc = to_dict(pod)
+        sched = c.scheduler
+        # the informer's view: the pod as created, unbound
+        monkeypatch.setattr(sched._pod_informer, "peek_raw", lambda ns, name: unbound_doc)
+        c.cluster.assume(pod, "n0")
+        sched._kept_assumes.add(pod.metadata.uid)
+        if store == "bound":
+            c.api.bind_pods("default", [(pod.metadata.name, "n0")])
+        if store == "unreachable":
+            def down(*a, **k):
+                raise OSError("connection refused")
+            monkeypatch.setattr(sched.clientset, "pods", lambda ns: type(
+                "Down", (), {"get": staticmethod(down)})())
+        forgets = []
+        real = c.cluster.forget
+        monkeypatch.setattr(c.cluster, "forget", lambda uid: (forgets.append(uid), real(uid)))
+        sched._schedule_one(PodInfo(pod=pod))
+        if store == "unbound":
+            assert forgets[:1] == [pod.metadata.uid]
+        else:
+            assert forgets == [] and c.cluster.is_assumed(pod.metadata.uid)
+        assert (pod.metadata.uid in sched._kept_assumes) == (store == "unreachable")
+    finally:
+        c.stop()
+
+
+def test_a_severed_per_pod_bind_cannot_land_after_the_read(monkeypatch):
+    """The per-pod bind (the bind worker's) carries the gateway
+    generation's bind epoch: a request of an old generation whose handler
+    thread outlives a restart and reaches the store only after the new
+    generation served the scheduler's read (``_unbound_in_store`` saw the
+    pod unbound, so the assume may be forgotten) applies nothing. Sent as a
+    per-pod PATCH of ``spec.node_name``, which no epoch fences, the late
+    bind landed on a node the scheduler had already freed."""
+    import threading
+
+    from batch_scheduler_tpu_torch.client import APIServer, HTTPAPIServer, serve_gateway
+    from batch_scheduler_tpu_torch.framework.types import PodInfo
+    from batch_scheduler_tpu_torch.sim import SimCluster
+    from batch_scheduler_tpu_torch.sim.scenarios import make_member_pods, make_sim_node
+
+    backing = APIServer()
+    old = serve_gateway(backing)
+    api = HTTPAPIServer(*old.server_address[:2], qps=0)
+    c = SimCluster(scorer="oracle", device="cpu", api=api)
+    new = reader = None
+    try:
+        node = make_sim_node("n0", {"cpu": "1", "memory": "4Gi", "pods": "110"})
+        c.add_nodes([node])
+        c.cluster.add_node(node)
+        pod = make_member_pods("x", 1, {"cpu": "1"})[0]
+        pod.metadata.labels = {}
+        c.create_pods([pod])
+        pod.metadata.uid = backing.get("Pod", "default", pod.metadata.name)["metadata"]["uid"]
+        # hold the old generation's bind in its handler thread, whichever
+        # route it takes into the store
+        entered, release = threading.Event(), threading.Event()
+
+        def hold(real):
+            def held(*args, **kwargs):
+                entered.set()
+                release.wait(30)
+                return real(*args, **kwargs)
+            return held
+        real_patch = backing.patch
+        monkeypatch.setattr(backing, "bind_pods", hold(backing.bind_pods))
+        monkeypatch.setattr(backing, "patch", lambda kind, ns, name, patch: (
+            hold(real_patch) if (patch.get("spec") or {}).get("node_name") else real_patch
+        )(kind, ns, name, patch))
+        c.cluster.assume(pod, "n0")
+        outcome = []
+        worker = threading.Thread(target=lambda: outcome.append(
+            c.scheduler._bind(pod, "n0")), daemon=True)
+        worker.start()
+        assert entered.wait(30)
+        # the restart: a new generation over the same store, and the read
+        # it serves shows the pod unbound
+        new = serve_gateway(backing)
+        reader = HTTPAPIServer(*new.server_address[:2], qps=0)
+        assert not reader.get("Pod", "default", pod.metadata.name)["spec"].get("node_name")
+        assert c.scheduler._unbound_in_store(PodInfo(pod=pod)) is True
+        release.set()
+        worker.join(30)
+        assert outcome == [None]
+        assert not backing.get("Pod", "default", pod.metadata.name)["spec"].get("node_name")
+        assert not c.cluster.is_assumed(pod.metadata.uid)
+    finally:
+        c.stop()
+        api.close()
+        if reader is not None:
+            reader.close()
+        for gw in (old, new):
+            if gw is not None:
+                gw.shutdown()
+                gw.server_close()
+
+
+@pytest.mark.parametrize("owner", ["permit", "bound"])
+def test_duplicate_entry_of_a_placed_pod_is_dropped(owner, monkeypatch):
+    """A second queue entry of a pod this scheduler has already placed (an
+    informer's relist re-adds it while it waits in Permit, or after its
+    bind and before the informer's bound event) is dropped at pop: it never
+    reaches PreFilter, and the placement's charge stays where it is.
+    Scheduling the copy bound the pod a second time to another node, and
+    its re-assume freed the first node while the store had it filled (config
+    6 over the HTTP gateway over-committed nodes after a restart)."""
+    from batch_scheduler_tpu_torch.api.types import to_dict
+    from batch_scheduler_tpu_torch.framework.types import PodInfo
+    from batch_scheduler_tpu_torch.sim import SimCluster
+    from batch_scheduler_tpu_torch.sim.scenarios import make_member_pods, make_sim_node
+
+    c = SimCluster(scorer="oracle", device="cpu")
+    try:
+        for name in ("n0", "n1"):
+            node = make_sim_node(name, {"cpu": "1", "memory": "4Gi", "pods": "110"})
+            c.add_nodes([node])
+            c.cluster.add_node(node)
+        pod = make_member_pods("x", 1, {"cpu": "1"})[0]
+        pod.metadata.labels = {}
+        c.create_pods([pod])
+        pod.metadata.uid = c.api.get("Pod", "default", pod.metadata.name)["metadata"]["uid"]
+        sched = c.scheduler
+        unbound_doc = to_dict(pod)
+        monkeypatch.setattr(sched._pod_informer, "peek_raw", lambda ns, name: unbound_doc)
+        c.cluster.assume(pod, "n0")
+        if owner == "bound":
+            c.cluster.finish_binding(pod.metadata.uid)
+        calls = []
+        monkeypatch.setattr(sched.plugin, "pre_filter", lambda p: calls.append(p))
+        sched._schedule_one(PodInfo(pod=pod))
+        assert calls == []
+        assert c.cluster.pod_count("n0") == 1 and c.cluster.pod_count("n1") == 0
+        assert c.cluster.is_assumed(pod.metadata.uid) == (owner == "permit")
+    finally:
+        c.stop()

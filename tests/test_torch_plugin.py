@@ -2,8 +2,7 @@
 gang release choreography and permit mapping (tests/test_batch_plugin.py),
 the PodGroup controller's phase machine driven through ``_sync_handler``
 (tests/test_controller.py), and the leases and the leader-gated controller
-failover (tests/test_leader.py; the HTTP lease test waits for the HTTP API
-server, which the port does not have yet). Each scenario runs through both
+failover (tests/test_leader.py, the lease over the HTTP API server too). Each scenario runs through both
 packages, the port's operation on the CPU; the observations must be equal,
 and the reference test's own assertions hold on the port's.
 """
@@ -366,6 +365,40 @@ def test_controller_failure_demotion_and_recovery_match_reference():
     assert port[2][:2] == ("Scheduling", 1) and port[3] == "PreScheduling"
 
 
+def test_a_view_older_than_an_eviction_cannot_restore_the_gang():
+    """Port-only (the reference keeps the race): a policy eviction resets
+    the victim gang while the controller still holds a view of it taken
+    between the member deletions. Folding that view in would put the
+    deleted members' progress back over the reset (Scheduling, 3 of 4),
+    and the first respawned member would then pass Permit as if three
+    siblings were bound. The reset's resource version fences the view."""
+    m = _pkg("batch_scheduler_tpu_torch")
+    h = _Harness(m)
+    h.group("v", 4)
+    h.sync("v")
+    h.client.podgroups().patch("v", {"status": {"phase": "Scheduling", "scheduled": 4}})
+    for i in range(4):
+        h.member(f"v-{i}", "v", "n1", "Running")
+    assert _status(h.sync("v"))[:2] == ("Running", 4)
+    h.client.pods().delete("v-0")
+    stale = h.sync("v")  # the demotion the first deletion caused
+    assert _status(stale)[:2] == ("Scheduling", 3)
+    op = m.core.ScheduleOperation(h.cache, m.cluster.ClusterState(),
+                                  pg_client=h.client, device="cpu")
+    op.note_gang_evicted("default/v")
+    # the controller's informers lag: its view of the group and of the
+    # members predates the reset and the other three deletions
+    h.controller._sync_handler(stale, "default/v")
+    for i in range(1, 4):
+        h.client.pods().delete(f"v-{i}")
+    local = h.cache.get("default/v").pod_group.status
+    assert (local.phase.value, local.scheduled) == ("Pending", 0)
+    assert _status(h.sync("v"))[:2] == ("Pending", 0)
+    respawned = m.scen.make_member_pods("v", 1, {"cpu": "1"})[0]
+    outcome = op.permit(respawned, "n1")
+    assert not outcome.ready and type(outcome.error).__name__ == "WaitingError"
+
+
 def test_controller_ttl_eviction_aborts_gang():
     def drive(m):
         h = _Harness(m, max_schedule_seconds=60)
@@ -436,6 +469,30 @@ def test_api_lease_race_single_winner():
 
     ref, port = both(drive)
     assert port == ref == ([False, True], True)
+
+
+def test_api_lease_over_http():
+    """The API lease through each package's HTTP client and gateway: the
+    same acquire / renew / release outcomes."""
+    def drive(m):
+        gateway = importlib.import_module(f"{m.name}.client.http_gateway")
+        http = importlib.import_module(f"{m.name}.client.http_apiserver")
+        server = gateway.serve_gateway(m.client.APIServer())
+        remote = http.HTTPAPIServer(*server.server_address[:2])
+        try:
+            a = m.leader.APILease(remote, default_duration=10.0)
+            b = m.leader.APILease(remote, default_duration=10.0)
+            out = [a.acquire("a"), b.acquire("b"), a.renew("a")]
+            a.release("a")
+            out += [b.acquire("b"), b.get().holder_identity]
+            return out
+        finally:
+            remote.close()
+            server.shutdown()
+            server.server_close()
+
+    ref, port = both(drive)
+    assert port == ref == [True, False, True, True, "b"]
 
 
 def test_in_memory_and_file_leases_match_reference(tmp_path):
@@ -525,9 +582,10 @@ def test_two_replica_failover():
 
 
 def test_port_runtime_refuses_what_it_lacks():
-    """The port's config refuses the reference's XLA compile warmer rather
-    than ignoring it, and its default device is the card."""
+    """The port's config no longer lacks the compile warmer: it takes the
+    reference's flag as the reference does (the bucket warmer), and its
+    default device is the card."""
     m = _pkg("batch_scheduler_tpu_torch")
-    with pytest.raises(ValueError, match="oracle_compile_warmer"):
-        m.factory.PluginConfig(oracle_compile_warmer=True)
+    assert m.factory.PluginConfig(oracle_compile_warmer=True).oracle_compile_warmer
+    assert not m.factory.PluginConfig().oracle_compile_warmer
     assert m.factory.PluginConfig().device == "cuda"

@@ -5,8 +5,8 @@ the device-memory sampler's CPU no-op, the compile ledger (the kernel
 libraries' builds and loads, ``ops._build``), the perf report with the
 reference's keys, the two routes over HTTP, the bucket report and the
 coarse-pass probe with the teardown drain, and the SIGTERM drain of
-``serve``. The reference's compile-warmer cases wait for the warmer's
-counterpart (ROADMAP item 12d)."""
+``serve``, and the compile-warmer cases: ``sim --dispatch-ahead
+--compile-warmer`` exits cleanly, and a scorer's drain joins its warmer."""
 
 from __future__ import annotations
 
@@ -345,3 +345,52 @@ def test_serve_sigterm_drains_and_exits_cleanly():
     assert "SIGTERM: draining oracle sidecar" in out
     report = json.loads(re.search(r"drain complete: (\{.*\})", out).group(1))
     assert report["drained"] is True and report["audit_flushed"] is True
+
+
+def test_sim_dispatch_ahead_with_compile_warmer_exits_cleanly():
+    """``sim --dispatch-ahead --compile-warmer`` on the CPU: exit 0 and no
+    abort at interpreter exit, in a real child process (an unjoined
+    daemon thread dying at teardown only shows there)."""
+    env = dict(os.environ, BST_CAPACITY="0")
+    proc = subprocess.run(
+        [sys.executable, "-m", "batch_scheduler_tpu_torch", "sim", "--scenario",
+         "synthetic", "--nodes", "8", "--groups", "2", "--members", "2",
+         "--dispatch-ahead", "--compile-warmer", "--timeout", "90", "--settle", "2",
+         "--device", "cpu"],
+        capture_output=True, text=True, timeout=300, env=env, cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "terminate called" not in proc.stderr
+    assert "Aborted" not in proc.stderr
+
+
+def test_scorer_drain_joins_warmer_and_telemetry_threads():
+    """A scorer draining with a live warmer stops the warmer first: drain
+    returns True, and again on a second call (the factory's stop drains
+    again)."""
+    from batch_scheduler_tpu_torch.core.oracle_scorer import OracleScorer
+    from batch_scheduler_tpu_torch.sim.harness import SimCluster
+    from batch_scheduler_tpu_torch.sim.scenarios import (
+        make_member_pods,
+        make_sim_group,
+        make_sim_node,
+    )
+
+    cluster = SimCluster(scorer="oracle", oracle_dispatch_ahead=True,
+                         oracle_compile_warmer=True, device="cpu")
+    cluster.add_nodes([make_sim_node(f"d{i}", {"cpu": "8", "memory": "32Gi", "pods": "110"})
+                       for i in range(8)])
+    cluster.create_group(make_sim_group("drain-g", 2))
+    cluster.start()
+    try:
+        cluster.create_pods(make_member_pods("drain-g", 2, {"cpu": "1"}))
+        assert cluster.wait_for(lambda: cluster.scheduler.stats["binds"] >= 2, timeout=60.0)
+        oracle = cluster.runtime.operation.oracle
+        assert isinstance(oracle, OracleScorer)
+        assert oracle._warmer is not None
+        assert oracle.drain_background(timeout=120.0) is True
+        assert not oracle._warmer._thread.is_alive()
+        assert oracle.drain_background(timeout=30.0) is True
+        assert {"warmer_hits", "warmer_misses", "warmer_shapes"} <= set(oracle.stats())
+    finally:
+        cluster.stop()

@@ -1,10 +1,13 @@
 """The port's token bucket (``batch_scheduler_tpu_torch/utils/throttle.py``)
 against the JAX package's (``tests/test_throttle.py`` mirrored): the same
 acquisitions on the same injected clock wait exactly the same seconds
-and hand out exactly the same tokens in both packages. The reference's
-HTTP clientset case waits for the port's HTTP client (ROADMAP item 12c)."""
+and hand out exactly the same tokens in both packages; and the HTTP
+clientset's request verbs stay capped at burst + qps*t against the
+gateway in both packages."""
 
 import importlib
+import threading
+import time
 
 import pytest
 
@@ -74,3 +77,30 @@ def test_token_bucket_disabled(pkg):
 def test_token_bucket_rejects_unfillable_burst(pkg, qps, burst):
     with pytest.raises(ValueError):
         _bucket(pkg, qps=qps, burst=burst)
+
+
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_http_clientset_capped_under_resync_load(pkg):
+    """Many concurrent request verbs through the HTTP client cannot exceed
+    burst + qps*t against the gateway (20 qps / burst 5: 5 at once, 15
+    paced, at least 0.75 s; unthrottled this burst takes well under 0.2 s)."""
+    apiserver = importlib.import_module(f"{pkg}.client.apiserver")
+    http = importlib.import_module(f"{pkg}.client.http_apiserver")
+    gateway = importlib.import_module(f"{pkg}.client.http_gateway")
+    backing = apiserver.APIServer()
+    server = gateway.serve_gateway(backing)
+    api = http.HTTPAPIServer(*server.server_address[:2], qps=20.0, burst=5)
+    try:
+        backing.create("PodGroup", {"metadata": {"name": "g", "namespace": "default"}})
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=lambda: api.get("PodGroup", "default", "g"))
+                   for _ in range(20)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert time.monotonic() - t0 >= 0.6
+    finally:
+        api.close()
+        server.shutdown()
+        server.server_close()
