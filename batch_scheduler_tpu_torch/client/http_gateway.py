@@ -119,7 +119,13 @@ class _Handler(BaseHTTPRequestHandler):
     def _read_body(self) -> dict:
         length = int(self.headers.get("Content-Length") or 0)
         self._body_read = True
-        return json.loads(self.rfile.read(length) or b"{}")
+        data = self.rfile.read(length) if length else b""
+        if len(data) < length:
+            # the client's connection died mid-body (a restart severs it):
+            # apply nothing. Read as an empty object, such a POST created
+            # a nameless pod ``{}`` (a pod the scheduler then bound)
+            raise ConnectionError(f"request body cut short: {len(data)} of {length} bytes")
+        return json.loads(data or b"{}")
 
     def _selector(self, qs) -> Optional[dict]:
         raw = qs.get("labelSelector", [None])[0]

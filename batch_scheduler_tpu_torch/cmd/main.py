@@ -28,7 +28,8 @@ The port's deltas from the reference:
   (``ops.bucketing.CompileWarmer``) on the card.
 - Refused with exit 2, never ignored: ``--device-state off`` (the port
   always keeps the cluster state on the device) and ``serve`` with
-  ``BST_COORDINATOR`` set (no multi-process bootstrap yet).
+  ``BST_COORDINATOR`` set (the sidecar has no mesh executor yet: ROADMAP
+  item 11b).
 - ``--oracle-background-refresh`` with ``--oracle-addr`` runs on the
   resilient client's second connection slot (the port's ``RemoteScorer``
   has no separate background client).
@@ -1081,12 +1082,12 @@ def cmd_serve(args) -> int:
     from ..service.server import OracleServer
 
     # the reference bootstraps a multi-host slice here when BST_COORDINATOR
-    # is set (parallel.distributed); the port has no multi-process
-    # bootstrap yet, and a coordinator it ignored would split the fleet
+    # is set (parallel.distributed); the port's sidecar has no mesh
+    # executor yet, and a coordinator it ignored would split the fleet
     if os.environ.get("BST_COORDINATOR", "").strip():
         return _refused(
             "BST_COORDINATOR is set, but the port's sidecar has no "
-            "multi-process bootstrap yet: unset it to serve one process"
+            "mesh executor yet: unset it to serve one process"
         )
     if not _require_device(args):
         return 2

@@ -486,6 +486,14 @@ class OracleScorer:
     batch runs elsewhere (``service.client.RemoteScorer``, whose sidecar
     keeps the resident mirror).
 
+    ``scan_mesh`` (a ``parallel.ShardMesh`` on its rank 0, while every
+    other rank runs ``parallel.follow``) runs each batch over the mesh on
+    the mesh's device (``ops.oracle.dispatch_batch``'s ``scan_mesh``): the
+    batch is broadcast to the followers, and the node-sharded scan runs
+    unless ``BST_SCAN_SHARDED`` says 0. A mesh batch uploads its packed
+    arrays (the resident holder's mesh branch is not ported yet); ``close``
+    stops the followers.
+
     ``min_batch_interval`` > 0 serves a merely-stale batch (every queried
     gang known) until the interval since the last publication elapses;
     ``background_refresh`` re-batches such a batch on a daemon thread
@@ -514,7 +522,10 @@ class OracleScorer:
                  min_batch_interval: float = 0.0,
                  background_refresh: bool = False,
                  dispatch_ahead: bool = False,
-                 compile_warmer: bool = False):
+                 compile_warmer: bool = False, scan_mesh=None):
+        self.scan_mesh = scan_mesh
+        if scan_mesh is not None:
+            device = scan_mesh.device
         self.device = None if device is None else resolve_device(device)
         self.stream = None if device is None else device_stream(self.device)
         # Dirty tracking is a GENERATION pair: refresh() records the
@@ -564,7 +575,7 @@ class OracleScorer:
         if compile_warmer and self.device is not None:
             from ..ops.bucketing import maybe_compile_warmer
 
-            self._warmer = maybe_compile_warmer(self.device)
+            self._warmer = maybe_compile_warmer(self.device, scan_mesh=scan_mesh)
         # Plan-covered cluster changes (member assumes/binds the current
         # batch already charged via its gang placement) are credited rather
         # than invalidating the batch.
@@ -604,7 +615,7 @@ class OracleScorer:
         # [N,R]/[G,R] buffers stay on the device across batches and each
         # pack's churned rows apply as one row scatter.
         self._device_state = (
-            None if device is None
+            None if device is None or scan_mesh is not None
             else DeviceStateHolder(self.device, label="scorer")
         )
         # host pack / device batch seconds of the recent batches, and the
@@ -988,6 +999,8 @@ class OracleScorer:
         (every pack — the holder mirrors the PACKER's buffers, so
         generation contiguity holds pack to pack), the node policy columns
         too when the snapshot carries them."""
+        if self._device_state is None:  # a mesh batch uploads its packed arrays
+            return
         t0 = time.perf_counter()
         # host wall time of enqueueing the row scatters on the scorer's
         # stream: the scatters themselves run asynchronously
@@ -1142,7 +1155,7 @@ class OracleScorer:
         try:
             return execute_batch_host(
                 batch_args, snap.progress_args(), device=self.device, policy=policy,
-                request_lanes=_request_lanes(snap),
+                request_lanes=_request_lanes(snap), scan_mesh=self.scan_mesh,
             )
         finally:
             tenancy.set_batch_tenant(None)
@@ -1150,9 +1163,13 @@ class OracleScorer:
     def _batch_inputs(self, snap: ClusterSnapshot):
         """The resident tensors and policy payload one batch reads, taken
         off the snapshot (which keeps only its host arrays)."""
+        policy = snap.policy_payload()
+        if self.scan_mesh is not None:
+            if policy is not None:
+                self.policy_engine.note_batch()
+            return snap.device_args(), policy
         batch_args = snap.device_state_args
         snap.device_state_args = None
-        policy = snap.policy_payload()
         if policy is not None:
             self.policy_engine.note_batch()
             policy = (snap.device_state_policy_cols, policy[1], policy[2])
@@ -1168,7 +1185,7 @@ class OracleScorer:
         batch_args, policy = self._batch_inputs(snap)
         pending = dispatch_batch(
             batch_args, snap.progress_args(), device=self.device, policy=policy,
-            request_lanes=_request_lanes(snap),
+            request_lanes=_request_lanes(snap), scan_mesh=self.scan_mesh,
         )
         tenant = self.dominant_tenant(snap)
 
@@ -1324,6 +1341,17 @@ class OracleScorer:
                     spec[1]()
         if self._identity is not None:
             ok = self._identity.drain(timeout) and ok
+        return ok
+
+    def close(self, timeout: float = 60.0) -> bool:
+        """Teardown: ``drain_background``, then, on a mesh, the stop header
+        to the followers (``parallel.stop_followers``: their ``follow``
+        returns). Returns ``drain_background``'s answer."""
+        ok = self.drain_background(timeout)
+        if self.scan_mesh is not None:
+            from ..parallel.mesh import stop_followers
+
+            stop_followers(self.scan_mesh)
         return ok
 
     # -- dispatch-ahead ---------------------------------------------------

@@ -155,6 +155,14 @@ class SchedulingQueue:
             bucket = self._groups.get(group)
             return len(bucket) if bucket else 0
 
+    def group_uids(self, group: str) -> set:
+        """The distinct pod uids among ``group``'s live queued entries: the
+        gang-transaction quorum. An informer relist can queue a second
+        entry for a pod, so the entry count may exceed the pods queued."""
+        with self._cond:
+            bucket = self._groups.get(group)
+            return {e.info.uid for e in bucket if not e.dead} if bucket else set()
+
     def pop_group(self, group: str) -> list:
         """Remove and return every queued member of ``group`` (arbitrary
         order — the caller admits them against an already-priority-ordered

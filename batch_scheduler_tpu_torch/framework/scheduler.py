@@ -132,6 +132,12 @@ class Scheduler:
         # flush-buffered pod's LIVE reservation. GIL-atomic set ops; add
         # on the bind-worker/flush failure paths, discard at pop.
         self._kept_assumes: set = set()
+        # binds whose answer was lost (the request failed, so the pod's
+        # assume was kept) and that a later read found applied: the pod is
+        # bound but no bind path counted it in stats["binds"], so binds
+        # plus these is every pod this scheduler bound, each once.
+        # Scheduling thread only
+        self.binds_found_applied = 0
         # counters for observability (SURVEY.md §5 build note)
         self.stats = {
             "scheduled": 0,
@@ -263,8 +269,13 @@ class Scheduler:
                 # plan NOW — one drain instead of a heap pop + comparator
                 # churn + plan lookup cycle each. Members the plan can't
                 # seat fall through to the scan/backoff path as usual.
+                # one cycle a pod: a relist's second entry for the popped
+                # pod or a sibling is dropped, not scheduled twice
+                seen = {info.uid}
                 for sibling in self.queue.pop_group(gang):
-                    self._run_cycle(sibling)
+                    if sibling.uid not in seen:
+                        seen.add(sibling.uid)
+                        self._run_cycle(sibling)
             if self._buffer_ripe():
                 self._flush_gangs()
         self._flush_gangs()  # nothing may stay assumed-but-unbound
@@ -305,10 +316,20 @@ class Scheduler:
         if plan is None:
             return False  # no whole-gang plan: per-pod path
         slots, needed = plan
-        if 1 + self.queue.group_size(gang) < needed:
+        # the quorum counts pods, not queue entries: after a relist a pod
+        # can be queued twice, and the popped pod's own second entry is
+        # no sibling
+        if len(self.queue.group_uids(gang) | {info.uid}) < needed:
             return False  # partial arrival: members park via Permit waits
         members = [(info, pod)]
-        sibs = self.queue.pop_group(gang)
+        # a uid already in the transaction is a duplicate entry: dropped
+        # here (never handed back), so no pod is seated or bound twice
+        seen = {info.uid}
+        sibs = []
+        for sib in self.queue.pop_group(gang):
+            if sib.uid not in seen:
+                seen.add(sib.uid)
+                sibs.append(sib)
         if self._pod_informer is not None and sibs:
             # batch liveness: one informer lock pass for the whole gang
             docs = self._pod_informer.peek_raw_many(
@@ -334,7 +355,7 @@ class Scheduler:
         # an assumed one without the kept marker (or whose assume has a
         # live owner), is a duplicate entry: dropped. A kept one (an
         # ambiguous bind failure) is read fresh through the API
-        # (_unbound_in_store; the informer's view may predate the lost
+        # (_store_state; the informer's view may predate the lost
         # bind): unbound releases its ghost; bound drops the sib (its
         # charge stays, the informer's bound event squares it); a failed
         # read keeps the charge and requeues it. Either way the marker
@@ -342,6 +363,10 @@ class Scheduler:
         # entry forget the re-assumed LIVE reservation later.
         kept = {s.uid for s in sibs if s.uid in self._kept_assumes}
         self._kept_assumes -= kept
+        live = {m.uid for m, _ in members}
+        for sib in sibs:
+            if sib.uid in kept and sib.uid not in live:
+                self._note_kept_outcome(sib)
         stale = False
         retained = [members[0]]
         for sib, p in members[1:]:
@@ -350,14 +375,16 @@ class Scheduler:
                     retained.append((sib, p))
                 continue
             if sib.uid in kept and not self._assume_owned(sib.uid):
-                unbound = self._unbound_in_store(sib)
-                if unbound:
+                state = self._store_state(sib)
+                if state == "unbound":
                     self.cluster.forget(sib.uid)
                     stale = True
                     retained.append((sib, p))
-                elif unbound is None:
+                elif state is None:
                     self._kept_assumes.add(sib.uid)
                     self.queue.push_backoff(sib)
+                elif state == "bound":
+                    self.binds_found_applied += 1
         members = retained
         if stale:
             plugin.mark_dirty()
@@ -617,19 +644,37 @@ class Scheduler:
         info.pod = pod
         return pod
 
-    def _unbound_in_store(self, info: PodInfo) -> Optional[bool]:
+    def _store_state(self, info: PodInfo) -> Optional[str]:
         """A kept assume's evidence: one read through the API server (the
         live gateway generation), never the informer's cache, which may not
-        have delivered the lost bind yet. True: the pod is there, unbound;
-        False: it is bound (the lost bind applied), gone or replaced; None:
-        the read failed (the API server is still unreachable)."""
+        have delivered the lost bind yet. "unbound": the pod is there,
+        unbound; "bound": it is bound (the lost bind applied); "gone": it
+        was deleted or replaced; None: the read failed (the API server is
+        still unreachable)."""
         try:
             pod = self.clientset.pods(info.namespace).get(info.name)
         except NotFoundError:
-            return False
+            return "gone"
         except Exception:  # noqa: BLE001 — an outage: the outcome is unknown
             return None
-        return not pod.spec.node_name and pod.metadata.uid == info.uid
+        if pod.metadata.uid != info.uid:
+            return "gone"
+        return "bound" if pod.spec.node_name else "unbound"
+
+    def _note_kept_outcome(self, info: PodInfo) -> None:
+        """A kept assume whose pod the liveness check already dropped
+        (bound, gone or replaced in the informer's view or a read): count
+        its bind in ``binds_found_applied`` when the pod is bound. The
+        informer's copy can lag a bind but never shows one that did not
+        land."""
+        if self._pod_informer is not None:
+            d = self._pod_informer.peek_raw(info.namespace, info.name)
+            bound = (d is not None and (d.get("metadata") or {}).get("uid") == info.uid
+                     and bool((d.get("spec") or {}).get("node_name")))
+        else:
+            bound = self._store_state(info) == "bound"
+        if bound:
+            self.binds_found_applied += 1
 
     def _schedule_one(self, info: PodInfo) -> Optional[str]:
         self.stats["cycles"] += 1
@@ -638,6 +683,8 @@ class Scheduler:
             self._kept_assumes.discard(info.uid)
         pod = self._live_pod(info)
         if pod is None:
+            if kept:
+                self._note_kept_outcome(info)
             return
 
         if not self.cluster.is_assumed(info.uid):
@@ -665,15 +712,17 @@ class Scheduler:
             # the flush and _bind, take that fenced verb), proves the lost
             # request never applied and never will. Without it the forget
             # below freed a node the store had filled.
-            unbound = self._unbound_in_store(info)
-            if unbound is None:
+            state = self._store_state(info)
+            if state is None:
                 # still unreachable: keep the charge and the marker
                 self._kept_assumes.add(info.uid)
                 self.queue.push_backoff(info)
                 return
-            if not unbound:
+            if state != "unbound":
                 # bound in the store (or gone): the entry is stale, the
                 # charge stays until the informer's event squares it
+                if state == "bound":
+                    self.binds_found_applied += 1
                 return
             # unbound: release the ghost reservation before planning, or
             # the pod competes against its own charge and a gang that
@@ -1161,7 +1210,7 @@ class Scheduler:
         # the batched verb with one pair, not the per-pod PATCH: over the
         # HTTP gateway it carries the generation's bind epoch, so a bind a
         # restart severed cannot land after a newer generation served
-        # _unbound_in_store's read (the gateway fences nothing else)
+        # _store_state's read (the gateway fences nothing else)
         bound = self.clientset.pods(pod.metadata.namespace).bind_many(
             [(pod.metadata.name, node_name)]
         )

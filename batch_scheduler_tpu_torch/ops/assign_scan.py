@@ -47,7 +47,8 @@ from .oracle import assign_gangs_policy, assign_gangs_topk, assign_gangs_wavefro
 __all__ = [
     "assign_gangs_cuda", "assign_gangs_plain", "assign_gangs_policy_cuda",
     "assign_gangs_topk_cuda", "assign_gangs_wave_cuda", "division_magic", "kernel_plan",
-    "policy_scan_plan", "scan_plan", "ScanPlan", "topk_kernel_plan", "topk_scan_plan",
+    "policy_scan_plan", "scan_plan", "ScanPlan", "shard_apply_cuda", "shard_summary_cuda",
+    "topk_kernel_plan", "topk_scan_plan",
     "wave_kernel_plan", "wave_scan_plan", "wave_uniform", "CLUSTER_SIZES", "WAVE_WIDTHS",
 ]
 
@@ -679,3 +680,136 @@ def _launch_topk(plan: ScanPlan, left0, group_req, remaining, fit_mask, order, w
             f"{err(rc).decode(errors='replace')} (CUDA error {rc})"
         )
     return alloc, placed, left_after, (conflicts, megas, demotions)
+
+
+# -- the node-sharded scan's wave steps (csrc/shard_wave.cu) -----------------
+#
+# Its reference is lax: the body of the reference's ``assign_gangs_sharded``
+# shard_map (ops/oracle.py:802). The plain versions are
+# ``ops.oracle.shard_wave_summary`` / ``shard_wave_apply``; the orchestration
+# with the collectives is ``ops.oracle.assign_gangs_sharded``. Both wrappers
+# count into the kernel ``shard_wave``.
+
+_SHARD_MAX_LANES = 32  # the apply kernel keeps a node's leftover lanes in registers
+
+
+@functools.lru_cache(maxsize=None)
+def _shard_entry_points():
+    """(summary, apply, error_string) of ``csrc/shard_wave.cu``."""
+    lib = _build.library("shard_wave")
+    summary = lib.bst_shard_summary
+    summary.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    summary.restype = ctypes.c_int
+    apply = lib.bst_shard_apply
+    apply.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    apply.restype = ctypes.c_int
+    err = lib.bst_cuda_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return summary, apply, err
+
+
+def _check_shard(caller, left_l, req_rows, mask_rows, **tensors):
+    if left_l.dim() != 2 or req_rows.dim() != 2 or req_rows.shape[1] != left_l.shape[1]:
+        raise ValueError(f"{caller}: left [nl,R] and request rows [k,R], got "
+                         f"{tuple(left_l.shape)} and {tuple(req_rows.shape)}")
+    if mask_rows.dim() != 2 or mask_rows.shape[1] != left_l.shape[0] or mask_rows.dtype != torch.bool:
+        raise ValueError(f"{caller}: mask rows must be bool [k or 1, {left_l.shape[0]}], got "
+                         f"{mask_rows.dtype} {tuple(mask_rows.shape)}")
+    for name, t in (("left", left_l), ("req_rows", req_rows), *tensors.items()):
+        if t is None:
+            continue
+        if t.device != left_l.device:
+            raise ValueError(f"{caller}: {name} is on {t.device}, left on {left_l.device}")
+        if left_l.device.type == "cuda" and not t.is_contiguous():
+            raise ValueError(f"{caller}: {name} must be contiguous")
+    if left_l.device.type == "cuda" and left_l.shape[1] > _SHARD_MAX_LANES:
+        raise ValueError(f"{caller}: at most {_SHARD_MAX_LANES} lanes, got {left_l.shape[1]}")
+
+
+def shard_summary_cuda(left_l, req_rows, clip, mask_rows, hist, rank: int):
+    """The summary step of one wave on a rank's node block
+    (``ops.oracle.shard_wave_summary``, which runs for CPU tensors): the
+    ``[k, nl]`` member capacities, returned, and the rank's ``[k, 128]``
+    histogram in row ``rank`` of ``hist`` ``[S, k, 128]`` (the other rows
+    zeroed). On CUDA tensors the kernel runs or this raises. Every launch
+    adds one to ``shard_summary_cuda.launches``."""
+    _check_shard("shard_summary_cuda", left_l, req_rows, mask_rows, clip=clip, hist=hist)
+    k = req_rows.shape[0]
+    if hist.dim() != 3 or hist.shape[1:] != (k, 128) or not 0 <= rank < hist.shape[0]:
+        raise ValueError(f"hist must be [S, {k}, 128] with rank < S, got {tuple(hist.shape)}")
+    if left_l.device.type == "cpu":
+        from .oracle import shard_wave_summary
+
+        return shard_wave_summary(left_l, req_rows, clip, mask_rows, hist, rank)
+    nl, r = left_l.shape
+    dev = left_l.device
+    summary, _, err = _shard_entry_points()
+    with torch.cuda.device(dev):
+        cap = torch.empty((k, nl), dtype=torch.int32, device=dev)
+        rc = summary(
+            left_l.data_ptr(), req_rows.data_ptr(), clip.data_ptr(), mask_rows.data_ptr(),
+            cap.data_ptr(), hist.data_ptr(), nl, r, k, int(mask_rows.shape[0] != 1) * nl,
+            hist.shape[0], rank, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"shard_wave summary launch failed: "
+                           f"{err(rc).decode(errors='replace')} (CUDA error {rc})")
+    shard_summary_cuda.launches += 1
+    _count_launch("shard_wave")
+    return cap
+
+
+shard_summary_cuda.launches = 0
+
+
+def shard_apply_cuda(mode: int, merged, rank: int, cap, needs, left_l, req_rows, mask_rows,
+                     takes_out, feas_out, left_out, verify, taken):
+    """The apply step of one wave on a rank's node block
+    (``ops.oracle.shard_wave_apply``, whose docstring gives the modes and
+    outputs, runs for CPU tensors): this rank's slice of the take vector
+    into ``takes_out`` / ``feas_out``, the candidate leftover into
+    ``left_out`` and the conflict bit or feasibility sums into ``verify``
+    (None for ``SHARD_REPLAY``). ``taken`` ``[w + 1, nl]`` int32 is the
+    kernel's scratch for the stream boundaries of ``SHARD_MEGA``. On CUDA
+    tensors the kernels run or this raises. Every launch adds one to
+    ``shard_apply_cuda.launches``."""
+    from .oracle import SHARD_MEGA, SHARD_REPLAY, shard_wave_apply
+
+    _check_shard("shard_apply_cuda", left_l, req_rows, mask_rows, merged=merged, cap=cap,
+                 needs=needs, takes_out=takes_out, feas_out=feas_out, left_out=left_out,
+                 verify=verify, taken=taken)
+    w = needs.shape[0]
+    k = 1 if mode in (SHARD_MEGA, SHARD_REPLAY) else w
+    nl = left_l.shape[0]
+    if merged.shape[1:] != (k, 128) or cap.shape != (k, nl) or takes_out.shape != (w, nl):
+        raise ValueError(f"mode {mode}: merged [S,{k},128], cap [{k},{nl}], takes [{w},{nl}]; got "
+                         f"{tuple(merged.shape)}, {tuple(cap.shape)}, {tuple(takes_out.shape)}")
+    if (verify is None) != (mode == SHARD_REPLAY):
+        raise ValueError("verify is None exactly for SHARD_REPLAY")
+    if left_l.device.type == "cpu":
+        return shard_wave_apply(mode, merged, rank, cap, needs, left_l, req_rows, mask_rows,
+                                takes_out, feas_out, left_out, verify)
+    if taken is None or taken.shape[0] < w + 1 or taken.shape[1] != nl:
+        raise ValueError(f"taken must be [>= {w + 1}, {nl}] int32")
+    r = left_l.shape[1]
+    dev = left_l.device
+    _, apply, err = _shard_entry_points()
+    with torch.cuda.device(dev):
+        rc = apply(
+            merged.data_ptr(), cap.data_ptr(), needs.data_ptr(), left_l.data_ptr(),
+            req_rows.data_ptr(), mask_rows.data_ptr(), taken.data_ptr(), takes_out.data_ptr(),
+            feas_out.data_ptr(), left_out.data_ptr(),
+            verify.data_ptr() if verify is not None else None,
+            mode, nl, r, w, merged.shape[0], rank, int(mask_rows.shape[0] != 1) * nl,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"shard_wave apply launch failed (mode {mode}): "
+                           f"{err(rc).decode(errors='replace')} (CUDA error {rc})")
+    shard_apply_cuda.launches += 1
+    _count_launch("shard_wave")
+    return None
+
+
+shard_apply_cuda.launches = 0

@@ -21,6 +21,7 @@ __all__ = [
     "scan_work",
     "policy_work",
     "topk_work",
+    "shard_work",
     "scan_bound",
     "policy_bound",
     "topk_bound",
@@ -72,6 +73,36 @@ def topk_work(n: int, g: int, nbytes: int, ops: int, wave: int, conflicts: int,
     nbytes += 6 * -(-g // wave)
     per_gang_node = ops / (n * g)
     return nbytes, ops + (min(conflicts * wave, g) + demotions) * n * per_gang_node
+
+
+def shard_work(nl: int, r: int, g: int, s: int, wave: int, lanes: int, mask_rows: int,
+               conflicts: int, megas: int) -> Tuple[int, float]:
+    """(bytes, ops) of one rank's ``shard_wave`` launches over a whole
+    node-sharded batch: ``g`` gangs at ``wave`` a wave over the rank's
+    ``nl`` nodes of ``r`` lanes among ``s`` ranks, ``mask_rows`` mask rows
+    (1 broadcast, else ``g``), ``lanes`` the nonzero entries of the [G,R]
+    request, and this batch's ``conflicts`` (replayed waves) and ``megas``
+    (uniform waves). Bytes: the block's leftover, the request rows and
+    needs, the mask block and each wave's merged histograms read once (an
+    [S, W, 128] buffer, [S, 1, 128] for a uniform wave's one stream row and
+    for each replayed gang); the takes, flags, leftover, each wave's
+    histogram buffer and verify words written once. Operations: every row's capacity (a division and a
+    minimum per requested lane) with its key, clip, histogram add,
+    threshold compare, prefix and take (~8 a node) once, where a uniform
+    wave computes one row and then, per gang boundary, its take and its
+    verify sum (~6 a node); the speculative waves' conflict pass (a
+    capacity and a subtraction per lane, ~4 more a node); a replayed
+    wave's gangs once more (the data-dependent part)."""
+    steps = -(-g // wave)
+    megas = min(megas, steps)
+    merged_rows = (steps - megas) * wave + megas + min(conflicts * wave, g)
+    nbytes = (2 * nl * r * 4 + g * r * 4 + g * 4 + mask_rows * nl + g * nl * 4 + g
+              + 2 * merged_rows * s * 128 * 4 + steps * wave * 4)
+    per_gang_node = 2 * lanes / max(g, 1) + 8
+    spec_gangs = max(g - megas * wave, 0)
+    ops = nl * ((spec_gangs + megas) * per_gang_node + megas * 6 * (wave + 1)
+                + spec_gangs * (per_gang_node - 4) + min(conflicts * wave, g) * per_gang_node)
+    return nbytes, ops
 
 
 def _in_bytes(*tensors) -> int:

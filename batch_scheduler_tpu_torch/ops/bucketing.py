@@ -476,8 +476,8 @@ class CompileWarmer:
 def maybe_compile_warmer(device="cuda", scan_mesh=None) -> Optional[CompileWarmer]:
     """A CompileWarmer when warm batches are safe: single device only, the
     reference's one eligibility rule, shared by the sidecar server and the
-    in-process scorer. The port has no mesh (ROADMAP item 11); a mesh
-    passed here gets the reference's skip and None."""
+    in-process scorer. A mesh (``OracleScorer(scan_mesh=...)``) gets the
+    reference's skip and None."""
     if scan_mesh is None:
         return CompileWarmer(device=device)
     print(

@@ -42,12 +42,15 @@ instead.
 The port of ``batch_scheduler_tpu/ops/device_state.py`` on one explicit
 ``device``, without:
 
-- the mesh and sharding branches (the sharded rungs are not ported);
+- the mesh and sharding branches: they wait for the sharded top-K slice
+  (ROADMAP item 11b), with the sidecar's mirror; until then a scorer on a
+  mesh (``OracleScorer(scan_mesh=...)``) keeps no holder and each mesh
+  batch uploads its packed arrays;
 - the jit row buckets (nothing here compiles per shape; unique delta rows
   keep ``index_copy_`` deterministic on CUDA);
 - ``reset`` (no caller of the port drops the state);
 - the knobs ``BST_DEVICE_STATE``/``BST_DEVICE_DERIVE``: the holder is
-  always on (every scorer syncs one), and the columns are derived
+  always on (every scorer off a mesh syncs one), and the columns are derived
   whenever the snapshot carries meta columns.
 
 A failed scatter or derive raises; nothing falls back to an upload or the

@@ -79,6 +79,8 @@ __all__ = [
     "inflight_batches",
     "forced_scan_rung",
     "bucket_cost_report",
+    "assign_gangs_sharded",
+    "scan_sharded_active",
     "ASSIGNMENT_TOP_K",
     "GANG_MAX",
 ]
@@ -706,6 +708,252 @@ def assign_gangs_topk(left0, group_req, remaining, fit_mask, order,
     return alloc, placed, left
 
 
+# -- the node-sharded scan ---------------------------------------------------
+#
+# The port of the reference's ``assign_gangs_sharded`` (ops/oracle.py:802)
+# with ``_hist_select`` (:759). Each rank of a ``parallel.ShardMesh`` keeps
+# its contiguous block of the node axis (zero rows past N) and one wave is
+# summary -> merge -> apply -> verify -> commit or replay: the summary is the
+# rank's [W, 128] tightness histogram written into row ``rank`` of a zeroed
+# [S, W, 128] buffer, the merge an all-reduce (sum) of that buffer, the apply
+# this rank's slice of the serial take vector and the wave's conflict bit or
+# boundary feasibility sums, the verify an all-reduce of those. The two
+# steps of a rank are ``shard_wave_summary`` and ``shard_wave_apply`` (plain
+# versions here; on CUDA tensors ``csrc/shard_wave.cu`` through the wrappers
+# in ``ops.assign_scan``).
+
+# apply modes: every gang of a wave against the wave-start leftover; one
+# member stream of a uniform wave split at the gang boundaries; one gang
+SHARD_SPECULATIVE, SHARD_MEGA, SHARD_REPLAY = 0, 1, 2
+
+
+def shard_wave_summary(left_l, req_rows, clip, mask_rows, hist, rank: int):
+    """The summary of one wave on a rank's node block: the member capacity
+    ``cap[k, nl]`` of each of the ``k`` demand rows under its mask row
+    (``mask_rows`` [k, nl], or [1, nl] for every row), and its 128-bin
+    histogram of ``min(cap, clip)`` by tightness bucket ``min(cap, 127)``,
+    written into row ``rank`` of ``hist`` [S, k, 128] (the other rows
+    zeroed). Returns ``cap``. The plain version of ``csrc/shard_wave.cu``'s
+    summary kernel."""
+    cap = _member_capacity(left_l[None, :, :], req_rows[:, None, :]) * mask_rows.to(torch.int32)
+    key = cap.clamp(max=_BINS - 1).long()
+    capc = torch.minimum(cap, clip[:, None]).long()
+    local = torch.zeros((cap.shape[0], _BINS), dtype=torch.int64, device=cap.device)
+    local.scatter_add_(1, key, capc)
+    hist.zero_()
+    hist[rank] = local.to(torch.int32)
+    return cap
+
+
+def _take_rows(key, capc, thresh, rem):
+    """Each row's tightest-first take from its threshold bucket and the
+    members still wanted there after every earlier node (``rem``: the
+    global remainder less the earlier ranks' share of the bucket): the
+    buckets below the threshold whole, the threshold bucket in node order
+    (the reference's ``_hist_select`` and its mega boundaries)."""
+    in_t = key == thresh[:, None]
+    capc_t = torch.where(in_t, capc, 0)
+    prefix = capc_t.cumsum(1) - capc_t
+    return torch.where(
+        key < thresh[:, None], capc,
+        torch.where(in_t, torch.minimum((rem[:, None] - prefix).clamp(min=0), capc), 0),
+    )
+
+
+def shard_wave_apply(mode: int, merged, rank: int, cap, needs, left_l, req_rows, mask_rows,
+                     takes_out, feas_out, left_out, verify):
+    """The apply of one wave on a rank's node block, from the merged
+    histograms ``merged`` [S, k, 128] and the summary's ``cap``: the
+    global bucket totals, this rank's offset in each bucket (the earlier
+    ranks' rows: global node order is rank-major), and this rank's slice
+    of the serial take vector, written into ``takes_out`` [w, nl] and
+    ``feas_out`` [w], with the candidate leftover in ``left_out``.
+
+    - ``SHARD_SPECULATIVE`` (k = w): every gang's take against the
+      wave-start leftover (``_hist_select``); ``verify[0]`` = 1 where a
+      gang's capacity row changes under the exclusive prefix of the earlier
+      gangs' takes (the conflict bit), the prefix accumulated with the
+      wavefront scan's clamp at -2**30.
+    - ``SHARD_MEGA`` (k = 1): the uniform wave's member stream, cut at the
+      w + 1 gang boundaries; ``verify[j]`` = this rank's part of gang j's
+      boundary feasibility sum, ``feas_out`` all True.
+    - ``SHARD_REPLAY`` (k = w = 1): one gang against the live leftover;
+      nothing to verify.
+
+    The plain version of ``csrc/shard_wave.cu``'s apply kernels; the int64
+    sums here are the reference's int32 ones inside the batch boundary."""
+    bin_tot = merged.sum(0, dtype=torch.int64)  # [k, BINS]
+    off = merged[:rank].sum(0, dtype=torch.int64)
+    need = needs.long()
+    if mode == SHARD_MEGA:
+        cap0 = cap[0].long()
+        key = cap0.clamp(max=_BINS - 1)
+        capc = torch.minimum(cap0, need.sum())
+        cum_incl = bin_tot[0].cumsum(0)
+        cum_excl = cum_incl - bin_tot[0]
+        bounds = torch.cat([need.new_zeros(1), need.cumsum(0)])  # [w+1]
+        bbkt = (cum_incl[None, :] <= bounds[:, None]).sum(1)  # _BINS past the stream
+        bc = bbkt.clamp(max=_BINS - 1)
+        w1 = bounds.shape[0]
+        taken = _take_rows(key.expand(w1, -1), capc.expand(w1, -1), bbkt,
+                           bounds - cum_excl[bc] - off[0][bc])
+        takes_out.copy_(taken[1:] - taken[:-1])
+        feas_out.fill_(True)
+        verify.copy_(torch.minimum(cap0[None, :] - taken[:-1], need[:, None]).sum(1))
+        left_out.copy_(left_l - taken[-1].to(torch.int32)[:, None] * req_rows[0][None, :])
+        return
+    key = cap.clamp(max=_BINS - 1).long()
+    capc = torch.minimum(cap.long(), need[:, None])
+    cum = bin_tot.cumsum(1)
+    feas = cum[:, -1] >= need
+    thresh = (cum < need[:, None]).sum(1).clamp(max=_BINS - 1)
+    at = thresh[:, None]
+    rem = need - (cum.gather(1, at) - bin_tot.gather(1, at))[:, 0] - off.gather(1, at)[:, 0]
+    take = (_take_rows(key, capc, thresh, rem) * feas[:, None]).to(torch.int32)
+    takes_out.copy_(take)
+    feas_out.copy_(feas)
+    if mode == SHARD_REPLAY:
+        left_out.copy_(left_l - take[0][:, None] * req_rows[0][None, :])
+        return
+    acc = left_l
+    prefixed = []
+    for j in range(take.shape[0]):
+        prefixed.append(acc)
+        acc = torch.clamp(acc - take[j][:, None] * req_rows[j][None, :], min=-_BIG)
+    cap_pref = _member_capacity(torch.stack(prefixed), req_rows[:, None, :]) * mask_rows.to(torch.int32)
+    verify[0] = int(bool((cap_pref != cap).any()))
+    left_out.copy_(acc)
+
+
+def assign_gangs_sharded(left0, group_req, remaining, fit_mask, order, mesh,
+                         wave: int = 8, with_stats: bool = False, gather: bool = True):
+    """Node-sharded wavefront gang placement on a ``parallel.ShardMesh``,
+    called by every rank with the same whole inputs: the outputs of
+    ``assign_gangs_wavefront`` bit for bit (so the serial scan's), while
+    each rank keeps only its node block of the ``[N, R]`` leftover and a
+    wave's collectives move ``[S, W, 128]`` summaries, never node state.
+
+    Per wave (``wave`` gangs of the scan order, at least 2): the uniform
+    branch (one demand row and one mask row, the stream inside int32) runs
+    one member stream (``SHARD_MEGA``) whose boundary feasibility is
+    verified by the reduce; any other wave runs every gang against the
+    wave-start leftover (``SHARD_SPECULATIVE``) with the conflict bit
+    reduced; a failed verify replays the wave a gang at a time
+    (``SHARD_REPLAY``, one merge a gang). The fast path is 2 collectives a
+    wave (the merge and the verify). A per-group mask's uniformity is
+    reduced once per batch. Ties break on the global node index: blocks are
+    contiguous in rank order and a bucket's remainder resolves as (earlier
+    ranks' total, local prefix). The node axis is padded to a multiple of S
+    with zero rows, which have capacity 0 and never win a member.
+
+    Returns ``(alloc[G,N], placed[G], left[N,R])`` on rank 0 (one gather
+    of the blocks after the scan) and None on the other ranks, plus the
+    per-wave ``(conflicts, megas)`` when ``with_stats``. ``gather=False``
+    returns this rank's ``(takes[G, nl], placed[G], left[nl, R])`` on
+    every rank instead (rows in group index space), as the reference's
+    scan leaves its outputs sharded. A failed launch or collective
+    raises."""
+    from .assign_scan import shard_apply_cuda, shard_summary_cuda
+
+    n, r = left0.shape
+    g = group_req.shape[0]
+    w = max(int(wave), 2)
+    s, rank = mesh.size, mesh.rank
+    per_group = fit_mask.shape[0] != 1
+    if per_group and fit_mask.shape[0] != g:
+        raise ValueError(f"fit_mask rows {fit_mask.shape[0]} must be 1 or match group count {g}")
+    dev = left0.device
+    lo, hi, nl = mesh.node_block(n, flat=True)
+    n_pad = nl * s
+    steps = -(-g // w)
+    g_pad = steps * w
+    idx = order.long()
+    left = left0.new_zeros((nl, r))
+    left[:hi - lo] = left0[lo:hi]
+    gr = torch.cat([group_req[idx], group_req.new_zeros((g_pad - g, r))])
+    rem = torch.cat([remaining[idx], remaining.new_zeros(g_pad - g)])
+    mask = torch.zeros((g_pad if per_group else 1, nl), dtype=torch.bool, device=dev)
+    mask[:g if per_group else 1, :hi - lo] = (fit_mask[idx] if per_group else fit_mask)[:, lo:hi]
+    # the branch of every wave, known before the loop: uniform demand rows
+    # (replicated) and, for a per-group mask, uniform mask rows (one reduce
+    # over the ranks' blocks); the stream bound is the reference's, on n_pad
+    uniform = (gr.view(steps, w, r) == gr.view(steps, w, r)[:, :1]).all(dim=2).all(dim=1)
+    if per_group:
+        mw = mask.view(steps, w, nl)
+        odd = (mw != mw[:, :1]).any(dim=2).any(dim=1).to(torch.int32)
+        mesh.all_reduce(odd, "uniformity")
+        uniform &= odd == 0
+    needs = rem.view(steps, w)
+    mega_need_max = (2**31 - 1) // max(n_pad, 1)
+    host_needs = needs.tolist()
+    mega = [bool(u) and sum(nd) <= mega_need_max
+            for u, nd in zip(uniform.tolist(), host_needs)]
+    takes = torch.zeros((g_pad, nl), dtype=torch.int32, device=dev)
+    feas = torch.zeros(g_pad, dtype=torch.bool, device=dev)
+    conflicts = torch.zeros(steps, dtype=torch.bool, device=dev)
+    hist = torch.empty((s, w, _BINS), dtype=torch.int32, device=dev)
+    hist1 = torch.empty((s, 1, _BINS), dtype=torch.int32, device=dev)  # one row
+    spare = torch.empty_like(left)
+    verify = torch.empty(w, dtype=torch.int32, device=dev)
+    taken = torch.empty((w + 1, nl), dtype=torch.int32, device=dev)
+    for st in range(steps):
+        rows = slice(st * w, (st + 1) * w)
+        req_c, need_c = gr[rows], needs[st]
+        mask_c = mask[rows] if per_group else mask
+        if mega[st]:
+            h = hist1
+            cap = shard_summary_cuda(left, req_c[:1], need_c.sum(dtype=torch.int32).view(1),
+                                     mask_c[:1], h, rank)
+            mesh.all_reduce(h, "merge")
+            shard_apply_cuda(SHARD_MEGA, h, rank, cap, need_c, left, req_c, mask_c,
+                             takes[rows], feas[rows], spare, verify, taken)
+            mesh.all_reduce(verify, "verify")
+            ok = bool((verify >= need_c).all())
+        else:
+            cap = shard_summary_cuda(left, req_c, need_c, mask_c, hist, rank)
+            mesh.all_reduce(hist, "merge")
+            v = verify[:1]
+            shard_apply_cuda(SHARD_SPECULATIVE, hist, rank, cap, need_c, left, req_c, mask_c,
+                             takes[rows], feas[rows], spare, v, taken)
+            mesh.all_reduce(v, "verify")
+            ok = int(v.item()) == 0
+        if ok:
+            left, spare = spare, left
+            continue
+        conflicts[st] = True
+        for j in range(st * w, (st + 1) * w):
+            one = slice(j, j + 1)
+            mask_j = mask[one] if per_group else mask
+            h = hist1
+            cap = shard_summary_cuda(left, gr[one], rem[one], mask_j, h, rank)
+            mesh.all_reduce(h, "replay")
+            shard_apply_cuda(SHARD_REPLAY, h, rank, cap, rem[one], left, gr[one], mask_j,
+                             takes[one], feas[one], spare, None, taken)
+            left, spare = spare, left
+    megas = torch.tensor(mega, dtype=torch.bool, device=dev)
+    if not gather:
+        out_t = torch.zeros((g, nl), dtype=torch.int32, device=dev)
+        out_p = torch.zeros(g, dtype=torch.bool, device=dev)
+        out_t[idx] = takes[:g]
+        out_p[idx] = feas[:g]
+        outs = (out_t, out_p, left)
+        return (*outs, (conflicts, megas)) if with_stats else outs
+    # the blocks into whole outputs on rank 0: one gather of each rank's
+    # takes and leftover
+    parts = mesh.gather(torch.cat([takes.view(-1), left.view(-1)]), "gather")
+    if parts is None:
+        return None
+    cut = g_pad * nl
+    alloc = torch.zeros((g, n), dtype=torch.int32, device=dev)
+    placed = torch.zeros(g, dtype=torch.bool, device=dev)
+    alloc[idx] = torch.cat([p[:cut].view(g_pad, nl) for p in parts], dim=1)[:g, :n]
+    placed[idx] = feas[:g]
+    left_after = torch.cat([p[cut:].view(nl, r) for p in parts])[:n]
+    if with_stats:
+        return alloc, placed, left_after, (conflicts, megas)
+    return alloc, placed, left_after
+
+
 def _top_k_ties_by_index(assignment, k: int):
     """(counts, nodes) of the k largest entries per row, ties in ascending
     node order — what the reference's ``lax.top_k`` returns (the decode and
@@ -719,6 +967,20 @@ _TOPK_ENV = "BST_SCAN_TOPK"
 # the wave width the top-K scan runs when BST_SCAN_WAVE is unset (the
 # reference's _SHARD_DEFAULT_WAVE): the rung never runs a gang at a time
 _TOPK_DEFAULT_WAVE = 8
+
+_SHARD_ENV = "BST_SCAN_SHARDED"
+# the wave width the node-sharded scan runs when BST_SCAN_WAVE is unset: a
+# batch's merges are G/W, so the rung never runs a gang at a time
+_SHARD_DEFAULT_WAVE = 8
+
+
+def scan_sharded_active() -> bool:
+    """True when a mesh batch takes the node-sharded scan rung:
+    ``BST_SCAN_SHARDED`` unset or anything but "0"/"false"/"off"/"no"
+    (those pin mesh batches to the replicated rung). The reference's
+    process gate, which a failure would close, has no counterpart: on a
+    mesh the chosen rung runs or the batch raises."""
+    return os.environ.get(_SHARD_ENV, "").strip().lower() not in ("0", "false", "off", "no")
 
 
 @functools.lru_cache(maxsize=None)
@@ -798,7 +1060,8 @@ class forced_scan_rung:
 
 def schedule_batch(alloc_lanes, requested, group_req, remaining, fit_mask,
                    group_valid, order, top_k: int = ASSIGNMENT_TOP_K,
-                   scan_wave: int = 0, policy=None, scan_topk: int = 0):
+                   scan_wave: int = 0, policy=None, scan_topk: int = 0,
+                   scan_mesh=None, scan_shard: bool = False):
     """The full-batch oracle: leftover -> capacity -> feasibility -> scores
     -> greedy gang assignment -> compact top-K readback. ``scan_topk`` > 0
     runs the hierarchical top-K scan with that many candidates a gang, at
@@ -813,14 +1076,46 @@ def schedule_batch(alloc_lanes, requested, group_req, remaining, fit_mask,
     ``scan_topk`` to 0).
     Every scan runs its hand-written CUDA kernel for CUDA tensors and its
     plain version for CPU tensors (the wrappers in ``ops.assign_scan``
-    decide by device)."""
+    decide by device).
+
+    ``scan_mesh`` (a ``parallel.ShardMesh``; every rank calls this with the
+    same whole inputs) runs the batch over the mesh: with ``scan_shard``
+    the node-sharded scan (``assign_gangs_sharded``, at ``scan_wave`` or,
+    below 2, 8), its blocks gathered to rank 0, which computes the head on
+    its whole inputs; else the replicated rung: the head on every rank's
+    ``(groups, nodes)`` block gathered to rank 0 (``_mesh_capacity``), then
+    the scan above on rank 0 with the whole inputs. Rank 0 returns the
+    whole output dict, the other ranks None once their collectives are
+    done. The sharded rung has no top-K form yet: ``scan_topk`` > 0 with
+    ``scan_shard`` raises; a policy batch runs on one device (with a mesh
+    it raises)."""
     from .assign_scan import (
         assign_gangs_cuda, assign_gangs_policy_cuda, assign_gangs_topk_cuda,
         assign_gangs_wave_cuda)
 
     policy_on = policy is not None and bool(policy[1])
+    if policy_on and scan_mesh is not None:
+        raise ValueError("a policy batch runs on one device, not over a mesh")
     left = left_resources(alloc_lanes, requested)
-    cap = group_capacity(left, group_req, fit_mask)
+    sharded = None
+    if scan_mesh is None:
+        cap = group_capacity(left, group_req, fit_mask)
+    elif scan_shard:
+        if scan_topk > 0:
+            raise NotImplementedError(
+                "the node-sharded top-K rung is not in the port yet (ROADMAP item 11b)")
+        # the scan first: a follower's share of the batch ends with it
+        sharded = assign_gangs_sharded(
+            left, group_req, remaining, fit_mask, order, scan_mesh,
+            wave=scan_wave if scan_wave > 1 else _SHARD_DEFAULT_WAVE, with_stats=True,
+        )
+        if sharded is None:
+            return None
+        cap = group_capacity(left, group_req, fit_mask)
+    else:
+        cap = _mesh_capacity(scan_mesh, left, group_req, fit_mask)
+        if cap is None:
+            return None
     if policy_on:
         from ..policy.terms import compose_keep_dense
 
@@ -833,6 +1128,8 @@ def schedule_batch(alloc_lanes, requested, group_req, remaining, fit_mask,
         assignment, placed, left_after = assign_gangs_policy_cuda(
             left, group_req, remaining, fit_mask, order, *cols, terms, weights
         )
+    elif sharded is not None:
+        assignment, placed, left_after, wave_stats = sharded
     elif scan_topk > 0:
         assignment, placed, left_after, stats = assign_gangs_topk_cuda(
             left, group_req, remaining, fit_mask, order,
@@ -873,6 +1170,30 @@ def schedule_batch(alloc_lanes, requested, group_req, remaining, fit_mask,
     return out
 
 
+def _mesh_capacity(mesh, left, group_req, fit_mask):
+    """The replicated rung's head: each rank computes its ``(groups,
+    nodes)`` block of the ``[G, N]`` capacity matrix (zero-padded to the
+    block size) and one gather assembles the matrix on rank 0. None on the
+    other ranks."""
+    g, n = group_req.shape[0], left.shape[0]
+
+    def blocks(rank):
+        return mesh.group_block(g, False, rank), mesh.node_block(n, False, rank)
+
+    (glo, ghi, gb), (nlo, nhi, nb) = blocks(mesh.rank)
+    mask = fit_mask[:, nlo:nhi] if fit_mask.shape[0] == 1 else fit_mask[glo:ghi, nlo:nhi]
+    block = torch.zeros((gb, nb), dtype=torch.int32, device=left.device)
+    block[:ghi - glo, :nhi - nlo] = group_capacity(left[nlo:nhi], group_req[glo:ghi], mask)
+    parts = mesh.gather(block, "head")
+    if parts is None:
+        return None
+    whole = torch.empty((g, n), dtype=torch.int32, device=left.device)
+    for rank, part in enumerate(parts):
+        (glo, ghi, _), (nlo, nhi, _) = blocks(rank)
+        whole[glo:ghi, nlo:nhi] = part[:ghi - glo, :nhi - nlo]
+    return whole
+
+
 def batch_top_k(n_bucket: int, remaining_max: int) -> int:
     """Top-K width of a batch's compact assignment readback: a gang's take
     touches at most ``remaining`` nodes, so the batch-wide max bounds the
@@ -889,7 +1210,7 @@ def _batch_blob(alloc_lanes, requested, group_req, remaining, fit_mask,
                 group_valid, order, min_member, scheduled, matched,
                 ineligible, creation_rank, pack_assignment: bool = True,
                 top_k: int = ASSIGNMENT_TOP_K, scan_wave: int = 0, policy=None,
-                scan_topk: int = 0):
+                scan_topk: int = 0, scan_mesh=None, scan_shard: bool = False):
     """The batch plus findMaxPG, with every O(G) host-needed output
     concatenated into one int32 blob (one device-to-host copy).
 
@@ -908,7 +1229,8 @@ def _batch_blob(alloc_lanes, requested, group_req, remaining, fit_mask,
     """
     out = schedule_batch(alloc_lanes, requested, group_req, remaining,
                          fit_mask, group_valid, order, top_k=top_k,
-                         scan_wave=scan_wave, policy=policy, scan_topk=scan_topk)
+                         scan_wave=scan_wave, policy=policy, scan_topk=scan_topk,
+                         scan_mesh=scan_mesh, scan_shard=scan_shard)
     best, exists, progress = find_max_group(
         min_member, scheduled, matched, ineligible, creation_rank
     )
@@ -976,11 +1298,11 @@ class PendingBatch:
 
     __slots__ = ("blob", "done", "out", "pack", "top_k", "scan_wave", "mask_mode",
                  "n_bucket", "g_bucket", "device", "used_policy", "used_topk",
-                 "cost_probe", "compiled")
+                 "cost_probe", "compiled", "shard_count", "mesh_size")
 
     def __init__(self, blob, done, out, pack, top_k, scan_wave, mask_mode,
                  n_bucket, g_bucket, device, used_policy=False, used_topk=0,
-                 cost_probe=None, compiled=False):
+                 cost_probe=None, compiled=False, shard_count=0, mesh_size=0):
         self.blob = blob
         self.done = done
         self.out = out
@@ -998,6 +1320,10 @@ class PendingBatch:
         self.cost_probe = cost_probe
         # the first batch of this process at its shape key (_first_at_key)
         self.compiled = compiled
+        # the ranks the node-sharded scan split the nodes over (0: not sharded)
+        self.shard_count = shard_count
+        # the ranks of the mesh the batch ran over (0: one device)
+        self.mesh_size = mesh_size
 
 
 # The shape keys this process has run a batch at: the port's counterpart of
@@ -1021,7 +1347,7 @@ def _first_at_key(key: tuple) -> bool:
 
 
 def dispatch_batch(batch_args, progress_args, device="cuda", policy=None,
-                   request_lanes=None) -> PendingBatch:
+                   request_lanes=None, scan_mesh=None) -> PendingBatch:
     """Enqueue one batch + max-progress selection on ``device`` and start
     the copy of its O(G) blob to the host WITHOUT waiting for either.
     Takes the packed numpy batch (``ClusterSnapshot.device_args()`` /
@@ -1059,17 +1385,36 @@ def dispatch_batch(batch_args, progress_args, device="cuda", policy=None,
     (``batch_args[2]``), for the bound ``/debug/buckets`` gives the first
     batch of a bucket: a caller whose request is already on the card
     counts it on its host copy. Without it a host request is counted here,
-    and a card-resident one leaves the bucket to a later batch."""
-    dev = resolve_device(device)
+    and a card-resident one leaves the bucket to a later batch.
+
+    ``scan_mesh`` (a ``parallel.ShardMesh``, called on its rank 0 while
+    the other ranks run ``parallel.follow``) runs the batch over the mesh,
+    on the mesh's device: rank 0 broadcasts the batch
+    (``parallel.mesh.lead_batch``) and every rank runs ``schedule_batch``
+    with the mesh, the node-sharded rung unless ``BST_SCAN_SHARDED`` says
+    0 (at ``BST_SCAN_WAVE``'s width, or 8), else the replicated rung. A
+    ``forced_scan_rung`` pin runs its rung replicated, never sharded; a
+    policy batch runs on rank 0's device alone (its columns stay there).
+    The sharded rung with ``BST_SCAN_TOPK`` set raises (no top-K form
+    yet): nothing falls back."""
+    dev = resolve_device(device) if scan_mesh is None else scan_mesh.device
     pin = getattr(_rung_override, "value", None)
     if pin is None:
         scan_wave, scan_topk = _scan_wave_from_env(), _scan_topk_from_env()
     else:
         scan_wave, scan_topk = pin
+    sharded = scan_mesh is not None and pin is None and scan_sharded_active()
     if policy is not None:
         cols, terms, weights = policy
         policy = (policy_from_numpy(cols, dev), tuple(terms), tuple(weights))
         scan_wave = scan_topk = 0
+        scan_mesh, sharded = None, False
+    if sharded and scan_topk > 0:
+        raise NotImplementedError(
+            "BST_SCAN_TOPK on a mesh: the node-sharded top-K rung is not in the port "
+            "yet (ROADMAP item 11b); BST_SCAN_SHARDED=0 runs it replicated")
+    if sharded and scan_wave < 2:
+        scan_wave = _SHARD_DEFAULT_WAVE
     if scan_topk > 0 and scan_wave < 2:
         scan_wave = _TOPK_DEFAULT_WAVE
     # np.shape reads a tensor's own shape (a CUDA tensor is never copied)
@@ -1083,10 +1428,19 @@ def dispatch_batch(batch_args, progress_args, device="cuda", policy=None,
     pack = n_bucket <= 2**15 and remaining_max <= 2**16 - 1
     top_k = batch_top_k(n_bucket, remaining_max)
     batch, progress = batch_from_numpy(batch_args, progress_args, dev)
-    blob, out = _batch_blob(*batch, *progress, pack_assignment=pack,
-                            top_k=top_k, scan_wave=scan_wave, policy=policy,
-                            scan_topk=scan_topk)
-    rung = _path_name(policy is not None, scan_topk, scan_wave)
+    if scan_mesh is None:
+        blob, out = _batch_blob(*batch, *progress, pack_assignment=pack,
+                                top_k=top_k, scan_wave=scan_wave, policy=policy,
+                                scan_topk=scan_topk)
+    else:
+        from ..parallel.mesh import lead_batch
+
+        with scan_mesh.lock:
+            lead_batch(scan_mesh, batch, sharded, scan_wave, scan_topk, top_k)
+            blob, out = _batch_blob(*batch, *progress, pack_assignment=pack,
+                                    top_k=top_k, scan_wave=scan_wave, scan_topk=scan_topk,
+                                    scan_mesh=scan_mesh, scan_shard=sharded)
+    rung = _path_name(policy is not None, scan_topk, scan_wave, sharded)
     cost_probe = None
     if _bucket_cost_enabled() and not _bucket_cost_known(g_bucket, n_bucket, rung):
         lanes = request_lanes
@@ -1100,7 +1454,8 @@ def dispatch_batch(batch_args, progress_args, device="cuda", policy=None,
                           int(batch[0].shape[1]))
     compiled = _first_at_key((str(dev), g_bucket, n_bucket,
                               int(np.shape(batch_args[0])[1]), mask_mode, rung,
-                              scan_wave, scan_topk))
+                              scan_wave, scan_topk,
+                              scan_mesh.size if scan_mesh is not None else 0))
     done = None
     if dev.type == "cuda":
         blob = blob.to("cpu", non_blocking=True)
@@ -1110,7 +1465,8 @@ def dispatch_batch(batch_args, progress_args, device="cuda", policy=None,
     return PendingBatch(blob, done, out, pack, top_k, scan_wave, mask_mode,
                         n_bucket, g_bucket, dev, used_policy=policy is not None,
                         used_topk=scan_topk, cost_probe=cost_probe,
-                        compiled=compiled)
+                        compiled=compiled, shard_count=scan_mesh.size if sharded else 0,
+                        mesh_size=scan_mesh.size if scan_mesh is not None else 0)
 
 
 def collect_batch(pending: PendingBatch):
@@ -1124,7 +1480,9 @@ def collect_batch(pending: PendingBatch):
     ``waves_per_batch``, ``wave_demotions`` and ``wave_uniform`` beside
     ``wave_width``, ``scan_topk`` is the top-K scan's candidate width (0
     off) and, with it, ``topk_demotions`` the batch's dense-column
-    demotions, ``scan_policy`` says whether the batch had a policy, and
+    demotions, ``scan_policy`` says whether the batch had a policy,
+    ``scan_sharded`` whether the node-sharded scan ran (and then
+    ``shard_count`` the ranks it split the nodes over), and
     ``compiled`` whether it was this process's first batch at its shape
     key); ``device_result`` keeps the [G,N] ``capacity`` and
     ``scores`` tensors on the device for lazy row reads (complete once this
@@ -1164,9 +1522,12 @@ def collect_batch(pending: PendingBatch):
             "wave_width": pending.scan_wave,
             "scan_topk": pending.used_topk,
             "scan_policy": pending.used_policy,
+            "scan_sharded": bool(pending.shard_count),
             "compiled": pending.compiled,
         },
     }
+    if pending.shard_count:
+        host["telemetry"]["shard_count"] = pending.shard_count
     if pending.scan_wave > 1:
         stats = blob_np[3 * g + 2 + tail_len:]
         host["telemetry"].update(
@@ -1177,23 +1538,24 @@ def collect_batch(pending: PendingBatch):
         if pending.used_topk:
             host["telemetry"]["topk_demotions"] = int(stats[3])
     _note_bucket_cost(pending, host["telemetry"])
-    _fold_batch_metrics(host["telemetry"])
+    _fold_batch_metrics(host["telemetry"], on_mesh=bool(pending.mesh_size))
     out = pending.out
     device_result = {"capacity": out["capacity"], "scores": out["scores"]}
     return host, device_result
 
 
-def _fold_batch_metrics(telemetry: dict) -> None:
+def _fold_batch_metrics(telemetry: dict, on_mesh: bool = False) -> None:
     """The reference's per-batch series of a collected batch (its
     ``_fold_batch_metrics``), from the telemetry dict ``collect_batch``
     built on the host: ``bst_scan_batches_total`` by scan path and this
     thread's batch tenant (``utils.tenancy``: the scorer's dominant
     tenant, or the tenant a sidecar connection announced; "-" when none
-    is armed), the top-K series and the wavefront series. The port has no
-    wave demotion ladder, so ``bst_scan_wave_enabled`` stays 1. The
-    sharded and compile series belong to rungs not ported."""
+    is armed), the top-K series, the sharded series and the wavefront
+    series. The port has no demotion ladders, so ``bst_scan_wave_enabled``
+    stays 1, and ``bst_scan_sharded_enabled`` is set by a batch over a mesh
+    (``on_mesh``) from ``BST_SCAN_SHARDED`` alone."""
     path = _path_name(telemetry["scan_policy"], telemetry["scan_topk"],
-                      telemetry["wave_width"])
+                      telemetry["wave_width"], telemetry.get("scan_sharded", False))
     reg = DEFAULT_REGISTRY
     reg.counter(
         "bst_scan_batches_total",
@@ -1211,6 +1573,19 @@ def _fold_batch_metrics(telemetry: dict) -> None:
             "candidates could not cover the need while pooled capacity "
             "remained (the K-mistuned signal)",
         ).inc(telemetry.get("topk_demotions", 0))
+    if telemetry.get("scan_sharded"):
+        reg.gauge(
+            "bst_scan_shard_count",
+            "Devices the node-sharded assignment scan split the node axis "
+            "over (last sharded batch)",
+        ).set(float(telemetry.get("shard_count", 0)))
+    if on_mesh:
+        reg.gauge(
+            "bst_scan_sharded_enabled",
+            "1 while BST_SCAN_SHARDED lets mesh batches take the node-sharded "
+            "scan rung, 0 while it pins them to the replicated rung (last "
+            "mesh batch)",
+        ).set(1.0 if scan_sharded_active() else 0.0)
     reg.gauge(
         "bst_scan_wave_enabled",
         "1 while the wavefront scan path is enabled (0 after a failure "
@@ -1236,12 +1611,13 @@ def _fold_batch_metrics(telemetry: dict) -> None:
         ).inc(telemetry["wave_uniform"])
 
 
-def _path_name(policy: bool, scan_topk: int, scan_wave: int) -> str:
+def _path_name(policy: bool, scan_topk: int, scan_wave: int, sharded: bool = False) -> str:
     """The scan path of a batch: the ``path`` label of
     ``bst_scan_batches_total`` and the rung of ``/debug/buckets``."""
     return (
         "policy" if policy
         else "topk" if scan_topk > 0
+        else "sharded" if sharded
         else "wavefront" if scan_wave > 1
         else "serial"
     )
@@ -1259,7 +1635,7 @@ def _path_name(policy: bool, scan_topk: int, scan_wave: int) -> str:
 # reference.
 
 _KERNEL_OF_PATH = {"serial": "assign_scan", "wavefront": "assign_wave",
-                   "policy": "assign_policy", "topk": "assign_topk"}
+                   "policy": "assign_policy", "topk": "assign_topk", "sharded": "shard_wave"}
 _bucket_cost_lock = threading.Lock()
 _bucket_costs: dict = {}  # guarded-by: _bucket_cost_lock
 
@@ -1280,7 +1656,7 @@ def _kernel_plan_of(path: str, pending, r: int):
     from . import assign_scan as scan
 
     dev = pending.device
-    if dev.type != "cuda":
+    if dev.type != "cuda" or path == "sharded":  # shard_wave has no launch plan to ask for
         return None
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     n = pending.n_bucket
@@ -1303,7 +1679,8 @@ def _note_bucket_cost(pending, telemetry: dict) -> None:
     if not _bucket_cost_enabled():
         return
     g, n = pending.g_bucket, pending.n_bucket
-    path = _path_name(pending.used_policy, pending.used_topk, pending.scan_wave)
+    path = _path_name(pending.used_policy, pending.used_topk, pending.scan_wave,
+                      bool(pending.shard_count))
     with _bucket_cost_lock:
         entry = _bucket_costs.setdefault(
             (g, n), {"g_bucket": g, "n_bucket": n, "batches": 0, "rungs": {}})
@@ -1314,7 +1691,7 @@ def _note_bucket_cost(pending, telemetry: dict) -> None:
             return
     if pending.cost_probe is None:
         return
-    from .bounds import bound, policy_work, scan_work, topk_work
+    from .bounds import bound, policy_work, scan_work, shard_work, topk_work
 
     try:
         lanes, in_bytes, r = pending.cost_probe
@@ -1326,6 +1703,13 @@ def _note_bucket_cost(pending, telemetry: dict) -> None:
             nbytes, ops = topk_work(n, g, nbytes, ops, pending.scan_wave,
                                     telemetry.get("wave_demotions", 0),
                                     telemetry.get("topk_demotions", 0))
+        elif path == "sharded":
+            # one rank's share: its node block of the batch
+            nbytes, ops = shard_work(-(-n // pending.shard_count), r, g, pending.shard_count,
+                                     pending.scan_wave, lanes,
+                                     g if pending.mask_mode == "per_group" else 1,
+                                     telemetry.get("wave_demotions", 0),
+                                     telemetry.get("wave_uniform", 0))
         bound_ms, bound_by = bound(nbytes, ops)
         rung = {
             "kernel": _KERNEL_OF_PATH[path],
@@ -1358,12 +1742,13 @@ def bucket_cost_report() -> dict:
 
 
 def execute_batch_host(batch_args, progress_args, device="cuda", policy=None,
-                       request_lanes=None):
+                       request_lanes=None, scan_mesh=None):
     """Run one batch + max-progress selection on ``device`` and return its
     ``(host, device_result)``: the synchronous form of the split,
     ``collect_batch(dispatch_batch(...))``, whose docstrings give the
-    arguments (``policy`` too), the streams and what comes back. The O(G)
-    host vectors come back as one blob, through the pinned copy and the
-    event of the split; the [G,N] tensors stay on the device."""
+    arguments (``policy`` and ``scan_mesh`` too), the streams and what
+    comes back. The O(G) host vectors come back as one blob, through the
+    pinned copy and the event of the split; the [G,N] tensors stay on the
+    device."""
     return collect_batch(dispatch_batch(batch_args, progress_args, device, policy,
-                                        request_lanes))
+                                        request_lanes, scan_mesh))

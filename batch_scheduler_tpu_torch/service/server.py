@@ -22,7 +22,8 @@ tracing on (utils.trace) they also land in this process's span ring.
 shapes the sidecar serves, and ``warmth_snapshot`` / ``replicate_warmth``
 hand its shapes to a standby. Left out, each with the ROADMAP item it
 waits for: the profiler's memory telemetry (item 12; the port builds its
-kernels once and compiles nothing per shape) and the mesh (item 11).
+kernels once and compiles nothing per shape) and the mesh executor (item
+11b).
 
 Deadline enforcement: a DEADLINE annotation frame bounds the next request;
 request bodies run on a per-connection daemon worker so the handler can

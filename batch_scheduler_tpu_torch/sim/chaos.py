@@ -63,6 +63,21 @@ C2S_FAULT_KINDS = ("drop_c2s", "dup_c2s")
 _ALL_KINDS = FAULT_KINDS + C2S_FAULT_KINDS
 
 
+def _wake_and_close(s: socket.socket) -> None:
+    """Close ``s`` so that a thread blocked in ``recv`` on it returns: a
+    close from another thread does not wake it (Linux), a shutdown of the
+    read side does. Only the read side, which sends nothing: the peer sees
+    the close (a FIN, or an RST under SO_LINGER 0) as before."""
+    try:
+        s.shutdown(socket.SHUT_RD)
+    except OSError:
+        pass
+    try:
+        s.close()
+    except OSError:
+        pass
+
+
 class ChaosProxy:
     def __init__(
         self,
@@ -95,6 +110,9 @@ class ChaosProxy:
         self._accept_thread = threading.Thread(
             target=self._accept_loop, name="chaos-accept", daemon=True
         )
+        # every thread the proxy starts: stop() joins them all, so none is
+        # left blocked in a socket call when the interpreter exits
+        self._threads: list = [self._accept_thread]  # guarded-by: _lock
         self._accept_thread.start()
 
     @property
@@ -184,10 +202,7 @@ class ChaosProxy:
             )
         except OSError:
             pass
-        try:
-            s.close()
-        except OSError:
-            pass
+        _wake_and_close(s)
 
     def injected_counts(self) -> Dict[str, int]:
         """Snapshot of per-kind injection counters: the relay threads
@@ -232,28 +247,31 @@ class ChaosProxy:
             except OSError:
                 client.close()
                 continue
+            pumps = (
+                threading.Thread(
+                    target=(
+                        self._pump_frames_c2s if self._c2s_frames
+                        else self._pump_raw
+                    ),
+                    args=(client, upstream),
+                    name="chaos-c2s", daemon=True,
+                ),
+                threading.Thread(
+                    target=self._pump_frames, args=(upstream, client),
+                    name="chaos-s2c", daemon=True,
+                ),
+            )
             with self._lock:
                 self._socks += [client, upstream]
-            threading.Thread(
-                target=(
-                    self._pump_frames_c2s if self._c2s_frames
-                    else self._pump_raw
-                ),
-                args=(client, upstream),
-                name="chaos-c2s", daemon=True,
-            ).start()
-            threading.Thread(
-                target=self._pump_frames, args=(upstream, client),
-                name="chaos-s2c", daemon=True,
-            ).start()
+                self._threads = [t for t in self._threads if t.is_alive()]
+                self._threads += pumps
+            for t in pumps:
+                t.start()
 
     @staticmethod
     def _close_pair(a: socket.socket, b: socket.socket) -> None:
         for s in (a, b):
-            try:
-                s.close()
-            except OSError:
-                pass
+            _wake_and_close(s)
 
     def _read_exact(self, sock: socket.socket, n: int) -> Optional[bytes]:
         chunks = []
@@ -342,7 +360,7 @@ class ChaosProxy:
                 if fault is None:
                     dst.sendall(header + payload)
                 elif fault == "delay":
-                    time.sleep(self.delay_s)
+                    self._stop.wait(self.delay_s)
                     dst.sendall(header + payload)
                 elif fault == "reset":
                     # SO_LINGER 0: close sends RST, the client sees
@@ -374,12 +392,25 @@ class ChaosProxy:
         finally:
             self._close_pair(src, dst)
 
-    def stop(self) -> None:
+    def stop(self, timeout: float = 10.0) -> None:
+        """Close every socket (``_wake_and_close``) and join every thread
+        the proxy started: a relay thread left blocked would outlive the
+        proxy as a daemon thread, and one that wakes while the interpreter
+        finalizes aborts the process ("terminate called without an active
+        exception")."""
         self._stop.set()
-        with self._lock:
-            socks, self._socks = self._socks, []
-        for s in socks:
-            try:
-                s.close()
-            except OSError:
-                pass
+        me = threading.current_thread()
+        # rounds until nothing is left: a connection the accept loop was
+        # relaying when the stop began registers its sockets and threads
+        # after the first round took the lists
+        while True:
+            with self._lock:
+                socks, self._socks = self._socks, []
+                threads, self._threads = self._threads, []
+            if not socks and not threads:
+                return
+            for s in socks:
+                _wake_and_close(s)
+            for t in threads:
+                if t is not me:
+                    t.join(timeout)

@@ -10,8 +10,9 @@ Phases (one JSON line each; any failure makes the exit code non-zero):
 
 - build            nvcc csrc/assign_scan.cu (twice: the serial kernel, and
                    with -DBST_POLICY_SCAN its policy variant),
-                   csrc/assign_wave.cu and csrc/assign_topk.cu, one nvcc
-                   each, started together, into the gitignored build/
+                   csrc/assign_wave.cu, csrc/assign_topk.cu and
+                   csrc/shard_wave.cu, one nvcc each, started together,
+                   into the gitignored build/
 - north_star       bench.py's deployment — 5,000 nodes (64 cpu, 256Gi, 110
                    pods, 8 GPUs), 1,000 gangs x 10 pods (4 cpu, 8 GiB, 1 GPU)
                    -> [G=1024, N=8192, R=5], broadcast mask — through
@@ -89,7 +90,7 @@ Phases (one JSON line each; any failure makes the exit code non-zero):
 - audit_replay     north_star_churn's deployment and churn through a
                    ScheduleOperation's OracleScorer on cuda with an audit
                    log and the identity audit on every 2nd batch: a first
-                   refresh and 12 churn rounds into an ``array`` ring
+                   refresh and 6 churn rounds into an ``array`` ring
                    (keyframe every 16) and into a ``v2`` ring (keyframe
                    every 4, event_batch records between). Each ring is
                    flushed and read back: nothing dropped, failed or
@@ -179,7 +180,7 @@ Phases (one JSON line each; any failure makes the exit code non-zero):
                    (benchmarks/coalesce_gate.py's client count), each its
                    own seeded north-star ClusterState and TENANT
                    announcement, a RemoteScorer on wire deltas through a
-                   keyframe refresh and 8 Churn refreshes, all on their
+                   keyframe refresh and 4 Churn refreshes, all on their
                    own threads: time-sliced (one request in flight across
                    all eight) against a dedicated sidecar, then coalesced
                    against serve_background(device="cuda", coalesce=True)
@@ -375,11 +376,29 @@ The top-K rung (BST_SCAN_TOPK=K, the top-K kernel assign_topk):
                    kernel, the wave kernel at W=8 and the top-K kernel at
                    K=16 and K=128, every output bit-identical, the top-K
                    series equal to the plain top-K scan's on the card, all
-                   timed in turns; 3 xl_churn_burst re-runs at K=128, each
+                   timed in turns; 1 xl_churn_burst re-run at K=128,
                    held to the serial kernel; one full batch through
                    execute_batch_host, BST_SCAN_TOPK=128 against unset,
                    the host dicts equal (the unpacked tail), with the
                    device batch's split (head, scan, compaction).
+- sharded          the node-sharded scan on torch.distributed: shard_wave's
+                   summary and apply against their plain versions on every
+                   rank's block at S = 2 and 4 (the north star's uniform
+                   wave, mixed's per-group wave and one replayed gang), with
+                   one rank's step timed; then meshes of 1 NCCL rank and of
+                   2 and 4 gloo ranks sharing the card (--mesh-child, one
+                   process a rank, tensors on cuda:0): sharded_schedule_batch
+                   on the sharded (W=8) and the replicated rung equal, on
+                   rank 0, to the single-device serial batch on every
+                   output key (the other ranks get None) at the north star
+                   and at N = 5003 on mixed's per-group input (seed 11)
+                   and, on 1 and 2 ranks, on mixed in both mask modes; the
+                   scan's collectives (at most 2 a wave, none larger than
+                   the [S, W, 128] summary); each rung's batch timed;
+                   rank 0's OracleScorer(scan_mesh=...) through a keyframe
+                   and 8 churn refreshes while the others follow, each
+                   plan equal to a single-device scorer's, its batches
+                   launching shard_wave and no other kernel.
 
 The scheduler loop (framework/, plugin/, controller/, client/, sim/):
 
@@ -427,11 +446,12 @@ The scheduler loop (framework/, plugin/, controller/, client/, sim/):
                    scheduler's own _policy_preempt / _evict_gang_plan, a
                    spot gang respawned); each scenario's kernel once a
                    batch (the policy kernel for the last).
-- http_e2e         config 6 (framework_e2e's deployment and settings) run
+- http_e2e         a quarter of config 6 (framework_e2e's settings, 1,250
+                   nodes and 250 gangs of 10: bucket [256, 2048]) run
                    as SimCluster(api=HTTPAPIServer(host, port, qps=0),
                    device="cuda") against serve_gateway(APIServer()) over
                    loopback sockets: nodes and gangs created through the
-                   scheduler's client, the 10,000 pods by a load generator
+                   scheduler's client, the 2,500 pods by a load generator
                    with its own client; once a third of the pods are bound
                    in the backing store the gateway is shut down and
                    restarted on the same port after 0.5 s
@@ -439,7 +459,10 @@ The scheduler loop (framework/, plugin/, controller/, client/, sim/):
                    pod is bound in the backing store, every gang Running
                    there, no gang part-bound before its release at any
                    sample of the store, no node over-committed (judged
-                   from the store), the serial kernel once a batch and
+                   from the store), the scheduler's binds and the binds it
+                   found applied after their answer was lost (the restart)
+                   adding up to the pods exactly (F5), the serial kernel
+                   once a batch and
                    nothing in flight after stop. Reported: the wall clock
                    from the first pod to the last bind in the store, pods a
                    second, batches, the restart's binds_before and
@@ -463,8 +486,8 @@ The scheduler loop (framework/, plugin/, controller/, client/, sim/):
                    server's launches against the client's fallback
                    batches (the card must have served batches).
 - warmer           the bucket warmer in fresh child processes
-                   (chip_smoke.py --warmer-child MODE): two with it off and
-                   two with it on, alternating, each an OracleScorer at the
+                   (chip_smoke.py --warmer-child MODE): one with it off and
+                   one with it on, each an OracleScorer at the
                    north star [1024, 8192] and then the cluster grown to
                    8,200 nodes (N bucket 16384): the first and a second
                    batch there; then a sidecar started as `serve --warmup
@@ -714,7 +737,8 @@ def counters():
         assign_gangs_wave_cuda)
 
     return {"assign_scan": assign_gangs_cuda, "assign_wave": assign_gangs_wave_cuda,
-            "assign_policy": assign_gangs_policy_cuda, "assign_topk": assign_gangs_topk_cuda}
+            "assign_policy": assign_gangs_policy_cuda, "assign_topk": assign_gangs_topk_cuda,
+            "shard_wave": ShardCounter()}
 
 
 def only(**launches):
@@ -864,7 +888,7 @@ WAVE_TELEMETRY = ("wave_width", "waves_per_batch", "wave_demotions", "wave_unifo
 
 # -- phases -------------------------------------------------------------------
 
-KERNELS = ("assign_scan", "assign_wave", "assign_policy", "assign_topk")
+KERNELS = ("assign_scan", "assign_wave", "assign_policy", "assign_topk", "shard_wave")
 
 
 @phase("build")
@@ -2546,7 +2570,7 @@ def lockcheck_phase(results):
 # audit ring in each format (format, keyframe_every), AUDIT_ROUNDS churn
 # rounds after the first refresh, the identity audit on every 2nd batch
 AUDIT_RINGS = (("array", 16), ("v2", 4))
-AUDIT_ROUNDS = 12
+AUDIT_ROUNDS = 6  # cut from 12 for the smoke's time limit
 AUDIT_IDENTITY_EVERY = 2
 AUDIT_CPU_REPLAYS = 3  # cpu-ladder replays: the last records of each ring
 # report-only: pairs of refreshes, audit off / on (cut from 12 for the
@@ -3331,7 +3355,7 @@ def sidecar_wave(results):
 # -- the multi-tenant sidecar: the coalescer and the capacity observatory -----
 
 COALESCE_TENANTS = 8  # benchmarks/coalesce_gate.py:65 CLIENTS
-COALESCE_ROUNDS = 8  # churn refreshes after each tenant's keyframe
+COALESCE_ROUNDS = 4  # churn refreshes after each tenant's keyframe (cut from 8)
 COALESCE_SEED_PODS = 64  # seeded 2-cpu pods that make each tenant's cluster its own
 MEGA_SHAPE = (50, 100, 10)  # BASELINE config 2: nodes, gangs, members
 MEGA_ROUNDS = 4
@@ -5869,7 +5893,7 @@ XL_ACCEPT = (2048, 65536)  # benchmarks/xl_scaling.py:250, the acceptance bucket
 TOPK_WAVE = 8  # the rung's width with BST_SCAN_WAVE unset
 XL_K = (16, 128)
 XL_REPS = 3
-XL_CHURN_STEPS = 3
+XL_CHURN_STEPS = 1  # cut from 3 for the smoke's time limit
 TOPK_K = 16  # north_star_topk's BST_SCAN_TOPK (the reference's replay rung)
 TOPK_ROUNDS = 8  # churn refreshes after the keyframe
 TOPK_SERIAL_ROUNDS = 2  # churn refreshes of the serial-recorded ring
@@ -7881,6 +7905,9 @@ def cli_main(results):
 HTTP_E2E_RESTART_AT = 1 / 3  # tests/test_fuzz_e2e.py:572: a third of the binds landed
 HTTP_E2E_OUTAGE_S = 0.5  # benchmarks/http_e2e.py:133: the gateway dark this long
 HTTP_E2E_TIMEOUT = 300.0
+# a quarter of config 6 (the cut the CLI phases take): 1,250 nodes, 250
+# gangs of 10, bucket [256, 2048]
+HTTP_E2E_SHAPE = (CLI_QUARTER_NODES, CLI_QUARTER_GANGS, FRAMEWORK_SHAPE[2])
 
 
 def store_bound_count(backing):
@@ -8056,7 +8083,14 @@ def drive_http_e2e(shape):
                     for pg in backing.list("PodGroup")), timeout=120.0, interval=0.2):
                 raise AssertionError("not every gang reached Running in the store")
             over = store_overcommit(backing, nodes)
-            stats = dict(cluster.scheduler.stats)
+            sched = cluster.scheduler
+
+            def accounted_for():
+                return sched.stats["binds"] + sched.binds_found_applied
+
+            cluster.wait_for(lambda: accounted_for() >= total, timeout=60.0, interval=0.2)
+            stats, found_applied = dict(sched.stats), sched.binds_found_applied
+            accounted = stats["binds"] + found_applied
         finally:
             cluster.stop()
             api.close()
@@ -8075,6 +8109,13 @@ def drive_http_e2e(shape):
         raise AssertionError("the final sample is not every gang whole")
     if sampler.partial:
         raise AssertionError(f"gangs partly bound before their release: {sampler.partial[:5]}")
+    # F5: every pod is bound and counted once: by a bind path, or, where
+    # the restart cut the answer of a bind that applied, as found applied
+    # by the read of a later pop of the pod (its backoff may end after the
+    # store shows every pod bound)
+    if accounted != total:
+        raise AssertionError(f"the scheduler counted {stats['binds']} binds and "
+                             f"{found_applied} binds found applied for {total} pods")
     report = {
         "nodes": num_nodes, "gangs": num_groups, "pods": total,
         "wall_clock_s": elapsed, "pods_per_sec": total / max(elapsed, 1e-9),
@@ -8082,6 +8123,7 @@ def drive_http_e2e(shape):
         "gateway_restart": restart, "creates_resent": creator.resent,
         "creator_threads": 1,
         "binds_counted_by_scheduler": stats["binds"], "bound_in_store": total,
+        "binds_found_applied": found_applied,
         "unschedulable_retries": stats["unschedulable"],
         "permit_rejects": stats["permit_rejects"],
         "bound_samples": sampler.samples, "mid_bind_gangs_seen": sampler.mid_bind,
@@ -8095,7 +8137,7 @@ def drive_http_e2e(shape):
 @phase("http_e2e")
 def http_e2e(results):
     """Config 6 over the HTTP gateway, serial kernel, with a gateway restart."""
-    launches, report = drive_http_e2e(FRAMEWORK_SHAPE)
+    launches, report = drive_http_e2e(HTTP_E2E_SHAPE)
     note_path(results, "assign_scan", "http_e2e", launches["assign_scan"])
     return report
 
@@ -8490,13 +8532,13 @@ def warmer_run(mode):
 @phase("warmer")
 def warmer(results):
     """The bucket warmer in fresh processes (see the module docstring):
-    two with it off and two with it on, alternating, each at the north
+    one with it off and one with it on, each at the north
     star and then grown past one N bucket; then a primary sidecar's warmth
     replicated to a standby's. Passes on equal plans and on the counters;
     the times are reported."""
     import tempfile
 
-    runs = [warmer_run(mode) for mode in ("off", "on", "off", "on")]
+    runs = [warmer_run(mode) for mode in ("off", "on")]
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "warmth.pkl")
         primary = warmer_run(f"primary:{path}")
@@ -8549,6 +8591,423 @@ def warmer(results):
     }
 
 
+# -- the node-sharded scan on torch.distributed ------------------------------
+
+SHARD_RANKS = (1, 2, 4)  # 1: one NCCL rank; 2 and 4: gloo ranks sharing the card
+SHARD_WAVE = 8
+# mixed's inputs cut to an N that 2 and 4 ranks split unevenly (the
+# padded rows of the last block never win a member)
+SHARD_UNEVEN_N = 5003
+# what each mesh runs: the inputs of shard_inputs it checks (None: all),
+# its timed batches a rung, and the scorer's churn refreshes after the
+# keyframe (north_star_churn's Churn). Four ranks sharing one card pay ~8
+# ms a collective (2 ms on two): there the north star and the uneven
+# per-group mixed input (125 of its 128 waves replay), one timed batch
+SHARD_PLAN = {1: (None, 3, 8), 2: (None, 2, 8),
+              4: (("north_star", f"mixed_per_group_n{SHARD_UNEVEN_N}"), 1, 8)}
+SHARD_REPS, SHARD_PLAIN_REPS = 50, 5
+SHARD_CHILD_TIMEOUT = 300.0
+
+
+class ShardCounter:
+    """``shard_wave``'s launch count: its two wrappers' counts summed
+    (setting it sets the summary's and zeroes the apply's)."""
+
+    def __init__(self):
+        from batch_scheduler_tpu_torch.ops.assign_scan import shard_apply_cuda, shard_summary_cuda
+
+        self.summary, self.apply = shard_summary_cuda, shard_apply_cuda
+
+    @property
+    def launches(self):
+        return self.summary.launches + self.apply.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.summary.launches, self.apply.launches = value, 0
+
+
+def shard_north_star_args():
+    """The north star's packed batch (bench.py's deployment, [1024, 8192, 5])."""
+    from batch_scheduler_tpu_torch.core.oracle_scorer import read_cluster_inputs
+    from batch_scheduler_tpu_torch.ops.snapshot import ClusterSnapshot
+
+    static, cache = north_star_cluster()
+    snap = ClusterSnapshot(*read_cluster_inputs(static, cache))
+    return snap.device_args(), snap.progress_args()
+
+
+def shard_inputs():
+    """(label, packed batch args) of every sharded check: the north star,
+    mixed's inputs (seed 11) in both mask modes, and the per-group one cut
+    to SHARD_UNEVEN_N nodes."""
+    ns, _ = shard_north_star_args()
+    n, g, seed = MIXED
+    bcast, _ = mixed_batch(n, g, seed, per_group=False)
+    per_group, _ = mixed_batch(n, g, seed, per_group=True)
+    k = SHARD_UNEVEN_N
+    uneven = (per_group[0][:k], per_group[1][:k], *per_group[2:4], per_group[4][:, :k],
+              *per_group[5:])
+    return [("north_star", ns), ("mixed_broadcast", bcast), ("mixed_per_group", per_group),
+            (f"mixed_per_group_n{k}", uneven)]
+
+
+def shard_wave_blocks(scan_args, s, st, w):
+    """Every rank's inputs of wave ``st`` (W = ``w`` gangs of the scan
+    order) as ``assign_gangs_sharded`` builds them: the rank's zero-padded
+    leftover block and mask rows, with the wave's request rows and needs."""
+    import torch
+
+    left, gr, rem, fm, order = scan_args
+    n, r = left.shape
+    rows = order.long()[st * w:(st + 1) * w]
+    nl = -(-n // s)
+    blocks = []
+    for rank in range(s):
+        lo, hi = min(rank * nl, n), min(rank * nl + nl, n)
+        left_l = left.new_zeros((nl, r))
+        left_l[:hi - lo] = left[lo:hi]
+        src = fm[rows] if fm.shape[0] != 1 else fm
+        mask_l = torch.zeros((src.shape[0], nl), dtype=torch.bool, device=left.device)
+        mask_l[:, :hi - lo] = src[:, lo:hi]
+        blocks.append((left_l, mask_l))
+    return blocks, gr[rows].contiguous(), rem[rows].contiguous()
+
+
+def shard_wave_pair(summary, apply, mode, blocks, req_c, need_c, rank, merged=None):
+    """One wave's summary on every rank's block (merged by a sum, as the
+    all-reduce does; or only ``rank``'s, beside a given ``merged``) and
+    ``rank``'s apply: every output of both steps."""
+    import torch
+
+    from batch_scheduler_tpu_torch.ops.oracle import SHARD_REPLAY, SHARD_SPECULATIVE
+
+    s = len(blocks)
+    w = need_c.shape[0]
+    k = w if mode == SHARD_SPECULATIVE else 1
+    clip = need_c if k == w else need_c.sum(dtype=torch.int32).view(1)
+    hists, caps = [], []
+    for r, (left_l, mask_l) in enumerate(blocks):
+        if merged is not None and r != rank:
+            continue
+        h = torch.empty((s, k, 128), dtype=torch.int32, device=left_l.device)
+        caps.append(summary(left_l, req_c[:k], clip, mask_l[:k], h, r))
+        hists.append(h)
+    if merged is None:
+        merged = torch.stack(hists).sum(0, dtype=torch.int32)
+    cap = caps[rank if len(caps) == s else 0]
+    left_l, mask_l = blocks[rank]
+    nl, dev = left_l.shape[0], left_l.device
+    takes = torch.full((w, nl), -7, dtype=torch.int32, device=dev)
+    feas = torch.zeros(w, dtype=torch.bool, device=dev)
+    left_out = torch.full_like(left_l, -7)
+    verify = (None if mode == SHARD_REPLAY else
+              torch.full((w if k == 1 else 1,), -7, dtype=torch.int32, device=dev))
+    taken = torch.empty((w + 1, nl), dtype=torch.int32, device=dev)
+    apply(mode, merged, rank, cap, need_c, left_l, req_c, mask_l, takes, feas, left_out,
+          verify, taken)
+    outs = [*caps, *hists, merged, takes, feas.to(torch.int32), left_out]
+    return outs + ([verify] if verify is not None else [])
+
+
+def shard_wave_checks():
+    """``shard_wave``'s two entry points against their plain versions on
+    the card, bit for bit, on every rank's block at S = 2 and 4: the north
+    star's first wave (uniform: the mega mode), mixed's first per-group
+    wave (the speculative mode) and one gang of it (the replay mode). The
+    time of one rank's step (its summary and its apply, rank 0's block)
+    for the kernels and for the plain versions, and the bound of that step
+    (``ops.bounds.shard_work`` of one wave). The comparisons' launches are
+    restored."""
+    from batch_scheduler_tpu_torch.ops import oracle
+    from batch_scheduler_tpu_torch.ops.assign_scan import shard_apply_cuda, shard_summary_cuda
+    from batch_scheduler_tpu_torch.ops.bounds import bound, shard_work
+
+    def plain_apply(*a):
+        return oracle.shard_wave_apply(*a[:-1])
+
+    saved = read_counts()
+    ns, _ = shard_north_star_args()
+    per_group, _ = mixed_batch(*MIXED[:2], MIXED[2], per_group=True)
+    cases = [("mega", oracle.SHARD_MEGA, scan_inputs(ns), SHARD_WAVE),
+             ("speculative", oracle.SHARD_SPECULATIVE, scan_inputs(per_group), SHARD_WAVE),
+             ("replay", oracle.SHARD_REPLAY, scan_inputs(per_group), 1)]
+    out, err = {}, 0
+    for label, mode, scan_args, w in cases:
+        for s in (2, 4):
+            blocks, req_c, need_c = shard_wave_blocks(scan_args, s, 0, w)
+            merged = None
+            for rank in range(s):
+                got = shard_wave_pair(shard_summary_cuda, shard_apply_cuda, mode, blocks, req_c,
+                                      need_c, rank)
+                want = shard_wave_pair(oracle.shard_wave_summary, plain_apply, mode, blocks,
+                                       req_c, need_c, rank)
+                e, equal = max_err(got, want)
+                err = max(err, e)
+                if not equal:
+                    raise AssertionError(f"shard_wave {label} S={s} rank {rank}: kernel differs "
+                                         f"from plain (max abs err {e})")
+                merged = want[2 * s]
+            step = (mode, blocks, req_c, need_c, 0, merged)
+            ms = cuda_ms(lambda: shard_wave_pair(shard_summary_cuda, shard_apply_cuda, *step),
+                         SHARD_REPS)
+            plain_ms = cuda_ms(lambda: shard_wave_pair(oracle.shard_wave_summary, plain_apply,
+                                                       *step), SHARD_PLAIN_REPS)
+            nl, r = blocks[0][0].shape
+            lanes = int((req_c > 0).sum().item())
+            nbytes, ops = shard_work(nl, r, w, s, w, lanes, blocks[0][1].shape[0], 0,
+                                     int(mode == oracle.SHARD_MEGA))
+            bound_ms, bound_by = bound(nbytes, ops)
+            out[f"{label}_s{s}"] = {"nodes_a_rank": nl, "wave": w, "ms": ms, "plain_ms": plain_ms,
+                                    "bound_ms": bound_ms, "bound_by": bound_by,
+                                    "bytes": nbytes, "int_ops": ops}
+    restore_counts(saved)
+    return out, err
+
+
+def shard_diff(got, want):
+    """The keys of ``want`` (a schedule_batch dict) whose tensors differ."""
+    import torch
+
+    return [k for k, v in want.items() if not torch.equal(got[k].cpu(), v.cpu())]
+
+
+def mesh_child(s, rank, port, backend, out_path) -> int:
+    """One rank of the sharded phase (``--mesh-child``): the group on
+    ``backend`` with this rank's tensors on cuda:0. Every rank runs the
+    SPMD checks (``sharded_schedule_batch`` on both rungs against the
+    single-device serial kernel on rank 0, which gets the whole output, on
+    SHARD_PLAN's inputs of shard_inputs; the scan's collective budget; the
+    timed batches), then rank 0 leads an
+    ``OracleScorer(scan_mesh=...)`` through a keyframe and SHARD_PLAN's
+    churn refreshes while the other ranks follow. Rank 0 writes the report
+    to ``out_path``."""
+    import torch
+    import torch.distributed as dist
+
+    os.environ.update(BST_COORDINATOR=f"127.0.0.1:{port}", BST_NUM_PROCESSES=str(s),
+                      BST_PROCESS_ID=str(rank))
+    from batch_scheduler_tpu_torch.ops.convert import args_from_numpy
+    from batch_scheduler_tpu_torch.ops.oracle import schedule_batch
+    from batch_scheduler_tpu_torch.parallel import (
+        follow, init_distributed, make_mesh, sharded_scan_collective_counts,
+        sharded_schedule_batch)
+
+    if not init_distributed(backend=backend, device="cuda"):
+        raise AssertionError("BST_COORDINATOR not picked up")
+    mesh = make_mesh("cuda")
+    torch.zeros(1, device="cuda")  # the context, while the earlier meshes run
+    # every mesh's ranks start together; each mesh runs when its go file
+    # appears (run_meshes), so the meshes' times do not overlap
+    go = out_path + ".go"
+    deadline = time.monotonic() + SHARD_CHILD_TIMEOUT
+    while not os.path.exists(go):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"no go file {go}")
+        time.sleep(0.05)
+    steps, t_step = {}, time.perf_counter()
+
+    def step(name):
+        nonlocal t_step
+        now = time.perf_counter()
+        steps[name] = now - t_step
+        t_step = now
+
+    report = {"size": mesh.size, "rank": mesh.rank, "backend": backend, "shape": mesh.shape,
+              "checks": {}, "step_s": steps}
+    inputs, timed, refreshes = SHARD_PLAN[s]
+    zero_counts()
+    for label, args in shard_inputs():
+        if inputs is not None and label not in inputs:
+            continue
+        if mesh.rank == 0:
+            saved = read_counts()
+            want = schedule_batch(*args_from_numpy(args, "cuda"))
+            restore_counts(saved)
+        for rung, sharded in (("sharded", True), ("replicated", False)):
+            got = sharded_schedule_batch(mesh, args, replicated_scan=not sharded,
+                                         sharded_scan=sharded,
+                                         scan_wave=SHARD_WAVE if sharded else 0)
+            if mesh.rank != 0:
+                if got is not None:
+                    raise AssertionError(f"rank {mesh.rank} got an output")
+                continue
+            diff = shard_diff(got, want)
+            if diff:
+                raise AssertionError(f"{label} {rung} S={s}: differs from the single-device "
+                                     f"batch in {diff}")
+            entry = {"keys_equal": len(want)}
+            if sharded:
+                entry.update(waves=int(got["wave_conflicts"].numel()),
+                             replayed=int(got["wave_conflicts"].sum().item()),
+                             uniform=int(got["wave_megas"].sum().item()))
+            report["checks"][f"{label}/{rung}"] = entry
+    spmd = read_counts()
+    step("checks")
+    ns, _ = shard_north_star_args()
+    budget = sharded_scan_collective_counts(mesh, ns, wave=SHARD_WAVE)
+    if budget["max_collective_bytes"] > budget["summary_bytes"]:
+        raise AssertionError(f"a collective larger than the summary: {budget}")
+    if budget["fastpath_collectives_per_wave"] > 2:
+        raise AssertionError(f"more than 2 collectives a wave: {budget}")
+    report["collective_budget"] = budget
+    step("budget")
+    times = {}
+    for rung, sharded in (("sharded", True), ("replicated", False)):
+        ev, wall = [], []
+        for _ in range(timed):
+            dist.barrier()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            sharded_schedule_batch(mesh, ns, replicated_scan=not sharded,
+                                   sharded_scan=sharded, scan_wave=SHARD_WAVE if sharded else 0)
+            end.record()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            ev.append(start.elapsed_time(end))
+        times[rung] = {"cuda_event_ms": ev, "wall_ms": wall,
+                       "cuda_event_ms_median": statistics.median(ev),
+                       "wall_ms_median": statistics.median(wall)}
+    report["batch_times"] = times
+    report["spmd_launches"] = spmd
+    step("timed")
+    session = make_mesh("cuda")
+    if mesh.rank != 0:
+        report["followed"] = follow(session)
+    else:
+        report["scorer"] = mesh_leader(session, refreshes)
+        step("scorer")
+        report["collectives_by_site"] = session.collective_counts()
+        with open(out_path + ".tmp", "w") as f:
+            json.dump(report, f)
+        os.replace(out_path + ".tmp", out_path)
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_leader(mesh, refreshes):
+    """Rank 0's scorer run: ``OracleScorer(scan_mesh=mesh)`` beside a
+    single-device ``OracleScorer(device="cuda")`` on one ClusterState (the
+    north star) through a keyframe and ``refreshes`` rounds of
+    north_star_churn's churn; after each refresh the two host dicts must be
+    equal. The mesh scorer's launches are the main path's: counted from 0
+    just before, read just after (the single-device scorer's restored)."""
+    import numpy as np
+    import torch
+
+    from batch_scheduler_tpu_torch.core import OracleScorer
+
+    cluster, cache = north_star_state()
+    leader = OracleScorer(scan_mesh=mesh)
+    single = OracleScorer(device="cuda")
+
+    def mark(name):
+        leader.mark_dirty(group=name)
+        single.mark_dirty(group=name)
+
+    churn = Churn(cluster, cache, mark, refreshes)
+    zero_counts()
+    refresh_ms, outcomes = [], []
+    try:
+        for r in range(1 + refreshes):
+            if r:
+                churn(r - 1)
+            t0 = time.perf_counter()
+            leader.refresh(cluster, cache)
+            torch.cuda.synchronize()
+            refresh_ms.append((time.perf_counter() - t0) * 1e3)
+            saved = read_counts()
+            single.refresh(cluster, cache)
+            restore_counts(saved)
+            got, want = leader._state.result, single._state.result
+            diff = [k for k in HOST_KEYS if not np.array_equal(got[k], want[k])]
+            if diff:
+                raise AssertionError(f"refresh {r}: the mesh scorer differs from the "
+                                     f"single-device one in {diff}")
+            outcomes.append(leader.last_fold_outcome)
+        launches = read_counts()
+        telemetry = dict(leader.last_telemetry)
+    finally:
+        leader.close()
+        single.drain_background()
+    if not telemetry.get("scan_sharded") or telemetry.get("shard_count") != mesh.size:
+        raise AssertionError(f"the mesh scorer's batch was not sharded: {telemetry}")
+    if launches != only(shard_wave=launches["shard_wave"]) or not launches["shard_wave"]:
+        raise AssertionError(f"mesh scorer launches {launches} (want shard_wave alone)")
+    return {"refreshes": 1 + refreshes, "launches": launches,
+            "refresh_ms": refresh_ms, "refresh_ms_median": statistics.median(refresh_ms[1:]),
+            "fold_outcomes": outcomes, "telemetry": telemetry,
+            "plans_equal_single_device": True, "followers_stopped": mesh.stopped}
+
+
+def run_meshes(sizes):
+    """Start the ranks of every mesh in ``sizes`` at once (``--mesh-child``:
+    their imports, rendezvous and CUDA contexts overlap), then let each mesh
+    run in turn (its go file), waiting for all of its ranks (killing every
+    rank past SHARD_CHILD_TIMEOUT). Returns ``{size: rank 0's report}``."""
+    import socket
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        procs, outs = {}, {}
+        try:
+            for s in sizes:
+                with socket.socket() as sock:
+                    sock.bind(("127.0.0.1", 0))
+                    port = sock.getsockname()[1]
+                outs[s] = os.path.join(tmp, f"s{s}.json")
+                backend = "nccl" if s == 1 else "gloo"
+                procs[s] = [subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--mesh-child", str(s), str(r),
+                     str(port), backend, outs[s]],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                    for r in range(s)]
+            reports = {}
+            for s in sizes:
+                open(outs[s] + ".go", "w").close()
+                deadline = time.monotonic() + SHARD_CHILD_TIMEOUT
+                logs = [p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0]
+                        for p in procs[s]]
+                rcs = [p.returncode for p in procs[s]]
+                if any(rcs) or not os.path.exists(outs[s]):
+                    raise AssertionError(f"S={s} ranks exited {rcs}: " +
+                                         " | ".join(log[-1500:] for log in logs))
+                with open(outs[s]) as f:
+                    reports[s] = json.load(f)
+            return reports
+        finally:
+            for ps in procs.values():
+                for p in ps:
+                    if p.poll() is None:
+                        p.kill()
+                        p.communicate()
+
+
+@phase("sharded")
+def sharded(results):
+    """The node-sharded scan on torch.distributed: shard_wave against its
+    plain version, then each mesh of SHARD_RANKS in its own processes."""
+    checks, err = shard_wave_checks()
+    meshes = {f"s{s}": r for s, r in run_meshes(SHARD_RANKS).items()}
+    scorer_launches = {k: m["scorer"]["launches"]["shard_wave"] for k, m in meshes.items()}
+    spmd_launches = {k: m["spmd_launches"]["shard_wave"] for k, m in meshes.items()}
+    main = checks["mega_s2"]
+    results["shard_wave"] = {
+        "launches": scorer_launches["s2"],
+        "launches_by_path": {**{f"sharded_scorer_{k}": v for k, v in scorer_launches.items()},
+                             **{f"sharded_spmd_{k}": v for k, v in spmd_launches.items()}},
+        "max_abs_err": err, "matched": True, "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "timed": "one rank's step of a uniform wave (its summary and apply), rank 0's "
+                 "block of the north star at S=2",
+    }
+    return {"wave": SHARD_WAVE, "shard_wave": checks, "max_abs_err": err,
+            "meshes": meshes,
+            "note": "ranks sharing one card: the collectives cross no interconnect"}
+
+
 def note_path(results, kernel, path, n):
     """A path's launches of ``kernel`` into the kernels line (kept for the
     end when the kernel's first phase has not reported)."""
@@ -8574,6 +9033,9 @@ def main() -> int:
         return lockcheck_child()
     if sys.argv[1:2] == ["--warmer-child"] and len(sys.argv) == 3:
         return warmer_child(sys.argv[2])
+    if sys.argv[1:2] == ["--mesh-child"] and len(sys.argv) == 7:
+        s, rank, port = (int(x) for x in sys.argv[2:5])
+        return mesh_child(s, rank, port, sys.argv[5], sys.argv[6])
     try:
         import torch
     except ImportError:
@@ -8624,6 +9086,7 @@ def main() -> int:
     explain_whatif_wave(results)
     north_star_topk(results)
     xl_topk(results)
+    sharded(results)
     framework_e2e(results)
     framework_e2e_wave(results)
     http_e2e(results)
@@ -8651,6 +9114,10 @@ def main() -> int:
         # assign_gangs_topk
         "assign_topk": ("batch_scheduler_tpu_torch/csrc/assign_topk.cu",
                         "batch_scheduler_tpu/ops/oracle.py:1156"),
+        # one wave of the node-sharded scan on a rank's node block; its
+        # reference is the lax body of assign_gangs_sharded's shard_map
+        "shard_wave": ("batch_scheduler_tpu_torch/csrc/shard_wave.cu",
+                       "batch_scheduler_tpu/ops/oracle.py:802"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": sources[name][0],

@@ -619,6 +619,49 @@ def test_kept_assume_released_only_on_a_fresh_read(store, monkeypatch):
         else:
             assert forgets == [] and c.cluster.is_assumed(pod.metadata.uid)
         assert (pod.metadata.uid in sched._kept_assumes) == (store == "unreachable")
+        # the lost bind that applied is counted once, as found applied
+        assert sched.binds_found_applied == (store == "bound")
+    finally:
+        c.stop()
+
+
+@pytest.mark.parametrize("view", ["informer", "read"])
+def test_a_lost_bind_found_applied_is_counted_once(view, monkeypatch):
+    """A kept assume whose pod the liveness check already sees bound (the
+    informer's copy, or a read without an informer) is a bind whose answer
+    was lost and that applied: counted once in ``binds_found_applied``,
+    never in ``stats["binds"]``, and a second queue entry of the pod (a
+    relist's) counts nothing. So binds plus binds found applied is every
+    pod bound, each once (config 6 over the HTTP gateway on the card)."""
+    from batch_scheduler_tpu_torch.api.types import to_dict
+    from batch_scheduler_tpu_torch.framework.types import PodInfo
+    from batch_scheduler_tpu_torch.sim import SimCluster
+    from batch_scheduler_tpu_torch.sim.scenarios import make_member_pods, make_sim_node
+
+    c = SimCluster(scorer="oracle", device="cpu")
+    try:
+        node = make_sim_node("n0", {"cpu": "1", "memory": "4Gi", "pods": "110"})
+        c.add_nodes([node])
+        c.cluster.add_node(node)
+        pod = make_member_pods("x", 1, {"cpu": "1"})[0]
+        pod.metadata.labels = {}
+        c.create_pods([pod])
+        pod.metadata.uid = c.api.get("Pod", "default", pod.metadata.name)["metadata"]["uid"]
+        sched = c.scheduler
+        c.cluster.assume(pod, "n0")
+        sched._kept_assumes.add(pod.metadata.uid)
+        c.api.bind_pods("default", [(pod.metadata.name, "n0")])
+        bound_doc = to_dict(pod)
+        bound_doc["spec"]["node_name"] = "n0"
+        if view == "informer":
+            monkeypatch.setattr(sched._pod_informer, "peek_raw", lambda ns, name: bound_doc)
+        else:
+            monkeypatch.setattr(sched, "_pod_informer", None)
+        binds = sched.stats["binds"]
+        for _ in range(2):
+            sched._schedule_one(PodInfo(pod=pod))
+        assert sched.binds_found_applied == 1 and sched.stats["binds"] == binds
+        assert c.cluster.is_assumed(pod.metadata.uid)
     finally:
         c.stop()
 
@@ -627,7 +670,7 @@ def test_a_severed_per_pod_bind_cannot_land_after_the_read(monkeypatch):
     """The per-pod bind (the bind worker's) carries the gateway
     generation's bind epoch: a request of an old generation whose handler
     thread outlives a restart and reaches the store only after the new
-    generation served the scheduler's read (``_unbound_in_store`` saw the
+    generation served the scheduler's read (``_store_state`` saw the
     pod unbound, so the assume may be forgotten) applies nothing. Sent as a
     per-pod PATCH of ``spec.node_name``, which no epoch fences, the late
     bind landed on a node the scheduler had already freed."""
@@ -677,7 +720,7 @@ def test_a_severed_per_pod_bind_cannot_land_after_the_read(monkeypatch):
         new = serve_gateway(backing)
         reader = HTTPAPIServer(*new.server_address[:2], qps=0)
         assert not reader.get("Pod", "default", pod.metadata.name)["spec"].get("node_name")
-        assert c.scheduler._unbound_in_store(PodInfo(pod=pod)) is True
+        assert c.scheduler._store_state(PodInfo(pod=pod)) == "unbound"
         release.set()
         worker.join(30)
         assert outcome == [None]
@@ -730,5 +773,58 @@ def test_duplicate_entry_of_a_placed_pod_is_dropped(owner, monkeypatch):
         assert calls == []
         assert c.cluster.pod_count("n0") == 1 and c.cluster.pod_count("n1") == 0
         assert c.cluster.is_assumed(pod.metadata.uid) == (owner == "permit")
+    finally:
+        c.stop()
+
+
+def test_every_pod_queued_twice_binds_once():
+    """F5: after an informer relist most queued pods have a second queue
+    entry. The gang transaction counted its quorum over entries and took
+    the popped pod's own second entry for a sibling, so the pod was seated
+    twice, sent twice in one ``pods:bindmany`` and counted as two members
+    (config 6 over the HTTP gateway counted 10,001 and 10,097 binds for
+    10,000 pods). With every pod queued twice from the start, each pod is
+    bound once, counted once, and no node holds more than it has. Exact
+    counts, no tolerance."""
+    import time
+
+    from batch_scheduler_tpu_torch.framework.types import PodInfo
+    from batch_scheduler_tpu_torch.sim import SimCluster
+    from batch_scheduler_tpu_torch.sim.scenarios import (
+        make_member_pods, make_sim_group, make_sim_node)
+
+    gangs, members = 6, 4
+    c = SimCluster(scorer="oracle", device="cpu")
+    queue = c.scheduler.queue
+    push, doubled = queue.push, set()
+
+    def push_twice(info):
+        push(info)
+        if info.uid not in doubled:
+            doubled.add(info.uid)
+            push(PodInfo(pod=info.pod))
+
+    queue.push = push_twice
+    try:
+        c.add_nodes([make_sim_node(f"n{i}", {"cpu": "8", "memory": "32Gi", "pods": "110"})
+                     for i in range(4)])
+        now = time.time()
+        for g in range(gangs):
+            c.create_group(make_sim_group(f"dup{g}", members, creation_ts=now - 1 + g * 1e-3))
+        for g in range(gangs):
+            c.create_pods(make_member_pods(f"dup{g}", members, {"cpu": "1"}))
+        c.start()  # the informers' sync queues every pod, twice
+        for g in range(gangs):
+            assert c.wait_for_bound(f"dup{g}", members, timeout=30.0), g
+        time.sleep(0.3)  # a second bind of any pod would land by now
+        pods = [d for d in c.api.list("Pod") if (d.get("spec") or {}).get("node_name")]
+        assert len(pods) == gangs * members
+        assert len(doubled) == gangs * members
+        assert c.scheduler.stats["binds"] == gangs * members
+        per_node = {}
+        for d in pods:
+            per_node[d["spec"]["node_name"]] = per_node.get(d["spec"]["node_name"], 0) + 1
+        assert max(per_node.values()) <= 8
+        assert sum(c.cluster.pod_count(f"n{i}") for i in range(4)) == gangs * members
     finally:
         c.stop()

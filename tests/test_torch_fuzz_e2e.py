@@ -258,6 +258,16 @@ def test_fuzz_combo_selector_churn_outage(sim, seed):
         counts = cluster.bound_member_counts()
         for name, docs in bound_by_gang.items():
             assert counts.get(("default", name), 0) >= 1, (name, counts)
+        # every bound pod counted once: by a bind path, or as found applied
+        # by a later pop's read where the outage cut a bind's answer
+        n_bound = sum(len(docs) for docs in bound_by_gang.values())
+        sched = cluster.scheduler
+
+        def accounted():
+            return sched.stats["binds"] + sched.binds_found_applied
+
+        cluster.wait_for(lambda: accounted() >= n_bound, timeout=30.0, interval=0.1)
+        assert accounted() == n_bound, (n_bound, sched.binds_found_applied, sched.stats)
     finally:
         if cluster is not None:
             try:

@@ -513,3 +513,53 @@ def test_cross_package_client_and_gateway():
     assert seq == [("ADDED", "g-0", ""), ("ADDED", "g-1", ""), ("ADDED", "g-2", ""),
                    ("MODIFIED", "g-0", "n1"), ("MODIFIED", "g-1", "n2"),
                    ("MODIFIED", "g-2", ""), ("DELETED", "g-2", "")]
+
+
+def test_a_cut_short_body_applies_nothing():
+    """A request whose connection dies mid-body (a gateway restart severs
+    it) applies nothing: the port's gateway read the missing body as
+    ``{}`` and created a nameless pod, which the scheduler then bound (one
+    bind over the pods in config 6 over the gateway with a restart). The
+    reference's gateway keeps that fault (ROADMAP Queue 3, F7)."""
+    import socket
+
+    from batch_scheduler_tpu_torch.client import APIServer, serve_gateway
+
+    backing = APIServer()
+    server = serve_gateway(backing)
+    try:
+        host, port = server.server_address[:2]
+        body = json.dumps({"metadata": {"name": "p0", "namespace": "default"}}).encode()
+        with socket.create_connection((host, port), timeout=5.0) as s:
+            s.sendall(b"POST /api/v1/namespaces/default/pods HTTP/1.1\r\nHost: x\r\n"
+                      b"Content-Type: application/json\r\n"
+                      b"Content-Length: %d\r\n\r\n" % len(body))
+            s.shutdown(socket.SHUT_WR)  # the body never arrives
+            s.settimeout(5.0)
+            try:
+                while s.recv(4096):
+                    pass
+            except OSError:
+                pass
+        time.sleep(0.2)
+        assert backing.list("Pod") == []
+        # a whole request still creates
+        with socket.create_connection((host, port), timeout=5.0) as s:
+            s.sendall(b"POST /api/v1/namespaces/default/pods HTTP/1.1\r\nHost: x\r\n"
+                      b"Content-Type: application/json\r\nConnection: close\r\n"
+                      b"Content-Length: %d\r\n\r\n" % len(body) + body)
+            s.settimeout(5.0)
+            reply = b""
+            try:
+                while True:
+                    chunk = s.recv(4096)
+                    if not chunk:
+                        break
+                    reply += chunk
+            except OSError:
+                pass
+        assert reply.startswith(b"HTTP/1.1 201") or reply.startswith(b"HTTP/1.0 201"), reply[:80]
+        assert [d["metadata"]["name"] for d in backing.list("Pod")] == ["p0"]
+    finally:
+        server.shutdown()
+        server.server_close()

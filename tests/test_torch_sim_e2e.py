@@ -182,6 +182,10 @@ def test_oracle_rejects_fragmented_gang_upfront(run):
         _fragmented(m, c)
         op = c.runtime.operation
         assert c.wait_for(lambda: op.last_denied_pg.contains("default/frag"), timeout=TIMEOUT)
+        # PreFilter's denial lands before the scheduler notes it in the
+        # ledger (its unschedulable path): wait for the note, not the race
+        assert c.wait_for(lambda: "deny" in _summary(m, c, ["frag"])["frag"]["kinds"],
+                          timeout=TIMEOUT)
         assert c.scheduler.stats["permit_waits"] == 0
         assert all(not p.spec.node_name for p in c.member_pods("frag"))
         return _summary(m, c, ["frag"])
