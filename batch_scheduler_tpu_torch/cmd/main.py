@@ -27,9 +27,15 @@ The port's deltas from the reference:
 - ``--compile-warmer`` (``sim``, ``serve``) runs the bucket warmer
   (``ops.bucketing.CompileWarmer``) on the card.
 - Refused with exit 2, never ignored: ``--device-state off`` (the port
-  always keeps the cluster state on the device) and ``serve`` with
-  ``BST_COORDINATOR`` set (the sidecar has no mesh executor yet: ROADMAP
-  item 11b).
+  always keeps the cluster state on the device).
+- ``serve`` with ``BST_COORDINATOR`` (``BST_NUM_PROCESSES``,
+  ``BST_PROCESS_ID``): every process runs the same command; rank 0 serves
+  over the mesh of every rank (``OracleServer(scan_mesh=...)``, single
+  device when the mesh has one rank) and the others follow it
+  (``parallel.follow``) until its drain or shutdown stops them. The
+  backend follows the topology (``parallel.init_distributed``); a
+  coordinator that cannot be reached exits 2 once the bounded rendezvous
+  (``parallel.distributed.COORDINATOR_TIMEOUT_S``) gives up.
 - ``--oracle-background-refresh`` with ``--oracle-addr`` runs on the
   resilient client's second connection slot (the port's ``RemoteScorer``
   has no separate background client).
@@ -1081,16 +1087,36 @@ def cmd_whatif(args) -> int:
 def cmd_serve(args) -> int:
     from ..service.server import OracleServer
 
-    # the reference bootstraps a multi-host slice here when BST_COORDINATOR
-    # is set (parallel.distributed); the port's sidecar has no mesh
-    # executor yet, and a coordinator it ignored would split the fleet
-    if os.environ.get("BST_COORDINATOR", "").strip():
-        return _refused(
-            "BST_COORDINATOR is set, but the port's sidecar has no "
-            "mesh executor yet: unset it to serve one process"
-        )
     if not _require_device(args):
         return 2
+    # the multi-process bootstrap (no-op unless BST_COORDINATOR is set): rank
+    # 0 serves over the mesh, every other rank follows it
+    mesh = None
+    coordinator = os.environ.get("BST_COORDINATOR", "").strip()
+    if coordinator:
+        from ..parallel import distributed
+
+        try:
+            distributed.init_distributed(device=args.device)
+        except Exception as e:  # noqa: BLE001 — reported, exit 2
+            return _refused(
+                f"BST_COORDINATOR={coordinator}: could not join the process group "
+                f"within {distributed.COORDINATOR_TIMEOUT_S:g} s ({type(e).__name__}: "
+                f"{str(e).splitlines()[0][:200] if str(e) else ''})")
+        import torch.distributed as dist
+
+        mesh = distributed.global_mesh(device=args.device)
+        print(f"distributed initialized: process {mesh.rank}/{mesh.size}, backend "
+              f"{dist.get_backend()}, device {mesh.device}", flush=True)
+        if mesh.rank != 0:
+            from ..parallel import follow
+
+            print(f"rank {mesh.rank} following rank 0", flush=True)
+            done = follow(mesh)
+            print(f"rank {mesh.rank} stopped after {done} batches", flush=True)
+            return 0
+        if mesh.size == 1:
+            mesh = None  # one rank stays single-device, as the reference
 
     if args.warmup:
         print(f"warmup batch done in {warm_oracle(device=args.device):.1f}s",
@@ -1112,6 +1138,7 @@ def cmd_serve(args) -> int:
         # flag is sugar over BST_COALESCE; None lets the env decide
         coalesce=True if args.coalesce else None,
         compile_warmer=args.compile_warmer,
+        scan_mesh=mesh,
     )
     # sidecar-side lifecycle export: nothing flows unless a scheduler
     # runs in-process, but the flag contract is uniform across sim/serve

@@ -489,10 +489,12 @@ class OracleScorer:
     ``scan_mesh`` (a ``parallel.ShardMesh`` on its rank 0, while every
     other rank runs ``parallel.follow``) runs each batch over the mesh on
     the mesh's device (``ops.oracle.dispatch_batch``'s ``scan_mesh``): the
-    batch is broadcast to the followers, and the node-sharded scan runs
-    unless ``BST_SCAN_SHARDED`` says 0. A mesh batch uploads its packed
-    arrays (the resident holder's mesh branch is not ported yet); ``close``
-    stops the followers.
+    node-sharded scan runs unless ``BST_SCAN_SHARDED`` says 0. The holder
+    is a mesh holder (``ops.device_state``): every follower keeps a copy of
+    the resident tensors, a keyframe broadcasts them once and a churn
+    refresh only its scattered rows, and a batch broadcasts only its O(G)
+    tail. The capacity sample reads the snapshot's host arrays there.
+    ``close`` stops the followers.
 
     ``min_batch_interval`` > 0 serves a merely-stale batch (every queried
     gang known) until the interval since the last publication elapses;
@@ -615,8 +617,8 @@ class OracleScorer:
         # [N,R]/[G,R] buffers stay on the device across batches and each
         # pack's churned rows apply as one row scatter.
         self._device_state = (
-            None if device is None or scan_mesh is not None
-            else DeviceStateHolder(self.device, label="scorer")
+            None if device is None
+            else DeviceStateHolder(self.device, label="scorer", mesh=scan_mesh)
         )
         # host pack / device batch seconds of the recent batches, and the
         # pack seconds by path ("keyframe", "scan", "fold"); the pack
@@ -999,7 +1001,7 @@ class OracleScorer:
         (every pack — the holder mirrors the PACKER's buffers, so
         generation contiguity holds pack to pack), the node policy columns
         too when the snapshot carries them."""
-        if self._device_state is None:  # a mesh batch uploads its packed arrays
+        if self._device_state is None:  # the batch runs elsewhere (RemoteScorer)
             return
         t0 = time.perf_counter()
         # host wall time of enqueueing the row scatters on the scorer's
@@ -1100,7 +1102,11 @@ class OracleScorer:
         swallowed (the sampler counts its own under the ``error``
         outcome)."""
         try:
-            batch_args = resident if resident is not None else snap.device_args()
+            # on a mesh the host arrays (as the reference's mesh scorer)
+            if resident is None or self.scan_mesh is not None:
+                batch_args = snap.device_args()
+            else:
+                batch_args = resident
             progress = snap.progress_args()
             cols = snap.policy_cols
             self._capacity.note_batch(
@@ -1164,10 +1170,6 @@ class OracleScorer:
         """The resident tensors and policy payload one batch reads, taken
         off the snapshot (which keeps only its host arrays)."""
         policy = snap.policy_payload()
-        if self.scan_mesh is not None:
-            if policy is not None:
-                self.policy_engine.note_batch()
-            return snap.device_args(), policy
         batch_args = snap.device_state_args
         snap.device_state_args = None
         if policy is not None:

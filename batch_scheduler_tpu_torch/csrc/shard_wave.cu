@@ -43,56 +43,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "shard_common.cuh"
+
 namespace {
 
-constexpr int kBins = 128;
-constexpr int kBig = 1 << 30;
-constexpr int kMaxLanes = 32;   // ops/assign_scan.py _SHARD_MAX_LANES
-constexpr int kMaxWave = 32;    // ops/assign_scan.py WAVE_WIDTHS' largest
 constexpr int kSummaryThreads = 512;
-constexpr int kSelectThreads = 1024;  // 32 warps: block_exclusive_scan's shape
-constexpr int kNodeThreads = 256;
 constexpr int kSpeculative = 0, kMega = 1, kReplay = 2;  // ops/oracle.py SHARD_*
-
-// floor(clamp(left, 0, 2^30) / clamp(q, 1, 2^30)) for a requested lane
-__device__ __forceinline__ int lane_cap(int left, int q) {
-  const int l = left < 0 ? 0 : (left > kBig ? kBig : left);
-  const int d = q > kBig ? kBig : q;
-  return l / d;
-}
-
-// members of a demand row that fit a leftover row: the minimum over the
-// requested lanes (2^30 when no lane is requested)
-__device__ __forceinline__ int member_cap(const int* left, const int* req, int r) {
-  int cap = kBig;
-  for (int x = 0; x < r; ++x) {
-    const int q = req[x];
-    if (q > 0) cap = min(cap, lane_cap(left[x], q));
-  }
-  return cap;
-}
-
-// exclusive prefix sum of `v` over a block of kSelectThreads threads
-__device__ int block_exclusive_scan(int v, int* warp_tot) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_tot[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int t = warp_tot[lane];
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, t, o);
-      if (lane >= o) t += y;
-    }
-    warp_tot[lane] = t;
-  }
-  __syncthreads();
-  return (warp > 0 ? warp_tot[warp - 1] : 0) + x - v;
-}
 
 __global__ void summary_kernel(const int* __restrict__ left, const int* __restrict__ req,
                                const int* __restrict__ clip, const uint8_t* __restrict__ mask,
@@ -132,16 +88,7 @@ __global__ void select_kernel(int mode, const int* __restrict__ merged, const in
   // the commit kernel accumulates into verify after this launch
   if (row == 0 && verify != nullptr && threadIdx.x < (mode == kMega ? w : 1))
     verify[threadIdx.x] = 0;
-  for (int b = threadIdx.x; b < kBins; b += blockDim.x) {
-    int t = 0, o = 0;
-    for (int x = 0; x < s; ++x) {
-      const int v = merged[((size_t)x * k + hrow) * kBins + b];
-      t += v;
-      if (x < rank) o += v;
-    }
-    tot[b] = t;
-    off[b] = o;
-  }
+  merged_buckets(merged + (size_t)hrow * kBins, (size_t)k * kBins, s, rank, tot, off);
   __syncthreads();
   if (threadIdx.x == 0) {
     int thresh, excl = 0, ok = 1, target, clipv;
@@ -159,54 +106,21 @@ __global__ void select_kernel(int mode, const int* __restrict__ merged, const in
       }
       target = bound;
       clipv = total;
+      for (int b = 0; b < min(thresh, kBins - 1); ++b) excl += tot[b];
     } else {
-      const int need = needs[row];
-      int cum = 0;
-      thresh = 0;
-      for (int b = 0; b < kBins; ++b) {
-        cum += tot[b];
-        thresh += cum < need;
-      }
-      ok = cum >= need;
-      thresh = min(thresh, kBins - 1);
-      target = need;
-      clipv = need;
+      target = clipv = needs[row];
+      ok = hist_threshold(tot, target, &thresh, &excl);
       feas[row] = (uint8_t)ok;
     }
-    const int bc = min(thresh, kBins - 1);
-    for (int b = 0; b < bc; ++b) excl += tot[b];
     sh_thresh = thresh;
-    sh_rem = target - excl - off[bc];
+    sh_rem = target - excl - off[min(thresh, kBins - 1)];
     sh_ok = ok;
     sh_clip = clipv;
   }
   __syncthreads();
   const int thresh = sh_thresh, rem = sh_rem, ok = sh_ok, clipv = sh_clip;
-  const int* cap_row = cap + (size_t)(mode == kMega ? 0 : row) * nl;
-  int* out_row = out + (size_t)row * nl;
-  // a thread's nodes are consecutive, so a block prefix of the per-thread
-  // sums gives each node's prefix in node order
-  const int per = (nl + blockDim.x - 1) / blockDim.x;
-  const int n0 = min((int)threadIdx.x * per, nl), n1 = min(n0 + per, nl);
-  int part = 0;
-  for (int n = n0; n < n1; ++n) {
-    const int v = cap_row[n];
-    if (min(v, kBins - 1) == thresh) part += min(v, clipv);
-  }
-  int prefix = block_exclusive_scan(part, warp_tot);
-  for (int n = n0; n < n1; ++n) {
-    const int v = cap_row[n];
-    const int key = min(v, kBins - 1);
-    const int capc = min(v, clipv);
-    int take = 0;
-    if (key < thresh) {
-      take = capc;
-    } else if (key == thresh) {
-      take = min(max(rem - prefix, 0), capc);
-      prefix += capc;
-    }
-    out_row[n] = ok ? take : 0;
-  }
+  bucket_take(cap + (size_t)(mode == kMega ? 0 : row) * nl, out + (size_t)row * nl, nl, thresh,
+              rem, clipv, ok, warp_tot);
 }
 
 __global__ void commit_kernel(int mode, const int* __restrict__ cap, const int* __restrict__ needs,
@@ -250,18 +164,7 @@ __global__ void commit_kernel(int mode, const int* __restrict__ cap, const int* 
       left_out[(size_t)n * r + x] = left[(size_t)n * r + x] - t * req[x];
     return;
   }
-  int acc[kMaxLanes];
-  for (int x = 0; x < r; ++x) acc[x] = left[(size_t)n * r + x];
-  bool conflict = false;
-  for (int j = 0; j < w; ++j) {
-    const int* q = req + (size_t)j * r;
-    const int v = mask[(size_t)j * mask_stride + n] ? member_cap(acc, q, r) : 0;
-    conflict |= v != cap[(size_t)j * nl + n];
-    const int t = taken[(size_t)j * nl + n];
-    for (int x = 0; x < r; ++x) acc[x] = max(acc[x] - t * q[x], -kBig);
-  }
-  for (int x = 0; x < r; ++x) left_out[(size_t)n * r + x] = acc[x];
-  if (conflict) atomicOr(verify, 1);
+  speculative_commit(n, cap, left, req, mask, mask_stride, taken, left_out, verify, nl, r, w);
 }
 
 }  // namespace
@@ -299,7 +202,7 @@ int bst_shard_apply(const int* merged, const int* cap, const int* needs, const i
   const int k = mode == kSpeculative ? w : 1;
   const int rows = mode == kMega ? w + 1 : w;
   int* sel = mode == kMega ? taken : takes;
-  select_kernel<<<rows, kSelectThreads, 0, st>>>(mode, merged, cap, needs, sel, feas, verify, nl,
+  select_kernel<<<rows, kThreads, 0, st>>>(mode, merged, cap, needs, sel, feas, verify, nl,
                                                  w, k, s, rank);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;

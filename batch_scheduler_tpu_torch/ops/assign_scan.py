@@ -813,3 +813,150 @@ def shard_apply_cuda(mode: int, merged, rank: int, cap, needs, left_l, req_rows,
 
 
 shard_apply_cuda.launches = 0
+
+
+# -- the node-sharded top-K scan's steps (csrc/shard_topk.cu) ----------------
+#
+# Its reference is lax: the body of the reference's
+# ``assign_gangs_topk_sharded`` shard_map (ops/oracle.py:1435). The plain
+# versions are ``ops.oracle.shard_topk_summary`` / ``shard_topk_apply``; the
+# orchestration with the collectives is ``ops.oracle.assign_gangs_topk_sharded``.
+# Both wrappers count into the kernel ``shard_topk``.
+
+_SHARD_TOPK_POOL = 1024  # S * kk_l: the apply kernel ranks the merged candidates in one block
+
+
+@functools.lru_cache(maxsize=None)
+def _shard_topk_entry_points():
+    """(summary, apply, error_string) of ``csrc/shard_topk.cu``."""
+    lib = _build.library("shard_topk")
+    summary = lib.bst_shard_topk_summary
+    summary.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    summary.restype = ctypes.c_int
+    apply = lib.bst_shard_topk_apply
+    apply.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    apply.restype = ctypes.c_int
+    err = lib.bst_cuda_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return summary, apply, err
+
+
+def _check_topk_rows(caller, mode, buf, req_rows, needs, nl, k):
+    from .oracle import TOPK_SPECULATIVE, shard_topk_payload, shard_topk_widths
+
+    if mode not in (0, 1, 2):
+        raise ValueError(f"{caller}: mode {mode} is not one of 0, 1, 2")
+    rows = req_rows.shape[0]
+    w = needs.shape[0]
+    want_rows = w if mode == TOPK_SPECULATIVE else 1
+    kk_l, _ = shard_topk_widths(k, nl, buf.shape[0])
+    p = shard_topk_payload(mode, kk_l, w)
+    if rows != want_rows or buf.dim() != 3 or tuple(buf.shape[1:]) != (want_rows, p):
+        raise ValueError(f"{caller}: mode {mode} wants {want_rows} request rows and a buffer "
+                         f"[S, {want_rows}, {p}], got {rows} rows and {tuple(buf.shape)}")
+    if mode == 2 and w != 1:
+        raise ValueError(f"{caller}: a replayed gang has one need, got {w}")
+    if buf.dtype != torch.int32 or needs.dtype != torch.int32:
+        raise ValueError(f"{caller}: the buffer and needs must be int32")
+    if buf.device.type == "cuda":
+        if not 1 <= k <= _MAX_TOPK or w > _MAX_WAVE or buf.shape[0] * kk_l > _SHARD_TOPK_POOL:
+            raise ValueError(f"{caller}: k in 1..{_MAX_TOPK}, at most {_MAX_WAVE} gangs a wave "
+                             f"and S * kk_l <= {_SHARD_TOPK_POOL}; got k={k}, w={w}, "
+                             f"S={buf.shape[0]}")
+    return kk_l
+
+
+def shard_topk_summary_cuda(mode: int, left_l, req_rows, needs, mask_rows, buf, rank: int, k: int):
+    """The summary step of one wave (or replayed gang) of the node-sharded
+    top-K scan on a rank's node block (``ops.oracle.shard_topk_summary``,
+    which runs for CPU tensors and whose docstring gives the modes): the
+    ``[rows, nl]`` member capacities, returned, and the rank's candidate
+    payload in row ``rank`` of ``buf`` ``[S, rows, P]`` (the other rows
+    zeroed). On CUDA tensors the kernel runs or this raises. Every launch
+    adds one to ``shard_topk_summary_cuda.launches``."""
+    _check_shard("shard_topk_summary_cuda", left_l, req_rows, mask_rows, needs=needs, buf=buf)
+    nl, r = left_l.shape
+    kk_l = _check_topk_rows("shard_topk_summary_cuda", mode, buf, req_rows, needs, nl, k)
+    if not 0 <= rank < buf.shape[0]:
+        raise ValueError(f"rank {rank} outside the buffer's {buf.shape[0]} ranks")
+    if left_l.device.type == "cpu":
+        from .oracle import shard_topk_summary
+
+        return shard_topk_summary(mode, left_l, req_rows, needs, mask_rows, buf, rank, k)
+    dev = left_l.device
+    rows = req_rows.shape[0]
+    summary, _, err = _shard_topk_entry_points()
+    with torch.cuda.device(dev):
+        cap = torch.empty((rows, nl), dtype=torch.int32, device=dev)
+        rc = summary(
+            left_l.data_ptr(), req_rows.data_ptr(), needs.data_ptr(), mask_rows.data_ptr(),
+            cap.data_ptr(), buf.data_ptr(), mode, nl, r, needs.shape[0],
+            int(mask_rows.shape[0] != 1) * nl, buf.shape[0], rank, kk_l,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"shard_topk summary launch failed (mode {mode}): "
+                           f"{err(rc).decode(errors='replace')} (CUDA error {rc})")
+    shard_topk_summary_cuda.launches += 1
+    _count_launch("shard_topk")
+    return cap
+
+
+shard_topk_summary_cuda.launches = 0
+
+
+def shard_topk_apply_cuda(mode: int, merged, rank: int, cap, needs, left_l, req_rows, mask_rows,
+                          takes_out, feas_out, left_out, verify, dense, k: int, stream_take=None):
+    """The apply step of one wave (or replayed gang) of the node-sharded
+    top-K scan on a rank's node block (``ops.oracle.shard_topk_apply``, whose
+    docstring gives the modes and outputs, runs for CPU tensors): this
+    rank's takes into ``takes_out`` / ``feas_out``, the candidate leftover
+    into ``left_out``, the verify word (None for ``TOPK_REPLAY``) and a
+    replayed gang's dense-column demotion added into ``dense[0]``.
+    ``stream_take`` ``[nl]`` int32 is the kernel's scratch for a mega wave's
+    member stream. On CUDA tensors the kernels run or this raises. Every
+    launch adds one to ``shard_topk_apply_cuda.launches``."""
+    from .oracle import TOPK_REPLAY, TOPK_SPECULATIVE, shard_topk_apply, shard_topk_widths
+
+    _check_shard("shard_topk_apply_cuda", left_l, req_rows, mask_rows, merged=merged, cap=cap,
+                 needs=needs, takes_out=takes_out, feas_out=feas_out, left_out=left_out,
+                 verify=verify, dense=dense, stream_take=stream_take)
+    nl, r = left_l.shape
+    _check_topk_rows("shard_topk_apply_cuda", mode, merged, req_rows, needs, nl, k)
+    w = needs.shape[0]
+    rows = req_rows.shape[0]
+    if cap.shape != (rows, nl) or takes_out.shape != (w, nl) or feas_out.shape != (w,):
+        raise ValueError(f"mode {mode}: cap [{rows},{nl}], takes [{w},{nl}], feas [{w}]; got "
+                         f"{tuple(cap.shape)}, {tuple(takes_out.shape)}, {tuple(feas_out.shape)}")
+    if (verify is None) != (mode == TOPK_REPLAY) or dense is None or dense.numel() != 1:
+        raise ValueError("verify is None exactly for TOPK_REPLAY, and dense is one int32 word")
+    if not 0 <= rank < merged.shape[0]:
+        raise ValueError(f"rank {rank} outside the buffer's {merged.shape[0]} ranks")
+    if left_l.device.type == "cpu":
+        return shard_topk_apply(mode, merged, rank, cap, needs, left_l, req_rows, mask_rows,
+                                takes_out, feas_out, left_out, verify, dense, k, stream_take)
+    if stream_take is None or stream_take.shape != (nl,) or stream_take.dtype != torch.int32:
+        raise ValueError(f"stream_take must be [{nl}] int32")
+    s = merged.shape[0]
+    kk_l, kk = shard_topk_widths(k, nl, s)
+    dev = left_l.device
+    _, apply, err = _shard_topk_entry_points()
+    with torch.cuda.device(dev):
+        rc = apply(
+            merged.data_ptr(), cap.data_ptr(), needs.data_ptr(), left_l.data_ptr(),
+            req_rows.data_ptr(), mask_rows.data_ptr(), takes_out.data_ptr(), feas_out.data_ptr(),
+            left_out.data_ptr(), verify.data_ptr() if verify is not None else None,
+            dense.data_ptr(), stream_take.data_ptr(),
+            mode, nl, r, w, s, rank, kk_l, kk, int(mask_rows.shape[0] != 1) * nl,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"shard_topk apply launch failed (mode {mode}): "
+                           f"{err(rc).decode(errors='replace')} (CUDA error {rc})")
+    shard_topk_apply_cuda.launches += 1
+    _count_launch("shard_topk")
+    return None
+
+
+shard_topk_apply_cuda.launches = 0

@@ -22,6 +22,7 @@ __all__ = [
     "policy_work",
     "topk_work",
     "shard_work",
+    "shard_topk_work",
     "scan_bound",
     "policy_bound",
     "topk_bound",
@@ -102,6 +103,48 @@ def shard_work(nl: int, r: int, g: int, s: int, wave: int, lanes: int, mask_rows
     spec_gangs = max(g - megas * wave, 0)
     ops = nl * ((spec_gangs + megas) * per_gang_node + megas * 6 * (wave + 1)
                 + spec_gangs * (per_gang_node - 4) + min(conflicts * wave, g) * per_gang_node)
+    return nbytes, ops
+
+
+def shard_topk_work(nl: int, r: int, g: int, s: int, wave: int, k: int, lanes: int,
+                    mask_rows: int, conflicts: int, megas: int, demotions: int,
+                    replay_step: bool = False) -> Tuple[int, float]:
+    """(bytes, ops) of one rank's ``shard_topk`` launches over a whole
+    node-sharded top-K batch: ``g`` gangs at ``wave`` a wave and ``k``
+    candidates over the rank's ``nl`` nodes of ``r`` lanes among ``s``
+    ranks, ``mask_rows`` mask rows (1 broadcast, else ``g``), ``lanes`` the
+    nonzero entries of the [G,R] request, and this batch's ``conflicts``
+    (replayed waves), ``megas`` (uniform waves) and dense-column
+    ``demotions``. Bytes, each tensor once: the block's leftover read and
+    written, the request rows, needs and mask block read, the takes and
+    flags written, each summary buffer written by its summary and read by
+    its apply (``[S, W, 2 kk_l + 1]`` a speculative wave, ``[S, 1, 3 kk_l +
+    W]`` a uniform one, ``[S, 1, 2 kk_l + 129]`` each replayed gang), and a
+    verify word and a demotion word a wave. Operations: every row's
+    capacity (a division and a minimum per requested lane) with its key,
+    clip, count, histogram and compaction (~8 a node), the speculative
+    waves' conflict pass (~4 more a node), a uniform wave's W pooled needs
+    (2 a node and gang), a replayed gang's row once more and a demoted
+    gang's dense take (~4 a node), and each merged row's rank sort of the
+    ``S * kk_l`` candidates (2 a pair). ``replay_step`` counts one replayed
+    gang's step alone (``g`` = ``wave`` = 1: its summary and apply)."""
+    steps = -(-g // wave)
+    megas = min(megas, steps)
+    replayed = min(conflicts * wave, g)
+    kk_l = max(1, min(k, nl))
+    spec_rows = (steps - megas) * wave
+    if replay_step:
+        steps, megas, spec_rows, replayed = 1, 0, 0, 1
+    payload = (spec_rows * (2 * kk_l + 1) + megas * (3 * kk_l + wave)
+               + replayed * (2 * kk_l + 1 + 128))
+    nbytes = (2 * nl * r * 4 + g * r * 4 + g * 4 + mask_rows * nl + g * nl * 4 + g
+              + 2 * s * payload * 4 + steps * 8)
+    per_gang_node = 2 * lanes / max(g, 1) + 8
+    spec_gangs = 0 if replay_step else max(g - megas * wave, 0)
+    merged_rows = spec_rows + megas + replayed
+    ops = (nl * ((spec_gangs + megas + replayed) * per_gang_node + spec_gangs * 4
+                 + megas * 2 * wave + demotions * 4)
+           + merged_rows * 2 * (s * kk_l) ** 2)
     return nbytes, ops
 
 

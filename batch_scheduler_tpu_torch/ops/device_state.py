@@ -14,10 +14,27 @@ a few host calls per refresh, which do not: at a few thousand nodes the
 two cost about the same, at tens of thousands the upload costs more
 (``chip_smoke.py`` ``residency_vs_upload``; figures in PERF.md).
 
-``DeviceStateHolder`` is the state owner; the in-process scorer
-(core.oracle_scorer.OracleScorer) syncs it from every
-``DeltaSnapshotPacker`` pack under the refresh lock and runs batches from
-the resident tensors.
+``DeviceStateHolder`` is the state owner, used in two places:
+
+- the in-process scorer (core.oracle_scorer.OracleScorer) syncs it from
+  every ``DeltaSnapshotPacker`` pack under the refresh lock and runs
+  batches from the resident tensors;
+- the sidecar (service.server) keeps one per connection as its mirror of
+  the client's state, fed by DELTA_SCHEDULE_REQ wire frames.
+
+On a mesh (``mesh=``, a ``parallel.ShardMesh`` on its rank 0, while the
+other ranks run ``parallel.follow``) the holder keeps its resident tensors
+on the mesh's device as off a mesh, and every follower keeps a copy of
+them in the holder's slot: a keyframe broadcasts the three buffers once
+(``parallel.mesh.mesh_keyframe``), a delta only the scattered node and
+group rows with their values (``mesh_rows``), so a churn refresh moves
+O(churn) bytes, and a batch on the resident tensors broadcasts only its
+O(G) tail (``parallel.mesh.lead_batch``). The reference's mesh rules hold:
+a ``layout`` keyframe when ``BST_SCAN_SHARDED`` flips between syncs, no
+device derivation (the fit row and the order stay the host's), the policy
+columns stay on the host, and a fork keeps the mesh (but never broadcasts:
+its batches carry their arrays). Every broadcast is taken under
+``mesh.lock``, so it never interleaves with a batch's collectives.
 
 Residency invalidation: any generation gap, node-list change, group-set
 change, node churn or bucket change resyncs from a full keyframe, with the
@@ -42,10 +59,9 @@ instead.
 The port of ``batch_scheduler_tpu/ops/device_state.py`` on one explicit
 ``device``, without:
 
-- the mesh and sharding branches: they wait for the sharded top-K slice
-  (ROADMAP item 11b), with the sidecar's mirror; until then a scorer on a
-  mesh (``OracleScorer(scan_mesh=...)``) keeps no holder and each mesh
-  batch uploads its packed arrays;
+- the reference's shardings: the mesh's ranks are processes, and a
+  follower keeps whole copies of the three buffers (what its share of a
+  batch reads: every rank calls the batch with the whole inputs);
 - the jit row buckets (nothing here compiles per shape; unique delta rows
   keep ``index_copy_`` deterministic on CUDA);
 - ``reset`` (no caller of the port drops the state);
@@ -139,10 +155,15 @@ class DeviceStateHolder:
     refresh lock.
     """
 
-    def __init__(self, device="cuda", label: str = "local"):
-        self.device = resolve_device(device)
+    def __init__(self, device="cuda", label: str = "local", mesh=None):
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.label = label
         self._lock = threading.Lock()
+        # on a mesh: this holder's slot on the followers (0 until its first
+        # keyframe) and the BST_SCAN_SHARDED layout its last keyframe saw
+        self._slot = 0  # guarded-by: _lock
+        self._flat_nodes = None  # guarded-by: _lock
         self.generation = 0  # guarded-by: _lock
         # resident device tensors; None until the first keyframe
         self._alloc = None  # guarded-by: _lock
@@ -223,6 +244,11 @@ class DeviceStateHolder:
         one ``index_copy_`` on the current stream."""
         buf.index_copy_(0, *stage_rows(idx, rows, self.device, buf.shape[1:]))
 
+    def _broadcasts(self) -> bool:
+        """True for a live mesh holder: its state transitions reach the
+        followers (a fork's never do)."""
+        return self.mesh is not None and not self._forked
+
     def _resident_args(self, small_args) -> tuple:  # lock-held: _lock
         remaining, fit_mask, group_valid, order = small_args
         return (
@@ -249,6 +275,17 @@ class DeviceStateHolder:
             self._group_req = self._place(group_req)
             self._policy_hash = self._policy_dom = None
             self._borrowed.clear()
+            if self.mesh is not None:
+                from .oracle import scan_sharded_active
+
+                self._flat_nodes = scan_sharded_active()
+            if self._broadcasts():
+                from ..parallel.mesh import mesh_keyframe
+
+                if not self._slot:
+                    self._slot = self.mesh.new_slot()
+                mesh_keyframe(self.mesh, self._slot, self._alloc, self._requested,
+                              self._group_req)
             self.generation = int(generation)
             self._note_keyframe(reason)
             return self._resident_args(batch_args[3:])
@@ -297,6 +334,13 @@ class DeviceStateHolder:
             for name, idx, rows in plan:
                 self._scatter(self._own("_" + name), idx, rows)
                 scattered += int(len(idx))
+            if self._broadcasts() and plan:
+                from ..parallel.mesh import mesh_rows
+
+                got = {name: (idx, rows) for name, idx, rows in plan}
+                empty = (np.zeros(0, np.int64), np.zeros((0, self._requested.shape[1]), np.int32))
+                mesh_rows(self.mesh, self._slot, *got.get("requested", empty),
+                          *got.get("group_req", empty))
             self.generation = int(generation)
             self.deltas_applied += 1
             if scattered:
@@ -334,12 +378,19 @@ class DeviceStateHolder:
                 tuple(self._requested.shape) == snap.requested.shape
                 and tuple(self._group_req.shape) == snap.group_req.shape
             )
+            layout_ok = True
+            if resident and self.mesh is not None:
+                from .oracle import scan_sharded_active
+
+                layout_ok = self._flat_nodes == scan_sharded_active()
         if not resident:
             return self.keyframe(batch_args, delta.generation, "first")
         if delta.generation != gen + 1:
             return self.keyframe(batch_args, delta.generation, "generation")
         if not shape_ok:
             return self.keyframe(batch_args, delta.generation, "bucket")
+        if not layout_ok:
+            return self.keyframe(batch_args, delta.generation, "layout")
         out = self.apply_rows(
             gen,
             delta.generation,
@@ -363,7 +414,7 @@ class DeviceStateHolder:
         meta_cols (lite ineligible: selectors/taints, direct construction)
         drop the meta state and return the host columns untouched."""
         meta = getattr(snap, "meta_cols", None)
-        if meta is None:
+        if meta is None or self.mesh is not None:  # a mesh batch reads the host columns
             with self._lock:
                 self._meta = self._meta_nv = self._derived = None
                 self._meta_gen = -1
@@ -419,6 +470,8 @@ class DeviceStateHolder:
             with self._lock:
                 self._policy_hash = self._policy_dom = None
             return None
+        if self.mesh is not None:
+            return cols
         prio, aff, anti, gang_dom, node_hash, node_dom = cols
         delta = getattr(snap, "delta", None)
         with self._lock:
@@ -449,9 +502,11 @@ class DeviceStateHolder:
         holder's values, storage, generation and counters never change
         through the fork. The what-if engine's state: apply a
         counterfactual to the fork, score it, drop the fork."""
-        out = DeviceStateHolder(self.device, label=label or f"{self.label}~fork")
+        out = DeviceStateHolder(self.device, label=label or f"{self.label}~fork",
+                                mesh=self.mesh)
         with self._lock, out._lock:
             out._forked = True
+            out._flat_nodes = self._flat_nodes
             for name in _FORK_SHARED:
                 setattr(out, name, getattr(self, name))
             out._borrowed = {n for n in _FORK_SHARED if getattr(out, n) is not None}
@@ -494,6 +549,16 @@ class DeviceStateHolder:
             self.rows_scattered += scattered
             return self._resident_args(batch_args[3:])
 
+    def release(self) -> None:
+        """Give up this holder's copies on the followers (a mesh holder
+        that is done, such as a closed sidecar connection's mirror)."""
+        with self._lock:
+            slot, self._slot = self._slot, 0
+        if slot and self._broadcasts():
+            from ..parallel.mesh import mesh_drop
+
+            mesh_drop(self.mesh, slot)
+
     # -- observability ------------------------------------------------------
 
     def last_args(self) -> Optional[tuple]:
@@ -523,4 +588,7 @@ class DeviceStateHolder:
             if self._requested is not None:
                 out["n_bucket"] = int(self._requested.shape[0])
                 out["g_bucket"] = int(self._group_req.shape[0])
+            if self.mesh is not None:
+                out["mesh"] = True
+                out["flat_nodes"] = self._flat_nodes
         return out

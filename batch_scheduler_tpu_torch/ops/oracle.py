@@ -80,6 +80,7 @@ __all__ = [
     "forced_scan_rung",
     "bucket_cost_report",
     "assign_gangs_sharded",
+    "assign_gangs_topk_sharded",
     "scan_sharded_active",
     "ASSIGNMENT_TOP_K",
     "GANG_MAX",
@@ -954,6 +955,360 @@ def assign_gangs_sharded(left0, group_req, remaining, fit_mask, order, mesh,
     return alloc, placed, left_after
 
 
+# -- the node-sharded top-K scan ---------------------------------------------
+#
+# The port of the reference's ``assign_gangs_topk_sharded`` (ops/oracle.py:
+# 1435) with ``_select_best_fit_wave`` (:1865): the top-K scan's three
+# branches on the sharded scan's layout. Each rank ranks the candidates of
+# its own node block only, by the GLOBAL composite key ``min(cap, 127) *
+# (n_pad + 1) + global index``, and writes its ``kk_l`` smallest (with their
+# need-clipped capacities and the pooled sums) into row ``rank`` of a zeroed
+# ``[S, rows, P]`` summary buffer; the merge is an all-reduce (sum) of that
+# buffer, after which every rank takes the ``kk`` smallest of the ``S *
+# kk_l`` composites (a rank's members of the global top ``kk`` are in its
+# local top ``kk_l``) and runs the exact selection replicated on them,
+# keeping the takes that land on its own block. The two steps of a rank
+# are ``shard_topk_summary`` and ``shard_topk_apply`` (plain versions here;
+# on CUDA tensors ``csrc/shard_topk.cu`` through the wrappers in
+# ``ops.assign_scan``). The payload of a row, in int32:
+#
+# - ``TOPK_SPECULATIVE`` (W rows, one a gang): composites [kk_l], clipped
+#   capacities [kk_l], pooled capacity [1];
+# - ``TOPK_MEGA`` (1 row, the wave's shared demand row): composites,
+#   capacities clipped at the wave's total need, capacities clipped at the
+#   total need plus the largest need (the reference's ``capx``) [kk_l each],
+#   and each gang's pooled need [W];
+# - ``TOPK_REPLAY`` (1 row, one gang): the speculative row plus the rank's
+#   capacity-weighted [128] tightness histogram, so a gang whose candidates
+#   cannot cover its need takes the dense-column selection (``_hist_select``,
+#   as ``shard_wave_apply``'s replay) from the same merge.
+#
+# A pooled capacity is read only as ``pooled < need``, so a rank's share is
+# saturated at the gang's need: the merged sum then decides the same way as
+# the exact one and stays inside int32 whatever N is. A mega wave's pooled
+# needs are exact: the wave's stream bound keeps them inside int32.
+
+TOPK_SPECULATIVE, TOPK_MEGA, TOPK_REPLAY = 0, 1, 2
+
+
+def shard_topk_widths(k: int, nl: int, s: int) -> tuple:
+    """``(kk_l, kk)``: the candidates a rank sends from its ``nl`` nodes and
+    the merged candidate width over ``s`` ranks (the reference's)."""
+    kk_l = max(1, min(int(k), nl))
+    return kk_l, max(2, min(int(k), s * kk_l))
+
+
+def shard_topk_payload(mode: int, kk_l: int, w: int) -> int:
+    """The int32 width P of one summary row of ``mode``."""
+    if mode == TOPK_SPECULATIVE:
+        return 2 * kk_l + 1
+    if mode == TOPK_MEGA:
+        return 3 * kk_l + w
+    return 2 * kk_l + 1 + _BINS
+
+
+def shard_topk_summary(mode: int, left_l, req_rows, needs, mask_rows, buf, rank: int, k: int):
+    """The summary of one wave (or one replayed gang) on a rank's node
+    block ``left_l`` [nl, R]: the member capacity ``cap`` [rows, nl] of each
+    demand row under its mask row (``mask_rows`` [rows or 1, nl]), returned,
+    and the rank's payload row of each (see above) written into row
+    ``rank`` of ``buf`` [S, rows, P], whose other rows are zeroed. ``rows``
+    is W for ``TOPK_SPECULATIVE`` (``needs`` [W]), 1 for ``TOPK_MEGA``
+    (``needs`` [W], the gangs of the wave's stream) and ``TOPK_REPLAY``
+    (``needs`` [1]). The plain version of ``csrc/shard_topk.cu``'s summary
+    kernel."""
+    s = buf.shape[0]
+    nl = left_l.shape[0]
+    n_pad, off = s * nl, rank * nl
+    kk_l, _ = shard_topk_widths(k, nl, s)
+    cap = _member_capacity(left_l[None, :, :], req_rows[:, None, :]) * mask_rows.to(torch.int32)
+    need = needs.long()
+    pos = off + torch.arange(nl, dtype=torch.int64, device=cap.device)
+    comp = torch.where(cap > 0, cap.clamp(max=_BINS - 1).long() * (n_pad + 1) + pos, _BIG)
+    vals, idx = torch.topk(comp, kk_l, dim=1, largest=False, sorted=True)
+    live = vals < _BIG
+    cap64 = cap.long()
+    if mode == TOPK_MEGA:
+        total = need.sum()
+        capc = torch.minimum(cap64[0], total)[idx[0]] * live[0]
+        capx = torch.minimum(cap64[0], total + need.max())[idx[0]] * live[0]
+        pooled = torch.minimum(cap64[0][None, :], need[:, None]).sum(1)
+        row = torch.cat([vals[0], capc, capx, pooled])[None, :]
+    else:
+        clip = need[:, None] if mode == TOPK_SPECULATIVE else need[:1, None]
+        capc_all = torch.minimum(cap64, clip)
+        parts = [vals, torch.gather(capc_all, 1, idx) * live,
+                 torch.minimum(capc_all.sum(1), clip[:, 0])[:, None]]
+        if mode == TOPK_REPLAY:
+            hist = torch.zeros((1, _BINS), dtype=torch.int64, device=cap.device)
+            hist.scatter_add_(1, cap.clamp(max=_BINS - 1).long(), capc_all)
+            parts.append(hist)
+        row = torch.cat(parts, 1)
+    buf.zero_()
+    buf[rank] = row.to(torch.int32)
+    return cap
+
+
+def _select_best_fit_wave(key_rows, capc_rows, need):
+    """``_select_best_fit`` over summary rows (``key_rows`` / ``capc_rows``
+    [W, kk], ``need`` [W]): the key stands in for the capacity, since the
+    selection reads only ``min(cap, 127)``. Returns (take[W, kk],
+    feasible[W])."""
+    takes, feas = zip(*(_select_best_fit(key_rows[j], capc_rows[j], need[j])
+                        for j in range(key_rows.shape[0])))
+    return torch.stack(takes), torch.stack(feas)
+
+
+def shard_topk_apply(mode: int, merged, rank: int, cap, needs, left_l, req_rows, mask_rows,
+                     takes_out, feas_out, left_out, verify, dense, k: int, stream_take=None):
+    """The apply of one wave (or one replayed gang) on a rank's node block,
+    from the merged summaries ``merged`` [S, rows, P] and the summary's
+    ``cap``: the global candidates (the ``kk`` smallest merged composites;
+    a composite decodes to its tightness key and global node index, and a
+    candidate is this rank's when the index falls in its block), the
+    replicated selection on them, and this rank's takes written into
+    ``takes_out`` [w, nl] (zero off the candidates) and ``feas_out`` [w],
+    with the candidate leftover in ``left_out``.
+
+    - ``TOPK_SPECULATIVE``: each gang's selection on its candidates against
+      the wave-start leftover; ``verify[0]`` = 1 when a gang's candidates
+      cannot cover its need while its pooled capacity could, or when a
+      gang's capacity row changes under the exclusive prefix of the earlier
+      gangs' takes (clamped at -2**30: the union check of the reference,
+      since off the candidates every take is zero). The caller sums it over
+      the ranks.
+    - ``TOPK_MEGA``: the wave's member stream over the candidates, cut at
+      the gang boundaries, with each boundary's feasibility as the pooled
+      need less the candidates' entry terms plus their post-take terms;
+      ``verify[0]`` = 1 when the candidates cover the wave and every
+      boundary is feasible (replicated: no reduce). ``stream_take`` [nl]
+      is the kernel's scratch.
+    - ``TOPK_REPLAY``: one gang against the live leftover: on its
+      candidates when they cover its need (or nothing could), else the
+      dense-column selection from the merged histograms, which adds one to
+      ``dense[0]``. ``verify`` is None.
+
+    The plain version of ``csrc/shard_topk.cu``'s apply kernels."""
+    s, rows = merged.shape[0], merged.shape[1]
+    nl = left_l.shape[0]
+    n_pad, off = s * nl, rank * nl
+    kk_l, kk = shard_topk_widths(k, nl, s)
+    m = merged.long()
+
+    def column(i):  # [rows, S * kk_l], rank-major as the reference's gather
+        return m[:, :, i * kk_l:(i + 1) * kk_l].permute(1, 0, 2).reshape(rows, s * kk_l)
+
+    vals_all = column(0)
+    pick = torch.sort(vals_all, dim=1, stable=True).indices[:, :kk]
+    short = kk - pick.shape[1]  # more slots than candidates: sentinels
+
+    def merged_col(c):
+        out = torch.gather(c, 1, pick)
+        fill = _BIG if c is vals_all else 0
+        return torch.cat([out, out.new_full((rows, short), fill)], 1) if short else out
+
+    vals_m = merged_col(vals_all)
+    capc_m = merged_col(column(1))
+    key = torch.div(vals_m, n_pad + 1, rounding_mode="floor")
+    gidx = vals_m - key * (n_pad + 1)
+    key = key.clamp(max=_BINS - 1)
+    own = (vals_m < _BIG) & (gidx >= off) & (gidx < off + nl)
+    lidx = (gidx - off).clamp(0, nl - 1)
+    need = needs.long()
+    if mode == TOPK_MEGA:
+        capx_m = merged_col(column(2))[0]
+        w = need.shape[0]
+        pooled = m[:, 0, 3 * kk_l:3 * kk_l + w].sum(0)
+        c = capc_m[0]
+        covered = bool(c.sum() >= need.sum())
+        prefix = c.cumsum(0) - c
+        bounds = torch.cat([need.new_zeros(1), need.cumsum(0)])
+        taken = torch.minimum((bounds[:, None] - prefix[None, :]).clamp(min=0), c[None, :])
+        entry = torch.minimum(capx_m[None, :], need[:, None]).sum(1)
+        post = torch.minimum(capx_m[None, :] - taken[:-1], need[:, None]).sum(1)
+        ok = covered and bool((pooled - entry + post >= need).all())
+        o = own[0]
+        takes_out.zero_()
+        takes_out[:, lidx[0][o]] = (taken[1:] - taken[:-1])[:, o].to(torch.int32)
+        st = torch.zeros(nl, dtype=torch.int32, device=left_l.device)
+        st[lidx[0][o]] = taken[-1][o].to(torch.int32)
+        feas_out.fill_(True)
+        left_out.copy_(left_l - st[:, None] * req_rows[0][None, :])
+        verify[0] = int(ok)
+        return
+    pooled = m[:, :, 2 * kk_l].sum(0)  # [rows]
+    take_k, feas = _select_best_fit_wave(key, capc_m, need)
+    if mode == TOPK_REPLAY:
+        if bool(feas[0]) or bool(pooled[0] < need[0]):
+            take = torch.zeros(nl, dtype=torch.int32, device=left_l.device)
+            take[lidx[0][own[0]]] = take_k[0][own[0]]
+        else:
+            hist = m[:, 0, 2 * kk_l + 1:]  # [S, BINS]
+            bin_tot = hist.sum(0)[None, :]
+            cum = bin_tot.cumsum(1)
+            feas = cum[:, -1] >= need
+            thresh = (cum < need[:, None]).sum(1).clamp(max=_BINS - 1)
+            t = int(thresh[0])
+            rem = need - (cum[:, t] - bin_tot[:, t]) - hist[:rank, t].sum()
+            cap0 = cap[:1].long()
+            take = (_take_rows(cap0.clamp(max=_BINS - 1), torch.minimum(cap0, need[:, None]),
+                               thresh, rem) * feas[:, None])[0].to(torch.int32)
+            dense[0] += 1
+        takes_out[0] = take
+        feas_out.copy_(feas)
+        left_out.copy_(left_l - take[:, None] * req_rows[0][None, :])
+        return
+    takes_out.zero_()
+    g_rows = torch.arange(rows, device=left_l.device)[:, None].expand(rows, kk)
+    takes_out[g_rows[own], lidx[own]] = take_k[own]
+    feas_out.copy_(feas)
+    acc = left_l
+    conflict = False
+    for j in range(rows):
+        mrow = mask_rows[j if mask_rows.shape[0] != 1 else 0].to(torch.int32)
+        conflict |= bool((_member_capacity(acc, req_rows[j][None, :]) * mrow != cap[j]).any())
+        acc = torch.clamp(acc - takes_out[j][:, None] * req_rows[j][None, :], min=-_BIG)
+    ok_gang = feas | (pooled < need)
+    verify[0] = int(conflict or not bool(ok_gang.all()))
+    left_out.copy_(acc)
+
+
+def assign_gangs_topk_sharded(left0, group_req, remaining, fit_mask, order, mesh,
+                              wave: int = 8, k: int = 16, with_stats: bool = False,
+                              gather: bool = True):
+    """Node-sharded hierarchical top-K gang placement on a
+    ``parallel.ShardMesh``, called by every rank with the same whole
+    inputs: the outputs of ``assign_gangs_topk`` bit for bit (so the serial
+    scan's), while each rank keeps only its node block of the ``[N, R]``
+    leftover and a wave's collectives move candidate summaries (a few KB),
+    never node state.
+
+    Per wave (``wave`` gangs of the scan order, at least 2), the
+    reference's three branches:
+
+    - mega (one demand row and one mask row, the stream inside int32): one
+      merge (``TOPK_MEGA``), then the commit decision, which is replicated
+      arithmetic on the merged summary: 1 collective;
+    - speculative (any other wave): one merge of the W gangs' candidates
+      (``TOPK_SPECULATIVE``), then the conflict check on each rank's own
+      columns, reduced to one word: 2 collectives;
+    - a wave that cannot commit replays a gang at a time (``TOPK_REPLAY``,
+      one merge a gang), each gang ranked afresh; a gang whose candidates
+      cannot cover its need while its pooled capacity could takes the
+      dense-column selection from the same merge (counted in the
+      demotions).
+
+    A per-group mask's uniformity is reduced once per batch, as in
+    ``assign_gangs_sharded``; the node axis is padded to a multiple of S
+    with zero rows (capacity 0: never a candidate). Returns ``(alloc[G,N],
+    placed[G], left[N,R])`` on rank 0 (one gather of the blocks after the
+    scan) and None on the other ranks, plus the per-wave ``(conflicts,
+    megas, dense_demotions)`` when ``with_stats``; ``gather=False`` returns
+    this rank's ``(takes[G, nl], placed[G], left[nl, R])`` on every rank.
+    A failed launch or collective raises."""
+    from .assign_scan import shard_topk_apply_cuda, shard_topk_summary_cuda
+
+    n, r = left0.shape
+    g = group_req.shape[0]
+    w = max(int(wave), 2)
+    s, rank = mesh.size, mesh.rank
+    per_group = fit_mask.shape[0] != 1
+    if per_group and fit_mask.shape[0] != g:
+        raise ValueError(f"fit_mask rows {fit_mask.shape[0]} must be 1 or match group count {g}")
+    dev = left0.device
+    lo, hi, nl = mesh.node_block(n, flat=True)
+    n_pad = nl * s
+    kk_l, _ = shard_topk_widths(k, nl, s)
+    steps = -(-g // w)
+    g_pad = steps * w
+    idx = order.long()
+    left = left0.new_zeros((nl, r))
+    left[:hi - lo] = left0[lo:hi]
+    gr = torch.cat([group_req[idx], group_req.new_zeros((g_pad - g, r))])
+    rem = torch.cat([remaining[idx], remaining.new_zeros(g_pad - g)])
+    mask = torch.zeros((g_pad if per_group else 1, nl), dtype=torch.bool, device=dev)
+    mask[:g if per_group else 1, :hi - lo] = (fit_mask[idx] if per_group else fit_mask)[:, lo:hi]
+    uniform = (gr.view(steps, w, r) == gr.view(steps, w, r)[:, :1]).all(dim=2).all(dim=1)
+    if per_group:
+        mw = mask.view(steps, w, nl)
+        odd = (mw != mw[:, :1]).any(dim=2).any(dim=1).to(torch.int32)
+        mesh.all_reduce(odd, "uniformity")
+        uniform &= odd == 0
+    needs = rem.view(steps, w)
+    mega_need_max = (2**31 - 1) // max(n_pad, 1)
+    mega = [bool(u) and sum(nd) <= mega_need_max
+            for u, nd in zip(uniform.tolist(), needs.tolist())]
+    takes = torch.zeros((g_pad, nl), dtype=torch.int32, device=dev)
+    feas = torch.zeros(g_pad, dtype=torch.bool, device=dev)
+    conflicts = torch.zeros(steps, dtype=torch.bool, device=dev)
+    dense = torch.zeros(steps, dtype=torch.int32, device=dev)
+    bufs = {mode: torch.empty((s, w if mode == TOPK_SPECULATIVE else 1,
+                               shard_topk_payload(mode, kk_l, w)), dtype=torch.int32, device=dev)
+            for mode in (TOPK_SPECULATIVE, TOPK_MEGA, TOPK_REPLAY)}
+    spare = torch.empty_like(left)
+    verify = torch.empty(1, dtype=torch.int32, device=dev)
+    stream_take = torch.empty(nl, dtype=torch.int32, device=dev)
+    for st in range(steps):
+        rows = slice(st * w, (st + 1) * w)
+        req_c, need_c = gr[rows], needs[st]
+        mask_c = mask[rows] if per_group else mask
+        if mega[st]:
+            buf = bufs[TOPK_MEGA]
+            cap = shard_topk_summary_cuda(TOPK_MEGA, left, req_c[:1], need_c, mask_c[:1], buf,
+                                          rank, k)
+            mesh.all_reduce(buf, "merge")
+            shard_topk_apply_cuda(TOPK_MEGA, buf, rank, cap, need_c, left, req_c[:1], mask_c[:1],
+                                  takes[rows], feas[rows], spare, verify, dense[st:st + 1], k,
+                                  stream_take)
+            ok = int(verify.item()) == 1
+        else:
+            buf = bufs[TOPK_SPECULATIVE]
+            cap = shard_topk_summary_cuda(TOPK_SPECULATIVE, left, req_c, need_c, mask_c, buf,
+                                          rank, k)
+            mesh.all_reduce(buf, "merge")
+            shard_topk_apply_cuda(TOPK_SPECULATIVE, buf, rank, cap, need_c, left, req_c, mask_c,
+                                  takes[rows], feas[rows], spare, verify, dense[st:st + 1], k,
+                                  stream_take)
+            mesh.all_reduce(verify, "verify")
+            ok = int(verify.item()) == 0
+        if ok:
+            left, spare = spare, left
+            continue
+        conflicts[st] = True
+        buf = bufs[TOPK_REPLAY]
+        for j in range(st * w, (st + 1) * w):
+            one = slice(j, j + 1)
+            mask_j = mask[one] if per_group else mask
+            cap = shard_topk_summary_cuda(TOPK_REPLAY, left, gr[one], rem[one], mask_j, buf,
+                                          rank, k)
+            mesh.all_reduce(buf, "replay")
+            shard_topk_apply_cuda(TOPK_REPLAY, buf, rank, cap, rem[one], left, gr[one], mask_j,
+                                  takes[one], feas[one], spare, None, dense[st:st + 1], k,
+                                  stream_take)
+            left, spare = spare, left
+    megas = torch.tensor(mega, dtype=torch.bool, device=dev)
+    stats = (conflicts, megas, dense)
+    if not gather:
+        out_t = torch.zeros((g, nl), dtype=torch.int32, device=dev)
+        out_p = torch.zeros(g, dtype=torch.bool, device=dev)
+        out_t[idx] = takes[:g]
+        out_p[idx] = feas[:g]
+        outs = (out_t, out_p, left)
+        return (*outs, stats) if with_stats else outs
+    parts = mesh.gather(torch.cat([takes.view(-1), left.view(-1)]), "gather")
+    if parts is None:
+        return None
+    cut = g_pad * nl
+    alloc = torch.zeros((g, n), dtype=torch.int32, device=dev)
+    placed = torch.zeros(g, dtype=torch.bool, device=dev)
+    alloc[idx] = torch.cat([p[:cut].view(g_pad, nl) for p in parts], dim=1)[:g, :n]
+    placed[idx] = feas[:g]
+    left_after = torch.cat([p[cut:].view(nl, r) for p in parts])[:n]
+    if with_stats:
+        return alloc, placed, left_after, stats
+    return alloc, placed, left_after
+
+
 def _top_k_ties_by_index(assignment, k: int):
     """(counts, nodes) of the k largest entries per row, ties in ascending
     node order — what the reference's ``lax.top_k`` returns (the decode and
@@ -1081,14 +1436,14 @@ def schedule_batch(alloc_lanes, requested, group_req, remaining, fit_mask,
     ``scan_mesh`` (a ``parallel.ShardMesh``; every rank calls this with the
     same whole inputs) runs the batch over the mesh: with ``scan_shard``
     the node-sharded scan (``assign_gangs_sharded``, at ``scan_wave`` or,
-    below 2, 8), its blocks gathered to rank 0, which computes the head on
-    its whole inputs; else the replicated rung: the head on every rank's
-    ``(groups, nodes)`` block gathered to rank 0 (``_mesh_capacity``), then
-    the scan above on rank 0 with the whole inputs. Rank 0 returns the
-    whole output dict, the other ranks None once their collectives are
-    done. The sharded rung has no top-K form yet: ``scan_topk`` > 0 with
-    ``scan_shard`` raises; a policy batch runs on one device (with a mesh
-    it raises)."""
+    below 2, 8; with ``scan_topk`` > 0 its top-K form,
+    ``assign_gangs_topk_sharded``), its blocks gathered to rank 0, which
+    computes the head on its whole inputs; else the replicated rung: the
+    head on every rank's ``(groups, nodes)`` block gathered to rank 0
+    (``_mesh_capacity``), then the scan above on rank 0 with the whole
+    inputs. Rank 0 returns the whole output dict, the other ranks None
+    once their collectives are done. A policy batch runs on one device
+    (with a mesh it raises)."""
     from .assign_scan import (
         assign_gangs_cuda, assign_gangs_policy_cuda, assign_gangs_topk_cuda,
         assign_gangs_wave_cuda)
@@ -1101,14 +1456,18 @@ def schedule_batch(alloc_lanes, requested, group_req, remaining, fit_mask,
     if scan_mesh is None:
         cap = group_capacity(left, group_req, fit_mask)
     elif scan_shard:
-        if scan_topk > 0:
-            raise NotImplementedError(
-                "the node-sharded top-K rung is not in the port yet (ROADMAP item 11b)")
         # the scan first: a follower's share of the batch ends with it
-        sharded = assign_gangs_sharded(
-            left, group_req, remaining, fit_mask, order, scan_mesh,
-            wave=scan_wave if scan_wave > 1 else _SHARD_DEFAULT_WAVE, with_stats=True,
-        )
+        if scan_topk > 0:
+            sharded = assign_gangs_topk_sharded(
+                left, group_req, remaining, fit_mask, order, scan_mesh,
+                wave=scan_wave if scan_wave > 1 else _TOPK_DEFAULT_WAVE, k=scan_topk,
+                with_stats=True,
+            )
+        else:
+            sharded = assign_gangs_sharded(
+                left, group_req, remaining, fit_mask, order, scan_mesh,
+                wave=scan_wave if scan_wave > 1 else _SHARD_DEFAULT_WAVE, with_stats=True,
+            )
         if sharded is None:
             return None
         cap = group_capacity(left, group_req, fit_mask)
@@ -1129,7 +1488,10 @@ def schedule_batch(alloc_lanes, requested, group_req, remaining, fit_mask,
             left, group_req, remaining, fit_mask, order, *cols, terms, weights
         )
     elif sharded is not None:
-        assignment, placed, left_after, wave_stats = sharded
+        assignment, placed, left_after, stats = sharded
+        wave_stats = stats[:2]
+        if scan_topk > 0:
+            topk_demotions = stats[2]
     elif scan_topk > 0:
         assignment, placed, left_after, stats = assign_gangs_topk_cuda(
             left, group_req, remaining, fit_mask, order,
@@ -1392,11 +1754,13 @@ def dispatch_batch(batch_args, progress_args, device="cuda", policy=None,
     on the mesh's device: rank 0 broadcasts the batch
     (``parallel.mesh.lead_batch``) and every rank runs ``schedule_batch``
     with the mesh, the node-sharded rung unless ``BST_SCAN_SHARDED`` says
-    0 (at ``BST_SCAN_WAVE``'s width, or 8), else the replicated rung. A
-    ``forced_scan_rung`` pin runs its rung replicated, never sharded; a
-    policy batch runs on rank 0's device alone (its columns stay there).
-    The sharded rung with ``BST_SCAN_TOPK`` set raises (no top-K form
-    yet): nothing falls back."""
+    0 (at ``BST_SCAN_WAVE``'s width, or 8; with ``BST_SCAN_TOPK`` set its
+    top-K form), else the replicated rung. A ``forced_scan_rung`` pin runs
+    its rung replicated, never sharded; a policy batch runs on rank 0's
+    device alone (its columns stay there). When the batch's ``[N, R]`` /
+    ``[G, R]`` tensors are the ones a mesh holder keeps resident on the
+    followers (``ops.device_state``), only the O(G) tail is broadcast.
+    Nothing falls back."""
     dev = resolve_device(device) if scan_mesh is None else scan_mesh.device
     pin = getattr(_rung_override, "value", None)
     if pin is None:
@@ -1409,10 +1773,6 @@ def dispatch_batch(batch_args, progress_args, device="cuda", policy=None,
         policy = (policy_from_numpy(cols, dev), tuple(terms), tuple(weights))
         scan_wave = scan_topk = 0
         scan_mesh, sharded = None, False
-    if sharded and scan_topk > 0:
-        raise NotImplementedError(
-            "BST_SCAN_TOPK on a mesh: the node-sharded top-K rung is not in the port "
-            "yet (ROADMAP item 11b); BST_SCAN_SHARDED=0 runs it replicated")
     if sharded and scan_wave < 2:
         scan_wave = _SHARD_DEFAULT_WAVE
     if scan_topk > 0 and scan_wave < 2:
@@ -1440,7 +1800,7 @@ def dispatch_batch(batch_args, progress_args, device="cuda", policy=None,
             blob, out = _batch_blob(*batch, *progress, pack_assignment=pack,
                                     top_k=top_k, scan_wave=scan_wave, scan_topk=scan_topk,
                                     scan_mesh=scan_mesh, scan_shard=sharded)
-    rung = _path_name(policy is not None, scan_topk, scan_wave, sharded)
+    rung = _rung_name(policy is not None, scan_topk, scan_wave, sharded)
     cost_probe = None
     if _bucket_cost_enabled() and not _bucket_cost_known(g_bucket, n_bucket, rung):
         lanes = request_lanes
@@ -1613,7 +1973,8 @@ def _fold_batch_metrics(telemetry: dict, on_mesh: bool = False) -> None:
 
 def _path_name(policy: bool, scan_topk: int, scan_wave: int, sharded: bool = False) -> str:
     """The scan path of a batch: the ``path`` label of
-    ``bst_scan_batches_total`` and the rung of ``/debug/buckets``."""
+    ``bst_scan_batches_total`` (the reference's: the top-K scan is
+    ``topk`` on one device and on a mesh alike)."""
     return (
         "policy" if policy
         else "topk" if scan_topk > 0
@@ -1621,6 +1982,14 @@ def _path_name(policy: bool, scan_topk: int, scan_wave: int, sharded: bool = Fal
         else "wavefront" if scan_wave > 1
         else "serial"
     )
+
+
+def _rung_name(policy: bool, scan_topk: int, scan_wave: int, sharded: bool = False) -> str:
+    """The rung of ``/debug/buckets`` and of the first-batch key: the scan
+    path, with the node-sharded top-K scan (``sharded_topk``, its own
+    kernel) apart from the single-device one."""
+    path = _path_name(policy, scan_topk, scan_wave, sharded)
+    return "sharded_topk" if path == "topk" and sharded else path
 
 
 # -- per-bucket kernel plans and bounds (/debug/buckets) ---------------------
@@ -1635,7 +2004,8 @@ def _path_name(policy: bool, scan_topk: int, scan_wave: int, sharded: bool = Fal
 # reference.
 
 _KERNEL_OF_PATH = {"serial": "assign_scan", "wavefront": "assign_wave",
-                   "policy": "assign_policy", "topk": "assign_topk", "sharded": "shard_wave"}
+                   "policy": "assign_policy", "topk": "assign_topk", "sharded": "shard_wave",
+                   "sharded_topk": "shard_topk"}
 _bucket_cost_lock = threading.Lock()
 _bucket_costs: dict = {}  # guarded-by: _bucket_cost_lock
 
@@ -1656,7 +2026,7 @@ def _kernel_plan_of(path: str, pending, r: int):
     from . import assign_scan as scan
 
     dev = pending.device
-    if dev.type != "cuda" or path == "sharded":  # shard_wave has no launch plan to ask for
+    if dev.type != "cuda" or path in ("sharded", "sharded_topk"):  # fixed launch shapes
         return None
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     n = pending.n_bucket
@@ -1679,7 +2049,7 @@ def _note_bucket_cost(pending, telemetry: dict) -> None:
     if not _bucket_cost_enabled():
         return
     g, n = pending.g_bucket, pending.n_bucket
-    path = _path_name(pending.used_policy, pending.used_topk, pending.scan_wave,
+    path = _rung_name(pending.used_policy, pending.used_topk, pending.scan_wave,
                       bool(pending.shard_count))
     with _bucket_cost_lock:
         entry = _bucket_costs.setdefault(
@@ -1691,7 +2061,7 @@ def _note_bucket_cost(pending, telemetry: dict) -> None:
             return
     if pending.cost_probe is None:
         return
-    from .bounds import bound, policy_work, scan_work, shard_work, topk_work
+    from .bounds import bound, policy_work, scan_work, shard_topk_work, shard_work, topk_work
 
     try:
         lanes, in_bytes, r = pending.cost_probe
@@ -1710,6 +2080,14 @@ def _note_bucket_cost(pending, telemetry: dict) -> None:
                                      g if pending.mask_mode == "per_group" else 1,
                                      telemetry.get("wave_demotions", 0),
                                      telemetry.get("wave_uniform", 0))
+        elif path == "sharded_topk":
+            s = pending.shard_count
+            nl = -(-n // s)
+            nbytes, ops = shard_topk_work(nl, r, g, s, pending.scan_wave, pending.used_topk,
+                                          lanes, g if pending.mask_mode == "per_group" else 1,
+                                          telemetry.get("wave_demotions", 0),
+                                          telemetry.get("wave_uniform", 0),
+                                          telemetry.get("topk_demotions", 0))
         bound_ms, bound_by = bound(nbytes, ops)
         rung = {
             "kernel": _KERNEL_OF_PATH[path],

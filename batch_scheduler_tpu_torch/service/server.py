@@ -20,10 +20,19 @@ client's trace id (no span is opened on the executor thread), and with
 tracing on (utils.trace) they also land in this process's span ring.
 ``compile_warmer=True`` runs the bucket warmer (``ops.bucketing``) on the
 shapes the sidecar serves, and ``warmth_snapshot`` / ``replicate_warmth``
-hand its shapes to a standby. Left out, each with the ROADMAP item it
-waits for: the profiler's memory telemetry (item 12; the port builds its
-kernels once and compiles nothing per shape) and the mesh executor (item
-11b).
+hand its shapes to a standby. Left out: the profiler's memory telemetry
+(the port builds its kernels once and compiles nothing per shape).
+
+On a mesh (``scan_mesh=``, a ``parallel.ShardMesh`` on its rank 0, while
+the other ranks run ``parallel.follow``) every batch runs over the mesh
+(``ops.oracle.dispatch_batch``'s ``scan_mesh``): a full request's batch is
+broadcast whole, and each connection's mirror is a mesh holder whose
+keyframes and row scatters reach the followers, so a delta request moves
+its churned rows and its O(G) tail. The executor thread issues all of it,
+so a holder's broadcast never interleaves with a batch's collectives. The
+coalescer and the bucket warmer are off there (a merged batch would
+reshard; a warm batch would stall live ones), and ``drain`` /
+``server_close`` stop the followers.
 
 Deadline enforcement: a DEADLINE annotation frame bounds the next request;
 request bodies run on a per-connection daemon worker so the handler can
@@ -43,6 +52,7 @@ import os
 import queue
 import socket
 import socketserver
+import sys
 import threading
 import time
 import weakref
@@ -388,8 +398,9 @@ class DeviceExecutor:
     batch runs the scan kernel or the job fails with its error.
     """
 
-    def __init__(self, device="cuda"):
-        self.device = resolve_device(device)
+    def __init__(self, device="cuda", scan_mesh=None):
+        self.scan_mesh = scan_mesh
+        self.device = scan_mesh.device if scan_mesh is not None else resolve_device(device)
         self.stream = device_stream(self.device)
         self._q: "queue.Queue" = queue.Queue()
         self._stopped = False
@@ -499,7 +510,8 @@ class DeviceExecutor:
                 job.queue_wait = time.perf_counter() - job.enqueued
                 try:
                     pending = dispatch_batch(
-                        job.args, job.progress_args, device=self.device
+                        job.args, job.progress_args, device=self.device,
+                        scan_mesh=self.scan_mesh,
                     )
                 except BaseException as e:  # noqa: BLE001 — to the waiter
                     job.finish(error=e)
@@ -728,7 +740,7 @@ class _Handler(socketserver.BaseRequestHandler):
                         # a full request supersedes any delta mirror: the
                         # client's cursor keyframes after a fallback, and a
                         # stale mirror would only pin device memory
-                        self._mirror = None
+                        self._release_mirror()
                         self._mirror_counts = None
                         try:
                             outcome = self._run(
@@ -838,6 +850,19 @@ class _Handler(socketserver.BaseRequestHandler):
             self.server._track(self.request, False)
             if self._worker is not None:
                 self._worker.close()
+            self._release_mirror()
+
+    def _release_mirror(self) -> None:
+        """Drop the connection's mirror; a mesh mirror gives its slot up on
+        the followers, on the executor thread (nothing to give up once the
+        executor has stopped: so have the followers)."""
+        mirror, self._mirror = self._mirror, None
+        if mirror is None or mirror.mesh is None:
+            return
+        try:
+            self.server.executor.run(mirror.release)
+        except RuntimeError:
+            pass
 
     def _run_schedule_body(self, payload: bytes, traced: bool = False):
         """One SCHEDULE_REQ: unpack and pad on this thread (numpy only),
@@ -1043,7 +1068,8 @@ class _Handler(socketserver.BaseRequestHandler):
         if coal is not None:
             coal.check_admission()
         if self._mirror is None:
-            self._mirror = DeviceStateHolder(self.server.device, label="server")
+            self._mirror = DeviceStateHolder(self.server.device, label="server",
+                                             mesh=self.server.scan_mesh)
         holder = self._mirror
         want_audit = self.server.audit_log is not None
         audit_args = None
@@ -1151,6 +1177,9 @@ class OracleServer(socketserver.ThreadingTCPServer):
     sidecar's capacity shares) in front of the executor; None reads
     ``BST_COALESCE`` (default off). ``compile_warmer`` runs the bucket
     warmer on ``device`` (``ops.bucketing.maybe_compile_warmer``).
+    ``scan_mesh`` (a ``parallel.ShardMesh`` on its rank 0; the other ranks
+    run ``parallel.follow``) runs every batch over the mesh, on the mesh's
+    device, without the coalescer or the warmer (the module docstring).
     ``server_close`` hangs up every open connection, as a stopped sidecar
     process would: its clients see the transport fail."""
 
@@ -1165,25 +1194,32 @@ class OracleServer(socketserver.ThreadingTCPServer):
         device="cuda",
         coalesce: Optional[bool] = None,
         compile_warmer: bool = False,
+        scan_mesh=None,
     ):
-        self.device = resolve_device(device)
+        self.scan_mesh = scan_mesh
+        self.device = scan_mesh.device if scan_mesh is not None else resolve_device(device)
         super().__init__((host, port), _Handler)
         self.audit_log = audit_log
-        self.executor = DeviceExecutor(self.device)
+        self.executor = DeviceExecutor(self.device, scan_mesh=scan_mesh)
         self.warmer = None
         if compile_warmer:
             from ..ops.bucketing import maybe_compile_warmer
 
-            self.warmer = maybe_compile_warmer(self.device)
+            self.warmer = maybe_compile_warmer(self.device, scan_mesh)
         # the multi-tenant cross-client coalescer: a DRF-fair merge queue
-        # in front of the executor
+        # in front of the executor; single-device only, as in the reference
         want_coalesce = (
             coalesce_enabled() if coalesce is None else bool(coalesce)
         )
-        self.coalescer = (
-            OracleCoalescer(self.executor, weights_fn=_capacity_tenant_shares)
-            if want_coalesce else None
-        )
+        self.coalescer = None
+        if want_coalesce and scan_mesh is None:
+            self.coalescer = OracleCoalescer(self.executor, weights_fn=_capacity_tenant_shares)
+        elif want_coalesce:
+            print(
+                "coalescer skipped: mesh server (shard placement happens "
+                "per connection; merged batches would reshard)",
+                file=sys.stderr,
+            )
         # graceful drain: _admit_request/_request_done bracket every
         # work-bearing request so drain() can wait out the admitted
         # in-flight window before flushing; failover_hint rides in every
@@ -1279,6 +1315,7 @@ class OracleServer(socketserver.ThreadingTCPServer):
         if self.coalescer is not None:
             self.coalescer.stop(timeout=10.0)
         self.executor.stop(timeout=10.0)
+        self._stop_followers()
         audit_ok = True
         if self.audit_log is not None:
             try:
@@ -1324,22 +1361,32 @@ class OracleServer(socketserver.ThreadingTCPServer):
             if self.coalescer is not None:
                 self.coalescer.stop(timeout=10.0)
             self.executor.stop(timeout=10.0)
+            self._stop_followers()
             if self.audit_log is not None:
                 self.audit_log.stop(timeout=10.0)
         finally:
             super().server_close()
 
+    def _stop_followers(self) -> None:
+        """On a mesh, the stop header to the followers (once; the executor
+        has stopped, so no batch is in its collectives)."""
+        if self.scan_mesh is not None:
+            from ..parallel.mesh import stop_followers
+
+            stop_followers(self.scan_mesh)
+
 
 def serve_background(
     host: str = "127.0.0.1", port: int = 0, audit_log=None, device="cuda",
-    coalesce: Optional[bool] = None, compile_warmer: bool = False,
+    coalesce: Optional[bool] = None, compile_warmer: bool = False, scan_mesh=None,
 ) -> OracleServer:
     """Start an OracleServer on a daemon thread; returns it (``.address``
     has the bound port, ``.shutdown()`` stops it, ``.server_close()``
-    releases the socket and stops the warmer, the coalescer and the
-    executor)."""
+    releases the socket and stops the warmer, the coalescer, the
+    executor and, on a mesh, the followers)."""
     server = OracleServer(host, port, audit_log=audit_log, device=device,
-                          coalesce=coalesce, compile_warmer=compile_warmer)
+                          coalesce=coalesce, compile_warmer=compile_warmer,
+                          scan_mesh=scan_mesh)
     t = threading.Thread(
         target=server.serve_forever, name="oracle-server", daemon=True
     )

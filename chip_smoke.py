@@ -10,9 +10,9 @@ Phases (one JSON line each; any failure makes the exit code non-zero):
 
 - build            nvcc csrc/assign_scan.cu (twice: the serial kernel, and
                    with -DBST_POLICY_SCAN its policy variant),
-                   csrc/assign_wave.cu, csrc/assign_topk.cu and
-                   csrc/shard_wave.cu, one nvcc each, started together,
-                   into the gitignored build/
+                   csrc/assign_wave.cu, csrc/assign_topk.cu,
+                   csrc/shard_wave.cu and csrc/shard_topk.cu, one nvcc
+                   each, started together, into the gitignored build/
 - north_star       bench.py's deployment — 5,000 nodes (64 cpu, 256Gi, 110
                    pods, 8 GPUs), 1,000 gangs x 10 pods (4 cpu, 8 GiB, 1 GPU)
                    -> [G=1024, N=8192, R=5], broadcast mask — through
@@ -375,8 +375,9 @@ The top-K rung (BST_SCAN_TOPK=K, the top-K kernel assign_topk):
                    acceptance bucket [G=2048, N=65536] (seed 1): the serial
                    kernel, the wave kernel at W=8 and the top-K kernel at
                    K=16 and K=128, every output bit-identical, the top-K
-                   series equal to the plain top-K scan's on the card, all
-                   timed in turns; 1 xl_churn_burst re-run at K=128,
+                   series equal to the plain top-K scan's on the card (at
+                   K=128 on every input, at K=16 on the acceptance
+                   bucket), all timed in turns; 1 xl_churn_burst re-run at K=128,
                    held to the serial kernel; one full batch through
                    execute_batch_host, BST_SCAN_TOPK=128 against unset,
                    the host dicts equal (the unpacked tail), with the
@@ -396,9 +397,29 @@ The top-K rung (BST_SCAN_TOPK=K, the top-K kernel assign_topk):
                    scan's collectives (at most 2 a wave, none larger than
                    the [S, W, 128] summary); each rung's batch timed;
                    rank 0's OracleScorer(scan_mesh=...) through a keyframe
-                   and 8 churn refreshes while the others follow, each
-                   plan equal to a single-device scorer's, its batches
-                   launching shard_wave and no other kernel.
+                   and 8 churn refreshes (2 on 4 ranks) while the others
+                   follow, each plan equal to a single-device scorer's, its
+                   batches launching shard_wave and no other kernel.
+                   The sharded top-K rung: shard_topk's summary
+                   and apply against their plain versions on both ranks'
+                   blocks at S=2, K=16, W=8 (the north star's uniform
+                   wave, mixed's per-group wave, one of its gangs replayed
+                   on its candidates, one tight-fit gang demoted to the
+                   dense column), rank 0's step timed; on every mesh
+                   sharded_schedule_batch(sharded_scan=True, scan_wave=8,
+                   scan_topk=16) equal to the single-device serial batch,
+                   its per-wave series to the single-device top-K kernel's,
+                   on the inputs above and a tight fit whose 64 gangs all
+                   demote (4 ranks: the north star and N = 5003 only);
+                   XLClusterSpec() at full width (131072 nodes, 4,096
+                   gangs) at K=128 on 1 and 2 ranks, timed; the budget on
+                   1 and 2 ranks (the north star: 1 collective a uniform
+                   wave; mixed at [256, 1024] and [1024, 1024]: the same
+                   sites, none over the payload); the mesh scorer run again
+                   with BST_SCAN_TOPK=16 first (shard_topk alone), its
+                   mesh holder's keyframes and rows equal to a
+                   single-device holder's, a churn refresh broadcasting
+                   its rows and the batch's tail, never the whole batch.
 
 The scheduler loop (framework/, plugin/, controller/, client/, sim/):
 
@@ -485,6 +506,16 @@ The scheduler loop (framework/, plugin/, controller/, client/, sim/):
                    bound, the infeasible gangs not, no over-commit, the
                    server's launches against the client's fallback
                    batches (the card must have served batches).
+- mesh_serve       `serve` under BST_COORDINATOR: two `python -m
+                   batch_scheduler_tpu_torch serve` ranks (gloo, sharing
+                   cuda:0), BST_SCAN_TOPK unset (rank 0 with --coalesce,
+                   which must print the skip note) and at 16; a
+                   RemoteScorer on rank 0 and one on a single-device
+                   serve_background(device="cuda") through north_star_churn's
+                   keyframe and 8 churn refreshes on wire deltas, every plan
+                   equal; rank 0's launches (its /metrics) shard_wave or
+                   shard_topk alone; SIGTERM drains rank 0, rank 1 stops,
+                   both exit 0.
 - warmer           the bucket warmer in fresh child processes
                    (chip_smoke.py --warmer-child MODE): one with it off and
                    one with it on, each an OracleScorer at the
@@ -514,13 +545,14 @@ The scheduler loop (framework/, plugin/, controller/, client/, sim/):
                    gang evicted); explain and whatif --rung steady|topk
                    against the live race process (the two what-ifs equal
                    but for their rung and time);
-                   the full-width run `sim --scenario synthetic --nodes
-                   5000 --node-cpu 64 --node-memory 256Gi --groups 1000
-                   --members 10 --scorer oracle` (with --settle 20) with
-                   --audit-dir (--audit-cap-mb 64), --lifecycle-dir and
-                   --metrics-port (all 10,000 pods
-                   bound, every gang Running; its wall clock and pods a
-                   second, batches and fold outcomes); replay, explain,
+                   the ring run `sim --scenario synthetic --nodes 1250
+                   --node-cpu 64 --node-memory 256Gi --groups 250 --members
+                   10 --scorer oracle` (a quarter of config 6's count,
+                   for the smoke's time; --settle 10) with --audit-dir
+                   (--audit-cap-mb 64), --lifecycle-dir and --metrics-port
+                   (all 2,500 pods bound, every gang Running; its wall
+                   clock and pods a second, batches and fold outcomes);
+                   replay, explain,
                    capacity and timeline on its audit ring, each equal to
                    the in-process function on the same records (replay:
                    every record identical in the child, the last 4 also in
@@ -540,7 +572,7 @@ The scheduler loop (framework/, plugin/, controller/, client/, sim/):
                    batch; the profiled window's are reported apart.
 - cli_wave         with BST_SCAN_WAVE=8 in the children: replay --against
                    wavefront and topk (and explain, capacity, timeline) on
-                   the cli phase's full-width ring; the quarter deployment
+                   the cli phase's ring; the quarter deployment
                    in a sim child with one more gang that never fits (the
                    child stays up once the 2,500 pods are bound): its
                    launches against its batches (cli_wave),
@@ -549,13 +581,15 @@ The scheduler loop (framework/, plugin/, controller/, client/, sim/):
                    to its /debug/whatif, the held gang newly placeable;
                    and the quarter deployment through `serve` with its
                    routes as in cli (cli_wave_serve). The README's
-                   examples, the no-card run and the direct full-width run
-                   only in cli, where the first two run beside the third
-                   (they mostly wait): a full-width run with the CLI's
-                   defaults makes a batch a gang (PERF.md).
+                   examples, the no-card run and the ring run only in cli,
+                   where the first two run beside the third (they mostly
+                   wait): a run with the CLI's defaults makes a batch a
+                   gang (PERF.md). Each phase's served run
+                   runs beside its ring steps (their wall clocks are taken
+                   under that load).
 - cli_main         last: cmd.main.main(argv) of the synthetic run at a
                    quarter of config 6's count (1,250 nodes, 250 gangs x
-                   10; the full-width runs are cli's) in process, each
+                   10) in process, each
                    kernel's count zeroed just before and read just after
                    (cli_main), under the stack sampler and
                    torch.profiler recording the card (its idle share over
@@ -586,12 +620,16 @@ the HTTP gateway), sim_scenarios (each scenario), chaos, chaos_wave and
 chaos_drizzle (the sidecar's batches through the proxy), metrics_framework, lockcheck and lockcheck_sims (counted in
 its child), cli_serve, cli_wave_serve and cli_wave (a child's
 bst_kernel_launches_total just before and just after its run, or at its
-held state), cli_main (the CLI's quarter-width run in process), and
-the audit phases' replays (``audit_replay_replays``,
+held state), cli_main (the CLI's quarter-width run in process), sharded
+(each mesh's scorer runs and SPMD checks, per kernel: sharded_scorer_sS,
+sharded_spmd_sS, sharded_topk_scorer_sS, sharded_topk_spmd_sS), mesh_serve
+(rank 0's bst_kernel_launches_total around each run: mesh_serve,
+mesh_serve_topk), and the audit phases' replays (``audit_replay_replays``,
 ``audit_replay_wave_replays``, ``audit_replay_policy_replays``) — with
 every kernel's count zeroed just before the path and read just after;
 ``launches`` in the kernels line is the path's of the kernel's first
-phase (north_star, north_star_wave, policy, north_star_topk),
+phase (north_star, north_star_wave, policy, north_star_topk; for
+shard_wave and shard_topk the mesh scorer's at S=2),
 ``launches_by_path`` holds each path. Comparison and timing
 launches are not counted.
 """
@@ -736,9 +774,12 @@ def counters():
         assign_gangs_cuda, assign_gangs_policy_cuda, assign_gangs_topk_cuda,
         assign_gangs_wave_cuda)
 
+    from batch_scheduler_tpu_torch.ops import assign_scan as sc
+
     return {"assign_scan": assign_gangs_cuda, "assign_wave": assign_gangs_wave_cuda,
             "assign_policy": assign_gangs_policy_cuda, "assign_topk": assign_gangs_topk_cuda,
-            "shard_wave": ShardCounter()}
+            "shard_wave": ShardCounter(sc.shard_summary_cuda, sc.shard_apply_cuda),
+            "shard_topk": ShardCounter(sc.shard_topk_summary_cuda, sc.shard_topk_apply_cuda)}
 
 
 def only(**launches):
@@ -886,9 +927,15 @@ def host_dicts_equal(batch_args, progress_args):
 WAVE_TELEMETRY = ("wave_width", "waves_per_batch", "wave_demotions", "wave_uniform")
 
 
+# the widths at which mixed_wave also holds the cuda host dict to the CPU's
+# (a whole batch on the CPU per input): W=8 alone, for the
+# smoke's time: at W=32 the wave kernel is still held to both plain scans
+MIXED_HOST_WAVES = (8,)
+
 # -- phases -------------------------------------------------------------------
 
-KERNELS = ("assign_scan", "assign_wave", "assign_policy", "assign_topk", "shard_wave")
+KERNELS = ("assign_scan", "assign_wave", "assign_policy", "assign_topk", "shard_wave",
+           "shard_topk")
 
 
 @phase("build")
@@ -4606,9 +4653,9 @@ def mixed_wave(results):
     """The mixed and both global_leftover inputs at W=8 and W=32 in both
     mask modes, and the zone-by-position per-group input at W=8: the wave
     kernel against the plain serial scan and the plain wavefront, the cuda
-    host dict (with the wave telemetry) against the CPU one, and both
-    kernels' times on each input, in turns. Each branch must be taken at
-    least once across the phase."""
+    host dict (with the wave telemetry) against the CPU one at
+    MIXED_HOST_WAVES, and both kernels' times on each input, in turns. Each
+    branch must be taken at least once across the phase."""
     from batch_scheduler_tpu_torch.ops.assign_scan import (
         assign_gangs_cuda, assign_gangs_plain, assign_gangs_wave_cuda)
 
@@ -4637,15 +4684,16 @@ def mixed_wave(results):
                                  f"(max abs err {serial_err})")
         for wave in waves:
             err, equal, conflicts, megas = compare_wave(args, wave, serial)
-            with scan_wave_env(wave):
-                diff, host, _ = host_dicts_equal(batch_args, progress_args)
-            tele = host["telemetry"]
             counts = {"uniform_commit": int((megas & ~conflicts).sum()),
                       "speculative_commit": int((~megas & ~conflicts).sum()),
                       "demoted": int(conflicts.sum())}
             want_tele = {"wave_width": wave, "waves_per_batch": len(conflicts),
                          "wave_demotions": counts["demoted"], "wave_uniform": int(megas.sum())}
-            got_tele = {k: tele.get(k) for k in want_tele}
+            diff, host, got_tele = [], None, want_tele
+            if wave in MIXED_HOST_WAVES:
+                with scan_wave_env(wave):
+                    diff, host, _ = host_dicts_equal(batch_args, progress_args)
+                got_tele = {k: host["telemetry"].get(k) for k in want_tele}
             if not equal or diff or got_tele != want_tele:
                 raise AssertionError(f"{label} W={wave}: kernel vs plain max abs err {err} "
                                      f"(equal {equal}), host dict fields differing {diff}, "
@@ -4665,8 +4713,9 @@ def mixed_wave(results):
                 "cluster_blocks": plan.cluster_blocks, "leftover": plan.leftover,
                 "kernel_vs_plain_equal": equal, "max_abs_err": err,
                 "serial_kernel_vs_plain_equal": serial_equal,
-                "host_dict_equal": not diff, "waves": len(conflicts), **counts,
-                "placed": int(host["placed"].sum()),
+                "host_dict_equal": not diff if host is not None else "not compared",
+                "waves": len(conflicts), **counts,
+                "placed": int(host["placed"].sum()) if host is not None else None,
                 "wave_kernel_ms": wave_ms, "serial_kernel_ms": serial_ms,
             })
     missing = [k for k, v in branches.items() if v == 0]
@@ -5892,7 +5941,12 @@ XL_PAD = 131072  # XLClusterSpec()'s 100,000 nodes in their bucket
 XL_ACCEPT = (2048, 65536)  # benchmarks/xl_scaling.py:250, the acceptance bucket
 TOPK_WAVE = 8  # the rung's width with BST_SCAN_WAVE unset
 XL_K = (16, 128)
-XL_REPS = 3
+# the inputs on which each K's per-wave series is also held to the plain
+# top-K scan's: every input at the full batch's K=128; at K=16, where the XL
+# tier demotes the most, the acceptance bucket alone (the plain scan took 22
+# of the phase's 46 s at K=16 on the three inputs)
+XL_PLAIN = {128: ("xl", "xl_3_profiles", "accept"), 16: ("accept",)}
+XL_REPS = 2
 XL_CHURN_STEPS = 1  # cut from 3 for the smoke's time limit
 TOPK_K = 16  # north_star_topk's BST_SCAN_TOPK (the reference's replay rung)
 TOPK_ROUNDS = 8  # churn refreshes after the keyframe
@@ -5950,14 +6004,17 @@ def check_xl(name, args):
         if not equal:
             raise AssertionError(f"{name}, K={k}: the top-K kernel differs from the serial "
                                  f"one (max abs err {err})")
-        t0 = time.perf_counter()
-        plain = assign_gangs_topk(*args, wave=TOPK_WAVE, k=k, with_stats=True)
-        torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
-        perr, pequal = max_err(list(got[:3]) + list(got[3]), list(plain[:3]) + list(plain[3]))
-        if not pequal:
-            raise AssertionError(f"{name}, K={k}: the top-K kernel differs from the plain "
-                                 f"version (max abs err {perr})")
+        plain_s = perr = plain = None
+        if name in XL_PLAIN[k]:
+            t0 = time.perf_counter()
+            plain = assign_gangs_topk(*args, wave=TOPK_WAVE, k=k, with_stats=True)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            perr, pequal = max_err(list(got[:3]) + list(got[3]),
+                                   list(plain[:3]) + list(plain[3]))
+            if not pequal:
+                raise AssertionError(f"{name}, K={k}: the top-K kernel differs from the plain "
+                                     f"version (max abs err {perr})")
         run = lambda: assign_gangs_topk_cuda(*args, TOPK_WAVE, k)  # noqa: E731
         ms = [cuda_ms(run, XL_REPS), cuda_ms(run, XL_REPS)]
         conflicts, megas, dem = series(got[3])
@@ -5965,7 +6022,7 @@ def check_xl(name, args):
 
         bound_ms, bound_by, nbytes, ops = topk_bound(*args, TOPK_WAVE, got[3])
         out[f"topk_{k}"] = {
-            "kernel_ms": ms, "plain_s": plain_s, "max_abs_err": max(err, perr),
+            "kernel_ms": ms, "plain_s": plain_s, "max_abs_err": max(err, perr or 0),
             "waves": len(conflicts), "replayed": sum(conflicts), "uniform": sum(megas),
             "demotions": sum(dem), "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": nbytes, "int_ops": ops}
@@ -7171,20 +7228,11 @@ def sim_scenarios(results):
 # the CLI (python -m batch_scheduler_tpu_torch) in child processes
 # ---------------------------------------------------------------------------
 
-CLI_FULL = ("--scenario", "synthetic", "--nodes", "5000", "--node-cpu", "64",
-            "--node-memory", "256Gi", "--groups", "1000", "--members", "10",
-            "--scorer", "oracle")  # BASELINE config 6's count: [1024, 8192, R]
-# sim ends when every gang is terminal, or after --settle seconds with no
-# change: the default 3 s ended a full-width flood on a loaded host after
-# 80 binds, so the full-width runs wait 20 s before calling it settled (a
-# full-width flood binds continuously: no bind for 20 s means it is done)
-CLI_FULL_RUN = ("--timeout", "300", "--settle", "20")
-# the full-width ring's cap: the newest ~quarter of its ~1,000 records
+# the ring's cap (its ~250 records fit)
 CLI_AUDIT_CAP_MB = "64"
-CLI_FULL_NODES, CLI_FULL_GANGS, CLI_FULL_PODS = 5000, 1000, 10000
-# the served, the held and the in-process runs at a quarter of config 6's
-# count (the smoke's time; the cli phase's ring run keeps the full width):
-# [G=256, N=2048]
+# every CLI run at a quarter of BASELINE config 6's count, for the smoke's
+# time (the ring run too, since the full-width ring run, 80-134 s, was the
+# cli phase's longest step on a slow host): [G=256, N=2048]
 CLI_QUARTER_NODES, CLI_QUARTER_GANGS, CLI_QUARTER_PODS = 1250, 250, 2500
 CLI_QUARTER = ("--scenario", "synthetic", "--nodes", str(CLI_QUARTER_NODES), "--node-cpu",
                "64", "--node-memory", "256Gi", "--groups", str(CLI_QUARTER_GANGS),
@@ -7194,7 +7242,7 @@ CLI_QUARTER_BUCKET = "256x2048"
 # ends it
 CLI_QUARTER_RUN = ("--timeout", "300", "--settle", "10")
 CLI_TIMEOUT = 420  # seconds a child may take
-CLI_EXPLAIN_GANG = "default/group-999"  # the last gang placed: in the capped ring
+CLI_EXPLAIN_GANG = "default/group-249"  # the last gang placed
 CLI_REPLAY_SAMPLE = 4  # records replayed in process beside the children's full replays
 CLI_KNOBS = ("BST_SCAN_WAVE", "BST_SCAN_TOPK", "BST_POLICY", "BST_COORDINATOR")
 
@@ -7343,7 +7391,7 @@ def check_readme_examples(tmp):
         "version": cli_start(["version"]),
         "check_config": cli_start(["check-config", "--config", os.path.join(
             here, "deploy", "scheduler", "config", "batch_scheduler_config.json")]),
-        # --settle 10: started beside the full-width run, a child's first
+        # --settle 10: started beside the ring run, a child's first
         # batch can take more than 2 s, and a 2 s settle ended one before it
         "example1": cli_start(["sim", "-f", "examples/example1.yaml", "--nodes", "4",
                                "--node-cpu", "4", "--timeout", "60", "--settle", "10"]),
@@ -7436,18 +7484,19 @@ def zones_pinned_to(audit_dir):
     return sorted(nodes)
 
 
-def full_width_sim(tmp, extra=(), env=None, tag="direct"):
-    """The full-width synthetic run (5,000 nodes, 1,000 gangs x 10) with an
+def ring_sim(tmp, extra=(), env=None, tag="direct"):
+    """The quarter synthetic run (1,250 nodes, 250 gangs x 10) with an
     audit ring, a lifecycle export and a metrics port: every gang Running
     with 10 bound. Returns its report."""
     audit, life = os.path.join(tmp, f"{tag}-audit"), os.path.join(tmp, f"{tag}-life")
-    _, out, _ = cli(["sim", *CLI_FULL, *CLI_FULL_RUN, "--audit-dir", audit, "--audit-cap-mb",
-                     CLI_AUDIT_CAP_MB, "--lifecycle-dir", life, "--metrics-port", "0", *extra],
-                    env=env)
+    _, out, _ = cli(["sim", *CLI_QUARTER, *CLI_QUARTER_RUN, "--audit-dir", audit,
+                     "--audit-cap-mb", CLI_AUDIT_CAP_MB, "--lifecycle-dir", life,
+                     "--metrics-port", "0", *extra], env=env)
     rows = sim_table(out)
     wall, bound, rate = sim_wall(out)
     running = sum(1 for phase, _, b in rows.values() if phase == "Running" and b == 10)
-    if len(rows) != CLI_FULL_GANGS or running != CLI_FULL_GANGS or bound != CLI_FULL_PODS:
+    if len(rows) != CLI_QUARTER_GANGS or running != CLI_QUARTER_GANGS or \
+            bound != CLI_QUARTER_PODS:
         raise AssertionError(f"{tag}: {running} of {len(rows)} gangs Running, {bound} pods "
                              f"bound: {out[-1500:]}")
     events = os.path.join(life, "events.jsonl")
@@ -7489,7 +7538,7 @@ def strip_ms(obj):
 
 def check_read_side(audit, rungs, env):
     """replay (each of ``rungs``), explain, capacity and timeline on a
-    full-width run's audit ring, each a child that exits 0 and equals the
+    ring run's audit ring, each a child that exits 0 and equals the
     in-process function on the same records (the replays: every record
     identical in the child, and the last ``CLI_REPLAY_SAMPLE`` records
     identical in process too)."""
@@ -7553,7 +7602,7 @@ def check_read_side(audit, rungs, env):
     return report
 
 
-# one gang that no 64-cpu node can hold: keeps a full-width sim child up
+# one gang that no 64-cpu node can hold: keeps a sim child up
 # past its flood (a denied gang never turns terminal) for live queries
 CLI_HELD_GANG = """apiVersion: batch.scheduler.tpu/v1
 kind: PodGroup
@@ -7589,7 +7638,7 @@ def whatif_plan(w):
     return {k: v for k, v in w.items() if k not in ("rung", "elapsed_s", "baseline_cached")}
 
 
-def live_full_width(tmp, env):
+def live_held(tmp, env):
     """The quarter deployment in a sim child (``env``'s rung) with one
     more gang that never fits, so the child stays up once the 2,500 pods
     are bound. Then, live: its launches of each kernel
@@ -7651,7 +7700,7 @@ def live_full_width(tmp, env):
             or plans["steady"] != plans["topk"] or whatif_plan(route) != plans["topk"] \
             or "default/held" not in plans["topk"]["newly_placeable"] \
             or plans["topk"]["base"]["nodes"] != CLI_QUARTER_NODES:
-        raise AssertionError(f"full-width whatif: steady {answers.get('steady')}, topk "
+        raise AssertionError(f"held whatif: steady {answers.get('steady')}, topk "
                              f"{answers.get('topk')}, route {status} {route}")
     if sum(launches.values()) != batches + 1:
         raise AssertionError(f"held sim: launches {launches} against {batches} batches + 1")
@@ -7789,7 +7838,7 @@ def check_no_card():
     return {"exit": rc}
 
 
-CLI_RING = {}  # the cli phase's full-width audit ring, read again by cli_wave
+CLI_RING = {}  # the cli phase's audit ring, read again by cli_wave
 
 
 def cli_phase(results, wave):
@@ -7803,6 +7852,13 @@ def cli_phase(results, wave):
     env = cli_env(**({"BST_SCAN_WAVE": str(wave)} if wave else {}))
     tag = "cli_wave" if wave else "cli"
     report, steps = {}, {}
+    if wave:
+        if "audit" not in CLI_RING:
+            raise AssertionError("the cli phase left no audit ring")
+        tmp = CLI_RING["tmp"]
+    else:
+        tmp = tempfile.mkdtemp(prefix="cli-")
+        atexit.register(shutil.rmtree, tmp, True)
 
     def step(name, fn, *args):
         t0 = time.perf_counter()
@@ -7811,31 +7867,27 @@ def cli_phase(results, wave):
         return out
 
     kernel = "assign_wave" if wave else "assign_scan"
-    if wave:
-        if "audit" not in CLI_RING:
-            raise AssertionError("the cli phase left no full-width audit ring")
-        tmp = CLI_RING["tmp"]
-    else:
-        tmp = tempfile.mkdtemp(prefix="cli-")
-        atexit.register(shutil.rmtree, tmp, True)
-        # the README's examples and the no-card run mostly wait (deny
-        # windows, settles, a refused start): they run beside the
-        # full-width run's child
-        with ThreadPoolExecutor(max_workers=2) as pool:
+    # the served run (its own serve process and sim child) runs beside the
+    # ring's steps, as the README's examples and the no-card run (they
+    # mostly wait) do in cli, for the smoke's time
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        served = pool.submit(step, "served", check_served, tmp, env, wave)
+        if not wave:
             readme = pool.submit(step, "readme", check_readme_examples, tmp)
             no_card = pool.submit(step, "no_card", check_no_card)
-            full = step("full_width", full_width_sim, tmp, (), env)
+            full = step("ring", ring_sim, tmp, (), env)
+            report["ring"] = {k: v for k, v in full.items() if not k.endswith("_dir")}
+            CLI_RING.update(tmp=tmp, audit=full["audit_dir"])
+        report["read_side"] = step("read_side", check_read_side, CLI_RING["audit"],
+                                   ("wavefront", "topk") if wave else ("steady",), env)
+        if wave:
+            report["live"], launches = step("live", live_held, tmp, env)
+            if launches != only(**{kernel: launches[kernel]}) or not launches[kernel]:
+                raise AssertionError(f"held sim launches {launches} (want {kernel} only)")
+            note_path(results, kernel, tag, launches[kernel])
+        else:
             report["readme"], report["no_card"] = readme.result(), no_card.result()
-        report["full_width"] = {k: v for k, v in full.items() if not k.endswith("_dir")}
-        CLI_RING.update(tmp=tmp, audit=full["audit_dir"])
-    report["read_side"] = step("read_side", check_read_side, CLI_RING["audit"],
-                               ("wavefront", "topk") if wave else ("steady",), env)
-    if wave:
-        report["live"], launches = step("live", live_full_width, tmp, env)
-        if launches != only(**{kernel: launches[kernel]}) or not launches[kernel]:
-            raise AssertionError(f"held sim launches {launches} (want {kernel} only)")
-        note_path(results, kernel, tag, launches[kernel])
-    report["served"], launches = step("served", check_served, tmp, env, wave)
+        report["served"], launches = served.result()
     note_path(results, kernel, f"{tag}_serve", launches[kernel])
     report["step_s"] = steps
     return report
@@ -8602,21 +8654,24 @@ SHARD_UNEVEN_N = 5003
 # its timed batches a rung, and the scorer's churn refreshes after the
 # keyframe (north_star_churn's Churn). Four ranks sharing one card pay ~8
 # ms a collective (2 ms on two): there the north star and the uneven
-# per-group mixed input (125 of its 128 waves replay), one timed batch
-SHARD_PLAN = {1: (None, 3, 8), 2: (None, 2, 8),
-              4: (("north_star", f"mixed_per_group_n{SHARD_UNEVEN_N}"), 1, 8)}
+# per-group mixed input (125 of its 128 waves replay), one timed batch and
+# 2 churn refreshes a scorer run (it runs twice: BST_SCAN_TOPK at 16, unset);
+# two ranks skip the full-N per-group input (its N = 5003 cut keeps the
+# per-group mask mode), for the smoke's time
+SHARD_PLAN = {1: (None, 3, 8),
+              2: (("north_star", "mixed_broadcast", f"mixed_per_group_n{SHARD_UNEVEN_N}"), 2, 8),
+              4: (("north_star", f"mixed_per_group_n{SHARD_UNEVEN_N}"), 1, 2)}
 SHARD_REPS, SHARD_PLAIN_REPS = 50, 5
 SHARD_CHILD_TIMEOUT = 300.0
 
 
 class ShardCounter:
-    """``shard_wave``'s launch count: its two wrappers' counts summed
-    (setting it sets the summary's and zeroes the apply's)."""
+    """A two-step kernel's launch count (``shard_wave``, ``shard_topk``): its
+    two wrappers' counts summed (setting it sets the summary's and zeroes
+    the apply's)."""
 
-    def __init__(self):
-        from batch_scheduler_tpu_torch.ops.assign_scan import shard_apply_cuda, shard_summary_cuda
-
-        self.summary, self.apply = shard_summary_cuda, shard_apply_cuda
+    def __init__(self, summary, apply):
+        self.summary, self.apply = summary, apply
 
     @property
     def launches(self):
@@ -8765,6 +8820,244 @@ def shard_wave_checks():
     return out, err
 
 
+# the node-sharded top-K rung (shard_topk)
+SHARD_TOPK_K = 16  # BST_SCAN_TOPK of the sharded top-K checks (the reference's replay rung)
+SHARD_TOPK_XL_K = 128  # xl_topk's full batch runs BST_SCAN_TOPK=128
+SHARD_TOPK_REPS, SHARD_TOPK_PLAIN_REPS = 20, 5
+# the sharded top-K SPMD inputs each mesh checks (None: all of shard_topk_inputs)
+SHARD_TOPK_PLAN = {1: None, 4: ("north_star", f"mixed_per_group_n{SHARD_UNEVEN_N}"),
+                   2: ("north_star", "mixed_broadcast", f"mixed_per_group_n{SHARD_UNEVEN_N}",
+                       "tight_fit")}
+SHARD_TOPK_XL_RANKS = (1, 2)  # XLClusterSpec() at full width on these meshes
+SHARD_TOPK_BUDGET_RANKS = (1, 2)
+# the collective budget's inputs: mixed at benchmarks/xl_scaling.py:218's
+# [256, 1024] and at a larger G, [1024, 1024]
+SHARD_TOPK_BUDGET_SHAPES = ((1000, 256), (1000, 1000))
+# the adversarial tight fit (tests/test_topk_scan.py:191-220) at scale: every
+# node holds one member, every gang wants more members than K candidates
+TIGHT_SHAPE = (4096, 64, 24)  # nodes, gangs, members a gang
+
+
+def tight_batch():
+    """The tight-fit packed batch: TIGHT_SHAPE's nodes with room for one
+    member (5 units of each of 2 lanes against a 5-unit member), its gangs
+    wanting 24 members each (> K = 16), a broadcast fit row: every gang's
+    candidates fall short while the pooled capacity fits it, so each one
+    demotes to the dense-column replay."""
+    import numpy as np
+
+    n, g, members = TIGHT_SHAPE
+    return (np.full((n, 2), 5, np.int32), np.zeros((n, 2), np.int32),
+            np.full((g, 2), 5, np.int32), np.full(g, members, np.int32),
+            np.ones((1, n), bool), np.ones(g, bool), np.arange(g, dtype=np.int32))
+
+
+def shard_topk_inputs():
+    """shard_inputs() and the tight fit: every sharded top-K SPMD input."""
+    return shard_inputs() + [("tight_fit", tight_batch())]
+
+
+def shard_topk_pair(mode, blocks, req_rows, needs, rank, kernel, merged=None, k=SHARD_TOPK_K):
+    """One step of the sharded top-K scan: the summary of ``mode`` on every
+    rank's block (merged by a sum, as the all-reduce does; or only
+    ``rank``'s, beside a given ``merged``) and ``rank``'s apply, by the
+    kernels (``kernel``) or the plain versions: every output of both."""
+    import torch
+
+    from batch_scheduler_tpu_torch.ops import oracle
+    from batch_scheduler_tpu_torch.ops.assign_scan import (
+        shard_topk_apply_cuda, shard_topk_summary_cuda)
+
+    summary = shard_topk_summary_cuda if kernel else oracle.shard_topk_summary
+    apply = shard_topk_apply_cuda if kernel else oracle.shard_topk_apply
+    s = len(blocks)
+    nl = blocks[0][0].shape[0]
+    rows, w = req_rows.shape[0], needs.shape[0]
+    kk_l, _ = oracle.shard_topk_widths(k, nl, s)
+    p = oracle.shard_topk_payload(mode, kk_l, w)
+    bufs, caps = [], []
+    for r, (left_l, mask_l) in enumerate(blocks):
+        if merged is not None and r != rank:
+            continue
+        b = torch.empty((s, rows, p), dtype=torch.int32, device=left_l.device)
+        caps.append(summary(mode, left_l, req_rows, needs, mask_l[:rows], b, r, k))
+        bufs.append(b)
+    if merged is None:
+        merged = torch.stack(bufs).sum(0, dtype=torch.int32)
+    cap = caps[rank if len(caps) == s else 0]
+    left_l, mask_l = blocks[rank]
+    dev = left_l.device
+    takes = torch.full((w, nl), -7, dtype=torch.int32, device=dev)
+    feas = torch.zeros(w, dtype=torch.bool, device=dev)
+    left_out = torch.full_like(left_l, -7)
+    verify = (None if mode == oracle.TOPK_REPLAY else
+              torch.full((1,), -7, dtype=torch.int32, device=dev))
+    dense = torch.zeros(1, dtype=torch.int32, device=dev)
+    stream = torch.empty(nl, dtype=torch.int32, device=dev)
+    apply(mode, merged, rank, cap, needs, left_l, req_rows, mask_l[:rows], takes, feas, left_out,
+          verify, dense, k, stream)
+    outs = [*caps, *bufs, merged, takes, feas.to(torch.int32), left_out, dense]
+    return outs + ([verify] if verify is not None else [])
+
+
+def shard_topk_checks():
+    """``shard_topk``'s two entry points against their plain versions on
+    the card, bit for bit, on every rank's block at S = 2, K = 16, W = 8: the
+    north star's first wave (uniform: the mega mode), mixed's first
+    per-group wave (the speculative mode), one gang of it replayed (its
+    candidates cover it: the restricted selection) and one gang of the
+    tight fit replayed (they cannot: the dense-column selection). The time
+    of rank 0's step (its summary and apply beside the merged buffer;
+    CUDA events, the mean of SHARD_TOPK_REPS calls) for the kernels and the
+    plain versions, and the bound of that step (``ops.bounds.shard_topk_work``).
+    The comparisons' launches are restored."""
+    from batch_scheduler_tpu_torch.ops import oracle
+    from batch_scheduler_tpu_torch.ops.bounds import bound, shard_topk_work
+
+    saved = read_counts()
+    ns, _ = shard_north_star_args()
+    per_group, _ = mixed_batch(*MIXED[:2], MIXED[2], per_group=True)
+    mixed_args = scan_inputs(per_group)
+    cases = [("mega", oracle.TOPK_MEGA, scan_inputs(ns), SHARD_WAVE),
+             ("speculative", oracle.TOPK_SPECULATIVE, mixed_args, SHARD_WAVE),
+             ("replay_restricted", oracle.TOPK_REPLAY, mixed_args, 1),
+             ("replay_dense", oracle.TOPK_REPLAY, scan_inputs(tight_batch()), 1)]
+    out, err, s = {}, 0, 2
+    for label, mode, scan_args, w in cases:
+        blocks, req_c, need_c = shard_wave_blocks(scan_args, s, 0, w)
+        rows = w if mode == oracle.TOPK_SPECULATIVE else 1
+        merged = None
+        for rank in range(s):
+            got = shard_topk_pair(mode, blocks, req_c[:rows], need_c, rank, True)
+            want = shard_topk_pair(mode, blocks, req_c[:rows], need_c, rank, False)
+            e, equal = max_err(got, want)
+            err = max(err, e)
+            if not equal:
+                raise AssertionError(f"shard_topk {label} rank {rank}: kernel differs from plain "
+                                     f"(max abs err {e})")
+            merged = want[2 * s]
+            dense = int(want[2 * s + 4].item())
+        if dense != int(label == "replay_dense"):
+            raise AssertionError(f"shard_topk {label}: {dense} dense-column demotions")
+        step = (mode, blocks, req_c[:rows], need_c, 0)
+        ms = cuda_ms(lambda: shard_topk_pair(*step, True, merged), SHARD_TOPK_REPS)
+        plain_ms = cuda_ms(lambda: shard_topk_pair(*step, False, merged), SHARD_TOPK_PLAIN_REPS)
+        nl, r = blocks[0][0].shape
+        lanes = int((req_c[:rows] > 0).sum().item())
+        nbytes, ops = shard_topk_work(nl, r, w, s, w, SHARD_TOPK_K, lanes, rows, 0,
+                                      int(mode == oracle.TOPK_MEGA), dense,
+                                      replay_step=mode == oracle.TOPK_REPLAY)
+        bound_ms, bound_by = bound(nbytes, ops)
+        out[label] = {"nodes_a_rank": nl, "wave": w, "k": SHARD_TOPK_K, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                      "bytes": nbytes, "int_ops": ops, "dense_demotions": dense}
+    restore_counts(saved)
+    return out, err
+
+
+def topk_stats_diff(got, want):
+    """The per-wave top-K series (wave flags, demotions) on which a batch
+    dict differs from another."""
+    import torch
+
+    return [k for k in ("wave_conflicts", "wave_megas", "topk_demotions")
+            if not torch.equal(got[k].cpu(), want[k].cpu())]
+
+
+def mesh_topk_checks(mesh, report, inputs):
+    """The sharded top-K rung's SPMD checks on every rank:
+    ``sharded_schedule_batch(sharded_scan=True, scan_wave=8, scan_topk=16)`` on
+    SHARD_TOPK_PLAN's inputs equal, on rank 0, to the single-device serial
+    kernel's batch on every output key, with the per-wave series equal to
+    the single-device top-K kernel's; on SHARD_TOPK_XL_RANKS,
+    XLClusterSpec() at full width at K = 128, one timed batch; on
+    SHARD_TOPK_BUDGET_RANKS, the collective budget. Returns the launches of
+    the checked batches."""
+    import torch
+    import torch.distributed as dist
+
+    from batch_scheduler_tpu_torch.ops.convert import args_from_numpy
+    from batch_scheduler_tpu_torch.ops.oracle import schedule_batch
+    from batch_scheduler_tpu_torch.parallel import (
+        sharded_scan_collective_counts, sharded_schedule_batch)
+    from batch_scheduler_tpu_torch.sim.scenarios import XLClusterSpec
+
+    s = mesh.size
+    plan = SHARD_TOPK_PLAN[s]
+    checks = report.setdefault("topk_checks", {})
+
+    def one(label, args, k, timed=False):
+        want = single = None
+        if mesh.rank == 0:
+            saved = read_counts()
+            batch = args_from_numpy(args, "cuda")
+            want = schedule_batch(*batch)
+            single = schedule_batch(*batch, scan_wave=SHARD_WAVE, scan_topk=k)
+            single = {key: single[key] for key in ("wave_conflicts", "wave_megas",
+                                                    "topk_demotions")}
+            restore_counts(saved)
+        dist.barrier()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        got = sharded_schedule_batch(mesh, args, sharded_scan=True, scan_wave=SHARD_WAVE,
+                                     scan_topk=k)
+        end.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        if mesh.rank != 0:
+            if got is not None:
+                raise AssertionError(f"rank {mesh.rank} got an output")
+            return
+        diff = shard_diff(got, want) + topk_stats_diff(got, single)
+        if diff:
+            raise AssertionError(f"{label} sharded top-K S={s}: differs from the single-device "
+                                 f"batch in {diff}")
+        entry = {"keys_equal": len(want), "k": k, "waves": int(got["wave_conflicts"].numel()),
+                 "replayed": int(got["wave_conflicts"].sum().item()),
+                 "uniform": int(got["wave_megas"].sum().item()),
+                 "dense_demotions": int(got["topk_demotions"].sum().item())}
+        if timed:
+            entry.update(cuda_event_ms=start.elapsed_time(end), wall_ms=wall)
+        checks[label] = entry
+
+    zero_counts()
+    for label, args in inputs:
+        if plan is None or label in plan:
+            one(label, args, SHARD_TOPK_K, timed=label == "north_star")
+    if s in SHARD_TOPK_XL_RANKS:
+        xl, _ = xl_batch_args(xl_operands(XLClusterSpec(), XL_PAD))
+        one("xl", xl, SHARD_TOPK_XL_K, timed=True)
+        del xl
+    spmd = read_counts()
+    tight = checks.get("tight_fit")
+    if mesh.rank == 0 and tight is not None and tight["dense_demotions"] != TIGHT_SHAPE[1]:
+        raise AssertionError(f"tight fit: {tight} (every gang demotes)")
+    if s in SHARD_TOPK_BUDGET_RANKS:
+        budgets = {}
+        ns = dict(inputs)["north_star"]
+        for label, args in [("north_star", ns)] + [
+                (f"mixed_{n}x{g}", mixed_batch(n, g, MIXED[2], per_group=False)[0])
+                for n, g in SHARD_TOPK_BUDGET_SHAPES]:
+            rep = sharded_scan_collective_counts(mesh, args, wave=SHARD_WAVE, topk=SHARD_TOPK_K)
+            sites = rep["sites"]
+            bad = (rep["max_collective_bytes"] > rep["summary_bytes"]
+                   or rep["fastpath_collectives_per_wave"] > 2
+                   or rep["counts"]["broadcast"] or rep["counts"]["gather"]
+                   or not set(sites) <= {"merge", "verify", "replay"}
+                   or sites.get("merge", 0) != rep["waves"])
+            if bad:
+                raise AssertionError(f"sharded top-K collective budget {label}: {rep}")
+            budgets[label] = rep
+        if budgets["north_star"]["sites"].get("verify", 0):
+            raise AssertionError(f"a uniform wave made more than 1 collective: {budgets}")
+        mixed = [budgets[f"mixed_{n}x{g}"]["counts"] for n, g in SHARD_TOPK_BUDGET_SHAPES]
+        if any(c != mixed[0] for c in mixed):
+            raise AssertionError(f"the collective sites grew with G: {mixed}")
+        report["topk_collective_budget"] = budgets
+    return spmd
+
+
 def shard_diff(got, want):
     """The keys of ``want`` (a schedule_batch dict) whose tensors differ."""
     import torch
@@ -8816,8 +9109,9 @@ def mesh_child(s, rank, port, backend, out_path) -> int:
     report = {"size": mesh.size, "rank": mesh.rank, "backend": backend, "shape": mesh.shape,
               "checks": {}, "step_s": steps}
     inputs, timed, refreshes = SHARD_PLAN[s]
+    all_inputs = shard_topk_inputs()
     zero_counts()
-    for label, args in shard_inputs():
+    for label, args in all_inputs[:-1]:  # shard_inputs()
         if inputs is not None and label not in inputs:
             continue
         if mesh.rank == 0:
@@ -8873,11 +9167,15 @@ def mesh_child(s, rank, port, backend, out_path) -> int:
     report["batch_times"] = times
     report["spmd_launches"] = spmd
     step("timed")
+    report["topk_spmd_launches"] = mesh_topk_checks(mesh, report, all_inputs)
+    step("topk")
     session = make_mesh("cuda")
     if mesh.rank != 0:
         report["followed"] = follow(session)
     else:
-        report["scorer"] = mesh_leader(session, refreshes)
+        report["scorer_topk"] = mesh_leader(session, refreshes, SHARD_TOPK_K, last=False)
+        report["collectives_by_site_topk"] = session.collective_counts()
+        report["scorer"] = mesh_leader(session, refreshes, 0)
         step("scorer")
         report["collectives_by_site"] = session.collective_counts()
         with open(out_path + ".tmp", "w") as f:
@@ -8887,13 +9185,27 @@ def mesh_child(s, rank, port, backend, out_path) -> int:
     return 0
 
 
-def mesh_leader(mesh, refreshes):
+def mesh_leader(mesh, refreshes, topk=0, last=True):
     """Rank 0's scorer run: ``OracleScorer(scan_mesh=mesh)`` beside a
     single-device ``OracleScorer(device="cuda")`` on one ClusterState (the
     north star) through a keyframe and ``refreshes`` rounds of
-    north_star_churn's churn; after each refresh the two host dicts must be
-    equal. The mesh scorer's launches are the main path's: counted from 0
-    just before, read just after (the single-device scorer's restored)."""
+    north_star_churn's churn, with ``BST_SCAN_TOPK`` at ``topk`` (unset for
+    0); after each refresh the two host dicts must be equal. The mesh
+    scorer's launches are the main path's: counted from 0 just before,
+    read just after (the single-device scorer's restored): ``shard_topk``
+    alone with ``topk``, else ``shard_wave`` alone. Its holder (a mesh
+    holder: the followers keep copies) must count the single-device
+    holder's keyframes by reason and rows scattered; each churn refresh's
+    broadcasts are counted by site (the rows and the batch's tail, never
+    the whole batch, whose bytes are reported beside them). ``last`` closes
+    the scorer (the followers stop), else it only drains and gives its
+    holder's slot up."""
+    with env_set({"BST_SCAN_TOPK": str(topk) if topk else None}):
+        return lead_scorer(mesh, refreshes, topk, last)
+
+
+def lead_scorer(mesh, refreshes, topk, last):
+    """``mesh_leader``'s run, under its ``BST_SCAN_TOPK``."""
     import numpy as np
     import torch
 
@@ -8909,15 +9221,20 @@ def mesh_leader(mesh, refreshes):
 
     churn = Churn(cluster, cache, mark, refreshes)
     zero_counts()
-    refresh_ms, outcomes = [], []
+    refresh_ms, outcomes, churn_sites = [], [], []
     try:
         for r in range(1 + refreshes):
             if r:
                 churn(r - 1)
+            before = mesh.collective_counts()
             t0 = time.perf_counter()
             leader.refresh(cluster, cache)
             torch.cuda.synchronize()
             refresh_ms.append((time.perf_counter() - t0) * 1e3)
+            after = mesh.collective_counts()
+            churn_sites.append({k: v["bytes"] - before.get(k, {"bytes": 0})["bytes"]
+                                for k, v in after.items() if k.startswith("broadcast/")
+                                and v["bytes"] != before.get(k, {"bytes": 0})["bytes"]})
             saved = read_counts()
             single.refresh(cluster, cache)
             restore_counts(saved)
@@ -8929,16 +9246,35 @@ def mesh_leader(mesh, refreshes):
             outcomes.append(leader.last_fold_outcome)
         launches = read_counts()
         telemetry = dict(leader.last_telemetry)
+        holder, single_holder = (sc._device_state.stats() for sc in (leader, single))
+        whole = sum(np.asarray(a).nbytes for a in leader._state.snapshot.device_args())
     finally:
-        leader.close()
+        if last:
+            leader.close()
+        else:
+            leader.drain_background()
+            leader._device_state.release()
         single.drain_background()
-    if not telemetry.get("scan_sharded") or telemetry.get("shard_count") != mesh.size:
-        raise AssertionError(f"the mesh scorer's batch was not sharded: {telemetry}")
-    if launches != only(shard_wave=launches["shard_wave"]) or not launches["shard_wave"]:
-        raise AssertionError(f"mesh scorer launches {launches} (want shard_wave alone)")
-    return {"refreshes": 1 + refreshes, "launches": launches,
+    kernel = "shard_topk" if topk else "shard_wave"
+    if (not telemetry.get("scan_sharded") or telemetry.get("shard_count") != mesh.size
+            or telemetry.get("scan_topk") != topk):
+        raise AssertionError(f"the mesh scorer's batch was not sharded at K={topk}: {telemetry}")
+    if launches != only(**{kernel: launches[kernel]}) or not launches[kernel]:
+        raise AssertionError(f"mesh scorer launches {launches} (want {kernel} alone)")
+    same = {k: (holder[k], single_holder[k]) for k in ("keyframes", "rows_scattered")}
+    if any(a != b for a, b in same.values()) or not holder.get("mesh"):
+        raise AssertionError(f"the mesh holder's keyframes / rows differ from the single-device "
+                             f"holder's: {same} ({holder})")
+    if mesh.size > 1 and any("broadcast/batch" in c or "broadcast/rows" not in c
+                             for c in churn_sites[1:]):
+        raise AssertionError(f"a churn refresh broadcast the whole batch, or no rows: "
+                             f"{churn_sites}")
+    return {"refreshes": 1 + refreshes, "scan_topk": topk, "launches": launches,
             "refresh_ms": refresh_ms, "refresh_ms_median": statistics.median(refresh_ms[1:]),
             "fold_outcomes": outcomes, "telemetry": telemetry,
+            "holder_keyframes": holder["keyframes"], "holder_rows_scattered":
+            holder["rows_scattered"], "single_device_holder_equal": True,
+            "broadcast_bytes_by_refresh": churn_sites, "whole_batch_bytes": whole,
             "plans_equal_single_device": True, "followers_stopped": mesh.stopped}
 
 
@@ -8987,9 +9323,22 @@ def run_meshes(sizes):
 
 @phase("sharded")
 def sharded(results):
-    """The node-sharded scan on torch.distributed: shard_wave against its
-    plain version, then each mesh of SHARD_RANKS in its own processes."""
+    """The node-sharded scan on torch.distributed: shard_wave and
+    shard_topk against their plain versions, then each mesh of SHARD_RANKS
+    in its own processes (the dense and the top-K rung)."""
+    import gc
+
+    import torch
+
     checks, err = shard_wave_checks()
+    topk_checks, topk_err = shard_topk_checks()
+    # the mesh children share the card: this process's cached blocks (tens
+    # of GB after the earlier phases) go back to it first
+    gc.collect()
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    memory = {"reserved_before_gb": reserved / 2**30,
+              "reserved_after_gb": torch.cuda.memory_reserved() / 2**30}
     meshes = {f"s{s}": r for s, r in run_meshes(SHARD_RANKS).items()}
     scorer_launches = {k: m["scorer"]["launches"]["shard_wave"] for k, m in meshes.items()}
     spmd_launches = {k: m["spmd_launches"]["shard_wave"] for k, m in meshes.items()}
@@ -9003,8 +9352,155 @@ def sharded(results):
         "timed": "one rank's step of a uniform wave (its summary and apply), rank 0's "
                  "block of the north star at S=2",
     }
-    return {"wave": SHARD_WAVE, "shard_wave": checks, "max_abs_err": err,
-            "meshes": meshes,
+    topk_scorer = {k: m["scorer_topk"]["launches"]["shard_topk"] for k, m in meshes.items()}
+    topk_spmd = {k: m["topk_spmd_launches"]["shard_topk"] for k, m in meshes.items()}
+    main = topk_checks["mega"]
+    results["shard_topk"] = {
+        "launches": topk_scorer["s2"],
+        "launches_by_path": {**{f"sharded_topk_scorer_{k}": v for k, v in topk_scorer.items()},
+                             **{f"sharded_topk_spmd_{k}": v for k, v in topk_spmd.items()}},
+        "max_abs_err": topk_err, "matched": True, "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "timed": f"one rank's step of a uniform wave (its summary and apply) at K="
+                 f"{SHARD_TOPK_K}, rank 0's block of the north star at S=2",
+    }
+    return {"wave": SHARD_WAVE, "shard_wave": checks, "max_abs_err": max(err, topk_err),
+            "shard_topk": topk_checks, "meshes": meshes, "parent_memory": memory,
+            "note": "ranks sharing one card: the collectives cross no interconnect"}
+
+
+MESH_SERVE_ROUNDS = 8  # churn refreshes after the keyframe
+MESH_SERVE_TIMEOUT = 180  # seconds a serve rank may take to start, and to exit after SIGTERM
+
+
+def mesh_serve_start(topk, coalesce):
+    """Start one ``serve`` mesh: two ``python -m batch_scheduler_tpu_torch
+    serve`` processes under ``BST_COORDINATOR`` (gloo, both ranks on
+    cuda:0), with ``BST_SCAN_TOPK`` at ``topk`` (unset for 0); rank 0 with
+    /metrics and, for ``coalesce``, ``--coalesce``. Returns the two
+    processes."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    knob = {"BST_SCAN_TOPK": str(topk)} if topk else {}
+    procs = []
+    for rank in range(2):
+        env = cli_env(BST_COORDINATOR=f"127.0.0.1:{port}", BST_NUM_PROCESSES="2",
+                      BST_PROCESS_ID=str(rank), **knob)
+        args = ["serve", "--port", "0"]
+        if rank == 0:
+            args += ["--metrics-port", "0"] + (["--coalesce"] if coalesce else [])
+        procs.append(cli_start(args, env))
+    return procs
+
+
+def mesh_serve_run(procs, topk, coalesce, t0):
+    """Drive one started ``serve`` mesh (``mesh_serve_start``): a
+    RemoteScorer on rank 0's address and one on a single-device
+    ``serve_background(device="cuda")`` in this process (at the same knob)
+    drive north_star_churn's deployment through a keyframe and
+    MESH_SERVE_ROUNDS churn refreshes on wire deltas; after each refresh the
+    two plans must be equal. Rank 0's kernel launches over the run (its
+    /metrics) must be the sharded rung's alone. Then SIGTERM drains rank 0,
+    which stops rank 1: both must exit 0, and with ``coalesce`` rank 0 must
+    have printed the skip note; rank 0's backend must be gloo (two ranks on
+    the host's one card). ``t0``: when the processes started."""
+    import re
+    import signal
+
+    from batch_scheduler_tpu_torch.service import (
+        RemoteScorer, ResilientOracleClient, serve_background)
+
+    mport = int(read_port(procs[0], r"metrics on :(\d+)", MESH_SERVE_TIMEOUT))
+    host, sport = read_port(procs[0], r"listening on ([\d.]+:\d+)").rsplit(":", 1)
+    start_s = time.perf_counter() - t0
+    before = kernel_launches(mport)
+    cluster, cache = north_star_state()
+    saved = read_counts()
+    with env_set({"BST_SCAN_TOPK": str(topk) if topk else None}):
+        single = serve_background(device="cuda")
+        remotes = (RemoteScorer(ResilientOracleClient(host, int(sport), window=2)),
+                   RemoteScorer(ResilientOracleClient(*single.address, window=2)))
+        try:
+            def mark(name):
+                for sc in remotes:
+                    sc.mark_dirty(group=name)
+
+            churn = Churn(cluster, cache, mark, MESH_SERVE_ROUNDS + 1)
+            refresh_ms, single_ms = [], []
+            for r in range(MESH_SERVE_ROUNDS + 1):
+                if r:
+                    churn(r)
+                t1 = time.perf_counter()
+                remotes[0].refresh(cluster, cache)
+                refresh_ms.append((time.perf_counter() - t1) * 1e3)
+                t1 = time.perf_counter()
+                remotes[1].refresh(cluster, cache)
+                single_ms.append((time.perf_counter() - t1) * 1e3)
+                diff = host_diff(remotes[0]._state.result, remotes[1]._state.result)
+                if diff:
+                    raise AssertionError(f"serve mesh K={topk} refresh {r}: differs from the "
+                                         f"single-device sidecar in {diff}")
+        finally:
+            for sc in remotes:
+                sc.close()
+            single.shutdown()
+            single.server_close()
+    restore_counts(saved)
+    launches = launch_delta(before, kernel_launches(mport))
+    kernel = "shard_topk" if topk else "shard_wave"
+    if launches != only(**{kernel: launches[kernel]}) or not launches[kernel]:
+        raise AssertionError(f"serve mesh K={topk}: rank 0 launched {launches} "
+                             f"(want {kernel} alone)")
+    t1 = time.perf_counter()
+    procs[0].send_signal(signal.SIGTERM)
+    (rc0, out0, err0), (rc1, out1, _) = (cli_wait(p, MESH_SERVE_TIMEOUT) for p in procs)
+    exit_s = time.perf_counter() - t1
+    if (rc0, rc1) != (0, 0) or "drain complete" not in out0 or "stopped after" not in out1:
+        raise AssertionError(f"serve mesh K={topk}: exits {rc0} / {rc1}: {err0[-800:]} "
+                             f"{out0[-400:]} {out1[-400:]}")
+    if coalesce and "coalescer skipped: mesh server" not in err0:
+        raise AssertionError(f"serve --coalesce on a mesh printed no skip note: {err0[-800:]}")
+    # two ranks on the host's one card: the topology gives gloo (the line
+    # came before the ports read_port read)
+    head = "".join(procs[0].seen)
+    backend = re.search(r"distributed initialized: .*backend (\w+)", head)
+    if not backend or backend.group(1) != "gloo":
+        raise AssertionError(f"serve mesh K={topk}: rank 0's backend: {head[-800:]}")
+    return {"backend": backend.group(1), "launches": launches, "start_s": start_s, "exit_after_sigterm_s": exit_s,
+            "refreshes": MESH_SERVE_ROUNDS + 1, "refresh_ms": refresh_ms,
+            "refresh_ms_median": statistics.median(refresh_ms[1:]),
+            "single_device_refresh_ms_median": statistics.median(single_ms[1:]),
+            "plans_equal_single_device": True, "coalesce_note": coalesce,
+            "follower": out1.strip().splitlines()[-1]}
+
+
+@phase("mesh_serve")
+def mesh_serve(results):
+    """``serve`` under BST_COORDINATOR: two ranks sharing the card, their
+    answers against a single-device sidecar's, with BST_SCAN_TOPK unset
+    (the node-sharded scan; rank 0 with --coalesce) and at 16 (its top-K
+    form). Both meshes start together (their imports and contexts
+    overlap); each is driven, then drained, in turn."""
+    plan = (("sharded", 0, True), ("sharded_topk", SHARD_TOPK_K, False))
+    t0 = time.perf_counter()
+    started = {name: mesh_serve_start(topk, coalesce) for name, topk, coalesce in plan}
+    try:
+        runs = {name: mesh_serve_run(started[name], topk, coalesce, t0)
+                for name, topk, coalesce in plan}
+    finally:
+        for procs in started.values():
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    note_path(results, "shard_wave", "mesh_serve", runs["sharded"]["launches"]["shard_wave"])
+    note_path(results, "shard_topk", "mesh_serve_topk",
+              runs["sharded_topk"]["launches"]["shard_topk"])
+    return {"ranks": 2, **runs,
             "note": "ranks sharing one card: the collectives cross no interconnect"}
 
 
@@ -9093,6 +9589,7 @@ def main() -> int:
     sim_scenarios(results)
     chaos(results)
     warmer(results)
+    mesh_serve(results)
     cli_serial(results)
     cli_wave(results)
     lockcheck_phase(results)
@@ -9118,6 +9615,10 @@ def main() -> int:
         # reference is the lax body of assign_gangs_sharded's shard_map
         "shard_wave": ("batch_scheduler_tpu_torch/csrc/shard_wave.cu",
                        "batch_scheduler_tpu/ops/oracle.py:802"),
+        # one wave of the node-sharded top-K scan on a rank's node block; its
+        # reference is the lax body of assign_gangs_topk_sharded's shard_map
+        "shard_topk": ("batch_scheduler_tpu_torch/csrc/shard_topk.cu",
+                       "batch_scheduler_tpu/ops/oracle.py:1435"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": sources[name][0],

@@ -355,15 +355,32 @@ def test_no_card_refusal(argv, capsys, runtime):
 
 
 @pytest.mark.parametrize("argv,env,needle", [
-    (["serve", "--port", "0", "--device", "cpu"], {"BST_COORDINATOR": "h:1"}, "BST_COORDINATOR"),
+    (["serve", "--port", "0", "--device", "cpu"],
+     {"BST_COORDINATOR": "127.0.0.1:{port}", "BST_NUM_PROCESSES": "2", "BST_PROCESS_ID": "1"},
+     "BST_COORDINATOR"),
     (["sim", "-f", "examples/race.yaml", "--device", "cpu", "--device-state", "off"], {},
      "device-state off"),
 ], ids=["coordinator", "device-state-off"])
 def test_refusals(argv, env, needle, capsys, monkeypatch, runtime):
+    """Exit 2 naming the cause: ``--device-state off`` is refused, and a
+    ``serve`` rank whose coordinator cannot be reached (nothing listens on
+    the port) gives up once the bounded rendezvous does, instead of
+    waiting out ``init_process_group``'s half-hour default."""
+    import socket
+    import time
+
+    from batch_scheduler_tpu_torch.parallel import distributed
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
     for k, v in env.items():
-        monkeypatch.setenv(k, v)
+        monkeypatch.setenv(k, v.format(port=port))
+    monkeypatch.setattr(distributed, "COORDINATOR_TIMEOUT_S", 2.0)
+    t0 = time.monotonic()
     rc = _m(PACKAGES[1], "cmd.main").main(list(argv))
     assert rc == 2 and needle in capsys.readouterr().err
+    assert time.monotonic() - t0 < 30.0
 
 
 @pytest.mark.parametrize("extra", [["--compile-warmer"],

@@ -51,10 +51,24 @@ def run_scan(mesh, payload):
     return tuple(_np(x) for x in (alloc, placed, left_after, conflicts, megas))
 
 
+def run_topk_scan(mesh, payload):
+    """``assign_gangs_topk_sharded`` on this mesh: rank 0's five outputs and
+    the per-wave stats."""
+    left, req, rem, mask, order, wave, k = payload
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in (left, req, rem, mask, order)]
+    t[3] = t[3].to(torch.bool)
+    out = oracle.assign_gangs_topk_sharded(*t, mesh=mesh, wave=wave, k=k, with_stats=True)
+    if out is None:
+        return None
+    alloc, placed, left_after, stats = out
+    return tuple(_np(x) for x in (alloc, placed, left_after, *stats))
+
+
 def run_batch(mesh, payload):
-    args, replicated, sharded, wave = payload
+    args, replicated, sharded, wave, *topk = payload
     out = sharded_schedule_batch(mesh, args, replicated_scan=replicated,
-                                 sharded_scan=sharded, scan_wave=wave)
+                                 sharded_scan=sharded, scan_wave=wave,
+                                 scan_topk=topk[0] if topk else 0)
     return None if out is None else {k: _np(v) for k, v in out.items()}
 
 
@@ -73,7 +87,28 @@ def run_shares(mesh, payload):
 
 
 def run_budget(mesh, payload):
-    return [sharded_scan_collective_counts(mesh, args, wave=w) for args, w in payload]
+    return [sharded_scan_collective_counts(mesh, args, wave=w, topk=topk[0] if topk else 0)
+            for args, w, *topk in payload]
+
+
+def run_pinned(mesh, payload):
+    """A ``forced_scan_rung`` pin on a mesh batch with ``BST_SCAN_TOPK``
+    set: the telemetry of the pinned batch (its rung runs replicated) and of
+    the unpinned one (sharded top-K)."""
+    args, progress = payload
+
+    def lead(m):
+        os.environ["BST_SCAN_TOPK"] = "16"
+        try:
+            with oracle.forced_scan_rung(8, 16):
+                pinned, _ = oracle.execute_batch_host(args, progress, scan_mesh=m)
+            free, _ = oracle.execute_batch_host(args, progress, scan_mesh=m)
+        finally:
+            os.environ.pop("BST_SCAN_TOPK")
+        single, _ = oracle.execute_batch_host(args, progress, device="cpu")
+        return {"pinned": pinned, "free": free, "single": single}
+
+    return _led(mesh, lead)
 
 
 def run_collectives(mesh, payload):
@@ -212,15 +247,124 @@ def run_scorer(mesh, payload):
     return _led(mesh, lead)
 
 
+def scorer_rounds(scorer, cluster, cache, pods, n, rounds, flip_at, on_round=None):
+    """The mesh-state drive, for either package's scorer: a first refresh,
+    then ``rounds`` churn refreshes of 3 pod assumes each, with
+    ``BST_SCAN_SHARDED=0`` set from round ``flip_at`` on (a layout flip).
+    Returns each refresh's plan and holder stats; ``on_round(k)`` runs after
+    each refresh."""
+    plans, stats = [], []
+    try:
+        for k in range(rounds + 1):
+            if k:
+                for p in pods[3 * k:3 * k + 3]:
+                    cluster.assume(p, f"n{(7 * k) % n:03d}")
+            if k == flip_at:
+                os.environ["BST_SCAN_SHARDED"] = "0"
+            scorer.refresh(cluster, cache)
+            names = sorted(scorer._state.snapshot.group_names)
+            plans.append([(x, scorer.placed(x), scorer.assignment(x)) for x in names])
+            st = scorer._device_state.stats()
+            stats.append({key: st[key] for key in ("keyframes", "rows_scattered",
+                                                   "deltas_applied", "derived_batches")})
+            if on_round is not None:
+                on_round(k)
+    finally:
+        os.environ.pop("BST_SCAN_SHARDED", None)
+    return plans, stats
+
+
+def run_mesh_state(mesh, payload):
+    """A leader scorer on a fresh mesh through ``scorer_rounds``, with a
+    single-device scorer on the same world: the plans, the holder stats
+    (and the single scorer's), the bytes each refresh broadcast by site,
+    and the followers' batch count."""
+    n, g, rounds, flip_at = payload
+
+    def lead(m):
+        from batch_scheduler_tpu_torch.core.oracle_scorer import OracleScorer
+
+        cluster, cache, pods = _scorer_world(n, g)
+        single_world = _scorer_world(n, g)
+        leader = OracleScorer(scan_mesh=m)
+        single = OracleScorer(device="cpu")
+        sites = []
+        last = [m.collective_counts()]
+
+        def on_round(k):
+            now = m.collective_counts()
+            sites.append({key: v["bytes"] - last[0].get(key, {"bytes": 0})["bytes"]
+                          for key, v in now.items()
+                          if v["bytes"] != last[0].get(key, {"bytes": 0})["bytes"]})
+            last[0] = now
+
+        plans, stats = scorer_rounds(leader, cluster, cache, pods, n, rounds, flip_at, on_round)
+        s_plans, s_stats = scorer_rounds(single, *single_world, n, rounds, flip_at)
+        leader.close()
+        return {"plans": plans, "single_plans": s_plans, "stats": stats,
+                "single_stats": s_stats, "sites": sites,
+                "holder": leader._device_state.stats()}
+
+    return _led(mesh, lead)
+
+
+def run_mesh_serve(mesh, payload):
+    """A mesh ``serve_background`` on rank 0 (the followers follow): the raw
+    answers to each script of wire frames, each under its ``BST_SCAN_TOPK``
+    (``(topk, frames)`` pairs), with the rank's kernel-path telemetry, and
+    what a ``coalesce=True`` mesh server does."""
+    import contextlib
+    import io
+
+    from batch_scheduler_tpu_torch.service import client as tclient
+    from batch_scheduler_tpu_torch.service import server as tserver
+
+    def lead(m):
+        answers = []
+        srv = tserver.serve_background(device="cpu", scan_mesh=m)
+        try:
+            for topk, frames in payload:
+                if topk:
+                    os.environ["BST_SCAN_TOPK"] = str(topk)
+                try:
+                    client = tclient.OracleClient(*srv.address, timeout=120)
+                    out = []
+                    for msg_type, body in frames:
+                        try:
+                            out.append(client._round_trip(msg_type, body))
+                        except RuntimeError as e:
+                            out.append(("error", str(e)))
+                    client.close()
+                finally:
+                    os.environ.pop("BST_SCAN_TOPK", None)
+                answers.append(out)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        stopped = m.stopped
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            coal = tserver.OracleServer(device="cpu", coalesce=True, scan_mesh=m)
+        coal.server_close()
+        return {"answers": answers, "stopped": stopped, "coalescer": coal.coalescer,
+                "note": err.getvalue(), "counts": m.collective_counts()}
+
+    return _led(mesh, lead)
+
+
 RUNNERS = {
     "scan": run_scan,
+    "topk_scan": run_topk_scan,
     "batch": run_batch,
     "budget": run_budget,
+    "pinned": run_pinned,
     "shares": run_shares,
     "collectives": run_collectives,
     "mesh_info": run_mesh_info,
     "dispatch": run_dispatch,
     "scorer": run_scorer,
+    "mesh_state": run_mesh_state,
+    "mesh_serve": run_mesh_serve,
 }
 
 
