@@ -24,8 +24,9 @@ with ``BST_POLICY_SCAN`` (library ``assign_policy``), laid out by
 ``kernel_plan(..., policy=True)``. ``assign_gangs_topk_cuda`` is the
 hierarchical top-K scan (``ops.oracle.assign_gangs_topk``, whose reference
 is lax): ``csrc/assign_topk.cu``, a cluster laid out by
-``topk_kernel_plan``, with the same prepare kernel as the wave kernel's,
-returning the three per-wave series. For tensors on the CPU each runs its
+``topk_kernel_plan`` after a prepare kernel of its own (each position's
+gang row with its division numbers, and the uniform flags), returning the
+three per-wave series. For tensors on the CPU each runs its
 plain version; for CUDA tensors it launches its kernel or raises. There is
 no switch that turns a kernel off.
 """
@@ -48,7 +49,7 @@ __all__ = [
     "assign_gangs_cuda", "assign_gangs_plain", "assign_gangs_policy_cuda",
     "assign_gangs_topk_cuda", "assign_gangs_wave_cuda", "division_magic", "kernel_plan",
     "policy_scan_plan", "scan_plan", "ScanPlan", "shard_apply_cuda", "shard_summary_cuda",
-    "topk_kernel_plan", "topk_scan_plan",
+    "topk_kernel_plan", "topk_kernel_shared_need", "topk_scan_plan", "TopkPlan",
     "wave_kernel_plan", "wave_scan_plan", "wave_uniform", "CLUSTER_SIZES", "WAVE_WIDTHS",
 ]
 
@@ -82,7 +83,7 @@ _HASH_LANES, _DOMAIN_BUCKETS = 4, 16  # policy.terms' HASH_LANES, DOMAIN_BUCKETS
 
 # the launch entry point's C signature, bst_<name>(pointers..., ints..., stream)
 _LAUNCH_ARGS = {"assign_scan": (11, 10), "assign_wave": (14, 11), "assign_policy": (16, 14),
-                "assign_topk": (16, 11)}
+                "assign_topk": (15, 16)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -577,37 +578,142 @@ def _launch_policy(plan: ScanPlan, left0, group_req, remaining, fit_mask, order,
     return alloc, placed, left_after
 
 
-def topk_kernel_plan(n: int, r: int, wave: int, kk: int, cluster_max: int) -> ScanPlan:
+# the top-K kernel's lists: at most 256 entries a gang (kk plus a margin of
+# at most 32), and at most 256 touched nodes carried through a replay; its
+# blocks have at most 512 threads (128 registers a thread)
+_TOPK_THREADS = 512
+_TOPK_LIST_MAX = 256
+_TOPK_MARGIN = 32
+_TOPK_TOUCHED = 256
+
+
+class TopkPlan(NamedTuple):
+    """The top-K kernel's launch shape: ``ScanPlan``'s fields, then the
+    gathered list's length a gang (``list_len`` = kk + margin), the most
+    touched nodes a carried replay keeps (``touched_max``) and where the
+    sweep's tightness keys live (``keys``: "shared", or "recompute" from
+    the leftover) and how many publish buffers alternate between the
+    cluster's exchanges (``publish_buffers``: 2, or 1 with a barrier
+    opening each exchange)."""
+
+    cluster_blocks: int
+    block_nodes: int
+    threads: int
+    per_thread: int
+    leftover: str
+    shared_bytes: int
+    scratch_ints: int
+    list_len: int
+    touched_max: int
+    keys: str
+    publish_buffers: int
+
+
+def topk_kernel_plan(n: int, r: int, wave: int, kk: int, cluster_max: int,
+                     shared_budget: int) -> TopkPlan:
     """The top-K kernel's launch shape for N nodes, R lanes, width ``wave``
-    and ``kk`` candidates a gang, with at most ``cluster_max`` blocks: the
-    serial kernel's node split (``_node_split``), threads covering a block's
-    nodes. The leftover always lives in global scratch (``scratch_ints``:
-    R ints a node slot), beside a byte a node slot and wave position for the
-    tightness keys. Dynamic shared memory (``_topk_shared_bytes``) holds the
-    wave's lane rows, a 128-bin count histogram a position and five
-    ``[wave, kk]`` candidate tables."""
-    c, block_nodes, per = _node_split(n, cluster_max)
+    and ``kk`` candidates a gang, with at most ``cluster_max`` blocks and
+    ``shared_budget`` bytes of dynamic shared memory a block
+    (``bst_assign_topk_shared_budget``): the serial kernel's blocks
+    (``_node_split``), each thread the fewest of a block's nodes that 512
+    threads allow.
+
+    Dynamic shared memory (``_topk_shared_bytes``) holds the wave's fixed
+    tables: two stages of the wave's lane rows, two publish buffers (a
+    cumulative 128-bin histogram, a pooled sum and a sorted list of
+    ``list_len`` candidates a position), the gathered lists, the takes,
+    and a scratch area (an unsorted list, the conflict check's entries or
+    a carried replay's ``touched_max`` nodes). The leftover (R ints a node)
+    joins them when it fits the budget, else it lives in global scratch
+    (``scratch_ints``); then the sweep's key bytes (a byte a node and
+    position) when they fit too, else the kernel recomputes them. In order
+    of preference: the keys in shared memory, then recomputed; the leftover
+    in shared memory, then in global scratch; two publish buffers, then
+    one; the margin ``list_len - kk`` from min(kk, 32), halving down to 0.
+    The first layout that fits is the plan. With the H100's budget (232,448
+    bytes less the kernel's static shared memory) at W=8 in 16 blocks and
+    R=6, the leftover stays on chip up to the 65,536-node bucket at K=16
+    and 128: the north star and the acceptance bucket [2048, 65536];
+    XLClusterSpec()'s bucket [4096, 131072] keeps it in global scratch, its
+    keys in shared memory. Raises ValueError when no layout fits."""
+    c, block_nodes, _ = _node_split(n, cluster_max)
+    per = -(-block_nodes // _TOPK_THREADS)
     threads = -(-block_nodes // per)
     threads = -(-threads // 32) * 32
-    return ScanPlan(c, block_nodes, threads, per, "global", _topk_shared_bytes(wave, kk, r),
-                    c * r * per * threads)
+    touched = max(kk, min(wave * kk, _TOPK_TOUCHED))
+    margins = []
+    m = min(kk, _TOPK_MARGIN, _TOPK_LIST_MAX - kk)
+    while m > 0:
+        margins.append(m)
+        m //= 2
+    margins.append(0)
+    for keys in ("shared", "recompute"):
+        for leftover in ("shared", "global"):
+            for bufs in (2, 1):
+                for margin in margins:
+                    need = _topk_shared_bytes(wave, kk, kk + margin, touched, r, per, threads,
+                                              leftover == "shared", keys == "shared", bufs)
+                    if need <= shared_budget:
+                        scratch = c * r * per * threads if leftover == "global" else 0
+                        return TopkPlan(c, block_nodes, threads, per, leftover, need, scratch,
+                                        kk + margin, touched, keys, bufs)
+    raise ValueError(f"no top-K layout fits {shared_budget} bytes of shared memory at "
+                     f"N={n}, R={r}, W={wave}, kk={kk}")
 
 
-def _topk_shared_bytes(wave: int, kk: int, r: int) -> int:
-    """assign_topk.cu's dynamic shared memory: rows [W][R] (16 bytes each),
-    hist [W][128], four [W][kk] tables of (node, capacity) pairs and the
-    [W][kk] takes."""
-    return wave * (16 * r + 4 * 128 + 36 * kk)
+def _topk_shared_bytes(wave: int, kk: int, list_len: int, touched: int, r: int, per: int,
+                       threads: int, shared_left: bool, shared_keys: bool,
+                       publish_buffers: int) -> int:
+    """assign_topk.cu's dynamic shared memory (its ``layout``, 16-byte
+    aligned parts): the stages [W][R+1] of 16 bytes (two when a thread a
+    stage entry can read the next wave's ahead, else one); the publish
+    buffers of [W][128] ints, [W] int64 and [W][L] (composite, capacity) pairs; the
+    gathered lists [W][L] pairs; the takes [W][kk]; the block scans'
+    [32][2W] ints; the gather offsets and counts [W][16] each; the scratch
+    (the largest of an unsorted list [W][L] pairs, the conflict check's two
+    [W][kk] pairs, and a carried replay's tables); with one node a thread,
+    the per-warp key counts [threads / 32][128] ints; the keys
+    [W][per][threads] bytes; the leftover [R][per][threads] ints."""
+    def al(b):
+        return (b + 15) // 16 * 16
+
+    pub = al(wave * 128 * 4) + al(wave * 8) + al(wave * list_len * 8)
+    carried = (al(touched * r * 4) + 4 * al(touched * 4) + al(list_len * 4) + al(kk * 8)
+               + al(kk * 4))
+    scr = max(wave * list_len * 8, wave * kk * 16, carried)
+    stages = 2 if wave * (r + 1) <= threads else 1
+    total = (al(stages * wave * (r + 1) * 16) + publish_buffers * pub + al(wave * list_len * 8)
+             + al(wave * kk * 4)
+             + al(64 * wave * 4) + al(2 * wave * 16 * 4) + al(scr))
+    if per == 1:
+        total += al(threads // 32 * 128 * 4)
+    if shared_keys:
+        total += al(wave * per * threads)
+    if shared_left:
+        total += r * per * threads * 4
+    return total
 
 
 @functools.lru_cache(maxsize=None)
-def topk_scan_plan(n: int, r: int, wave: int, kk: int, device_index: int) -> ScanPlan:
+def topk_scan_plan(n: int, r: int, wave: int, kk: int, device_index: int) -> TopkPlan:
     """The plan ``assign_gangs_topk_cuda`` launches on CUDA device
     ``device_index``: ``topk_kernel_plan`` at the largest cluster the device
-    can schedule."""
+    can schedule, with its shared-memory budget."""
     return _device_plan(
-        "assign_topk", lambda n_, r_, cmax, _budget: topk_kernel_plan(n_, r_, wave, kk, cmax),
+        "assign_topk",
+        lambda n_, r_, cmax, budget: topk_kernel_plan(n_, r_, wave, kk, cmax, budget),
         n, r, device_index)
+
+
+def topk_kernel_shared_need(plan: TopkPlan, wave: int, kk: int, r: int) -> int:
+    """The dynamic shared memory the built kernel's own layout asks for
+    with ``plan`` (``bst_assign_topk_shared_need``), to hold the plan's
+    ``shared_bytes`` to."""
+    fn = _build.library("assign_topk").bst_assign_topk_shared_need
+    fn.argtypes = [ctypes.c_int] * 10
+    fn.restype = ctypes.c_longlong
+    return fn(wave, kk, plan.list_len, plan.touched_max, r, plan.per_thread, plan.threads,
+              int(plan.leftover == "shared"), int(plan.keys == "shared"), plan.publish_buffers)
 
 
 def assign_gangs_topk_cuda(left0, group_req, remaining, fit_mask, order, wave: int, k: int):
@@ -618,7 +724,10 @@ def assign_gangs_topk_cuda(left0, group_req, remaining, fit_mask, order, wave: i
     Returns ``(alloc, placed, left_after, (conflicts[S], megas[S],
     dense_demotions[S]))``, S = ceil(G / wave). ``order`` must be a
     permutation of [0, G) and ``remaining`` non-negative. Every launch adds
-    one to ``assign_gangs_topk_cuda.launches``."""
+    one to ``assign_gangs_topk_cuda.launches`` and leaves in
+    ``assign_gangs_topk_cuda.replay_counts`` a 2-int tensor on the card: the
+    replayed gangs whose candidates came from the wave's carried lists, and
+    those that ranked afresh (report-only; the plain version has none)."""
     if not isinstance(wave, int) or wave not in WAVE_WIDTHS:
         raise ValueError(f"wave must be one of {WAVE_WIDTHS}, got {wave!r}")
     if not isinstance(k, int) or not 1 <= k <= _MAX_TOPK:
@@ -632,27 +741,29 @@ def assign_gangs_topk_cuda(left0, group_req, remaining, fit_mask, order, wave: i
     n, r = left0.shape
     kk = max(2, min(k, n))
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    out = _launch_topk(topk_scan_plan(n, r, wave, kk, index), left0, group_req, remaining,
-                       fit_mask, order, wave, kk)
+    out, counts = _launch_topk(topk_scan_plan(n, r, wave, kk, index), left0, group_req,
+                               remaining, fit_mask, order, wave, kk)
     assign_gangs_topk_cuda.launches += 1
+    assign_gangs_topk_cuda.replay_counts = counts
     _count_launch("assign_topk")
     return out
 
 
 assign_gangs_topk_cuda.launches = 0
+assign_gangs_topk_cuda.replay_counts = None
 
 
-def _launch_topk(plan: ScanPlan, left0, group_req, remaining, fit_mask, order, wave: int,
+def _launch_topk(plan: TopkPlan, left0, group_req, remaining, fit_mask, order, wave: int,
                  kk: int):
-    """One launch of the top-K kernel with ``plan`` on checked CUDA inputs."""
+    """One launch of the top-K kernel with ``plan`` on checked CUDA inputs:
+    (outputs, the 2-int replay counts)."""
     n, r = left0.shape
     g = group_req.shape[0]
     dev = left0.device
     steps = -(-g // wave)
     launch, _, err = _entry_points("assign_topk")
     with torch.cuda.device(dev):
-        magic = torch.empty_like(group_req)
-        shift = torch.empty_like(group_req)
+        stage = torch.empty((steps * wave * (r + 1), 4), dtype=torch.int32, device=dev)
         uniform = torch.zeros(2 * steps, dtype=torch.uint8, device=dev)
         # alloc must start zeroed: the kernel writes only nonzero takes
         alloc = torch.zeros((g, n), dtype=torch.int32, device=dev)
@@ -661,17 +772,19 @@ def _launch_topk(plan: ScanPlan, left0, group_req, remaining, fit_mask, order, w
         conflicts = torch.empty(steps, dtype=torch.bool, device=dev)
         megas = torch.empty(steps, dtype=torch.bool, device=dev)
         demotions = torch.empty(steps, dtype=torch.int32, device=dev)
-        scratch = torch.empty(plan.scratch_ints, dtype=torch.int32, device=dev)
-        keys = torch.empty(plan.cluster_blocks * wave * plan.per_thread * plan.threads,
-                           dtype=torch.uint8, device=dev)
+        counts = torch.zeros(2, dtype=torch.int32, device=dev)
+        scratch = (torch.empty(plan.scratch_ints, dtype=torch.int32, device=dev)
+                   if plan.leftover == "global" else None)
         rc = launch(
             left0.data_ptr(), group_req.data_ptr(), remaining.data_ptr(),
-            fit_mask.data_ptr(), order.data_ptr(), magic.data_ptr(), shift.data_ptr(),
-            uniform.data_ptr(), alloc.data_ptr(), placed.data_ptr(), left_after.data_ptr(),
-            conflicts.data_ptr(), megas.data_ptr(), demotions.data_ptr(),
-            scratch.data_ptr(), keys.data_ptr(),
-            n, g, r, int(fit_mask.shape[0] != 1), wave, kk, plan.cluster_blocks,
-            plan.block_nodes, plan.threads, plan.per_thread, plan.shared_bytes,
+            fit_mask.data_ptr(), order.data_ptr(), stage.data_ptr(), uniform.data_ptr(),
+            alloc.data_ptr(), placed.data_ptr(), left_after.data_ptr(),
+            conflicts.data_ptr(), megas.data_ptr(), demotions.data_ptr(), counts.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            n, g, r, int(fit_mask.shape[0] != 1), wave, kk, plan.list_len, plan.touched_max,
+            plan.cluster_blocks, plan.block_nodes, plan.threads, plan.per_thread,
+            int(plan.leftover == "shared"), int(plan.keys == "shared"), plan.publish_buffers,
+            plan.shared_bytes,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
@@ -679,7 +792,7 @@ def _launch_topk(plan: ScanPlan, left0, group_req, remaining, fit_mask, order, w
             f"assign_topk kernel launch failed for {plan}: "
             f"{err(rc).decode(errors='replace')} (CUDA error {rc})"
         )
-    return alloc, placed, left_after, (conflicts, megas, demotions)
+    return (alloc, placed, left_after, (conflicts, megas, demotions)), counts
 
 
 # -- the node-sharded scan's wave steps (csrc/shard_wave.cu) -----------------

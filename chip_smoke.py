@@ -201,10 +201,12 @@ Phases (one JSON line each; any failure makes the exit code non-zero):
                    group.
 - coalesce_drf     the gate's whale storm at BASELINE config 3 (1k
                    PodGroups of 4 pods, 500 nodes): 6 connections flood
-                   "whale", one "small" tenant trickles; traced requests
-                   feed the sidecar's capacity sampler and so the DRF
-                   weights. The small tenant's p95 <= max(10 x the solo
-                   batch, 1 s) and <= 1.25 x the whale's p95.
+                   "whale" until one "small" tenant has trickled its 40
+                   requests (so its p95 is not its slowest request, and
+                   the storm outlasts the trickle; both lengths reported);
+                   traced requests feed the sidecar's capacity sampler and
+                   so the DRF weights. The small tenant's p95 <= max(10 x
+                   the solo batch, 1 s) and <= 1.25 x the whale's p95.
 - coalesce_busy    BST_COALESCE_DEPTH=2 with the executor parked: a full
                    request and a wire delta answered BUSY, the delta's
                    mirror generation kept, ResilientOracleClient retries
@@ -377,7 +379,9 @@ The top-K rung (BST_SCAN_TOPK=K, the top-K kernel assign_topk):
                    K=16 and K=128, every output bit-identical, the top-K
                    series equal to the plain top-K scan's on the card (at
                    K=128 on every input, at K=16 on the acceptance
-                   bucket), all timed in turns; 1 xl_churn_burst re-run at K=128,
+                   bucket), all timed in turns, with the replayed gangs
+                   the top-K kernel's carried lists served and those it
+                   ranked afresh; 1 xl_churn_burst re-run at K=128,
                    held to the serial kernel; one full batch through
                    execute_batch_host, BST_SCAN_TOPK=128 against unset,
                    the host dicts equal (the unpacked tail), with the
@@ -3408,6 +3412,12 @@ MEGA_SHAPE = (50, 100, 10)  # BASELINE config 2: nodes, gangs, members
 MEGA_ROUNDS = 4
 DRF_SHAPE = (500, 1000, 4)  # BASELINE config 3: 1k PodGroups, 500 nodes
 DRF_WHALES, DRF_REQUESTS, DRF_SOLO = 6, 8, 6  # benchmarks/coalesce_gate.py:213-282
+# the small tenant's trickle in coalesce_drf: enough requests that its p95
+# (sorted index int(0.95 n), p50_p95) is not its slowest one; the whales
+# keep sending until it has its last answer, so their backlog lasts the
+# whole trickle (DRF_WHALE_CAP requests a connection at most, cycling
+# through 64 of its own)
+DRF_SMALL_REQUESTS, DRF_WHALE_CAP = 40, 400
 BUSY_DEPTH = 2
 CAPACITY_ROUNDS = 4  # refreshes sampled at BST_CAPACITY_BUDGET_FRAC=1.0
 CAPACITY_CHURN = 40  # churn refreshes at the default 2% budget, capacity on/off in turns
@@ -3786,9 +3796,11 @@ def coalesce_drf(results):
     priorities) on serve_background(device="cuda", coalesce=True) with the
     capacity observatory on (its default): an idle-server baseline
     (DRF_SOLO requests, their median the solo batch), then DRF_WHALES
-    connections flood the "whale" label with DRF_REQUESTS requests each
-    while one "small" tenant trickles DRF_REQUESTS requests, sleeping a
-    solo batch between them. Every request is traced, so the sidecar's
+    connections flood the "whale" label, each at least DRF_REQUESTS
+    requests and on until the "small" tenant, which trickles
+    DRF_SMALL_REQUESTS requests sleeping a solo batch between them, has its
+    last answer (at most DRF_WHALE_CAP a connection); the storm's and the
+    trickle's lengths are reported. Every request is traced, so the sidecar's
     capacity samples feed _capacity_tenant_shares, the coalescer's DRF
     weights. Holds the small tenant's p95 request time to the gate's two
     bounds: <= max(10 x solo, 1 s) and <= 1.25 x the whale's p95. Every
@@ -3826,12 +3838,18 @@ def coalesce_drf(results):
         base.close()
         solo_s = sorted(solo[1:])[len(solo[1:]) // 2]
         whale_waits, small_waits = [], []
+        small_done = threading.Event()
+        whale_ends, trickle = [], []
 
         def whale(i):
             try:
                 c = OracleClient(host, port, timeout=300)
-                for req in tenant_stream(60 + i, DRF_REQUESTS, n, g, members):
-                    whale_waits.append(traced(c, req, "whale"))
+                pool = tenant_stream(60 + i, 64, n, g, members)
+                for k in range(DRF_WHALE_CAP):
+                    if k >= DRF_REQUESTS and small_done.is_set():
+                        break
+                    whale_waits.append(traced(c, pool[k % len(pool)], "whale"))
+                whale_ends.append(time.perf_counter())
                 c.close()
             except BaseException as e:  # noqa: BLE001 — raised below
                 errors.append(e)
@@ -3839,16 +3857,21 @@ def coalesce_drf(results):
         def small():
             try:
                 c = OracleClient(host, port, timeout=300)
-                for req in tenant_stream(99, DRF_REQUESTS, n, g, members):
+                trickle.append(time.perf_counter())
+                for req in tenant_stream(99, DRF_SMALL_REQUESTS, n, g, members):
                     small_waits.append(traced(c, req, "small"))
                     time.sleep(solo_s)  # a trickle, not a flood
+                trickle.append(time.perf_counter())
                 c.close()
             except BaseException as e:  # noqa: BLE001 — raised below
                 errors.append(e)
+            finally:
+                small_done.set()
 
         groups = record_groups(srv.coalescer)
         zero_counts()
         threads = [threading.Thread(target=whale, args=(i,)) for i in range(DRF_WHALES)]
+        storm_t0 = time.perf_counter()
         for t in threads:
             t.start()
         time.sleep(solo_s * 2)  # let the whale backlog form first
@@ -3864,7 +3887,11 @@ def coalesce_drf(results):
         srv.server_close()
     if errors:
         raise errors[0]
-    storm = (DRF_WHALES + 1) * DRF_REQUESTS
+    storm = len(whale_waits) + len(small_waits)
+    if len(small_waits) != DRF_SMALL_REQUESTS or len(trickle) != 2 or \
+            min(whale_ends, default=0) < trickle[-1]:
+        raise AssertionError(f"{len(small_waits)} small requests; the whales stopped before the "
+                             f"trickle's end: {whale_ends} against {trickle}")
     batches = sum(w if mode == "span" else 1 for mode, w in groups)
     if sum(w for _, w in groups) != storm or stats["mega_failures"] \
             or launches != only(assign_scan=batches):
@@ -3883,7 +3910,10 @@ def coalesce_drf(results):
         results["assign_scan"]["launches_by_path"]["coalesce_drf"] = launches["assign_scan"]
     return {"solo_batch_ms": solo_s * 1e3, "small_ms_p50_p95": [small_p50, small_p95],
             "whale_ms_p50_p95": [whale_p50, whale_p95], "starvation_bound_ms": bound_ms,
-            "relative_bound_ms": 1.25 * whale_p95, "observatory_shares": shares,
+            "relative_bound_ms": 1.25 * whale_p95, "small_over_whale_p95": small_p95 / whale_p95,
+            "requests": {"small": len(small_waits), "whale": len(whale_waits)},
+            "storm_s": max(whale_ends) - storm_t0, "trickle_s": trickle[1] - trickle[0],
+            "observatory_shares": shares,
             "groups": {"span": sum(m == "span" for m, _ in groups),
                        "mega": sum(m == "mega" for m, _ in groups),
                        "mean_width": storm / max(len(groups), 1)},
@@ -5979,6 +6009,7 @@ def check_xl(name, args):
     """The serial kernel, the wave kernel at TOPK_WAVE and the top-K kernel at
     each of XL_K on one XL input: every output bit-identical across them,
     the top-K series equal to the plain top-K scan's (run on the card), the
+    replayed gangs the carried lists served and those ranked afresh, the
     kernels timed under CUDA events (XL_REPS each, in turns: serial, wave,
     top-K, top-K, wave, serial), the plain scan's wall clock."""
     import torch
@@ -6000,6 +6031,9 @@ def check_xl(name, args):
     out["wave_ms"].append(cuda_ms(runs["wave"], XL_REPS))
     for k in XL_K:
         got = assign_gangs_topk_cuda(*args, TOPK_WAVE, k)
+        # the replayed gangs whose candidates came from the wave's carried
+        # lists, and those that ranked afresh (the kernel's own count)
+        carried, fresh = assign_gangs_topk_cuda.replay_counts.tolist()
         err, equal = max_err(got[:3], serial)
         if not equal:
             raise AssertionError(f"{name}, K={k}: the top-K kernel differs from the serial "
@@ -6024,7 +6058,8 @@ def check_xl(name, args):
         out[f"topk_{k}"] = {
             "kernel_ms": ms, "plain_s": plain_s, "max_abs_err": max(err, perr or 0),
             "waves": len(conflicts), "replayed": sum(conflicts), "uniform": sum(megas),
-            "demotions": sum(dem), "bound_ms": bound_ms, "bound_by": bound_by,
+            "demotions": sum(dem), "replayed_gangs_carried": carried,
+            "replayed_gangs_fresh": fresh, "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": nbytes, "int_ops": ops}
         del got, plain
     out["wave_ms"].append(cuda_ms(runs["wave"], XL_REPS))
@@ -6313,7 +6348,7 @@ def north_star_topk(results):
     import tempfile
 
     from batch_scheduler_tpu_torch.ops.assign_scan import (
-        assign_gangs_topk_cuda, assign_gangs_wave_cuda, topk_scan_plan)
+        assign_gangs_topk_cuda, assign_gangs_wave_cuda, topk_kernel_shared_need, topk_scan_plan)
     from batch_scheduler_tpu_torch.ops.oracle import assign_gangs_topk
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -6356,6 +6391,10 @@ def north_star_topk(results):
 
     bound_ms, bound_by, nbytes, ops = topk_bound(*args, TOPK_WAVE, out[3])
     plan = topk_scan_plan(args[0].shape[0], args[0].shape[1], TOPK_WAVE, TOPK_K, 0)
+    need = topk_kernel_shared_need(plan, TOPK_WAVE, TOPK_K, args[0].shape[1])
+    if need != plan.shared_bytes:
+        raise AssertionError(f"the plan's shared memory {plan.shared_bytes} is not the "
+                             f"kernel's layout's {need}")
     conflicts, megas, dem = series(out[3])
     results["assign_topk"] = {
         "launches": n,
@@ -6364,6 +6403,7 @@ def north_star_topk(results):
         "max_abs_err": err, "matched": True, "ms": min(ms), "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "cluster_blocks": plan.cluster_blocks, "leftover": plan.leftover,
+        "list_len": plan.list_len, "keys": plan.keys,
         "us_per_wave": min(ms) * 1e3 / len(conflicts),
     }
     timed = slice(2, None)

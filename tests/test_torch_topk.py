@@ -369,29 +369,53 @@ def test_topk_wrapper_rejects_bad_widths_and_inputs():
 
 
 def test_topk_kernel_plan_layout():
-    """The launch shape: the serial kernel's node split, every node a slot,
-    the shared memory of the kernel's layout, the leftover in global
-    scratch."""
-    from batch_scheduler_tpu_torch.ops.assign_scan import kernel_plan, topk_kernel_plan
+    """The launch shape: the serial kernel's blocks, at most 512 threads a
+    block covering its nodes, the shared memory of the kernel's layout
+    within the budget; the leftover in shared memory at the north star and
+    the acceptance bucket [2048, 65536], in global scratch at XL with K=128;
+    the widest width and list still fit (one publish buffer)."""
+    from batch_scheduler_tpu_torch.ops.assign_scan import (
+        _node_split, _topk_shared_bytes, topk_kernel_plan)
 
-    for n in (8, 100, 512, 8192, 100_000, 131072, 2**21):
-        plan = topk_kernel_plan(n, 6, 8, 16, 16)
-        base = kernel_plan(n, 6, 16, 0)
-        assert (plan.cluster_blocks, plan.block_nodes, plan.per_thread) == \
-            (base.cluster_blocks, base.block_nodes, base.per_thread)
-        assert plan.threads % 32 == 0 and plan.threads * plan.per_thread >= plan.block_nodes
-        assert plan.cluster_blocks * plan.block_nodes >= n and plan.leftover == "global"
-        assert plan.scratch_ints == plan.cluster_blocks * 6 * plan.per_thread * plan.threads
-        assert plan.shared_bytes == 8 * (16 * 6 + 512 + 36 * 16)
-    assert topk_kernel_plan(131072, 6, 32, 128, 16).shared_bytes <= 227 * 1024 - 16 * 1024
+    budget = 232448 - 2048  # an H100's opt-in shared memory less the static part
+    for n in (8, 100, 512, 8192, 65536, 100_000, 131072, 2**21):
+        for wave, kk in ((8, 16), (8, 128), (32, 64)):
+            kk = min(kk, n)
+            plan = topk_kernel_plan(n, 6, wave, kk, 16, budget)
+            c, block_nodes, _ = _node_split(n, 16)
+            assert (plan.cluster_blocks, plan.block_nodes) == (c, block_nodes)
+            assert plan.threads % 32 == 0 and plan.threads <= 512
+            assert plan.threads * plan.per_thread >= plan.block_nodes
+            assert plan.per_thread == -(-block_nodes // 512)
+            assert plan.cluster_blocks * plan.block_nodes >= n
+            assert kk <= plan.list_len <= kk + min(kk, 32) and plan.touched_max >= kk
+            assert plan.shared_bytes == _topk_shared_bytes(
+                wave, kk, plan.list_len, plan.touched_max, 6, plan.per_thread, plan.threads,
+                plan.leftover == "shared", plan.keys == "shared", plan.publish_buffers)
+            assert plan.shared_bytes <= budget
+            assert plan.scratch_ints == (
+                plan.cluster_blocks * 6 * plan.per_thread * plan.threads
+                if plan.leftover == "global" else 0)
+    for n, kk in ((8192, 16), (65536, 16), (65536, 128)):
+        plan = topk_kernel_plan(n, 6, 8, kk, 16, budget)
+        assert (plan.leftover, plan.keys, plan.list_len) == ("shared", "shared", kk + min(kk, 32))
+    assert topk_kernel_plan(131072, 6, 8, 128, 16, budget).leftover == "global"
+    wide = topk_kernel_plan(3000, 12, 32, 128, 16, budget)
+    assert wide.publish_buffers == 1 and wide.shared_bytes <= budget
+    with pytest.raises(ValueError, match="no top-K layout fits"):
+        topk_kernel_plan(8192, 6, 8, 16, 16, 1024)
 
 
 def test_topk_source_builds_from_the_shared_header(tmp_path):
-    """assign_topk.cu is a library of its own (no variant), and an edited
-    cluster_scan.cuh changes its build digest (so it rebuilds)."""
+    """assign_topk.cu is a library of its own (no variant), an edited
+    cluster_scan.cuh changes its build digest (so it rebuilds), and the
+    source's limits are the wrapper's: 512 threads a block, lists of at most
+    256 entries, K at most 128, W at most 32."""
+    import re
     import shutil
 
     from batch_scheduler_tpu_torch.ops import _build
+    from batch_scheduler_tpu_torch.ops import assign_scan
 
     assert "assign_topk" not in _build.VARIANTS
     csrc = tmp_path / "csrc"
@@ -402,6 +426,12 @@ def test_topk_source_builds_from_the_shared_header(tmp_path):
     header = csrc / "cluster_scan.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     assert _build.digest(src) != before
+    text = src.read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", text))
+    assert int(consts["kTopkThreads"]) == assign_scan._TOPK_THREADS
+    assert int(consts["kMaxList"]) == assign_scan._TOPK_LIST_MAX
+    assert int(consts["kMaxK"]) == assign_scan._MAX_TOPK
+    assert int(consts["kMaxWave"]) == max(assign_scan.WAVE_WIDTHS)
 
 
 def _card_case(rng, n, g, kind, lanes=5):
@@ -424,7 +454,7 @@ def _card_case(rng, n, g, kind, lanes=5):
 def test_topk_kernel_matches_plain_on_card():
     """The cluster kernel against the plain top-K scan (outputs and the three
     series) and the plain serial scan: one block, 2 and 16 blocks, several
-    nodes a thread (68 at 1,100,000 nodes), both mask modes, 12
+    nodes a thread (135 at 1,100,000 nodes), both mask modes, 12
     lanes, widths 2 to 32 with K up to 128, every branch and demotion."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
@@ -447,6 +477,10 @@ def test_topk_kernel_matches_plain_on_card():
         for a, b in zip(got[:3], serial):
             assert torch.equal(a.cpu(), b)
         conflicts, megas, dense = (x.cpu().numpy() for x in got[3])
+        # every replayed gang was served by the carried lists or ranked afresh
+        carried, fresh = assign_gangs_topk_cuda.replay_counts.tolist()
+        real = [min(wave, g - s * wave) for s in range(len(conflicts))]
+        assert carried + fresh == sum(w for w, c in zip(real, conflicts) if c)
         for stat in shown:
             shown[stat] += int(_shows(stat, conflicts, megas, dense))
     assert all(shown.values()), shown
