@@ -8,41 +8,57 @@
 // the collectives between the two steps, and the loop over waves, are
 // ops/oracle.py `assign_gangs_topk_sharded`'s.
 //
-// Two entry points, each on the caller's stream:
-// - bst_shard_topk_summary: one block a demand row (a speculative wave's W
-//   gangs, a uniform wave's one stream row, one replayed gang). The block
-//   computes the member capacity of every node of the rank's block under
-//   the row's mask (written to `cap`), a 128-bin count histogram of the
-//   tightness key min(cap, 127) over the fitting nodes in shared memory,
-//   the bin where the count reaches kk_l, and the candidates: every
-//   fitting node below that bin and the first ones of that bin by index (a
-//   block prefix sum over each thread's consecutive nodes), sorted by the
-//   global composite key*(n_pad+1) + global index (a rank sort of at most
-//   128 keys). Its payload row (ops/oracle.py's comment above
-//   TOPK_SPECULATIVE gives the columns) goes into slot `rank` of an
-//   [S, rows, P] buffer whose other slots it zeroes, so the merge is an
-//   all-reduce (sum).
-// - bst_shard_topk_apply: two kernels. `select_kernel`, one block a row:
-//   the kk smallest of the S * kk_l merged composites (a stable rank sort:
-//   the lower position first on equal keys, as lax.top_k), decoded into
-//   key, global index and ownership; then the replicated selection on them
-//   — the tightest-first take of `_select_best_fit` (one thread over the
-//   at most 128 candidates), a uniform wave's stream cut at its gang
-//   boundaries with their feasibility sums, or a replayed gang's
-//   dense-column take from the merged histograms — and this rank's takes
-//   written into rows zeroed first. `commit_kernel`, one thread a node: a
-//   speculative wave's conflict check (each gang's capacity under the
-//   exclusive prefix of the earlier gangs' takes, clamped at -2^30; off the
-//   candidates every take is zero, so checking every node checks the
-//   reference's union of candidate columns) and its candidate leftover, or
-//   a stream's or replayed gang's leftover. The candidate leftover goes to
-//   a second buffer, which the caller adopts after the verify.
+// Two entry points, one launch each, on the caller's stream. Both split
+// the rank's nl nodes over a thread-block cluster (shard_common.cuh
+// `split_nodes`: consecutive chunks a block, consecutive segments a warp):
+// - bst_shard_topk_summary: a cluster a demand row (a speculative wave's W
+//   gangs, a uniform wave's one stream row, one replayed gang). Each block
+//   computes the member capacity of its nodes under the row's mask
+//   (written to `cap`), a 128-bin count histogram of the tightness key
+//   min(cap, 127) over the fitting nodes and its share of the pooled sums
+//   (a uniform wave's W pooled needs in one pass, W partials a thread). It
+//   pushes its counts into every block's shared memory and its histogram
+//   and pooled parts into the leader's; one barrier phase; every block
+//   finds with one warp the bin where the count reaches kk_l and pushes its
+//   candidates to the leader: every fitting node below that bin and the
+//   first ones of that bin by index (the earlier blocks' counts plus warp
+//   ballot ranks in node order). A second phase, which only the leader
+//   waits on; the leader sorts the at most 128 candidates by the global
+//   composite key*(n_pad+1) + global index and writes the payload row
+//   (ops/oracle.py's comment above TOPK_SPECULATIVE gives the columns) into
+//   slot `rank` of an [S, rows, P] buffer whose other slots it zeroes, so
+//   the merge is an all-reduce (sum).
+// - bst_shard_topk_apply: one cluster: a leader block and up to 15 blocks
+//   a chunk of nodes each. The leader merges each row's S sorted lists of
+//   kk_l composites: a composite's merged rank is its index in its own list
+//   plus, for each other rank, a binary-search count of the composites
+//   before it (the lower rank first on equal keys: only the kBig sentinels
+//   tie, and they order by position, as lax.top_k). The kk smallest decode
+//   into key, global index and ownership; one warp a row then runs the
+//   selection on them: the tightest-first take of `_select_best_fit` (the
+//   merged order is the key order, so a candidate's prefix in the
+//   threshold bucket is its prefix over all earlier candidates less the
+//   units below), or a uniform wave's stream cut at its gang boundaries
+//   with their feasibility sums (a warp a gang). Meanwhile the other blocks
+//   write their chunk's takes rows (zero) and the unchanged leftover. One
+//   barrier phase, which only the leader waits on; the leader writes the
+//   candidates' takes and commits them: off the candidates every take is
+//   zero, so the speculative conflict check (shard_common.cuh
+//   `speculative_commit`) runs on the candidate nodes only, and so does a
+//   stream's leftover. A replayed gang whose candidates cannot cover its
+//   need while its pooled capacity could takes the dense-column selection
+//   instead: every block computes `_hist_select` from the merged histograms,
+//   and the threshold bucket's partials go to the later blocks in the same
+//   exchange that carries the leader's verdict and candidates to the chunk
+//   blocks; each block writes its chunk. The verify word is written, never
+//   accumulated: no memset.
 //
 // What bounds it on an H100: neither bytes nor operations. A wave reads the
 // block's leftover once or twice (nl = N / S nodes) and does ~W * nl * (2R +
 // 10) integer operations, well under a microsecond of memory or ALU time at
-// the north star. What a wave costs is its three launches and the one or
-// two collectives between them, which go through the host.
+// the north star. What a step costs is its two launches and their barrier
+// phases, and the one or two collectives between them, which go through
+// the host.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,25 +71,36 @@ constexpr int kMaxK = 128;      // ops/assign_scan.py _MAX_TOPK
 constexpr int kMaxPool = 1024;  // ops/assign_scan.py _SHARD_TOPK_POOL
 constexpr int kSpeculative = 0, kMega = 1, kReplay = 2;  // ops/oracle.py TOPK_*
 
-__device__ __forceinline__ long long warp_sum(long long v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
+__host__ __device__ __forceinline__ int payload(int mode, int kk_l, int w) {
+  return mode == kSpeculative ? 2 * kk_l + 1 : (mode == kMega ? 3 * kk_l + w : 2 * kk_l + 1 + kBins);
 }
 
-__global__ void summary_kernel(int mode, const int* __restrict__ left, const int* __restrict__ req,
-                               const int* __restrict__ needs, const uint8_t* __restrict__ mask,
-                               int* __restrict__ cap, int* __restrict__ buf, int nl, int r, int w,
-                               int rows, int mask_stride, int s, int rank, int kk_l) {
-  __shared__ int cnt[kBins];
-  __shared__ int hist[kBins];
-  __shared__ unsigned long long pool[kMaxWave];
-  __shared__ int warp_tot[32];
-  __shared__ long long cand_v[kMaxK];
-  __shared__ int cand_c[kMaxK];
-  __shared__ long long sort_v[kMaxK];
-  __shared__ int sort_c[kMaxK];
-  __shared__ int sh_tb, sh_lt, sh_want, sh_ncand;
-  const int row = blockIdx.x;
+// The summary of a row of a wave of w <= kW gangs.
+template <int kW>
+__global__ void __launch_bounds__(kMaxThreads)
+summary_kernel(int mode, const int* __restrict__ left, const int* __restrict__ req,
+               const int* __restrict__ needs, const uint8_t* __restrict__ mask,
+               int* __restrict__ cap, int* __restrict__ buf, int nl, int r, int w, int rows,
+               int mask_stride, int s, int rank, int kk_l, int chunk) {
+  cg::cluster_group cluster = cg::this_cluster();
+  __shared__ int cnt[kBins];        // this block's fitting nodes by key (published)
+  __shared__ int hist[kBins];       // this block's clipped capacity by key (a replay's; published)
+  __shared__ unsigned pool[kMaxWave];        // a stream's pooled needs (published)
+  __shared__ unsigned long long mine_sum;    // the clipped pooled capacity (published)
+  __shared__ int gcnt[kBins], ecnt[kBins];   // all blocks' counts, the earlier blocks'
+  __shared__ int wlt[kMaxWarps], wtb[kMaxWarps];  // a warp's nodes below / at the cut bin
+  __shared__ int cand_v[kMaxK], cand_c[kMaxK];    // the leader's: candidates by slot
+  __shared__ int sort_v[kMaxK], sort_c[kMaxK];
+  __shared__ int cnt_all[kMaxBlocks * kBins];  // every block's counts (pushed by each)
+  // the leader's: every block's histogram, pooled parts and pooled sum
+  __shared__ int hist_all[kMaxBlocks * kBins];
+  __shared__ unsigned pool_all[kMaxBlocks * kMaxWave];
+  __shared__ unsigned long long mine_all[kMaxBlocks];
+  __shared__ int sh_tb, sh_lt, sh_want, sh_ncand, sh_elt, sh_etb;
+  cluster_arrive_relaxed();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int me = (int)cluster.block_rank(), blocks = (int)cluster.num_blocks();
+  const int row = blockIdx.y;
   const int* q = req + (size_t)row * r;
   const uint8_t* m = mask + (size_t)row * mask_stride;
   int* cap_row = cap + (size_t)row * nl;
@@ -93,15 +120,22 @@ __global__ void summary_kernel(int mode, const int* __restrict__ left, const int
   }
   for (int b = threadIdx.x; b < kBins; b += blockDim.x) cnt[b] = hist[b] = 0;
   for (int j = threadIdx.x; j < kMaxWave; j += blockDim.x) pool[j] = 0;
+  if (threadIdx.x == 0) mine_sum = 0;
   __syncthreads();
-  const int per = (nl + blockDim.x - 1) / blockDim.x;
-  const int n0 = min((int)threadIdx.x * per, nl), n1 = min(n0 + per, nl);
+  const Segment g = segment_of(me, chunk, nl);
   long long mine = 0;  // saturated at the clip: only pooled < need is read
-  for (int n = n0; n < n1; ++n) {
+  unsigned part[kW];  // a stream's pooled needs, int32 wraparound as the payload's
+#pragma unroll
+  for (int j = 0; j < kW; ++j) part[j] = 0;
+  for (int n = g.s0 + lane; n < g.s1; n += 32) {
     const int v = m[n] ? member_cap(left + (size_t)n * r, q, r) : 0;
     cap_row[n] = v;
     if (v > 0) atomicAdd(&cnt[min(v, kBins - 1)], 1);
-    if (mode != kMega) {
+    if (mode == kMega) {
+#pragma unroll
+      for (int j = 0; j < kW; ++j)
+        if (j < w) part[j] += (unsigned)min(v, needs[j]);
+    } else {
       const long long c = min((long long)v, clip);
       if (c > 0) {
         mine = min(mine + c, clip);
@@ -110,80 +144,160 @@ __global__ void summary_kernel(int mode, const int* __restrict__ left, const int
     }
   }
   if (mode == kMega) {
-    // each gang's pooled need: exact in int32 inside the stream bound
-    for (int j = 0; j < w; ++j) {
-      long long part = 0;
-      for (int n = n0; n < n1; ++n) part += min(cap_row[n], needs[j]);
-      part = warp_sum(part);
-      if ((threadIdx.x & 31) == 0 && part != 0) atomicAdd(&pool[j], (unsigned long long)part);
+#pragma unroll
+    for (int j = 0; j < kW; ++j) {
+      if (j < w) {
+        const unsigned t = __reduce_add_sync(kFull, part[j]);
+        if (lane == 0 && t != 0) atomicAdd(&pool[j], t);
+      }
     }
   } else {
-    for (int o = 16; o > 0; o >>= 1) mine = min(mine + __shfl_down_sync(0xffffffffu, mine, o), clip);
-    if ((threadIdx.x & 31) == 0 && mine != 0) atomicAdd(&pool[0], (unsigned long long)mine);
+    for (int o = 16; o > 0; o >>= 1) mine = min(mine + __shfl_down_sync(kFull, mine, o), clip);
+    if (lane == 0 && mine != 0) atomicAdd(&mine_sum, (unsigned long long)mine);
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    // the bin where the fitting count reaches kk_l (kBins: every fitting node)
-    int cum = 0, tb = kBins;
-    for (int b = 1; b < kBins; ++b) {
-      if (cum + cnt[b] >= kk_l) {
-        tb = b;
-        break;
-      }
-      cum += cnt[b];
+  cluster_wait();  // every block has started
+  // this block's counts into every block's memory; its histogram (a
+  // replay's), pooled parts (a stream's) and pooled sum into the leader's
+  for (int i = threadIdx.x; i < blocks * kBins; i += blockDim.x) {
+    const int c = i / kBins, b = i - c * kBins;
+    *cluster.map_shared_rank(cnt_all + me * kBins + b, c) = cnt[b];
+  }
+  if (mode == kReplay) {
+    int* lead = cluster.map_shared_rank(hist_all + me * kBins, 0);
+    for (int b = threadIdx.x; b < kBins; b += blockDim.x) lead[b] = hist[b];
+  }
+  if (mode == kMega) {
+    unsigned* lead = cluster.map_shared_rank(pool_all + me * kMaxWave, 0);
+    for (int j = threadIdx.x; j < w; j += blockDim.x) lead[j] = pool[j];
+  }
+  if (threadIdx.x == 0) *cluster.map_shared_rank(mine_all + me, 0) = mine_sum;
+  cluster_arrive();
+  cluster_wait();  // every block's pushes are in
+  for (int b = threadIdx.x; b < kBins; b += blockDim.x) {
+    int t = 0, e = 0;
+    for (int x = 0; x < blocks; ++x) {
+      const int v = cnt_all[x * kBins + b];
+      t += v;
+      if (x < me) e += v;
     }
-    sh_tb = tb;
-    sh_lt = cum;
-    sh_want = tb < kBins ? kk_l - cum : 0;
-    sh_ncand = tb < kBins ? kk_l : cum;
-    if (mode != kMega) pool[0] = min((long long)pool[0], clip);
+    gcnt[b] = t;
+    ecnt[b] = e;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    // the bin where the fitting count reaches kk_l (kBins: every fitting
+    // node; bin 0 holds none), the counts below it, and the earlier blocks'
+    // nodes below it and in it
+    const int b0 = lane * 4;
+    int c4[4], e4[4], four = 0, efour = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      c4[i] = gcnt[b0 + i];
+      e4[i] = ecnt[b0 + i];
+      four += c4[i];
+    }
+    const int incl = warp_inclusive_scan(four);
+    int cum = incl - four, first = kBins;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      cum += c4[i];
+      if (first == kBins && cum >= kk_l) first = b0 + i;
+    }
+    const unsigned hit = __ballot_sync(kFull, first < kBins);
+    const int tb = hit ? __shfl_sync(kFull, first, __ffs(hit) - 1) : kBins;
+    int below = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      below += b0 + i < tb ? c4[i] : 0;
+      efour += b0 + i < tb ? e4[i] : 0;
+    }
+    below = __reduce_add_sync(kFull, below);
+    efour = __reduce_add_sync(kFull, efour);
+    if (lane == 0) {
+      sh_tb = tb;
+      sh_lt = below;
+      sh_want = tb < kBins ? kk_l - below : 0;
+      sh_ncand = tb < kBins ? kk_l : below;
+      sh_elt = efour;
+      sh_etb = tb < kBins ? ecnt[tb] : 0;
+    }
   }
   __syncthreads();
   const int tb = sh_tb, lt = sh_lt, want = sh_want;
-  int a = 0, b = 0;
-  for (int n = n0; n < n1; ++n) {
-    const int v = cap_row[n];
-    if (v <= 0) continue;
+  // this block's candidates in node order: a warp's count of nodes below
+  // the cut bin and in it, then each node's rank among them by ballots
+  int nlt = 0, ntb = 0;
+  for (int base = g.s0; base < g.s1; base += 32) {
+    const int n = base + lane;
+    const int v = n < g.s1 ? cap_row[n] : 0;
     const int key = min(v, kBins - 1);
-    a += key < tb;
-    b += key == tb;
+    nlt += __popc(__ballot_sync(kFull, v > 0 && key < tb));
+    ntb += __popc(__ballot_sync(kFull, v > 0 && key == tb));
   }
-  int pa = block_exclusive_scan(a, warp_tot);
-  int pb = block_exclusive_scan(b, warp_tot);
-  const long long span = (long long)s * nl + 1;
-  const long long off = (long long)rank * nl;
-  for (int n = n0; n < n1; ++n) {
-    const int v = cap_row[n];
-    if (v <= 0) continue;
+  if (lane == 0) {
+    wlt[warp] = nlt;
+    wtb[warp] = ntb;
+  }
+  __syncthreads();
+  int rlt = sh_elt, rtb = sh_etb;
+  for (int x = 0; x < warp; ++x) rlt += wlt[x], rtb += wtb[x];
+  const int span = s * nl + 1, off = rank * nl;
+  int* lead_v = cluster.map_shared_rank(cand_v, 0);
+  int* lead_c = cluster.map_shared_rank(cand_c, 0);
+  const unsigned below_me = (1u << lane) - 1;
+  for (int base = g.s0; base < g.s1; base += 32) {
+    const int n = base + lane;
+    const int v = n < g.s1 ? cap_row[n] : 0;
     const int key = min(v, kBins - 1);
+    const unsigned a = __ballot_sync(kFull, v > 0 && key < tb);
+    const unsigned b = __ballot_sync(kFull, v > 0 && key == tb);
     int slot = -1;
-    if (key < tb) {
-      slot = pa++;
-    } else if (key == tb) {
-      if (pb < want) slot = lt + pb;
-      ++pb;
+    if (v > 0 && key < tb) {
+      slot = rlt + __popc(a & below_me);
+    } else if (v > 0 && key == tb) {
+      const int at = rtb + __popc(b & below_me);
+      if (at < want) slot = lt + at;
     }
     if (slot >= 0) {
-      cand_v[slot] = key * span + off + n;
-      cand_c[slot] = v;
+      lead_v[slot] = key * span + off + n;
+      lead_c[slot] = v;
     }
+    rlt += __popc(a);
+    rtb += __popc(b);
   }
-  __syncthreads();
+  cluster_arrive();
+  if (me != 0) return;
+  cluster_wait();  // every block's candidates are in the leader's memory
+  for (int b = threadIdx.x; b < kBins; b += blockDim.x) {
+    int t = 0;
+    for (int x = 0; x < blocks; ++x) t += hist_all[x * kBins + b];
+    hist[b] = t;  // the rank's histogram, for the payload
+  }
+  for (int j = threadIdx.x; j < w; j += blockDim.x) {
+    unsigned t = 0;
+    for (int x = 0; x < blocks; ++x) t += pool_all[x * kMaxWave + j];
+    pool[j] = t;
+  }
+  if (threadIdx.x == 0) {
+    unsigned long long t = 0;
+    for (int x = 0; x < blocks; ++x) t += mine_all[x];
+    mine_sum = (unsigned long long)min((long long)t, clip);
+  }
   const int ncand = sh_ncand;
-  if (threadIdx.x < ncand) {
-    const long long x = cand_v[threadIdx.x];
+  for (int i = threadIdx.x; i < ncand; i += blockDim.x) {
+    const int x = cand_v[i];
     int at = 0;
-    for (int i = 0; i < ncand; ++i) at += cand_v[i] < x;  // composites are unique
+    for (int e = 0; e < ncand; ++e) at += cand_v[e] < x;  // composites are unique
     sort_v[at] = x;
-    sort_c[at] = cand_c[threadIdx.x];
+    sort_c[at] = cand_c[i];
   }
   __syncthreads();
-  const int p = mode == kSpeculative ? 2 * kk_l + 1
-                                     : (mode == kMega ? 3 * kk_l + w : 2 * kk_l + 1 + kBins);
+  const int p = payload(mode, kk_l, w);
   for (int i = threadIdx.x; i < p; i += blockDim.x) {
     int val;
     if (i < kk_l) {
-      val = i < ncand ? (int)sort_v[i] : kBig;
+      val = i < ncand ? sort_v[i] : kBig;
     } else if (i < 2 * kk_l) {
       const int c = i - kk_l;
       val = c < ncand ? (int)min((long long)sort_c[c], clip) : 0;
@@ -195,7 +309,7 @@ __global__ void summary_kernel(int mode, const int* __restrict__ left, const int
         val = (int)pool[i - 3 * kk_l];
       }
     } else if (i == 2 * kk_l) {
-      val = (int)pool[0];
+      val = (int)(long long)mine_sum;
     } else {
       val = hist[i - 2 * kk_l - 1];
     }
@@ -203,192 +317,289 @@ __global__ void summary_kernel(int mode, const int* __restrict__ left, const int
   }
 }
 
-// the tightest-first take of `_select_best_fit` on n candidates in merged
-// (composite) order, by one thread; returns the feasibility
-__device__ bool select_candidates(const int* key, const int* capc, int n, long long need,
-                                  long long* bins, int* take) {
-  for (int b = 0; b < kBins; ++b) bins[b] = 0;
-  long long total = 0;
-  for (int c = 0; c < n; ++c) {
-    bins[key[c]] += capc[c];
-    total += capc[c];
+// the composites of a sorted list of n before v: those < v, or <= v
+__device__ __forceinline__ int count_before(const int* list, int n, int v, bool or_equal) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const int x = list[mid];
+    if (x < v || (or_equal && x == v)) lo = mid + 1;
+    else hi = mid;
   }
-  const bool ok = total >= need;
-  long long cum = 0, below = 0;
-  int thresh = 0;
-  for (int b = 0; b < kBins; ++b) {
-    cum += bins[b];
-    thresh += cum < need;
-  }
-  thresh = min(thresh, kBins - 1);
-  for (int b = 0; b < thresh; ++b) below += bins[b];
-  const long long rem = need - below;
-  long long prefix = 0;
-  for (int c = 0; c < n; ++c) {
-    long long t = 0;
-    if (key[c] < thresh) {
-      t = capc[c];
-    } else if (key[c] == thresh) {
-      t = min(max(rem - prefix, 0LL), (long long)capc[c]);
-      prefix += capc[c];
-    }
-    take[c] = ok ? (int)t : 0;
-  }
-  return ok;
+  return lo;
 }
 
-__global__ void select_kernel(int mode, const int* __restrict__ merged, const int* __restrict__ cap,
-                              const int* __restrict__ needs, int* __restrict__ takes,
-                              uint8_t* __restrict__ feas, int* __restrict__ stream_take,
-                              int* __restrict__ verify, int* __restrict__ dense, int nl, int w,
-                              int rows, int s, int rank, int kk_l, int kk) {
-  __shared__ int pv[kMaxPool];
-  __shared__ int m_v[kMaxK], m_c[kMaxK], m_x[kMaxK], m_key[kMaxK], m_l[kMaxK];
-  __shared__ uint8_t m_own[kMaxK];
-  __shared__ int t_sel[kMaxK];
-  __shared__ int taken[(kMaxWave + 1) * kMaxK];
-  __shared__ long long bins[kBins];
-  __shared__ long long pre[kMaxK];
-  __shared__ unsigned long long dsum[kMaxWave];
-  __shared__ int tot[kBins], hoff[kBins];
-  __shared__ int warp_tot[32];
-  __shared__ int sh_flag, sh_ok, sh_thresh, sh_rem;
-  const int row = blockIdx.x;
-  const int p = mode == kSpeculative ? 2 * kk_l + 1
-                                     : (mode == kMega ? 3 * kk_l + w : 2 * kk_l + 1 + kBins);
-  const int npool = s * kk_l;
-  for (int e = threadIdx.x; e < npool; e += blockDim.x)
-    pv[e] = merged[((size_t)(e / kk_l) * rows + row) * p + e % kk_l];
-  for (int c = threadIdx.x; c < kk; c += blockDim.x) {
-    m_v[c] = kBig;  // slots past the S * kk_l candidates are sentinels
-    m_c[c] = m_x[c] = 0;
-  }
-  for (int j = threadIdx.x; j < kMaxWave; j += blockDim.x) dsum[j] = 0;
-  __syncthreads();
-  for (int e = threadIdx.x; e < npool; e += blockDim.x) {
-    const int x = pv[e];
-    int at = 0;
-    for (int f = 0; f < npool; ++f) {
-      const int y = pv[f];
-      at += y < x || (y == x && f < e);
+// The apply of a wave of w <= kW gangs.
+template <int kW>
+__global__ void __launch_bounds__(kMaxThreads)
+apply_kernel(int mode, const int* __restrict__ merged, const int* __restrict__ cap,
+             const int* __restrict__ needs, const int* __restrict__ left,
+             const int* __restrict__ req, const uint8_t* __restrict__ mask, int mask_stride,
+             int* __restrict__ takes, uint8_t* __restrict__ feas, int* __restrict__ left_out,
+             int* __restrict__ verify, int* __restrict__ dense, int nl, int r, int w, int rows,
+             int s, int rank, int kk_l, int kk, int chunk) {
+  cg::cluster_group cluster = cg::this_cluster();
+  // the leader's candidate table, row-major [rows, kk]
+  __shared__ uint8_t t_key[kMaxWave * kMaxK];
+  __shared__ int t_val[kMaxWave * kMaxK];   // the clipped capacity, then the take
+  __shared__ int t_lidx[kMaxWave * kMaxK];  // the local node, -1 off this rank's block
+  __shared__ int t_capx[kMaxK];             // a stream's capx
+  __shared__ long long t_pre[kMaxK];        // a stream's exclusive prefix
+  __shared__ int s_ok[kMaxWave], s_flag[kMaxWave];
+  __shared__ int s_covered, s_verify;
+  // a replay's dense-column selection
+  __shared__ int s_thresh[1], s_rem[1], s_clip[1], s_dok;
+  __shared__ int s_part[kMaxRows];
+  __shared__ int s_wsum[kMaxWarps * kMaxRows];
+  __shared__ int s_slots[kMaxBlocks * kMaxRows];
+  __shared__ int r_lidx[kMaxK], r_take[kMaxK], r_flag;  // the leader's, pushed
+  if (mode == kReplay) cluster_arrive_relaxed();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int me = (int)cluster.block_rank(), blocks = (int)cluster.num_blocks();
+  const int p = payload(mode, kk_l, w);
+  const Segment g = segment_of(me - 1, chunk, nl);  // the leader walks no nodes
+  if (me == 0) {
+    // the merged candidates: the kk smallest of each row's S lists
+    for (int e = threadIdx.x; e < rows * kk; e += blockDim.x) {
+      t_key[e] = kBins - 1;  // slots past the S * kk_l candidates are sentinels
+      t_val[e] = 0;
+      t_lidx[e] = -1;
     }
-    if (at < kk) {
-      const size_t base = ((size_t)(e / kk_l) * rows + row) * p + e % kk_l;
-      m_v[at] = x;
-      m_c[at] = merged[base + kk_l];
-      if (mode == kMega) m_x[at] = merged[base + 2 * kk_l];
-    }
-  }
-  __syncthreads();
-  const int span = s * nl + 1;
-  const int off = rank * nl;
-  for (int c = threadIdx.x; c < kk; c += blockDim.x) {
-    const int v = m_v[c];
-    const int k = v / span;
-    const int g = v - k * span;
-    m_key[c] = min(k, kBins - 1);
-    m_own[c] = v < kBig && g >= off && g < off + nl;
-    m_l[c] = min(max(g - off, 0), nl - 1);
-  }
-  __syncthreads();
-  if (mode == kMega) {
-    if (threadIdx.x == 0) {
-      long long total = 0, covered = 0, acc = 0;
-      for (int j = 0; j < w; ++j) total += needs[j];
-      for (int c = 0; c < kk; ++c) {
-        pre[c] = acc;
-        acc += m_c[c];
+    for (int c = threadIdx.x; c < kk; c += blockDim.x) t_capx[c] = 0;
+    __syncthreads();
+    const int npool = s * kk_l;
+    const int span = s * nl + 1, off = rank * nl;
+    for (int e = threadIdx.x; e < rows * npool; e += blockDim.x) {
+      const int row = e / npool, el = e - row * npool, x = el / kk_l, i = el - x * kk_l;
+      const int* mine = merged + ((size_t)x * rows + row) * p;
+      const int v = mine[i];
+      int at = i;
+      for (int y = 0; y < s && at < kk; ++y)
+        if (y != x) at += count_before(merged + ((size_t)y * rows + row) * p, kk_l, v, y < x);
+      if (at < kk) {
+        const int slot = row * kk + at;
+        const int key = v / span, gidx = v - key * span;
+        t_key[slot] = (uint8_t)min(key, kBins - 1);
+        t_val[slot] = mine[kk_l + i];
+        t_lidx[slot] = v < kBig && gidx >= off && gidx < off + nl ? gidx - off : -1;
+        if (mode == kMega) t_capx[at] = mine[2 * kk_l + i];
       }
-      covered = acc;
-      sh_ok = covered >= total;
     }
     __syncthreads();
-    for (int c = threadIdx.x; c < kk; c += blockDim.x) {
-      long long bound = 0;
-      int prev = 0;
-      for (int b = 0; b <= w; ++b) {
-        const int t = (int)min(max(bound - pre[c], 0LL), (long long)m_c[c]);
-        taken[b * kk + c] = t;
-        if (b > 0) {
-          const int nd = needs[b - 1];
-          const long long d = (long long)min(m_x[c], nd) - min(m_x[c] - prev, nd);
-          if (d != 0) atomicAdd(&dsum[b - 1], (unsigned long long)d);
+    if (mode == kMega) {
+      // the stream over the candidates: each one's exclusive prefix, and
+      // whether they cover the wave
+      if (warp == 0) {
+        long long total = 0, c4[4], four = 0;
+        for (int j = 0; j < w; ++j) total += needs[j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c = lane * 4 + i;
+          c4[i] = c < kk ? t_val[c] : 0;
+          four += c4[i];
         }
-        prev = t;
-        if (b < w) bound += needs[b];
+        const long long incl = warp_inclusive_scan64(four);
+        long long pre = incl - four;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c = lane * 4 + i;
+          if (c < kk) t_pre[c] = pre;
+          pre += c4[i];
+        }
+        if (lane == 31) s_covered = incl >= total;
+      }
+      __syncthreads();
+      // a warp a gang: its boundary's feasibility, the pooled need less the
+      // candidates' entry terms plus their post-take terms
+      for (int j = warp; j < w; j += nw) {
+        long long bound = 0;
+        for (int i = 0; i < j; ++i) bound += needs[i];
+        const int nd = needs[j];
+        long long d = 0;
+        for (int c = lane; c < kk; c += 32) {
+          const int cx = t_capx[c];
+          const int t = (int)min(max(bound - t_pre[c], 0LL), (long long)t_val[c]);
+          d += (long long)min(cx, nd) - min(cx - t, nd);
+        }
+        d = warp_sum64(d);
+        if (lane == 0) {
+          long long pooled = 0;
+          for (int x = 0; x < s; ++x) pooled += merged[(size_t)x * p + 3 * kk_l + j];
+          s_ok[j] = pooled - d >= nd;
+        }
+      }
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        int ok = s_covered;
+        for (int j = 0; j < w; ++j) ok = ok && s_ok[j];
+        s_verify = ok;
+      }
+    } else {
+      // a warp a row: the tightest-first take on its candidates in merged
+      // order, which is key order
+      for (int row = warp; row < rows; row += nw) {
+        const long long need = needs[mode == kSpeculative ? row : 0];
+        long long c4[4], four = 0;
+        int k4[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c = lane * 4 + i;
+          c4[i] = c < kk ? t_val[row * kk + c] : 0;
+          k4[i] = c < kk ? t_key[row * kk + c] : kBins - 1;
+          four += c4[i];
+        }
+        const long long incl = warp_inclusive_scan64(four);
+        const long long total = __shfl_sync(kFull, incl, 31);
+        const bool ok = total >= need;
+        // the threshold: the key of the first candidate whose inclusive
+        // prefix reaches the need (0 for a need <= 0, 127 when none does)
+        long long cum = incl - four;
+        int first = -1;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          cum += c4[i];
+          if (first < 0 && cum >= need) first = k4[i];
+        }
+        const unsigned hit = __ballot_sync(kFull, first >= 0);
+        int thresh = hit ? __shfl_sync(kFull, first, __ffs(hit) - 1) : kBins - 1;
+        if (need <= 0) thresh = 0;
+        long long pre = incl - four;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c = lane * 4 + i;
+          long long t = 0;
+          if (k4[i] < thresh) t = c4[i];
+          else if (k4[i] == thresh) t = min(max(need - pre, 0LL), c4[i]);
+          if (c < kk) t_val[row * kk + c] = ok ? (int)t : 0;
+          pre += c4[i];
+        }
+        if (lane == 0) {
+          long long pooled = 0;
+          for (int x = 0; x < s; ++x) pooled += merged[((size_t)x * rows + row) * p + 2 * kk_l];
+          s_ok[row] = ok;
+          s_flag[row] = ok || pooled < need;  // restricted (replay), or no verify (speculative)
+        }
       }
     }
-    for (int x = threadIdx.x; x < w * nl; x += blockDim.x) takes[x] = 0;
-    for (int n = threadIdx.x; n < nl; n += blockDim.x) stream_take[n] = 0;
-    if (threadIdx.x < w) feas[threadIdx.x] = 1;
+  }
+  if (mode == kReplay) {
+    // the dense-column selection's plan from the merged histograms, and the
+    // cluster's threshold-bucket carries; the leader pushes its verdict and
+    // its candidates (local node, take) to the chunk blocks in the same
+    // exchange
+    if (warp == 0) {
+      const Plan pl = warp_plan(warp_bins(merged + 2 * kk_l + 1, (size_t)p, s, rank), needs[0],
+                                false);
+      if (lane == 0) {
+        s_thresh[0] = pl.thresh;
+        s_rem[0] = pl.rem;
+        s_dok = pl.ok;
+        s_clip[0] = needs[0];
+      }
+    }
     __syncthreads();
-    if (threadIdx.x == 0) {
-      bool ok = sh_ok;
-      for (int j = 0; j < w; ++j) {
-        long long pooled = 0;
-        for (int x = 0; x < s; ++x) pooled += merged[(size_t)x * p + 3 * kk_l + j];
-        ok = ok && pooled - (long long)dsum[j] >= needs[j];
+    bucket_carries<1>(cluster, cap, 0, 1, s_thresh, s_clip, g, s_part, s_wsum, s_slots,
+                      [&] {
+                        if (me != 0) return;
+                        for (int i = threadIdx.x; i < (blocks - 1) * (kk + 1); i += blockDim.x) {
+                          const int c = 1 + i / (kk + 1), e = i - (c - 1) * (kk + 1);
+                          if (e == kk) {
+                            *cluster.map_shared_rank(&r_flag, c) = s_flag[0];
+                          } else {
+                            *cluster.map_shared_rank(r_lidx + e, c) = t_lidx[e];
+                            *cluster.map_shared_rank(r_take + e, c) = t_val[e];
+                          }
+                        }
+                      });
+    const int flag = me == 0 ? s_flag[0] : r_flag;
+    if (!flag) {
+      int carry = s_wsum[warp * kMaxRows];
+      for (int base = g.s0; base < g.s1; base += 32) {
+        const int n = base + lane;
+        const bool valid = n < g.s1;
+        const int v = valid ? cap[n] : 0;
+        const int t = row_take(v, s_thresh[0], s_rem[0], s_clip[0], s_dok, carry);
+        if (valid) {
+          takes[n] = t;
+          for (int x = 0; x < r; ++x)
+            left_out[(size_t)n * r + x] = left[(size_t)n * r + x] - t * req[x];
+        }
       }
-      verify[0] = ok;
+    } else if (me != 0) {
+      for (int n = g.c0 + threadIdx.x; n < g.c1; n += blockDim.x) {
+        takes[n] = 0;
+        for (int x = 0; x < r; ++x) left_out[(size_t)n * r + x] = left[(size_t)n * r + x];
+      }
+      __syncthreads();
+      for (int c = threadIdx.x; c < kk; c += blockDim.x) {
+        const int l = r_lidx[c];
+        if (l < g.c0 || l >= g.c1) continue;
+        const int t = r_take[c];
+        takes[l] = t;
+        for (int x = 0; x < r; ++x)
+          left_out[(size_t)l * r + x] = left[(size_t)l * r + x] - t * req[x];
+      }
     }
+    if (me == 0 && threadIdx.x == 0) {
+      feas[0] = (uint8_t)(flag ? s_ok[0] : s_dok);
+      if (!flag) atomicAdd(dense, 1);
+    }
+    return;  // no block reads another's memory after the exchange
+  }
+  // the chunk blocks: zero takes rows and the unchanged leftover (clamped
+  // at -2^30 by a speculative wave's commit, as every node's is)
+  for (int n = g.c0 + threadIdx.x; n < g.c1; n += blockDim.x) {
+    for (int j = 0; j < w; ++j) takes[(size_t)j * nl + n] = 0;
+    for (int x = 0; x < r; ++x) {
+      const int v = left[(size_t)n * r + x];
+      left_out[(size_t)n * r + x] = mode == kSpeculative ? max(v, -kBig) : v;
+    }
+  }
+  cluster_arrive();
+  if (me != 0) return;
+  cluster_wait();  // the chunks are written: the candidates' entries go over them
+  if (mode == kMega) {
     for (int c = threadIdx.x; c < kk; c += blockDim.x) {
-      if (!m_own[c]) continue;
-      const int l = m_l[c];
-      for (int j = 0; j < w; ++j) takes[(size_t)j * nl + l] = taken[(j + 1) * kk + c] - taken[j * kk + c];
-      stream_take[l] = taken[w * kk + c];
+      const int l = t_lidx[c];
+      if (l < 0) continue;
+      long long bound = 0;
+      int prev = (int)min(max(-t_pre[c], 0LL), (long long)t_val[c]);
+      for (int j = 0; j < w; ++j) {
+        bound += needs[j];
+        const int t = (int)min(max(bound - t_pre[c], 0LL), (long long)t_val[c]);
+        takes[(size_t)j * nl + l] = t - prev;
+        prev = t;
+      }
+      for (int x = 0; x < r; ++x)
+        left_out[(size_t)l * r + x] = left[(size_t)l * r + x] - prev * req[x];
     }
+    for (int j = threadIdx.x; j < w; j += blockDim.x) feas[j] = 1;
+    if (threadIdx.x == 0) verify[0] = s_verify;
     return;
   }
-  const long long need = needs[mode == kSpeculative ? row : 0];
-  if (threadIdx.x == 0) {
-    long long pooled = 0;
-    for (int x = 0; x < s; ++x) pooled += merged[((size_t)x * rows + row) * p + 2 * kk_l];
-    const bool ok = select_candidates(m_key, m_c, kk, need, bins, t_sel);
-    sh_ok = ok;
-    sh_flag = ok || pooled < need;  // restricted (replay), or this gang's verify (speculative)
-    if (mode == kSpeculative && !sh_flag) atomicOr(verify, 1);
+  for (int e = threadIdx.x; e < rows * kk; e += blockDim.x) {
+    const int l = t_lidx[e];
+    if (l >= 0) takes[(size_t)(e / kk) * nl + l] = t_val[e];
   }
   __syncthreads();
-  int* out = takes + (size_t)row * nl;
-  if (mode == kSpeculative || sh_flag) {
-    for (int n = threadIdx.x; n < nl; n += blockDim.x) out[n] = 0;
-    if (threadIdx.x == 0) feas[row] = sh_ok;
-    __syncthreads();
-    for (int c = threadIdx.x; c < kk; c += blockDim.x)
-      if (m_own[c]) out[m_l[c]] = t_sel[c];
-    return;
+  bool bad = false;
+  for (int e = threadIdx.x; e < rows * kk; e += blockDim.x) {
+    const int l = t_lidx[e];
+    if (l < 0) continue;
+    int c[kW], t[kW];
+#pragma unroll
+    for (int j = 0; j < kW; ++j) {
+      c[j] = j < w ? cap[(size_t)j * nl + l] : 0;
+      t[j] = j < w ? takes[(size_t)j * nl + l] : 0;
+    }
+    bad |= speculative_commit<kW>(l, c, t, left, req, mask, mask_stride, left_out, r, w);
   }
-  // a replayed gang's dense-column take: `_hist_select` from the merged
-  // histograms (global node order is rank-major)
-  merged_buckets(merged + 2 * kk_l + 1, (size_t)p, s, rank, tot, hoff);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int thresh, below;
-    const bool ok = hist_threshold(tot, (int)need, &thresh, &below);
-    sh_ok = ok;
-    sh_thresh = thresh;
-    sh_rem = (int)need - below - hoff[thresh];
-    feas[0] = ok;
-    atomicAdd(dense, 1);
+  for (int j = threadIdx.x; j < rows; j += blockDim.x) {
+    feas[j] = (uint8_t)s_ok[j];
+    bad |= !s_flag[j];
   }
-  __syncthreads();
-  bucket_take(cap, out, nl, sh_thresh, sh_rem, (int)need, sh_ok, warp_tot);
-}
-
-__global__ void commit_kernel(int mode, const int* __restrict__ cap, const int* __restrict__ left,
-                              const int* __restrict__ req, const uint8_t* __restrict__ mask,
-                              int mask_stride, const int* __restrict__ takes,
-                              const int* __restrict__ stream_take, int* __restrict__ left_out,
-                              int* __restrict__ verify, int nl, int r, int w) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= nl) return;
-  if (mode != kSpeculative) {
-    const int t = mode == kMega ? stream_take[n] : takes[n];
-    for (int x = 0; x < r; ++x)
-      left_out[(size_t)n * r + x] = left[(size_t)n * r + x] - t * req[x];
-    return;
-  }
-  speculative_commit(n, cap, left, req, mask, mask_stride, takes, left_out, verify, nl, r, w);
+  bad = __syncthreads_or(bad);
+  if (threadIdx.x == 0) verify[0] = bad;
 }
 
 bool widths_ok(int nl, int r, int w, int s, int rank, int kk_l) {
@@ -414,37 +625,37 @@ int bst_shard_topk_summary(const int* left, const int* req, const int* needs, co
       (mode == kReplay && w != 1))
     return (int)cudaErrorInvalidValue;
   const int rows = mode == kSpeculative ? w : 1;
-  summary_kernel<<<rows, kThreads, 0, (cudaStream_t)stream>>>(
-      mode, left, req, needs, mask, cap, buf, nl, r, w, rows, mask_stride, s, rank, kk_l);
-  return (int)cudaGetLastError();
+  const Split sp = split_nodes(nl, kMaxBlocks);
+  const int bucket = wave_bucket(w);
+  auto* kernel = bucket == 8 ? summary_kernel<8> : (bucket == 16 ? summary_kernel<16>
+                                                                 : summary_kernel<kMaxWave>);
+  return (int)launch_clusters(kernel, sp.blocks, rows, sp.threads, (cudaStream_t)stream,
+                              mode, left, req, needs, mask, cap, buf, nl, r, w, rows, mask_stride,
+                              s, rank, kk_l, sp.chunk);
 }
 
 // The apply of one wave (w gangs) or one replayed gang (w = 1) from the
 // merged buffer [s, rows, P]. `verify` is one word (null for a replay),
-// `dense` one word a replayed gang's dense demotion adds to, `stream_take`
-// the [nl] scratch of a uniform wave. Returns a CUDA error code.
+// `dense` one word a replayed gang's dense demotion adds to. Returns a
+// CUDA error code.
 int bst_shard_topk_apply(const int* merged, const int* cap, const int* needs, const int* left,
                          const int* req, const uint8_t* mask, int* takes, uint8_t* feas,
-                         int* left_out, int* verify, int* dense, int* stream_take, int mode,
-                         int nl, int r, int w, int s, int rank, int kk_l, int kk, int mask_stride,
-                         void* stream) {
+                         int* left_out, int* verify, int* dense, int mode, int nl, int r, int w,
+                         int s, int rank, int kk_l, int kk, int mask_stride, void* stream) {
   if (mode < kSpeculative || mode > kReplay || !widths_ok(nl, r, w, s, rank, kk_l) || kk < 1 ||
       kk > kMaxK || (mode == kReplay && w != 1) || ((mode == kReplay) != (verify == nullptr)) ||
-      dense == nullptr || stream_take == nullptr)
+      dense == nullptr)
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (mode == kSpeculative) {
-    cudaError_t e = cudaMemsetAsync(verify, 0, sizeof(int), st);
-    if (e != cudaSuccess) return (int)e;
-  }
   const int rows = mode == kSpeculative ? w : 1;
-  select_kernel<<<rows, kThreads, 0, st>>>(mode, merged, cap, needs, takes, feas, stream_take,
-                                           verify, dense, nl, w, rows, s, rank, kk_l, kk);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  commit_kernel<<<(nl + kNodeThreads - 1) / kNodeThreads, kNodeThreads, 0, st>>>(
-      mode, cap, left, req, mask, mask_stride, takes, stream_take, left_out, verify, nl, r, w);
-  return (int)cudaGetLastError();
+  // a leader block and up to 15 blocks a chunk of nodes
+  const Split sp = split_nodes(nl, kMaxBlocks - 1);
+  const int bucket = wave_bucket(w);
+  auto* kernel = bucket == 8 ? apply_kernel<8> : (bucket == 16 ? apply_kernel<16>
+                                                               : apply_kernel<kMaxWave>);
+  return (int)launch_clusters(kernel, sp.blocks + 1, 1, max(sp.threads, 256),
+                              (cudaStream_t)stream, mode, merged, cap, needs, left, req, mask,
+                              mask_stride, takes, feas, left_out, verify, dense, nl, r, w, rows,
+                              s, rank, kk_l, kk, sp.chunk);
 }
 
 }  // extern "C"

@@ -814,7 +814,7 @@ def _shard_entry_points():
     summary.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     summary.restype = ctypes.c_int
     apply = lib.bst_shard_apply
-    apply.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    apply.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     apply.restype = ctypes.c_int
     err = lib.bst_cuda_error_string
     err.argtypes = [ctypes.c_int]
@@ -877,21 +877,22 @@ shard_summary_cuda.launches = 0
 
 
 def shard_apply_cuda(mode: int, merged, rank: int, cap, needs, left_l, req_rows, mask_rows,
-                     takes_out, feas_out, left_out, verify, taken):
+                     takes_out, feas_out, left_out, verify, taken=None):
     """The apply step of one wave on a rank's node block
     (``ops.oracle.shard_wave_apply``, whose docstring gives the modes and
     outputs, runs for CPU tensors): this rank's slice of the take vector
     into ``takes_out`` / ``feas_out``, the candidate leftover into
     ``left_out`` and the conflict bit or feasibility sums into ``verify``
-    (None for ``SHARD_REPLAY``). ``taken`` ``[w + 1, nl]`` int32 is the
-    kernel's scratch for the stream boundaries of ``SHARD_MEGA``. On CUDA
-    tensors the kernels run or this raises. Every launch adds one to
+    (None for ``SHARD_REPLAY``). ``taken`` is not read: the kernel keeps a
+    uniform wave's stream boundaries on chip (the argument stays for
+    callers that time either version of the kernel). On CUDA tensors the
+    kernel runs or this raises. Every launch adds one to
     ``shard_apply_cuda.launches``."""
     from .oracle import SHARD_MEGA, SHARD_REPLAY, shard_wave_apply
 
     _check_shard("shard_apply_cuda", left_l, req_rows, mask_rows, merged=merged, cap=cap,
                  needs=needs, takes_out=takes_out, feas_out=feas_out, left_out=left_out,
-                 verify=verify, taken=taken)
+                 verify=verify)
     w = needs.shape[0]
     k = 1 if mode in (SHARD_MEGA, SHARD_REPLAY) else w
     nl = left_l.shape[0]
@@ -903,15 +904,13 @@ def shard_apply_cuda(mode: int, merged, rank: int, cap, needs, left_l, req_rows,
     if left_l.device.type == "cpu":
         return shard_wave_apply(mode, merged, rank, cap, needs, left_l, req_rows, mask_rows,
                                 takes_out, feas_out, left_out, verify)
-    if taken is None or taken.shape[0] < w + 1 or taken.shape[1] != nl:
-        raise ValueError(f"taken must be [>= {w + 1}, {nl}] int32")
     r = left_l.shape[1]
     dev = left_l.device
     _, apply, err = _shard_entry_points()
     with torch.cuda.device(dev):
         rc = apply(
             merged.data_ptr(), cap.data_ptr(), needs.data_ptr(), left_l.data_ptr(),
-            req_rows.data_ptr(), mask_rows.data_ptr(), taken.data_ptr(), takes_out.data_ptr(),
+            req_rows.data_ptr(), mask_rows.data_ptr(), takes_out.data_ptr(),
             feas_out.data_ptr(), left_out.data_ptr(),
             verify.data_ptr() if verify is not None else None,
             mode, nl, r, w, merged.shape[0], rank, int(mask_rows.shape[0] != 1) * nl,
@@ -947,7 +946,7 @@ def _shard_topk_entry_points():
     summary.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     summary.restype = ctypes.c_int
     apply = lib.bst_shard_topk_apply
-    apply.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    apply.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     apply.restype = ctypes.c_int
     err = lib.bst_cuda_error_string
     err.argtypes = [ctypes.c_int]
@@ -1027,14 +1026,15 @@ def shard_topk_apply_cuda(mode: int, merged, rank: int, cap, needs, left_l, req_
     rank's takes into ``takes_out`` / ``feas_out``, the candidate leftover
     into ``left_out``, the verify word (None for ``TOPK_REPLAY``) and a
     replayed gang's dense-column demotion added into ``dense[0]``.
-    ``stream_take`` ``[nl]`` int32 is the kernel's scratch for a mega wave's
-    member stream. On CUDA tensors the kernels run or this raises. Every
+    ``stream_take`` is not read: the kernel keeps a mega wave's member
+    stream on chip (the argument stays for callers that time either version
+    of the kernel). On CUDA tensors the kernel runs or this raises. Every
     launch adds one to ``shard_topk_apply_cuda.launches``."""
     from .oracle import TOPK_REPLAY, TOPK_SPECULATIVE, shard_topk_apply, shard_topk_widths
 
     _check_shard("shard_topk_apply_cuda", left_l, req_rows, mask_rows, merged=merged, cap=cap,
                  needs=needs, takes_out=takes_out, feas_out=feas_out, left_out=left_out,
-                 verify=verify, dense=dense, stream_take=stream_take)
+                 verify=verify, dense=dense)
     nl, r = left_l.shape
     _check_topk_rows("shard_topk_apply_cuda", mode, merged, req_rows, needs, nl, k)
     w = needs.shape[0]
@@ -1048,9 +1048,7 @@ def shard_topk_apply_cuda(mode: int, merged, rank: int, cap, needs, left_l, req_
         raise ValueError(f"rank {rank} outside the buffer's {merged.shape[0]} ranks")
     if left_l.device.type == "cpu":
         return shard_topk_apply(mode, merged, rank, cap, needs, left_l, req_rows, mask_rows,
-                                takes_out, feas_out, left_out, verify, dense, k, stream_take)
-    if stream_take is None or stream_take.shape != (nl,) or stream_take.dtype != torch.int32:
-        raise ValueError(f"stream_take must be [{nl}] int32")
+                                takes_out, feas_out, left_out, verify, dense, k)
     s = merged.shape[0]
     kk_l, kk = shard_topk_widths(k, nl, s)
     dev = left_l.device
@@ -1060,8 +1058,7 @@ def shard_topk_apply_cuda(mode: int, merged, rank: int, cap, needs, left_l, req_
             merged.data_ptr(), cap.data_ptr(), needs.data_ptr(), left_l.data_ptr(),
             req_rows.data_ptr(), mask_rows.data_ptr(), takes_out.data_ptr(), feas_out.data_ptr(),
             left_out.data_ptr(), verify.data_ptr() if verify is not None else None,
-            dense.data_ptr(), stream_take.data_ptr(),
-            mode, nl, r, w, s, rank, kk_l, kk, int(mask_rows.shape[0] != 1) * nl,
+            dense.data_ptr(), mode, nl, r, w, s, rank, kk_l, kk, int(mask_rows.shape[0] != 1) * nl,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:

@@ -781,7 +781,7 @@ def shard_wave_apply(mode: int, merged, rank: int, cap, needs, left_l, req_rows,
     - ``SHARD_REPLAY`` (k = w = 1): one gang against the live leftover;
       nothing to verify.
 
-    The plain version of ``csrc/shard_wave.cu``'s apply kernels; the int64
+    The plain version of ``csrc/shard_wave.cu``'s apply kernel; the int64
     sums here are the reference's int32 ones inside the batch boundary."""
     bin_tot = merged.sum(0, dtype=torch.int64)  # [k, BINS]
     off = merged[:rank].sum(0, dtype=torch.int64)
@@ -896,7 +896,6 @@ def assign_gangs_sharded(left0, group_req, remaining, fit_mask, order, mesh,
     hist1 = torch.empty((s, 1, _BINS), dtype=torch.int32, device=dev)  # one row
     spare = torch.empty_like(left)
     verify = torch.empty(w, dtype=torch.int32, device=dev)
-    taken = torch.empty((w + 1, nl), dtype=torch.int32, device=dev)
     for st in range(steps):
         rows = slice(st * w, (st + 1) * w)
         req_c, need_c = gr[rows], needs[st]
@@ -907,7 +906,7 @@ def assign_gangs_sharded(left0, group_req, remaining, fit_mask, order, mesh,
                                      mask_c[:1], h, rank)
             mesh.all_reduce(h, "merge")
             shard_apply_cuda(SHARD_MEGA, h, rank, cap, need_c, left, req_c, mask_c,
-                             takes[rows], feas[rows], spare, verify, taken)
+                             takes[rows], feas[rows], spare, verify)
             mesh.all_reduce(verify, "verify")
             ok = bool((verify >= need_c).all())
         else:
@@ -915,7 +914,7 @@ def assign_gangs_sharded(left0, group_req, remaining, fit_mask, order, mesh,
             mesh.all_reduce(hist, "merge")
             v = verify[:1]
             shard_apply_cuda(SHARD_SPECULATIVE, hist, rank, cap, need_c, left, req_c, mask_c,
-                             takes[rows], feas[rows], spare, v, taken)
+                             takes[rows], feas[rows], spare, v)
             mesh.all_reduce(v, "verify")
             ok = int(v.item()) == 0
         if ok:
@@ -929,7 +928,7 @@ def assign_gangs_sharded(left0, group_req, remaining, fit_mask, order, mesh,
             cap = shard_summary_cuda(left, gr[one], rem[one], mask_j, h, rank)
             mesh.all_reduce(h, "replay")
             shard_apply_cuda(SHARD_REPLAY, h, rank, cap, rem[one], left, gr[one], mask_j,
-                             takes[one], feas[one], spare, None, taken)
+                             takes[one], feas[one], spare, None)
             left, spare = spare, left
     megas = torch.tensor(mega, dtype=torch.bool, device=dev)
     if not gather:
@@ -1081,14 +1080,14 @@ def shard_topk_apply(mode: int, merged, rank: int, cap, needs, left_l, req_rows,
       the gang boundaries, with each boundary's feasibility as the pooled
       need less the candidates' entry terms plus their post-take terms;
       ``verify[0]`` = 1 when the candidates cover the wave and every
-      boundary is feasible (replicated: no reduce). ``stream_take`` [nl]
-      is the kernel's scratch.
+      boundary is feasible (replicated: no reduce). ``stream_take`` is
+      not read (the argument of callers that time either kernel version).
     - ``TOPK_REPLAY``: one gang against the live leftover: on its
       candidates when they cover its need (or nothing could), else the
       dense-column selection from the merged histograms, which adds one to
       ``dense[0]``. ``verify`` is None.
 
-    The plain version of ``csrc/shard_topk.cu``'s apply kernels."""
+    The plain version of ``csrc/shard_topk.cu``'s apply kernel."""
     s, rows = merged.shape[0], merged.shape[1]
     nl = left_l.shape[0]
     n_pad, off = s * nl, rank * nl
@@ -1247,7 +1246,6 @@ def assign_gangs_topk_sharded(left0, group_req, remaining, fit_mask, order, mesh
             for mode in (TOPK_SPECULATIVE, TOPK_MEGA, TOPK_REPLAY)}
     spare = torch.empty_like(left)
     verify = torch.empty(1, dtype=torch.int32, device=dev)
-    stream_take = torch.empty(nl, dtype=torch.int32, device=dev)
     for st in range(steps):
         rows = slice(st * w, (st + 1) * w)
         req_c, need_c = gr[rows], needs[st]
@@ -1258,8 +1256,7 @@ def assign_gangs_topk_sharded(left0, group_req, remaining, fit_mask, order, mesh
                                           rank, k)
             mesh.all_reduce(buf, "merge")
             shard_topk_apply_cuda(TOPK_MEGA, buf, rank, cap, need_c, left, req_c[:1], mask_c[:1],
-                                  takes[rows], feas[rows], spare, verify, dense[st:st + 1], k,
-                                  stream_take)
+                                  takes[rows], feas[rows], spare, verify, dense[st:st + 1], k)
             ok = int(verify.item()) == 1
         else:
             buf = bufs[TOPK_SPECULATIVE]
@@ -1267,8 +1264,7 @@ def assign_gangs_topk_sharded(left0, group_req, remaining, fit_mask, order, mesh
                                           rank, k)
             mesh.all_reduce(buf, "merge")
             shard_topk_apply_cuda(TOPK_SPECULATIVE, buf, rank, cap, need_c, left, req_c, mask_c,
-                                  takes[rows], feas[rows], spare, verify, dense[st:st + 1], k,
-                                  stream_take)
+                                  takes[rows], feas[rows], spare, verify, dense[st:st + 1], k)
             mesh.all_reduce(verify, "verify")
             ok = int(verify.item()) == 0
         if ok:
@@ -1283,8 +1279,7 @@ def assign_gangs_topk_sharded(left0, group_req, remaining, fit_mask, order, mesh
                                           rank, k)
             mesh.all_reduce(buf, "replay")
             shard_topk_apply_cuda(TOPK_REPLAY, buf, rank, cap, rem[one], left, gr[one], mask_j,
-                                  takes[one], feas[one], spare, None, dense[st:st + 1], k,
-                                  stream_take)
+                                  takes[one], feas[one], spare, None, dense[st:st + 1], k)
             left, spare = spare, left
     megas = torch.tensor(mega, dtype=torch.bool, device=dev)
     stats = (conflicts, megas, dense)

@@ -703,6 +703,34 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, calls=20, replays=10):
+    """Mean milliseconds of one ``fn()`` on the card alone: ``calls`` calls
+    captured in one CUDA graph (the host's work in ``fn``, its checks and
+    allocations, runs at capture only), the graph replayed ``replays``
+    times between CUDA events. ``fn`` launches on the current stream."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # off the capture: first builds and allocations
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
 class InMemoryCluster:
     """A static ClusterStateProvider: nodes plus per-node requested dicts."""
 
@@ -8805,15 +8833,53 @@ def shard_wave_pair(summary, apply, mode, blocks, req_c, need_c, rank, merged=No
     return outs + ([verify] if verify is not None else [])
 
 
+def shard_wave_step(mode, block, req_c, need_c, rank, merged, parts=("summary", "apply")):
+    """One rank's step of ``shard_wave`` (its summary and its apply beside the
+    given ``merged`` buffer) on buffers allocated here once: a closure of
+    the two wrapper calls, or of the one in ``parts`` (the apply then reads
+    a summary's capacities made here once), for ``graph_ms``."""
+    import torch
+
+    from batch_scheduler_tpu_torch.ops.assign_scan import shard_apply_cuda, shard_summary_cuda
+    from batch_scheduler_tpu_torch.ops.oracle import SHARD_REPLAY
+
+    left_l, mask_l = block
+    nl, dev = left_l.shape[0], left_l.device
+    s, k = merged.shape[:2]
+    w = need_c.shape[0]
+    clip = need_c if k == w else need_c.sum(dtype=torch.int32).view(1)
+    req_k, mask_k = req_c[:k], mask_l[:k]
+    hist = torch.empty((s, k, 128), dtype=torch.int32, device=dev)
+    takes = torch.empty((w, nl), dtype=torch.int32, device=dev)
+    feas = torch.empty(w, dtype=torch.bool, device=dev)
+    left_out = torch.empty_like(left_l)
+    verify = (None if mode == SHARD_REPLAY else
+              torch.empty(w if k == 1 else 1, dtype=torch.int32, device=dev))
+    taken = torch.empty((w + 1, nl), dtype=torch.int32, device=dev)
+    cap0 = shard_summary_cuda(left_l, req_k, clip, mask_k, hist, rank)
+
+    def step():
+        cap = cap0
+        if "summary" in parts:
+            cap = shard_summary_cuda(left_l, req_k, clip, mask_k, hist, rank)
+        if "apply" in parts:
+            shard_apply_cuda(mode, merged, rank, cap, need_c, left_l, req_c, mask_l, takes, feas,
+                             left_out, verify, taken)
+
+    return step
+
+
 def shard_wave_checks():
     """``shard_wave``'s two entry points against their plain versions on
     the card, bit for bit, on every rank's block at S = 2 and 4: the north
     star's first wave (uniform: the mega mode), mixed's first per-group
     wave (the speculative mode) and one gang of it (the replay mode). The
-    time of one rank's step (its summary and its apply, rank 0's block)
-    for the kernels and for the plain versions, and the bound of that step
-    (``ops.bounds.shard_work`` of one wave). The comparisons' launches are
-    restored."""
+    time of one rank's step (its summary and its apply, rank 0's block):
+    the kernels alone on buffers allocated once (``graph_ms``), the same
+    calls with the host's work of each (``cuda_ms`` of ``shard_wave_pair``:
+    ``step_with_host_ms``) and the plain versions; and the bound of that
+    step (``ops.bounds.shard_work`` of one wave). The comparisons' launches
+    are restored."""
     from batch_scheduler_tpu_torch.ops import oracle
     from batch_scheduler_tpu_torch.ops.assign_scan import shard_apply_cuda, shard_summary_cuda
     from batch_scheduler_tpu_torch.ops.bounds import bound, shard_work
@@ -8844,8 +8910,9 @@ def shard_wave_checks():
                                          f"from plain (max abs err {e})")
                 merged = want[2 * s]
             step = (mode, blocks, req_c, need_c, 0, merged)
-            ms = cuda_ms(lambda: shard_wave_pair(shard_summary_cuda, shard_apply_cuda, *step),
-                         SHARD_REPS)
+            ms = graph_ms(shard_wave_step(mode, blocks[0], req_c, need_c, 0, merged))
+            host_ms = cuda_ms(lambda: shard_wave_pair(shard_summary_cuda, shard_apply_cuda,
+                                                      *step), SHARD_REPS)
             plain_ms = cuda_ms(lambda: shard_wave_pair(oracle.shard_wave_summary, plain_apply,
                                                        *step), SHARD_PLAIN_REPS)
             nl, r = blocks[0][0].shape
@@ -8853,7 +8920,8 @@ def shard_wave_checks():
             nbytes, ops = shard_work(nl, r, w, s, w, lanes, blocks[0][1].shape[0], 0,
                                      int(mode == oracle.SHARD_MEGA))
             bound_ms, bound_by = bound(nbytes, ops)
-            out[f"{label}_s{s}"] = {"nodes_a_rank": nl, "wave": w, "ms": ms, "plain_ms": plain_ms,
+            out[f"{label}_s{s}"] = {"nodes_a_rank": nl, "wave": w, "ms": ms,
+                                    "step_with_host_ms": host_ms, "plain_ms": plain_ms,
                                     "bound_ms": bound_ms, "bound_by": bound_by,
                                     "bytes": nbytes, "int_ops": ops}
     restore_counts(saved)
@@ -8940,6 +9008,43 @@ def shard_topk_pair(mode, blocks, req_rows, needs, rank, kernel, merged=None, k=
     return outs + ([verify] if verify is not None else [])
 
 
+def shard_topk_step(mode, block, req_rows, needs, rank, merged, k=SHARD_TOPK_K,
+                    parts=("summary", "apply")):
+    """One rank's step of ``shard_topk`` (its summary and its apply beside
+    the given ``merged`` buffer) on buffers allocated here once: a closure
+    of the two wrapper calls, or of the one in ``parts`` (the apply then
+    reads a summary's capacities made here once), for ``graph_ms``."""
+    import torch
+
+    from batch_scheduler_tpu_torch.ops import oracle
+    from batch_scheduler_tpu_torch.ops.assign_scan import (
+        shard_topk_apply_cuda, shard_topk_summary_cuda)
+
+    left_l, mask_l = block
+    nl, dev = left_l.shape[0], left_l.device
+    rows, w = req_rows.shape[0], needs.shape[0]
+    mask_r = mask_l[:rows]
+    buf = torch.empty_like(merged)
+    takes = torch.empty((w, nl), dtype=torch.int32, device=dev)
+    feas = torch.empty(w, dtype=torch.bool, device=dev)
+    left_out = torch.empty_like(left_l)
+    verify = (None if mode == oracle.TOPK_REPLAY else
+              torch.empty(1, dtype=torch.int32, device=dev))
+    dense = torch.zeros(1, dtype=torch.int32, device=dev)
+    stream = torch.empty(nl, dtype=torch.int32, device=dev)
+    cap0 = shard_topk_summary_cuda(mode, left_l, req_rows, needs, mask_r, buf, rank, k)
+
+    def step():
+        cap = cap0
+        if "summary" in parts:
+            cap = shard_topk_summary_cuda(mode, left_l, req_rows, needs, mask_r, buf, rank, k)
+        if "apply" in parts:
+            shard_topk_apply_cuda(mode, merged, rank, cap, needs, left_l, req_rows, mask_r,
+                                  takes, feas, left_out, verify, dense, k, stream)
+
+    return step
+
+
 def shard_topk_checks():
     """``shard_topk``'s two entry points against their plain versions on
     the card, bit for bit, on every rank's block at S = 2, K = 16, W = 8: the
@@ -8947,9 +9052,11 @@ def shard_topk_checks():
     per-group wave (the speculative mode), one gang of it replayed (its
     candidates cover it: the restricted selection) and one gang of the
     tight fit replayed (they cannot: the dense-column selection). The time
-    of rank 0's step (its summary and apply beside the merged buffer;
-    CUDA events, the mean of SHARD_TOPK_REPS calls) for the kernels and the
-    plain versions, and the bound of that step (``ops.bounds.shard_topk_work``).
+    of rank 0's step (its summary and apply beside the merged buffer): the
+    kernels alone on buffers allocated once (``graph_ms``), the same calls
+    with the host's work of each (CUDA events, the mean of SHARD_TOPK_REPS
+    ``shard_topk_pair`` calls: ``step_with_host_ms``) and the plain
+    versions; and the bound of that step (``ops.bounds.shard_topk_work``).
     The comparisons' launches are restored."""
     from batch_scheduler_tpu_torch.ops import oracle
     from batch_scheduler_tpu_torch.ops.bounds import bound, shard_topk_work
@@ -8980,7 +9087,8 @@ def shard_topk_checks():
         if dense != int(label == "replay_dense"):
             raise AssertionError(f"shard_topk {label}: {dense} dense-column demotions")
         step = (mode, blocks, req_c[:rows], need_c, 0)
-        ms = cuda_ms(lambda: shard_topk_pair(*step, True, merged), SHARD_TOPK_REPS)
+        ms = graph_ms(shard_topk_step(mode, blocks[0], req_c[:rows], need_c, 0, merged))
+        host_ms = cuda_ms(lambda: shard_topk_pair(*step, True, merged), SHARD_TOPK_REPS)
         plain_ms = cuda_ms(lambda: shard_topk_pair(*step, False, merged), SHARD_TOPK_PLAIN_REPS)
         nl, r = blocks[0][0].shape
         lanes = int((req_c[:rows] > 0).sum().item())
@@ -8989,7 +9097,7 @@ def shard_topk_checks():
                                       replay_step=mode == oracle.TOPK_REPLAY)
         bound_ms, bound_by = bound(nbytes, ops)
         out[label] = {"nodes_a_rank": nl, "wave": w, "k": SHARD_TOPK_K, "ms": ms,
-                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                      "step_with_host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                       "bytes": nbytes, "int_ops": ops, "dense_demotions": dense}
     restore_counts(saved)
     return out, err
@@ -9387,10 +9495,11 @@ def sharded(results):
         "launches": scorer_launches["s2"],
         "launches_by_path": {**{f"sharded_scorer_{k}": v for k, v in scorer_launches.items()},
                              **{f"sharded_spmd_{k}": v for k, v in spmd_launches.items()}},
-        "max_abs_err": err, "matched": True, "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "max_abs_err": err, "matched": True, "ms": main["ms"],
+        "step_with_host_ms": main["step_with_host_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "timed": "one rank's step of a uniform wave (its summary and apply), rank 0's "
-                 "block of the north star at S=2",
+                 "block of the north star at S=2, the kernels alone (a CUDA graph)",
     }
     topk_scorer = {k: m["scorer_topk"]["launches"]["shard_topk"] for k, m in meshes.items()}
     topk_spmd = {k: m["topk_spmd_launches"]["shard_topk"] for k, m in meshes.items()}
@@ -9400,10 +9509,11 @@ def sharded(results):
         "launches_by_path": {**{f"sharded_topk_scorer_{k}": v for k, v in topk_scorer.items()},
                              **{f"sharded_topk_spmd_{k}": v for k, v in topk_spmd.items()}},
         "max_abs_err": topk_err, "matched": True, "ms": main["ms"],
-        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"],
+        "step_with_host_ms": main["step_with_host_ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "timed": f"one rank's step of a uniform wave (its summary and apply) at K="
-                 f"{SHARD_TOPK_K}, rank 0's block of the north star at S=2",
+                 f"{SHARD_TOPK_K}, rank 0's block of the north star at S=2, the kernels "
+                 f"alone (a CUDA graph)",
     }
     return {"wave": SHARD_WAVE, "shard_wave": checks, "max_abs_err": max(err, topk_err),
             "shard_topk": topk_checks, "meshes": meshes, "parent_memory": memory,
