@@ -1109,9 +1109,11 @@ __global__ void __launch_bounds__(kTopkThreads, 1) assign_topk_kernel(const Topk
     }
     bool replay;
     if (mega) {
-      // ---- uniform: the member stream over position 0's candidates
-      const int total = sh.bound[wave];
+      // ---- uniform: the member stream over position 0's candidates. The
+      // stream's total is read after the exchange: its block barriers are
+      // what make warp 0's boundaries visible to the other warps
       rank_exchange(0, 1, true, s + 1);
+      const int total = sh.bound[wave];
       const int ne = min(sh.ecnt[0], kk);
       // warp w (each warp for the positions w it has): the exclusive prefix
       // of min(cap, total) over the slots (warp 0 keeps it in tk), coverage

@@ -1,13 +1,15 @@
-"""The least time an H100 could take for one assignment scan: the larger of
-the bytes the scan must move (each input read once, each output written
-once) over the card's memory rate, and the integer operations these inputs
-need over its int32 rate.
+"""The least time an H100 could take for one assignment scan, and for the
+batch's head and tail around it: the larger of the bytes the kernel must
+move (each input read once, each output written once) over the card's
+memory rate, and the integer operations these inputs need over its int32
+rate.
 
 One copy of the arithmetic for ``chip_smoke.py``'s ``kernels`` line and
 the ``/debug/buckets`` route (``ops.oracle.bucket_cost_report``). The
 ``*_work`` functions count from shapes and plain numbers (what a collected
-batch knows); ``scan_bound``, ``policy_bound`` and ``topk_bound`` count from
-the scan's input tensors, as the smoke hands them.
+batch knows); ``scan_bound``, ``policy_bound``, ``topk_bound``,
+``head_bound`` and ``tail_bound`` count from the kernel's input tensors,
+as the smoke hands them.
 """
 
 from __future__ import annotations
@@ -23,9 +25,13 @@ __all__ = [
     "topk_work",
     "shard_work",
     "shard_topk_work",
+    "head_work",
+    "tail_work",
     "scan_bound",
     "policy_bound",
     "topk_bound",
+    "head_bound",
+    "tail_bound",
 ]
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -148,6 +154,44 @@ def shard_topk_work(nl: int, r: int, g: int, s: int, wave: int, k: int, lanes: i
     return nbytes, ops
 
 
+def head_work(n: int, r: int, g: int, mask_rows: int, lanes: int, h: int = 0,
+              anti_gangs: int = 0) -> Tuple[int, int]:
+    """(bytes, ops) of the batch head (``csrc/batch_head.cu``) over ``g``
+    gangs and ``n`` nodes of ``r`` lanes: ``mask_rows`` mask rows (1
+    broadcast, else ``g``), ``lanes`` the nonzero entries of the [G,R]
+    request, and with the anti-affinity term the ``[N, h]`` node hashes
+    and the ``anti_gangs`` gangs that name a label. Bytes: alloc and
+    requested, the request, needs, valid flags, the mask rows and the
+    policy columns read once; the leftover, capacity and scores and the
+    feasible flags written once. Operations: a multiply-shift division
+    (2) and a minimum per node and requested lane, and per gang and node
+    the mask, the need clip and sum, and the score (5), plus a compare per
+    hash lane of each anti-affinity gang."""
+    nbytes = (2 * n * r * 4 + g * r * 4 + g * 4 + g + mask_rows * n
+              + (g * 4 + n * h * 4 if h else 0)
+              + n * r * 4 + 2 * g * n * 4 + g)
+    return nbytes, n * 3 * lanes + 5 * g * n + anti_gangs * n * h
+
+
+def tail_work(g: int, n: int, k: int, blob: bool = True, steps: int = 0,
+              demotions: bool = False) -> Tuple[int, int]:
+    """(bytes, ops) of the batch tail (``csrc/batch_tail.cu``) on a ``[g,
+    n]`` assignment with ``k`` slots a row, whatever the rows' widths: a
+    top-k of a row needs one read of it. With the ``blob`` also the
+    findMaxPG inputs, the feasible flags and ``steps`` waves' flags (and
+    int32 ``demotions``). Bytes: the assignment, placed and valid flags
+    read once; the placed flags, nodes and counts, the packed form when n
+    <= 2^15 and the blob's head and stats written once. Operations: a
+    compare per entry, the least a selection over the row needs."""
+    reads = g * n * 4 + 2 * g
+    writes = g + 2 * g * k * 4 + (g * k * 4 if n <= 2**15 else 0)
+    if blob:
+        n_stats = (4 if demotions else 3) if steps else 0
+        reads += g + 4 * g * 4 + g + steps * (2 + (4 if demotions else 0))
+        writes += (3 * g + 2 + n_stats) * 4
+    return reads + writes, g * n
+
+
 def _in_bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -182,4 +226,26 @@ def topk_bound(left, group_req, remaining, fit_mask, order, wave, stats):
     _, _, nbytes, ops = scan_bound(left, group_req, remaining, fit_mask, order)
     conflicts, _, demotions = (int(x.sum().item()) for x in stats)
     nbytes, ops = topk_work(n, g, nbytes, ops, wave, conflicts, demotions)
+    return (*bound(nbytes, ops), nbytes, ops)
+
+
+def head_bound(alloc, requested, group_req, remaining, fit_mask, group_valid, anti=None,
+               node_hash=None):
+    """(bound_ms, bound_by, bytes, ops) of one batch head on these inputs
+    (``head_work``; ``anti`` / ``node_hash`` when the anti-affinity term
+    is on)."""
+    n, r = alloc.shape
+    g = group_req.shape[0]
+    lanes = int((group_req > 0).sum().item())
+    h = 0 if node_hash is None else int(node_hash.shape[1])
+    anti_gangs = 0 if anti is None else int((anti > 0).sum().item())
+    nbytes, ops = head_work(n, r, g, int(fit_mask.shape[0]), lanes, h, anti_gangs)
+    return (*bound(nbytes, ops), nbytes, ops)
+
+
+def tail_bound(assignment, k, blob=True, steps=0, demotions=False):
+    """(bound_ms, bound_by, bytes, ops) of one batch tail on this
+    assignment (``tail_work``)."""
+    g, n = assignment.shape
+    nbytes, ops = tail_work(g, n, k, blob, steps, demotions)
     return (*bound(nbytes, ops), nbytes, ops)

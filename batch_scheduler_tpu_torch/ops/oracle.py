@@ -9,6 +9,10 @@ batch). Plain functions on int32 tensors:
 - ``gang_feasible``   Σ_n min(cap, remaining) ≥ remaining
 - ``score_nodes``     per-(group,node) best-fit ranks for Score
 - ``find_max_group``  vectorized findMaxPG with the reference's tie-break
+- the head and the tail of a batch (the four above; the compaction
+                      ``_top_k_ties_by_index`` and the blob) run on a CUDA
+                      tensor as two hand-written kernels
+                      (``ops.batch_kernels``)
 - ``assign_gangs``    the plain serial gang scan (a Python loop over the
                       scan order); on a CUDA tensor ``schedule_batch`` runs
                       the hand-written kernel instead
@@ -1426,32 +1430,58 @@ def schedule_batch(alloc_lanes, requested, group_req, remaining, fit_mask,
     ``scan_topk`` to 0).
     Every scan runs its hand-written CUDA kernel for CUDA tensors and its
     plain version for CPU tensors (the wrappers in ``ops.assign_scan``
-    decide by device).
+    decide by device), and so do the head before it and the compaction
+    after it (``ops.batch_kernels``: one launch each on one device).
 
     ``scan_mesh`` (a ``parallel.ShardMesh``; every rank calls this with the
     same whole inputs) runs the batch over the mesh: with ``scan_shard``
     the node-sharded scan (``assign_gangs_sharded``, at ``scan_wave`` or,
     below 2, 8; with ``scan_topk`` > 0 its top-K form,
     ``assign_gangs_topk_sharded``), its blocks gathered to rank 0, which
-    computes the head on its whole inputs; else the replicated rung: the
-    head on every rank's ``(groups, nodes)`` block gathered to rank 0
-    (``_mesh_capacity``), then the scan above on rank 0 with the whole
-    inputs. Rank 0 returns the whole output dict, the other ranks None
+    computes the head on its whole inputs before the scan (the other ranks
+    the leftover alone); else the replicated rung: the head on every
+    rank's ``(groups, nodes)`` block gathered to rank 0
+    (``_mesh_capacity``), which finishes it on the whole matrix and runs
+    the scan above with the whole inputs. Rank 0 returns the whole output
+    dict, the other ranks None
     once their collectives are done. A policy batch runs on one device
     (with a mesh it raises)."""
+    done = _run_batch(alloc_lanes, requested, group_req, remaining, fit_mask, group_valid,
+                      order, top_k, scan_wave, policy, scan_topk, scan_mesh, scan_shard)
+    return None if done is None else done[0]
+
+
+def _run_batch(alloc_lanes, requested, group_req, remaining, fit_mask, group_valid, order,
+               top_k, scan_wave, policy, scan_topk, scan_mesh, scan_shard, progress=None,
+               pack=False):
+    """``schedule_batch``'s body: ``(out, blob)``, the blob of
+    ``_batch_blob`` when ``progress`` (its five findMaxPG inputs) is given,
+    else None; None on a mesh rank that is not 0. On one device a batch is
+    the head (``batch_head_cuda``), the scan and the tail
+    (``batch_tail_cuda``), one launch each on a CUDA tensor."""
     from .assign_scan import (
         assign_gangs_cuda, assign_gangs_policy_cuda, assign_gangs_topk_cuda,
         assign_gangs_wave_cuda)
+    from .batch_kernels import batch_head_cuda, batch_tail_cuda, head_finish_cuda, head_left_cuda
 
     policy_on = policy is not None and bool(policy[1])
     if policy_on and scan_mesh is not None:
         raise ValueError("a policy batch runs on one device, not over a mesh")
-    left = left_resources(alloc_lanes, requested)
+    anti = node_hash = None
+    if policy_on and "anti-affinity" in policy[1]:
+        # the hard-mask term shapes the head's capacity too, so feasibility
+        # and scores agree with what the policy scan refuses to take
+        anti, node_hash = policy[0][2], policy[0][4]
     sharded = None
     if scan_mesh is None:
-        cap = group_capacity(left, group_req, fit_mask)
+        left, cap, feasible, scores = batch_head_cuda(
+            alloc_lanes, requested, group_req, remaining, fit_mask, group_valid, anti, node_hash)
     elif scan_shard:
-        # the scan first: a follower's share of the batch ends with it
+        if scan_mesh.rank == 0:
+            left, cap, feasible, scores = batch_head_cuda(
+                alloc_lanes, requested, group_req, remaining, fit_mask, group_valid)
+        else:
+            left = head_left_cuda(alloc_lanes, requested)
         if scan_topk > 0:
             sharded = assign_gangs_topk_sharded(
                 left, group_req, remaining, fit_mask, order, scan_mesh,
@@ -1465,20 +1495,14 @@ def schedule_batch(alloc_lanes, requested, group_req, remaining, fit_mask,
             )
         if sharded is None:
             return None
-        cap = group_capacity(left, group_req, fit_mask)
     else:
-        cap = _mesh_capacity(scan_mesh, left, group_req, fit_mask)
+        left, cap = _mesh_capacity(scan_mesh, alloc_lanes, requested, group_req, fit_mask)
         if cap is None:
             return None
-    if policy_on:
-        from ..policy.terms import compose_keep_dense
-
-        cols, terms, weights = policy
-        cap = cap * compose_keep_dense(terms, cols[2], cols[4])
-    feasible = gang_feasible(cap, remaining, group_valid)
-    scores = score_nodes(cap)
+        feasible, scores = head_finish_cuda(cap, remaining, group_valid)
     wave_stats = topk_demotions = None
     if policy_on:
+        cols, terms, weights = policy
         assignment, placed, left_after = assign_gangs_policy_cuda(
             left, group_req, remaining, fit_mask, order, *cols, terms, weights
         )
@@ -1501,9 +1525,13 @@ def schedule_batch(alloc_lanes, requested, group_req, remaining, fit_mask,
         assignment, placed, left_after = assign_gangs_cuda(
             left, group_req, remaining, fit_mask, order
         )
-    placed = placed & group_valid
     k = min(top_k, assignment.shape[1])
-    assign_counts, assign_nodes = _top_k_ties_by_index(assignment, k)
+    stats = None
+    if progress is not None and wave_stats is not None:
+        stats = tuple(wave_stats) + ((topk_demotions,) if topk_demotions is not None else ())
+    placed, assign_nodes, assign_counts, packed, blob = batch_tail_cuda(
+        assignment, placed, group_valid, k, progress=progress,
+        feasible=feasible if progress is not None else None, pack=pack, stats=stats)
     out = {
         "left": left,
         "capacity": cap,
@@ -1519,36 +1547,37 @@ def schedule_batch(alloc_lanes, requested, group_req, remaining, fit_mask,
         out["wave_conflicts"], out["wave_megas"] = wave_stats
     if topk_demotions is not None:
         out["topk_demotions"] = topk_demotions
-    if assignment.shape[1] <= 2**15:
-        # compact fetch: (node << 16 | count), counts saturating at 65535
-        out["assignment_packed"] = (
-            assign_nodes * (2**16) + assign_counts.clamp(max=2**16 - 1)
-        )
-    return out
+    if packed is not None:
+        # compact fetch (N <= 2^15): (node << 16 | count), counts saturating
+        # at 65535
+        out["assignment_packed"] = packed
+    return out, blob
 
 
-def _mesh_capacity(mesh, left, group_req, fit_mask):
+def _mesh_capacity(mesh, alloc, requested, group_req, fit_mask):
     """The replicated rung's head: each rank computes its ``(groups,
     nodes)`` block of the ``[G, N]`` capacity matrix (zero-padded to the
-    block size) and one gather assembles the matrix on rank 0. None on the
-    other ranks."""
-    g, n = group_req.shape[0], left.shape[0]
+    block size; ``head_block_cuda``, rank 0 with the whole leftover) and
+    one gather assembles the matrix on rank 0. ``(left, capacity)`` on rank
+    0, ``(None, None)`` on the other ranks."""
+    from .batch_kernels import head_block_cuda
+
+    g, n = group_req.shape[0], alloc.shape[0]
 
     def blocks(rank):
         return mesh.group_block(g, False, rank), mesh.node_block(n, False, rank)
 
     (glo, ghi, gb), (nlo, nhi, nb) = blocks(mesh.rank)
-    mask = fit_mask[:, nlo:nhi] if fit_mask.shape[0] == 1 else fit_mask[glo:ghi, nlo:nhi]
-    block = torch.zeros((gb, nb), dtype=torch.int32, device=left.device)
-    block[:ghi - glo, :nhi - nlo] = group_capacity(left[nlo:nhi], group_req[glo:ghi], mask)
+    left, block = head_block_cuda(alloc, requested, group_req, fit_mask, (glo, ghi),
+                                  (nlo, nhi), (gb, nb), with_left=mesh.rank == 0)
     parts = mesh.gather(block, "head")
     if parts is None:
-        return None
-    whole = torch.empty((g, n), dtype=torch.int32, device=left.device)
+        return None, None
+    whole = torch.empty((g, n), dtype=torch.int32, device=alloc.device)
     for rank, part in enumerate(parts):
         (glo, ghi, _), (nlo, nhi, _) = blocks(rank)
         whole[glo:ghi, nlo:nhi] = part[:ghi - glo, :nhi - nlo]
-    return whole
+    return left, whole
 
 
 def batch_top_k(n_bucket: int, remaining_max: int) -> int:
@@ -1584,38 +1613,11 @@ def _batch_blob(alloc_lanes, requested, group_req, remaining, fit_mask,
                    uniform branch — and on the top-K scan a 4th, the
                    dense-column demotions
     """
-    out = schedule_batch(alloc_lanes, requested, group_req, remaining,
-                         fit_mask, group_valid, order, top_k=top_k,
-                         scan_wave=scan_wave, policy=policy, scan_topk=scan_topk,
-                         scan_mesh=scan_mesh, scan_shard=scan_shard)
-    best, exists, progress = find_max_group(
-        min_member, scheduled, matched, ineligible, creation_rank
-    )
-    if pack_assignment:
-        tail = out["assignment_packed"].reshape(-1)
-    else:
-        tail = torch.cat([out["assignment_nodes"].reshape(-1),
-                          out["assignment_counts"].reshape(-1)])
-    parts = [
-        out["placed"].to(torch.int32),
-        out["gang_feasible"].to(torch.int32),
-        progress,
-        torch.stack([best, exists.to(torch.int32)]),
-        tail.to(torch.int32),
-    ]
-    if "wave_conflicts" in out:
-        conflicts, megas = out["wave_conflicts"], out["wave_megas"]
-        stats = [
-            # a fill on the device: a host tensor here would be a pageable
-            # copy, which waits for the stream (the whole scan)
-            conflicts.new_full((), conflicts.shape[0], dtype=torch.int32),
-            conflicts.sum(dtype=torch.int32),
-            megas.sum(dtype=torch.int32),
-        ]
-        if "topk_demotions" in out:
-            stats.append(out["topk_demotions"].sum(dtype=torch.int32))
-        parts.append(torch.stack(stats))
-    return torch.cat(parts), out
+    out, blob = _run_batch(alloc_lanes, requested, group_req, remaining, fit_mask,
+                           group_valid, order, top_k, scan_wave, policy, scan_topk, scan_mesh,
+                           scan_shard, progress=(min_member, scheduled, matched, ineligible,
+                                                 creation_rank), pack=pack_assignment)
+    return blob, out
 
 
 # Batches dispatched and not yet collected, process-wide (the reference's
@@ -1672,8 +1674,9 @@ class PendingBatch:
         self.device = device
         self.used_policy = used_policy
         self.used_topk = used_topk
-        # (requested lanes, scan input bytes, lanes R), host numbers, for
-        # a bucket and rung /debug/buckets has not priced yet
+        # (requested lanes, scan input bytes, lanes R, the anti-affinity
+        # hash lanes and gangs naming a label), host numbers, for a bucket
+        # and rung /debug/buckets has not priced yet
         self.cost_probe = cost_probe
         # the first batch of this process at its shape key (_first_at_key)
         self.compiled = compiled
@@ -1803,10 +1806,15 @@ def dispatch_batch(batch_args, progress_args, device="cuda", policy=None,
                                   and batch_args[2].device.type != "cpu"):
             lanes = int(np.count_nonzero(np.asarray(batch_args[2]) > 0))
         if lanes is not None:
+            hashes = anti_gangs = 0
+            if policy is not None and "anti-affinity" in policy[1] and not (
+                    torch.is_tensor(cols[2]) and cols[2].device.type != "cpu"):
+                hashes = int(np.shape(cols[4])[1])
+                anti_gangs = int(np.count_nonzero(np.asarray(cols[2]) > 0))
             cost_probe = (int(lanes),
                           sum(t.numel() * t.element_size()
                               for t in (batch[0], batch[2], batch[3], batch[4], batch[6])),
-                          int(batch[0].shape[1]))
+                          int(batch[0].shape[1]), hashes, anti_gangs)
     compiled = _first_at_key((str(dev), g_bucket, n_bucket,
                               int(np.shape(batch_args[0])[1]), mask_mode, rung,
                               scan_wave, scan_topk,
@@ -2037,10 +2045,18 @@ def _kernel_plan_of(path: str, pending, r: int):
     return plan._asdict()
 
 
+def _priced(nbytes, ops) -> dict:
+    from .bounds import bound
+
+    bound_ms, bound_by = bound(nbytes, ops)
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "bytes": int(nbytes),
+            "int_ops": int(ops)}
+
+
 def _note_bucket_cost(pending, telemetry: dict) -> None:
     """Count a collected batch into its bucket's entry and, for the first
-    batch of a path on the bucket, price it (telemetry only: never raises
-    into the batch)."""
+    batch of a path on the bucket, price its scan, head and tail (telemetry
+    only: never raises into the batch)."""
     if not _bucket_cost_enabled():
         return
     g, n = pending.g_bucket, pending.n_bucket
@@ -2056,10 +2072,12 @@ def _note_bucket_cost(pending, telemetry: dict) -> None:
             return
     if pending.cost_probe is None:
         return
-    from .bounds import bound, policy_work, scan_work, shard_topk_work, shard_work, topk_work
+    from .bounds import (
+        bound, head_work, policy_work, scan_work, shard_topk_work, shard_work, tail_work,
+        topk_work)
 
     try:
-        lanes, in_bytes, r = pending.cost_probe
+        lanes, in_bytes, r, hashes, anti_gangs = pending.cost_probe
         wave = pending.scan_wave if path == "wavefront" else 0
         nbytes, ops = scan_work(n, r, g, in_bytes, lanes, wave)
         if path == "policy":
@@ -2084,6 +2102,11 @@ def _note_bucket_cost(pending, telemetry: dict) -> None:
                                           telemetry.get("wave_uniform", 0),
                                           telemetry.get("topk_demotions", 0))
         bound_ms, bound_by = bound(nbytes, ops)
+        mask_rows = g if pending.mask_mode == "per_group" else 1
+        head = head_work(n, r, g, mask_rows, lanes, hashes, anti_gangs)
+        tail = tail_work(g, n, pending.top_k, True,
+                         -(-g // pending.scan_wave) if pending.scan_wave > 1 else 0,
+                         bool(pending.used_topk))
         rung = {
             "kernel": _KERNEL_OF_PATH[path],
             "device": str(pending.device),
@@ -2096,6 +2119,9 @@ def _note_bucket_cost(pending, telemetry: dict) -> None:
             "bytes": int(nbytes),
             "int_ops": int(ops),
             "batches": 1,
+            # the head and the tail around the scan (ops.batch_kernels)
+            "head": {"kernel": "batch_head", **_priced(*head)},
+            "tail": {"kernel": "batch_tail", **_priced(*tail)},
         }
     except Exception as e:  # noqa: BLE001 — telemetry, never the batch
         rung = {"kernel": _KERNEL_OF_PATH[path], "error": repr(e)[:300], "batches": 1}

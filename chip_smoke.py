@@ -11,8 +11,10 @@ Phases (one JSON line each; any failure makes the exit code non-zero):
 - build            nvcc csrc/assign_scan.cu (twice: the serial kernel, and
                    with -DBST_POLICY_SCAN its policy variant),
                    csrc/assign_wave.cu, csrc/assign_topk.cu,
-                   csrc/shard_wave.cu and csrc/shard_topk.cu, one nvcc
-                   each, started together, into the gitignored build/
+                   csrc/shard_wave.cu, csrc/shard_topk.cu, and the batch's
+                   head and tail csrc/batch_head.cu and csrc/batch_tail.cu,
+                   one nvcc each, started together, into the gitignored
+                   build/
 - north_star       bench.py's deployment — 5,000 nodes (64 cpu, 256Gi, 110
                    pods, 8 GPUs), 1,000 gangs x 10 pods (4 cpu, 8 GiB, 1 GPU)
                    -> [G=1024, N=8192, R=5], broadcast mask — through
@@ -636,6 +638,17 @@ phase (north_star, north_star_wave, policy, north_star_topk; for
 shard_wave and shard_topk the mesh scorer's at S=2),
 ``launches_by_path`` holds each path. Comparison and timing
 launches are not counted.
+
+The batch's head and tail kernels (batch_head, batch_tail) launch once a
+batch on one device, beside its scan: every whole-dict launch check counts
+them (``batched``), north_star holds both bit for bit against their plain
+versions on the scorer's own inputs and times them (with torch.topk on an
+int64 key as the tail's library yardstick), mixed_wave holds them in both
+mask modes with gangs wider than k and infeasible gangs, policy with the
+anti-affinity fold, xl_topk at [4096, 131072, 6] (timed), and sharded in
+the replicated rung's block and finish modes, with each mesh child's
+counts checked (on the sharded rung rank 0's whole head, a follower's
+leftover).
 """
 
 from __future__ import annotations
@@ -793,6 +806,8 @@ def profile_window(fn, wall_key, host_ops=True):
         wall_key: wall_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / wall_ms,
+        # the card's operations in the window: kernels, copies, memsets
+        "device_ops": sum(r[2] for r in rows),
         "top_device_ops": [
             {"op": key[:80], "ms": ms, "calls": n} for ms, key, n in rows[:5]
         ],
@@ -807,16 +822,47 @@ def counters():
         assign_gangs_wave_cuda)
 
     from batch_scheduler_tpu_torch.ops import assign_scan as sc
+    from batch_scheduler_tpu_torch.ops.batch_kernels import batch_head_cuda, batch_tail_cuda
 
     return {"assign_scan": assign_gangs_cuda, "assign_wave": assign_gangs_wave_cuda,
             "assign_policy": assign_gangs_policy_cuda, "assign_topk": assign_gangs_topk_cuda,
             "shard_wave": ShardCounter(sc.shard_summary_cuda, sc.shard_apply_cuda),
-            "shard_topk": ShardCounter(sc.shard_topk_summary_cuda, sc.shard_topk_apply_cuda)}
+            "shard_topk": ShardCounter(sc.shard_topk_summary_cuda, sc.shard_topk_apply_cuda),
+            "batch_head": batch_head_cuda, "batch_tail": batch_tail_cuda}
 
 
 def only(**launches):
     """A launch count for every kernel: the named ones, 0 for the rest."""
     return {name: launches.get(name, 0) for name in KERNELS}
+
+
+def batched(**scans):
+    """``only(...)`` for a path whose every scan launch is one batch on one
+    device: the batch's head and tail kernels once each beside it."""
+    n = sum(scans.values())
+    return only(**scans, batch_head=n, batch_tail=n)
+
+
+def scan_launches(launches):
+    """The scan kernels' launches of a count dict (the batch kernels'
+    left out)."""
+    return sum(n for k, n in launches.items() if k not in BATCH_KERNELS)
+
+
+def once_a_batch(launches, batches):
+    """The head and the tail each launched exactly ``batches`` times
+    (and at least once)."""
+    return batches > 0 and launches["batch_head"] == launches["batch_tail"] == batches
+
+
+def note_batches(results, path, launches, batches):
+    """The head and the tail launched once for each of this path's
+    ``batches`` (else AssertionError), noted into the kernels line."""
+    for kernel in BATCH_KERNELS:
+        if launches[kernel] != batches or not batches:
+            raise AssertionError(f"{path}: {kernel} launched {launches[kernel]} times in "
+                                 f"{batches} batches (want once a batch)")
+        note_path(results, kernel, path, launches[kernel])
 
 
 def zero_counts():
@@ -959,6 +1005,150 @@ def host_dicts_equal(batch_args, progress_args):
 WAVE_TELEMETRY = ("wave_width", "waves_per_batch", "wave_demotions", "wave_uniform")
 
 
+def tail_library(assignment, k):
+    """The tail's compaction as library calls: torch.topk on the int64 key
+    count << 22 | (2^22 - 1 - node) (distinct keys, so any order of its
+    sort is the reference's; N <= 2^22), decoded and packed. Timed beside
+    the tail kernel as its yardstick (library_ms); the port never calls
+    it. Returns (counts, nodes, packed or None)."""
+    import torch
+
+    n = assignment.shape[1]
+    low = (1 << 22) - 1
+    node = torch.arange(n, device=assignment.device, dtype=torch.int64)
+    key = (assignment.to(torch.int64) << 22) | (low - node)
+    vals = torch.topk(key, k, dim=1).values
+    counts = (vals >> 22).to(torch.int32)
+    nodes = (low - (vals & low)).to(torch.int32)
+    packed = nodes * 65536 + counts.clamp(max=65535) if n <= 2**15 else None
+    return counts, nodes, packed
+
+
+def hold_batch_kernels(batch_args, progress_args, policy=None, wave=0, topk=0, extra_k=(),
+                       timed=False, reps=20):
+    """The batch's head and tail kernels against their plain versions, bit
+    for bit, on a packed batch's CUDA inputs: the head (with the policy's
+    anti-affinity fold when ``policy`` has the term); then the scan
+    (serial, or the wave kernel at ``wave``, or the top-K kernel at
+    ``topk``: the tail's stats) and the tail at dispatch_batch's width and
+    pack gate with the blob and without, and without at each of
+    ``extra_k`` (narrower: gangs wider than k). ``timed``: each kernel
+    alone in two rounds (head, tail, tail, head) of ``reps`` calls
+    captured in a CUDA graph (graph_ms: a call's host work, which at the
+    north star is longer than either kernel, runs at capture only), and
+    once with each call's host work (CUDA events over ``reps`` calls);
+    its plain version, its bound (ops.bounds) and, for the tail,
+    tail_library's time (graph_ms too) after its output is held to the
+    kernel's. The launches made here are restored. Raises on a
+    disagreement."""
+    import numpy as np
+    import torch
+
+    from batch_scheduler_tpu_torch.ops.assign_scan import (
+        assign_gangs_cuda, assign_gangs_topk_cuda, assign_gangs_wave_cuda)
+    from batch_scheduler_tpu_torch.ops.batch_kernels import (
+        batch_head_cuda, batch_head_plain, batch_tail_cuda, batch_tail_plain)
+    from batch_scheduler_tpu_torch.ops.bounds import head_bound, tail_bound
+    from batch_scheduler_tpu_torch.ops.convert import batch_from_numpy, policy_from_numpy
+    from batch_scheduler_tpu_torch.ops.oracle import batch_top_k
+
+    saved = read_counts()
+    batch, progress = batch_from_numpy(batch_args, progress_args, "cuda")
+    alloc, requested, group_req, remaining, fit_mask, group_valid, order = batch
+    fold = (None, None)
+    if policy is not None and "anti-affinity" in policy[1]:
+        cols = policy_from_numpy(policy[0], "cuda")
+        fold = (cols[2], cols[4])
+    head_in = (alloc, requested, group_req, remaining, fit_mask, group_valid, *fold)
+    got = batch_head_cuda(*head_in)
+    want = batch_head_plain(*head_in)
+    torch.cuda.synchronize()
+    head_err, head_equal = max_err(got, want)
+    left, cap, feasible, _ = got
+    scan_args = (left, group_req, remaining, fit_mask, order)
+    stats = None
+    if topk:
+        assignment, placed, _, st = assign_gangs_topk_cuda(*scan_args, wave or TOPK_WAVE, topk)
+        stats = tuple(st)
+    elif wave:
+        assignment, placed, _, st = assign_gangs_wave_cuda(*scan_args, wave)
+        stats = tuple(st)
+    else:
+        assignment, placed, _ = assign_gangs_cuda(*scan_args)
+    n = alloc.shape[0]
+    rmax = int(np.asarray(batch_args[3]).max(initial=0))
+    pack = n <= 2**15 and rmax <= 2**16 - 1
+    k = batch_top_k(n, rmax)
+    blob_kw = dict(progress=progress, feasible=feasible, pack=pack, stats=stats)
+    tail_err, tail_equal, checked = 0, True, []
+    for kk, kw in [(k, blob_kw), (k, {})] + [(x, {}) for x in extra_k if x <= n]:
+        outs = (batch_tail_cuda(assignment, placed, group_valid, kk, **kw),
+                batch_tail_plain(assignment, placed, group_valid, kk, **kw))
+        torch.cuda.synchronize()
+        if any((a is None) != (b is None) for a, b in zip(*outs)):
+            tail_equal = False
+            continue
+        e, eq = max_err(*zip(*((a, b) for a, b in zip(*outs) if a is not None)))
+        tail_err, tail_equal = max(tail_err, e), tail_equal and eq
+        checked.append({"k": kk, "blob": bool(kw),
+                        "rows_wider_than_k": int(((assignment > 0).sum(1) > kk).sum().item())})
+    if not (head_equal and tail_equal):
+        raise AssertionError(f"batch kernels vs plain: head max abs err {head_err} (equal "
+                             f"{head_equal}), tail max abs err {tail_err} (equal {tail_equal})")
+    report = {"head": {"max_abs_err": head_err, "matched": head_equal},
+              "tail": {"max_abs_err": tail_err, "matched": tail_equal, "checked": checked},
+              "shape": [int(group_req.shape[0]), int(n), int(alloc.shape[1])],
+              "mask_rows": int(fit_mask.shape[0]), "anti_affinity_fold": fold[0] is not None,
+              "k": k, "pack": pack, "infeasible": int((~feasible).sum().item())}
+    if timed:
+        def alone(fn):
+            return graph_ms(fn, calls=reps, replays=10 if reps >= 20 else 2)
+
+        head = lambda: batch_head_cuda(*head_in)  # noqa: E731
+        tail = lambda: batch_tail_cuda(assignment, placed, group_valid, k, **blob_kw)  # noqa: E731
+        head_ms = [alone(head)]
+        tail_ms = [alone(tail), alone(tail)]
+        head_ms.append(alone(head))
+        lib = tail_library(assignment, k)
+        ours = batch_tail_cuda(assignment, placed, group_valid, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(lib[0], ours[2]) and torch.equal(lib[1], ours[1])
+                and (lib[2] is None or torch.equal(lib[2], ours[3]))):
+            raise AssertionError("torch.topk on the int64 key disagrees with the tail kernel")
+        steps = 0 if stats is None else int(stats[0].shape[0])
+        hb = head_bound(*head_in)
+        tb = tail_bound(assignment, k, True, steps, topk > 0)
+        report["head"].update(
+            ms=min(head_ms), ms_rounds=head_ms, with_host_ms=cuda_ms(head, reps),
+            plain_ms=cuda_ms(lambda: batch_head_plain(*head_in), 3),
+            bound_ms=hb[0], bound_by=hb[1], bytes=hb[2], int_ops=hb[3], library_ms=None)
+        report["tail"].update(
+            ms=min(tail_ms), ms_rounds=tail_ms, with_host_ms=cuda_ms(tail, reps),
+            plain_ms=cuda_ms(lambda: batch_tail_plain(
+                assignment, placed, group_valid, k, **blob_kw), 3),
+            bound_ms=tb[0], bound_by=tb[1], bytes=tb[2], int_ops=tb[3],
+            library_ms=alone(lambda: tail_library(assignment, k)))
+    restore_counts(saved)
+    return report
+
+
+def batch_kernel_entry(report, kernel, path, launches):
+    """A batch kernel's entry of the kernels line from a timed
+    hold_batch_kernels report."""
+    part = report["head" if kernel == "batch_head" else "tail"]
+    entry = {"launches": launches, "launches_by_path": {path: launches},
+             **{key: part[key] for key in ("max_abs_err", "matched", "ms", "plain_ms",
+                                           "bound_ms", "bound_by", "library_ms")},
+             "ms_rounds": part["ms_rounds"], "with_host_ms": part["with_host_ms"],
+             "timed": "the kernel alone: calls captured in a CUDA graph",
+             "timed_at": report["shape"]}
+    if kernel == "batch_head":
+        entry["library_note"] = "no single PyTorch call computes the head"
+    else:
+        entry["library_call"] = "torch.topk on count << 22 | (2^22 - 1 - node), then the pack"
+    return entry
+
+
 # the widths at which mixed_wave also holds the cuda host dict to the CPU's
 # (a whole batch on the CPU per input): W=8 alone, for the
 # smoke's time: at W=32 the wave kernel is still held to both plain scans
@@ -967,7 +1157,9 @@ MIXED_HOST_WAVES = (8,)
 # -- phases -------------------------------------------------------------------
 
 KERNELS = ("assign_scan", "assign_wave", "assign_policy", "assign_topk", "shard_wave",
-           "shard_topk")
+           "shard_topk", "batch_head", "batch_tail")
+# the two kernels around every batch's scan (ops.batch_kernels)
+BATCH_KERNELS = ("batch_head", "batch_tail")
 
 
 @phase("build")
@@ -1098,10 +1290,14 @@ def north_star(results):
 
     scorer, launches, report = drive_north_star(None)
     batches = report["batches"]
-    if launches["assign_scan"] != batches or launches["assign_wave"] != 0 \
-            or launches["assign_policy"] != 0 or launches["assign_topk"] != 0:
-        raise AssertionError(f"{launches} launches in {batches} batches "
-                             "(want assign_scan once per batch, assign_wave never)")
+    if launches != batched(assign_scan=batches):
+        raise AssertionError(f"{launches} launches in {batches} batches (want assign_scan, "
+                             "batch_head and batch_tail once per batch, no other)")
+    # the head and the tail on the scorer's own inputs, bit for bit and timed
+    held = hold_batch_kernels(scorer.snapshot.device_args(), scorer.snapshot.progress_args(),
+                              timed=True)
+    for kernel in BATCH_KERNELS:
+        results[kernel] = batch_kernel_entry(held, kernel, "north_star", launches[kernel])
     args = scan_inputs(scorer.snapshot.device_args())
     plan = serial_plan(*args[0].shape)
     if plan.cluster_blocks < 2:
@@ -1134,7 +1330,7 @@ def north_star(results):
         "plan": plan._asdict(), "us_per_gang": ms * 1e3 / gangs,
         "design_steps": steps,
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "int_ops": ops,
-        "kernel_vs_plain_equal": equal,
+        "kernel_vs_plain_equal": equal, "batch_kernels": held,
     }
 
 
@@ -1187,10 +1383,10 @@ def north_star_wave(results):
     if plan.cluster_blocks < 2:
         raise AssertionError(f"north-star wave plan {plan} is not a cluster")
     batches = report["batches"]
-    if launches["assign_wave"] != batches or launches["assign_scan"] != 0 \
-            or launches["assign_policy"] != 0 or launches["assign_topk"] != 0:
-        raise AssertionError(f"{launches} launches in {batches} batches "
-                             "(want assign_wave once per batch, assign_scan never)")
+    if launches != batched(assign_wave=batches):
+        raise AssertionError(f"{launches} launches in {batches} batches (want assign_wave, "
+                             "batch_head and batch_tail once per batch, no other)")
+    note_batches(results, "north_star_wave", launches, batches)
     waves = NORTH_STAR_SHAPE[0] // wave
     want = {"wave_width": wave, "waves_per_batch": waves, "wave_uniform": waves,
             "wave_demotions": 0}
@@ -1572,10 +1768,10 @@ def residency_vs_upload():
 def north_star_churn(results):
     launches, report = drive_north_star_churn(None)
     n = report["refreshes"]
-    if launches["assign_scan"] != n or launches["assign_wave"] != 0 \
-            or launches["assign_policy"] != 0 or launches["assign_topk"] != 0:
-        raise AssertionError(f"{launches} launches in {n} refreshes "
-                             "(want assign_scan once per refresh, assign_wave never)")
+    if launches != batched(assign_scan=n):
+        raise AssertionError(f"{launches} launches in {n} refreshes (want assign_scan, "
+                             "batch_head and batch_tail once per refresh, no other)")
+    note_batches(results, "north_star_churn", launches, n)
     if "assign_scan" in results:
         results["assign_scan"]["launches_by_path"]["north_star_churn"] = launches["assign_scan"]
     FIGURES["north_star_churn"] = report["refresh_ms_median"]
@@ -1588,10 +1784,10 @@ def north_star_churn_wave(results):
     wave = 8
     launches, report = drive_north_star_churn(wave)
     n = report["refreshes"]
-    if launches["assign_wave"] != n or launches["assign_scan"] != 0 \
-            or launches["assign_policy"] != 0 or launches["assign_topk"] != 0:
-        raise AssertionError(f"{launches} launches in {n} refreshes "
-                             "(want assign_wave once per refresh, assign_scan never)")
+    if launches != batched(assign_wave=n):
+        raise AssertionError(f"{launches} launches in {n} refreshes (want assign_wave, "
+                             "batch_head and batch_tail once per refresh, no other)")
+    note_batches(results, "north_star_churn_wave", launches, n)
     tele = report["telemetry"]
     if tele.get("wave_width") != wave or tele.get("waves_per_batch") != NORTH_STAR_SHAPE[0] // wave:
         raise AssertionError(f"wave telemetry {tele}")
@@ -1791,11 +1987,12 @@ def metrics(results):
     for wave, kernel, path in ((None, "assign_scan", "metrics"),
                                (8, "assign_wave", "metrics_wave")):
         launches, report = drive_metrics(wave)
-        others = [k for k in KERNELS if k != kernel and launches[k]]
-        if launches[kernel] != report["refreshes"] or others:
+        if launches != batched(**{kernel: report["refreshes"]}):
             raise AssertionError(f"{path}: {launches} launches in {report['refreshes']} "
-                                 f"refreshes (want {kernel} once a refresh, no other)")
+                                 f"refreshes (want {kernel} and the batch kernels once a "
+                                 "refresh, no other)")
         LATE_PATHS[(kernel, path)] = launches[kernel]
+        note_batches(results, path, launches, report["refreshes"])
         report["north_star_churn_refresh_ms_median"] = FIGURES.get(
             "north_star_churn" if wave is None else "north_star_churn_wave")
         out["serial" if wave is None else "wave8"] = report
@@ -2265,8 +2462,7 @@ def drive_observability(wave):
                                         f"shorter than the kernel's {spans_ms[-1][1]} ms")
                 launches = read_counts()
             paths[(kernel, f"observability{suffix}")] = launches[kernel]
-            if launches[kernel] != OBS_ROUNDS + 1 or any(
-                    n for k, n in launches.items() if k != kernel):
+            if launches != batched(**{kernel: OBS_ROUNDS + 1}):
                 problems.append(f"launches {launches} (want {kernel} {OBS_ROUNDS + 1})")
             if scorer.stats()["fold_outcomes"] != {"no-base": 1, "folded": OBS_ROUNDS}:
                 problems.append(f"fold outcomes {scorer.stats()['fold_outcomes']}")
@@ -2631,11 +2827,10 @@ def lockcheck_phase(results):
         raise AssertionError(f"{out['storm_jobs_run']} storm jobs run and "
                              f"{out['busy_answers']} refused of {out['storm_jobs']}")
     want = refreshes + out["storm_launches_want"]
-    if launches["assign_scan"] != want or launches["assign_wave"] or launches["assign_policy"] \
-            or launches["assign_topk"]:
+    if launches != batched(assign_scan=want):
         raise AssertionError(f"launches {launches} (want assign_scan {want}: {refreshes} "
                              f"refreshes and the storm's groups {out['groups']})")
-    if out["sim_launches_by_kernel"] != only(assign_scan=out["sim_batches"]):
+    if out["sim_launches_by_kernel"] != batched(assign_scan=out["sim_batches"]):
         raise AssertionError(f"scheduler loop: {out['sim_launches_by_kernel']} launches in "
                              f"{out['sim_batches']} batches (want assign_scan once a batch)")
     if "assign_scan" in results:
@@ -2908,14 +3103,14 @@ def drive_audit_replay(wave):
             directory = os.path.join(tmp, fmt)
             scorer, log, ran, launches, publish_s, identity_s = record_ring(
                 fmt, keyframe_every, directory)
-            if launches[kernel] != len(ran) or sum(launches.values()) != len(ran):
+            if launches != batched(**{kernel: len(ran)}):
                 raise AssertionError(f"{fmt} ring: {launches} launches in {len(ran)} refreshes")
             batches, stats = check_ring(scorer, log, ran, wave)
             zero_counts()
             replay_ms = replay_ring(batches, wave)
             got = read_counts()
             cuda_replays = sum(v["replays"] for k, v in replay_ms.items() if k != "cpu-ladder")
-            if got[kernel] != cuda_replays or sum(got.values()) != cuda_replays:
+            if got != batched(**{kernel: cuda_replays}):
                 raise AssertionError(f"{fmt} ring replays: {got} launches in {cuda_replays} "
                                      "cuda replays")
             for k in KERNELS:
@@ -2966,7 +3161,7 @@ def audit_replay(results):
     out = audit_phase(results, None, "audit_replay")
     with tempfile.TemporaryDirectory(prefix="bst-audit-policy-") as tmp:
         launches, replays, report = policy_ring(tmp)
-    if launches != only(assign_policy=report["records"]):
+    if launches != batched(assign_policy=report["records"]):
         raise AssertionError(f"policy ring refreshes: {launches}")
     if "assign_policy" in results:
         by_path = results["assign_policy"]["launches_by_path"]
@@ -3407,7 +3602,7 @@ def drive_sidecar(wave):
 def sidecar(results):
     launches, report = drive_sidecar(None)
     batches = 2 * report["refreshes"]  # the two remote scorers' batches
-    if launches != only(assign_scan=batches):
+    if launches != batched(assign_scan=batches):
         raise AssertionError(f"{launches} launches in {batches} server batches "
                              "(want assign_scan once per batch, assign_wave never)")
     if "assign_scan" in results:
@@ -3420,7 +3615,7 @@ def sidecar_wave(results):
     wave = 8
     launches, report = drive_sidecar(wave)
     batches = 2 * report["refreshes"]
-    if launches != only(assign_wave=batches):
+    if launches != batched(assign_wave=batches):
         raise AssertionError(f"{launches} launches in {batches} server batches "
                              "(want assign_wave once per batch, assign_scan never)")
     tele = report["server_telemetry"]
@@ -3627,7 +3822,7 @@ def drive_coalesce_span(wave):
 @phase("coalesce_span")
 def coalesce_span(results):
     launches, report = drive_coalesce_span(None)
-    want = only(assign_scan=report["batches"])
+    want = batched(assign_scan=report["batches"])
     if launches != want:
         raise AssertionError(f"{launches} launches in {report['batches']} tenant batches "
                              "(want assign_scan once per batch)")
@@ -3639,7 +3834,7 @@ def coalesce_span(results):
 @phase("coalesce_span_wave")
 def coalesce_span_wave(results):
     launches, report = drive_coalesce_span(8)
-    want = only(assign_wave=report["batches"])
+    want = batched(assign_wave=report["batches"])
     if launches != want:
         raise AssertionError(f"{launches} launches in {report['batches']} tenant batches "
                              "(want assign_wave once per batch)")
@@ -3805,7 +4000,7 @@ def coalesce_mega(results):
     if not stats["mega_groups"] or stats["mega_failures"] \
             or stats["mega_groups"] != MEGA_ROUNDS:
         raise AssertionError(f"coalescer stats {stats}")
-    if launches != only(assign_scan=stats["groups_run"]):
+    if launches != batched(assign_scan=stats["groups_run"]):
         raise AssertionError(f"{launches} launches in {stats['groups_run']} merged groups")
     if "assign_scan" in results:
         results["assign_scan"]["launches_by_path"]["coalesce_mega"] = launches["assign_scan"]
@@ -3922,7 +4117,7 @@ def coalesce_drf(results):
                              f"trickle's end: {whale_ends} against {trickle}")
     batches = sum(w if mode == "span" else 1 for mode, w in groups)
     if sum(w for _, w in groups) != storm or stats["mega_failures"] \
-            or launches != only(assign_scan=batches):
+            or launches != batched(assign_scan=batches):
         raise AssertionError(f"{launches} launches in {storm} storm requests, groups "
                              f"{groups}, stats {stats}")
     cap_errors = samples.value(outcome="error") - errors0
@@ -4070,7 +4265,7 @@ def coalesce_busy(results):
             25 <= ms <= 5000 for ms in refused):
         raise AssertionError(f"fillers {answers}, BUSY hints {refused}")
     batches = BUSY_DEPTH + 1 + 2
-    if launches != only(assign_scan=batches):
+    if launches != batched(assign_scan=batches):
         raise AssertionError(f"{launches} launches in {batches} batches")
     if "assign_scan" in results:
         results["assign_scan"]["launches_by_path"]["coalesce_busy"] = launches["assign_scan"]
@@ -4301,7 +4496,7 @@ def capacity(results):
     }
     if "assign_scan" in results:
         results["assign_scan"]["launches_by_path"]["capacity"] = launches["assign_scan"]
-    if launches != only(assign_scan=CAPACITY_ROUNDS):
+    if launches != batched(assign_scan=CAPACITY_ROUNDS):
         raise AssertionError(f"{launches} launches in {CAPACITY_ROUNDS} refreshes")
     return out
 
@@ -4527,8 +4722,7 @@ def drive_churn_loop(wave):
 @phase("churn_loop")
 def churn_loop(results):
     launches, dispatches, report = drive_churn_loop(None)
-    if launches["assign_scan"] != dispatches or launches["assign_wave"] != 0 \
-            or launches["assign_policy"] != 0 or launches["assign_topk"] != 0:
+    if launches != batched(assign_scan=dispatches):
         raise AssertionError(f"{launches} launches in {dispatches} dispatched ticks "
                              "(want assign_scan once a tick, assign_wave never)")
     if "assign_scan" in results:
@@ -4539,8 +4733,7 @@ def churn_loop(results):
 @phase("churn_loop_wave")
 def churn_loop_wave(results):
     launches, dispatches, report = drive_churn_loop(8)
-    if launches["assign_wave"] != dispatches or launches["assign_scan"] != 0 \
-            or launches["assign_policy"] != 0 or launches["assign_topk"] != 0:
+    if launches != batched(assign_wave=dispatches):
         raise AssertionError(f"{launches} launches in {dispatches} dispatched ticks "
                              "(want assign_wave once a tick, assign_scan never)")
     if "assign_wave" in results:
@@ -4781,7 +4974,18 @@ def mixed_wave(results):
         raise AssertionError(f"branches never taken across the phase: {missing}")
     if "assign_wave" in results:
         results["assign_wave"]["matched"] &= matched
-    return {"runs": runs, "branches": branches}
+    # the batch kernels on mixed's inputs in both mask modes, their stats
+    # from the wave kernel, and the tail at k = 16 too: gangs of up to 64
+    # members wider than k; mixed's infeasible gangs in the head
+    held = {}
+    for mode, per_group in (("per_group", True), ("broadcast", False)):
+        batch_args, progress_args = mixed_batch(*MIXED, per_group)
+        held[mode] = hold_batch_kernels(batch_args, progress_args, wave=8, extra_k=(16,))
+        wider = sum(c["rows_wider_than_k"] for c in held[mode]["tail"]["checked"])
+        if held[mode]["infeasible"] == 0 or wider == 0:
+            raise AssertionError(f"mixed {mode}: no infeasible gang or no gang wider than k "
+                                 f"({held[mode]})")
+    return {"runs": runs, "branches": branches, "batch_kernels": held}
 
 
 def drive_race(wave):
@@ -4845,9 +5049,7 @@ def drive_race(wave):
 def race(results):
     op, launches, report = drive_race(None)
     batches = report["batches"]
-    if launches["assign_scan"] == 0 or launches["assign_scan"] != batches \
-            or launches["assign_wave"] != 0 \
-            or launches["assign_policy"] != 0 or launches["assign_topk"] != 0:
+    if launches["assign_scan"] == 0 or launches != batched(assign_scan=batches):
         raise AssertionError(f"{launches} launches in {batches} batches "
                              "(want assign_scan once per batch, assign_wave never)")
     args = scan_inputs(op.oracle.snapshot.device_args())
@@ -4868,9 +5070,7 @@ def race_wave(results):
     wave = 32  # pads the 8-group bucket to one wave of 32
     op, launches, report = drive_race(wave)
     batches = report["batches"]
-    if launches["assign_wave"] == 0 or launches["assign_wave"] != batches \
-            or launches["assign_scan"] != 0 \
-            or launches["assign_policy"] != 0 or launches["assign_topk"] != 0:
+    if launches["assign_wave"] == 0 or launches != batched(assign_wave=batches):
         raise AssertionError(f"{launches} launches in {batches} batches "
                              "(want assign_wave once per batch, assign_scan never)")
     tele = report["telemetry"]
@@ -5106,11 +5306,18 @@ def policy(results):
 
     scorer, launches, digests, report = drive_policy(None)
     n = report["refreshes"]
-    if launches != only(assign_policy=n):
+    if launches != batched(assign_policy=n):
         raise AssertionError(f"{launches} launches in {n} refreshes (want assign_policy once "
                              "a refresh and no other kernel)")
+    note_batches(results, "policy", launches, n)
     args = scan_inputs(scorer.snapshot.device_args())
     cols = policy_cols_cuda(scorer.snapshot)
+    # the head's anti-affinity fold on the policy batch's own columns
+    held = hold_batch_kernels(scorer.snapshot.device_args(), scorer.snapshot.progress_args(),
+                              policy=(cols, POLICY_TERMS, POLICY_WEIGHTS))
+    report["batch_kernels"] = held
+    if not held["anti_affinity_fold"]:
+        raise AssertionError("the policy batch's head had no anti-affinity fold")
     plan = policy_scan_plan(*args[0].shape, 0)
     got = assign_gangs_policy_cuda(*args, *cols, POLICY_TERMS, POLICY_WEIGHTS)
     want = assign_gangs_policy(*args, *cols, POLICY_TERMS, POLICY_WEIGHTS)
@@ -5152,7 +5359,7 @@ def policy_wave(results):
     policy phase's (its plan_digest sequence)."""
     scorer, launches, digests, report = drive_policy(8)
     n = report["refreshes"]
-    if launches != only(assign_policy=n):
+    if launches != batched(assign_policy=n):
         raise AssertionError(f"{launches} launches in {n} refreshes with BST_SCAN_WAVE=8 "
                              "(want assign_policy once a refresh, assign_wave never)")
     if "policy_digests" in results and digests != results["policy_digests"]:
@@ -5448,7 +5655,7 @@ def policy_ring(directory):
                 raise AssertionError(f"policy record {rec['seq']} on {rung}: {rep}")
         ms[rung] = {"replays": len(times), "ms_median": statistics.median(times)}
     replays = read_counts()
-    if replays != only(assign_policy=len(batches)):
+    if replays != batched(assign_policy=len(batches)):
         raise AssertionError(f"policy ring replays: {replays}")
     return launches, replays, {
         "records": len(batches), "replay": ms, "launches_refresh": launches,
@@ -5688,7 +5895,7 @@ def check_whatif_identity(kernel):
         counted = read_counts()
         by_rung[rung] = counted
         k = want_kernel[rung]
-        want = {name: (len(cfs) + 1 if name == k else 0) for name in KERNELS}
+        want = batched(**{k: len(cfs) + 1}) if k else only()
         if counted != want:
             problems.append(f"{rung}: launches {counted}, want {want}")
         for cf, res in zip(cfs, answers):
@@ -5971,7 +6178,7 @@ def explain_whatif_phase(wave, results):
         paths[("assign_scan", f"explain_agrees{suffix}")] = n_exp
         launches, out["latency"] = check_whatif_latency()
         paths[(kernel, f"whatif_latency{suffix}")] = launches[kernel]
-        if sum(launches.values()) != launches[kernel]:
+        if launches != batched(**{kernel: launches[kernel]}):
             raise AssertionError(f"latency launches {launches}")
     for (k, path), n in paths.items():
         if k in results:
@@ -6113,19 +6320,19 @@ def xl_batch_args(args):
 def xl_full_batch(args):
     """One full batch on the padded XL operands through execute_batch_host,
     BST_SCAN_TOPK=128 against unset: the host dicts equal (the unpacked
-    tail: N > 2^15); one top-K launch; the device batch's split: the head
-    (leftover, capacity, feasibility, scores), the scan kernel and the
-    compaction (_top_k_ties_by_index), each timed alone under CUDA events
-    on the batch's own tensors, beside the whole batch's wall clock."""
+    tail: N > 2^15); one top-K launch, and the head and tail kernels once a
+    batch; the device batch's split: the head kernel, the scan kernels and
+    the tail kernel (the compaction and blob), each timed alone under CUDA
+    events on the batch's own tensors beside its plain version, and the
+    whole batch's wall clock."""
     import numpy as np
     import torch
 
     from batch_scheduler_tpu_torch.ops.assign_scan import (
         assign_gangs_cuda, assign_gangs_topk_cuda)
+    from batch_scheduler_tpu_torch.ops.batch_kernels import batch_head_cuda
     from batch_scheduler_tpu_torch.ops.convert import batch_from_numpy
-    from batch_scheduler_tpu_torch.ops.oracle import (
-        _top_k_ties_by_index, batch_top_k, execute_batch_host, gang_feasible,
-        group_capacity, left_resources, score_nodes)
+    from batch_scheduler_tpu_torch.ops.oracle import batch_top_k, execute_batch_host
 
     batch, progress = xl_batch_args(args)
     walls, hosts = {}, {}
@@ -6137,7 +6344,7 @@ def xl_full_batch(args):
             torch.cuda.synchronize()
             walls[label] = (time.perf_counter() - t0) * 1e3
     launches = read_counts()
-    if launches != only(assign_scan=1, assign_topk=2):
+    if launches != batched(assign_scan=1, assign_topk=2):
         raise AssertionError(f"full XL batches launched {launches}")
     diff = [k for k in HOST_KEYS if not np.array_equal(hosts["topk"][k], hosts["serial"][k])]
     tele = hosts["topk"]["telemetry"]
@@ -6147,25 +6354,22 @@ def xl_full_batch(args):
     k = batch_top_k(XL_PAD, int(batch[3].max()))
     if hosts["topk"]["assignment_nodes"].shape != (batch[2].shape[0], k):
         raise AssertionError("full XL batch: the unpacked tail's shape")
+    # the head and the tail kernels held to their plain versions and
+    # timed on the batch's own tensors, beside the scan kernels
+    held = hold_batch_kernels(batch, progress, wave=TOPK_WAVE, topk=128, timed=True,
+                              reps=XL_REPS)
     saved = read_counts()
     dev_batch, _ = batch_from_numpy(batch, progress, "cuda")
     alloc, requested, group_req, remaining, fit_mask, group_valid, order = dev_batch
-
-    def head():
-        left = left_resources(alloc, requested)
-        cap = group_capacity(left, group_req, fit_mask)
-        return left, cap, gang_feasible(cap, remaining, group_valid), score_nodes(cap)
-
-    left = head()[0]
+    left = batch_head_cuda(alloc, requested, group_req, remaining, fit_mask, group_valid)[0]
     scan_args = (left, group_req, remaining, fit_mask, order)
-    assignment = assign_gangs_topk_cuda(*scan_args, TOPK_WAVE, 128)[0]
-    split = {"head_ms": cuda_ms(head, XL_REPS),
+    split = {"head_ms": held["head"]["ms"], "head_plain_ms": held["head"]["plain_ms"],
              "scan_topk_128_ms": cuda_ms(lambda: assign_gangs_topk_cuda(*scan_args, TOPK_WAVE, 128),
                                          XL_REPS),
              "scan_serial_ms": cuda_ms(lambda: assign_gangs_cuda(*scan_args), XL_REPS),
-             "compaction_ms": cuda_ms(lambda: _top_k_ties_by_index(assignment, k), XL_REPS)}
+             "tail_ms": held["tail"]["ms"], "tail_plain_ms": held["tail"]["plain_ms"]}
     restore_counts(saved)
-    return {"batch_wall_ms": walls, "device_split": split, "top_k": k,
+    return {"batch_wall_ms": walls, "device_split": split, "top_k": k, "batch_kernels": held,
             "telemetry": {key: tele[key] for key in ("scan_topk", "wave_width", "waves_per_batch",
                                                      "wave_demotions", "wave_uniform",
                                                      "topk_demotions")},
@@ -6206,11 +6410,19 @@ def xl_topk(results):
             "replayed": sum(conflicts), "demotions": sum(dem)})
     report["churn_k128"] = churn
     launches = read_counts()
-    report["full_batch"] = xl_full_batch(args)
+    report["full_batch"] = full = xl_full_batch(args)
     if "assign_topk" in results:
         paths = results["assign_topk"]["launches_by_path"]
         paths["xl_topk"] = launches["assign_topk"]
-        paths["xl_topk_full_batch"] = report["full_batch"]["launches"]["assign_topk"]
+        paths["xl_topk_full_batch"] = full["launches"]["assign_topk"]
+    note_batches(results, "xl_topk_full_batch", full["launches"], 3)
+    for kernel, part in (("batch_head", "head"), ("batch_tail", "tail")):
+        if kernel in results:
+            got = full["batch_kernels"][part]
+            results[kernel].update({f"xl_{key}": got[key] for key in (
+                "ms", "with_host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+            results[kernel]["xl_shape"] = full["batch_kernels"]["shape"]
+            results[kernel]["matched"] &= got["matched"]
     return report
 
 
@@ -6383,7 +6595,7 @@ def north_star_topk(results):
         scorer, cluster, cache, launches, refresh_s, err, (args, out), batches = topk_ring(
             os.path.join(tmp, "topk"), TOPK_K, TOPK_ROUNDS)
         n = TOPK_ROUNDS + 1
-        if launches != only(assign_topk=n):
+        if launches != batched(assign_topk=n):
             raise AssertionError(f"{launches} launches in {n} refreshes (want assign_topk once a "
                                  "refresh and no other kernel)")
         if any(rec["telemetry"].get("scan_topk") != TOPK_K for rec in batches):
@@ -6393,15 +6605,15 @@ def north_star_topk(results):
         replays, replay_ms = topk_replays(batches, (
             ("steady", len(batches), ("cuda_kernel", 0, 0)),
             ("cpu-ladder", AUDIT_CPU_REPLAYS, ("plain", 0, 0))))
-        if replays != only(assign_scan=len(batches)):
+        if replays != batched(assign_scan=len(batches)):
             raise AssertionError(f"steady replays launched {replays}")
         _, _, _, serial_launches, _, _, _, serial_batches = topk_ring(
             os.path.join(tmp, "serial"), None, TOPK_SERIAL_ROUNDS)
-        if serial_launches != only(assign_scan=TOPK_SERIAL_ROUNDS + 1):
+        if serial_launches != batched(assign_scan=TOPK_SERIAL_ROUNDS + 1):
             raise AssertionError(f"serial ring launched {serial_launches}")
         topk_replay, topk_replay_ms = topk_replays(serial_batches, (
             ("topk", len(serial_batches), ("cuda_kernel", TOPK_WAVE, TOPK_K)),))
-        if topk_replay != only(assign_topk=len(serial_batches)):
+        if topk_replay != batched(assign_topk=len(serial_batches)):
             raise AssertionError(f"topk replays launched {topk_replay}")
     whatif_launches, whatif = whatif_topk(cluster, cache)
     # the kernel on the last batch's inputs: timed against the plain version
@@ -6863,10 +7075,10 @@ def drive_framework_e2e(wave, shape):
     if inflight_batches() != 0:
         raise AssertionError(f"{inflight_batches()} batches still in flight after stop")
     kernel = "assign_wave" if wave else "assign_scan"
-    if launches != only(**{kernel: batches - batches0}) or not launches[kernel]:
+    if launches != batched(**{kernel: batches - batches0}) or not launches[kernel]:
         raise AssertionError(f"{launches} launches in {batches - batches0} batches "
                              f"(want {kernel} once a batch, no other kernel)")
-    if profiled["launches"] != only(**{kernel: profiled["batches"]}):
+    if profiled["launches"] != batched(**{kernel: profiled["batches"]}):
         raise AssertionError(f"profiled flood: {profiled['launches']} launches in "
                              f"{profiled['batches']} batches")
     if fold_check["diff"]:
@@ -7258,7 +7470,7 @@ def drive_framework_metrics():
         bad["stats"] = stats
     if bad:
         raise AssertionError(f"scheduler series disagree with the run's own counts: {bad}")
-    if launches != only(assign_scan=batches) or not batches:
+    if launches != batched(assign_scan=batches) or not batches:
         raise AssertionError(f"{launches} launches in {batches} batches")
     return launches, {"batches": batches, "stats": stats, "series": counts,
                       "launches_by_kernel": launches}
@@ -7280,7 +7492,7 @@ def sim_scenarios(results):
         report = fn()
         report["seconds"] = time.perf_counter() - t0
         launches = read_counts()
-        if launches != only(**{kernel: report["batches"]}) or not report["batches"]:
+        if launches != batched(**{kernel: report["batches"]}) or not report["batches"]:
             raise AssertionError(f"{name}: {launches} launches in {report['batches']} batches "
                                  f"(want {kernel} once a batch)")
         report["launches_by_kernel"] = launches
@@ -7739,7 +7951,7 @@ def live_held(tmp, env):
         for _ in range(20):
             launches = kernel_launches(port)
             batches = int(sum(metric_values(port, "bst_oracle_batches_total").values()))
-            if sum(launches.values()) == batches + 1:
+            if scan_launches(launches) == batches + 1 and once_a_batch(launches, batches + 1):
                 break
             time.sleep(0.25)
         report.update(batches=batches, launches=launches)
@@ -7770,8 +7982,9 @@ def live_held(tmp, env):
             or plans["topk"]["base"]["nodes"] != CLI_QUARTER_NODES:
         raise AssertionError(f"held whatif: steady {answers.get('steady')}, topk "
                              f"{answers.get('topk')}, route {status} {route}")
-    if sum(launches.values()) != batches + 1:
-        raise AssertionError(f"held sim: launches {launches} against {batches} batches + 1")
+    if scan_launches(launches) != batches + 1 or not once_a_batch(launches, batches + 1):
+        raise AssertionError(f"held sim: launches {launches} against {batches} batches + 1 "
+                             f"(want one scan, one head and one tail a batch)")
     report["whatif"] = {"newly_placeable": plans["topk"]["newly_placeable"],
                         "base": plans["topk"]["base"], "whatif": plans["topk"]["whatif"],
                         "elapsed_s": {r: w["elapsed_s"] for r, w in answers.items()}}
@@ -7839,7 +8052,7 @@ def check_served(tmp, env, wave):
         # over the wire before the first pod)
         warm = int("oracle warmup batch:" in out)
         want = report["remote"]["batches"] + warm
-        if launches != only(**{kernel: want}):
+        if launches != batched(**{kernel: want}):
             raise AssertionError(f"served run: launches {launches}, want {kernel} {want} "
                                  f"({report['remote']['batches']} batches + {warm} warm)")
         report["remote"]["launches"] = launches[kernel]
@@ -7950,7 +8163,7 @@ def cli_phase(results, wave):
                                    ("wavefront", "topk") if wave else ("steady",), env)
         if wave:
             report["live"], launches = step("live", live_held, tmp, env)
-            if launches != only(**{kernel: launches[kernel]}) or not launches[kernel]:
+            if launches != batched(**{kernel: launches[kernel]}) or not launches[kernel]:
                 raise AssertionError(f"held sim launches {launches} (want {kernel} only)")
             note_path(results, kernel, tag, launches[kernel])
         else:
@@ -8011,7 +8224,7 @@ def cli_main(results):
         running = sum(1 for phase_, _, b in rows.values() if phase_ == "Running" and b == 10)
         if rc != 0 or running != CLI_QUARTER_GANGS:
             raise AssertionError(f"{path}: exit {rc}, {running} gangs Running: {text[-1500:]}")
-        if launches != only(**{kernel: launches[kernel]}) or not launches[kernel]:
+        if launches != batched(**{kernel: launches[kernel]}) or not launches[kernel]:
             raise AssertionError(f"{path}: launches {launches} (want {kernel} only)")
         wall, bound, rate = sim_wall(text)
         out[path] = {"launches": launches, "wall_s": wall, "pods_per_s": rate,
@@ -8220,7 +8433,7 @@ def drive_http_e2e(shape):
             server.server_close()
     if inflight_batches() != 0:
         raise AssertionError(f"{inflight_batches()} batches still in flight after stop")
-    if launches != only(assign_scan=batches - batches0) or not launches["assign_scan"]:
+    if launches != batched(assign_scan=batches - batches0) or not launches["assign_scan"]:
         raise AssertionError(f"{launches} launches in {batches - batches0} batches "
                              "(want assign_scan once a batch, no other kernel)")
     if over:
@@ -8411,7 +8624,7 @@ def drive_chaos(wave):
             for srv in (server, dedicated, standby):
                 srv.shutdown()
                 srv.server_close()
-    if launches != only(**{kernel: launches[kernel]}) or not launches[kernel]:
+    if launches != batched(**{kernel: launches[kernel]}) or not launches[kernel]:
         raise AssertionError(f"launches {launches} (want {kernel} only)")
     return launches, {"faults": faults, "delta_stream": deltas}
 
@@ -8664,7 +8877,7 @@ def warmer(results):
         primary = warmer_run(f"primary:{path}")
         standby = warmer_run(f"standby:{path}")
     for r in (*runs, primary, standby):
-        want = only(assign_scan=r["batches"] + r["warm_batches"])
+        want = batched(assign_scan=r["batches"] + r["warm_batches"])
         if r["launches"] != want:
             raise AssertionError(f"{r['mode']} child: launches {r['launches']}, want {want} "
                                  "(one a served or warm batch)")
@@ -9170,14 +9383,21 @@ def mesh_topk_checks(mesh, report, inputs):
         checks[label] = entry
 
     zero_counts()
+    ran = 0
     for label, args in inputs:
         if plan is None or label in plan:
             one(label, args, SHARD_TOPK_K, timed=label == "north_star")
+            ran += 1
     if s in SHARD_TOPK_XL_RANKS:
         xl, _ = xl_batch_args(xl_operands(XLClusterSpec(), XL_PAD))
         one("xl", xl, SHARD_TOPK_XL_K, timed=True)
+        ran += 1
         del xl
     spmd = read_counts()
+    want = {"batch_head": ran, "batch_tail": ran if mesh.rank == 0 else 0}
+    if {k: spmd[k] for k in want} != want:
+        raise AssertionError(f"rank {mesh.rank}: batch kernels {spmd} in {ran} sharded top-K "
+                             f"batches (want {want})")
     tight = checks.get("tight_fit")
     if mesh.rank == 0 and tight is not None and tight["dense_demotions"] != TIGHT_SHAPE[1]:
         raise AssertionError(f"tight fit: {tight} (every gang demotes)")
@@ -9259,9 +9479,11 @@ def mesh_child(s, rank, port, backend, out_path) -> int:
     inputs, timed, refreshes = SHARD_PLAN[s]
     all_inputs = shard_topk_inputs()
     zero_counts()
+    ran = 0
     for label, args in all_inputs[:-1]:  # shard_inputs()
         if inputs is not None and label not in inputs:
             continue
+        ran += 1
         if mesh.rank == 0:
             saved = read_counts()
             want = schedule_batch(*args_from_numpy(args, "cuda"))
@@ -9285,6 +9507,14 @@ def mesh_child(s, rank, port, backend, out_path) -> int:
                              uniform=int(got["wave_megas"].sum().item()))
             report["checks"][f"{label}/{rung}"] = entry
     spmd = read_counts()
+    # a batch's head: on the sharded rung rank 0's whole head before the
+    # scan and each follower's leftover; on the replicated rung every
+    # rank's capacity block and rank 0's finish. The tail on rank 0 alone.
+    want = ({"batch_head": 3 * ran, "batch_tail": 2 * ran} if mesh.rank == 0
+            else {"batch_head": 2 * ran, "batch_tail": 0})
+    if {k: spmd[k] for k in want} != want:
+        raise AssertionError(f"rank {mesh.rank}: batch kernels {spmd} in {ran} inputs on "
+                             f"both rungs (want {want})")
     step("checks")
     ns, _ = shard_north_star_args()
     budget = sharded_scan_collective_counts(mesh, ns, wave=SHARD_WAVE)
@@ -9369,6 +9599,7 @@ def lead_scorer(mesh, refreshes, topk, last):
 
     churn = Churn(cluster, cache, mark, refreshes)
     zero_counts()
+    batches0 = leader.batches_run
     refresh_ms, outcomes, churn_sites = [], [], []
     try:
         for r in range(1 + refreshes):
@@ -9393,6 +9624,7 @@ def lead_scorer(mesh, refreshes, topk, last):
                                      f"single-device one in {diff}")
             outcomes.append(leader.last_fold_outcome)
         launches = read_counts()
+        batches = leader.batches_run - batches0
         telemetry = dict(leader.last_telemetry)
         holder, single_holder = (sc._device_state.stats() for sc in (leader, single))
         whole = sum(np.asarray(a).nbytes for a in leader._state.snapshot.device_args())
@@ -9407,8 +9639,10 @@ def lead_scorer(mesh, refreshes, topk, last):
     if (not telemetry.get("scan_sharded") or telemetry.get("shard_count") != mesh.size
             or telemetry.get("scan_topk") != topk):
         raise AssertionError(f"the mesh scorer's batch was not sharded at K={topk}: {telemetry}")
-    if launches != only(**{kernel: launches[kernel]}) or not launches[kernel]:
-        raise AssertionError(f"mesh scorer launches {launches} (want {kernel} alone)")
+    if launches != only(**{kernel: launches[kernel]}, batch_head=batches, batch_tail=batches) \
+            or not launches[kernel]:
+        raise AssertionError(f"mesh scorer launches {launches} in {batches} batches (want "
+                             f"{kernel}, and the batch kernels once a batch)")
     same = {k: (holder[k], single_holder[k]) for k in ("keyframes", "rows_scattered")}
     if any(a != b for a, b in same.values()) or not holder.get("mesh"):
         raise AssertionError(f"the mesh holder's keyframes / rows differ from the single-device "
@@ -9469,6 +9703,62 @@ def run_meshes(sizes):
                         p.communicate()
 
 
+def head_mesh_checks():
+    """The head kernel's mesh modes against their plain versions on the
+    card, bit for bit: every block of the replicated rung's (groups x
+    nodes) grids of 2 and 4 ranks (1 x 2, 2 x 2, 1 x 4) on the north star
+    and mixed's per-group input (the mask's rows read with their stride),
+    the first with the whole leftover, the blocks assembled and the finish
+    on the whole matrix; and the leftover alone (a node-sharded
+    follower's). The launches are restored."""
+    import torch
+
+    from batch_scheduler_tpu_torch.ops.batch_kernels import (
+        batch_head_plain, head_block_cuda, head_finish_cuda, head_left_cuda)
+    from batch_scheduler_tpu_torch.ops.convert import args_from_numpy
+
+    saved = read_counts()
+    ns, _ = shard_north_star_args()
+    per_group, _ = mixed_batch(*MIXED, per_group=True)
+    out = {}
+    for label, args in (("north_star", ns), ("mixed_per_group", per_group)):
+        dev = args_from_numpy(args, "cuda")
+        alloc, requested, group_req, remaining, fit_mask, group_valid, _ = dev
+        cpu = [t.cpu() for t in dev[:6]]
+        whole = batch_head_plain(*cpu)
+        g, n = whole[1].shape
+        equal, blocks = True, 0
+        for gs, ns_ in ((1, 2), (2, 2), (1, 4)):
+            gb, nb = -(-g // gs), -(-n // ns_)
+            assembled = torch.empty((g, n), dtype=torch.int32, device="cuda")
+            for gi in range(gs):
+                for ni in range(ns_):
+                    groups = (min(gi * gb, g), min((gi + 1) * gb, g))
+                    nodes = (min(ni * nb, n), min((ni + 1) * nb, n))
+                    first = (gi, ni) == (0, 0)
+                    left, block = head_block_cuda(alloc, requested, group_req, fit_mask,
+                                                  groups, nodes, (gb, nb), with_left=first)
+                    _, want = head_block_cuda(cpu[0], cpu[1], cpu[2], cpu[4], groups, nodes,
+                                              (gb, nb))
+                    equal &= torch.equal(block.cpu(), want)
+                    if first:
+                        equal &= torch.equal(left.cpu(), whole[0])
+                    assembled[groups[0]:groups[1], nodes[0]:nodes[1]] = \
+                        block[:groups[1] - groups[0], :nodes[1] - nodes[0]]
+                    blocks += 1
+            feasible, scores = head_finish_cuda(assembled, remaining, group_valid)
+            equal &= (torch.equal(assembled.cpu(), whole[1])
+                      and torch.equal(feasible.cpu(), whole[2])
+                      and torch.equal(scores.cpu(), whole[3]))
+        equal &= torch.equal(head_left_cuda(alloc, requested).cpu(), whole[0])
+        if not equal:
+            raise AssertionError(f"{label}: the head's mesh modes disagree with the plain head")
+        out[label] = {"shape": [g, n, int(alloc.shape[1])], "mask_rows": int(fit_mask.shape[0]),
+                      "blocks_checked": blocks, "matched": True}
+    restore_counts(saved)
+    return out
+
+
 @phase("sharded")
 def sharded(results):
     """The node-sharded scan on torch.distributed: shard_wave and
@@ -9480,6 +9770,7 @@ def sharded(results):
 
     checks, err = shard_wave_checks()
     topk_checks, topk_err = shard_topk_checks()
+    head_modes = head_mesh_checks()
     # the mesh children share the card: this process's cached blocks (tens
     # of GB after the earlier phases) go back to it first
     gc.collect()
@@ -9515,8 +9806,14 @@ def sharded(results):
                  f"{SHARD_TOPK_K}, rank 0's block of the north star at S=2, the kernels "
                  f"alone (a CUDA graph)",
     }
+    for k, m in meshes.items():
+        for kernel in BATCH_KERNELS:
+            note_path(results, kernel, f"sharded_spmd_{k}", m["spmd_launches"][kernel])
+            note_path(results, kernel, f"sharded_topk_spmd_{k}", m["topk_spmd_launches"][kernel])
+            note_path(results, kernel, f"sharded_scorer_{k}", m["scorer"]["launches"][kernel])
     return {"wave": SHARD_WAVE, "shard_wave": checks, "max_abs_err": max(err, topk_err),
-            "shard_topk": topk_checks, "meshes": meshes, "parent_memory": memory,
+            "shard_topk": topk_checks, "head_mesh_modes": head_modes,
+            "meshes": meshes, "parent_memory": memory,
             "note": "ranks sharing one card: the collectives cross no interconnect"}
 
 
@@ -9568,6 +9865,7 @@ def mesh_serve_run(procs, topk, coalesce, t0):
     host, sport = read_port(procs[0], r"listening on ([\d.]+:\d+)").rsplit(":", 1)
     start_s = time.perf_counter() - t0
     before = kernel_launches(mport)
+    batches_before = sum(metric_values(mport, "bst_scan_batches_total").values())
     cluster, cache = north_star_state()
     saved = read_counts()
     with env_set({"BST_SCAN_TOPK": str(topk) if topk else None}):
@@ -9601,10 +9899,13 @@ def mesh_serve_run(procs, topk, coalesce, t0):
             single.server_close()
     restore_counts(saved)
     launches = launch_delta(before, kernel_launches(mport))
+    batches = int(sum(metric_values(mport, "bst_scan_batches_total").values())
+                  - batches_before)
     kernel = "shard_topk" if topk else "shard_wave"
-    if launches != only(**{kernel: launches[kernel]}) or not launches[kernel]:
-        raise AssertionError(f"serve mesh K={topk}: rank 0 launched {launches} "
-                             f"(want {kernel} alone)")
+    if launches != only(**{kernel: launches[kernel]}, batch_head=batches, batch_tail=batches) \
+            or not launches[kernel] or not once_a_batch(launches, batches):
+        raise AssertionError(f"serve mesh K={topk}: rank 0 launched {launches} in {batches} "
+                             f"batches (want {kernel}, and the batch kernels once a batch)")
     t1 = time.perf_counter()
     procs[0].send_signal(signal.SIGTERM)
     (rc0, out0, err0), (rc1, out1, _) = (cli_wait(p, MESH_SERVE_TIMEOUT) for p in procs)
@@ -9769,6 +10070,13 @@ def main() -> int:
         # reference is the lax body of assign_gangs_topk_sharded's shard_map
         "shard_topk": ("batch_scheduler_tpu_torch/csrc/shard_topk.cu",
                        "batch_scheduler_tpu/ops/oracle.py:1435"),
+        # the batch's head and tail around the scan; their reference is
+        # XLA-fused code in the jit'd batch program (schedule_batch's head
+        # and _batch_blob_impl)
+        "batch_head": ("batch_scheduler_tpu_torch/csrc/batch_head.cu",
+                       "batch_scheduler_tpu/ops/oracle.py:2091"),
+        "batch_tail": ("batch_scheduler_tpu_torch/csrc/batch_tail.cu",
+                       "batch_scheduler_tpu/ops/oracle.py:2203"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": sources[name][0],
