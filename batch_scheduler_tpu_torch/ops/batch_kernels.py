@@ -16,7 +16,8 @@ The port runs each as one launch around the scan:
   the capacity matrix, the mask read with its row stride in place) and
   ``head_finish_cuda`` (feasibility and scores from a gathered matrix);
   ``head_left_cuda`` is the leftover alone (a node-sharded follower's).
-  All four are the one kernel and count into ``batch_head_cuda.launches``.
+  All four are the one kernel and count into ``batch_head_cuda.launches``;
+  ``head_kernel_plan`` is the twin of the source's launch plan.
 - ``batch_tail_cuda`` (``csrc/batch_tail.cu``): the compact top-K of the
   ``[G, N]`` assignment in ``lax.top_k``'s order, ``placed &
   group_valid``, the packed form and, with the progress inputs, the whole
@@ -34,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -42,13 +44,71 @@ from .assign_scan import _count_launch
 
 __all__ = [
     "batch_head_cuda", "batch_head_plain", "batch_tail_cuda", "batch_tail_plain",
-    "head_block_cuda", "head_finish_cuda", "head_left_cuda", "PACK_MAX_NODES",
+    "head_block_cuda", "head_finish_cuda", "head_kernel_plan", "head_left_cuda", "HeadPlan",
+    "PACK_MAX_NODES",
 ]
 
 _MAX_LANES = 32  # csrc/batch_head.cu kMaxLanes
 _MAX_HASH = 8  # csrc/batch_head.cu kMaxHash
+# csrc/batch_head.cu's launch constants, mirrored by head_kernel_plan
+_HEAD_THREADS = 256  # kThreads
+_HEAD_NODES_THREAD = 4  # kNodesThread: one int4 of an output row
+_HEAD_TILE_NODES = _HEAD_THREADS * _HEAD_NODES_THREAD
+_HEAD_REG_LANES = 6  # kRegLanes: leftover lanes a thread keeps in registers
+_HEAD_MAX_CLUSTER = 8  # kMaxCluster
+_HEAD_MAX_TILE = 32  # kMaxTile: gangs a block, at most
+_HEAD_MIN_TILE = 4  # kMinTile: and at least
+_HEAD_MIN_BLOCKS = 264  # kMinBlocks: two blocks a streaming multiprocessor of an H100
+_HEAD_SHARED_BUDGET = 216064  # kSharedBudget: dynamic shared memory a block
 _MAX_K = 128  # csrc/batch_tail.cu kMaxK (ops.oracle.ASSIGNMENT_TOP_K)
 PACK_MAX_NODES = 2**15  # the packed form's node bound (16 bits of node index)
+
+
+class HeadPlan(NamedTuple):
+    """The head kernel's launch (``csrc/batch_head.cu`` ``head_plan``)."""
+
+    leftover: str  # "registers" (R <= 6), "shared" (more lanes) or "none" (the finish)
+    tg: int  # gangs a block
+    tiles: int  # node tiles of a row, 1,024 nodes each
+    cluster: int  # blocks a row, one cluster where they sum feasibility; block c
+    # takes tiles c, c + cluster, ...
+    gang_tiles: int
+    blocks: int
+    shared_bytes: int  # dynamic shared memory a block
+    threads: int
+    nodes_thread: int
+    path: str  # "vector" (every row 16-byte aligned) or "edges" (nb % 4 != 0)
+
+
+def head_kernel_plan(g: int, n: int, r: int, h: int = 0, feasible: bool = True,
+                     finish: bool = False) -> HeadPlan:
+    """The head kernel's launch for a ``[g, n]`` output block of ``r``
+    lanes, ``h`` hash lanes (the anti-affinity fold), with the feasibility
+    sums or as the finish from a gathered matrix: the twin of the source's
+    ``head_plan``. A block of 256 threads holds a tile of TG gangs by 1,024
+    nodes (4 consecutive nodes a thread), the leftover lanes in registers
+    up to 6 lanes, else in shared memory; a row's node tiles are spread
+    over up to 8 blocks, one thread-block cluster where they sum the
+    feasibility; TG is the largest of 32, 16, 8, 4 that gives at least 264
+    blocks (two an SM of an H100) within the dynamic shared memory budget (the feasibility slots, 8 bytes a gang and thread;
+    the shared leftover and hash lanes, 4 bytes a node and lane). A row
+    whose start is not 16-byte aligned writes a scalar head and tail around
+    its 16-byte stores (``path`` "edges")."""
+    leftover = "none" if finish else ("shared" if r > _HEAD_REG_LANES else "registers")
+    tiles = -(-n // _HEAD_TILE_NODES) if n > _HEAD_TILE_NODES else 1
+    cluster = min(tiles, _HEAD_MAX_CLUSTER)
+    fixed = ((r * _HEAD_TILE_NODES * 4 if leftover == "shared" else 0)
+             + (h * _HEAD_TILE_NODES * 4 if not finish else 0))
+    tg = _HEAD_MAX_TILE
+    while tg > _HEAD_MIN_TILE:
+        acc = tg * _HEAD_THREADS * 8 if feasible else 0
+        if cluster * -(-g // tg) >= _HEAD_MIN_BLOCKS and fixed + acc <= _HEAD_SHARED_BUDGET:
+            break
+        tg //= 2
+    gang_tiles = -(-g // tg)
+    return HeadPlan(leftover, tg, tiles, cluster, gang_tiles, cluster * gang_tiles,
+                    fixed + (tg * _HEAD_THREADS * 8 if feasible else 0), _HEAD_THREADS,
+                    _HEAD_NODES_THREAD, "vector" if n % 4 == 0 else "edges")
 
 
 def _ptr(t):

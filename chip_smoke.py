@@ -1047,7 +1047,7 @@ def hold_batch_kernels(batch_args, progress_args, policy=None, wave=0, topk=0, e
     from batch_scheduler_tpu_torch.ops.assign_scan import (
         assign_gangs_cuda, assign_gangs_topk_cuda, assign_gangs_wave_cuda)
     from batch_scheduler_tpu_torch.ops.batch_kernels import (
-        batch_head_cuda, batch_head_plain, batch_tail_cuda, batch_tail_plain)
+        batch_head_cuda, batch_head_plain, batch_tail_cuda, batch_tail_plain, head_kernel_plan)
     from batch_scheduler_tpu_torch.ops.bounds import head_bound, tail_bound
     from batch_scheduler_tpu_torch.ops.convert import batch_from_numpy, policy_from_numpy
     from batch_scheduler_tpu_torch.ops.oracle import batch_top_k
@@ -1118,7 +1118,10 @@ def hold_batch_kernels(batch_args, progress_args, policy=None, wave=0, topk=0, e
         steps = 0 if stats is None else int(stats[0].shape[0])
         hb = head_bound(*head_in)
         tb = tail_bound(assignment, k, True, steps, topk > 0)
+        g_, n_, r_ = report["shape"]
+        plan = head_kernel_plan(g_, n_, r_, 0 if fold[1] is None else int(fold[1].shape[1]))
         report["head"].update(
+            plan=plan._asdict(),
             ms=min(head_ms), ms_rounds=head_ms, with_host_ms=cuda_ms(head, reps),
             plain_ms=cuda_ms(lambda: batch_head_plain(*head_in), 3),
             bound_ms=hb[0], bound_by=hb[1], bytes=hb[2], int_ops=hb[3], library_ms=None)
@@ -1144,6 +1147,7 @@ def batch_kernel_entry(report, kernel, path, launches):
              "timed_at": report["shape"]}
     if kernel == "batch_head":
         entry["library_note"] = "no single PyTorch call computes the head"
+        entry["plan"] = part.get("plan")
     else:
         entry["library_call"] = "torch.topk on count << 22 | (2^22 - 1 - node), then the pack"
     return entry
